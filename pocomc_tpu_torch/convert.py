@@ -1,0 +1,46 @@
+"""Parameters of the JAX package (as numpy arrays) -> the port's.
+
+Lets the same trained or random weights run through both packages: the
+parity tests, and anyone moving a fitted flow from ``pocomc_tpu`` to the
+port. Inputs are plain numpy (``jax.device_get`` of the JAX pytrees), so
+this module imports no JAX.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+
+def _tensor(a, device=None):
+    return torch.tensor(np.asarray(a, dtype=np.float32), device=device)
+
+
+def load_flow_params(flow, params):
+    """Copy a JAX ``Flow.params`` tree into the torch ``flow`` in place.
+
+    ``params = {"pre": {mean, w_fwd, w_inv, ladj}, "stack": [{"w": (T, fi,
+    fo), "b": (T, fo)}, ...]}`` (``pocomc_tpu/models/flow.py:245-258``),
+    the same stacked layout the port keeps. Returns ``flow``."""
+    stack = params["stack"]
+    if len(stack) != len(flow.weights):
+        raise ValueError(f"{len(stack)} layers for a flow with {len(flow.weights)}")
+    dev = flow.weights[0].device
+    with torch.no_grad():
+        for l, layer in enumerate(stack):
+            for dst, key in ((flow.weights[l], "w"), (flow.biases[l], "b")):
+                src = _tensor(layer[key], dev)
+                if src.shape != dst.shape:
+                    raise ValueError(f"layer {l} {key}: {tuple(src.shape)} vs "
+                                     f"{tuple(dst.shape)}")
+                dst.copy_(src)
+    flow.set_pre({k: np.asarray(v, np.float32) for k, v in params["pre"].items()})
+    return flow
+
+
+def tensors_from_jax(arrays, device=None):
+    """A flat dict of JAX arrays -> fp32 tensors: the geometry dict
+    (``pocomc_tpu/models/geometry.py:135-144``: normal_mean/cov/chol,
+    t_mean/cov/nu/chol/inv_cov) or the scaler's ``whitening_params()``
+    (mu/sigma, or mu/L/L_inv/log_det_L)."""
+    return {k: _tensor(v, device) for k, v in arrays.items()}

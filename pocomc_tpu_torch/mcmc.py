@@ -1,0 +1,346 @@
+"""Adaptive t-preconditioned Crank-Nicolson (t-pCN) sweep through the flow.
+
+Counterpart of ``pocomc_tpu/mcmc.py`` for ``kind="tpcn"`` with flow
+preconditioning, the kernel the sampler's main path runs. Proposals,
+Student-t quadratic forms and Metropolis corrections are batched over the
+whole (n_active, d) population; the flow's inverse (K1) maps every
+proposal from the latent space back to the sampling space. Every stopping
+rule the defaults turn on is here: the plateau rule with its significance
+threshold ``plateau_z`` and floor ``plateau_floor``, the decorrelation
+target ``corr_threshold``, the equilibrium-drift test ``calib_z`` with its
+residual-hotness extrapolation, the bias-budget and bias-rate rules
+(``bias_budget``, ``bias_rate``/``bias_floor``), and the misfit-adaptive
+sigma cap.
+
+The JAX ``lax.while_loop`` becomes a host loop: each step evaluates the
+stopping rule on the device and reads it with one scalar sync. The step
+counters ``i``/``i_snap`` are host integers (they depend on nothing but the
+step count).
+
+The t-pCN correction is written ``-half * log1p(q / nu)``: the JAX form
+``log(nu + q) - log(nu)`` cancels in f32 at the nu = 1e6 Gaussian-limit
+sentinel (up to 0.49 nat). nu >= 1 is clamped by the geometry fit, so the
+division cannot overflow into the case that form was written against.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+
+import torch
+
+# Drift-test window length (steps) and minimum calibration rows
+# (pocomc_tpu/mcmc.py CALIB_W / MIN_CALIB_N).
+CALIB_W = 6
+MIN_CALIB_N = 16
+_ACCEPT_TARGET = 0.234
+_SIGMA_CAP = 0.99
+
+
+@dataclasses.dataclass
+class SweepState:
+    u: torch.Tensor
+    x: torch.Tensor
+    logdetj: torch.Tensor
+    logl: torch.Tensor
+    logp: torch.Tensor
+    theta: torch.Tensor          # flow-latent state
+    logdetj_flow: torch.Tensor   # log|det du/dtheta| at the current state
+    sigma: torch.Tensor
+    mu: torch.Tensor
+    i: int                       # step counter (host)
+    cnt: torch.Tensor            # plateau counter
+    logp2: torch.Tensor          # best plateau metric so far
+    calls: torch.Tensor          # likelihood call counter
+    accept: torch.Tensor         # mean acceptance of the last step
+    v0: torch.Tensor             # sweep-start u (decorrelation probe)
+    corr: torch.Tensor           # max |per-dim corr(v0, u)|
+    u_snap: torch.Tensor         # u at the last drift-window refresh
+    logl_snap: torch.Tensor
+    i_snap: int                  # step index of that refresh (host)
+    hot: torch.Tensor            # 1 while the last closed window drifted
+    resid: torch.Tensor          # residual-hotness extrapolation
+    z_logl: torch.Tensor
+    z_dim: torch.Tensor
+    misfit: torch.Tensor         # std of log pi_v - log t_geom (nats)
+    dbeta: torch.Tensor          # current rung size (constant per sweep)
+
+
+def make_loglike(fn):
+    """``loglike(x, mask)``: the user's vectorised likelihood on the rows,
+    -inf where ``mask`` is False (those rows are sanitized, not skipped)."""
+    def loglike(x, mask):
+        out = fn(x).to(x.dtype)
+        return torch.where(mask, out, torch.full_like(out, -math.inf))
+    return loglike
+
+
+def t_correction(q, nu, d):
+    """log t_geom up to a constant: -0.5 (d + nu) log1p(q / nu), the
+    t-pCN reversibility term at quadratic form q."""
+    return -0.5 * (d + nu) * torch.log1p(q / nu)
+
+
+def _quadform(diff, inv_cov):
+    return torch.einsum("nd,de,ne->n", diff, inv_cov, diff)
+
+
+def _batch_corr(v0, v):
+    """Max over dims of |Pearson corr(sweep-start u, current u)|."""
+    v0c = v0 - v0.mean(0)
+    vc = v - v.mean(0)
+    num = (v0c * vc).mean(0)
+    den = torch.sqrt((v0c * v0c).mean(0) * (vc * vc).mean(0))
+    return (num.abs() / torch.clamp(den, min=1e-12)).max()
+
+
+def _paired_resid(ok, logl, logl_snap, nn):
+    """(D, rho_w): mean paired logl drift over the rows ``ok`` and the
+    window correlation clipped to [0, 0.9] (resid = D * rho / (1 - rho))."""
+    zero = torch.zeros_like(logl)
+    D = torch.where(ok, logl - logl_snap, zero).sum() / nn
+    l0c = torch.where(ok, logl_snap, zero)
+    l1c = torch.where(ok, logl, zero)
+    m0, m1 = l0c.sum() / nn, l1c.sum() / nn
+    cov01 = torch.where(ok, (l0c - m0) * (l1c - m1), zero).sum() / nn
+    v0v = torch.where(ok, (l0c - m0) ** 2, zero).sum() / nn
+    v1v = torch.where(ok, (l1c - m1) ** 2, zero).sum() / nn
+    rho = cov01 / torch.clamp(torch.sqrt(v0v * v1v), min=1e-30)
+    return D, torch.clamp(rho, 0.0, 0.9)
+
+
+def _masked_var(logl):
+    ok = torch.isfinite(logl)
+    nn = torch.clamp(ok.sum(), min=1).to(logl.dtype)
+    zero = torch.zeros_like(logl)
+    m = torch.where(ok, logl, zero).sum() / nn
+    return torch.where(ok, (logl - m) ** 2, zero).sum() / nn
+
+
+class TpcnSweep:
+    """Adaptive preconditioned t-pCN sweep over the active population.
+
+    ``flow`` supplies ``kernel_fwd(u, fp)`` / ``kernel_inv(theta, fp)``
+    (both report log|det du/dtheta|); ``fp`` is the flow's FlowParams
+    snapshot. ``log_like`` is ``make_loglike(fn)``; ``log_prior`` maps
+    (n, d) -> (n,)."""
+
+    def __init__(self, scaler, log_prior, log_like, flow, n_dim, n_steps, n_max,
+                 plateau_z=0.0, corr_threshold=0.0, calib_z=0.0,
+                 bias_budget=0.0, bias_rate=0.0, bias_floor=0.0,
+                 plateau_floor=4.0):
+        self.scaler, self.log_prior, self.log_like = scaler, log_prior, log_like
+        self.flow = flow
+        self.n_dim, self.n_steps, self.n_max = int(n_dim), n_steps, int(n_max)
+        self.plateau_z, self.corr_threshold = plateau_z, corr_threshold
+        self.calib_z, self.bias_budget = calib_z, bias_budget
+        self.bias_rate, self.bias_floor = bias_rate, bias_floor
+        self.plateau_floor = plateau_floor
+        self.sqrt_d_scale = 2.38 / math.sqrt(self.n_dim)
+
+    # -- pieces ------------------------------------------------------------
+
+    def _to_x(self, v_prime, fp, scp):
+        """Latent proposal -> (u', x', logdetj', theta', logdetj_flow')."""
+        u_p, ldjf_p = self.flow.kernel_inv(v_prime, fp)
+        sc = self.scaler
+        x_p, ldj_p = sc.inverse(u_p, params=scp)
+        if sc.has_boundary:
+            x_p = sc.apply_boundary_conditions_x(x_p)
+            u_p = sc.forward(x_p, params=scp)
+            x_p, ldj_p = sc.inverse(u_p, params=scp)
+        return u_p, x_p, ldj_p, v_prime, ldjf_p
+
+    def init_state(self, u, x, logdetj, logl, logp, sigma0, geom, fp, dbeta=0.0):
+        theta0, ldjf0 = self.flow.kernel_fwd(u, fp)
+        dt = u.dtype
+        zero = torch.zeros((), dtype=dt, device=u.device)
+        return SweepState(
+            u=u, x=x, logdetj=logdetj, logl=logl, logp=logp,
+            theta=theta0, logdetj_flow=ldjf0,
+            sigma=torch.clamp(torch.as_tensor(sigma0, dtype=dt, device=u.device),
+                              max=_SIGMA_CAP),
+            mu=geom["t_mean"].to(dt), i=0,
+            cnt=torch.zeros((), dtype=torch.int64, device=u.device),
+            logp2=(logl + logp).mean(),
+            calls=torch.zeros((), dtype=torch.int64, device=u.device),
+            accept=zero, v0=u, corr=torch.ones((), dtype=dt, device=u.device),
+            u_snap=u, logl_snap=logl, i_snap=0, hot=zero, resid=zero,
+            z_logl=zero, z_dim=zero, misfit=zero,
+            dbeta=torch.as_tensor(dbeta, dtype=dt, device=u.device))
+
+    def draw_noise(self, st, geom, generator):
+        """The step's random numbers: gamma mix g (n,), normals z (n, d)
+        and acceptance uniforms (n,)."""
+        n, d = st.u.shape
+        alpha = (0.5 * (d + geom["t_nu"])).expand(n).contiguous()
+        return dict(g=torch._standard_gamma(alpha, generator=generator),
+                    z=torch.randn(n, d, generator=generator, device=st.u.device),
+                    unif=torch.rand(n, generator=generator, device=st.u.device))
+
+    def propose(self, st, geom, fp, scp, noise):
+        """Proposals and everything that needs no likelihood."""
+        inv_cov, t_chol, nu = geom["t_inv_cov"], geom["t_chol"], geom["t_nu"]
+        diff = st.theta - st.mu
+        q = _quadform(diff, inv_cov)
+        s = (nu + q) / (2.0 * noise["g"])
+        step = torch.sqrt(s)[:, None] * (noise["z"] @ t_chol.T)
+        v_prime = st.mu + torch.sqrt(1.0 - st.sigma ** 2) * diff + st.sigma * step
+        u_p, x_p, ldj_p, theta_p, ldjf_p = self._to_x(v_prime, fp, scp)
+        finite = torch.isfinite(ldj_p) & torch.isfinite(x_p).all(1)
+        x_safe = torch.where(finite[:, None], x_p, st.x)
+        logp_p = torch.where(finite, self.log_prior(x_safe),
+                             torch.full_like(ldj_p, -math.inf))
+        finite = finite & torch.isfinite(logp_p)
+        return dict(u=u_p, x=x_p, x_safe=x_safe, logdetj=ldj_p, theta=theta_p,
+                    logdetj_flow=ldjf_p, logp=logp_p, finite=finite, q=q,
+                    qp=_quadform(v_prime - st.mu, inv_cov), unif=noise["unif"])
+
+    def accept_update(self, st, prop, logl_p, beta, geom):
+        """Metropolis accept + diminishing adaptation + stopping statistics.
+        Returns (new_state, accept_mask)."""
+        nu = geom["t_nu"]
+        n, d = st.u.shape
+        i1 = float(st.i + 1)
+        calls = st.calls + prop["finite"].sum()
+        log_ratio = (beta * (logl_p - st.logl) + (prop["logp"] - st.logp)
+                     + (prop["logdetj"] - st.logdetj)
+                     + (prop["logdetj_flow"] - st.logdetj_flow))
+        A = t_correction(prop["qp"], nu, d)
+        B = t_correction(prop["q"], nu, d)
+        log_ratio = log_ratio - A + B
+        # geometry-fit statistic for the adaptive sigma cap: std over the
+        # live population of log pi_v - log t_geom at the current positions
+        mis_vals = beta * st.logl + st.logp + st.logdetj + st.logdetj_flow - B
+        mis_ok = torch.isfinite(mis_vals)
+        mis_n = torch.clamp(mis_ok.sum(), min=1)
+        zero_n = torch.zeros_like(mis_vals)
+        mis_mean = torch.where(mis_ok, mis_vals, zero_n).sum() / mis_n
+        misfit = torch.sqrt(torch.where(mis_ok, (mis_vals - mis_mean) ** 2,
+                                        zero_n).sum() / mis_n)
+        loc = min(self.sqrt_d_scale, _SIGMA_CAP)
+        cap = loc + (_SIGMA_CAP - loc) * torch.exp(-0.5 * misfit ** 2)
+
+        alpha = torch.clamp(torch.exp(log_ratio), max=1.0)
+        alpha = torch.where(torch.isnan(alpha), torch.zeros_like(alpha), alpha)
+        accept = prop["unif"] < alpha
+
+        def sel(a, b):
+            return torch.where(accept[:, None] if a.dim() == 2 else accept, a, b)
+
+        u = sel(prop["u"], st.u)
+        x = sel(prop["x"], st.x)
+        logdetj = sel(prop["logdetj"], st.logdetj)
+        logl = sel(logl_p, st.logl)
+        logp = sel(prop["logp"], st.logp)
+        theta = sel(prop["theta"], st.theta)
+        ldjf = sel(prop["logdetj_flow"], st.logdetj_flow)
+
+        alpha_mean = alpha.mean()
+        sigma = torch.abs(torch.minimum(
+            st.sigma + (alpha_mean - _ACCEPT_TARGET) / i1 ** 0.75, cap))
+        mu = st.mu + (theta.mean(0) - st.mu) / i1
+
+        vals = logl + logp
+        metric = vals.mean()
+        if self.plateau_z > 0.0:
+            sem = vals.std(unbiased=False) / math.sqrt(n)
+            improved = metric > st.logp2 + self.plateau_z * sem
+        else:
+            improved = metric > st.logp2
+        cnt = torch.where(improved, torch.zeros_like(st.cnt), st.cnt + 1)
+        logp2 = torch.maximum(st.logp2, metric)
+        corr = _batch_corr(st.v0, u) if self.corr_threshold > 0.0 else st.corr
+
+        new = dict(hot=st.hot, resid=st.resid, u_snap=st.u_snap,
+                   logl_snap=st.logl_snap, i_snap=st.i_snap,
+                   z_logl=st.z_logl, z_dim=st.z_dim)
+        if self.calib_z > 0.0 and (st.i + 1) - st.i_snap >= CALIB_W:
+            # a drift window closed: paired per-walker drift tests of mean
+            # logl and of per-dim first/second u moments
+            ok = torch.isfinite(logl) & torch.isfinite(st.logl_snap)
+            enough = ok.sum() >= min(MIN_CALIB_N, max(2, n // 8))
+            nn = torch.clamp(ok.sum(), min=2).to(sigma.dtype)
+            zero = torch.zeros_like(logl)
+            dl = torch.where(ok, logl - st.logl_snap, zero)
+            D = dl.sum() / nn
+            var_dl = torch.where(ok, (dl - D) ** 2, zero).sum() / nn
+            z_logl = D.abs() / torch.clamp(torch.sqrt(var_dl / nn), min=1e-30)
+            w_ok = ok.to(sigma.dtype)[:, None]
+            du = (u - st.u_snap) * w_ok
+            Dm = du.sum(0) / nn
+            var_m = (w_ok * (u - st.u_snap - Dm) ** 2).sum(0) / nn
+            z_m = Dm.abs() / torch.clamp(torch.sqrt(var_m / nn), min=1e-30)
+            ds = (u ** 2 - st.u_snap ** 2) * w_ok
+            Dv = ds.sum(0) / nn
+            var_v = (w_ok * (u ** 2 - st.u_snap ** 2 - Dv) ** 2).sum(0) / nn
+            z_v = Dv.abs() / torch.clamp(torch.sqrt(var_v / nn), min=1e-30)
+            z_dim = torch.maximum(z_m.max(), z_v.max())
+            z_logl = torch.where(enough, z_logl, torch.zeros_like(z_logl))
+            z_dim = torch.where(enough, z_dim, torch.zeros_like(z_dim))
+            hot = ((z_logl > self.calib_z)
+                   | (z_dim > self.calib_z + 1.0)).to(sigma.dtype)
+            Dr, rho = _paired_resid(ok, logl, st.logl_snap, nn)
+            resid = torch.where(enough, Dr * rho / (1.0 - rho), torch.zeros_like(Dr))
+            new = dict(hot=hot, resid=resid, u_snap=u, logl_snap=logl,
+                       i_snap=st.i + 1, z_logl=z_logl, z_dim=z_dim)
+
+        new_st = SweepState(
+            u=u, x=x, logdetj=logdetj, logl=logl, logp=logp, theta=theta,
+            logdetj_flow=ldjf, sigma=sigma, mu=mu, i=st.i + 1, cnt=cnt,
+            logp2=logp2, calls=calls, accept=alpha_mean, v0=st.v0, corr=corr,
+            misfit=misfit.to(sigma.dtype), dbeta=st.dbeta, **new)
+        return new_st, accept
+
+    def keep_going(self, st) -> bool:
+        """The stopping rule (``cond`` of the JAX sweep); one scalar sync."""
+        if st.i == 0:
+            return True
+        if st.i >= self.n_max:
+            return False
+        ratio = self.sqrt_d_scale / st.sigma
+        thresh = torch.clamp(self.n_steps * ratio ** 2,
+                             min=min(float(self.n_steps), float(self.plateau_floor)))
+        keep = st.cnt < thresh
+        scale = torch.clamp(ratio, max=1.0)
+        if self.corr_threshold > 0.0:
+            keep = keep | (st.corr > self.corr_threshold * scale)
+            if self.bias_rate > 0.0:
+                rate_keep = st.corr * st.dbeta * _masked_var(st.logl) > self.bias_rate
+                if self.bias_floor > 0.0:
+                    rate_keep = rate_keep & (st.corr > self.bias_floor * scale)
+                keep = keep | rate_keep
+        if self.calib_z > 0.0:
+            keep = keep | (st.hot > 0.5)
+            if self.bias_budget > 0.0:
+                keep = keep | (st.resid.abs() * st.dbeta > self.bias_budget)
+        return bool(keep)
+
+    def final_resid(self, st):
+        """Residual hotness at exit, refreshed from the last partial drift
+        window when it holds >= 2 steps (``resid_exit``)."""
+        if self.calib_z <= 0.0 or st.i - st.i_snap < 2:
+            return st.resid
+        ok = torch.isfinite(st.logl) & torch.isfinite(st.logl_snap)
+        nn = torch.clamp(ok.sum(), min=2).to(st.sigma.dtype)
+        D, rho = _paired_resid(ok, st.logl, st.logl_snap, nn)
+        return D * rho / (1.0 - rho)
+
+    # -- the sweep ---------------------------------------------------------
+
+    def run(self, u, x, logdetj, logl, logp, beta, sigma0, geom, fp, scp,
+            generator, dbeta=0.0):
+        """Run the adaptive sweep; returns the results dict."""
+        st = self.init_state(u, x, logdetj, logl, logp, sigma0, geom, fp, dbeta)
+        while self.keep_going(st):
+            prop = self.propose(st, geom, fp, scp,
+                                self.draw_noise(st, geom, generator))
+            logl_p = self.log_like(prop["x_safe"], prop["finite"])
+            st, _ = self.accept_update(st, prop, logl_p, beta, geom)
+        return dict(u=st.u, x=st.x, logdetj=st.logdetj, logl=st.logl,
+                    logp=st.logp, efficiency=st.sigma, accept=st.accept,
+                    steps=st.i, calls=st.calls, proposal_scale=st.sigma,
+                    corr=st.corr, resid=st.resid, resid_exit=self.final_resid(st),
+                    hot=st.hot, z_logl=st.z_logl, z_dim=st.z_dim,
+                    misfit=st.misfit)

@@ -1,0 +1,71 @@
+"""Build and load the CUDA kernels of ``pocomc_tpu_torch/csrc``.
+
+Each kernel file is compiled by ``nvcc`` for Hopper (``sm_90a``) into a
+shared library with a plain C interface, loaded with ``ctypes``. The build
+happens at first use, never at import, into ``build/pocomc_tpu_torch/``
+beside the package; the library's file name carries a hash of its sources
+and flags, so an edited source is rebuilt and an unchanged one is reused.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "pocomc_tpu_torch"
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v"]
+_HEADERS = ("rqs.cuh",)
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    path = Path(home) / "bin" / "nvcc"
+    if path.exists():
+        return str(path)
+    raise RuntimeError(
+        "nvcc not found (PATH or $CUDA_HOME/bin): the CUDA kernels of "
+        "pocomc_tpu_torch are built from source at first use.")
+
+
+def library_path(name: str) -> Path:
+    """Path of the built library for ``csrc/<name>.cu`` (content-hashed)."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for f in (f"{name}.cu",) + _HEADERS:
+        h.update((CSRC / f).read_bytes())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
+
+
+def build(name: str) -> tuple[Path, str]:
+    """Compile ``csrc/<name>.cu`` unless an up-to-date library exists.
+    Returns (library path, nvcc's report; empty when nothing was built)."""
+    out = library_path(name)
+    if out.exists():
+        return out, ""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(f"nvcc failed for {name}.cu:\n{proc.stdout}{proc.stderr}")
+    os.replace(tmp, out)
+    return out, proc.stdout + proc.stderr
+
+
+@functools.lru_cache(maxsize=None)
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu``, built first if needed."""
+    path, _ = build(name)
+    return ctypes.CDLL(str(path))

@@ -1,0 +1,146 @@
+"""The PyTorch port's Sampler end to end on the CPU, its phase B training
+rules, and the paths it does not port yet."""
+
+import math
+
+import numpy as np
+import pytest
+import torch
+from scipy.stats import norm
+
+import pocomc_tpu_torch as tpc
+from pocomc_tpu_torch import phases
+from pocomc_tpu_torch.models.flow import Flow
+
+D = 3
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def gauss_like(x):
+    return -0.5 * (x * x).sum(-1) - 0.5 * x.shape[1] * math.log(2 * math.pi)
+
+
+def prior():
+    return tpc.Prior([tpc.Normal(0.0, 5.0) for _ in range(D)])
+
+
+def small(**kw):
+    return dict(vectorize=True, random_state=0, n_effective=128, n_active=64,
+                flow="nsf3", train_config=dict(epochs=30, patience=3), device="cpu", **kw)
+
+
+def test_known_answer_gaussian():
+    """3-D unit Gaussian likelihood under an N(0, 5) prior: analytic logZ
+    = 3 * log N(0; 0, 26), gated at +-0.5; a finite weighted posterior
+    with the right moments."""
+    s = tpc.Sampler(prior(), gauss_like, **small())
+    s.run(n_total=1024, n_evidence=1024, progress=False)
+    logz, dlogz = s.evidence()
+    truth = D * norm.logpdf(0.0, 0.0, math.sqrt(26.0))
+    assert abs(logz - truth) < 0.5, (logz, truth)
+    assert np.isfinite(dlogz) and s.evidence_khat is not None
+    assert s.evidence_proposal_used == "t"
+    x, w, logl, logp = s.posterior()
+    assert x.shape[1] == D and np.isfinite(x).all() and np.isclose(w.sum(), 1.0)
+    mean = (w[:, None] * x).sum(0)
+    var = (w[:, None] * (x - mean) ** 2).sum(0)
+    assert np.all(np.abs(mean) < 0.3) and np.all(np.abs(var - 25 / 26) < 0.35)
+    res = s.results
+    assert res["beta"][-1] == 1.0 and len(res["logl"]) == s.particles.t
+    # phase accounting covers the run
+    assert all(v >= 0.0 for v in s.phase_seconds.values())
+    assert s.phase_seconds["train"] > 0.0 and s.phase_seconds["mutate"] > 0.0
+
+
+def test_khat_refinement_doubles_n_total(monkeypatch):
+    """k-hat > 0.7 extends the run: n_total doubles, more beta = 1 stages
+    are added, and the evidence is drawn again (here the tail diagnostic
+    is forced high once)."""
+    import pocomc_tpu_torch.sampler as smod
+    khats = iter([0.9])
+    stages = []
+    real = smod.psislw
+
+    def fake_psislw(logw):
+        stages.append(s.particles.t)
+        out, k = real(logw)
+        return out, next(khats, k)
+
+    monkeypatch.setattr(smod, "psislw", fake_psislw)
+    s = tpc.Sampler(prior(), gauss_like, **small())
+    s.run(n_total=512, n_evidence=512, progress=False)
+    assert s.n_total == 1024 and s.evidence_khat < 0.7
+    assert len(stages) == 2 and stages[1] > stages[0]
+    assert s._iter_stats[-1]["beta"] == 1.0 and np.isfinite(s.logz)
+
+
+def test_train_phase_fits_and_keeps_input_on_nonfinite_loss():
+    """Phase B: a finite fit moves the flow, improves the weighted NLL and
+    refits the geometry; a fit whose loss is never finite keeps the input
+    parameters and pre-layer (the JAX package's rollback rule)."""
+    g = torch.Generator().manual_seed(0)
+    u = torch.randn(512, D, generator=g) * torch.tensor([1.0, 2.0, 0.5]) + 1.0
+    u[:, 1] = u[:, 1] + 0.5 * u[:, 0] ** 2
+    w = torch.rand(512, generator=g)
+    w = w / w.sum()
+    flow = Flow(D, "nsf3")
+    with torch.no_grad():
+        lp0 = (flow.log_prob(u) * w).sum()
+    geom, stats = phases.train(flow, u, w, g, batch_size=128, epochs=20, patience=3)
+    with torch.no_grad():
+        lp1 = (flow.log_prob(u) * w).sum()
+    assert float(lp1) > float(lp0) and math.isfinite(float(stats[1]))
+    assert 1 <= int(stats[0]) <= 20
+    assert set(geom) == {"normal_mean", "normal_cov", "normal_chol", "t_mean", "t_cov",
+                         "t_nu", "t_chol", "t_inv_cov"}
+    assert float(geom["t_nu"]) >= 1.0
+
+    before = [p.detach().clone() for p in flow.parameters()]
+    pre_before = {k: v.clone() for k, v in flow.get_pre().items()}
+    bad = u.clone()
+    bad[::2] = float("nan")
+    _, stats = phases.train(flow, bad, w, g, batch_size=128, epochs=3, patience=3)
+    assert not math.isfinite(float(stats[1]))
+    assert all(torch.equal(a, b) for a, b in zip(before, flow.parameters()))
+    assert all(torch.equal(pre_before[k], v) for k, v in flow.get_pre().items())
+
+
+@pytest.mark.parametrize("kwargs,match", [
+    (dict(vectorize=False), "black-box"),
+    (dict(sample="rwm"), "rwm"),
+    (dict(precondition=False), "precondition"),
+    (dict(flow="maf6"), "maf"),
+    (dict(pool=2), "pool"),
+    (dict(train_config=dict(annealing=True)), "annealing"),
+])
+def test_unported_paths_raise(kwargs, match):
+    base = small()
+    base.update(kwargs)
+    with pytest.raises(NotImplementedError, match=match):
+        tpc.Sampler(prior(), gauss_like, **base)
+
+
+def test_unported_run_options_raise():
+    s = tpc.Sampler(prior(), gauss_like, **small())
+    with pytest.raises(NotImplementedError, match="bridge"):
+        s.run(n_total=256, n_evidence=0, progress=False)
+    with pytest.raises(NotImplementedError, match="checkpoint"):
+        s.run(n_total=256, save_every=2, progress=False)
+
+
+def test_cuda_device_needs_a_card():
+    """The default device is "cuda"; without one the constructor raises
+    instead of falling back."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    kw = small()
+    del kw["device"]
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tpc.Sampler(prior(), gauss_like, **kw)
