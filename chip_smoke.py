@@ -16,7 +16,13 @@ printing one JSON line:
   6. the main path: ``Sampler`` on the 10-D Rosenbrock quickstart with an
      N(0, 3) prior and default settings, ``run(n_total=4096,
      n_evidence=4096)``, checked against the exact logZ -21.4021 (+-0.35)
-     and for launches of both kernels.
+     and for launches of both kernels;
+  7. the black-box path: the same problem with a numpy likelihood called
+     once per float64 row (``vectorize=False``) that returns a blob,
+     ``blobs_dtype=np.float64`` and every other setting at its default:
+     the host SMC loop, ``Flow.fit`` and the stepped sweep. Checked against
+     the same logZ gate, for launches of both kernels, for a host route and
+     for blobs equal to the function of the returned x.
 
 Then the kernels line and, last, the contract line. Any failed check exits
 non-zero before those two lines. Without a CUDA device it exits 1.
@@ -27,6 +33,7 @@ import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -42,6 +49,27 @@ SHAPES = [(10, 256), (10, 1024), (10, 4096), (50, 4096)]
 # each dimension's rounding into the next 49 steps of 6 transforms.
 TOL = {10: dict(rtol=1e-5, atol=1e-5, ladj=1e-4, grad=1e-4),
        50: dict(rtol=1e-4, atol=1e-4, ladj=2e-3, grad=1e-3)}
+
+
+def rosenbrock_row(x):
+    """Phase 7's black-box likelihood: the quickstart Rosenbrock on one
+    float64 numpy row, with sum(x^2) as its blob."""
+    logl = -np.sum(10.0 * (x[::2] ** 2 - x[1::2]) ** 2 + (x[::2] - 1.0) ** 2)
+    return float(logl), float(np.dot(x, x))
+
+
+class TimedLikelihood:
+    """Counts the rows and host seconds spent inside a per-row likelihood."""
+
+    def __init__(self, fn):
+        self.fn, self.rows, self.seconds = fn, 0, 0.0
+
+    def __call__(self, x):
+        t0 = time.perf_counter()
+        out = self.fn(x)
+        self.seconds += time.perf_counter() - t0
+        self.rows += 1
+        return out
 
 
 def emit(phase, **kw):
@@ -124,15 +152,20 @@ def main():
          tf32_cudnn=torch.backends.cudnn.allow_tf32)
 
     # -- 2. build ----------------------------------------------------------
-    build = {}
-    for name in ("made_rqs_forward", "ar_inverse"):
+    # One nvcc per source, started together, so the script's build cost is
+    # the slowest kernel's, not the sum; each kernel's seconds overlap the
+    # other's, and wall_s is the build's own.
+    def build_one(name):
         t0 = time.perf_counter()
         path, report = _build.build(name)
-        build[name] = dict(seconds=round(time.perf_counter() - t0, 3),
-                           library=path.name,
-                           ptxas=[l.strip() for l in report.splitlines()
-                                  if "registers" in l or "spill" in l])
-    emit("build", **build)
+        return name, dict(seconds=round(time.perf_counter() - t0, 3), library=path.name,
+                          ptxas=[l.strip() for l in report.splitlines()
+                                 if "registers" in l or "spill" in l])
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(2) as ex:
+        build = dict(ex.map(build_one, ("made_rqs_forward", "ar_inverse")))
+    emit("build", wall_s=round(time.perf_counter() - t0, 3), **build)
 
     # -- 3./4. kernels against their plain versions ------------------------
     errs = {"made_rqs_forward": 0.0, "ar_inverse": 0.0}
@@ -251,20 +284,57 @@ def main():
     if x.ndim != 2 or x.shape[1] != 10 or not np.isfinite(x).all() or not np.isfinite(w).all():
         fail("posterior samples are not finite (n, 10) arrays")
 
+    # -- 7. black-box path -------------------------------------------------
+    like = TimedLikelihood(rosenbrock_row)
+    sampler = pt.Sampler(prior, like, blobs_dtype=np.float64, random_state=0, device="cuda")
+    fk.made_rqs_forward.launches = 0
+    fk.ar_inverse.launches = 0
+    t0 = time.perf_counter()
+    sampler.run(n_total=4096, n_evidence=4096, progress=False)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    bb_launches = {"made_rqs_forward": fk.made_rqs_forward.launches,
+                   "ar_inverse": fk.ar_inverse.launches}
+    logz, dlogz = sampler.evidence()
+    x, w, _, _, blobs = sampler.posterior(return_blobs=True)
+    steps = [s["steps"] for s in sampler._iter_stats]
+    epochs = [s["train_epochs"] for s in sampler._iter_stats if s["train_epochs"]]
+    emit("black_box", card=card, logz=logz, dlogz=dlogz, true_logz=TRUE_LOGZ,
+         khat=sampler.evidence_khat, route=sampler.likelihood_route,
+         traceable=sampler.likelihood_traceable, calls=sampler.calls,
+         likelihood_rows=like.rows, likelihood_s=like.seconds, iterations=sampler.t,
+         sweep_steps=sum(steps), train_epochs=sum(epochs), wall_s=wall,
+         phase_s=sampler.phase_seconds, launches=bb_launches,
+         posterior_shape=list(x.shape), blobs_shape=list(blobs.shape))
+    if sampler.likelihood_traceable:
+        fail("the per-row numpy likelihood was routed to the device")
+    if not (bb_launches["made_rqs_forward"] > 0 and bb_launches["ar_inverse"] > 0):
+        fail(f"a kernel of the black-box path was never launched: {bb_launches}")
+    if not (np.isfinite(logz) and abs(logz - TRUE_LOGZ) < LOGZ_GATE):
+        fail(f"black-box logZ {logz} outside {TRUE_LOGZ} +- {LOGZ_GATE}")
+    if x.ndim != 2 or x.shape[1] != 10 or not np.isfinite(x).all() or not np.isfinite(w).all():
+        fail("black-box posterior samples are not finite (n, 10) arrays")
+    if not np.allclose(blobs, np.sum(x * x, axis=1), rtol=1e-5, atol=0.0):
+        fail("black-box blobs differ from sum(x^2) of the returned samples")
+
     # -- kernels line and contract line ------------------------------------
     main_k1 = next(r for r in times if r["d"] == 10 and r["n"] == 256)
     main_k2 = next(r for r in times if r["d"] == 10 and r["n"] == 1024)
+    by_path = {name: {"main_path": launches[name], "black_box": bb_launches[name]}
+               for name in launches}
     print(json.dumps({"kernels": [
         {"name": "made_rqs_forward", "route": "cuda",
          "source": "pocomc_tpu_torch/csrc/made_rqs_forward.cu",
          "replaces": "pocomc_tpu/ops/pallas_kernels.py:34",
-         "launches": launches["made_rqs_forward"],
+         "launches": sum(by_path["made_rqs_forward"].values()),
+         "launches_by_path": by_path["made_rqs_forward"],
          "max_abs_err": errs["made_rqs_forward"],
          "ms": main_k2["k2_ms"], "plain_ms": main_k2["k2_plain_ms"]},
         {"name": "ar_inverse", "route": "cuda",
          "source": "pocomc_tpu_torch/csrc/ar_inverse.cu",
          "replaces": "RESULTS.md:76",
-         "launches": launches["ar_inverse"],
+         "launches": sum(by_path["ar_inverse"].values()),
+         "launches_by_path": by_path["ar_inverse"],
          "max_abs_err": errs["ar_inverse"],
          "ms": main_k1["k1_ms"], "plain_ms": main_k1["k1_plain_ms"]}]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -24,13 +24,14 @@ from .particles import Particles  # noqa: E402
 from .models.flow import Flow  # noqa: E402
 from .models.student import fit_mvstud  # noqa: E402
 from .sampler import Sampler  # noqa: E402
+from .parallel import MPIPool  # noqa: E402
 from .ops.weights import (effective_sample_size, unique_sample_size,  # noqa: E402
                           compute_ess, increment_logz, trim_weights)
 from .ops.resampling import systematic_resample, multinomial_resample  # noqa: E402
 
 __all__ = [
     "Sampler", "Prior", "Normal", "Uniform", "Flow", "Reparameterize",
-    "Particles", "fit_mvstud",
+    "Particles", "fit_mvstud", "MPIPool",
     "effective_sample_size", "unique_sample_size", "compute_ess",
     "increment_logz", "trim_weights", "systematic_resample",
     "multinomial_resample",

@@ -15,7 +15,9 @@ sigma cap.
 The JAX ``lax.while_loop`` becomes a host loop: each step evaluates the
 stopping rule on the device and reads it with one scalar sync. The step
 counters ``i``/``i_snap`` are host integers (they depend on nothing but the
-step count).
+step count). ``run_stepped`` is the same sweep with a host likelihood
+(the black-box path): the rule's flag rides in the transfer that brings
+each proposal to the host.
 
 The t-pCN correction is written ``-half * log1p(q / nu)``: the JAX form
 ``log(nu + q) - log(nu)`` cancels in f32 at the nu = 1e6 Gaussian-limit
@@ -28,6 +30,7 @@ from __future__ import annotations
 import dataclasses
 import math
 
+import numpy as np
 import torch
 
 # Drift-test window length (steps) and minimum calibration rows
@@ -299,6 +302,11 @@ class TpcnSweep:
             return True
         if st.i >= self.n_max:
             return False
+        return bool(self.keep_flag(st))
+
+    def keep_flag(self, st):
+        """The device part of the stopping rule, a 0-d bool tensor (the
+        step-count bounds are the host's, in ``keep_going``)."""
         ratio = self.sqrt_d_scale / st.sigma
         thresh = torch.clamp(self.n_steps * ratio ** 2,
                              min=min(float(self.n_steps), float(self.plateau_floor)))
@@ -315,7 +323,7 @@ class TpcnSweep:
             keep = keep | (st.hot > 0.5)
             if self.bias_budget > 0.0:
                 keep = keep | (st.resid.abs() * st.dbeta > self.bias_budget)
-        return bool(keep)
+        return keep
 
     def final_resid(self, st):
         """Residual hotness at exit, refreshed from the last partial drift
@@ -338,6 +346,64 @@ class TpcnSweep:
                                 self.draw_noise(st, geom, generator))
             logl_p = self.log_like(prop["x_safe"], prop["finite"])
             st, _ = self.accept_update(st, prop, logl_p, beta, geom)
+        return self._results(st)
+
+    def run_stepped(self, u, x, logdetj, logl, logp, beta, sigma0, geom, fp, scp,
+                    generator, host_like, blobs=None, dbeta=0.0):
+        """The sweep with the likelihood on the host (the JAX package's
+        ``_run_stepped_sweep``): the device proposes, ``host_like`` maps the
+        finite proposals, float64 numpy rows (m, d), to (logl (m,), blobs
+        (m,) or None), and the device accepts. ``blobs`` (n,) numpy follow
+        the accept mask. Each step makes one device->host transfer (the
+        proposal, its finite mask, the stopping-rule flag of the state it
+        starts from and, with blobs, the previous step's accept mask, in
+        one tensor) and
+        one host->device transfer (the proposal's logl); the stopping rule
+        is read before the likelihood runs, so a stop discards only the
+        proposal. Returns (results, blobs); ``results["calls"]`` counts the
+        rows handed to ``host_like``."""
+        st = self.init_state(u, x, logdetj, logl, logp, sigma0, geom, fp, dbeta)
+        n, d = u.shape
+        if blobs is not None:
+            blobs = blobs.copy()
+        calls = 0
+        pending = None  # (accept mask, proposal blobs) of the last step
+        while True:
+            prop = None
+            parts = [] if pending is None else [pending[0].to(u.dtype)]
+            if st.i < self.n_max:
+                prop = self.propose(st, geom, fp, scp, self.draw_noise(st, geom, generator))
+                parts += [prop["finite"].to(u.dtype), self.keep_flag(st).to(u.dtype).reshape(1),
+                          prop["x_safe"].reshape(-1)]
+            host = torch.cat(parts).cpu().numpy() if parts else np.zeros(0)
+            if pending is not None:
+                take = host[:n] > 0.5
+                blobs[take] = pending[1][take]
+                host = host[n:]
+            if prop is None or (st.i > 0 and host[n] < 0.5):
+                break
+            finite = host[:n] > 0.5
+            x_safe = host[n + 1:].reshape(n, d).astype(np.float64)
+            logl_p = np.full(n, -np.inf)
+            blobs_p = None
+            if finite.any():
+                ll, bl = host_like(x_safe[finite])
+                logl_p[finite] = ll
+                if bl is not None:
+                    if blobs is None:
+                        blobs = np.empty(n, dtype=bl.dtype)
+                        blobs[:] = bl[0]
+                    blobs_p = blobs.copy()
+                    blobs_p[finite] = bl
+            calls += int(finite.sum())
+            st, acc = self.accept_update(
+                st, prop, torch.as_tensor(logl_p, dtype=u.dtype).to(u.device), beta, geom)
+            pending = None if blobs_p is None else (acc, blobs_p)
+        res = self._results(st)
+        res["calls"] = calls
+        return res, blobs
+
+    def _results(self, st):
         return dict(u=st.u, x=st.x, logdetj=st.logdetj, logl=st.logl,
                     logp=st.logp, efficiency=st.sigma, accept=st.accept,
                     steps=st.i, calls=st.calls, proposal_scale=st.sigma,

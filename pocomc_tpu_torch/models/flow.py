@@ -18,6 +18,11 @@ the inverse dimension orders and the pre-layer are buffers. Compute goes
 through ``FlowParams`` snapshots (masked weights, biases, pre-layer), so a
 sweep masks the weights once and every call reuses them, and training
 forms ``w * mask`` inside the autograd graph.
+
+Training: ``fit_stack`` is the AdamW loop both fits share (the device
+loop's phase B and ``Flow.fit``, the host fit with its ``annealing`` and
+``noise`` options); its loss ``Flow._loss_fn`` runs the forward through K2
+on CUDA, whose backward recomputes through the plain version.
 """
 
 from __future__ import annotations
@@ -285,3 +290,218 @@ class Flow(nn.Module):
 
     def kernel_inv(self, theta, fp=None):
         return self.inverse(theta, fp)
+
+    # -- training ----------------------------------------------------------
+
+    def _loss_fn(self, xb, wb, laplace_scale=None, gaussian_scale=None):
+        """Weighted NLL * 1000 of the transform stack at pre-whitened inputs,
+        plus the Laplace / Gaussian penalties on the raw weights. The
+        pre-layer's constant ladj is left out: it cannot move gradients or
+        the best-epoch choice."""
+        logq = self.stack_log_prob(xb)
+        loss = (-logq * wb * 1000.0).sum() / torch.clamp(wb.sum(), min=1e-30)
+        if laplace_scale is not None or gaussian_scale is not None:
+            reg = 0.0
+            for w in self.weights:
+                if laplace_scale is not None:
+                    reg = reg + w.abs().sum() / laplace_scale
+                if gaussian_scale is not None:
+                    reg = reg + (w ** 2).sum() / (2.0 * gaussian_scale ** 2)
+            loss = loss + reg
+        return loss
+
+    def fit(self, x, weights=None, validation_split=0.0, epochs=1000,
+            batch_size=1000, patience=20, learning_rate=1e-3, weight_decay=0.0,
+            laplace_scale=None, gaussian_scale=None, annealing=True, noise=None,
+            shuffle=True, clip_grad_norm=1.0, verbose=0, seed=None):
+        """Weighted maximum-likelihood training on host rows ``x`` (n, d),
+        as ``pocomc_tpu.models.flow.Flow.fit``: the pre-layer is refit on
+        the host and the stack trains in whitened space; the row count is
+        padded to a power of two with zero-weight duplicates, the batch size
+        floored and the batch count raised to powers of two (zero-weight
+        rows fill the last batches); ``noise`` jitters each batch by
+        ``noise`` times the mean nearest-neighbour distance; ``annealing``
+        decays the learning rate on plateaus. The host reads every epoch's
+        loss, so the schedule and the early stop act after each epoch (the
+        JAX package's ``epoch_chunk`` batching for a remote device has no
+        counterpart). Returns the history {"loss", "val_loss"}."""
+        x = np.asarray(x.detach().cpu() if torch.is_tensor(x) else x, dtype=np.float32)
+        n_samples = x.shape[0]
+        if weights is None:
+            w_all = np.full((n_samples,), 1.0 / n_samples, dtype=np.float32)
+        else:
+            w_all = np.asarray(weights.detach().cpu() if torch.is_tensor(weights)
+                               else weights, dtype=np.float32)
+
+        pre_prev = {k: v.detach().cpu().numpy() for k, v in self.get_pre().items()}
+        pre = (fit_pre_numpy(x, w_all, pre_prev, mode=self.whiten_mode)
+               if self.whiten else pre_prev)
+        x = (x - pre["mean"]) @ pre["w_fwd"]
+
+        rng = np.random.default_rng(seed)
+        if shuffle:
+            perm = rng.permutation(n_samples)
+            x, w_all = x[perm], w_all[perm]
+        n_bucket = _next_pow2(n_samples)
+        if n_bucket > n_samples:
+            pad_idx = rng.integers(0, n_samples, size=n_bucket - n_samples)
+            x = np.concatenate([x, x[pad_idx]], axis=0)
+            w_all = np.concatenate([w_all, np.zeros(n_bucket - n_samples, w_all.dtype)])
+            if shuffle:
+                perm = rng.permutation(n_bucket)
+                x, w_all = x[perm], w_all[perm]
+            n_samples = n_bucket
+
+        dev = self.weights[0].device
+        noise_scale = (float(noise) * mean_nn_distance(x, dev)
+                       if noise is not None else 0.0)
+
+        validation = validation_split > 0.0
+        if validation:
+            n_train = int(validation_split * n_samples)
+            x_train, w_train = x[:n_train], w_all[:n_train]
+            x_val, w_val = x[n_train:], w_all[n_train:]
+        else:
+            x_train, w_train = x, w_all
+        batch_size = max(1, min(int(batch_size), x_train.shape[0]))
+        batch_size = 1 << (batch_size.bit_length() - 1)
+        n_batches = _next_pow2(-(-x_train.shape[0] // batch_size))
+        n_train_real = x_train.shape[0]
+        n_pad = n_batches * batch_size - n_train_real
+        if n_pad > 0:
+            reps = -(-n_pad // n_train_real)
+            x_train = np.concatenate([x_train, np.tile(x_train, (reps, 1))[:n_pad]])
+            w_train = np.concatenate([w_train, np.zeros(n_pad, w_train.dtype)])
+
+        to_dev = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+        xv = wv = None
+        if validation:
+            xv, wv = to_dev(x_val), to_dev(w_val)
+        self.set_pre(pre)
+        gen = torch.Generator(device=dev).manual_seed(int(rng.integers(2**31 - 1)))
+        plateau = (_PlateauLR(learning_rate, factor=0.2, patience=patience,
+                              threshold=1e-4, min_lr=1e-6) if annealing else None)
+        history, best_loss, n_done, ok = fit_stack(
+            self, to_dev(x_train), to_dev(w_train), xv, wv, n_train_real,
+            x_val.shape[0] if validation else 1, batch_size, gen, epochs=epochs,
+            patience=patience, learning_rate=learning_rate,
+            weight_decay=weight_decay, clip_grad_norm=clip_grad_norm,
+            laplace_scale=laplace_scale, gaussian_scale=gaussian_scale,
+            shuffle=shuffle, noise_scale=noise_scale, plateau=plateau)
+        if not validation:
+            history["val_loss"] = []
+        if verbose > 0:
+            print(f"Trained {n_done} epochs; best "
+                  f"{'val_loss' if validation else 'loss'} {best_loss:.3f}")
+        if not ok:
+            self.set_pre(pre_prev)
+        return history
+
+
+def mean_nn_distance(x, device=None, chunk_elems=1 << 26):
+    """Mean over the rows of x (n, d) of the distance to the nearest other
+    row, exact duplicates excluded: the scale of ``Flow.fit``'s ``noise``.
+    Computed in fp32 in blocks of rows, so memory stays O(chunk_elems)
+    where the whole (n, n, d) difference would be O(n^2 d)."""
+    xt = torch.as_tensor(np.asarray(x, dtype=np.float32), device=device)
+    n, d = xt.shape
+    rows = max(1, chunk_elems // max(n * d, 1))
+    mins = []
+    for i in range(0, n, rows):
+        d2 = ((xt[i:i + rows, None, :] - xt[None, :, :]) ** 2).sum(-1)
+        d2 = torch.where(d2 <= 0.0, torch.full_like(d2, math.inf), d2)
+        mins.append(d2.min(1).values)
+    return float(torch.sqrt(torch.cat(mins)).mean())
+
+
+def fit_stack(flow, xt, wt, xv, wv, n_train, n_val, batch_size, generator,
+              epochs=5000, patience=10, learning_rate=1e-3, weight_decay=0.0,
+              clip_grad_norm=1.0, laplace_scale=None, gaussian_scale=None,
+              shuffle=True, noise_scale=0.0, plateau=None):
+    """AdamW fit of ``flow``'s transform stack in place, shared by the
+    device loop's phase B and ``Flow.fit``.
+
+    ``xt``/``wt`` hold a whole number of ``batch_size`` batches of
+    pre-whitened rows (zero-weight rows pad); the monitored loss is the
+    summed batch losses over ``n_train``, or the loss on ``xv``/``wv`` over
+    ``n_val`` when ``xv`` is given. Each batch step: optional jitter
+    ``noise_scale * N(0, 1)``, loss, backward, global-norm clip, AdamW.
+    The best-loss parameters are kept; the fit stops after
+    ``int(1.5 * patience)`` stale epochs; ``plateau`` (a ``_PlateauLR``)
+    sets the learning rate after each epoch. A fit that never reaches a
+    finite loss restores the input parameters. One host read per epoch.
+    Returns (history, best loss, epochs run, finite)."""
+    n_rows, n_dim = xt.shape
+    n_batches = n_rows // batch_size
+    stop_after = int(1.5 * patience)
+    dev = xt.device
+    params = list(flow.parameters())
+    params_in = [p.detach().clone() for p in params]
+    best, best_loss, best_idx, ei = params_in, math.inf, 0, 0
+    opt = torch.optim.AdamW(params, lr=learning_rate, weight_decay=weight_decay)
+    reg = dict(laplace_scale=laplace_scale, gaussian_scale=gaussian_scale)
+    history = dict(loss=[], val_loss=[])
+    while ei < epochs and ei - 1 - best_idx < stop_after:
+        order = (torch.randperm(n_rows, generator=generator, device=dev) if shuffle
+                 else torch.arange(n_rows, device=dev))
+        xb = xt[order].reshape(n_batches, batch_size, n_dim)
+        wb = wt[order].reshape(n_batches, batch_size)
+        total = torch.zeros((), device=dev)
+        for b in range(n_batches):
+            xi = xb[b]
+            if noise_scale > 0.0:
+                xi = xi + noise_scale * torch.randn(xi.shape, generator=generator,
+                                                    device=dev)
+            opt.zero_grad(set_to_none=True)
+            loss = flow._loss_fn(xi, wb[b], **reg)
+            loss.backward()
+            torch.nn.utils.clip_grad_norm_(params, clip_grad_norm)
+            opt.step()
+            total = total + loss.detach()
+        train = total / n_train
+        if xv is not None:
+            with torch.no_grad():
+                current = flow._loss_fn(xv, wv, **reg) / n_val
+        else:
+            current = train
+        tl, cl = torch.stack([train, current]).tolist()  # the epoch's one sync
+        history["loss"].append(tl)
+        history["val_loss"].append(cl)
+        if cl < best_loss:
+            best = [p.detach().clone() for p in params]
+            best_loss, best_idx = cl, ei
+        ei += 1
+        if plateau is not None:
+            lr = plateau.step(cl)
+            for group in opt.param_groups:
+                group["lr"] = lr
+    ok = math.isfinite(best_loss)
+    with torch.no_grad():
+        for p, src in zip(params, best if ok else params_in):
+            p.copy_(src)
+    return history, best_loss, ei, ok
+
+
+class _PlateauLR:
+    """ReduceLROnPlateau: factor decay after `patience` stale epochs
+    (absolute threshold), floored at min_lr (``pocomc_tpu``'s, unchanged)."""
+
+    def __init__(self, lr, factor=0.2, patience=20, threshold=1e-4, min_lr=1e-6):
+        self.lr = lr
+        self.factor = factor
+        self.patience = patience
+        self.threshold = threshold
+        self.min_lr = min_lr
+        self.best = np.inf
+        self.stale = 0
+
+    def step(self, value):
+        if value < self.best - self.threshold:
+            self.best = value
+            self.stale = 0
+        else:
+            self.stale += 1
+            if self.stale > self.patience:
+                self.lr = max(self.lr * self.factor, self.min_lr)
+                self.stale = 0
+        return self.lr

@@ -3,8 +3,9 @@
 Counterpart of ``pocomc_tpu/ops/weights.py``. The host bookkeeping (tiny
 O(T * n_active) arrays) stays float64 numpy, moved over unchanged: Kish
 ESS, unique sample size, weight trimming, and the multiple-importance-
-sampling log-weights and logZ. The temperature bisection runs on the
-device (``phases.reweight``). The on-device
+sampling log-weights and logZ, and the temperature bisection
+``bisect_beta`` of the host loop (the device loop bisects on the device in
+``phases.reweight``). The on-device
 mirrors (``ess_torch``, ``uss_torch``, ``trim_weights_torch``,
 ``compute_logw_and_logz_torch``) are torch ops on fixed-shape padded
 history buffers with a validity mask, as the device loop's phases use them.
@@ -186,6 +187,104 @@ def logw_from_mis_denominator(
     if normalize:
         logw = logw - se
     return logw, float(logz_new)
+
+
+def bisect_beta(
+    logl_hist: np.ndarray,
+    beta_hist: np.ndarray,
+    logz_hist: np.ndarray,
+    beta_prev: float,
+    n_effective: float,
+    metric: str = "ess",
+    tol_frac: float = 0.01,
+    B_flat: np.ndarray | None = None,
+):
+    """Choose the next inverse temperature by ESS/USS bisection.
+
+    Mirrors reference sampler.py:735-781: keep beta_prev if its metric is
+    already <= n_effective, jump to 1.0 if that still leaves
+    metric >= n_effective, otherwise bisect in (beta_prev, 1].
+
+    Returns (beta, logw_normalized, metric_value, logz).
+    """
+    # The balance-heuristic mixture denominator B (see
+    # compute_logw_and_logz) does not depend on the trial beta — hoist
+    # it out of the bisection so each trial is a cheap O(T*n) reweight
+    # instead of rebuilding the O(T^2 * n) component tensor (~20-30
+    # trials per _reweight on the single host core otherwise). Callers
+    # that maintain the denominator incrementally across iterations
+    # (Particles.mis_denominator) pass it via `B_flat` (with the -log T
+    # mixture normalization included) and skip even the one-time build.
+    logl = np.asarray(logl_hist, dtype=np.float64)
+    logl_flat = logl.reshape(-1)
+    total = logl_flat.size
+    if B_flat is None:
+        beta_h = np.asarray(beta_hist, dtype=np.float64).reshape(-1, 1)
+        logz_h = np.asarray(logz_hist, dtype=np.float64).reshape(-1, 1)
+        b = logl[None, :, :] * beta_h[:, None, :] - logz_h[:, None, :]
+        m = np.max(b, axis=0)
+        B_flat = (m + np.log(np.mean(np.exp(b - m), axis=0))).reshape(-1)
+    else:
+        B_flat = np.asarray(B_flat, dtype=np.float64).reshape(-1)
+        if B_flat.size != total:
+            raise ValueError(
+                f"B_flat has {B_flat.size} entries for {total} history "
+                "particles")
+
+    def metric_at(beta):
+        logw = float(beta) * logl_flat - B_flat
+        mx = np.max(logw)
+        se = mx + np.log(np.sum(np.exp(logw - mx)))
+        logz = float(se - np.log(total))
+        logw = logw - se  # normalized, as compute_logw_and_logz returns
+        w = np.exp(logw - np.max(logw))
+        if metric == "ess":
+            val = effective_sample_size(w)
+        else:
+            val = unique_sample_size(w)
+        return logw, w, val, logz
+
+    logw_prev, w_prev, m_prev, logz_prev = metric_at(beta_prev)
+    logw_max, w_max, m_max, logz_max = metric_at(1.0)
+
+    if m_prev <= n_effective:
+        return float(beta_prev), logw_prev, m_prev, logz_prev
+    if m_max >= n_effective:
+        return 1.0, logw_max, m_max, logz_max
+
+    # Bounded bisection (the reference's loop at sampler.py:764-777 is a
+    # bare `while True` — under extreme weight concentration the ESS/USS
+    # metric is effectively discontinuous in beta and the interval can
+    # collapse in f64 while the metric still sits outside the 1%
+    # tolerance, spinning forever; fixed here, not copied). 80 halvings
+    # shrink any (beta_prev, 1] interval below f64 resolution, and a
+    # collapsed interval exits early; either way the trial whose metric
+    # came CLOSEST to n_effective is returned.
+    lo, hi = float(beta_prev), 1.0
+    # seed "best" with the nearer endpoint so a degenerate interval
+    # (beta_prev within one ulp of 1) still returns a valid tuple
+    if abs(m_prev - n_effective) <= abs(m_max - n_effective):
+        best, best_gap = ((float(beta_prev), logw_prev, m_prev, logz_prev),
+                          abs(m_prev - n_effective))
+    else:
+        best, best_gap = ((1.0, logw_max, m_max, logz_max),
+                          abs(m_max - n_effective))
+    for _ in range(80):
+        beta = 0.5 * (lo + hi)
+        if beta <= lo or beta >= hi:
+            break  # interval collapsed to f64 resolution
+        logw, w, val, logz = metric_at(beta)
+        gap = abs(val - n_effective)
+        if gap < best_gap:
+            best = (float(beta), logw, val, logz)
+            best_gap = gap
+        if gap < tol_frac * n_effective:
+            return float(beta), logw, val, logz
+        if val < n_effective:
+            hi = beta
+        else:
+            lo = beta
+    return best
 
 
 # ---------------------------------------------------------------------------

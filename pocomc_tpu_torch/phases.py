@@ -23,12 +23,11 @@ The history buffers are updated in place (``push_history``).
 from __future__ import annotations
 
 import dataclasses
-import math
 
 import numpy as np
 import torch
 
-from .models.flow import fit_pre_torch
+from .models.flow import fit_pre_torch, fit_stack
 from .models.geometry import fit_geometry
 from .ops.resampling import multinomial_resample_torch, systematic_resample_torch
 from .ops.weights import (ess_torch, uss_torch, trim_weights_torch,
@@ -169,19 +168,6 @@ def reweight(hist, n_effective, n_total, resid_prev, n_select, n_active,
                 stats=stats)
 
 
-def _loss(flow, fp, xb, wb, laplace_scale=None, gaussian_scale=None):
-    """Weighted NLL * 1000 of the transform stack on pre-whitened inputs,
-    plus the optional Laplace / Gaussian weight penalties."""
-    logq = flow.stack_log_prob(xb, fp)
-    loss = (-logq * wb * 1000.0).sum() / torch.clamp(wb.sum(), min=1e-30)
-    for w in flow.weights:
-        if laplace_scale is not None:
-            loss = loss + w.abs().sum() / laplace_scale
-        if gaussian_scale is not None:
-            loss = loss + (w ** 2).sum() / (2.0 * gaussian_scale ** 2)
-    return loss
-
-
 def train(flow, u_sel, w_sel, generator, batch_size, validation_split=0.5,
           epochs=5000, patience=10, learning_rate=1e-3, weight_decay=0.0,
           clip_grad_norm=1.0, laplace_scale=None, gaussian_scale=None):
@@ -189,7 +175,6 @@ def train(flow, u_sel, w_sel, generator, batch_size, validation_split=0.5,
     proposal geometry in its latent space. Returns (geom, stats) with
     stats = [epochs run, best monitored loss]."""
     n_select, n_dim = u_sel.shape
-    stop_after = int(1.5 * patience)
     use_val = validation_split > 0
     n_train = int(validation_split * n_select) if use_val else n_select
     n_val = n_select - n_train if use_val else 1
@@ -213,48 +198,20 @@ def train(flow, u_sel, w_sel, generator, batch_size, validation_split=0.5,
     wt = torch.where(rows < n_train, ws[:n_train][wrap], torch.zeros_like(wrap, dtype=ws.dtype))
     xv, wv = (xs[n_train:], ws[n_train:]) if use_val else (None, None)
 
-    params = list(flow.parameters())
-    params_in = [p.detach().clone() for p in params]
-    best = params_in
-    best_loss = torch.tensor(math.inf, device=dev)
-    best_idx, ei = 0, 0
-    opt = torch.optim.AdamW(params, lr=learning_rate, weight_decay=weight_decay)
-    reg = dict(laplace_scale=laplace_scale, gaussian_scale=gaussian_scale)
-    while ei < epochs and ei - 1 - best_idx < stop_after:
-        order = torch.randperm(n_rows, generator=generator, device=dev)
-        xb = xt[order].reshape(n_batches, bs, n_dim)
-        wb = wt[order].reshape(n_batches, bs)
-        total = torch.zeros((), device=dev)
-        for b in range(n_batches):
-            opt.zero_grad(set_to_none=True)
-            loss = _loss(flow, flow.params(), xb[b], wb[b], **reg)
-            loss.backward()
-            torch.nn.utils.clip_grad_norm_(params, clip_grad_norm)
-            opt.step()
-            total = total + loss.detach()
-        if use_val:
-            with torch.no_grad():
-                current = _loss(flow, flow.params(), xv, wv, **reg) / n_val
-        else:
-            current = total / n_train
-        if bool(current < best_loss):  # one sync per epoch
-            best = [p.detach().clone() for p in params]
-            best_loss, best_idx = current, ei
-        ei += 1
-
-    ok = bool(torch.isfinite(best_loss))
-    with torch.no_grad():
+    _, best_loss, ei, ok = fit_stack(
+        flow, xt, wt, xv, wv, n_train, n_val, bs, generator, epochs=epochs,
+        patience=patience, learning_rate=learning_rate, weight_decay=weight_decay,
+        clip_grad_norm=clip_grad_norm, laplace_scale=laplace_scale,
+        gaussian_scale=gaussian_scale)
+    if not ok:
         # a fit that never reached a finite loss keeps the INPUT params and
         # the pre-layer they were trained against
-        for p, src in zip(params, best if ok else params_in):
-            p.copy_(src)
-    if not ok:
         flow.set_pre(pre_prev)
 
     with torch.no_grad():
         theta, _ = flow.forward(u_sel)
         geom = fit_geometry(theta, w_sel, generator)
-    return geom, torch.stack([torch.tensor(float(ei), device=dev), best_loss.to(dev)])
+    return geom, torch.tensor([float(ei), best_loss], device=dev)
 
 
 def mutate(hist, beta, logz, w_flat, sigma0, geom, fp, sweep, scp, generator,

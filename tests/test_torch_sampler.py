@@ -113,18 +113,48 @@ def test_train_phase_fits_and_keeps_input_on_nonfinite_loss():
 
 
 @pytest.mark.parametrize("kwargs,match", [
-    (dict(vectorize=False), "black-box"),
     (dict(sample="rwm"), "rwm"),
     (dict(precondition=False), "precondition"),
     (dict(flow="maf6"), "maf"),
-    (dict(pool=2), "pool"),
-    (dict(train_config=dict(annealing=True)), "annealing"),
 ])
 def test_unported_paths_raise(kwargs, match):
     base = small()
     base.update(kwargs)
     with pytest.raises(NotImplementedError, match=match):
         tpc.Sampler(prior(), gauss_like, **base)
+
+
+def gauss_row(x):
+    """Unit Gaussian on one row or a batch, numpy or torch."""
+    return -0.5 * (x * x).sum(-1) - 0.5 * x.shape[-1] * math.log(2 * math.pi)
+
+
+@pytest.mark.parametrize("kwargs,route,device_loop", [
+    (dict(vectorize=False), "device_vmap", True),
+    (dict(vectorize=False, pool=2), "host_rows", False),
+    (dict(train_config=dict(annealing=True)), "device", False),
+])
+def test_black_box_options_construct_and_route(kwargs, route, device_loop):
+    """The options the black-box slice ported: a row-wise torch likelihood
+    runs on the device through vmap; a process pool forces per-row host
+    calls (here through two spawned workers); the host fit's annealing
+    keeps the device likelihood but takes the host loop."""
+    base = small()
+    base.update(kwargs)
+    s = tpc.Sampler(prior(), gauss_row, **base)
+    try:
+        assert s.likelihood_route == route
+        assert s.likelihood_traceable == route.startswith("device")
+        assert s._use_device_loop() == device_loop
+        if "pool" in kwargs:
+            assert s.pool._ctx.get_start_method() == "spawn"
+            x = np.random.default_rng(0).standard_normal((5, D))
+            logl, blobs = s._log_like(x)
+            np.testing.assert_allclose(logl, gauss_row(x), rtol=1e-12)
+            assert blobs is None
+    finally:
+        s.close()
+    assert s.pool is None
 
 
 def test_unported_run_options_raise():
