@@ -1,5 +1,5 @@
-// K2: fused MADE + rational-quadratic-spline forward pass of a whole NSF
-// transform stack, data -> latent, with the summed log|det dz/dy|.
+// K2 forward: fused MADE + rational-quadratic-spline forward pass of a whole
+// NSF transform stack, data -> latent, with the summed log|det dz/dy|.
 //
 // Replaces the Pallas kernel `_made_kernel` / `_pallas_made_call` /
 // `make_made_apply` of pocomc_tpu/ops/pallas_kernels.py (deleted in commit
@@ -8,101 +8,156 @@
 // transforms, which the JAX package runs as XLA code
 // (pocomc_tpu/models/flow.py forward scan, transforms.py rqs_forward).
 //
-// What bounds it on the H100: fp32 FMA throughput and shared-memory traffic of
-// the masked matrix products (about 2 * n * T * (d*h + 2*h*h + h*23*d)
-// flops), and, at the main path's small particle counts, launch latency
-// and occupancy. Design: one block per tile of P particles keeps the
-// activations of all T transforms in shared memory, so a call is one
-// launch and the only device-memory traffic is y in, z and ladj out and
-// the masked weights, which the read-only cache serves to every block.
-// The output layer runs one dimension's 23 columns at a time, so a tile's
-// spline parameters never need more than P*23 floats. No tensor cores:
-// the flow runs in full fp32 and this first version uses FMA loops only.
+// What bounds it on the H100: fp32 FMAs of the masked products,
+// 2 * T * (d*h + 2*h*h + h*23*d) flops a row (116,736 at nsf6, d=10, h=32:
+// 1.8 us at n=1024 against the 67 TFLOP/s fp32 peak; 21.5 GFLOP, 0.32 ms, at
+// d=50, h=256, n=4096); bytes (y in, z and ladj out, the weights once) are
+// far below that. At the main path's n=256-4096 a launch is a handful of
+// microseconds of latency: the chain of T transforms x 4 layers x spline,
+// each step waiting on the last.
+//
+// Design: one block of 256 threads per tile of P particles (1-16, chosen
+// so that n fills the 132 SMs) runs all T transforms in one launch, with
+// the tile's activations in shared memory. The masked weights stream
+// through a two-stage shared-memory ring with cp.async (made_tile.cuh), so
+// the next chunk (the next layer, or the next transform's first) loads
+// while this one computes, and every FMA reads its weight from shared
+// memory; each thread keeps RP rows of one column in registers, so one
+// weight read feeds RP FMAs. The output layer runs a group of G whole
+// dimensions at a time (all of them up to d=50, as many as half the shared
+// memory holds beyond), each group's P*G splines in parallel right after
+// it, one thread each; the tile's shared memory is P*(d + 2h + 23G + 1)
+// floats beside the ring. With `sv` set it also writes
+// every layer's input of every transform (Saved), which the backward kernel
+// (made_rqs_backward.cu) and the weight-gradient products take. fp32 FMAs
+// only: no tensor cores (no TF32), no fast-math.
 #include <cuda_runtime.h>
 
-#include "rqs.cuh"
+#include "made_tile.cuh"
 
 namespace {
 
 using namespace pocomc;
 
-__global__ void made_rqs_forward_kernel(const float* __restrict__ y, float* __restrict__ z,
-                                        float* __restrict__ ladj, int n, int d, int h, int T,
-                                        const float* __restrict__ w0,
-                                        const float* __restrict__ b0,
-                                        const float* __restrict__ w1,
-                                        const float* __restrict__ b1,
-                                        const float* __restrict__ w2,
-                                        const float* __restrict__ b2,
-                                        const float* __restrict__ w3,
-                                        const float* __restrict__ b3, int P) {
-  extern __shared__ float smem[];
-  float* xs = smem;           // P*d   input of the current transform
-  float* xn = xs + P * d;     // P*d   its output
-  float* hs = xn + P * d;     // P*h   hidden pre-activation
-  float* ts = hs + P * h;     // P*h   scratch
-  float* ps = ts + P * h;     // P*23  spline parameters of one dimension
-  float* ls = ps + P * NPARAMS;  // P  log-det accumulator
+template <int RP>
+__global__ void __launch_bounds__(THREADS)
+    made_rqs_forward_kernel(const float* __restrict__ y, float* __restrict__ z,
+                            float* __restrict__ ladj, Saved sv, int n, Made m, int P, int gw,
+                            int SL) {
+  extern __shared__ __align__(16) float smem[];
+  const int d = m.d, h = m.h;
+  float* xs = smem;          // P*d   input of the current transform, then its output
+  float* hs = xs + P * d;    // P*h   hidden state
+  float* hn = hs + P * h;    // P*h   next hidden state; per-dimension log-dets
+  float* ps = hn + P * h;    // P*gw  spline parameters of one column group
+  float* ls = ps + P * gw;   // P     log-det accumulator
+  WeightStream ws(m, ring_start(smem, P * (d + 2 * h + gw + 1)), SL, gw, false);
+  ws.start();
+  const bool save = sv.a[0] != nullptr;
 
   const int row0 = blockIdx.x * P;
-  for (int idx = threadIdx.x; idx < P * d; idx += blockDim.x) {
+  for (int idx = threadIdx.x; idx < P * d; idx += THREADS) {
     const int r = row0 + idx / d;
     xs[idx] = r < n ? y[(size_t)row0 * d + idx] : 0.0f;
   }
-  for (int p = threadIdx.x; p < P; p += blockDim.x) ls[p] = 0.0f;
+  for (int p = threadIdx.x; p < P; p += THREADS) ls[p] = 0.0f;
   __syncthreads();
 
-  const int dout = d * NPARAMS;
-  for (int t = 0; t < T; ++t) {
-    tile_hidden(xs, d, h, w0 + (size_t)t * d * h, b0 + (size_t)t * h,
-                w1 + (size_t)t * h * h, b1 + (size_t)t * h, w2 + (size_t)t * h * h,
-                b2 + (size_t)t * h, hs, ts, P);
-    const float* w3t = w3 + (size_t)t * h * dout;
-    const float* b3t = b3 + (size_t)t * dout;
-    for (int k = 0; k < d; ++k) {
-      tile_dense<true>(hs, h, w3t, dout, b3t, k * NPARAMS, NPARAMS, ps, P);
-      __syncthreads();
-      for (int p = threadIdx.x; p < P; p += blockDim.x) {
-        float l;
-        xn[p * d + k] = rqs_forward(xs[p * d + k], ps + p * NPARAMS, &l);
-        ls[p] += l;
-      }
-      __syncthreads();
+  for (int t = 0; t < m.T; ++t) {
+    const size_t off = (size_t)t * n;
+    if (save) {
+      for (int idx = threadIdx.x; idx < P * d; idx += THREADS)
+        if (row0 + idx / d < n) sv.a[0][(off + row0) * d + idx] = xs[idx];
     }
-    float* tmp = xs;
-    xs = xn;
-    xn = tmp;
+    for (int l = 0; l < 4; ++l) {
+      float* act = save && l < 3 ? sv.a[l + 1] + off * h : nullptr;
+      Chunk c;
+      do {
+        const float* Ws = ws.acquire(&c);
+        if (l == 0)
+          tile_product<RP, false>(xs, d, d, Ws, c.nc, c.c0, P, Out{hs, nullptr, act, h, 0, row0, n});
+        else if (l < 3)
+          tile_product<RP, true>(hs, h, h, Ws, c.nc, c.c0, P, Out{hn, hs, act, h, 0, row0, n});
+        else
+          tile_product<RP, true>(hs, h, h, Ws, c.nc, c.c0, P,
+                                 Out{ps, nullptr, nullptr, gw, c.g0, row0, n});
+        ws.release();
+        if (l == 3 && c.group_end) {
+          // the group's splines: dimensions k0 .. k0 + gd - 1 of every row
+          const int k0 = c.g0 / NPARAMS, gd = (c.gend - c.g0) / NPARAMS;
+          for (int idx = threadIdx.x; idx < P * gd; idx += THREADS) {
+            const int p = idx / gd, k = k0 + idx - p * gd;
+            float lg;
+            xs[p * d + k] = rqs_forward(xs[p * d + k], ps + p * gw + (k - k0) * NPARAMS, &lg);
+            hn[p * d + k] = lg;
+          }
+        }
+      } while (!c.layer_end);
+      if (l == 1 || l == 2) {
+        float* tmp = hs;
+        hs = hn;
+        hn = tmp;
+      }
+    }
+    __syncthreads();
+    for (int p = threadIdx.x; p < P; p += THREADS) {
+      float s = 0.0f;
+      for (int k = 0; k < d; ++k) s += hn[p * d + k];
+      ls[p] += s;
+    }
   }
+  __syncthreads();
 
-  for (int idx = threadIdx.x; idx < P * d; idx += blockDim.x) {
+  for (int idx = threadIdx.x; idx < P * d; idx += THREADS) {
     const int r = row0 + idx / d;
     if (r < n) z[(size_t)row0 * d + idx] = xs[idx];
   }
-  for (int p = threadIdx.x; p < P; p += blockDim.x)
+  for (int p = threadIdx.x; p < P; p += THREADS)
     if (row0 + p < n) ladj[row0 + p] = ls[p];
+}
+
+template <int RP>
+int launch(const float* y, float* z, float* ladj, const Saved& sv, int n, const Made& m, int P,
+           int gw, int SL, size_t smem, cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(made_rqs_forward_kernel<RP>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  made_rqs_forward_kernel<RP><<<(n + P - 1) / P, THREADS, smem, stream>>>(y, z, ladj, sv, n, m,
+                                                                         P, gw, SL);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
+// shared-memory floats of one block: the tile's state, up to 4 floats of
+// padding and the ring
+extern "C" int made_rqs_forward_smem_floats(int P, int G, int d, int h, int SL) {
+  return P * (d + 2 * h + G * pocomc::NPARAMS + 1) + 4 + 2 * SL;
+}
+
 // Plain C entry point, loaded with ctypes. Weights are the (T, fan_in,
 // fan_out) masked weights and (T, fan_out) biases of the four MADE layers,
-// contiguous fp32 on the device. Launches on `stream` and returns
-// cudaGetLastError().
+// contiguous fp32 on the device. a0..a3 are all null, or receive the input
+// of every layer's product: a0 (T, n, d) the transform inputs, a1..a3
+// (T, n, h) relu(h0), relu(h1), relu(h2). P is the tile (1, 2, 4, 8 or 16
+// rows), G the dimensions of an output-layer group (1..d), SL the floats of
+// one ring stage (a multiple of 4, at least h + 1). Launches on `stream`
+// and returns cudaGetLastError().
 extern "C" int made_rqs_forward_launch(const float* y, float* z, float* ladj, int n, int d,
                                        int h, int T, const float* w0, const float* b0,
                                        const float* w1, const float* b1, const float* w2,
                                        const float* b2, const float* w3, const float* b3,
-                                       int tile, int threads, int device, void* stream) {
+                                       float* a0, float* a1, float* a2, float* a3, int P, int G,
+                                       int SL, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  const size_t smem = sizeof(float) * (size_t)pocomc::tile_smem_floats(tile, d, h);
-  if (smem > 48 * 1024) {
-    err = cudaFuncSetAttribute(made_rqs_forward_kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-  }
-  const int blocks = (n + tile - 1) / tile;
-  made_rqs_forward_kernel<<<blocks, threads, smem, (cudaStream_t)stream>>>(
-      y, z, ladj, n, d, h, T, w0, b0, w1, b1, w2, b2, w3, b3, tile);
-  return (int)cudaGetLastError();
+  const size_t smem = sizeof(float) * (size_t)made_rqs_forward_smem_floats(P, G, d, h, SL);
+  if (!pocomc::k2_args_ok(P, G, SL, d, h, smem)) return (int)cudaErrorInvalidValue;
+  const pocomc::Made m{{w0, w1, w2, w3}, {b0, b1, b2, b3}, d, h, T};
+  const pocomc::Saved sv{{a0, a1, a2, a3}};
+  const int gw = G * pocomc::NPARAMS;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (P >= 16) return launch<4>(y, z, ladj, sv, n, m, P, gw, SL, smem, s);
+  if (P >= 2) return launch<2>(y, z, ladj, sv, n, m, P, gw, SL, smem, s);
+  return launch<1>(y, z, ladj, sv, n, m, P, gw, SL, smem, s);
 }

@@ -1,6 +1,8 @@
-// Shared device code of the flow kernels (made_rqs_forward.cu, ar_inverse.cu):
-// the 8-bin rational-quadratic spline (spline setup, bin search, forward,
-// inverse) and the masked dense layers of a MADE pass over a particle tile.
+// Shared device code of the flow kernels: the 8-bin rational-quadratic
+// spline (spline setup, bin search, forward, its vector-Jacobian product,
+// inverse) for all three, and the masked dense layers of a MADE pass over a
+// particle tile that K1 (ar_inverse.cu) runs; K2's kernels have their own
+// staged products in made_tile.cuh.
 //
 // The spline math follows pocomc_tpu/models/transforms.py term for term, in
 // fp32 with plain FMA arithmetic (no fast-math intrinsics): knots from a
@@ -71,6 +73,21 @@ __device__ __forceinline__ int spline_bin(float pos, const float* k) {
   return min(max(idx, 0), BINS - 1);
 }
 
+// a[i] and a[i + 1] by unrolled selects, so the knot arrays stay in
+// registers (a runtime index would put them in local memory)
+__device__ __forceinline__ void bin_edges(const float* a, int i, float* lo, float* hi) {
+  float l = a[0], h = a[1];
+#pragma unroll
+  for (int j = 1; j < BINS; ++j) {
+    if (j == i) {
+      l = a[j];
+      h = a[j + 1];
+    }
+  }
+  *lo = l;
+  *hi = h;
+}
+
 // x -> y; *ladj = log|dy/dx|
 __device__ __forceinline__ float rqs_forward(float x, const float* p, float* ladj) {
   const float B = SPLINE_BOUND;
@@ -79,8 +96,10 @@ __device__ __forceinline__ float rqs_forward(float x, const float* p, float* lad
   const bool inside = (x > -B) && (x < B);
   const float xc = fminf(fmaxf(x, -B + 1e-6f), B - 1e-6f);
   const int i = spline_bin(xc, xk);
-  const float x0 = xk[i], x1 = xk[i + 1], y0 = yk[i], y1 = yk[i + 1];
-  const float d0 = dv[i], d1 = dv[i + 1];
+  float x0, x1, y0, y1, d0, d1;
+  bin_edges(xk, i, &x0, &x1);
+  bin_edges(yk, i, &y0, &y1);
+  bin_edges(dv, i, &d0, &d1);
   const float w = x1 - x0;
   const float h = y1 - y0;
   const float s = h / w;
@@ -94,6 +113,126 @@ __device__ __forceinline__ float rqs_forward(float x, const float* p, float* lad
   return inside ? y : x;
 }
 
+// Vector-Jacobian product of rqs_forward for one element, the arithmetic of
+// models/transforms.py rqs_forward_vjp: given gy = dL/dy and gl = dL/dladj,
+// overwrites the NPARAMS raw parameters p with dL/dp and returns dL/dx.
+// Conventions of autograd through the plain forward: knots 0 and BINS are
+// constants, clamp passes the gradient on [-B+1e-6, B-1e-6] inclusive, the
+// bin index is piecewise constant, and outside (-B, B) the map is the
+// identity with zero parameter gradients.
+__device__ __forceinline__ float rqs_forward_vjp(float x, float* p, float gy, float gl) {
+  const float B = SPLINE_BOUND;
+  if (!((x > -B) && (x < B))) {
+#pragma unroll
+    for (int i = 0; i < NPARAMS; ++i) p[i] = 0.0f;
+    return gy;
+  }
+  // knots exactly as spline_knots, keeping the two softmaxes
+  float sm[2][BINS], kn[2][BINS + 1];
+#pragma unroll
+  for (int a = 0; a < 2; ++a) {
+    const float* raw = p + a * BINS;
+    float m = raw[0];
+#pragma unroll
+    for (int i = 1; i < BINS; ++i) m = fmaxf(m, raw[i]);
+    float s = 0.0f;
+#pragma unroll
+    for (int i = 0; i < BINS; ++i) {
+      sm[a][i] = expf(raw[i] - m);
+      s += sm[a][i];
+    }
+    float c = 0.0f;
+    kn[a][0] = -B;
+#pragma unroll
+    for (int i = 0; i < BINS; ++i) {
+      sm[a][i] = sm[a][i] / s;
+      c += (MIN_BIN + (1.0f - MIN_BIN * BINS) * sm[a][i]) * (2.0f * B);
+      kn[a][i + 1] = c - B;
+    }
+    kn[a][BINS] = B;
+  }
+  float dv[BINS + 1], sig[BINS - 1];
+  dv[0] = 1.0f;
+#pragma unroll
+  for (int i = 0; i < BINS - 1; ++i) {
+    const float zr = p[2 * BINS + i] + SOFTPLUS_INV_1;
+    dv[i + 1] = MIN_DERIV + softplusf(zr);
+    sig[i] = 1.0f / (1.0f + expf(-zr));
+  }
+  dv[BINS] = 1.0f;
+
+  const float lo = -B + 1e-6f, hi = B - 1e-6f;
+  const float xc = fminf(fmaxf(x, lo), hi);
+  const int i = spline_bin(xc, kn[0]);
+  float x0, x1, y0, y1, d0, d1;
+  bin_edges(kn[0], i, &x0, &x1);
+  bin_edges(kn[1], i, &y0, &y1);
+  bin_edges(dv, i, &d0, &d1);
+  const float w = x1 - x0;
+  const float h = y1 - y0;
+  const float s = h / w;
+  const float xi = (xc - x0) / w;
+  const float xi1m = 1.0f - xi;
+  const float c = d1 + d0 - 2.0f * s;
+  const float q = xi * xi1m;
+  const float denom = s + c * q;
+  const float num = s * xi * xi + d0 * q;
+  const float n2 = d1 * xi * xi + 2.0f * s * q + d0 * xi1m * xi1m;
+
+  // ladj = 2 log s + log n2 - 2 log denom; y = y0 + h * num / denom
+  float g_s = 2.0f * gl / s;
+  const float g_n2 = gl / n2;
+  const float g_den = -2.0f * gl / denom - gy * h * num / (denom * denom);
+  float g_y0 = gy;
+  float g_h = gy * num / denom;
+  const float g_num = gy * h / denom;
+  float g_d1 = g_n2 * xi * xi;
+  float g_xi = g_n2 * 2.0f * d1 * xi + g_num * 2.0f * s * xi;
+  g_s = g_s + g_n2 * 2.0f * q + g_num * xi * xi + g_den;
+  const float g_q = g_n2 * 2.0f * s + g_num * d0 + g_den * c;
+  float g_d0 = g_n2 * xi1m * xi1m + g_num * q;
+  float g_xi1m = g_n2 * 2.0f * d0 * xi1m;
+  const float g_c = g_den * q;
+  g_d1 = g_d1 + g_c;
+  g_d0 = g_d0 + g_c;
+  g_s = g_s - 2.0f * g_c;
+  g_xi = g_xi + g_q * xi1m;
+  g_xi1m = g_xi1m + g_q * xi;
+  g_xi = g_xi - g_xi1m;
+  const float g_xc = g_xi / w;
+  float g_x0 = -g_xi / w;
+  float g_w = -g_xi * xi / w;
+  g_h = g_h + g_s / w;
+  g_w = g_w - g_s * s / w;
+  const float g_y1 = g_h;
+  g_y0 = g_y0 - g_h;
+  const float g_x1 = g_w;
+  g_x0 = g_x0 - g_w;
+
+  // knot j (1..BINS-1) is the running sum of bin sizes 0..j-1, so bin size
+  // m collects the gradients of knots m+1..BINS-1; then the softmax
+  const float g0[2] = {g_x0, g_y0}, g1[2] = {g_x1, g_y1};
+#pragma unroll
+  for (int a = 0; a < 2; ++a) {
+    float gsm[BINS];
+    float dot = 0.0f;
+#pragma unroll
+    for (int m = 0; m < BINS; ++m) {
+      const float gsize = (m < i ? g0[a] : 0.0f) + ((m <= i && i <= BINS - 2) ? g1[a] : 0.0f);
+      gsm[m] = gsize * ((1.0f - MIN_BIN * BINS) * (2.0f * B));
+      dot += sm[a][m] * gsm[m];
+    }
+#pragma unroll
+    for (int m = 0; m < BINS; ++m) p[a * BINS + m] = sm[a][m] * (gsm[m] - dot);
+  }
+#pragma unroll
+  for (int k = 1; k < BINS; ++k) {
+    const float gd = (k == i ? g_d0 : 0.0f) + (k == i + 1 ? g_d1 : 0.0f);
+    p[2 * BINS + k - 1] = gd * sig[k - 1];
+  }
+  return (x >= lo && x <= hi) ? g_xc : 0.0f;
+}
+
 // y -> x; *ladj = log|dx/dy|
 __device__ __forceinline__ float rqs_inverse(float y, const float* p, float* ladj) {
   const float B = SPLINE_BOUND;
@@ -102,8 +241,10 @@ __device__ __forceinline__ float rqs_inverse(float y, const float* p, float* lad
   const bool inside = (y > -B) && (y < B);
   const float yc = fminf(fmaxf(y, -B + 1e-6f), B - 1e-6f);
   const int i = spline_bin(yc, yk);
-  const float x0 = xk[i], x1 = xk[i + 1], y0 = yk[i], y1 = yk[i + 1];
-  const float d0 = dv[i], d1 = dv[i + 1];
+  float x0, x1, y0, y1, d0, d1;
+  bin_edges(xk, i, &x0, &x1);
+  bin_edges(yk, i, &y0, &y1);
+  bin_edges(dv, i, &d0, &d1);
   const float w = x1 - x0;
   const float h = y1 - y0;
   const float s = h / w;

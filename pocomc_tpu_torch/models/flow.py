@@ -22,7 +22,7 @@ forms ``w * mask`` inside the autograd graph.
 Training: ``fit_stack`` is the AdamW loop both fits share (the device
 loop's phase B and ``Flow.fit``, the host fit with its ``annealing`` and
 ``noise`` options); its loss ``Flow._loss_fn`` runs the forward through K2
-on CUDA, whose backward recomputes through the plain version.
+on CUDA, and its gradient through K2's backward kernel.
 """
 
 from __future__ import annotations
@@ -143,11 +143,17 @@ class FlowParams(NamedTuple):
 
 
 class Flow(nn.Module):
-    """Masked-autoregressive neural spline flow (``nsf3``/``nsf6``/``nsf12``)."""
+    """Masked-autoregressive neural spline flow (``nsf3``/``nsf6``/``nsf12``),
+    with its parameters and buffers on ``device`` (the card by default;
+    ``device="cpu"`` runs the plain versions of the kernels)."""
 
     def __init__(self, n_dim: int, flow: str = "nsf6", bins: int = 8,
-                 seed: int = 0, whiten=True):
+                 seed: int = 0, whiten=True, device="cuda"):
         super().__init__()
+        device = torch.device(device)
+        if device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError("Flow(device='cuda') needs a CUDA device; pass "
+                               "device='cpu' to run the plain versions on the CPU.")
         if flow not in _ARCHS:
             raise ValueError(f"Invalid flow {flow!r}. Choose from {sorted(_ARCHS)}.")
         kind, n_transforms = _ARCHS[flow]
@@ -194,6 +200,7 @@ class Flow(nn.Module):
         # the inverse visits dims in increasing autoregressive degree
         self.register_buffer("inv_orders", torch.from_numpy(
             np.stack([np.argsort(o) for o in self.orders]).astype(np.int32)))
+        self.to(device)
         self.set_pre(identity_pre(self.n_dim))
 
     # -- parameters --------------------------------------------------------

@@ -66,17 +66,24 @@ def _rqs_setup(params, bins: int):
     return xk, yk, torch.cat([ones, inner, ones], dim=-1)
 
 
-def _gather_bin(pos, knots, bins, *arrays):
-    """Values at the bin index (and index+1) containing pos, for each array.
-    The index is the count of interior knots <= pos, clipped to the bins."""
-    idx = torch.clamp((pos[..., None] >= knots[..., 1:-1]).sum(-1), 0, bins - 1)
-    i0 = idx[..., None]
-    i1 = i0 + 1
+def _bin_index(pos, knots, bins):
+    """(..., 1) index of the bin containing pos: the count of interior knots
+    <= pos, clipped to the bins."""
+    return torch.clamp((pos[..., None] >= knots[..., 1:-1]).sum(-1), 0, bins - 1)[..., None]
+
+
+def _gather_at(i0, *arrays):
+    """Values at index i0 and i0+1 of each array."""
     out = []
     for a in arrays:
         out.append(torch.gather(a, -1, i0)[..., 0])
-        out.append(torch.gather(a, -1, i1)[..., 0])
+        out.append(torch.gather(a, -1, i0 + 1)[..., 0])
     return out
+
+
+def _gather_bin(pos, knots, bins, *arrays):
+    """Values at the bin index (and index+1) containing pos, for each array."""
+    return _gather_at(_bin_index(pos, knots, bins), *arrays)
 
 
 def rqs_forward(x, params, bins: int):
@@ -99,6 +106,91 @@ def rqs_forward(x, params, bins: int):
     y = torch.where(inside, y, x)
     ladj = torch.where(inside, torch.log(dydx), torch.zeros_like(dydx))
     return y, ladj
+
+
+def rqs_forward_vjp(x, params, g_y, g_l, bins: int):
+    """Closed-form vector-Jacobian product of ``rqs_forward``, with no
+    autograd: the gradients (g_x, g_params) given g_y = dL/dy and g_l =
+    dL/dladj, elementwise over x (...) and params (..., 3*bins-1).
+
+    It keeps the conventions of autograd through ``rqs_forward``: the last
+    knot is the constant B, so it passes nothing into the running sum;
+    ``clamp`` passes the gradient for x in [-B+1e-6, B-1e-6] inclusive; the
+    bin index is piecewise constant; outside (-B, B) g_x = g_y and the
+    parameter gradients are 0. ``csrc/rqs.cuh`` ``rqs_forward_vjp`` is the
+    same arithmetic for one element."""
+    B = SPLINE_BOUND
+    raw_x, raw_y, raw_d = params[..., :bins], params[..., bins:2 * bins], params[..., 2 * bins:]
+    sm_x, sm_y = torch.softmax(raw_x, dim=-1), torch.softmax(raw_y, dim=-1)
+    xk, yk, deriv = _rqs_setup(params, bins)
+    inside = (x > -B) & (x < B)
+    lo, hi = -B + 1e-6, B - 1e-6
+    xc = torch.clamp(x, lo, hi)
+    i0 = _bin_index(xc, xk, bins)
+    x0, x1, y0, y1, d0, d1 = _gather_at(i0, xk, yk, deriv)
+
+    w = x1 - x0
+    h = y1 - y0
+    s = h / w
+    xi = (xc - x0) / w
+    xi1m = 1 - xi
+    c = d1 + d0 - 2 * s
+    q = xi * xi1m
+    denom = s + c * q
+    num = s * xi * xi + d0 * q
+    n2 = d1 * xi * xi + 2 * s * q + d0 * xi1m * xi1m
+    g_yi = torch.where(inside, g_y, torch.zeros_like(g_y))
+    g_l = torch.where(inside, g_l, torch.zeros_like(g_l))
+
+    # ladj = 2 log s + log n2 - 2 log denom; y = y0 + h * num / denom
+    g_s = 2 * g_l / s
+    g_n2 = g_l / n2
+    g_den = -2 * g_l / denom - g_yi * h * num / (denom * denom)
+    g_y0 = g_yi
+    g_h = g_yi * num / denom
+    g_num = g_yi * h / denom
+    g_d1 = g_n2 * xi * xi
+    g_xi = g_n2 * 2 * d1 * xi + g_num * 2 * s * xi
+    g_s = g_s + g_n2 * 2 * q + g_num * xi * xi + g_den
+    g_q = g_n2 * 2 * s + g_num * d0 + g_den * c
+    g_d0 = g_n2 * xi1m * xi1m + g_num * q
+    g_xi1m = g_n2 * 2 * d0 * xi1m
+    g_c = g_den * q
+    g_d1 = g_d1 + g_c
+    g_d0 = g_d0 + g_c
+    g_s = g_s - 2 * g_c
+    g_xi = g_xi + g_q * xi1m
+    g_xi1m = g_xi1m + g_q * xi
+    g_xi = g_xi - g_xi1m
+    g_xc = g_xi / w
+    g_x0 = -g_xi / w
+    g_w = -g_xi * xi / w
+    g_h = g_h + g_s / w
+    g_w = g_w - g_s * s / w
+    g_y1 = g_h
+    g_y0 = g_y0 - g_h
+    g_x1 = g_w
+    g_x0 = g_x0 - g_w
+
+    def knots_vjp(g_k0, g_k1, sm):
+        # knot j (1..bins-1) is the running sum of bin sizes 0..j-1, minus B
+        g_k = torch.zeros(sm.shape[:-1] + (bins + 1,), dtype=sm.dtype, device=sm.device)
+        g_k = g_k.scatter_add(-1, i0, g_k0[..., None]).scatter_add(-1, i0 + 1, g_k1[..., None])
+        g_inner = g_k[..., 1:bins]
+        g_size = torch.cat([torch.flip(torch.cumsum(torch.flip(g_inner, [-1]), -1), [-1]),
+                            torch.zeros_like(g_k[..., :1])], dim=-1)
+        g_sm = g_size * ((1 - MIN_BIN * bins) * 2 * B)
+        return sm * (g_sm - (sm * g_sm).sum(-1, keepdim=True))
+
+    g_dv = torch.zeros_like(deriv)
+    g_dv = g_dv.scatter_add(-1, i0, g_d0[..., None]).scatter_add(-1, i0 + 1, g_d1[..., None])
+    g_raw_d = g_dv[..., 1:bins] * torch.sigmoid(raw_d + _SOFTPLUS_INV_1)
+    g_params = torch.cat([knots_vjp(g_x0, g_x1, sm_x), knots_vjp(g_y0, g_y1, sm_y),
+                          g_raw_d], dim=-1)
+    g_params = torch.where(inside[..., None], g_params, torch.zeros_like(g_params))
+    in_clamp = (x >= lo) & (x <= hi)
+    g_x = torch.where(inside, torch.where(in_clamp, g_xc, torch.zeros_like(g_xc)), g_y)
+    return g_x, g_params
 
 
 def rqs_inverse(y, params, bins: int):

@@ -1,18 +1,22 @@
-"""The two hand-written CUDA kernels of the flow and their plain versions.
+"""The hand-written CUDA kernels of the flow and their plain versions.
 
 K2, ``made_rqs_forward``: the whole NSF transform stack data -> latent in
-one launch (every MADE pass, spline forward and log-det), with an
-``autograd.Function`` whose backward recomputes through the plain version.
-Source: ``csrc/made_rqs_forward.cu``; it replaces the JAX package's Pallas
-MADE kernel (``pocomc_tpu/ops/pallas_kernels.py`` ``_made_kernel``, deleted
-in 246a898).
+one launch (every MADE pass, spline forward and log-det), and its gradient
+``made_rqs_backward``: one launch back through the stack from the layer
+inputs the forward saved, then the weight gradients as batched products of
+those inputs and the deltas it writes.
+``_MadeRqsForward`` joins the two as an ``autograd.Function``. Sources:
+``csrc/made_rqs_forward.cu``, ``csrc/made_rqs_backward.cu`` (with
+``made_tile.cuh``); they replace the JAX package's Pallas MADE kernel
+(``pocomc_tpu/ops/pallas_kernels.py`` ``_made_kernel``, deleted in 246a898)
+and the XLA gradient of its training loss.
 
 K1, ``ar_inverse``: the autoregressive inverse of the whole stack latent ->
 data in one launch. Source: ``csrc/ar_inverse.cu``; it replaces the JAX
 package's round-2 fused whole-transform inverse (specified in RESULTS.md
 "Pallas postmortem" and ``pocomc_tpu/models/flow.py:170-184``).
 
-Both take the MADE weights ALREADY multiplied by their masks, stacked over
+All take the MADE weights ALREADY multiplied by their masks, stacked over
 transforms: ``ws[l]`` of shape (T, fan_in, fan_out) and ``bs[l]`` of shape
 (T, fan_out) for the four layers d -> h -> h -> h -> d*23.
 
@@ -29,7 +33,7 @@ import functools
 import torch
 
 from ..models import transforms as tr
-from ..models.made import apply_made, apply_made_dim
+from ..models.made import apply_made_dim
 from . import _build
 
 BINS = 8
@@ -42,16 +46,70 @@ _MAX_SMEM = 227 * 1024
 # plain versions
 # ---------------------------------------------------------------------------
 
-def made_rqs_forward_ref(y, ws, bs):
-    """Plain forward of the transform stack: y (n, d) -> (z, ladj)."""
+def _layer_inputs(w, b, x):
+    """The inputs of the four products of one MADE pass at x: x, relu(h0),
+    relu(h1) and relu(h2), the states of ``made.hidden_stack``."""
+    h = x @ w[0] + b[0]
+    acts = [x, torch.relu(h)]
+    for l in (1, 2):
+        h = h + (acts[-1] @ w[l] + b[l])
+        acts.append(torch.relu(h))
+    return acts
+
+
+def made_rqs_forward_ref(y, ws, bs, save_inputs=False):
+    """Plain forward of the transform stack: y (n, d) -> (z, ladj), plus,
+    when ``save_inputs``, the input of every layer's product in every
+    transform: [x_t (T, n, d), relu(h0), relu(h1), relu(h2) (T, n, h)]."""
     n, d = y.shape
     x = y
+    saved = [[] for _ in range(4)]
     ladj = torch.zeros(n, dtype=y.dtype, device=y.device)
     for t in range(ws[0].shape[0]):
-        p = apply_made([w[t] for w in ws], [b[t] for b in bs], x, d, N_PARAMS)
+        acts = _layer_inputs([w[t] for w in ws], [b[t] for b in bs], x)
+        for s, a in zip(saved, acts):
+            s.append(a)
+        p = (acts[3] @ ws[3][t] + bs[3][t]).reshape(n, d, N_PARAMS)
         x, l = tr.rqs_forward(x, p, BINS)
         ladj = ladj + l.sum(-1)
-    return x, ladj
+    return (x, ladj, [torch.stack(s) for s in saved]) if save_inputs else (x, ladj)
+
+
+def made_rqs_backward_ref(y, ws, bs, g_z, g_ladj, acts=None):
+    """Plain backward of the transform stack, with no autograd: the
+    gradients (g_y, g_ws, g_bs) of a loss L with dL/dz = g_z (n, d) and
+    dL/dladj = g_ladj (n,), for the input, the masked weights (T, fi, fo)
+    and the biases (T, fo). ``acts`` are the layer inputs that
+    ``made_rqs_forward_ref(..., save_inputs=True)`` returns (computed when
+    None). The same closed-form derivatives as the kernel
+    (``csrc/made_rqs_backward.cu``): transforms in reverse, each's spline
+    parameters from relu(h2), the spline's VJP, then delta @ W^T back
+    through the output layer, the residual layers (skip path plus ReLU
+    path, the ReLU's mask from the saved activations) and the input layer;
+    the weight gradients are A^T @ delta of each layer's input and output
+    delta, the bias gradients delta's row sums."""
+    n, d = y.shape
+    T = ws[0].shape[0]
+    if acts is None:
+        acts = made_rqs_forward_ref(y, ws, bs, save_inputs=True)[2]
+    g_ws = [torch.empty_like(w) for w in ws]
+    g_bs = [torch.empty_like(b) for b in bs]
+    g_l = g_ladj[:, None].expand(n, d)
+    g_x = g_z
+    for t in reversed(range(T)):
+        w = [a[t] for a in ws]
+        a = [s[t] for s in acts]
+        p = (a[3] @ w[3] + bs[3][t]).reshape(n, d, N_PARAMS)
+        g_dir, g_p = tr.rqs_forward_vjp(a[0], p, g_x, g_l, BINS)
+        g3 = g_p.reshape(n, d * N_PARAMS)
+        g2 = (g3 @ w[3].T) * (a[3] > 0)
+        g1 = g2 + (g2 @ w[2].T) * (a[2] > 0)
+        g0 = g1 + (g1 @ w[1].T) * (a[1] > 0)
+        g_x = g0 @ w[0].T + g_dir
+        for l, g in enumerate((g0, g1, g2, g3)):
+            g_ws[l][t] = a[l].T @ g
+            g_bs[l][t] = g.sum(0)
+    return g_x, g_ws, g_bs
 
 
 def ar_inverse_ref(z, ws, bs, inv_dim_orders):
@@ -105,11 +163,51 @@ def _check(x, ws, bs, name):
 
 
 def _launch_config(n, d, h):
-    """(particles per block, threads per block) for a launch."""
+    """(particles per block, threads per block) for a K1 launch."""
     tile = 16 if n >= 4096 else 8
     while tile > 1 and 4 * tile * (2 * d + 2 * h + N_PARAMS + 1) > _MAX_SMEM:
         tile //= 2
     return tile, (256 if h >= 128 else 128)
+
+
+@functools.lru_cache(maxsize=None)
+def _k2_config(n, d, h, backward):
+    """(P, G, SL) of a K2 launch: P particle rows a block, the largest of 16,
+    8, 4, 2 that still gives ~128 blocks (one per SM of the H100) and
+    leaves half of the shared memory to the weight ring; G whole dimensions
+    in a group of the output layer (made_tile.cuh); SL floats a ring stage
+    (a multiple of 4), enough for a whole layer where it fits. The forward
+    takes as many dimensions a group as half the shared memory holds (all
+    of them at d <= 50), so its output layer streams in chunks as wide as
+    a stage allows; the backward as many as fit one ring stage (at least
+    one), so one chunk serves both of its products. The floats per block
+    are those of ``made_rqs_*_smem_floats`` in the sources. Raises where a
+    stage cannot hold one column of a square layer: from h = 16384
+    (d > 2730), where the flow's weights, gradients and AdamW moments alone
+    pass the H100's 80 GB."""
+    limit = _MAX_SMEM // 4 - 4
+    state = (3 * d + 3 * h + 1) if backward else (d + 2 * h + 1)
+    P = 16
+    while P > 2 and -(-n // P) < 128:
+        P //= 2
+    while P > 1 and P * (state + N_PARAMS) > limit // 2:
+        P //= 2
+
+    def stage(g):
+        need = max(h * (d + 1), h * (h + 1), g * N_PARAMS * (h + 1))
+        return min(-(-need // 4) * 4, (limit - P * (state + g * N_PARAMS)) // 8 * 4)
+
+    if backward:
+        G = max(1, min(d, (limit - P * state) // (N_PARAMS * (2 * h + 2 + P))))
+        while G > 1 and G * N_PARAMS * (h + 1) > stage(G):
+            G -= 1
+    else:
+        G = max(1, min(d, (limit // 2 // P - state) // N_PARAMS))
+    SL = stage(G)
+    if SL < h + 1:
+        raise ValueError(f"made_rqs_{'backward' if backward else 'forward'}: d={d}, h={h} "
+                         f"needs more shared memory than a Hopper block has")
+    return P, G, SL
 
 
 _P = ctypes.c_void_p
@@ -117,9 +215,11 @@ _I = ctypes.c_int
 
 
 @functools.lru_cache(maxsize=None)
-def _entry(lib_name, fn_name, n_ptr_tail):
+def _entry(lib_name, fn_name, sig):
+    """The C entry point ``fn_name`` of ``csrc/<lib_name>.cu``; ``sig`` has
+    one letter an argument, P for a pointer and I for an int."""
     fn = getattr(_build.load(lib_name), fn_name)
-    fn.argtypes = [_P] * 3 + [_I] * 4 + [_P] * (8 + n_ptr_tail) + [_I] * 3 + [_P]
+    fn.argtypes = [_P if c == "P" else _I for c in sig]
     fn.restype = _I
     return fn
 
@@ -129,20 +229,61 @@ def _raise_if(err, name):
         raise RuntimeError(f"{name}: CUDA launch failed with cudaError {err}")
 
 
-def _launch_forward(y, ws, bs):
+def _stream(x):
+    return torch.cuda.current_stream(x.device).cuda_stream
+
+
+def _launch_forward(y, ws, bs, save_inputs=False):
     n, d, h, T = _check(y, ws, bs, "made_rqs_forward")
     z = torch.empty_like(y)
     ladj = torch.empty(n, dtype=y.dtype, device=y.device)
-    if n == 0:
-        return z, ladj
-    tile, threads = _launch_config(n, d, h)
-    fn = _entry("made_rqs_forward", "made_rqs_forward_launch", 0)
-    weights = [a.data_ptr() for pair in zip(ws, bs) for a in pair]
-    err = fn(y.data_ptr(), z.data_ptr(), ladj.data_ptr(), n, d, h, T, *weights,
-             tile, threads, y.device.index, torch.cuda.current_stream(y.device).cuda_stream)
-    _raise_if(err, "made_rqs_forward")
-    made_rqs_forward.launches += 1
-    return z, ladj
+    acts = ([torch.empty(T, n, k, dtype=y.dtype, device=y.device) for k in (d, h, h, h)]
+            if save_inputs else None)
+    if n > 0:
+        P, G, SL = _k2_config(n, d, h, backward=False)
+        fn = _entry("made_rqs_forward", "made_rqs_forward_launch", "PPPIIII" + "P" * 12 + "IIIIP")
+        weights = [a.data_ptr() for pair in zip(ws, bs) for a in pair]
+        saved = [a.data_ptr() for a in acts] if save_inputs else [None] * 4
+        err = fn(y.data_ptr(), z.data_ptr(), ladj.data_ptr(), n, d, h, T, *weights, *saved,
+                 P, G, SL, y.device.index, _stream(y))
+        _raise_if(err, "made_rqs_forward")
+        made_rqs_forward.launches += 1
+    return (z, ladj, acts) if save_inputs else (z, ladj)
+
+
+def _launch_backward(acts, ws, bs, g_z, g_ladj):
+    """K2's backward kernel, then the weight gradients A^T @ delta of the
+    saved layer inputs and its deltas with batched fp32 products over the T
+    transforms, and the bias gradients as row sums (TF32 is off, see the
+    package's __init__)."""
+    if len(acts) != 4:
+        raise ValueError(f"made_rqs_backward: expects the four saved layer inputs, "
+                         f"got {len(acts)}")
+    T, n, d = acts[0].shape
+    _, _, h, _ = _check(acts[0][0], ws, bs, "made_rqs_backward")
+    dev = acts[0].device
+    for name, a, shape in (("g_z", g_z, (n, d)), ("g_ladj", g_ladj, (n,)),
+                           *[(f"acts[{l}]", a, (T, n, d if l == 0 else h))
+                             for l, a in enumerate(acts)]):
+        if (a.dtype != torch.float32 or a.device != dev or tuple(a.shape) != shape
+                or not a.is_contiguous()):
+            raise ValueError(f"made_rqs_backward: {name} must be a contiguous float32 "
+                             f"{shape} tensor on {dev}")
+    g_y = torch.empty_like(g_z)
+    deltas = [torch.empty(T, n, w.shape[2], dtype=g_z.dtype, device=dev) for w in ws]
+    if n > 0:
+        P, G, SL = _k2_config(n, d, h, backward=True)
+        fn = _entry("made_rqs_backward", "made_rqs_backward_launch",
+                    "PPPPPPPIIII" + "P" * 12 + "IIIIP")
+        weights = [a.data_ptr() for pair in zip(ws, bs) for a in pair]
+        err = fn(*[a.data_ptr() for a in acts], g_z.data_ptr(), g_ladj.data_ptr(),
+                 g_y.data_ptr(), n, d, h, T, *weights, *[g.data_ptr() for g in deltas],
+                 P, G, SL, dev.index, _stream(g_z))
+        _raise_if(err, "made_rqs_backward")
+        made_rqs_backward.launches += 1
+    g_ws = [torch.bmm(a.transpose(1, 2), g) for a, g in zip(acts, deltas)]
+    g_bs = [g.sum(1) for g in deltas]
+    return g_y, g_ws, g_bs
 
 
 def _launch_inverse(z, ws, bs, inv_dim_orders):
@@ -157,55 +298,76 @@ def _launch_inverse(z, ws, bs, inv_dim_orders):
     if n == 0:
         return x, ladj
     tile, threads = _launch_config(n, d, h)
-    fn = _entry("ar_inverse", "ar_inverse_launch", 1)
+    fn = _entry("ar_inverse", "ar_inverse_launch", "PPPIIII" + "P" * 9 + "IIIP")
     weights = [a.data_ptr() for pair in zip(ws, bs) for a in pair]
     err = fn(z.data_ptr(), x.data_ptr(), ladj.data_ptr(), n, d, h, T, *weights,
-             inv_dim_orders.data_ptr(), tile, threads, z.device.index,
-             torch.cuda.current_stream(z.device).cuda_stream)
+             inv_dim_orders.data_ptr(), tile, threads, z.device.index, _stream(z))
     _raise_if(err, "ar_inverse")
     ar_inverse.launches += 1
     return x, ladj
 
 
 class _MadeRqsForward(torch.autograd.Function):
-    """K2 forward; the backward recomputes through the plain version (as
-    the Pallas ancestor's custom VJP re-ran XLA) and returns the input,
-    weight and bias gradients. Mask gradients follow through w * mask,
-    which the caller formed in torch."""
+    """K2 with its gradient: the forward kernel saves every layer's input,
+    the backward kernel takes them (``made_rqs_backward``). Mask gradients
+    follow through w * mask, which the caller formed in torch."""
 
     @staticmethod
     def forward(ctx, y, *layers):
-        ctx.save_for_backward(y, *layers)
-        return _launch_forward(y, layers[:4], layers[4:])
+        z, ladj, acts = _launch_forward(y, layers[:4], layers[4:], save_inputs=True)
+        ctx.save_for_backward(*acts, *layers)
+        return z, ladj
 
     @staticmethod
     def backward(ctx, g_z, g_ladj):
         saved = ctx.saved_tensors
-        with torch.enable_grad():
-            inp = [a.detach().requires_grad_(need)
-                   for a, need in zip(saved, ctx.needs_input_grad)]
-            z, ladj = made_rqs_forward_ref(inp[0], inp[1:5], inp[5:9])
-            wanted = [a for a in inp if a.requires_grad]
-            grads = iter(torch.autograd.grad((z, ladj), wanted, (g_z, g_ladj),
-                                             allow_unused=True))
-        return tuple(next(grads) if a.requires_grad else None for a in inp)
+        layers = saved[4:]
+        g_y, g_ws, g_bs = _launch_backward(saved[:4], layers[:4], layers[4:], g_z.contiguous(),
+                                           g_ladj.contiguous())
+        grads = [g_y, *g_ws, *g_bs]
+        return tuple(g if need else None for g, need in zip(grads, ctx.needs_input_grad))
 
 
 # ---------------------------------------------------------------------------
 # public wrappers
 # ---------------------------------------------------------------------------
 
-def made_rqs_forward(y, ws, bs):
-    """K2: (z, ladj) of the transform stack at y; ladj = log|det dz/dy|."""
+def made_rqs_forward(y, ws, bs, save_inputs=False):
+    """K2: (z, ladj) of the transform stack at y; ladj = log|det dz/dy|.
+    Differentiable on CUDA through the backward kernel. ``save_inputs``
+    also returns the input of every layer's product in every transform,
+    [x_t (T, n, d), relu(h0), relu(h1), relu(h2) (T, n, h)], which
+    ``made_rqs_backward`` takes (no gradient then)."""
     ws, bs = list(ws), list(bs)
     if y.device.type == "cpu":
         _check(y, ws, bs, "made_rqs_forward")
-        return made_rqs_forward_ref(y, ws, bs)
+        return made_rqs_forward_ref(y, ws, bs, save_inputs)
     if y.device.type != "cuda":
         raise ValueError(f"made_rqs_forward: unsupported device {y.device}")
-    if torch.is_grad_enabled() and any(a.requires_grad for a in [y, *ws, *bs]):
+    if (not save_inputs and torch.is_grad_enabled()
+            and any(a.requires_grad for a in [y, *ws, *bs])):
         return _MadeRqsForward.apply(y, *ws, *bs)
-    return _launch_forward(y, ws, bs)
+    with torch.no_grad():
+        return _launch_forward(y, ws, bs, save_inputs)
+
+
+def made_rqs_backward(y, ws, bs, g_z, g_ladj, acts=None):
+    """K2's backward: (g_y, g_ws, g_bs), the gradients of a loss with dL/dz
+    = g_z and dL/dladj = g_ladj with respect to y, the masked weights and
+    the biases. ``acts`` are the layer inputs that ``made_rqs_forward(...,
+    save_inputs=True)`` returns; the plain version computes them when None,
+    the CUDA route needs them."""
+    ws, bs = list(ws), list(bs)
+    if y.device.type == "cpu":
+        _check(y, ws, bs, "made_rqs_backward")
+        return made_rqs_backward_ref(y, ws, bs, g_z, g_ladj, acts)
+    if y.device.type != "cuda":
+        raise ValueError(f"made_rqs_backward: unsupported device {y.device}")
+    if acts is None:
+        raise ValueError("made_rqs_backward: on CUDA it takes acts, the layer inputs "
+                         "that made_rqs_forward(..., save_inputs=True) returns")
+    with torch.no_grad():
+        return _launch_backward(list(acts), ws, bs, g_z, g_ladj)
 
 
 def ar_inverse(z, ws, bs, inv_dim_orders):
@@ -222,4 +384,5 @@ def ar_inverse(z, ws, bs, inv_dim_orders):
 
 
 made_rqs_forward.launches = 0
+made_rqs_backward.launches = 0
 ar_inverse.launches = 0

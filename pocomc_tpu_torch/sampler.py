@@ -181,7 +181,8 @@ class Sampler:
         self.particles = Particles(self.n_active, self.n_dim)
         self.t = 0
 
-        self.flow = (Flow(self.n_dim, flow) if isinstance(flow, str) else flow).to(self.device)
+        self.flow = (Flow(self.n_dim, flow, device=self.device) if isinstance(flow, str)
+                     else flow.to(self.device))
         self.train_config = dict(validation_split=0.5, epochs=5000, batch_size=1024,
                                  patience=int(self.n_dim), learning_rate=1e-3,
                                  annealing=False, gaussian_scale=None,

@@ -177,7 +177,7 @@ def _flows():
                       ).astype(np.float32)
         layer["b"] = (0.05 * rng.standard_normal(layer["b"].shape)).astype(np.float32)
     jf.params = jax.device_put(params)
-    return jf, load_flow_params(Flow(D, "nsf3"), params), params, rng
+    return jf, load_flow_params(Flow(D, "nsf3", device="cpu"), params), params, rng
 
 
 def _fit_data(rng, n=512):
@@ -278,7 +278,7 @@ def _sweep_setup():
     params["stack"][-1]["w"] = (0.03 * rng.standard_normal(
         params["stack"][-1]["w"].shape)).astype(np.float32)
     jf.params = jax.device_put(params)
-    tf = load_flow_params(Flow(D, "nsf3"), params)
+    tf = load_flow_params(Flow(D, "nsf3", device="cpu"), params)
     x, ldj = js.inverse(jnp.asarray(u))
     start = [np.asarray(a) for a in (u, x, ldj, jlike(x), jlogp(x))]
     theta, _ = jf.forward(jnp.asarray(u))

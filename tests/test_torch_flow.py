@@ -159,7 +159,7 @@ def test_flow_matches_jax(d, arch, weights):
         params = jax.tree_util.tree_map(np.asarray, jax.device_get(jf.params))
     else:
         jf, params = random_flow_params(d, arch, seed=d)
-    tf = load_flow_params(Flow(d, arch), params)
+    tf = load_flow_params(Flow(d, arch, device="cpu"), params)
     rng = np.random.default_rng(7)
     x = (1.5 * rng.standard_normal((128, d))).astype(np.float32)
     with torch.no_grad():
@@ -191,7 +191,7 @@ def test_sample_logq_matches_log_prob():
     1e-3 (fp32 inverse then forward)."""
     d = 3
     _, params = random_flow_params(d, "nsf3", seed=11)
-    tf = load_flow_params(Flow(d, "nsf3"), params)
+    tf = load_flow_params(Flow(d, "nsf3", device="cpu"), params)
     g = torch.Generator().manual_seed(0)
     with torch.no_grad():
         x, logq = tf.sample(256, generator=g)
@@ -238,7 +238,7 @@ def test_kernel_wrappers_on_cpu_equal_plain_and_launch_nothing(which):
     launch counters do not move."""
     d = 4
     _, params = random_flow_params(d, "nsf3", seed=4)
-    tf = load_flow_params(Flow(d, "nsf3"), params)
+    tf = load_flow_params(Flow(d, "nsf3", device="cpu"), params)
     fp = tf.params()
     y = torch.randn(32, d, generator=torch.Generator().manual_seed(1))
     before = (fk.made_rqs_forward.launches, fk.ar_inverse.launches)
@@ -254,7 +254,7 @@ def test_kernel_wrappers_on_cpu_equal_plain_and_launch_nothing(which):
 
 
 def test_kernel_wrappers_reject_bad_inputs():
-    tf = Flow(3, "nsf3")
+    tf = Flow(3, "nsf3", device="cpu")
     fp = tf.params()
     with torch.no_grad():
         with pytest.raises(TypeError):
@@ -270,7 +270,7 @@ def test_kernel_wrappers_reject_bad_inputs():
 def test_unported_flow_kinds_raise():
     for arch in ("maf6", "nsfc6"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
-            Flow(4, arch)
+            Flow(4, arch, device="cpu")
 
 
 def test_import_leaves_jax_out():

@@ -1,4 +1,4 @@
-"""The two CUDA kernels against their plain versions, on a card.
+"""The CUDA kernels against their plain versions, on a card.
 
 Marked ``gpu``: without a CUDA device every test here skips. On a machine
 with one, run ``python3 -m pytest tests/test_torch_gpu.py -q -m gpu --noconftest``.
@@ -21,7 +21,7 @@ def flow():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     rng = np.random.default_rng(0)
-    f = Flow(6, "nsf6").cuda()
+    f = Flow(6, "nsf6", device="cuda")
     with torch.no_grad():
         f.weights[-1].copy_(torch.from_numpy(0.03 * rng.standard_normal(f.weights[-1].shape)))
         for b in f.biases:
@@ -48,16 +48,88 @@ def test_kernels_match_plain(flow, n):
 
 
 def test_forward_gradients_match_plain_autograd(flow):
-    y = torch.randn(64, 6, device="cuda")
+    """K2's autograd.Function (the forward kernel, then the backward kernel
+    on the inputs it saved) against plain autograd of
+    ``made_rqs_forward_ref`` on the same y: the gradients of y and of every
+    parameter, elementwise within rtol 1e-4 and 1e-5 of the largest
+    gradient of the tensor (the two sum the rows and the chain in other
+    orders, so an element that is a small difference of large terms moves
+    by more than 1e-5 alone)."""
+    y = torch.randn(64, 6, device="cuda", generator=torch.Generator("cuda").manual_seed(64))
     grads = []
     for f in (fk.made_rqs_forward, fk.made_rqs_forward_ref):
         flow.zero_grad(set_to_none=True)
+        yy = y.clone().requires_grad_(True)
         fp = flow.params()
-        z, l = f(y, fp.ws, fp.bs)
+        z, l = f(yy, fp.ws, fp.bs)
         (z.sum() + l.sum()).backward()
-        grads.append([p.grad.clone() for p in flow.parameters()])
+        grads.append([yy.grad] + [p.grad.clone() for p in flow.parameters()])
     for a, b in zip(*grads):
-        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5)
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5 * float(b.abs().max()))
+
+
+@pytest.mark.parametrize("n", [1, 37, 512])
+def test_backward_kernel_matches_plain(flow, n):
+    """K2's backward kernel (with the weight-gradient products) against
+    ``made_rqs_backward_ref`` on the same saved layer inputs, rows in the
+    tails and rows of zero upstream gradient included: to 1e-4 of the
+    largest gradient, as chip_smoke.py's TOL at d=10. The saved inputs
+    themselves match the plain forward's within 10x its value tolerance
+    (1e-4), as chip_smoke.py holds them: each sums the rounding of the
+    transforms before it (one reading: 2.2e-5 at the sixth transform's
+    input), where a wrong offset would be off by O(1)."""
+    g = torch.Generator("cuda").manual_seed(100 + n)
+    y = 1.5 * torch.randn(n, 6, device="cuda", generator=g)
+    y[::5, 0] = 6.0
+    g_z = torch.randn(n, 6, device="cuda", generator=g)
+    g_l = torch.randn(n, device="cuda", generator=g)
+    g_z[1::3] = 0.0
+    g_l[1::3] = 0.0
+    with torch.no_grad():
+        fp = flow.params()
+        _, _, acts = fk.made_rqs_forward(y, fp.ws, fp.bs, save_inputs=True)
+        for a, b in zip(acts, fk.made_rqs_forward_ref(y, fp.ws, fp.bs, save_inputs=True)[2]):
+            torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
+        before = fk.made_rqs_backward.launches
+        got = fk.made_rqs_backward(y, fp.ws, fp.bs, g_z, g_l, acts)
+        assert fk.made_rqs_backward.launches == before + 1
+        want = fk.made_rqs_backward_ref(y, fp.ws, fp.bs, g_z, g_l, acts)
+    for a, b in zip([got[0], *got[1], *got[2]], [want[0], *want[1], *want[2]]):
+        assert float((a - b).abs().max()) <= 1e-4 * (float(b.abs().max()) + 1e-30)
+    with pytest.raises(ValueError, match="acts"):
+        fk.made_rqs_backward(y, fp.ws, fp.bs, g_z, g_l)
+
+
+def test_k2_kernels_match_plain_at_h_4096():
+    """K2 at d=820, h=4096, where a tile state of d*23 spline parameters a
+    row no longer fit a block: the output layer runs one dimension at a
+    time in chunks of a few columns, and the backward streams each group
+    twice. Two transforms of random (unmasked) weights, 5 rows (a ragged
+    tile): z, ladj and the saved layer inputs within chip_smoke.py's d=50
+    tolerances, the backward on the saved inputs within 1e-3 of the largest
+    gradient."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    d, h, T, n = 820, 4096, 2, 5
+    g = torch.Generator("cuda").manual_seed(820)
+    sizes = [(d, h), (h, h), (h, h), (h, d * fk.N_PARAMS)]
+    ws = [torch.randn(T, k, m, device="cuda", generator=g) / k ** 0.5 for k, m in sizes]
+    ws[3].mul_(0.3)
+    bs = [0.1 * torch.randn(T, m, device="cuda", generator=g) for _, m in sizes]
+    y = torch.randn(n, d, device="cuda", generator=g)
+    g_z = torch.randn(n, d, device="cuda", generator=g)
+    g_l = torch.randn(n, device="cuda", generator=g)
+    with torch.no_grad():
+        z, l, acts = fk.made_rqs_forward(y, ws, bs, save_inputs=True)
+        z_r, l_r, acts_r = fk.made_rqs_forward_ref(y, ws, bs, save_inputs=True)
+        torch.testing.assert_close(z, z_r, rtol=1e-4, atol=1e-4)
+        torch.testing.assert_close(l, l_r, rtol=0, atol=2e-3)
+        for a, b in zip(acts, acts_r):
+            torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
+        got = fk.made_rqs_backward(y, ws, bs, g_z, g_l, acts)
+        want = fk.made_rqs_backward_ref(y, ws, bs, g_z, g_l, acts)
+    for a, b in zip([got[0], *got[1], *got[2]], [want[0], *want[1], *want[2]]):
+        assert float((a - b).abs().max()) <= 1e-3 * (float(b.abs().max()) + 1e-30)
 
 
 def test_cuda_inputs_are_checked(flow):
@@ -71,8 +143,9 @@ def test_cuda_inputs_are_checked(flow):
 
 def test_flow_fit_launches_k2_and_matches_plain(flow, monkeypatch):
     """The host fit's loss goes through K2 on CUDA: its value and gradients
-    match the plain forward's (rtol 1e-5 on the loss, 1e-4 of the largest
-    gradient), and ``Flow.fit`` raises K2's launch count."""
+    (the backward kernel) match plain autograd's (rtol 1e-5 on the loss,
+    1e-4 of the largest gradient), and ``Flow.fit`` raises the launch
+    counts of K2's forward and backward."""
     import pocomc_tpu_torch.models.flow as flow_mod
     rng = np.random.default_rng(1)
     u = rng.standard_normal((512, 6)).astype(np.float32)
@@ -89,10 +162,11 @@ def test_flow_fit_launches_k2_and_matches_plain(flow, monkeypatch):
     assert out[0][0] == pytest.approx(out[1][0], rel=1e-5)
     for gk, gr in zip(out[0][1], out[1][1]):
         assert float((gk - gr).abs().max()) <= 1e-4 * (float(gr.abs().max()) + 1e-30)
-    before = fk.made_rqs_forward.launches
+    before = (fk.made_rqs_forward.launches, fk.made_rqs_backward.launches)
     hist = flow.fit(u, weights=w, validation_split=0.5, epochs=3, batch_size=128,
                     patience=2, annealing=True, noise=0.05, seed=0)
-    assert fk.made_rqs_forward.launches > before
+    assert fk.made_rqs_forward.launches > before[0]
+    assert fk.made_rqs_backward.launches > before[1]
     assert np.isfinite(hist["loss"]).all()
 
 

@@ -66,7 +66,7 @@ def _setup():
     params["stack"][-1]["w"] = (0.03 * rng.standard_normal(
         params["stack"][-1]["w"].shape)).astype(np.float32)
     jf.params = jax.device_put(params)
-    tf = load_flow_params(Flow(D, "nsf3"), params)
+    tf = load_flow_params(Flow(D, "nsf3", device="cpu"), params)
 
     u = (0.5 * rng.standard_normal((N, D)) + 0.1).astype(np.float32)
     x, ldj = js.inverse(jnp.asarray(u))

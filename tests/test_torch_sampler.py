@@ -90,7 +90,7 @@ def test_train_phase_fits_and_keeps_input_on_nonfinite_loss():
     u[:, 1] = u[:, 1] + 0.5 * u[:, 0] ** 2
     w = torch.rand(512, generator=g)
     w = w / w.sum()
-    flow = Flow(D, "nsf3")
+    flow = Flow(D, "nsf3", device="cpu")
     with torch.no_grad():
         lp0 = (flow.log_prob(u) * w).sum()
     geom, stats = phases.train(flow, u, w, g, batch_size=128, epochs=20, patience=3)

@@ -11,15 +11,20 @@ Prints the card's name and power limit, then one JSON line per item:
   * for each seed, the device loop (torch likelihood, ``vectorize=True``)
     and then the black-box host loop (numpy per-row likelihood with a
     blob): logZ, k-hat, calls, wall, ``phase_seconds``, sweep steps,
-    training epochs and the launches of K2 (``made_rqs_forward``) and K1
-    (``ar_inverse``);
+    training epochs and the launches of K2's forward (``made_rqs_forward``)
+    and backward (``made_rqs_backward``) and of K1 (``ar_inverse``);
   * the seconds of ``mean_nn_distance`` (the ``noise`` scale of
     ``Flow.fit``) on ``--nn-rows`` x 10 rows;
   * milliseconds per sweep step at n=256, d=10, nsf6 over ``--steps``
     forced steps, in the order device, stepped, vectorised, vectorised,
     stepped, device: the device sweep (``TpcnSweep.run``), the stepped
     sweep with the per-row likelihood, and the stepped sweep with a
-    vectorised numpy likelihood (``run_stepped``).
+    vectorised numpy likelihood (``run_stepped``);
+  * a ``torch.profiler`` trace of ``--profile-steps`` training steps of
+    ``fit_stack`` (zero_grad, loss, backward, clip, AdamW) at d=10, nsf6,
+    batch 1024: host milliseconds a step, device kernels a step, the
+    device's busy share of the window (the union of its kernels' spans)
+    and the ops with the most device time.
 
 ``--device cpu`` with small ``--nn-rows``/``--steps`` and no seeds
 rehearses the script without a card.
@@ -66,8 +71,7 @@ def run_path(seed, path, device):
     else:
         s = pt.Sampler(prior, chip_smoke.rosenbrock_row, blobs_dtype=np.float64,
                        random_state=seed, device=device)
-    fk.made_rqs_forward.launches = 0
-    fk.ar_inverse.launches = 0
+    chip_smoke.reset_launches(fk)
     t0 = time.perf_counter()
     s.run(n_total=4096, n_evidence=4096, progress=False)
     sync(device)
@@ -77,7 +81,8 @@ def run_path(seed, path, device):
                 khat=s.evidence_khat, calls=s.calls, wall_s=wall, phase_s=s.phase_seconds,
                 steps=sum(r["steps"] for r in s._iter_stats),
                 epochs=sum(r["train_epochs"] or 0 for r in s._iter_stats),
-                k2=fk.made_rqs_forward.launches, k1=fk.ar_inverse.launches)
+                k2=fk.made_rqs_forward.launches, k2_backward=fk.made_rqs_backward.launches,
+                k1=fk.ar_inverse.launches)
 
 
 def noise_scale_ms(rows, device):
@@ -94,7 +99,7 @@ def noise_scale_ms(rows, device):
 def ms_per_step(n_steps, device):
     rng = np.random.default_rng(0)
     prior = pt.Prior([pt.Normal(0.0, 3.0) for _ in range(D)])
-    flow = Flow(D, "nsf6").to(device)
+    flow = Flow(D, "nsf6", device=device)
     scaler = pt.Reparameterize(D, bounds=np.array([[-np.inf, np.inf]] * D))
     scaler.fit(3.0 * rng.standard_normal((1024, D)))
     scp = scaler.whitening_params(device)
@@ -131,6 +136,52 @@ def ms_per_step(n_steps, device):
     return out
 
 
+def profile_fit_step(n_steps, device):
+    from torch.profiler import ProfilerActivity, profile
+    g = torch.Generator(device).manual_seed(0)
+    flow = Flow(D, "nsf6", device=device)
+    params = list(flow.parameters())
+    opt = torch.optim.AdamW(params, lr=1e-3)
+    xb = torch.randn(1024, D, device=device, generator=g)
+    wb = torch.rand(1024, device=device, generator=g)
+
+    def step():
+        opt.zero_grad(set_to_none=True)
+        loss = flow._loss_fn(xb, wb)
+        loss.backward()
+        torch.nn.utils.clip_grad_norm_(params, 1.0)
+        opt.step()
+
+    for _ in range(5):
+        step()
+    sync(device)
+    cuda = torch.device(device).type == "cuda"
+    acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else [])
+    with profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n_steps):
+            step()
+        sync(device)
+        wall = time.perf_counter() - t0
+    out = dict(steps=n_steps, host_ms_per_step=wall / n_steps * 1e3)
+    if not cuda:
+        return out
+    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    busy, end = 0.0, -1.0
+    for a, b in spans:
+        busy += max(0.0, b - max(a, end))
+        end = max(end, b)
+    top = sorted(((e.key, e.self_device_time_total / 1e3 / n_steps)
+                  for e in prof.key_averages() if e.self_device_time_total > 0),
+                 key=lambda kv: -kv[1])[:8]
+    out.update(device_kernels_per_step=len(spans) / n_steps,
+               device_busy_ms_per_step=busy / 1e3 / n_steps,
+               device_busy_share=busy / 1e3 / (wall * 1e3),
+               top_device_ms_per_step=top)
+    return out
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seeds", type=int, nargs="*", default=[1, 2])
@@ -138,6 +189,7 @@ def main():
     ap.add_argument("--nn-rows", type=int, default=16384)
     ap.add_argument("--steps", type=int, default=100)
     ap.add_argument("--skip-steps", action="store_true")
+    ap.add_argument("--profile-steps", type=int, default=20)
     args = ap.parse_args()
     if torch.device(args.device).type == "cuda":
         if not torch.cuda.is_available():
@@ -152,6 +204,9 @@ def main():
         print(json.dumps({f"noise_scale_{args.nn_rows}x{D}_ms":
                           noise_scale_ms(args.nn_rows, args.device)}), flush=True)
         print(json.dumps(dict(ms_per_step=ms_per_step(args.steps, args.device))), flush=True)
+    if args.profile_steps > 0:
+        print(json.dumps(dict(fit_step_profile=profile_fit_step(args.profile_steps,
+                                                                args.device))), flush=True)
 
 
 if __name__ == "__main__":

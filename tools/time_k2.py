@@ -1,0 +1,99 @@
+"""Time K2's forward and backward kernels of one checkout, on a CUDA card.
+
+    python3 tools/time_k2.py [CHECKOUT] [LABEL]
+
+CHECKOUT (default: the repository this script is in) is put first on the
+import path, so two versions of the kernels can be compared in one call to
+the card: unpack the other version with ``git archive`` into a directory
+that .gitignore lists and run old, new, new, old. Prints, per built
+library, its registers, spills and the count of generic loads (``LD.E``)
+in its SASS (cuobjdump from the CUDA toolkit), then one JSON line of
+device milliseconds (one call captured in a CUDA graph and replayed,
+median) of the forward, the forward that saves the layer inputs, and the
+backward, at nsf6, d=10 (n=256, 1024, 4096) and d=50 (n=4096).
+"""
+
+import json
+import os
+import shutil
+import statistics
+import subprocess
+import sys
+from pathlib import Path
+
+CHECKOUT = sys.argv[1] if len(sys.argv) > 1 else str(Path(__file__).resolve().parents[1])
+LABEL = sys.argv[2] if len(sys.argv) > 2 else "this"
+sys.path.insert(0, CHECKOUT)
+
+import numpy as np  # noqa: E402
+import torch  # noqa: E402
+
+
+def cuda_ms(fn, reps, warmup=3):
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def graph_ms(fn, reps):
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(2):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    return cuda_ms(graph.replay, reps, warmup=1)
+
+
+def main():
+    if not torch.cuda.is_available():
+        sys.exit("time_k2: needs a CUDA device")
+    from pocomc_tpu_torch.models.flow import Flow
+    from pocomc_tpu_torch.ops import _build
+    from pocomc_tpu_torch.ops import flow_kernels as fk
+    cuobjdump = shutil.which("cuobjdump") or os.path.join(
+        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    for name in ("made_rqs_forward", "made_rqs_backward"):
+        path, report = _build.build(name)
+        sass = subprocess.run([cuobjdump, "-sass", str(path)], capture_output=True, text=True)
+        print(json.dumps({"label": LABEL, "library": name,
+                          "ptxas": [l.strip() for l in report.splitlines()
+                                    if "registers" in l or "spill" in l],
+                          "generic_loads": sass.stdout.count("LD.E ")
+                          if sass.returncode == 0 else None}), flush=True)
+    out = {"label": LABEL}
+    for d, n in ((10, 256), (10, 1024), (10, 4096), (50, 4096)):
+        rng = np.random.default_rng(d)
+        flow = Flow(d, "nsf6", device="cuda")
+        with torch.no_grad():
+            w = flow.weights[-1]
+            w.copy_(torch.from_numpy(0.02 * rng.standard_normal(w.shape)))
+            fp = flow.params()
+            y = torch.from_numpy(rng.standard_normal((n, d)).astype(np.float32)).cuda()
+            g_z = torch.randn(n, d, device="cuda")
+            g_l = torch.randn(n, device="cuda")
+            saved = fk.made_rqs_forward(y, fp.ws, fp.bs, save_inputs=True)[2]
+            reps = 10 if d == 50 else 50
+            out[f"fwd_d{d}_n{n}"] = graph_ms(lambda: fk.made_rqs_forward(y, fp.ws, fp.bs), reps)
+            out[f"fwd_save_d{d}_n{n}"] = graph_ms(
+                lambda: fk.made_rqs_forward(y, fp.ws, fp.bs, save_inputs=True), reps)
+            out[f"bwd_d{d}_n{n}"] = graph_ms(
+                lambda: fk.made_rqs_backward(y, fp.ws, fp.bs, g_z, g_l, saved), reps)
+    print(json.dumps(out), flush=True)
+
+
+if __name__ == "__main__":
+    main()
