@@ -8,7 +8,8 @@ printing one JSON line:
   2. build: compiles the three CUDA libraries from ``pocomc_tpu_torch/csrc``
      (K2's forward and backward, K1), one nvcc each, all started together;
   3. K2 against its plain versions at nsf6, d=10 (n=37, 256, 1024, 4096)
-     and d=50/h=256 (n=4096): z, ladj and log_prob of the forward, and the
+     and d=50/h=256 (n=256, the sweep's population at any d, and 4096):
+     z, ladj and log_prob of the forward, and the
      layer inputs it saves for the backward; the gradients of the
      autograd.Function (forward kernel, then backward kernel), g_y
      included, against plain autograd of the plain forward on the same y,
@@ -23,7 +24,9 @@ printing one JSON line:
      shapes, plus the round trip forward(inverse(z)) = z;
   5. times of the three kernels and their plain versions: device time of
      one call (a CUDA graph of the call, replayed) and the time of an
-     eager call (CUDA events around it), medians after warmup; one
+     eager call (CUDA events around it), medians after warmup; K1's chain
+     (the device time of one call at n=1) and the eager time of building
+     its weight pack at d=10 and 50; one
      ``fit_stack`` batch step at d=10, batch 1024, on the kernel route
      and on plain autograd; the cost of the sweep's one scalar sync per
      step;
@@ -57,7 +60,7 @@ TRUE_LOGZ = -21.4021
 LOGZ_GATE = 0.35
 SEED = 0
 # (n_dim, n_particles) for the checks; nsf6 everywhere, h = max(next_pow2(3d), 32)
-SHAPES = [(10, 37), (10, 256), (10, 1024), (10, 4096), (50, 4096)]
+SHAPES = [(10, 37), (10, 256), (10, 1024), (10, 4096), (50, 256), (50, 4096)]
 # stated tolerances: rtol/atol on z and x, atol on ladj, and on gradients
 # max |diff| over max |grad| of each tensor. At d=10 the kernel and torch
 # sum the same ~1.5k terms per output in another order; at d=50 (h=256)
@@ -280,20 +283,24 @@ def bound(flops, nbytes):
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
-def made_bounds(n, d, h, T):
-    """Bounds of K2's forward, K2's backward and K1 at n rows: the masked
-    products' flops (the spline's arithmetic is left out) and each input
-    read and each output written once. The backward takes the saved layer
-    inputs, g_z, g_ladj and the weights, gives g_y and the weight and bias
+def made_bounds(n, flow):
+    """Bounds of K2's forward, K2's backward and K1 at n rows of the flow:
+    the flops of the products over the weights its MADE masks leave (the
+    mask sums of all transforms; the spline's arithmetic is left out), and
+    each input read and each output written once, the weights as those the
+    masks leave and the biases. K1 multiplies each of those weights once a
+    row, as the forward does. The backward takes the saved layer inputs,
+    g_z, g_ladj and the weights, gives g_y and the weight and bias
     gradients, and runs the output layer's product again, the products
     back through the four layers and the weight-gradient products."""
-    per_row = 2 * T * (d * h + 2 * h * h + h * 23 * d)
-    weights = 4 * T * (d * h + 2 * h * h + h * 23 * d + 3 * h + 23 * d)
-    return {"made_rqs_forward": bound(n * per_row, 4 * (2 * n * d + n) + weights),
-            "made_rqs_backward": bound(n * (2 * per_row + 2 * T * h * 23 * d),
+    d, h, T = flow.n_dim, flow.n_hidden, flow.n_transforms
+    macs = [int(m.sum()) for m in flow.masks]
+    total = sum(macs)
+    weights = 4 * (total + T * (3 * h + 23 * d))
+    return {"made_rqs_forward": bound(2 * n * total, 4 * (2 * n * d + n) + weights),
+            "made_rqs_backward": bound(n * (4 * total + 2 * macs[3]),
                                        4 * (T * n * (d + 3 * h) + 2 * n * d + n) + 2 * weights),
-            "ar_inverse": bound(n * 2 * T * d * (d * h + 2 * h * h + h * 23),
-                                4 * (2 * n * d + n + T * d) + weights)}
+            "ar_inverse": bound(2 * n * total, 4 * (2 * n * d + n + T * d) + weights)}
 
 
 def main():
@@ -440,6 +447,22 @@ def main():
                 row[f"{key}_ms"] = graph_ms(fn, reps)
                 row[f"{key}_call_ms"] = cuda_ms(fn, reps, warmup=1)
         times.append(row)
+    # K1's chain: one call at n=1, where nothing but the T*d dependent
+    # steps is left; and the weight pack it builds once per FlowParams
+    chain = {}
+    for d in sorted(flows):
+        fp = flows[d][0].params()
+        with torch.no_grad():
+            z1 = torch.zeros(1, d, device="cuda")
+            key = f"d{d}"
+            chain[f"k1_chain_ms_{key}"] = graph_ms(
+                lambda: fk.ar_inverse(z1, fp.ws, fp.bs, fp.inv_orders), 20)
+
+            def repack():
+                fp.ws[0]._k1_pack = None
+                fk.ar_inverse(z1, fp.ws, fp.bs, fp.inv_orders)
+
+            chain[f"k1_with_pack_call_ms_{key}"] = cuda_ms(repack, 20)
     # one fit_stack batch step (zero_grad, loss, backward, clip, AdamW) at
     # d=10, batch 1024, on the kernel route and on plain autograd
     import pocomc_tpu_torch.models.flow as flow_mod
@@ -470,7 +493,7 @@ def main():
         bool((flag + 1.0) > 0.0)
         syncs.append((time.perf_counter() - t0) * 1e6)
     emit("times", card=card, shapes=times, fit_step_ms=step_ms,
-         scalar_sync_us=statistics.median(syncs))
+         scalar_sync_us=statistics.median(syncs), **chain)
 
     # -- 6. main path --------------------------------------------------------
     def log_like(x):
@@ -549,7 +572,7 @@ def main():
     for name in KERNELS:
         n, key = at[name]
         row = next(r for r in times if r["d"] == 10 and r["n"] == n)
-        bound_ms, bound_by = made_bounds(n, 10, flow10.n_hidden, flow10.n_transforms)[name]
+        bound_ms, bound_by = made_bounds(n, flow10)[name]
         by_path = {"main_path": launches[name], "black_box": bb_launches[name]}
         line.append({"name": name, "route": "cuda", "source": sources[name][0],
                      "replaces": sources[name][1], "launches": sum(by_path.values()),
@@ -558,6 +581,8 @@ def main():
                      "call_ms": row[f"{key}_call_ms"],
                      "plain_call_ms": row[f"{key}_plain_call_ms"],
                      "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None})
+        if name == "ar_inverse":
+            line[-1]["chain_ms"] = chain["k1_chain_ms_d10"]
     print(json.dumps({"kernels": line}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

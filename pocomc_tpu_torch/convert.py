@@ -38,9 +38,14 @@ def load_flow_params(flow, params):
     return flow
 
 
-def tensors_from_jax(arrays, device=None):
-    """A flat dict of JAX arrays -> fp32 tensors: the geometry dict
-    (``pocomc_tpu/models/geometry.py:135-144``: normal_mean/cov/chol,
+def tensors_from_jax(arrays, device="cuda"):
+    """A flat dict of JAX arrays -> fp32 tensors on ``device``: the geometry
+    dict (``pocomc_tpu/models/geometry.py:135-144``: normal_mean/cov/chol,
     t_mean/cov/nu/chol/inv_cov) or the scaler's ``whitening_params()``
-    (mu/sigma, or mu/L/L_inv/log_det_L)."""
+    (mu/sigma, or mu/L/L_inv/log_det_L). The card by default, as ``Flow``
+    and ``Sampler``: without one it raises unless given ``device="cpu"``."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("tensors_from_jax(device='cuda') needs a CUDA device; pass "
+                           "device='cpu' for CPU tensors.")
     return {k: _tensor(v, device) for k, v in arrays.items()}

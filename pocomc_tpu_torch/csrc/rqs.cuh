@@ -1,8 +1,7 @@
 // Shared device code of the flow kernels: the 8-bin rational-quadratic
 // spline (spline setup, bin search, forward, its vector-Jacobian product,
-// inverse) for all three, and the masked dense layers of a MADE pass over a
-// particle tile that K1 (ar_inverse.cu) runs; K2's kernels have their own
-// staged products in made_tile.cuh.
+// inverse) for all three. The products are the kernels' own: K2's in
+// made_tile.cuh, K1's in ar_inverse.cu.
 //
 // The spline math follows pocomc_tpu/models/transforms.py term for term, in
 // fp32 with plain FMA arithmetic (no fast-math intrinsics): knots from a
@@ -233,11 +232,10 @@ __device__ __forceinline__ float rqs_forward_vjp(float x, float* p, float gy, fl
   return (x >= lo && x <= hi) ? g_xc : 0.0f;
 }
 
-// y -> x; *ladj = log|dx/dy|
-__device__ __forceinline__ float rqs_inverse(float y, const float* p, float* ladj) {
+// y -> x; *ladj = log|dx/dy|, from the spline's knots and derivatives
+__device__ __forceinline__ float rqs_inverse_knots(float y, const float* xk, const float* yk,
+                                                   const float* dv, float* ladj) {
   const float B = SPLINE_BOUND;
-  float xk[BINS + 1], yk[BINS + 1], dv[BINS + 1];
-  spline_setup(p, xk, yk, dv);
   const bool inside = (y > -B) && (y < B);
   const float yc = fminf(fmaxf(y, -B + 1e-6f), B - 1e-6f);
   const int i = spline_bin(yc, yk);
@@ -265,57 +263,11 @@ __device__ __forceinline__ float rqs_inverse(float y, const float* p, float* lad
   return inside ? x : y;
 }
 
-// One masked dense layer over a tile of P particle rows held in shared
-// memory: out[p, j] = sum_i act(in[p, i]) * W[i, col0 + j] + b[col0 + j]
-// for j < ncols, act = ReLU when RELU. W is row-major with leading
-// dimension ld and already multiplied by its MADE mask. Neighbouring
-// threads take neighbouring columns, so the weight reads of a warp are
-// coalesced and the activation read is a shared-memory broadcast.
-template <bool RELU>
-__device__ __forceinline__ void tile_dense(const float* in, int fi, const float* __restrict__ W,
-                                           int ld, const float* __restrict__ b, int col0,
-                                           int ncols, float* out, int P) {
-  for (int idx = threadIdx.x; idx < P * ncols; idx += blockDim.x) {
-    const int p = idx / ncols;
-    const int j = idx - p * ncols;
-    const float* a = in + p * fi;
-    const float* wc = W + col0 + j;
-    float acc = 0.0f;
-    for (int i = 0; i < fi; ++i) {
-      float v = a[i];
-      if (RELU) v = fmaxf(v, 0.0f);
-      acc = fmaf(v, __ldg(wc + (size_t)i * ld), acc);
-    }
-    out[idx] = acc + __ldg(b + col0 + j);
-  }
-}
-
-// Hidden stack of one MADE pass (pocomc_tpu/models/made.py _hidden_stack):
-// hs = x @ W0 + b0, then two residual layers hs += relu(hs) @ Wl + bl.
-// ts is scratch of the same size as hs. Ends synchronised.
-__device__ __forceinline__ void tile_hidden(const float* xs, int d, int h,
-                                            const float* __restrict__ w0,
-                                            const float* __restrict__ b0,
-                                            const float* __restrict__ w1,
-                                            const float* __restrict__ b1,
-                                            const float* __restrict__ w2,
-                                            const float* __restrict__ b2, float* hs,
-                                            float* ts, int P) {
-  tile_dense<false>(xs, d, w0, h, b0, 0, h, hs, P);
-  __syncthreads();
-  const float* wl[2] = {w1, w2};
-  const float* bl[2] = {b1, b2};
-  for (int l = 0; l < 2; ++l) {
-    tile_dense<true>(hs, h, wl[l], h, bl[l], 0, h, ts, P);
-    __syncthreads();
-    for (int idx = threadIdx.x; idx < P * h; idx += blockDim.x) hs[idx] += ts[idx];
-    __syncthreads();
-  }
-}
-
-// shared-memory floats of one block of either kernel
-__host__ __device__ __forceinline__ int tile_smem_floats(int P, int d, int h) {
-  return P * (2 * d + 2 * h + NPARAMS + 1);
+// y -> x; *ladj = log|dx/dy|
+__device__ __forceinline__ float rqs_inverse(float y, const float* p, float* ladj) {
+  float xk[BINS + 1], yk[BINS + 1], dv[BINS + 1];
+  spline_setup(p, xk, yk, dv);
+  return rqs_inverse_knots(y, xk, yk, dv, ladj);
 }
 
 }  // namespace pocomc

@@ -12,7 +12,8 @@ those inputs and the deltas it writes.
 and the XLA gradient of its training loss.
 
 K1, ``ar_inverse``: the autoregressive inverse of the whole stack latent ->
-data in one launch. Source: ``csrc/ar_inverse.cu``; it replaces the JAX
+data in one launch, each hidden unit computed once, at the step where its
+degree makes it final. Source: ``csrc/ar_inverse.cu``; it replaces the JAX
 package's round-2 fused whole-transform inverse (specified in RESULTS.md
 "Pallas postmortem" and ``pocomc_tpu/models/flow.py:170-184``).
 
@@ -162,12 +163,44 @@ def _check(x, ws, bs, name):
     return n, d, h, T
 
 
+# K1's column group: one dimension's spline parameters (csrc/ar_inverse.cu GROUP)
+_K1_GROUP = 24
+# SMs of the H100
+_SMS = 132
+
+
 def _launch_config(n, d, h):
-    """(particles per block, threads per block) for a K1 launch."""
-    tile = 16 if n >= 4096 else 8
-    while tile > 1 and 4 * tile * (2 * d + 2 * h + N_PARAMS + 1) > _MAX_SMEM:
-        tile //= 2
-    return tile, (256 if h >= 128 else 128)
+    """K1's launch: (R, W, S, SL, blocks, smem bytes). A consumer warp owns
+    R rows (1, 2 or 4) for the whole chain, a block has W consumer warps
+    (1-8) and one producer warp, and the weight ring S stages (2-8) of SL
+    floats. R grows only once every SM has 4 warps of one row (n >= 1,056
+    for 2, 2,112 for 4), and W is the warp count over the 132 SMs, so the
+    sweep's n=256 runs 128 blocks of 2 warps and n=4096 128 blocks of 8
+    warps of 4 rows. A warp's state is R * (3h + 3d + 24) floats; the ring
+    takes the rest of the 227 KB, a stage up to one 24-column group with
+    all h fan-in rows (padded to 4), and at least 4,096 floats, so that at
+    small d a stage holds the groups of several steps. W, then R, halve
+    until a stage holds at least 33 rows of such a group; raises where one
+    row alone leaves less: from h = 16384 (d > 2730), as K2's launch
+    does."""
+    limit = _MAX_SMEM // 4 - 4 * 8  # floats, less the 2 x 8 mbarriers
+    row = 3 * h + 3 * d + _K1_GROUP
+    least = 33 * _K1_GROUP
+    R = 4 if n >= 16 * _SMS else (2 if n >= 8 * _SMS else 1)
+    W = min(8, max(1, round(-(-n // R) / _SMS)))
+    while limit - R * W * row < 2 * least:
+        if W > 1:
+            W //= 2
+        elif R > 1:
+            R //= 2
+        else:
+            raise ValueError(f"ar_inverse: d={d}, h={h} needs more shared memory than a "
+                             f"Hopper block has")
+    free = limit - R * W * row
+    SL = min(max(_K1_GROUP * (-(-h // 4) * 4 + 1), 4096), free // 2 // 4 * 4)
+    S = min(8, free // SL)
+    smem = 16 * S + 4 * (S * SL + R * W * row)
+    return R, W, S, SL, -(-n // (R * W)), smem
 
 
 @functools.lru_cache(maxsize=None)
@@ -286,6 +319,28 @@ def _launch_backward(acts, ws, bs, g_z, g_ladj):
     return g_y, g_ws, g_bs
 
 
+def _inverse_pack(ws, bs, inv_dim_orders, d, h, T):
+    """K1's weights in the order its steps read them (``pack_kernel`` in
+    ``csrc/ar_inverse.cu``), written on the device without a host sync and
+    kept on ``ws[0]``, the first masked weight of the caller's
+    ``FlowParams``: once per FlowParams, again only when one of its tensors
+    is replaced or changed in place (its version moves)."""
+    key = tuple((id(a), a._version) for a in (*ws, *bs, inv_dim_orders))
+    kept = getattr(ws[0], "_k1_pack", None)
+    if kept is not None and kept[0] == key:
+        return kept[1]
+    size = _build.load("ar_inverse").ar_inverse_pack_floats
+    size.argtypes, size.restype = [_I, _I, _I], ctypes.c_longlong
+    pack = torch.empty(size(d, h, T), dtype=torch.float32, device=ws[0].device)
+    fn = _entry("ar_inverse", "ar_inverse_pack_launch", "P" * 10 + "IIIIP")
+    weights = [a.data_ptr() for pair in zip(ws, bs) for a in pair]
+    err = fn(*weights, inv_dim_orders.data_ptr(), pack.data_ptr(), d, h, T,
+             ws[0].device.index, _stream(ws[0]))
+    _raise_if(err, "ar_inverse (pack)")
+    ws[0]._k1_pack = (key, pack)
+    return pack
+
+
 def _launch_inverse(z, ws, bs, inv_dim_orders):
     n, d, h, T = _check(z, ws, bs, "ar_inverse")
     if (inv_dim_orders.dtype != torch.int32 or inv_dim_orders.device != z.device
@@ -297,11 +352,11 @@ def _launch_inverse(z, ws, bs, inv_dim_orders):
     ladj = torch.empty(n, dtype=z.dtype, device=z.device)
     if n == 0:
         return x, ladj
-    tile, threads = _launch_config(n, d, h)
-    fn = _entry("ar_inverse", "ar_inverse_launch", "PPPIIII" + "P" * 9 + "IIIP")
-    weights = [a.data_ptr() for pair in zip(ws, bs) for a in pair]
-    err = fn(z.data_ptr(), x.data_ptr(), ladj.data_ptr(), n, d, h, T, *weights,
-             inv_dim_orders.data_ptr(), tile, threads, z.device.index, _stream(z))
+    R, W, S, SL, _, _ = _launch_config(n, d, h)
+    pack = _inverse_pack(ws, bs, inv_dim_orders, d, h, T)
+    fn = _entry("ar_inverse", "ar_inverse_launch", "PPPIIIIPPIIIIIP")
+    err = fn(z.data_ptr(), x.data_ptr(), ladj.data_ptr(), n, d, h, T, pack.data_ptr(),
+             inv_dim_orders.data_ptr(), R, W, S, SL, z.device.index, _stream(z))
     _raise_if(err, "ar_inverse")
     ar_inverse.launches += 1
     return x, ladj
@@ -371,7 +426,12 @@ def made_rqs_backward(y, ws, bs, g_z, g_ladj, acts=None):
 
 
 def ar_inverse(z, ws, bs, inv_dim_orders):
-    """K1: (x, ladj) of the autoregressive inverse; ladj = log|det dx/dz|."""
+    """K1: (x, ladj) of the autoregressive inverse; ladj = log|det dx/dz|.
+    ``inv_dim_orders[t]`` lists the dimensions of transform t by increasing
+    degree. Precondition: ``ws`` are the weights already multiplied by
+    ``made.make_masks``' masks for (d, h) and those degrees, as every
+    ``Flow``'s are. The kernel skips the terms those masks zero, so with
+    unmasked weights its result is not the plain version's."""
     ws, bs = list(ws), list(bs)
     if z.device.type == "cpu":
         _check(z, ws, bs, "ar_inverse")

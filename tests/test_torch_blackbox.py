@@ -289,7 +289,7 @@ def _sweep_setup():
                         flow_fwd=jf.kernel_fwd, flow_inv=jf.kernel_inv, **KNOBS)
     tsweep = TpcnSweep(ts, tlogp, make_loglike(lambda xx: -0.5 * ((xx - 0.5) ** 2 / 0.3).sum(-1)),
                        tf, D, STEPS, STEPS, **KNOBS)
-    return jsweep, tsweep, jf, tf, scp_j, tensors_from_jax(scp_j), geom, start, cut
+    return jsweep, tsweep, jf, tf, scp_j, tensors_from_jax(scp_j, device="cpu"), geom, start, cut
 
 
 def test_stepped_sweep_host_route_matches_device_and_jax():
@@ -337,7 +337,7 @@ def test_stepped_sweep_host_route_matches_device_and_jax():
         return st, acc
 
     tsweep.accept_update = recording_accept
-    geom_t, fp = tensors_from_jax(geom), tf.params()
+    geom_t, fp = tensors_from_jax(geom, device="cpu"), tf.params()
     args = (*map(t, start), beta, sigma0, geom_t, fp, scp_t, None)
     blobs0 = (start[1].astype(np.float32).astype(np.float64) ** 2).sum(1)
     with torch.no_grad():

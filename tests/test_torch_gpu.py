@@ -223,3 +223,90 @@ def test_host_route_sweep_launches_k1_and_matches_plain(flow):
     assert all(torch.equal(a, b) for a, b in zip(mc, mp))
     for name in ("u", "x", "logl", "logdetj"):
         torch.testing.assert_close(rc[name].cpu(), rp[name], rtol=1e-4, atol=1e-4)
+
+
+def _random_flow(d, seed):
+    """nsf6 on the card: the init's masked hidden layers, N(0, 0.02^2)
+    output weights and biases (chip_smoke.py's random_flow)."""
+    rng = np.random.default_rng(seed)
+    f = Flow(d, "nsf6", device="cuda")
+    with torch.no_grad():
+        f.weights[-1].copy_(torch.from_numpy(0.02 * rng.standard_normal(f.weights[-1].shape)))
+        for b in f.biases:
+            b.copy_(torch.from_numpy(0.02 * rng.standard_normal(b.shape)))
+    return f, rng
+
+
+@pytest.mark.parametrize("d,n,tol", [(2, 37, (1e-5, 1e-5, 1e-4)), (3, 37, (1e-5, 1e-5, 1e-4)),
+                                     (50, 256, (1e-4, 1e-4, 2e-3))])
+def test_k1_matches_plain(d, n, tol):
+    """K1 on the degree schedule against ``ar_inverse_ref`` where the
+    hidden units of a degree are many (d=2: all 32 of degree 1, two column
+    groups; d=3: 16 a degree) and at the sweep's population at d=50;
+    tolerances (rtol, atol on x, atol on the log-det) as chip_smoke.py's
+    TOL. The same inputs give the same bits twice."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    f, rng = _random_flow(d, d)
+    z = torch.from_numpy(rng.standard_normal((n, d)).astype(np.float32)).cuda()
+    with torch.no_grad():
+        fp = f.params()
+        before = fk.ar_inverse.launches
+        x, l = fk.ar_inverse(z, fp.ws, fp.bs, fp.inv_orders)
+        x2, l2 = fk.ar_inverse(z, fp.ws, fp.bs, fp.inv_orders)
+        assert fk.ar_inverse.launches == before + 2
+        x_r, l_r = fk.ar_inverse_ref(z, fp.ws, fp.bs, fp.inv_orders)
+    assert torch.equal(x, x2) and torch.equal(l, l2)
+    torch.testing.assert_close(x, x_r, rtol=tol[0], atol=tol[1])
+    torch.testing.assert_close(l, l_r, rtol=0, atol=tol[2])
+
+
+def test_k1_pack_follows_the_weights():
+    """K1 keeps its weight pack with the FlowParams: a second call reuses
+    it, and an in-place change of a weight is seen (the result is the
+    plain version's on the changed weights)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    f, rng = _random_flow(10, 1)
+    z = torch.from_numpy(rng.standard_normal((64, 10)).astype(np.float32)).cuda()
+    with torch.no_grad():
+        fp = f.params()
+        fk.ar_inverse(z, fp.ws, fp.bs, fp.inv_orders)
+        pack = fp.ws[0]._k1_pack[1]
+        fk.ar_inverse(z, fp.ws, fp.bs, fp.inv_orders)
+        assert fp.ws[0]._k1_pack[1] is pack
+        fp.ws[3].mul_(2.0)
+        x, l = fk.ar_inverse(z, fp.ws, fp.bs, fp.inv_orders)
+        assert fp.ws[0]._k1_pack[1] is not pack
+        x_r, l_r = fk.ar_inverse_ref(z, fp.ws, fp.bs, fp.inv_orders)
+    torch.testing.assert_close(x, x_r, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(l, l_r, rtol=0, atol=1e-4)
+
+
+def test_k1_matches_plain_at_h_4096():
+    """K1 at d=820, h=4096 on two transforms of random weights times the
+    masks of ``made.make_masks`` (orders 0..d-1 and reversed, as a Flow's):
+    a piece of a group is a chunk of its fan-in there, and one warp's row
+    state takes most of the block. 5 rows (a ragged block); tolerances as
+    chip_smoke.py's TOL at d=50."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from pocomc_tpu_torch.models import made
+    d, h, T, n = 820, 4096, 2, 5
+    rng = np.random.default_rng(820)
+    orders = [np.arange(d), np.arange(d)[::-1].copy()]
+    masks = [made.make_masks(made.make_degrees(d, o, [h] * 3), d, fk.N_PARAMS) for o in orders]
+    sizes = [(d, h), (h, h), (h, h), (h, d * fk.N_PARAMS)]
+    ws, bs = [], []
+    for l, (k, m) in enumerate(sizes):
+        scale = 0.02 if l == 3 else 1.0 / np.sqrt(k)
+        w = np.stack([scale * rng.standard_normal((k, m)) * masks[t][l] for t in range(T)])
+        ws.append(torch.from_numpy(w.astype(np.float32)).cuda())
+        bs.append(torch.from_numpy((0.02 * rng.standard_normal((T, m))).astype(np.float32)).cuda())
+    inv = torch.from_numpy(np.stack([np.argsort(o) for o in orders]).astype(np.int32)).cuda()
+    z = torch.from_numpy(rng.standard_normal((n, d)).astype(np.float32)).cuda()
+    with torch.no_grad():
+        x, l = fk.ar_inverse(z, ws, bs, inv)
+        x_r, l_r = fk.ar_inverse_ref(z, ws, bs, inv)
+    torch.testing.assert_close(x, x_r, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(l, l_r, rtol=0, atol=2e-3)

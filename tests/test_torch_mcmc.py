@@ -57,7 +57,7 @@ def _setup():
     js.fit(prior_x)
     ts.fit(prior_x)
     scp_j = js.whitening_params()
-    scp_t = tensors_from_jax(scp_j)
+    scp_t = tensors_from_jax(scp_j, device="cpu")
     jprior = jpc.Prior([jpc.Normal(0.0, 5.0)] * D)
     tprior = tpc.Prior([tpc.Normal(0.0, 5.0)] * D)
 
@@ -96,7 +96,7 @@ def test_tpcn_steps_match_jax_with_injected_draws():
     sj = jsweep.init_state(*map(jnp.asarray, start), jnp.float32(beta), jnp.float32(sigma0),
                            geom, key, flow_params=jf.params, scaler_params=scp_j,
                            dbeta=dbeta)
-    geom_t = tensors_from_jax(geom)
+    geom_t = tensors_from_jax(geom, device="cpu")
     with torch.no_grad():
         fp = tf.params()
         st = tsweep.init_state(*map(t, start), sigma0, geom_t, fp, dbeta=dbeta)
@@ -151,8 +151,8 @@ def test_sweep_runs_to_a_stop_on_cpu():
     _, tsweep, _, tf, _, scp_t, geom, start = _setup()
     g = torch.Generator().manual_seed(0)
     with torch.no_grad():
-        res = tsweep.run(*map(t, start), 0.6, 0.5, tensors_from_jax(geom), tf.params(),
-                         scp_t, g, dbeta=0.1)
+        res = tsweep.run(*map(t, start), 0.6, 0.5, tensors_from_jax(geom, device="cpu"),
+                         tf.params(), scp_t, g, dbeta=0.1)
     assert 1 <= res["steps"] <= 100
     assert int(res["calls"]) <= res["steps"] * N
     assert np.isfinite(res["logl"].numpy()).all()

@@ -61,7 +61,7 @@ def test_scaler_matches_jax(case, transform):
                             transform=transform)
     js.fit(x)
     ts.fit(x)
-    scp = tensors_from_jax(js.whitening_params())
+    scp = tensors_from_jax(js.whitening_params(), device="cpu")
     x32 = x.astype(np.float32)
     uj = js.forward(jnp.asarray(x32))
     ut = ts.forward(t(x32), params=scp)

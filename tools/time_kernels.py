@@ -1,6 +1,7 @@
-"""Time K2's forward and backward kernels of one checkout, on a CUDA card.
+"""Time the flow kernels (K2's forward and backward, K1) of one checkout,
+on a CUDA card.
 
-    python3 tools/time_k2.py [CHECKOUT] [LABEL]
+    python3 tools/time_kernels.py [CHECKOUT] [LABEL]
 
 CHECKOUT (default: the repository this script is in) is put first on the
 import path, so two versions of the kernels can be compared in one call to
@@ -10,7 +11,9 @@ library, its registers, spills and the count of generic loads (``LD.E``)
 in its SASS (cuobjdump from the CUDA toolkit), then one JSON line of
 device milliseconds (one call captured in a CUDA graph and replayed,
 median) of the forward, the forward that saves the layer inputs, and the
-backward, at nsf6, d=10 (n=256, 1024, 4096) and d=50 (n=4096).
+backward, at nsf6, d=10 (n=256, 1024, 4096) and d=50 (n=4096), and of K1
+at d=10 and 50 with n=256 (the sweep), 4096 (the evidence draws) and 1
+(its chain).
 """
 
 import json
@@ -60,13 +63,13 @@ def graph_ms(fn, reps):
 
 def main():
     if not torch.cuda.is_available():
-        sys.exit("time_k2: needs a CUDA device")
+        sys.exit("time_kernels: needs a CUDA device")
     from pocomc_tpu_torch.models.flow import Flow
     from pocomc_tpu_torch.ops import _build
     from pocomc_tpu_torch.ops import flow_kernels as fk
     cuobjdump = shutil.which("cuobjdump") or os.path.join(
         os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
-    for name in ("made_rqs_forward", "made_rqs_backward"):
+    for name in ("made_rqs_forward", "made_rqs_backward", "ar_inverse"):
         path, report = _build.build(name)
         sass = subprocess.run([cuobjdump, "-sass", str(path)], capture_output=True, text=True)
         print(json.dumps({"label": LABEL, "library": name,
@@ -75,7 +78,7 @@ def main():
                           "generic_loads": sass.stdout.count("LD.E ")
                           if sass.returncode == 0 else None}), flush=True)
     out = {"label": LABEL}
-    for d, n in ((10, 256), (10, 1024), (10, 4096), (50, 4096)):
+    for d, n in ((10, 1), (10, 256), (10, 1024), (10, 4096), (50, 1), (50, 256), (50, 4096)):
         rng = np.random.default_rng(d)
         flow = Flow(d, "nsf6", device="cuda")
         with torch.no_grad():
@@ -83,10 +86,14 @@ def main():
             w.copy_(torch.from_numpy(0.02 * rng.standard_normal(w.shape)))
             fp = flow.params()
             y = torch.from_numpy(rng.standard_normal((n, d)).astype(np.float32)).cuda()
+            reps = 10 if d == 50 else 50
+            out[f"k1_d{d}_n{n}"] = graph_ms(
+                lambda: fk.ar_inverse(y, fp.ws, fp.bs, fp.inv_orders), reps)
+            if n in (1, 256):
+                continue
             g_z = torch.randn(n, d, device="cuda")
             g_l = torch.randn(n, device="cuda")
             saved = fk.made_rqs_forward(y, fp.ws, fp.bs, save_inputs=True)[2]
-            reps = 10 if d == 50 else 50
             out[f"fwd_d{d}_n{n}"] = graph_ms(lambda: fk.made_rqs_forward(y, fp.ws, fp.bs), reps)
             out[f"fwd_save_d{d}_n{n}"] = graph_ms(
                 lambda: fk.made_rqs_forward(y, fp.ws, fp.bs, save_inputs=True), reps)
