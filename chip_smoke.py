@@ -7,8 +7,11 @@ printing one JSON line:
      versions, the TF32 flags (both must be off);
   2. build: compiles the three CUDA libraries from ``pocomc_tpu_torch/csrc``
      (K2's forward and backward, K1), one nvcc each, all started together;
-  3. K2 against its plain versions at nsf6, d=10 (n=37, 256, 1024, 4096)
-     and d=50/h=256 (n=256, the sweep's population at any d, and 4096):
+  3. K2 against its plain versions at nsf6, d=10 (n=37, 256, 1024, 2048,
+     4096) and d=50/h=256 (n=256, the sweep's population at any d, and
+     4096), and at nsf3 on phase 10's shapes: d=2 (n=256, the imh
+     mixture's population, and 2048, its flow-IS draws) and d=4 (n=128
+     and 512, the imh_every Gaussian's):
      z, ladj and log_prob of the forward, and the
      layer inputs it saves for the backward; the gradients of the
      autograd.Function (forward kernel, then backward kernel), g_y
@@ -21,7 +24,9 @@ printing one JSON line:
      rows in the spline tails (|y| >= 5), rows on a knot and rows of zero
      weight among the inputs;
   4. K1 (autoregressive inverse) against its plain version at the same
-     shapes, plus the round trip forward(inverse(z)) = z;
+     shapes (n=1024 and 2048: the bridge's ``bridge_n`` for n_active up to
+     512 and up to 1024; 2048 takes K1's two-row launch), plus the round
+     trip forward(inverse(z)) = z;
   5. times of the three kernels and their plain versions: device time of
      one call (a CUDA graph of the call, replayed) and the time of an
      eager call (CUDA events around it), medians after warmup; K1's chain
@@ -39,14 +44,32 @@ printing one JSON line:
      ``blobs_dtype=np.float64`` and every other setting at its default:
      the host SMC loop, ``Flow.fit`` and the stepped sweep. Checked against
      the same logZ gate, for launches of all three kernels, for a host
-     route and for blobs equal to the function of the returned x.
+     route and for blobs equal to the function of the returned x;
+  8. ``evidence_ladder_bridge``: phase 6's quickstart with
+     ``run(n_total=4096, n_evidence=0)``: the ladder-grade knobs
+     (corr_threshold = bias_floor = 0.15) in the sweep, then the
+     flow-anchored bridge on the device route, checked against the same
+     logZ gate, for its diagnostics and for K1 launches inside the bridge;
+  9. ``evidence_bridge_black_box``: phase 7's per-row numpy likelihood with
+     ``run(n_evidence=0)``: the bridge's host route, same checks
+     (corr_threshold 0.15; the bias-rate rule is off for a host
+     likelihood, so its floor is 0);
+ 10. ``flow_free_and_kernels``: ``precondition=False`` with ``tpcn`` and
+     ``rwm`` on the 6-D correlated Gaussian of tests/test_statistical.py
+     (its settings, ``n_evidence=0``, +-0.35), on the device loop and with
+     ``device_loop=False``; ``sample="imh"`` on tests/test_imh.py's bimodal
+     mixture (logZ +-0.3, mode mass +-0.1); ``imh_every=2`` on its 4-D
+     Gaussian (+-0.4, calls below 1.5x the run with ``imh_every=0``).
 
-Then the kernels line and, last, the contract line. Any failed check exits
-non-zero before those two lines. Without a CUDA device it exits 1.
+Every path (phases 6-10) runs with the launch counts set to 0 just before
+it and read just after. Then the kernels line and, last, the contract
+line. Any failed check exits non-zero before those two lines. Without a
+CUDA device it exits 1.
 """
 
 import copy
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -59,13 +82,18 @@ import torch
 TRUE_LOGZ = -21.4021
 LOGZ_GATE = 0.35
 SEED = 0
-# (n_dim, n_particles) for the checks; nsf6 everywhere, h = max(next_pow2(3d), 32)
-SHAPES = [(10, 37), (10, 256), (10, 1024), (10, 4096), (50, 256), (50, 4096)]
+# (flow, n_dim, n_particles) for the checks, h = max(next_pow2(3d), 32): nsf6
+# at the quickstart's d and a wide one, nsf3 at phase 10's
+SHAPES = [("nsf6", 10, 37), ("nsf6", 10, 256), ("nsf6", 10, 1024), ("nsf6", 10, 2048),
+          ("nsf6", 10, 4096), ("nsf6", 50, 256), ("nsf6", 50, 4096),
+          ("nsf3", 2, 256), ("nsf3", 2, 2048), ("nsf3", 4, 128), ("nsf3", 4, 512)]
+# the shapes phase 5 times
+TIMED = [(d, n) for flow, d, n in SHAPES if flow == "nsf6" and n != 37]
 # stated tolerances: rtol/atol on z and x, atol on ladj, and on gradients
 # max |diff| over max |grad| of each tensor. At d=10 the kernel and torch
 # sum the same ~1.5k terms per output in another order; at d=50 (h=256)
 # each output sums ~10x more terms and the inverse feeds each dimension's
-# rounding into the next 49 steps of 6 transforms.
+# rounding into the next 49 steps of 6 transforms. d=2 and 4 take d=10's.
 TOL = {10: dict(rtol=1e-5, atol=1e-5, ladj=1e-4, grad=1e-4),
        50: dict(rtol=1e-4, atol=1e-4, ladj=2e-3, grad=1e-3)}
 # the H100 SXM's published peaks:
@@ -101,6 +129,91 @@ def reset_launches(fk):
         getattr(fk, name).launches = 0
 
 
+def read_launches(fk):
+    return {name: getattr(fk, name).launches for name in KERNELS}
+
+
+def watch_bridge(sampler, fk):
+    """Wrap the sampler's bridge so that it records K1's launches inside
+    it and the sweep's decorrelation knobs the run used."""
+    real, seen = sampler._compute_bridge_evidence, {}
+
+    def counted():
+        before = fk.ar_inverse.launches
+        seen.update(corr_threshold=sampler._sweep.corr_threshold,
+                    bias_floor=sampler._sweep.bias_floor)
+        res = real()
+        seen["k1_launches"] = fk.ar_inverse.launches - before
+        return res
+
+    sampler._compute_bridge_evidence = counted
+    return seen
+
+
+def check_bridge(name, sampler, seen, bias_floor):
+    """Phase 8/9 gates: logZ, the bridge's diagnostics and calls, the
+    ladder-grade knobs (corr_threshold 0.15 and the given bias_floor: 0.15
+    with the bias-rate rule on, 0 for a host likelihood, where it is off)
+    and K1 inside the bridge. Returns the numbers to report."""
+    logz, dlogz = sampler.evidence()
+    bd = sampler.bridge_diagnostics
+    if bd is None:
+        fail(f"{name}: no bridge diagnostics")
+    ladder = float(sampler.particles.compute_logw_and_logz(1.0, recorrect=True)[1])
+    out = dict(logz=logz, dlogz=dlogz, true_logz=TRUE_LOGZ, ladder_logz=ladder,
+               rungs=bd["rungs"], bridge_calls=bd["calls"], ess_min=bd["ess_min"],
+               accept_last=bd["accept_last"], s_path=[float(v) for v in bd["s_path"]],
+               bridge_n=sampler.bridge_n, k1_launches_in_bridge=seen.get("k1_launches"),
+               corr_threshold=seen.get("corr_threshold"), bias_floor=seen.get("bias_floor"))
+    if not (bd["rungs"] >= 1 and bd["calls"] >= sampler.bridge_n):
+        fail(f"{name}: {bd['rungs']} rungs, {bd['calls']} bridge calls for bridge_n="
+             f"{sampler.bridge_n}")
+    if not seen.get("k1_launches"):
+        fail(f"{name}: K1 was not launched inside the bridge")
+    if not (seen.get("corr_threshold") == 0.15 and seen.get("bias_floor") == bias_floor):
+        fail(f"{name}: the sweep ran with corr_threshold {seen.get('corr_threshold')} and "
+             f"bias_floor {seen.get('bias_floor')}, not 0.15 and {bias_floor}")
+    if not (np.isfinite(logz) and abs(logz - TRUE_LOGZ) < LOGZ_GATE):
+        fail(f"{name}: logZ {logz} outside {TRUE_LOGZ} +- {LOGZ_GATE}")
+    if not (dlogz is not None and np.isfinite(dlogz)):
+        fail(f"{name}: no finite bridge error bar ({dlogz})")
+    return out
+
+
+def correlated_gaussian():
+    """tests/test_statistical.py:14-40: a 6-D Gaussian of condition number
+    100 under N(0, 25^2) priors, as a torch likelihood, and its logZ."""
+    from scipy.stats import multivariate_normal
+    d = 6
+    rng = np.random.default_rng(0)
+    q, _ = np.linalg.qr(rng.normal(size=(d, d)))
+    cov = (q * np.logspace(0, 2, d)) @ q.T
+    cov_inv = torch.tensor(np.linalg.inv(cov), dtype=torch.float32)
+    norm_const = float(-0.5 * (d * np.log(2 * np.pi) + np.linalg.slogdet(cov)[1]))
+
+    def log_like(x):
+        return norm_const - 0.5 * torch.einsum("ni,ij,nj->n", x, cov_inv.to(x), x)
+
+    truth = multivariate_normal.logpdf(np.zeros(d), np.zeros(d), cov + 625.0 * np.eye(d))
+    return log_like, d, truth
+
+
+def mixture(d=2, sep=4.0, sig=0.5, w1=0.6):
+    """tests/test_imh.py:14-30: a two-mode Gaussian mixture under N(0, 10^2)
+    priors, as a torch likelihood; its logZ and the mass of the mode at
+    +sep."""
+    c = d * math.log(math.sqrt(2 * math.pi) * sig)
+
+    def log_like(x):
+        l1 = -0.5 * ((x - sep) ** 2).sum(-1) / sig ** 2 - c
+        l2 = -0.5 * ((x + sep) ** 2).sum(-1) / sig ** 2 - c
+        return torch.logaddexp(l1 + math.log(w1), l2 + math.log(1.0 - w1))
+
+    var = sig ** 2 + 100.0
+    z = np.exp(-0.5 * d * sep ** 2 / var) / (2 * np.pi * var) ** (d / 2)
+    return log_like, np.log(z), w1
+
+
 def emit(phase, **kw):
     print(json.dumps({"phase": phase, **kw}), flush=True)
 
@@ -110,13 +223,13 @@ def fail(msg):
     sys.exit(1)
 
 
-def random_flow(d):
-    """nsf6 flow on the card with random non-zero weights from a numpy seed:
+def random_flow(name, d):
+    """A flow on the card with random non-zero weights from a numpy seed:
     init hidden layers, output layer and biases ~ N(0, 0.02^2), and a
     random whitening pre-layer."""
     from pocomc_tpu_torch.models.flow import Flow
     rng = np.random.default_rng(SEED + d)
-    flow = Flow(d, "nsf6", device="cuda")
+    flow = Flow(d, name, device="cuda")
     with torch.no_grad():
         for l, (w, b) in enumerate(zip(flow.weights, flow.biases)):
             if l == len(flow.weights) - 1:
@@ -346,10 +459,10 @@ def main():
     # -- 3./4. kernels against their plain versions ------------------------
     errs = dict.fromkeys(KERNELS, 0.0)
     checks = []
-    flows = {d: random_flow(d) for d in sorted({d for d, _ in SHAPES})}
-    for d, n in SHAPES:
-        flow, rng = flows[d]
-        tol = TOL[d]
+    flows = {(f, d): random_flow(f, d) for f, d in sorted({(f, d) for f, d, _ in SHAPES})}
+    for name, d, n in SHAPES:
+        flow, rng = flows[name, d]
+        tol = TOL[max(d, 10)]
         y = torch.from_numpy(rng.standard_normal((n, d)).astype(np.float32)).cuda()
         with torch.no_grad():
             fp = flow.params()
@@ -414,7 +527,7 @@ def main():
         errs["made_rqs_backward"] = max(errs["made_rqs_backward"],
                                         *[max_err(a, b) for a, b in zip(got, flat(g_ref))])
         errs["ar_inverse"] = max(errs["ar_inverse"], e_x, e_li)
-        checks.append(dict(d=d, n=n, tol=tol, k2_z=e_z, k2_ladj=e_l, k2_logprob=e_lp,
+        checks.append(dict(flow=name, d=d, n=n, tol=tol, k2_z=e_z, k2_ladj=e_l, k2_logprob=e_lp,
                            k2_saved_inputs=e_acts, k2_grad_rel_end_to_end=e_ge,
                            k2_grad_end_to_end_tol=e2e_tol, k2_grad_rel_cpu_vs_card=e_cpu,
                            k2_edge_rows=int(edge.sum()),
@@ -425,8 +538,8 @@ def main():
     # -- 5. times ------------------------------------------------------------
     # ms: device time of one call (graph replay); call_ms: one eager call
     times = []
-    for d, n in SHAPES[1:]:
-        flow, rng = flows[d]
+    for d, n in TIMED:
+        flow, rng = flows["nsf6", d]
         y, g_z, g_l = grad_problem(flow, d, n, rng)
         with torch.no_grad():
             fp = flow.params()
@@ -450,8 +563,8 @@ def main():
     # K1's chain: one call at n=1, where nothing but the T*d dependent
     # steps is left; and the weight pack it builds once per FlowParams
     chain = {}
-    for d in sorted(flows):
-        fp = flows[d][0].params()
+    for d in sorted({d for d, _ in TIMED}):
+        fp = flows["nsf6", d][0].params()
         with torch.no_grad():
             z1 = torch.zeros(1, d, device="cuda")
             key = f"d{d}"
@@ -468,7 +581,7 @@ def main():
     import pocomc_tpu_torch.models.flow as flow_mod
     step_ms = {}
     for route, forward in (("kernel", fk.made_rqs_forward), ("plain", fk.made_rqs_forward_ref)):
-        flow = copy.deepcopy(flows[10][0])
+        flow = copy.deepcopy(flows["nsf6", 10][0])
         params = list(flow.parameters())
         opt = torch.optim.AdamW(params, lr=1e-3)
         g = torch.Generator("cuda").manual_seed(SEED)
@@ -508,7 +621,7 @@ def main():
     sampler.run(n_total=4096, n_evidence=4096, progress=False)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {name: getattr(fk, name).launches for name in KERNELS}
+    launches = read_launches(fk)
     logz, dlogz = sampler.evidence()
     x, w, _, _ = sampler.posterior()
     steps = [s["steps"] for s in sampler._iter_stats]
@@ -534,7 +647,7 @@ def main():
     sampler.run(n_total=4096, n_evidence=4096, progress=False)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    bb_launches = {name: getattr(fk, name).launches for name in KERNELS}
+    bb_launches = read_launches(fk)
     logz, dlogz = sampler.evidence()
     x, w, _, _, blobs = sampler.posterior(return_blobs=True)
     steps = [s["steps"] for s in sampler._iter_stats]
@@ -556,10 +669,112 @@ def main():
         fail("black-box posterior samples are not finite (n, 10) arrays")
     if not np.allclose(blobs, np.sum(x * x, axis=1), rtol=1e-5, atol=0.0):
         fail("black-box blobs differ from sum(x^2) of the returned samples")
+    by_path = {"main_path": launches, "black_box": bb_launches}
+    k1_in_bridge = {}
+
+    # -- 8. run(n_evidence=0): the ladder-grade sweep, then the bridge -----
+    sampler = pt.Sampler(prior, log_like, vectorize=True, random_state=0, device="cuda")
+    seen = watch_bridge(sampler, fk)
+    reset_launches(fk)
+    t0 = time.perf_counter()
+    sampler.run(n_total=4096, n_evidence=0, progress=False)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    by_path["evidence_ladder_bridge"] = read_launches(fk)
+    out = check_bridge("evidence_ladder_bridge", sampler, seen, bias_floor=0.15)
+    k1_in_bridge["evidence_ladder_bridge"] = out["k1_launches_in_bridge"]
+    emit("evidence_ladder_bridge", card=card, **out, calls=sampler.calls,
+         iterations=sampler.t, wall_s=wall, phase_s=sampler.phase_seconds,
+         launches=by_path["evidence_ladder_bridge"])
+
+    # -- 9. the bridge's host route ------------------------------------------
+    like = TimedLikelihood(rosenbrock_row)
+    sampler = pt.Sampler(prior, like, blobs_dtype=np.float64, random_state=0, device="cuda")
+    seen = watch_bridge(sampler, fk)
+    reset_launches(fk)
+    t0 = time.perf_counter()
+    sampler.run(n_total=4096, n_evidence=0, progress=False)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    by_path["evidence_bridge_black_box"] = read_launches(fk)
+    if sampler.likelihood_traceable:
+        fail("evidence_bridge_black_box: the per-row numpy likelihood was routed to the device")
+    out = check_bridge("evidence_bridge_black_box", sampler, seen, bias_floor=0.0)
+    k1_in_bridge["evidence_bridge_black_box"] = out["k1_launches_in_bridge"]
+    emit("evidence_bridge_black_box", card=card, **out, route=sampler.likelihood_route,
+         calls=sampler.calls, likelihood_rows=like.rows, likelihood_s=like.seconds,
+         iterations=sampler.t, wall_s=wall, phase_s=sampler.phase_seconds,
+         launches=by_path["evidence_bridge_black_box"])
+
+    # -- 10. without the flow, and the rwm/imh kernels ---------------------
+    runs = []
+
+    def drive(label, prior_, like_, run_kw, **kw):
+        s = pt.Sampler(prior_, like_, vectorize=True, random_state=0, device="cuda", **kw)
+        reset_launches(fk)
+        t0 = time.perf_counter()
+        s.run(progress=False, **run_kw)
+        torch.cuda.synchronize()
+        row = dict(run=label, logz=s.logz, dlogz=s.logz_err, calls=s.calls,
+                   iterations=s.t, device_loop=s._use_device_loop(),
+                   wall_s=time.perf_counter() - t0, launches=read_launches(fk))
+        runs.append(row)
+        return s, row
+
+    cg_like, cg_d, cg_truth = correlated_gaussian()
+    cg_prior = pt.Prior([pt.Normal(0.0, 25.0) for _ in range(cg_d)])
+    for sample in ("tpcn", "rwm"):
+        for loop in ("auto", False):
+            label = f"precondition_false_{sample}_{'device' if loop == 'auto' else 'host'}_loop"
+            s, row = drive(label, cg_prior, cg_like, dict(n_total=1024, n_evidence=0),
+                           n_effective=512, n_active=256, precondition=False,
+                           sample=sample, device_loop=loop)
+            row["true_logz"] = cg_truth
+            if s._use_device_loop() != (loop == "auto"):
+                fail(f"{label}: took the wrong loop")
+            if not (np.isfinite(s.logz) and abs(s.logz - cg_truth) < 0.35):
+                fail(f"{label}: logZ {s.logz} outside {cg_truth} +- 0.35")
+            if any(row["launches"].values()):
+                fail(f"{label}: a flow kernel ran without the flow: {row['launches']}")
+    mx_like, mx_truth, mx_mass = mixture()
+    s, row = drive("imh_mixture", pt.Prior([pt.Normal(0.0, 10.0) for _ in range(2)]), mx_like,
+                   dict(n_total=1024, n_evidence=2048), n_effective=512, n_active=256,
+                   sample="imh", flow="nsf3", train_config=dict(epochs=60, patience=8))
+    xs, ws, _, _ = s.posterior()
+    row.update(true_logz=mx_truth, mode_mass=float(ws[xs[:, 0] > 0].sum() / ws.sum()),
+               true_mode_mass=mx_mass)
+    by_path["imh_mixture"] = row["launches"]
+    if not (np.isfinite(s.logz) and abs(s.logz - mx_truth) < 0.3):
+        fail(f"imh_mixture: logZ {s.logz} outside {mx_truth} +- 0.3")
+    if not abs(row["mode_mass"] - mx_mass) < 0.1:
+        fail(f"imh_mixture: mode mass {row['mode_mass']} outside {mx_mass} +- 0.1")
+    g_truth = 4 * (-0.5 * np.log(2 * np.pi * 26.0))
+    g_prior = pt.Prior([pt.Normal(0.0, 5.0) for _ in range(4)])
+
+    def g_like(x):
+        return -0.5 * (x * x).sum(-1) - 2.0 * math.log(2 * math.pi)
+
+    refresh_calls = {}
+    for ie in (0, 2):
+        s, row = drive(f"imh_every_{ie}", g_prior, g_like, dict(n_total=512, n_evidence=512),
+                       n_effective=256, n_active=128, imh_every=ie, corr_threshold=0.1,
+                       flow="nsf3", train_config=dict(epochs=40, patience=5))
+        row["true_logz"] = g_truth
+        refresh_calls[ie] = s.calls
+        by_path[f"imh_every_{ie}"] = row["launches"]
+        if not (np.isfinite(s.logz) and abs(s.logz - g_truth) < 0.4):
+            fail(f"imh_every={ie}: logZ {s.logz} outside {g_truth} +- 0.4")
+    if not refresh_calls[2] < 1.5 * refresh_calls[0]:
+        fail(f"imh_every=2 spent {refresh_calls[2]} calls, over 1.5x {refresh_calls[0]}")
+    emit("flow_free_and_kernels", card=card, runs=runs)
+    for name, counts in by_path.items():
+        if not all(counts.values()):
+            fail(f"a kernel of the {name} path was never launched: {counts}")
 
     # -- kernels line and contract line ------------------------------------
     # each kernel at the main path's shape: K2 forward and backward at the
-    # training batch (d=10, n=1024), K1 at the sweep population (n=256)
+    # training batch (d=10, n=1024), K1 at the sweep population (n=256);
+    # K1 also at the quickstart bridge's rows (bridge_n=1024)
     at = {"made_rqs_forward": (1024, "k2"), "made_rqs_backward": (1024, "k2_bwd"),
           "ar_inverse": (256, "k1")}
     sources = {"made_rqs_forward": ("pocomc_tpu_torch/csrc/made_rqs_forward.cu",
@@ -567,22 +782,27 @@ def main():
                "made_rqs_backward": ("pocomc_tpu_torch/csrc/made_rqs_backward.cu",
                                      "pocomc_tpu/ops/pallas_kernels.py:89"),
                "ar_inverse": ("pocomc_tpu_torch/csrc/ar_inverse.cu", "RESULTS.md:76")}
-    flow10 = flows[10][0]
+    flow10 = flows["nsf6", 10][0]
     line = []
     for name in KERNELS:
         n, key = at[name]
         row = next(r for r in times if r["d"] == 10 and r["n"] == n)
         bound_ms, bound_by = made_bounds(n, flow10)[name]
-        by_path = {"main_path": launches[name], "black_box": bb_launches[name]}
+        path_counts = {path: counts[name] for path, counts in by_path.items()}
         line.append({"name": name, "route": "cuda", "source": sources[name][0],
-                     "replaces": sources[name][1], "launches": sum(by_path.values()),
-                     "launches_by_path": by_path, "max_abs_err": errs[name],
+                     "replaces": sources[name][1], "launches": sum(path_counts.values()),
+                     "launches_by_path": path_counts, "max_abs_err": errs[name],
                      "ms": row[f"{key}_ms"], "plain_ms": row[f"{key}_plain_ms"],
                      "call_ms": row[f"{key}_call_ms"],
                      "plain_call_ms": row[f"{key}_plain_call_ms"],
                      "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None})
         if name == "ar_inverse":
-            line[-1]["chain_ms"] = chain["k1_chain_ms_d10"]
+            bridge_row = next(r for r in times if r["d"] == 10 and r["n"] == 1024)
+            line[-1].update(chain_ms=chain["k1_chain_ms_d10"],
+                            launches_in_bridge=k1_in_bridge,
+                            bridge_ms=bridge_row["k1_ms"],
+                            bridge_plain_ms=bridge_row["k1_plain_ms"],
+                            bridge_bound_ms=made_bounds(1024, flow10)[name][0])
     print(json.dumps({"kernels": line}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -1,23 +1,28 @@
-"""Adaptive t-preconditioned Crank-Nicolson (t-pCN) sweep through the flow.
+"""Adaptive MCMC sweeps over the active population: t-pCN, random-walk
+Metropolis and independence MH, with and without the flow.
 
-Counterpart of ``pocomc_tpu/mcmc.py`` for ``kind="tpcn"`` with flow
-preconditioning, the kernel the sampler's main path runs. Proposals,
-Student-t quadratic forms and Metropolis corrections are batched over the
-whole (n_active, d) population; the flow's inverse (K1) maps every
-proposal from the latent space back to the sampling space. Every stopping
-rule the defaults turn on is here: the plateau rule with its significance
-threshold ``plateau_z`` and floor ``plateau_floor``, the decorrelation
-target ``corr_threshold``, the equilibrium-drift test ``calib_z`` with its
-residual-hotness extrapolation, the bias-budget and bias-rate rules
-(``bias_budget``, ``bias_rate``/``bias_floor``), and the misfit-adaptive
-sigma cap.
+Counterpart of ``pocomc_tpu/mcmc.py`` ``make_sweep`` for ``kind`` in
+``"tpcn"``, ``"rwm"`` and ``"imh"``. Proposals, Student-t quadratic forms
+and Metropolis corrections are batched over the whole (n_active, d)
+population. ``preconditioned=True`` proposes in the flow's latent space and
+the flow's inverse (K1) maps every proposal back to the sampling space;
+``preconditioned=False`` proposes in the scaler's u space and never calls a
+flow. ``imh_every`` (preconditioned t-pCN only; inert elsewhere, as in the
+JAX package) makes every ``imh_every``-th step propose an independent draw
+from the flow's N(0, I) base, and masks the walkers such a refresh moved
+out of the drift windows. Every stopping rule the defaults turn on is
+here: the plateau rule with its significance threshold ``plateau_z`` and
+floor ``plateau_floor``, the decorrelation target ``corr_threshold``, the
+equilibrium-drift test ``calib_z`` with its residual-hotness
+extrapolation, the bias-budget and bias-rate rules (``bias_budget``,
+``bias_rate``/``bias_floor``), and t-pCN's misfit-adaptive sigma cap.
 
 The JAX ``lax.while_loop`` becomes a host loop: each step evaluates the
 stopping rule on the device and reads it with one scalar sync. The step
 counters ``i``/``i_snap`` are host integers (they depend on nothing but the
-step count). ``run_stepped`` is the same sweep with a host likelihood
-(the black-box path): the rule's flag rides in the transfer that brings
-each proposal to the host.
+step count), so the ``imh_every`` cadence is a host branch. ``run_stepped``
+is the same sweep with a host likelihood (the black-box path): the rule's
+flag rides in the transfer that brings each proposal to the host.
 
 The t-pCN correction is written ``-half * log1p(q / nu)``: the JAX form
 ``log(nu + q) - log(nu)`` cancels in f32 at the nu = 1e6 Gaussian-limit
@@ -39,6 +44,7 @@ CALIB_W = 6
 MIN_CALIB_N = 16
 _ACCEPT_TARGET = 0.234
 _SIGMA_CAP = 0.99
+KINDS = ("tpcn", "rwm", "imh")
 
 
 @dataclasses.dataclass
@@ -48,7 +54,7 @@ class SweepState:
     logdetj: torch.Tensor
     logl: torch.Tensor
     logp: torch.Tensor
-    theta: torch.Tensor          # flow-latent state
+    theta: torch.Tensor          # flow-latent state (zeros without the flow)
     logdetj_flow: torch.Tensor   # log|det du/dtheta| at the current state
     sigma: torch.Tensor
     mu: torch.Tensor
@@ -66,7 +72,9 @@ class SweepState:
     resid: torch.Tensor          # residual-hotness extrapolation
     z_logl: torch.Tensor
     z_dim: torch.Tensor
-    misfit: torch.Tensor         # std of log pi_v - log t_geom (nats)
+    misfit: torch.Tensor         # std of log pi_v - log t_geom (nats; tpcn)
+    fresh: torch.Tensor          # (n,) 1 once an independence refresh moved
+                                 # the walker in the current drift window
     dbeta: torch.Tensor          # current rung size (constant per sweep)
 
 
@@ -121,20 +129,41 @@ def _masked_var(logl):
     return torch.where(ok, (logl - m) ** 2, zero).sum() / nn
 
 
-class TpcnSweep:
-    """Adaptive preconditioned t-pCN sweep over the active population.
+def _half_sq_diff(v_prime, cur):
+    """log q(cur) - log q(v') of the N(0, I) independence proposal."""
+    return 0.5 * ((v_prime * v_prime).sum(-1) - (cur * cur).sum(-1))
 
-    ``flow`` supplies ``kernel_fwd(u, fp)`` / ``kernel_inv(theta, fp)``
-    (both report log|det du/dtheta|); ``fp`` is the flow's FlowParams
-    snapshot. ``log_like`` is ``make_loglike(fn)``; ``log_prior`` maps
-    (n, d) -> (n,)."""
+
+class Sweep:
+    """Adaptive sweep of ``kind`` ("tpcn", "rwm" or "imh") over the active
+    population.
+
+    With ``preconditioned`` the sweep moves in the latent space of
+    ``flow``, which supplies ``kernel_fwd(u, fp)`` / ``kernel_inv(theta,
+    fp)`` (both report log|det du/dtheta|); ``fp`` is the flow's FlowParams
+    snapshot. Without it ``flow`` may be None and ``fp`` is ignored.
+    ``log_like`` is ``make_loglike(fn)``; ``log_prior`` maps (n, d) ->
+    (n,). The geometry dict ``geom`` (``models.geometry.fit_geometry``)
+    gives t-pCN its Student-t fit and rwm its Cholesky ``normal_chol``."""
 
     def __init__(self, scaler, log_prior, log_like, flow, n_dim, n_steps, n_max,
+                 kind="tpcn", preconditioned=True, imh_every=0,
                  plateau_z=0.0, corr_threshold=0.0, calib_z=0.0,
                  bias_budget=0.0, bias_rate=0.0, bias_floor=0.0,
                  plateau_floor=4.0):
+        if kind not in KINDS:
+            raise ValueError(f"Invalid kernel kind {kind!r}")
+        if preconditioned and flow is None:
+            raise ValueError("a preconditioned sweep needs a flow")
+        if kind == "imh" and not preconditioned:
+            raise ValueError("kind='imh' proposes from the flow's latent base and "
+                             "requires preconditioning (precondition=True).")
         self.scaler, self.log_prior, self.log_like = scaler, log_prior, log_like
         self.flow = flow
+        self.kind, self.preconditioned = kind, bool(preconditioned)
+        # the refresh needs the flow latent: inert in plain space and for
+        # the other kinds (pocomc_tpu/mcmc.py:247-250)
+        self.imh_every = int(imh_every) if kind == "tpcn" and preconditioned else 0
         self.n_dim, self.n_steps, self.n_max = int(n_dim), n_steps, int(n_max)
         self.plateau_z, self.corr_threshold = plateau_z, corr_threshold
         self.calib_z, self.bias_budget = calib_z, bias_budget
@@ -145,85 +174,137 @@ class TpcnSweep:
     # -- pieces ------------------------------------------------------------
 
     def _to_x(self, v_prime, fp, scp):
-        """Latent proposal -> (u', x', logdetj', theta', logdetj_flow')."""
-        u_p, ldjf_p = self.flow.kernel_inv(v_prime, fp)
+        """Proposal -> (u', x', logdetj', theta', logdetj_flow')."""
+        if self.preconditioned:
+            theta_p = v_prime
+            u_p, ldjf_p = self.flow.kernel_inv(v_prime, fp)
+        else:
+            theta_p = torch.zeros_like(v_prime)
+            u_p = v_prime
+            ldjf_p = torch.zeros(v_prime.shape[0], dtype=v_prime.dtype,
+                                 device=v_prime.device)
         sc = self.scaler
         x_p, ldj_p = sc.inverse(u_p, params=scp)
         if sc.has_boundary:
             x_p = sc.apply_boundary_conditions_x(x_p)
             u_p = sc.forward(x_p, params=scp)
             x_p, ldj_p = sc.inverse(u_p, params=scp)
-        return u_p, x_p, ldj_p, v_prime, ldjf_p
+        return u_p, x_p, ldj_p, theta_p, ldjf_p
+
+    def _use_imh(self, st):
+        """True on the independence-refresh steps of the cadence."""
+        return self.imh_every > 0 and st.i % self.imh_every == self.imh_every - 1
 
     def init_state(self, u, x, logdetj, logl, logp, sigma0, geom, fp, dbeta=0.0):
-        theta0, ldjf0 = self.flow.kernel_fwd(u, fp)
-        dt = u.dtype
-        zero = torch.zeros((), dtype=dt, device=u.device)
+        dt, dev = u.dtype, u.device
+        if self.preconditioned:
+            theta0, ldjf0 = self.flow.kernel_fwd(u, fp)
+        else:
+            theta0 = torch.zeros_like(u)
+            ldjf0 = torch.zeros(u.shape[0], dtype=dt, device=dev)
+        sigma = torch.as_tensor(sigma0, dtype=dt, device=dev)
+        if self.kind == "tpcn":
+            sigma, mu = torch.clamp(sigma, max=_SIGMA_CAP), geom["t_mean"].to(dt)
+        else:
+            mu = torch.zeros(u.shape[1], dtype=dt, device=dev)
+        metric0 = logl + logp + (logdetj if self.kind == "rwm" else 0.0)
+        zero = torch.zeros((), dtype=dt, device=dev)
         return SweepState(
             u=u, x=x, logdetj=logdetj, logl=logl, logp=logp,
-            theta=theta0, logdetj_flow=ldjf0,
-            sigma=torch.clamp(torch.as_tensor(sigma0, dtype=dt, device=u.device),
-                              max=_SIGMA_CAP),
-            mu=geom["t_mean"].to(dt), i=0,
-            cnt=torch.zeros((), dtype=torch.int64, device=u.device),
-            logp2=(logl + logp).mean(),
-            calls=torch.zeros((), dtype=torch.int64, device=u.device),
-            accept=zero, v0=u, corr=torch.ones((), dtype=dt, device=u.device),
+            theta=theta0, logdetj_flow=ldjf0, sigma=sigma, mu=mu, i=0,
+            cnt=torch.zeros((), dtype=torch.int64, device=dev),
+            logp2=metric0.mean(),
+            calls=torch.zeros((), dtype=torch.int64, device=dev),
+            accept=zero, v0=u, corr=torch.ones((), dtype=dt, device=dev),
             u_snap=u, logl_snap=logl, i_snap=0, hot=zero, resid=zero,
             z_logl=zero, z_dim=zero, misfit=zero,
-            dbeta=torch.as_tensor(dbeta, dtype=dt, device=u.device))
+            fresh=torch.zeros(u.shape[0], dtype=dt, device=dev),
+            dbeta=torch.as_tensor(dbeta, dtype=dt, device=dev))
 
     def draw_noise(self, st, geom, generator):
-        """The step's random numbers: gamma mix g (n,), normals z (n, d)
-        and acceptance uniforms (n,)."""
+        """The step's random numbers: normals z (n, d) and acceptance
+        uniforms (n,); for t-pCN also the gamma mix g (n,), and on a
+        refresh step the base draw v_imh (n, d) (the local move is drawn
+        too, as in the JAX package)."""
         n, d = st.u.shape
-        alpha = (0.5 * (d + geom["t_nu"])).expand(n).contiguous()
-        return dict(g=torch._standard_gamma(alpha, generator=generator),
-                    z=torch.randn(n, d, generator=generator, device=st.u.device),
-                    unif=torch.rand(n, generator=generator, device=st.u.device))
+        dev = st.u.device
+        noise = {}
+        if self.kind == "tpcn":
+            alpha = (0.5 * (d + geom["t_nu"])).expand(n).contiguous()
+            noise["g"] = torch._standard_gamma(alpha, generator=generator)
+        noise["z"] = torch.randn(n, d, generator=generator, device=dev)
+        if self._use_imh(st):
+            noise["v_imh"] = torch.randn(n, d, generator=generator, device=dev)
+        noise["unif"] = torch.rand(n, generator=generator, device=dev)
+        return noise
 
     def propose(self, st, geom, fp, scp, noise):
         """Proposals and everything that needs no likelihood."""
-        inv_cov, t_chol, nu = geom["t_inv_cov"], geom["t_chol"], geom["t_nu"]
-        diff = st.theta - st.mu
-        q = _quadform(diff, inv_cov)
-        s = (nu + q) / (2.0 * noise["g"])
-        step = torch.sqrt(s)[:, None] * (noise["z"] @ t_chol.T)
-        v_prime = st.mu + torch.sqrt(1.0 - st.sigma ** 2) * diff + st.sigma * step
+        cur = st.theta if self.preconditioned else st.u
+        prop = {}
+        if self.kind == "tpcn":
+            inv_cov, t_chol, nu = geom["t_inv_cov"], geom["t_chol"], geom["t_nu"]
+            diff = cur - st.mu
+            prop["q"] = _quadform(diff, inv_cov)
+            s = (nu + prop["q"]) / (2.0 * noise["g"])
+            step = torch.sqrt(s)[:, None] * (noise["z"] @ t_chol.T)
+            v_prime = st.mu + torch.sqrt(1.0 - st.sigma ** 2) * diff + st.sigma * step
+            if self._use_imh(st):
+                v_prime = noise["v_imh"]
+                prop["corr"] = _half_sq_diff(v_prime, cur)
+            prop["qp"] = _quadform(v_prime - st.mu, inv_cov)
+        elif self.kind == "imh":
+            v_prime = noise["z"]
+            prop["corr"] = _half_sq_diff(v_prime, cur)
+        else:
+            v_prime = cur + st.sigma * (noise["z"] @ geom["normal_chol"].T)
         u_p, x_p, ldj_p, theta_p, ldjf_p = self._to_x(v_prime, fp, scp)
         finite = torch.isfinite(ldj_p) & torch.isfinite(x_p).all(1)
         x_safe = torch.where(finite[:, None], x_p, st.x)
         logp_p = torch.where(finite, self.log_prior(x_safe),
                              torch.full_like(ldj_p, -math.inf))
         finite = finite & torch.isfinite(logp_p)
-        return dict(u=u_p, x=x_p, x_safe=x_safe, logdetj=ldj_p, theta=theta_p,
-                    logdetj_flow=ldjf_p, logp=logp_p, finite=finite, q=q,
-                    qp=_quadform(v_prime - st.mu, inv_cov), unif=noise["unif"])
+        prop.update(u=u_p, x=x_p, x_safe=x_safe, logdetj=ldj_p, theta=theta_p,
+                    logdetj_flow=ldjf_p, logp=logp_p, finite=finite,
+                    unif=noise["unif"])
+        return prop
 
     def accept_update(self, st, prop, logl_p, beta, geom):
         """Metropolis accept + diminishing adaptation + stopping statistics.
         Returns (new_state, accept_mask)."""
-        nu = geom["t_nu"]
         n, d = st.u.shape
         i1 = float(st.i + 1)
+        use_imh = self._use_imh(st)
         calls = st.calls + prop["finite"].sum()
         log_ratio = (beta * (logl_p - st.logl) + (prop["logp"] - st.logp)
-                     + (prop["logdetj"] - st.logdetj)
-                     + (prop["logdetj_flow"] - st.logdetj_flow))
-        A = t_correction(prop["qp"], nu, d)
-        B = t_correction(prop["q"], nu, d)
-        log_ratio = log_ratio - A + B
-        # geometry-fit statistic for the adaptive sigma cap: std over the
-        # live population of log pi_v - log t_geom at the current positions
-        mis_vals = beta * st.logl + st.logp + st.logdetj + st.logdetj_flow - B
-        mis_ok = torch.isfinite(mis_vals)
-        mis_n = torch.clamp(mis_ok.sum(), min=1)
-        zero_n = torch.zeros_like(mis_vals)
-        mis_mean = torch.where(mis_ok, mis_vals, zero_n).sum() / mis_n
-        misfit = torch.sqrt(torch.where(mis_ok, (mis_vals - mis_mean) ** 2,
-                                        zero_n).sum() / mis_n)
-        loc = min(self.sqrt_d_scale, _SIGMA_CAP)
-        cap = loc + (_SIGMA_CAP - loc) * torch.exp(-0.5 * misfit ** 2)
+                     + (prop["logdetj"] - st.logdetj))
+        if self.preconditioned:
+            log_ratio = log_ratio + (prop["logdetj_flow"] - st.logdetj_flow)
+        misfit = st.misfit
+        if self.kind == "tpcn":
+            nu = geom["t_nu"]
+            B = t_correction(prop["q"], nu, d)
+            # a refresh step carries the N(0, I) proposal's correction in
+            # place of the t-pCN reversibility terms
+            if use_imh:
+                log_ratio = log_ratio + prop["corr"]
+            else:
+                log_ratio = log_ratio - t_correction(prop["qp"], nu, d) + B
+            # geometry-fit statistic for the adaptive sigma cap: std over
+            # the live population of log pi_v - log t_geom at the current
+            # positions
+            logpi_v = beta * st.logl + st.logp + st.logdetj
+            if self.preconditioned:
+                logpi_v = logpi_v + st.logdetj_flow
+            mis_vals = logpi_v - B
+            mis_ok = torch.isfinite(mis_vals)
+            mis_n = torch.clamp(mis_ok.sum(), min=1)
+            zero_n = torch.zeros_like(mis_vals)
+            mis_mean = torch.where(mis_ok, mis_vals, zero_n).sum() / mis_n
+            misfit = torch.sqrt(torch.where(mis_ok, (mis_vals - mis_mean) ** 2,
+                                            zero_n).sum() / mis_n).to(st.sigma.dtype)
+        elif self.kind == "imh":
+            log_ratio = log_ratio + prop["corr"]
 
         alpha = torch.clamp(torch.exp(log_ratio), max=1.0)
         alpha = torch.where(torch.isnan(alpha), torch.zeros_like(alpha), alpha)
@@ -241,11 +322,25 @@ class TpcnSweep:
         ldjf = sel(prop["logdetj_flow"], st.logdetj_flow)
 
         alpha_mean = alpha.mean()
-        sigma = torch.abs(torch.minimum(
-            st.sigma + (alpha_mean - _ACCEPT_TARGET) / i1 ** 0.75, cap))
-        mu = st.mu + (theta.mean(0) - st.mu) / i1
+        mu = st.mu
+        if self.kind == "tpcn":
+            loc = min(self.sqrt_d_scale, _SIGMA_CAP)
+            cap = loc + (_SIGMA_CAP - loc) * torch.exp(-0.5 * misfit ** 2)
+            # a refresh step's acceptance measures the flow, not the local
+            # scale, so it leaves sigma alone
+            sigma = (st.sigma if use_imh else torch.abs(torch.minimum(
+                st.sigma + (alpha_mean - _ACCEPT_TARGET) / i1 ** 0.75, cap)))
+            if self.preconditioned:
+                mu = st.mu + (theta.mean(0) - st.mu) / i1
+        elif self.kind == "imh":
+            sigma = st.sigma  # no proposal scale to adapt
+        else:
+            sigma = st.sigma + (alpha_mean - _ACCEPT_TARGET) / i1
+            if not self.preconditioned:
+                sigma = torch.abs(sigma)
 
-        vals = logl + logp
+        # plateau metric: rwm includes logdetj (pocomc_tpu/mcmc.py:642-645)
+        vals = logl + logp + (logdetj if self.kind == "rwm" else 0.0)
         metric = vals.mean()
         if self.plateau_z > 0.0:
             sem = vals.std(unbiased=False) / math.sqrt(n)
@@ -256,13 +351,17 @@ class TpcnSweep:
         logp2 = torch.maximum(st.logp2, metric)
         corr = _batch_corr(st.v0, u) if self.corr_threshold > 0.0 else st.corr
 
+        # an accepted refresh moved the walker by a fresh draw, not by local
+        # relaxation: it leaves the drift windows until the next close
+        fresh = (torch.maximum(st.fresh, accept.to(st.fresh.dtype)) if use_imh
+                 else st.fresh)
         new = dict(hot=st.hot, resid=st.resid, u_snap=st.u_snap,
                    logl_snap=st.logl_snap, i_snap=st.i_snap,
-                   z_logl=st.z_logl, z_dim=st.z_dim)
+                   z_logl=st.z_logl, z_dim=st.z_dim, fresh=fresh)
         if self.calib_z > 0.0 and (st.i + 1) - st.i_snap >= CALIB_W:
             # a drift window closed: paired per-walker drift tests of mean
             # logl and of per-dim first/second u moments
-            ok = torch.isfinite(logl) & torch.isfinite(st.logl_snap)
+            ok = torch.isfinite(logl) & torch.isfinite(st.logl_snap) & (fresh < 0.5)
             enough = ok.sum() >= min(MIN_CALIB_N, max(2, n // 8))
             nn = torch.clamp(ok.sum(), min=2).to(sigma.dtype)
             zero = torch.zeros_like(logl)
@@ -287,13 +386,14 @@ class TpcnSweep:
             Dr, rho = _paired_resid(ok, logl, st.logl_snap, nn)
             resid = torch.where(enough, Dr * rho / (1.0 - rho), torch.zeros_like(Dr))
             new = dict(hot=hot, resid=resid, u_snap=u, logl_snap=logl,
-                       i_snap=st.i + 1, z_logl=z_logl, z_dim=z_dim)
+                       i_snap=st.i + 1, z_logl=z_logl, z_dim=z_dim,
+                       fresh=torch.zeros_like(fresh))
 
         new_st = SweepState(
             u=u, x=x, logdetj=logdetj, logl=logl, logp=logp, theta=theta,
             logdetj_flow=ldjf, sigma=sigma, mu=mu, i=st.i + 1, cnt=cnt,
             logp2=logp2, calls=calls, accept=alpha_mean, v0=st.v0, corr=corr,
-            misfit=misfit.to(sigma.dtype), dbeta=st.dbeta, **new)
+            misfit=misfit, dbeta=st.dbeta, **new)
         return new_st, accept
 
     def keep_going(self, st) -> bool:
@@ -308,10 +408,17 @@ class TpcnSweep:
         """The device part of the stopping rule, a 0-d bool tensor (the
         step-count bounds are the host's, in ``keep_going``)."""
         ratio = self.sqrt_d_scale / st.sigma
-        thresh = torch.clamp(self.n_steps * ratio ** 2,
-                             min=min(float(self.n_steps), float(self.plateau_floor)))
+        if self.kind == "imh":
+            # sigma is not a random-walk scale here: no window stretch
+            thresh = torch.full_like(st.sigma, float(self.n_steps))
+        else:
+            if self.kind == "rwm" and self.preconditioned:
+                ratio = torch.clamp(ratio, max=1.0)
+            thresh = torch.clamp(self.n_steps * ratio ** 2,
+                                 min=min(float(self.n_steps), float(self.plateau_floor)))
         keep = st.cnt < thresh
-        scale = torch.clamp(ratio, max=1.0)
+        # t-pCN tightens its targets as sigma frees past the local scale
+        scale = torch.clamp(ratio, max=1.0) if self.kind == "tpcn" else 1.0
         if self.corr_threshold > 0.0:
             keep = keep | (st.corr > self.corr_threshold * scale)
             if self.bias_rate > 0.0:
@@ -330,7 +437,7 @@ class TpcnSweep:
         window when it holds >= 2 steps (``resid_exit``)."""
         if self.calib_z <= 0.0 or st.i - st.i_snap < 2:
             return st.resid
-        ok = torch.isfinite(st.logl) & torch.isfinite(st.logl_snap)
+        ok = torch.isfinite(st.logl) & torch.isfinite(st.logl_snap) & (st.fresh < 0.5)
         nn = torch.clamp(ok.sum(), min=2).to(st.sigma.dtype)
         D, rho = _paired_resid(ok, st.logl, st.logl_snap, nn)
         return D * rho / (1.0 - rho)

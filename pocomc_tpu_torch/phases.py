@@ -11,8 +11,10 @@ functions over a fixed-shape device history:
      zero-weight wrap padding, AdamW with global-norm clipping, best-params
      snapshot, early stop after int(1.5 * patience) stale epochs, rollback
      on a non-finite fit) and the proposal-geometry refit in latent space;
-  C. ``mutate``: resample, t-pCN sweep, history push and the beta = 1
-     termination metric.
+  C. ``mutate``: resample, the sweep (``mcmc.Sweep``), history push and
+     the beta = 1 termination metric; without the flow (``precondition=
+     False``) phase B does not run and phase C fits the u-space geometry
+     itself before it resamples.
 
 The JAX package runs each phase as one compiled program and pipelines them
 behind a remote link; here the host syncs once per iteration instead, so
@@ -214,13 +216,18 @@ def train(flow, u_sel, w_sel, generator, batch_size, validation_split=0.5,
     return geom, torch.tensor([float(ei), best_loss], device=dev)
 
 
-def mutate(hist, beta, logz, w_flat, sigma0, geom, fp, sweep, scp, generator,
-           n_active, resample="mult", metric="ess"):
+def mutate(hist, beta, logz, w_flat, u_sel, w_sel, sigma0, geom, fp, sweep, scp,
+           generator, n_active, resample="mult", metric="ess"):
     """Phase C: resample from the flat history weights, sweep, push the new
-    stage and compute the termination metric. Returns the stats vector
-    [accept, steps, calls, proposal_scale, metric_at_beta1, mean_logl_logp,
-    noop, corr, resid, hot, z_logl, z_dim, nu, misfit, resid_exit]."""
+    stage and compute the termination metric. A sweep without the flow
+    fits its u-space geometry here on phase A's set (u_sel, w_sel), every
+    iteration (``geom`` is ignored then); a preconditioned one
+    takes phase B's. Returns the stats vector [accept, steps, calls,
+    proposal_scale, metric_at_beta1, mean_logl_logp, noop, corr, resid,
+    hot, z_logl, z_dim, nu, misfit, resid_exit]."""
     T_max, n, d = hist.u.shape
+    if not sweep.preconditioned:
+        geom = fit_geometry(u_sel, w_sel, generator)
     resampler = (multinomial_resample_torch if resample == "mult"
                  else systematic_resample_torch)
     idx = resampler(n_active, w_flat, generator)

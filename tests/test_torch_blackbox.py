@@ -23,7 +23,7 @@ from pocomc_tpu.ops.weights import bisect_beta as j_bisect
 from pocomc_tpu.sampler import Sampler as JSampler
 import pocomc_tpu_torch as tpc
 from pocomc_tpu_torch.convert import load_flow_params, tensors_from_jax
-from pocomc_tpu_torch.mcmc import TpcnSweep, make_loglike
+from pocomc_tpu_torch.mcmc import Sweep, make_loglike
 from pocomc_tpu_torch.models.flow import Flow, _PlateauLR, mean_nn_distance
 from pocomc_tpu_torch.ops.weights import bisect_beta
 from pocomc_tpu_torch.sampler import Sampler
@@ -287,7 +287,7 @@ def _sweep_setup():
     jsweep = make_sweep(js, f32_precision(jlogp), make_loglike_device(jlike, True, True),
                         D, STEPS, STEPS, kind="tpcn", preconditioned=True,
                         flow_fwd=jf.kernel_fwd, flow_inv=jf.kernel_inv, **KNOBS)
-    tsweep = TpcnSweep(ts, tlogp, make_loglike(lambda xx: -0.5 * ((xx - 0.5) ** 2 / 0.3).sum(-1)),
+    tsweep = Sweep(ts, tlogp, make_loglike(lambda xx: -0.5 * ((xx - 0.5) ** 2 / 0.3).sum(-1)),
                        tf, D, STEPS, STEPS, **KNOBS)
     return jsweep, tsweep, jf, tf, scp_j, tensors_from_jax(scp_j, device="cpu"), geom, start, cut
 

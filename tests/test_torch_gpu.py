@@ -177,7 +177,7 @@ def test_host_route_sweep_launches_k1_and_matches_plain(flow):
     draws."""
     import copy
     import pocomc_tpu_torch as tpc
-    from pocomc_tpu_torch.mcmc import TpcnSweep
+    from pocomc_tpu_torch.mcmc import Sweep
     from pocomc_tpu_torch.models.geometry import fit_geometry
     d, n = 6, 256
     rng = np.random.default_rng(2)
@@ -195,7 +195,7 @@ def test_host_route_sweep_launches_k1_and_matches_plain(flow):
 
     runs = []
     for dev, f in (("cuda", flow), ("cpu", copy.deepcopy(flow).cpu())):
-        sweep = TpcnSweep(scaler, prior.logpdf, None, f, d, 6, 12)
+        sweep = Sweep(scaler, prior.logpdf, None, f, d, 6, 12)
         sweep.draw_noise = lambda st, geom, gen: {k: v.to(dev) for k, v in noise[st.i].items()}
         masks = []
         accept = sweep.accept_update
@@ -238,12 +238,14 @@ def _random_flow(d, seed):
 
 
 @pytest.mark.parametrize("d,n,tol", [(2, 37, (1e-5, 1e-5, 1e-4)), (3, 37, (1e-5, 1e-5, 1e-4)),
+                                     (10, 2048, (1e-5, 1e-5, 1e-4)),
                                      (50, 256, (1e-4, 1e-4, 2e-3))])
 def test_k1_matches_plain(d, n, tol):
     """K1 on the degree schedule against ``ar_inverse_ref`` where the
     hidden units of a degree are many (d=2: all 32 of degree 1, two column
-    groups; d=3: 16 a degree) and at the sweep's population at d=50;
-    tolerances (rtol, atol on x, atol on the log-det) as chip_smoke.py's
+    groups; d=3: 16 a degree), at the bridge's rows for n_active up to
+    1024 (d=10, n=2048: K1's two-row launch) and at the sweep's population
+    at d=50; tolerances (rtol, atol on x, atol on the log-det) as chip_smoke.py's
     TOL. The same inputs give the same bits twice."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
@@ -310,3 +312,42 @@ def test_k1_matches_plain_at_h_4096():
         x_r, l_r = fk.ar_inverse_ref(z, ws, bs, inv)
     torch.testing.assert_close(x, x_r, rtol=1e-4, atol=1e-4)
     torch.testing.assert_close(l, l_r, rtol=0, atol=2e-3)
+
+
+def test_bridge_rung_launches_k1_with_grad_off(flow):
+    """One bridge rung on the card, called with grad on and a FlowParams
+    inside the autograd graph: K1 launches in every step, no output
+    requires grad (K1 raises where a gradient is asked of it), and the
+    rung takes the same accept decisions as the plain versions on the CPU
+    given the same draws (states within 1e-4)."""
+    import copy
+    import pocomc_tpu_torch as tpc
+    from pocomc_tpu_torch import bridge
+    from pocomc_tpu_torch.mcmc import make_loglike
+    d, n, steps = 6, 1024, 3
+    rng = np.random.default_rng(4)
+    scaler = tpc.Reparameterize(d, bounds=np.array([[-np.inf, np.inf]] * d))
+    scaler.fit(3.0 * rng.standard_normal((1024, d)))
+    prior = tpc.Prior([tpc.Normal(0.0, 3.0)] * d)
+    g = torch.Generator().manual_seed(0)
+    theta = torch.randn(n, d, generator=g)
+    noise = bridge.draw_rung_noise(n, d, steps, g, "cpu")
+    outs = []
+    for dev, f in (("cuda", flow), ("cpu", copy.deepcopy(flow).cpu())):
+        init, rung = bridge.make_bridge_programs(
+            scaler, prior.logpdf, make_loglike(lambda x: -0.5 * ((x - 0.5) ** 2).sum(-1)), d,
+            f.kernel_inv, n_steps=steps)
+        fp = f.params()
+        assert fp.ws[0].requires_grad
+        scp = scaler.whitening_params(dev)
+        before = fk.ar_inverse.launches
+        fv, _ = init(theta.to(dev), fp, scp)
+        out = rung(theta.to(dev), fv, torch.tensor(0.9, device=dev), 0.4, 0.4,
+                   {k: v.to(dev) for k, v in noise.items()}, fp, scp)
+        assert not any(o.requires_grad for o in (fv, *out))
+        outs.append((out, fk.ar_inverse.launches - before))
+    (oc, kc), (op, kp) = outs
+    assert kc == steps + 1 and kp == 0
+    torch.testing.assert_close(oc[0].cpu(), op[0], rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(oc[1].cpu(), op[1], rtol=1e-4, atol=1e-4)
+    assert int(oc[4]) == int(op[4])

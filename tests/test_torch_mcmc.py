@@ -19,7 +19,7 @@ from pocomc_tpu.models.flow import Flow as JFlow
 from pocomc_tpu.models.geometry import _fit_geometry_impl
 import pocomc_tpu_torch as tpc
 from pocomc_tpu_torch.convert import load_flow_params, tensors_from_jax
-from pocomc_tpu_torch.mcmc import TpcnSweep, make_loglike, t_correction
+from pocomc_tpu_torch.mcmc import Sweep, make_loglike, t_correction
 from pocomc_tpu_torch.models.flow import Flow
 
 D, N, NU = 3, 64, 5.0
@@ -80,7 +80,7 @@ def _setup():
                         make_loglike_device(j_like, True, True), D, 1, 100,
                         kind="tpcn", preconditioned=True, flow_fwd=jf.kernel_fwd,
                         flow_inv=jf.kernel_inv, **KNOBS)
-    tsweep = TpcnSweep(ts, tprior.logpdf, make_loglike(t_like), tf, D, 1, 100, **KNOBS)
+    tsweep = Sweep(ts, tprior.logpdf, make_loglike(t_like), tf, D, 1, 100, **KNOBS)
     start = [np.asarray(a) for a in (u, x, ldj, logl, logp)]
     return jsweep, tsweep, jf, tf, scp_j, scp_t, geom, start
 

@@ -113,8 +113,8 @@ def test_train_phase_fits_and_keeps_input_on_nonfinite_loss():
 
 
 @pytest.mark.parametrize("kwargs,match", [
-    (dict(sample="rwm"), "rwm"),
-    (dict(precondition=False), "precondition"),
+    (dict(sample="mala"), "mala/hmc with a K1 backward"),
+    (dict(sample="hmc"), "mala/hmc with a K1 backward"),
     (dict(flow="maf6"), "maf"),
 ])
 def test_unported_paths_raise(kwargs, match):
@@ -159,8 +159,6 @@ def test_black_box_options_construct_and_route(kwargs, route, device_loop):
 
 def test_unported_run_options_raise():
     s = tpc.Sampler(prior(), gauss_like, **small())
-    with pytest.raises(NotImplementedError, match="bridge"):
-        s.run(n_total=256, n_evidence=0, progress=False)
     with pytest.raises(NotImplementedError, match="checkpoint"):
         s.run(n_total=256, save_every=2, progress=False)
 

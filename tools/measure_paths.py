@@ -17,7 +17,7 @@ Prints the card's name and power limit, then one JSON line per item:
     ``Flow.fit``) on ``--nn-rows`` x 10 rows;
   * milliseconds per sweep step at n=256, d=10, nsf6 over ``--steps``
     forced steps, in the order device, stepped, vectorised, vectorised,
-    stepped, device: the device sweep (``TpcnSweep.run``), the stepped
+    stepped, device: the device sweep (``Sweep.run``), the stepped
     sweep with the per-row likelihood, and the stepped sweep with a
     vectorised numpy likelihood (``run_stepped``);
   * a ``torch.profiler`` trace of ``--profile-steps`` training steps of
@@ -43,7 +43,7 @@ import torch
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import chip_smoke  # noqa: E402
 import pocomc_tpu_torch as pt  # noqa: E402
-from pocomc_tpu_torch.mcmc import TpcnSweep, make_loglike  # noqa: E402
+from pocomc_tpu_torch.mcmc import Sweep, make_loglike  # noqa: E402
 from pocomc_tpu_torch.models.flow import Flow, mean_nn_distance  # noqa: E402
 from pocomc_tpu_torch.models.geometry import fit_geometry  # noqa: E402
 from pocomc_tpu_torch.ops import flow_kernels as fk  # noqa: E402
@@ -119,7 +119,7 @@ def ms_per_step(n_steps, device):
         geom = fit_geometry(theta, torch.full((256,), 1.0 / 256, device=device),
                             torch.Generator(device).manual_seed(0))
         for route in ("device", "stepped", "stepped_vec", "stepped_vec", "stepped", "device"):
-            sweep = TpcnSweep(scaler, prior.logpdf, make_loglike(torch_like), flow, D,
+            sweep = Sweep(scaler, prior.logpdf, make_loglike(torch_like), flow, D,
                               n_steps, n_steps)
             sweep.keep_flag = lambda st: torch.ones((), dtype=torch.bool, device=device)
             args = (u, xs, ldj, torch_like(xs), prior.logpdf(xs), 0.5, 0.5, geom, fp, scp,
