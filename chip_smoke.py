@@ -59,9 +59,21 @@ printing one JSON line:
      (its settings, ``n_evidence=0``, +-0.35), on the device loop and with
      ``device_loop=False``; ``sample="imh"`` on tests/test_imh.py's bimodal
      mixture (logZ +-0.3, mode mass +-0.1); ``imh_every=2`` on its 4-D
-     Gaussian (+-0.4, calls below 1.5x the run with ``imh_every=0``).
+     Gaussian (+-0.4, calls below 1.5x the run with ``imh_every=0``);
+ 11. ``reference_surface``: a script written against the reference, on
+     phase 6's problem: (a) ``Prior([scipy.stats.norm(0, 3)] * 10)``, which
+     must repeat phase 6's logZ and calls bit for bit; (b) a prior in numpy
+     alone (``logpdf``/``rvs``/``bounds``/``dim``), which takes the host
+     route and the host loop, stays in the logZ gate, sees only finite
+     rows and launches all three kernels; (c) phase 6's run with
+     ``save_every=10``, which must repeat phase 6 bit for bit, then a
+     sampler of another ``random_state`` that resumes from the state saved
+     at t=20 (logZ in the gate, t >= the finished run's t - 2), and the
+     finished run through ``save_state``/``load_state`` (posterior,
+     evidence and the CUDA generator's state bit for bit). The states are
+     written under ``build/`` and removed.
 
-Every path (phases 6-10) runs with the launch counts set to 0 just before
+Every path (phases 6-11) runs with the launch counts set to 0 just before
 it and read just after. Then the kernels line and, last, the contract
 line. Any failed check exits non-zero before those two lines. Without a
 CUDA device it exits 1.
@@ -70,6 +82,7 @@ CUDA device it exits 1.
 import copy
 import json
 import math
+import shutil
 import statistics
 import subprocess
 import sys
@@ -212,6 +225,101 @@ def mixture(d=2, sep=4.0, sig=0.5, w1=0.6):
     var = sig ** 2 + 100.0
     z = np.exp(-0.5 * d * sep ** 2 / var) / (2 * np.pi * var) ** (d / 2)
     return log_like, np.log(z), w1
+
+
+class NumpyNormalPrior:
+    """Phase 11 (b)'s prior, N(0, sd) in every dimension in numpy alone (the
+    reference's duck-typed protocol); it fails on a non-finite row and
+    counts the rows and host seconds it spends."""
+
+    def __init__(self, dim, sd):
+        self.dim, self.sd = dim, sd
+        self.bounds = np.array([[-np.inf, np.inf]] * dim)
+        self.rows, self.seconds = 0, 0.0
+
+    def logpdf(self, x):
+        t0 = time.perf_counter()
+        if not (isinstance(x, np.ndarray) and np.isfinite(x).all()):
+            raise ValueError("the host prior was handed a non-finite row")
+        out = (-0.5 * np.sum((x / self.sd) ** 2, axis=1)
+               - self.dim * math.log(self.sd * math.sqrt(2 * math.pi)))
+        self.seconds += time.perf_counter() - t0
+        self.rows += len(x)
+        return out
+
+    def rvs(self, size, random_state=None):
+        return np.random.default_rng(random_state).normal(0.0, self.sd, (size, self.dim))
+
+
+def reference_surface(pt, fk, log_like, main, states, device="cuda", **kw):
+    """Phase 11 on phase 6's problem (see the module docstring): ``main``
+    holds phase 6's logz, calls and iterations, ``states`` is the
+    directory the states go to, ``kw`` the Sampler's settings beyond the
+    defaults. Returns (the numbers to report, launches by path); exits
+    through ``fail`` on a failed check."""
+    from scipy import stats
+
+    def drive(label, prior, run_kw, **skw):
+        s = pt.Sampler(prior, log_like, vectorize=True, device=device, **{**kw, **skw})
+        reset_launches(fk)
+        t0 = time.perf_counter()
+        s.run(progress=False, **run_kw)
+        if device == "cuda":
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches[label] = read_launches(fk)
+        rows[label] = dict(logz=s.logz, dlogz=s.logz_err, calls=s.calls, iterations=s.t,
+                           wall_s=wall, prior_route=s.prior_route,
+                           device_loop=s._use_device_loop(), phase_s=dict(s.phase_seconds),
+                           launches=launches[label])
+        return s
+
+    launches, rows = {}, {}
+    run_kw = dict(n_total=4096, n_evidence=4096)
+    d = 10
+    # (a) scipy.stats columns, converted: phase 6's run bit for bit
+    s = drive("scipy_prior", pt.Prior([stats.norm(0, 3)] * d), run_kw, random_state=0)
+    if not (s.prior_route == "device" and s._use_device_loop()):
+        fail("reference_surface (a): the scipy prior did not take the device loop")
+    if (s.logz, s.calls) != (main["logz"], main["calls"]):
+        fail(f"reference_surface (a): logZ {s.logz} and {s.calls} calls differ from "
+             f"phase 6's {main['logz']} and {main['calls']}")
+    # (b) a prior in numpy alone: the host route and the host loop
+    host_prior = NumpyNormalPrior(d, 3.0)
+    s = drive("host_prior", host_prior, run_kw, random_state=0)
+    rows["host_prior"].update(prior_rows=host_prior.rows, prior_s=host_prior.seconds)
+    if s.prior_route != "host" or s._use_device_loop():
+        fail("reference_surface (b): the numpy prior did not take the host route and loop")
+    if not (np.isfinite(s.logz) and abs(s.logz - TRUE_LOGZ) < LOGZ_GATE):
+        fail(f"reference_surface (b): logZ {s.logz} outside {TRUE_LOGZ} +- {LOGZ_GATE}")
+    # (c) save_every, a resume by a sampler of another seed, a round trip
+    shutil.rmtree(states, ignore_errors=True)
+    s = drive("save_every", pt.Prior([pt.Normal(0.0, 3.0)] * d), dict(run_kw, save_every=10),
+              random_state=0, output_dir=states)
+    if (s.logz, s.calls) != (main["logz"], main["calls"]):
+        fail(f"reference_surface (c): with save_every, logZ {s.logz} and {s.calls} calls "
+             f"differ from phase 6's {main['logz']} and {main['calls']}")
+    saved = sorted(p.name for p in states.glob("pmc_*.state"))
+    r = drive("resume", pt.Prior([pt.Normal(0.0, 3.0)] * d),
+              dict(run_kw, resume_state_path=states / "pmc_20.state"), random_state=1)
+    rows["resume"]["t_done"] = s.t
+    if not (np.isfinite(r.logz) and abs(r.logz - TRUE_LOGZ) < LOGZ_GATE and r.t >= s.t - 2):
+        fail(f"reference_surface (c): the resumed run ended at logZ {r.logz}, t={r.t} "
+             f"(gate {TRUE_LOGZ} +- {LOGZ_GATE}, t >= {s.t - 2})")
+    s.save_state(states / "done.state")
+    back = pt.Sampler(pt.Prior([pt.Normal(0.0, 3.0)] * d), log_like, vectorize=True,
+                      device=device, **{**kw, "random_state": 2})
+    back.load_state(states / "done.state")
+    same = (back.evidence() == s.evidence()
+            and all(np.array_equal(a, b) for a, b in zip(back.posterior(), s.posterior()))
+            and back._gen.device.type == s._gen.device.type
+            and torch.equal(back._gen.get_state(), s._gen.get_state()))
+    if not same:
+        fail("reference_surface (c): a finished run did not round-trip through "
+             "save_state/load_state bit for bit")
+    shutil.rmtree(states, ignore_errors=True)
+    return dict(runs=rows, states_saved=saved, roundtrip_bit_for_bit=same,
+                generator=s._gen.device.type), launches
 
 
 def emit(phase, **kw):
@@ -623,6 +731,7 @@ def main():
     wall = time.perf_counter() - t0
     launches = read_launches(fk)
     logz, dlogz = sampler.evidence()
+    main = dict(logz=logz, calls=sampler.calls, iterations=sampler.t)
     x, w, _, _ = sampler.posterior()
     steps = [s["steps"] for s in sampler._iter_stats]
     epochs = [s["train_epochs"] for s in sampler._iter_stats if s["train_epochs"]]
@@ -767,6 +876,12 @@ def main():
     if not refresh_calls[2] < 1.5 * refresh_calls[0]:
         fail(f"imh_every=2 spent {refresh_calls[2]} calls, over 1.5x {refresh_calls[0]}")
     emit("flow_free_and_kernels", card=card, runs=runs)
+
+    # -- 11. the reference surface: scipy and numpy priors, checkpoints -----
+    from pathlib import Path
+    out, paths = reference_surface(pt, fk, log_like, main, Path("build/chip_smoke_states"))
+    by_path.update({f"reference_{k}": v for k, v in paths.items()})
+    emit("reference_surface", card=card, phase6=main, **out)
     for name, counts in by_path.items():
         if not all(counts.values()):
             fail(f"a kernel of the {name} path was never launched: {counts}")

@@ -18,10 +18,14 @@ import torch
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 
-from .prior import Prior, Normal, Uniform  # noqa: E402
+from ._version import version, __version__  # noqa: E402
+from .prior import (Prior, Normal, Uniform, LogUniform, TruncatedNormal,  # noqa: E402
+                    LogNormal, Beta, Gamma, Exponential, HalfNormal, Cauchy,
+                    StudentT, Laplace)
 from .scaler import Reparameterize  # noqa: E402
 from .particles import Particles  # noqa: E402
 from .models.flow import Flow  # noqa: E402
+from .models.geometry import Geometry  # noqa: E402
 from .models.student import fit_mvstud  # noqa: E402
 from .sampler import Sampler  # noqa: E402
 from .parallel import MPIPool  # noqa: E402
@@ -29,10 +33,16 @@ from .ops.weights import (effective_sample_size, unique_sample_size,  # noqa: E4
                           compute_ess, increment_logz, trim_weights)
 from .ops.resampling import systematic_resample, multinomial_resample  # noqa: E402
 
+# the JAX package's public names but ParticleMesh and initialize_distributed
+# (multi-GPU, ROADMAP.md, port queue)
 __all__ = [
-    "Sampler", "Prior", "Normal", "Uniform", "Flow", "Reparameterize",
-    "Particles", "fit_mvstud", "MPIPool",
+    "Sampler", "Prior", "Flow", "Reparameterize", "Particles", "Geometry",
+    "MPIPool", "fit_mvstud",
+    "Normal", "Uniform", "LogUniform", "TruncatedNormal", "LogNormal",
+    "Beta", "Gamma", "Exponential", "HalfNormal", "Cauchy", "StudentT",
+    "Laplace",
     "effective_sample_size", "unique_sample_size", "compute_ess",
     "increment_logz", "trim_weights", "systematic_resample",
     "multinomial_resample",
+    "version", "__version__",
 ]

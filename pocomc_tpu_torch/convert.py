@@ -1,9 +1,10 @@
 """Parameters of the JAX package (as numpy arrays) -> the port's.
 
 Lets the same trained or random weights run through both packages: the
-parity tests, and anyone moving a fitted flow from ``pocomc_tpu`` to the
-port. Inputs are plain numpy (``jax.device_get`` of the JAX pytrees), so
-this module imports no JAX.
+parity tests, and anyone moving a fitted flow, or a whole saved run
+(``state_from_jax``), from ``pocomc_tpu`` to the port. Inputs are plain
+numpy (``jax.device_get`` of the JAX pytrees), so this module imports no
+JAX.
 """
 
 from __future__ import annotations
@@ -49,3 +50,21 @@ def tensors_from_jax(arrays, device="cuda"):
         raise RuntimeError("tensors_from_jax(device='cuda') needs a CUDA device; pass "
                            "device='cpu' for CPU tensors.")
     return {k: _tensor(v, device) for k, v in arrays.items()}
+
+
+def state_from_jax(state):
+    """The JAX package's ``Sampler.state_dict()`` (numpy leaves) -> the
+    port's, for ``Sampler.load_state_dict``: the same scalars, history,
+    prior draws, current population, scaler and flow parameters (which
+    ``load_flow_params`` reads as they are); the sweep's geometry is the
+    JAX ``theta_geometry`` with the flow and ``u_geometry`` without, which
+    ``load_state_dict`` puts on the device through ``tensors_from_jax``.
+    A JAX key cannot become a torch generator's state: the state carries
+    none, so ``load_state_dict`` seeds the torch generator from the
+    restored numpy generator, and a run resumed from it draws other
+    random numbers than the JAX run would have."""
+    out = {k: v for k, v in state.items()
+           if k not in ("jax_key", "u_geometry", "theta_geometry")}
+    out["geometry"] = state["theta_geometry" if state["preconditioned"] else "u_geometry"]
+    out["torch_generator"] = None
+    return out

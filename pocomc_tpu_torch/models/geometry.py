@@ -5,7 +5,9 @@ Counterpart of ``pocomc_tpu/models/geometry.py``: weighted normal moments
 systematic resample of the weighted points, nu clamped to 1e6 when the EM
 returns a non-finite value and to >= 1 below, Ledoit-Wolf shrinkage of
 both covariances (the t intensity on the EM-weighted residuals), and the
-Cholesky factors and inverse the t-pCN kernel consumes.
+Cholesky factors and inverse the t-pCN kernel consumes. Without weights
+the moments are the plain (n - 1) ones and the EM runs on the points
+themselves. ``Geometry`` holds a fit's tensors as attributes.
 """
 
 from __future__ import annotations
@@ -23,6 +25,12 @@ def _weighted_moments(theta, weights):
     v2 = (w * w).sum()
     cov = (w[:, None] * diffs).T @ diffs / (1.0 - v2)
     return mean, cov
+
+
+def _unweighted_moments(theta):
+    mean = theta.mean(0)
+    diffs = theta - mean
+    return mean, diffs.T @ diffs / (theta.shape[0] - 1)
 
 
 def _lw_lambda(x, mean, cov):
@@ -58,13 +66,18 @@ def _chol(a):
     return torch.where(info == 0, chol, torch.full_like(chol, float("nan")))
 
 
-def fit_geometry(theta, weights, generator=None, u0=None):
-    """Full weighted geometry fit. The systematic resample's offset comes
-    from ``generator``, or is given as ``u0``. Returns the dict of
-    normal_mean/cov/chol and t_mean/cov/nu/chol/inv_cov."""
-    normal_mean, normal_cov = _weighted_moments(theta, weights)
-    idx = systematic_resample_torch(theta.shape[0], weights, generator, u0=u0)
-    pts = theta[idx]
+def fit_geometry(theta, weights=None, generator=None, u0=None):
+    """Full geometry fit. With ``weights``, the systematic resample's offset
+    comes from ``generator``, or is given as ``u0``; without, the points
+    are used as they are. Returns the dict of normal_mean/cov/chol and
+    t_mean/cov/nu/chol/inv_cov."""
+    if weights is None:
+        normal_mean, normal_cov = _unweighted_moments(theta)
+        pts = theta
+    else:
+        normal_mean, normal_cov = _weighted_moments(theta, weights)
+        idx = systematic_resample_torch(theta.shape[0], weights, generator, u0=u0)
+        pts = theta[idx]
     t_mean, t_cov, t_nu = fit_mvstud(pts)
     t_nu = torch.where(torch.isfinite(t_nu), t_nu, torch.full_like(t_nu, 1e6))
     # lower clamp at the Cauchy: a sub-Cauchy proposal makes the t-pCN
@@ -89,3 +102,19 @@ def fit_geometry(theta, weights, generator=None, u0=None):
         t_chol=_chol(t_cov_reg),
         t_inv_cov=torch.linalg.inv_ex(t_cov_reg)[0],
     )
+
+
+class Geometry:
+    """A geometry fit's tensors as attributes (None before ``fit``)."""
+
+    KEYS = ("normal_mean", "normal_cov", "normal_chol", "t_mean", "t_cov",
+            "t_nu", "t_chol", "t_inv_cov")
+
+    def __init__(self):
+        for k in self.KEYS:
+            setattr(self, k, None)
+
+    def fit(self, theta, weights=None, generator=None):
+        for k, v in fit_geometry(theta, weights, generator).items():
+            setattr(self, k, v)
+        return self

@@ -351,3 +351,40 @@ def test_bridge_rung_launches_k1_with_grad_off(flow):
     torch.testing.assert_close(oc[0].cpu(), op[0], rtol=1e-4, atol=1e-4)
     torch.testing.assert_close(oc[1].cpu(), op[1], rtol=1e-4, atol=1e-4)
     assert int(oc[4]) == int(op[4])
+
+
+def test_cuda_generator_state_survives_save_and_load(tmp_path):
+    """A run on the card saved and loaded into a sampler of another seed:
+    the CUDA generator (Philox) is restored, so both draw the same next
+    numbers, in the pickle and in the directory format."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import pocomc_tpu_torch as tpc
+
+    def make(seed):
+        return tpc.Sampler(tpc.Prior([tpc.Normal(0.0, 5.0)] * 2),
+                           lambda x: -0.5 * (x * x).sum(-1), vectorize=True,
+                           random_state=seed, n_effective=128, n_active=64,
+                           precondition=False, device="cuda")
+
+    s = make(0)
+    s.run(n_total=256, n_evidence=0, progress=False)
+    assert s._gen.device.type == "cuda"
+    for path in (tmp_path / "s.state", tmp_path / "s.orbax"):
+        s.save_state(path)
+        s2 = make(1)
+        s2.load_state(path)
+        assert s2._gen.device.type == "cuda"
+        assert torch.equal(s2._gen.get_state(), s._gen.get_state())
+        a = torch.randn(8, device="cuda", generator=copy_gen(s._gen))
+        b = torch.randn(8, device="cuda", generator=s2._gen)
+        assert torch.equal(a, b)
+        assert s2.evidence() == s.evidence()
+
+
+def copy_gen(gen):
+    """A CUDA generator in the state of ``gen`` (drawing from it leaves
+    ``gen`` where it was)."""
+    g = torch.Generator(device="cuda")
+    g.set_state(gen.get_state())
+    return g

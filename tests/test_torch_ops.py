@@ -87,8 +87,12 @@ def test_prior_logpdf_matches_jax():
     assert np.array_equal(tp.bounds, jp.bounds)
     draws = tp.rvs(1000, random_state=3)
     assert draws.shape == (1000, 3) and np.isfinite(tp.logpdf(t(draws)).numpy()).all()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tpc.Prior([jpc.Normal(0.0, 1.0)])
+    # a distribution the port does not know (here the JAX package's) is a
+    # host column: the prior is not traceable and runs in numpy
+    host = tpc.Prior([jpc.Normal(1.0, 3.0), tpc.Uniform(-2.0, 4.0), tpc.Normal(0.0, 0.5)])
+    assert not host.traceable and tp.traceable
+    np.testing.assert_allclose(host.logpdf(x.astype(np.float64)), tp.logpdf(t(x)).numpy(),
+                               rtol=1e-5, atol=1e-5)
 
 
 # -- Student-t EM and geometry ------------------------------------------------

@@ -1,5 +1,5 @@
 """The PyTorch port's Sampler end to end on the CPU, its phase B training
-rules, and the paths it does not port yet."""
+rules, the checkpoint run options, and the paths it does not port yet."""
 
 import math
 
@@ -116,6 +116,8 @@ def test_train_phase_fits_and_keeps_input_on_nonfinite_loss():
     (dict(sample="mala"), "mala/hmc with a K1 backward"),
     (dict(sample="hmc"), "mala/hmc with a K1 backward"),
     (dict(flow="maf6"), "maf"),
+    (dict(flow="nsfc6"), "nsfc"),
+    (dict(mesh=object()), "multi-GPU"),
 ])
 def test_unported_paths_raise(kwargs, match):
     base = small()
@@ -158,9 +160,28 @@ def test_black_box_options_construct_and_route(kwargs, route, device_loop):
 
 
 def test_unported_run_options_raise():
+    """What the port still refuses is refused at construction, before a
+    run: the mesh and the gradient kernels; run()'s own options are
+    validated."""
+    with pytest.raises(NotImplementedError, match="multi-GPU"):
+        tpc.Sampler(prior(), gauss_like, mesh=object(), **small())
     s = tpc.Sampler(prior(), gauss_like, **small())
-    with pytest.raises(NotImplementedError, match="checkpoint"):
-        s.run(n_total=256, save_every=2, progress=False)
+    with pytest.raises(ValueError, match="save_every"):
+        s.run(n_total=256, save_every=0, progress=False)
+    assert s.t == 0 and s.calls == 0
+
+
+def test_checkpoint_run_options_construct_and_run(tmp_path):
+    """The ported run options: save_every writes output_dir/{label}_{t}.state
+    and the final state; a new sampler resumes from one and extends it."""
+    s = tpc.Sampler(prior(), gauss_like, output_dir=str(tmp_path), output_label="q",
+                    **small())
+    s.run(n_total=256, n_evidence=256, save_every=3, progress=False)
+    assert (tmp_path / "q_final.state").exists() and (tmp_path / "q_3.state").exists()
+    s2 = tpc.Sampler(prior(), gauss_like, **{**small(), "random_state": 1})
+    s2.run(n_total=512, n_evidence=256, resume_state_path=tmp_path / "q_final.state",
+           progress=False)
+    assert s2.t > s.t and np.isfinite(s2.logz)
 
 
 def test_cuda_device_needs_a_card():
