@@ -5,8 +5,9 @@ printing one JSON line:
 
   1. environment: card name and power limit (nvidia-smi), torch/CUDA
      versions, the TF32 flags (both must be off);
-  2. build: compiles the three CUDA libraries from ``pocomc_tpu_torch/csrc``
-     (K2's forward and backward, K1), one nvcc each, all started together;
+  2. build: compiles the five CUDA libraries from ``pocomc_tpu_torch/csrc``
+     (K2's forward and backward and K1, each with both heads, and K5's
+     forward/inverse and backward), one nvcc each, all started together;
   3. K2 against its plain versions at nsf6, d=10 (n=37, 256, 1024, 2048,
      4096) and d=50/h=256 (n=256, the sweep's population at any d, and
      4096), and at nsf3 on phase 10's shapes: d=2 (n=256, the imh
@@ -26,7 +27,14 @@ printing one JSON line:
   4. K1 (autoregressive inverse) against its plain version at the same
      shapes (n=1024 and 2048: the bridge's ``bridge_n`` for n_active up to
      512 and up to 1024; 2048 takes K1's two-row launch), plus the round
-     trip forward(inverse(z)) = z;
+     trip forward(inverse(z)) = z. Then the rest of the menu
+     (``MENU_SHAPES``): maf6 (K2 and K1 with the affine head) and nsfc6
+     (K5) at d=10, n=37, 256, 1024 and 4096, maf6 and nsfc12 at d=50,
+     n=256 and 4096, nsfc12 at d=50, n=65,536: forward, inverse, log_prob
+     and the round trip against the plain versions, up to 1024 rows (256
+     at d=50) the training gradient end to end and the backward kernel on
+     the saved inputs, and a coupling transform's conditioning columns bit
+     for bit;
   5. times of the three kernels and their plain versions: device time of
      one call (a CUDA graph of the call, replayed) and the time of an
      eager call (CUDA events around it), medians after warmup; K1's chain
@@ -34,7 +42,8 @@ printing one JSON line:
      its weight pack at d=10 and 50; one
      ``fit_stack`` batch step at d=10, batch 1024, on the kernel route
      and on plain autograd; the cost of the sweep's one scalar sync per
-     step;
+     step; the affine heads and K5 at the menu's shapes beside their plain
+     versions, their bounds, and K5's four products as torch.matmul;
   6. the main path: ``Sampler`` on the 10-D Rosenbrock quickstart with an
      N(0, 3) prior and default settings, ``run(n_total=4096,
      n_evidence=4096)``, checked against the exact logZ -21.4021 (+-0.35)
@@ -71,10 +80,18 @@ printing one JSON line:
      at t=20 (logZ in the gate, t >= the finished run's t - 2), and the
      finished run through ``save_state``/``load_state`` (posterior,
      evidence and the CUDA generator's state bit for bit). The states are
-     written under ``build/`` and removed.
+     written under ``build/`` and removed;
+ 12. ``flow_menu``: (a) phase 6's quickstart with ``flow="maf6"`` and with
+     ``flow="nsfc6"`` (the same logZ gate, launches of the affine heads or
+     of K5 and of no other kind's kernels); (b) the JAX package's
+     compute-bound bench line (``bench.py:276-286``): the d=50 Rosenbrock,
+     nsfc12, 65,536 particles, the preconditioned t-pCN sweep with the
+     stopping rule held off, exactly 4 steps x 2 chained sweeps, its
+     particle-steps/s and peak device memory.
 
-Every path (phases 6-11) runs with the launch counts set to 0 just before
-it and read just after. Then the kernels line and, last, the contract
+Every path (phases 6-12) runs with the launch counts set to 0 just before
+it and read just after, and fails unless every kernel of the path ran.
+Then the kernels line and, last, the contract
 line. Any failed check exits non-zero before those two lines. Without a
 CUDA device it exits 1.
 """
@@ -113,7 +130,42 @@ TOL = {10: dict(rtol=1e-5, atol=1e-5, ladj=1e-4, grad=1e-4),
 # fp32 outside the tensor cores and HBM3 bandwidth
 FP32_FLOPS = 67e12
 HBM_BYTES = 3.35e12
-KERNELS = ("made_rqs_forward", "made_rqs_backward", "ar_inverse")
+# the kernels by head: the nsf* flows' (K2 and K1 with the spline head),
+# the maf* flows' (the same with the affine head) and the nsfc* flows' (K5)
+RQS = ("made_rqs_forward", "made_rqs_backward", "ar_inverse")
+AFFINE = ("made_rqs_forward_affine", "made_rqs_backward_affine", "ar_inverse_affine")
+COUPLING = ("coupling_forward", "coupling_inverse", "coupling_backward")
+KERNELS = RQS + AFFINE + COUPLING
+# the CUDA sources, one library each (both heads in each of the first three)
+LIBRARIES = ("made_rqs_forward", "made_rqs_backward", "ar_inverse", "coupling_forward",
+             "coupling_backward")
+# (flow, n_dim, n_particles) of the rest of the menu for phases 3-5: maf6
+# and nsfc6 at the quickstart's d=10 (37 a ragged tile, 256 the sweep, 1024
+# the training batch, 4096 the evidence draws), maf6 and nsfc12 at d=50
+# (256 and 4096), and nsfc12 at d=50, n=65,536: the JAX package's
+# compute-bound bench line (bench.py:276-286), phase 12's sweep
+MENU_SHAPES = [("maf6", 10, 37), ("maf6", 10, 256), ("maf6", 10, 1024), ("maf6", 10, 4096),
+               ("nsfc6", 10, 37), ("nsfc6", 10, 256), ("nsfc6", 10, 1024), ("nsfc6", 10, 4096),
+               ("maf6", 50, 256), ("maf6", 50, 4096), ("nsfc12", 50, 256), ("nsfc12", 50, 4096),
+               ("nsfc12", 50, 65536)]
+# gradients are checked up to these rows (training batches are at most 1024)
+MENU_GRAD_ROWS = {10: 1024, 50: 256}
+# the menu's random output layers: std MENU_SCALE * sqrt(32 / h), scaled
+# with the layer's fan-in h so that the head parameters spread as at h=32
+# (d <= 10). At 0.02 unscaled, nsfc12 at d=50 (h=256) is ill-conditioned
+# in fp32 itself: its plain fp32 inverse lies 0.17 from float64 (CPU, n=256)
+# and 0.43 on the card, where at 0.02 * sqrt(32/256) it lies 5.7e-5 away
+MENU_SCALE = 0.02
+# a coupling stack's (value, log-det) atol: the spline turns the MLP's
+# rounding, summed in another order, into up to 3.1e-5 on values and
+# 1.2e-4 on log-dets at d=10 (the plain version on the CPU against the JAX
+# package, and K5 against its plain version on the card), 5x K2's
+# tolerance; d=50 takes 5x TOL[50]'s. K5's values and log-dets are held to
+# the plain version in float64: within this atol, or within 4x the plain
+# fp32 version's own distance from float64 where that is larger (the fp32
+# coupling inverse is 3.9e-5 from float64 at d=10, n=4096 on the CPU; nsf6's
+# autoregressive inverse 7.8e-6)
+COUPLING_TOL = {10: (5e-5, 5e-4), 50: (5e-4, 1e-2)}
 
 
 def rosenbrock_row(x):
@@ -137,13 +189,21 @@ class TimedLikelihood:
         return out
 
 
-def reset_launches(fk):
+def _counter(name):
+    """(wrapper, attribute) of a kernel's launch count."""
+    from pocomc_tpu_torch.ops import coupling_kernels as ck, flow_kernels as fk
+    if name.endswith("_affine"):
+        return getattr(fk, name[:-len("_affine")]), "launches_affine"
+    return getattr(ck if name.startswith("coupling") else fk, name), "launches"
+
+
+def reset_launches(fk=None):
     for name in KERNELS:
-        getattr(fk, name).launches = 0
+        setattr(*_counter(name), 0)
 
 
-def read_launches(fk):
-    return {name: getattr(fk, name).launches for name in KERNELS}
+def read_launches(fk=None, names=RQS):
+    return {name: getattr(*_counter(name)) for name in names}
 
 
 def watch_bridge(sampler, fk):
@@ -331,17 +391,19 @@ def fail(msg):
     sys.exit(1)
 
 
-def random_flow(name, d):
+def random_flow(name, d, scale=0.02):
     """A flow on the card with random non-zero weights from a numpy seed:
-    init hidden layers, output layer and biases ~ N(0, 0.02^2), and a
-    random whitening pre-layer."""
+    init hidden layers, output layer ~ N(0, scale^2), biases ~ N(0, 0.02^2),
+    and a random whitening pre-layer."""
     from pocomc_tpu_torch.models.flow import Flow
     rng = np.random.default_rng(SEED + d)
     flow = Flow(d, name, device="cuda")
     with torch.no_grad():
+        # every transform's output layer: the last of four stacked layers,
+        # or of each coupling transform's four
         for l, (w, b) in enumerate(zip(flow.weights, flow.biases)):
-            if l == len(flow.weights) - 1:
-                w.copy_(torch.from_numpy(0.02 * rng.standard_normal(w.shape)))
+            if l % 4 == 3:
+                w.copy_(torch.from_numpy(scale * rng.standard_normal(w.shape)))
             b.copy_(torch.from_numpy(0.02 * rng.standard_normal(b.shape)))
     a = np.eye(d) + 0.1 * rng.standard_normal((d, d))
     flow.set_pre(dict(mean=0.1 * rng.standard_normal(d), w_fwd=a,
@@ -517,11 +579,191 @@ def made_bounds(n, flow):
     d, h, T = flow.n_dim, flow.n_hidden, flow.n_transforms
     macs = [int(m.sum()) for m in flow.masks]
     total = sum(macs)
-    weights = 4 * (total + T * (3 * h + 23 * d))
+    weights = 4 * (total + T * (3 * h + flow.n_params * d))
     return {"made_rqs_forward": bound(2 * n * total, 4 * (2 * n * d + n) + weights),
             "made_rqs_backward": bound(n * (4 * total + 2 * macs[3]),
                                        4 * (T * n * (d + 3 * h) + 2 * n * d + n) + 2 * weights),
             "ar_inverse": bound(2 * n * total, 4 * (2 * n * d + n + T * d) + weights)}
+
+
+def coupling_bounds(n, flow):
+    """Bounds of K5's forward, inverse and backward at n rows of a coupling
+    flow: the flops of its dense products (n_cond*h + 2*h*h + h*23*n_trans
+    multiply-adds a row and transform), each input read and each output
+    written once, the weights and biases once. The backward as K2's: the
+    saved layer inputs, g_z, g_ladj and the weights in, g_x and the weight
+    and bias gradients out, the output layer's product again, the products
+    back through the four layers and the weight-gradient products."""
+    d, h, T = flow.n_dim, flow.n_hidden, flow.n_transforms
+    macs = [sum(flow.weights[4 * t + l].numel() for t in range(T)) for l in range(4)]
+    total = sum(macs)
+    weights = 4 * sum(p.numel() for p in flow.parameters())
+    one = bound(2 * n * total, 4 * (2 * n * d + n) + weights)
+    return {"coupling_forward": one, "coupling_inverse": one,
+            "coupling_backward": bound(n * (4 * total + 2 * macs[3]),
+                                       4 * (T * n * (d + 3 * h) + 2 * n * d + n) + 2 * weights)}
+
+
+def plain_stack(flow, y):
+    """The flow's transform stack at y by its plain version."""
+    from pocomc_tpu_torch.ops import coupling_kernels as ck, flow_kernels as fk
+    fp = flow.params()
+    if flow.kind == "nsfc":
+        return ck.coupling_forward_ref(y, fp.ws, fp.bs, fp.masks)
+    return fk.made_rqs_forward_ref(y, fp.ws, fp.bs, head=flow.head)
+
+
+def stack_grads(flow, forward, y, g_z, g_l):
+    """[g_y, every parameter's gradient] of the flow's stack at y through
+    ``forward(flow, y)`` by autograd, for dL/dz = g_z and dL/dladj = g_l."""
+    flow.zero_grad(set_to_none=True)
+    yy = y.clone().requires_grad_(True)
+    z, ladj = forward(flow, yy)
+    torch.autograd.backward((z, ladj), (g_z, g_l))
+    return [yy.grad, *[p.grad for p in flow.parameters()]]
+
+
+def check_vs_float64(name, got, plain, exact, atol):
+    """K5's accuracy: max |got - exact| (exact: the plain version in
+    float64) within max(atol, 4 * max |plain - exact|), plain being the
+    plain fp32 version on the same inputs. Returns the numbers."""
+    e_plain = max_err(plain.double(), exact)
+    e_got = max_err(got.double(), exact)
+    limit = max(atol, 4.0 * e_plain)
+    if not e_got <= limit:
+        fail(f"{name}: max |diff| to float64 {e_got:.3e} over {limit:.3e} (the plain fp32 "
+             f"version's {e_plain:.3e})")
+    return dict(kernel_vs_f64=e_got, plain_vs_f64=e_plain, limit=limit,
+                kernel_vs_plain=max_err(got, plain))
+
+
+def check_menu(name, d, n, flow, rng, tol):
+    """Phases 3-4 for a maf* flow (K2 and K1 with the affine head) or an
+    nsfc* flow (K5): forward, log_prob and inverse against the plain
+    versions on the same card inputs (K5's to the plain version in float64,
+    ``check_vs_float64``), the round trip, and, up to
+    MENU_GRAD_ROWS rows, the training gradient through the kernels against
+    plain autograd of the plain forward (the tolerance rising to twice the
+    spread of plain autograd on the CPU against the card where that is
+    larger, as for K2), the saved layer inputs, and the backward kernel
+    against the plain backward on the inputs the forward kernel saved; a
+    coupling transform's conditioning columns bit for bit. Returns (the
+    numbers to report, max |diff| by kernel)."""
+    from pocomc_tpu_torch.ops import coupling_kernels as ck, flow_kernels as fk
+    coupling = flow.kind == "nsfc"
+    kf, ki, kb = ((COUPLING[0], COUPLING[1], COUPLING[2]) if coupling
+                  else (AFFINE[0], AFFINE[2], AFFINE[1]))
+    if coupling:
+        tol = dict(tol, atol=COUPLING_TOL[d][0], ladj=COUPLING_TOL[d][1])
+    vtol = dict(rtol=tol["rtol"], atol=tol["atol"])
+    out = dict(flow=name, d=d, n=n, tol=tol)
+    errs = {}
+    y = torch.from_numpy(rng.standard_normal((n, d)).astype(np.float32)).cuda()
+    zi = torch.from_numpy(rng.standard_normal((n, d)).astype(np.float32)).cuda()
+    with torch.no_grad():
+        fp = flow.params()
+        if coupling:
+            fwd = lambda v: ck.coupling_forward(v, fp.ws, fp.bs, fp.masks)
+            got_f, want_f = fwd(y), ck.coupling_forward_ref(y, fp.ws, fp.bs, fp.masks)
+            got_i = ck.coupling_inverse(zi, fp.ws, fp.bs, fp.masks)
+            want_i = ck.coupling_inverse_ref(zi, fp.ws, fp.bs, fp.masks)
+            one = [f(zi, fp.ws[:1], fp.bs[:1], fp.masks[:1])[0]
+                   for f in (ck.coupling_forward, ck.coupling_inverse)]
+            out["conditioning_bit_for_bit"] = all(
+                torch.equal(o[:, fp.masks[0]], zi[:, fp.masks[0]]) for o in one)
+            if not out["conditioning_bit_for_bit"]:
+                fail(f"K5 {name} d={d} n={n}: a conditioning column was changed")
+        else:
+            fwd = lambda v: fk.made_rqs_forward(v, fp.ws, fp.bs, head="affine")
+            got_f, want_f = fwd(y), fk.made_rqs_forward_ref(y, fp.ws, fp.bs, head="affine")
+            got_i = fk.ar_inverse(zi, fp.ws, fp.bs, fp.inv_orders, head="affine")
+            want_i = fk.ar_inverse_ref(zi, fp.ws, fp.bs, fp.inv_orders, head="affine")
+        torch.cuda.synchronize()
+        label = f"{name} d={d} n={n}"
+        if coupling:
+            fp64 = copy.deepcopy(flow).double().params()
+            exact_f = ck.coupling_forward_ref(y.double(), fp64.ws, fp64.bs, fp64.masks)
+            exact_i = ck.coupling_inverse_ref(zi.double(), fp64.ws, fp64.bs, fp64.masks)
+            acc = {f"{k}_{part}": check_vs_float64(f"{k} {part} {label}", g[j], w[j], e[j],
+                                                   tol["ladj"] if j else tol["atol"])
+                   for k, g, w, e in ((kf, got_f, want_f, exact_f), (ki, got_i, want_i, exact_i))
+                   for j, part in enumerate(("values", "ladj"))}
+            out["vs_float64"] = acc
+            errs[kf] = max(acc[f"{kf}_values"]["kernel_vs_plain"],
+                           acc[f"{kf}_ladj"]["kernel_vs_plain"])
+            errs[ki] = max(acc[f"{ki}_values"]["kernel_vs_plain"],
+                           acc[f"{ki}_ladj"]["kernel_vs_plain"])
+        else:
+            errs[kf] = max(check_close(f"{kf} z {label}", got_f[0], want_f[0], **vtol),
+                           check_close(f"{kf} ladj {label}", got_f[1], want_f[1], tol["rtol"],
+                                       tol["ladj"]))
+            errs[ki] = max(check_close(f"{ki} x {label}", got_i[0], want_i[0], **vtol),
+                           check_close(f"{ki} ladj {label}", got_i[1], want_i[1], tol["rtol"],
+                                       tol["ladj"]))
+        pre = fp.pre
+        zp, lp_ = plain_stack(flow, (y - pre["mean"]) @ pre["w_fwd"])
+        out["log_prob"] = check_close(f"log_prob {label}", flow.log_prob(y, fp),
+                                      flow._base_logpdf(zp) + lp_ + pre["ladj"], tol["rtol"],
+                                      tol["ladj"])
+        z_rt, l_rt = fwd(got_i[0])
+        out["roundtrip_z"] = check_close(f"round trip {label}", z_rt, zi, vtol["rtol"],
+                                         10 * vtol["atol"])
+        out["roundtrip_ladj"] = check_close(f"round-trip ladj {label}", l_rt + got_i[1],
+                                            torch.zeros_like(l_rt), 0.0, 10 * tol["ladj"])
+    out.update(value_err=errs[kf], inverse_err=errs[ki])
+    if n > MENU_GRAD_ROWS[d]:
+        return out, errs
+    g_z = torch.from_numpy(rng.standard_normal((n, d)).astype(np.float32)).cuda()
+    g_l = torch.from_numpy(rng.standard_normal(n).astype(np.float32)).cuda()
+    g_z[2::4], g_l[2::4] = 0.0, 0.0
+    plain = stack_grads(flow, plain_stack, y, g_z, g_l)
+    e_cpu = max(rel_errs(stack_grads(copy.deepcopy(flow).cpu(), plain_stack, y.cpu(),
+                                     g_z.cpu(), g_l.cpu()), plain))
+    e2e_tol = max(tol["grad"], 2 * e_cpu)
+    kernel = lambda f, v: f.stack_forward(v)
+    out.update(grad_rel_end_to_end=grad_rel_err(f"{kb} end to end {label}",
+                                                stack_grads(flow, kernel, y, g_z, g_l), plain,
+                                                e2e_tol),
+               grad_end_to_end_tol=e2e_tol, grad_rel_cpu_vs_card=e_cpu)
+    with torch.no_grad():
+        if coupling:
+            _, _, acts = ck.coupling_forward(y, fp.ws, fp.bs, fp.masks, save_inputs=True)
+            acts_r = ck.coupling_forward_ref(y, fp.ws, fp.bs, fp.masks, save_inputs=True)[2]
+            g_k = ck.coupling_backward(y, fp.ws, fp.bs, fp.masks, g_z, g_l, acts)
+            g_r = ck.coupling_backward_ref(y, fp.ws, fp.bs, fp.masks, g_z, g_l, acts)
+            flat = lambda g: [g[0], *[a for t in g[1] for a in t], *[a for t in g[2] for a in t]]
+        else:
+            _, _, acts = fk.made_rqs_forward(y, fp.ws, fp.bs, save_inputs=True, head="affine")
+            acts_r = fk.made_rqs_forward_ref(y, fp.ws, fp.bs, save_inputs=True, head="affine")[2]
+            g_k = fk.made_rqs_backward(y, fp.ws, fp.bs, g_z, g_l, acts, head="affine")
+            g_r = fk.made_rqs_backward_ref(y, fp.ws, fp.bs, g_z, g_l, acts, head="affine")
+            flat = lambda g: [g[0], *[w * m for w, m in zip(g[1], flow.masks)], *g[2]]
+        torch.cuda.synchronize()
+        out["saved_inputs"] = max(
+            check_close(f"{kf} saved input {l} {label}", a, b, 10 * vtol["rtol"],
+                        10 * vtol["atol"]) for l, (a, b) in enumerate(zip(acts, acts_r)))
+        out["grad_rel_plain"] = grad_rel_err(f"{kb} vs plain {label}", flat(g_k), flat(g_r),
+                                             tol["grad"])
+    errs[kb] = max(max_err(a, b) for a, b in zip(flat(g_k), flat(g_r)))
+    return out, errs
+
+
+def matmul_products(flow, x):
+    """K5's four products of every transform as torch.matmul (addmm) on its
+    shapes at the rows x: x_cond W0 + b0, then h W1 + b1, h W2 + b2 and
+    h W3 + b3 at (n, h), without the spline, the residual adds or the
+    ReLUs; the library's time for the work of K5's products."""
+    fp = flow.params()
+    h = torch.empty(x.shape[0], flow.n_hidden, device=x.device)
+    for t in range(flow.n_transforms):
+        w, b = fp.ws[t], fp.bs[t]
+        c = int(fp.masks[t].sum())
+        lo = 0 if fp.masks[t][0] else flow.n_dim - c
+        h = torch.addmm(b[0], x[:, lo:lo + c], w[0])
+        h = torch.addmm(b[1], h, w[1])
+        h = torch.addmm(b[2], h, w[2])
+        torch.addmm(b[3], h, w[3])
+    return h
 
 
 def main():
@@ -531,7 +773,7 @@ def main():
         sys.exit(1)
     import pocomc_tpu_torch as pt
     from pocomc_tpu_torch.ops import _build
-    from pocomc_tpu_torch.ops import flow_kernels as fk
+    from pocomc_tpu_torch.ops import coupling_kernels as ck, flow_kernels as fk
     try:
         smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                               "--format=csv,noheader"], capture_output=True, text=True)
@@ -560,8 +802,8 @@ def main():
                                  if "registers" in l or "spill" in l])
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(KERNELS)) as ex:
-        build = dict(ex.map(build_one, KERNELS))
+    with ThreadPoolExecutor(len(LIBRARIES)) as ex:
+        build = dict(ex.map(build_one, LIBRARIES))
     emit("build", wall_s=round(time.perf_counter() - t0, 3), **build)
 
     # -- 3./4. kernels against their plain versions ------------------------
@@ -641,7 +883,18 @@ def main():
                            k2_edge_rows=int(edge.sum()),
                            k2_grad_rel_plain=e_gr, k2_grad_rel_autograd=e_ga, k1_x=e_x,
                            k1_ladj=e_li, roundtrip_z=e_rt, roundtrip_ladj=e_rtl))
-    emit("kernels_vs_plain", checks=checks)
+    # the rest of the menu: maf* (the affine head) and nsfc* (K5)
+    menu_checks = []
+    for name, d, n in MENU_SHAPES:
+        if (name, d) not in flows:
+            h = max(2 ** (3 * d - 1).bit_length(), 32)  # Flow.n_hidden
+            flows[name, d] = random_flow(name, d, MENU_SCALE * math.sqrt(32 / h))
+        flow, rng = flows[name, d]
+        out, e = check_menu(name, d, n, flow, rng, TOL[max(d, 10)])
+        menu_checks.append(out)
+        for k, v in e.items():
+            errs[k] = max(errs[k], v)
+    emit("kernels_vs_plain", checks=checks, menu_checks=menu_checks)
 
     # -- 5. times ------------------------------------------------------------
     # ms: device time of one call (graph replay); call_ms: one eager call
@@ -713,7 +966,62 @@ def main():
         t0 = time.perf_counter()
         bool((flag + 1.0) > 0.0)
         syncs.append((time.perf_counter() - t0) * 1e6)
-    emit("times", card=card, shapes=times, fit_step_ms=step_ms,
+    # the rest of the menu at its shapes: each kernel and head, its plain
+    # version, and for K5 its four products as torch.matmul (TF32 off)
+    menu_times = []
+    for name, d, n in MENU_SHAPES:
+        if n == 37:
+            continue
+        flow, rng = flows[name, d]
+        y = torch.from_numpy(rng.standard_normal((n, d)).astype(np.float32)).cuda()
+        g_z = torch.from_numpy(rng.standard_normal((n, d)).astype(np.float32)).cuda()
+        g_l = torch.from_numpy(rng.standard_normal(n).astype(np.float32)).cuda()
+        reps_plain = 3 if d == 50 else 10
+        with torch.no_grad():
+            fp = flow.params()
+            if flow.kind == "nsfc":
+                a = (fp.ws, fp.bs, fp.masks)
+                calls = {"coupling_forward": (lambda: ck.coupling_forward(y, *a), 20),
+                         "coupling_forward_plain": (lambda: ck.coupling_forward_ref(y, *a),
+                                                    reps_plain),
+                         "coupling_inverse": (lambda: ck.coupling_inverse(y, *a), 20),
+                         "coupling_inverse_plain": (lambda: ck.coupling_inverse_ref(y, *a),
+                                                    reps_plain),
+                         "coupling_matmul": (lambda: matmul_products(flow, y), 20)}
+                if n <= 4096:
+                    acts = ck.coupling_forward(y, *a, save_inputs=True)[2]
+                    calls.update({
+                        "coupling_backward": (lambda: ck.coupling_backward(y, *a, g_z, g_l,
+                                                                           acts), 20),
+                        "coupling_backward_plain": (lambda: ck.coupling_backward_ref(
+                            y, *a, g_z, g_l, acts), reps_plain)})
+                bounds = coupling_bounds(n, flow)
+            else:
+                acts = fk.made_rqs_forward(y, fp.ws, fp.bs, save_inputs=True, head="affine")[2]
+                orders_cpu = fp.inv_orders.cpu()
+                calls = {
+                    "made_rqs_forward_affine": (lambda: fk.made_rqs_forward(
+                        y, fp.ws, fp.bs, head="affine"), 20),
+                    "made_rqs_forward_affine_plain": (lambda: fk.made_rqs_forward_ref(
+                        y, fp.ws, fp.bs, head="affine"), reps_plain),
+                    "made_rqs_backward_affine": (lambda: fk.made_rqs_backward(
+                        y, fp.ws, fp.bs, g_z, g_l, acts, head="affine"), 20),
+                    "made_rqs_backward_affine_plain": (lambda: fk.made_rqs_backward_ref(
+                        y, fp.ws, fp.bs, g_z, g_l, acts, head="affine"), reps_plain),
+                    "ar_inverse_affine": (lambda: fk.ar_inverse(
+                        y, fp.ws, fp.bs, fp.inv_orders, head="affine"), 20),
+                    "ar_inverse_affine_plain": (lambda: fk.ar_inverse_ref(
+                        y, fp.ws, fp.bs, orders_cpu, head="affine"), reps_plain)}
+                bounds = {f"{k}_affine": v for k, v in made_bounds(n, flow).items()}
+            row = dict(flow=name, d=d, n=n)
+            for key, (fn, reps) in calls.items():
+                row[f"{key}_ms"] = graph_ms(fn, reps)
+                row[f"{key}_call_ms"] = cuda_ms(fn, reps, warmup=1)
+            for key, (b_ms, b_by) in bounds.items():
+                if f"{key}_ms" in row:
+                    row[f"{key}_bound_ms"], row[f"{key}_bound_by"] = b_ms, b_by
+        menu_times.append(row)
+    emit("times", card=card, shapes=times, menu_shapes=menu_times, fit_step_ms=step_ms,
          scalar_sync_us=statistics.median(syncs), **chain)
 
     # -- 6. main path --------------------------------------------------------
@@ -882,30 +1190,127 @@ def main():
     out, paths = reference_surface(pt, fk, log_like, main, Path("build/chip_smoke_states"))
     by_path.update({f"reference_{k}": v for k, v in paths.items()})
     emit("reference_surface", card=card, phase6=main, **out)
+
+    # -- 12. the rest of the flow menu ---------------------------------------
+    # (a) phase 6's quickstart with maf6 (K2 and K1 with the affine head)
+    # and with nsfc6 (K5), each with the launches of its kernels
+    menu_runs = []
+    for flow_name, names in (("maf6", AFFINE), ("nsfc6", COUPLING)):
+        s = pt.Sampler(prior, log_like, vectorize=True, random_state=0, device="cuda",
+                       flow=flow_name)
+        reset_launches(fk)
+        t0 = time.perf_counter()
+        s.run(n_total=4096, n_evidence=4096, progress=False)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = read_launches(fk, names)
+        others = {k: v for k, v in read_launches(fk, KERNELS).items() if k not in names}
+        by_path[f"flow_menu_{flow_name}"] = counts
+        x, w, _, _ = s.posterior()
+        menu_runs.append(dict(flow=flow_name, logz=s.logz, dlogz=s.logz_err, true_logz=TRUE_LOGZ,
+                              khat=s.evidence_khat, calls=s.calls, iterations=s.t,
+                              wall_s=wall, phase_s=dict(s.phase_seconds), launches=counts))
+        if any(others.values()):
+            fail(f"flow_menu {flow_name}: kernels of another flow kind ran: {others}")
+        if not (np.isfinite(s.logz) and abs(s.logz - TRUE_LOGZ) < LOGZ_GATE):
+            fail(f"flow_menu {flow_name}: logZ {s.logz} outside {TRUE_LOGZ} +- {LOGZ_GATE}")
+        if x.shape[1] != 10 or not np.isfinite(x).all() or not np.isfinite(w).all():
+            fail(f"flow_menu {flow_name}: posterior samples are not finite (n, 10) arrays")
+    # (b) the JAX package's compute-bound bench line (bench.py:180-250,
+    # 276-286): d=50 Rosenbrock under N(0, 3) priors, nsfc12 at its init
+    # (seed 0), 65,536 particles, the preconditioned t-pCN sweep with its
+    # stopping rule held off (tools/measure_paths.py), 4 steps a sweep, two
+    # sweeps chained from u ~ N(0, 1), the geometry fitted on u
+    from pocomc_tpu_torch.mcmc import Sweep, make_loglike
+    from pocomc_tpu_torch.models.flow import Flow
+    from pocomc_tpu_torch.models.geometry import fit_geometry
+    d50, n50, steps50, chains50 = 50, 65536, 4, 2
+
+    def rosenbrock50(x):
+        return -(100.0 * (x[:, 1:] - x[:, :-1] ** 2) ** 2 + (1.0 - x[:, :-1]) ** 2).sum(-1)
+
+    prior50 = pt.Prior([pt.Normal(0.0, 3.0) for _ in range(d50)])
+    scaler50 = pt.Reparameterize(d50, bounds=prior50.bounds)
+    flow50 = Flow(d50, "nsfc12", seed=0, device="cuda")
+    sweep50 = Sweep(scaler50, prior50.logpdf, make_loglike(rosenbrock50), flow50, d50,
+                    steps50, steps50)
+    sweep50.keep_flag = lambda st: torch.ones((), dtype=torch.bool, device="cuda")
+    g50 = torch.Generator("cuda").manual_seed(SEED)
+    with torch.no_grad():
+        scp50 = scaler50.whitening_params("cuda")
+        u = torch.randn(n50, d50, device="cuda", generator=g50)
+        x, ldj = scaler50.inverse(u, params=scp50)
+        geom50 = fit_geometry(u, torch.full((n50,), 1.0 / n50, device="cuda"), g50)
+        fp50 = flow50.params()
+        state = (u, x, ldj, rosenbrock50(x), prior50.logpdf(x))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches(fk)
+        t0 = time.perf_counter()
+        steps, chain_s = [], []
+        for _ in range(chains50):
+            res = sweep50.run(*state, 0.7, 0.75, geom50, fp50, scp50, g50)
+            state = (res["u"], res["x"], res["logdetj"], res["logl"], res["logp"])
+            steps.append(int(res["steps"]))
+            torch.cuda.synchronize()
+            chain_s.append(time.perf_counter() - t0 - sum(chain_s))
+        wall = time.perf_counter() - t0
+        u_out = state[0]
+    by_path["flow_menu_bench_sweep"] = read_launches(fk, COUPLING[:2])
+    bench = dict(flow="nsfc12", n_dim=d50, n_particles=n50, steps=steps, chain_s=chain_s,
+                 wall_s=wall, particle_steps_per_s=n50 * sum(steps) / wall,
+                 max_memory_allocated=torch.cuda.max_memory_allocated(),
+                 launches=by_path["flow_menu_bench_sweep"],
+                 u_finite=bool(torch.isfinite(u_out).all()),
+                 logl_finite_share=float(torch.isfinite(state[3]).float().mean()))
+    if steps != [steps50] * chains50:
+        fail(f"flow_menu bench sweep ran {steps} steps, not {steps50} x {chains50}")
+    if not bench["u_finite"] or tuple(u_out.shape) != (n50, d50):
+        fail("flow_menu bench sweep: the particles are not a finite (65536, 50) array")
+    emit("flow_menu", card=card, quickstart=menu_runs, bench_sweep=bench)
+
+    paths = {"flow_menu_maf6": AFFINE, "flow_menu_nsfc6": COUPLING,
+             "flow_menu_bench_sweep": COUPLING[:2]}
     for name, counts in by_path.items():
-        if not all(counts.values()):
+        want = paths.get(name, RQS)
+        if set(counts) != set(want) or not all(counts.values()):
             fail(f"a kernel of the {name} path was never launched: {counts}")
 
     # -- kernels line and contract line ------------------------------------
     # each kernel at the main path's shape: K2 forward and backward at the
     # training batch (d=10, n=1024), K1 at the sweep population (n=256);
-    # K1 also at the quickstart bridge's rows (bridge_n=1024)
+    # K1 also at the quickstart bridge's rows (bridge_n=1024); the heads of
+    # maf6 and nsfc6 at the same shapes on their quickstart (phase 12);
+    # K5 also at the bench line's sweep (d=50, n=65,536)
     at = {"made_rqs_forward": (1024, "k2"), "made_rqs_backward": (1024, "k2_bwd"),
           "ar_inverse": (256, "k1")}
     sources = {"made_rqs_forward": ("pocomc_tpu_torch/csrc/made_rqs_forward.cu",
                                     "pocomc_tpu/ops/pallas_kernels.py:34"),
                "made_rqs_backward": ("pocomc_tpu_torch/csrc/made_rqs_backward.cu",
                                      "pocomc_tpu/ops/pallas_kernels.py:89"),
-               "ar_inverse": ("pocomc_tpu_torch/csrc/ar_inverse.cu", "RESULTS.md:76")}
+               "ar_inverse": ("pocomc_tpu_torch/csrc/ar_inverse.cu", "RESULTS.md:76"),
+               "coupling_forward": ("pocomc_tpu_torch/csrc/coupling_forward.cu",
+                                    "pocomc_tpu/models/coupling.py:71"),
+               "coupling_inverse": ("pocomc_tpu_torch/csrc/coupling_forward.cu",
+                                    "pocomc_tpu/models/coupling.py:83"),
+               "coupling_backward": ("pocomc_tpu_torch/csrc/coupling_backward.cu",
+                                     "pocomc_tpu/models/coupling.py:71")}
+    for name in RQS:
+        sources[f"{name}_affine"] = sources[name]
     flow10 = flows["nsf6", 10][0]
     line = []
-    for name in KERNELS:
+
+    def launches_of(name):
+        counts = {path: c[name] for path, c in by_path.items() if name in c}
+        return sum(counts.values()), counts
+
+    for name in RQS:
         n, key = at[name]
         row = next(r for r in times if r["d"] == 10 and r["n"] == n)
         bound_ms, bound_by = made_bounds(n, flow10)[name]
-        path_counts = {path: counts[name] for path, counts in by_path.items()}
+        total, path_counts = launches_of(name)
         line.append({"name": name, "route": "cuda", "source": sources[name][0],
-                     "replaces": sources[name][1], "launches": sum(path_counts.values()),
+                     "replaces": sources[name][1], "launches": total,
                      "launches_by_path": path_counts, "max_abs_err": errs[name],
                      "ms": row[f"{key}_ms"], "plain_ms": row[f"{key}_plain_ms"],
                      "call_ms": row[f"{key}_call_ms"],
@@ -918,6 +1323,31 @@ def main():
                             bridge_ms=bridge_row["k1_ms"],
                             bridge_plain_ms=bridge_row["k1_plain_ms"],
                             bridge_bound_ms=made_bounds(1024, flow10)[name][0])
+    menu_at = {"made_rqs_forward_affine": ("maf6", 1024),
+               "made_rqs_backward_affine": ("maf6", 1024), "ar_inverse_affine": ("maf6", 256),
+               "coupling_forward": ("nsfc6", 1024),
+               "coupling_backward": ("nsfc6", 1024), "coupling_inverse": ("nsfc6", 256)}
+    for name in AFFINE + COUPLING:
+        flow_name, n = menu_at[name]
+        row = next(r for r in menu_times if r["flow"] == flow_name and r["d"] == 10
+                   and r["n"] == n)
+        total, path_counts = launches_of(name)
+        entry = {"name": name, "route": "cuda", "source": sources[name][0],
+                 "replaces": sources[name][1], "launches": total,
+                 "launches_by_path": path_counts, "max_abs_err": errs[name],
+                 "ms": row[f"{name}_ms"], "plain_ms": row[f"{name}_plain_ms"],
+                 "call_ms": row[f"{name}_call_ms"], "plain_call_ms": row[f"{name}_plain_call_ms"],
+                 "bound_ms": row[f"{name}_bound_ms"], "bound_by": row[f"{name}_bound_by"],
+                 "library_ms": None, "flow": flow_name, "d": 10, "n": n}
+        if name.startswith("coupling"):
+            entry["products_matmul_ms"] = row["coupling_matmul_ms"]
+            if name != "coupling_backward":
+                big = next(r for r in menu_times if r["d"] == 50 and r["n"] == 65536)
+                entry["bench_line"] = dict(
+                    d=50, n=65536, ms=big[f"{name}_ms"], plain_ms=big[f"{name}_plain_ms"],
+                    bound_ms=big[f"{name}_bound_ms"], bound_by=big[f"{name}_bound_by"],
+                    products_matmul_ms=big["coupling_matmul_ms"])
+        line.append(entry)
     print(json.dumps({"kernels": line}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -20,15 +20,25 @@ def _tensor(a, device=None):
 def load_flow_params(flow, params):
     """Copy a JAX ``Flow.params`` tree into the torch ``flow`` in place.
 
-    ``params = {"pre": {mean, w_fwd, w_inv, ladj}, "stack": [{"w": (T, fi,
-    fo), "b": (T, fo)}, ...]}`` (``pocomc_tpu/models/flow.py:245-258``),
-    the same stacked layout the port keeps. Returns ``flow``."""
+    ``params = {"pre": {mean, w_fwd, w_inv, ladj}, "stack": ...}``
+    (``pocomc_tpu/models/flow.py:245-258``). A masked-autoregressive
+    flow's (maf*, nsf*) stack is four layers {"w": (T, fi, fo), "b": (T,
+    fo)}, the layout the port keeps; a coupling flow's (nsfc*) is T lists
+    of four {"w": (fi, fo), "b": (fo,)}, the port's ``weights[4t + l]``.
+    Returns ``flow``."""
     stack = params["stack"]
-    if len(stack) != len(flow.weights):
-        raise ValueError(f"{len(stack)} layers for a flow with {len(flow.weights)}")
+    if flow.kind == "nsfc":
+        if len(stack) != flow.n_transforms or any(len(tp) != 4 for tp in stack):
+            raise ValueError(f"expected {flow.n_transforms} transforms of four layers for "
+                             f"a coupling flow")
+        layers = [layer for tp in stack for layer in tp]
+    else:
+        layers = stack
+    if len(layers) != len(flow.weights):
+        raise ValueError(f"{len(layers)} layers for a flow with {len(flow.weights)}")
     dev = flow.weights[0].device
     with torch.no_grad():
-        for l, layer in enumerate(stack):
+        for l, layer in enumerate(layers):
             for dst, key in ((flow.weights[l], "w"), (flow.biases[l], "b")):
                 src = _tensor(layer[key], dev)
                 if src.shape != dst.shape:

@@ -1,5 +1,7 @@
-// K1: autoregressive inverse of a whole NSF transform stack, latent ->
-// data, with the summed log|det dx/dz|.
+// K1: autoregressive inverse of a whole masked autoregressive transform
+// stack, latent -> data, with the summed log|det dx/dz|. The element
+// transform is the head (heads.cuh), a template parameter: the 8-bin
+// spline of the nsf* flows or the affine map of the maf* flows.
 //
 // Replaces the round-2 Pallas kernel of the JAX package, a fused
 // whole-transform autoregressive inverse with the masked weights resident
@@ -15,10 +17,11 @@
 // hidden layers connect where degree >= degree, the output where degree >
 // degree. So step k of transform t computes the layer-0, then layer-1, then
 // layer-2 units of degree k (fan-in: the inputs, or the units below, of
-// degree <= k), then the 23 spline parameters of dimension inv_order[t, k]
-// from the layer-2 units of degree <= k, then that dimension's spline
-// inverse. Masked-out terms are skipped, not multiplied by zero; with
-// unmasked weights the result is not the plain version's.
+// degree <= k), then the NP head parameters of dimension inv_order[t, k]
+// from the layer-2 units of degree <= k (23 for the spline, 2 for the
+// affine map), then that dimension's inverse. Masked-out terms are
+// skipped, not multiplied by zero; with unmasked weights the result is not
+// the plain version's.
 //
 // What bounds it on the H100: at small n the dependency chain of T*d steps
 // (each waits for the previous dimension's spline), at large n the
@@ -28,14 +31,14 @@
 //   and keeps their state in its own slice of shared memory: the three
 //   hidden layers in degree-sorted order (so the units of degree <= k are
 //   a prefix), z, x by dimension, x in visit order, and 23 spline
-//   parameters. Inside a step the warp synchronises with __syncwarp and
+//   head parameters (OG floats). Inside a step the warp synchronises with __syncwarp and
 //   shuffles only; the step loop has no block barrier.
 // - A product splits its fan-in over the 32 lanes; each lane keeps R x G
 //   sums (G: 4, 8 or 24 columns of a group), and a butterfly
 //   reduce-scatter of shuffles in one fixed order leaves every sum with one
 //   lane. No atomics: a seed repeats bit for bit.
 // - The weights each step needs (the degree-k columns cut to their live
-//   fan-in, then the 23 output columns), degree-sorted and padded to 16
+//   fan-in, then the NP output columns), degree-sorted and padded to 16
 //   bytes, are gathered once into a pack in the walk's order by a first
 //   kernel (pack_kernel; the wrapper keeps the pack with the weights). One
 //   producer warp a block streams the pack with bulk copies (TMA) into a
@@ -46,18 +49,19 @@
 //   for a stage, one chunk of its fan-in, so every d up to 2730 (h = 8192)
 //   fits a block.
 // - Small blocks (1-8 consumer warps), so n=256 spreads over ~128 SMs.
-// fp32 with plain FMAs, no fast-math; the spline is rqs.cuh's rqs_inverse.
+// fp32 with plain FMAs, no fast-math; the spline is rqs.cuh's rqs_inverse
+// (a one-row warp runs it warp-wide), the affine map heads.cuh's.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "made_tile.cuh"  // rqs.cuh and MAX_SMEM_BYTES
+#include "made_tile.cuh"  // heads.cuh, rqs.cuh and MAX_SMEM_BYTES
 
 namespace {
 
 using namespace pocomc;
 
 constexpr unsigned FULL_MASK = 0xffffffffu;
-constexpr int GROUP = 24;       // widest column group: one dimension's NPARAMS
+constexpr int GROUP = 24;       // widest column group: one dimension's spline parameters
 constexpr int MAX_WARPS = 8;    // consumer warps a block
 constexpr int MAX_STAGES = 8;
 
@@ -157,10 +161,11 @@ __device__ __forceinline__ int chunk_rows(int SL, int ncg) {
 // The order of the products, shared by the producer and the consumers:
 // transforms T-1..0, steps k = 0..d-1; at k >= 1 the degree-k column
 // groups of layers 0, 1, 2, then (every k) the output group of
-// dimension inv_order[t, k], then the step's end. v.group(t, k, layer,
-// g0, ncg, gw, fan) gets the group's first column among the step's
-// columns of that layer, its width, the group width and the fan-in.
-template <class Visitor>
+// dimension inv_order[t, k] (the head's NP columns in a group of OG),
+// then the step's end. v.group(t, k, layer, g0, ncg, gw, fan) gets the
+// group's first column among the step's columns of that layer, its
+// width, the group width and the fan-in.
+template <class Head, class Visitor>
 __device__ __forceinline__ void walk(const Degrees& g, int T, Visitor& v) {
   for (int tt = 0; tt < T; ++tt) {
     const int t = T - 1 - tt;
@@ -172,16 +177,17 @@ __device__ __forceinline__ void walk(const Degrees& g, int T, Visitor& v) {
           for (int g0 = 0; g0 < nc; g0 += gw)
             v.group(t, k, l, g0, min(gw, nc - g0), gw, l == 0 ? k : g.count(k));
       }
-      v.group(t, k, 3, 0, NPARAMS, GROUP, g.count(k));
+      v.group(t, k, 3, 0, Head::NP, Head::OG, g.count(k));
       v.step_end(t, k);
     }
     v.transform_end();
   }
 }
 
-// floats of step k's groups in the pack (the groups walk() visits)
-__host__ __device__ inline long long step_floats(const Degrees& g, int k) {
-  long long s = group_floats(NPARAMS, g.count(k));
+// floats of step k's groups in the pack (the groups walk() visits) with a
+// head of np parameters
+__host__ __device__ inline long long step_floats(const Degrees& g, int k, int np) {
+  long long s = group_floats(np, g.count(k));
   if (k >= 1) {
     const int nc = g.count(k) - g.count(k - 1);
     const int gw = group_width(nc);
@@ -381,8 +387,8 @@ __device__ __forceinline__ float rqs_inverse_warp(float y, float p, int lane, fl
 // The consumers of one block: each warp runs every product of the walk on
 // its R rows. Row r's state starts at rows + r * RS: h0, h1, h2 (h each,
 // degree-sorted), z and x by dimension (d each, swapped between
-// transforms), x in visit order (d), the current spline parameters (GROUP).
-template <int R>
+// transforms), x in visit order (d), the current head parameters (OG).
+template <class Head, int R>
 struct Consumer {
   Ring ring;
   Degrees g;
@@ -452,7 +458,7 @@ struct Consumer {
   __device__ __forceinline__ void group(int t, int k, int l, int g0, int ncg, int gw, int fan) {
     const int h = g.h;
     if (l == 3) {
-      product<GROUP, true>(rows + 2 * h, fan, ncg, rows + 3 * h + 3 * g.d, nullptr);
+      product<Head::OG, true>(rows + 2 * h, fan, ncg, rows + 3 * h + 3 * g.d, nullptr);
       return;
     }
     const int pos = g.count(k - 1) + g0;
@@ -470,13 +476,13 @@ struct Consumer {
     }
   }
 
-  // the spline inverse of dimension inv_order[t, k]: with one row, by the
-  // whole warp (rqs_inverse_warp); else lane r for row r
+  // the inverse of dimension inv_order[t, k]: the spline with one row by
+  // the whole warp (rqs_inverse_warp); else lane r for row r
   __device__ __forceinline__ void step_end(int t, int k) {
     const int d = g.d, h = g.h;
     const int dim = __ldg(inv_order + t * d + k);
-    float* row = rows + 3 * h;  // z, x, x in visit order, spline parameters
-    if constexpr (R == 1) {
+    float* row = rows + 3 * h;  // z, x, x in visit order, head parameters
+    if constexpr (R == 1 && Head::NP == NPARAMS) {
       const float p = lane < NPARAMS ? row[3 * d + lane] : 0.0f;
       float l;
       const float x = rqs_inverse_warp(row[zo + dim], p, lane, &l);
@@ -488,7 +494,7 @@ struct Consumer {
     } else if (lane < R) {
       row += lane * RS;
       float l;
-      const float x = rqs_inverse(row[zo + dim], row + 3 * d, &l);
+      const float x = Head::inverse(row[zo + dim], row + 3 * d, &l);
       row[xo + dim] = x;
       row[2 * d + k] = x;
       ladj += l;
@@ -502,7 +508,7 @@ struct Consumer {
   }
 };
 
-template <int R>
+template <class Head, int R>
 __global__ void __launch_bounds__(32 * (MAX_WARPS + 1))
     ar_inverse_kernel(const float* __restrict__ z, float* __restrict__ x,
                       float* __restrict__ ladj, int n, int d, int h, int T,
@@ -526,21 +532,21 @@ __global__ void __launch_bounds__(32 * (MAX_WARPS + 1))
 
   if (warp == W) {
     Producer p{ring, pack, 0, 0, lane, R == 1};
-    walk(g, T, p);
+    walk<Head>(g, T, p);
     p.flush();
     return;
   }
 
-  const int RS = 3 * h + 3 * d + GROUP;
+  const int RS = 3 * h + 3 * d + Head::OG;
   const int row0 = (blockIdx.x * W + warp) * R;
-  Consumer<R> c{ring, g, inv_order, rows + warp * R * RS, RS, lane, 0, d, 0.0f};
+  Consumer<Head, R> c{ring, g, inv_order, rows + warp * R * RS, RS, lane, 0, d, 0.0f};
   for (int r = 0; r < R; ++r) {
     const int row = row0 + r;
     for (int i = lane; i < d; i += 32)
       c.rows[r * RS + 3 * h + i] = row < n ? z[(size_t)row * d + i] : 0.0f;
   }
   __syncwarp();
-  walk(g, T, c);
+  walk<Head>(g, T, c);
   for (int r = 0; r < R; ++r) {
     const int row = row0 + r;
     if (row < n)
@@ -554,7 +560,7 @@ __global__ void __launch_bounds__(32 * (MAX_WARPS + 1))
 // (T, N_l)). One block a step (transform, k). Layer 0's fan-in rows are the
 // dimensions visited before step k, in visit order; the hidden layers' and
 // the output's the degree-sorted hidden units. The hidden layers' columns
-// are the degree-k units (k-1) + m*D; the output's the 23 of dimension
+// are the degree-k units (k-1) + m*D; the output's the np of dimension
 // inv_order[t, k].
 struct Layers {
   const float* w[4];
@@ -562,22 +568,22 @@ struct Layers {
 };
 
 __global__ void pack_kernel(Layers m, const int* __restrict__ inv_order, float* __restrict__ pack,
-                            int d, int h, int T) {
+                            int d, int h, int T, int np) {
   const Degrees g(d, h);
   const int tt = blockIdx.x / d, k = blockIdx.x - tt * d, t = T - 1 - tt;
   long long per_t = 0, off = 0;
   for (int kk = 0; kk < d; ++kk) {
-    const long long s = step_floats(g, kk);
+    const long long s = step_floats(g, kk, np);
     per_t += s;
     if (kk < k) off += s;
   }
   off += tt * per_t;
   auto write = [&](int l, int g0, int ncg, int fan) {
     const int K = l == 0 ? d : h;
-    const int N = l == 3 ? d * NPARAMS : h;
+    const int N = l == 3 ? d * np : h;
     const float* W = m.w[l] + (size_t)t * K * N;
     const float* bias = m.b[l] + (size_t)t * N;
-    const int col0 = l == 3 ? inv_order[t * d + k] * NPARAMS : (k - 1) + g0 * g.D;
+    const int col0 = l == 3 ? inv_order[t * d + k] * np : (k - 1) + g0 * g.D;
     const int cstep = l == 3 ? 1 : g.D;
     const int fanp = round4(fan), cols = ncg * fanp;
     const int total = cols + round4(ncg);
@@ -603,62 +609,79 @@ __global__ void pack_kernel(Layers m, const int* __restrict__ inv_order, float* 
     for (int l = 0; l < 3; ++l)
       for (int g0 = 0; g0 < nc; g0 += gw) write(l, g0, min(gw, nc - g0), l == 0 ? k : g.count(k));
   }
-  write(3, 0, NPARAMS, g.count(k));
+  write(3, 0, np, g.count(k));
 }
 
-template <int R>
+template <class Head, int R>
 int launch(const float* z, float* x, float* ladj, int n, int d, int h, int T, const float* pack,
            const int* inv_order, int W, int S, int SL, size_t smem, cudaStream_t stream) {
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        ar_inverse_kernel<R>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        ar_inverse_kernel<Head, R>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
   }
   const int blocks = (n + R * W - 1) / (R * W);
-  ar_inverse_kernel<R><<<blocks, 32 * (W + 1), smem, stream>>>(z, x, ladj, n, d, h, T, pack,
-                                                              inv_order, W, S, SL);
+  ar_inverse_kernel<Head, R><<<blocks, 32 * (W + 1), smem, stream>>>(z, x, ladj, n, d, h, T, pack,
+                                                                    inv_order, W, S, SL);
   return (int)cudaGetLastError();
 }
 
+template <class Head>
+int launch_rows(int rows, const float* z, float* x, float* ladj, int n, int d, int h, int T,
+                const float* pack, const int* inv_order, int W, int S, int SL, size_t smem,
+                cudaStream_t s) {
+  switch (rows) {
+    case 1: return launch<Head, 1>(z, x, ladj, n, d, h, T, pack, inv_order, W, S, SL, smem, s);
+    case 2: return launch<Head, 2>(z, x, ladj, n, d, h, T, pack, inv_order, W, S, SL, smem, s);
+    case 4: return launch<Head, 4>(z, x, ladj, n, d, h, T, pack, inv_order, W, S, SL, smem, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+bool head_ok(int np) { return np == RqsHead::NP || np == AffineHead::NP; }
+
 }  // namespace
 
-// Floats of the pack of T transforms at (d, h).
-extern "C" long long ar_inverse_pack_floats(int d, int h, int T) {
+// Floats of the pack of T transforms at (d, h) with a head of np parameters.
+extern "C" long long ar_inverse_pack_floats(int d, int h, int T, int np) {
   const Degrees g(d, h);
   long long s = 0;
-  for (int k = 0; k < d; ++k) s += step_floats(g, k);
+  for (int k = 0; k < d; ++k) s += step_floats(g, k, np);
   return s * T;
 }
 
 // Writes the pack (ar_inverse_pack_floats floats) of the masked weights,
 // stacked over transforms as for made_rqs_forward_launch, and the (T, d)
 // int32 order in which each transform's inverse visits the dimensions
-// (argsort of its autoregressive order). Launches on `stream` and returns
-// cudaGetLastError().
+// (argsort of its autoregressive order); np picks the head (23 the spline,
+// 2 the affine map; w3 and b3 have d*np columns). Launches on `stream` and
+// returns cudaGetLastError().
 extern "C" int ar_inverse_pack_launch(const float* w0, const float* b0, const float* w1,
                                       const float* b1, const float* w2, const float* b2,
                                       const float* w3, const float* b3, const int* inv_order,
-                                      float* pack, int d, int h, int T, int device,
+                                      float* pack, int d, int h, int T, int np, int device,
                                       void* stream) {
-  if (d < 1 || h < 1 || T < 1) return (int)cudaErrorInvalidValue;
+  if (d < 1 || h < 1 || T < 1 || !head_ok(np)) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   const Layers m{{w0, w1, w2, w3}, {b0, b1, b2, b3}};
-  pack_kernel<<<T * d, 256, 0, (cudaStream_t)stream>>>(m, inv_order, pack, d, h, T);
+  pack_kernel<<<T * d, 256, 0, (cudaStream_t)stream>>>(m, inv_order, pack, d, h, T, np);
   return (int)cudaGetLastError();
 }
 
 // Plain C entry point, loaded with ctypes: the inverse of n rows of z
 // through the pack that ar_inverse_pack_launch wrote, with the same
-// inv_order. rows (1, 2 or 4) a consumer warp, warps (1-8) consumer warps a
+// inv_order and np. rows (1, 2 or 4) a consumer warp, warps (1-8) consumer warps a
 // block, stages (2-8) of stage_floats floats in the ring (a multiple of 4,
 // at least 5 * 24). Launches on `stream` and returns cudaGetLastError(), or
 // cudaErrorInvalidValue for arguments it does not take.
 extern "C" int ar_inverse_launch(const float* z, float* x, float* ladj, int n, int d, int h,
-                                 int T, const float* pack, const int* inv_order, int rows,
-                                 int warps, int stages, int stage_floats, int device,
+                                 int T, const float* pack, const int* inv_order, int np,
+                                 int rows, int warps, int stages, int stage_floats, int device,
                                  void* stream) {
-  const size_t row = 3 * (size_t)h + 3 * (size_t)d + GROUP;
+  if (!head_ok(np)) return (int)cudaErrorInvalidValue;
+  const size_t row =
+      3 * (size_t)h + 3 * (size_t)d + (np == AffineHead::NP ? AffineHead::OG : RqsHead::OG);
   const size_t smem = 16 * (size_t)stages +
                       sizeof(float) * ((size_t)stages * stage_floats + (size_t)warps * rows * row);
   if (n < 1 || d < 1 || h < 1 || T < 1 || warps < 1 || warps > MAX_WARPS || stages < 2 ||
@@ -669,10 +692,8 @@ extern "C" int ar_inverse_launch(const float* z, float* x, float* ladj, int n, i
   if (err != cudaSuccess) return (int)err;
   const cudaStream_t s = (cudaStream_t)stream;
   const int W = warps, S = stages, SL = stage_floats;
-  switch (rows) {
-    case 1: return launch<1>(z, x, ladj, n, d, h, T, pack, inv_order, W, S, SL, smem, s);
-    case 2: return launch<2>(z, x, ladj, n, d, h, T, pack, inv_order, W, S, SL, smem, s);
-    case 4: return launch<4>(z, x, ladj, n, d, h, T, pack, inv_order, W, S, SL, smem, s);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  if (np == AffineHead::NP)
+    return launch_rows<AffineHead>(rows, z, x, ladj, n, d, h, T, pack, inv_order, W, S, SL, smem,
+                                   s);
+  return launch_rows<RqsHead>(rows, z, x, ladj, n, d, h, T, pack, inv_order, W, S, SL, smem, s);
 }

@@ -1,6 +1,7 @@
-// K2 backward: the gradient of the whole NSF transform stack (made_rqs_forward.cu)
-// with respect to its input and, through the layers' deltas, its masked
-// weights and biases.
+// K2 backward: the gradient of the whole masked autoregressive transform
+// stack (made_rqs_forward.cu) with respect to its input and, through the
+// layers' deltas, its masked weights and biases; templated on the head as
+// the forward is (heads.cuh: the spline's VJP or the affine map's).
 //
 // Replaces the backward of the Pallas MADE kernel of
 // pocomc_tpu/ops/pallas_kernels.py (`make_made_apply`'s custom VJP, deleted
@@ -48,13 +49,13 @@ struct Deltas {
   float* g[4];
 };
 
-template <int RP>
+template <class Head, int RP>
 __global__ void __launch_bounds__(THREADS)
     made_rqs_backward_kernel(Saved sv, const float* __restrict__ gz,
                              const float* __restrict__ gladj, float* __restrict__ gy, Deltas dl,
                              int n, Made m, int P, int gw, int SL) {
   extern __shared__ __align__(16) float smem[];
-  const int d = m.d, h = m.h, dout = d * NPARAMS;
+  const int d = m.d, h = m.h, dout = d * Head::NP;
   float* xs = smem;          // P*d   input x_t of the transform
   float* as = xs + P * d;    // P*h   relu(h2), the output layer's input
   float* pg = as + P * h;    // P*gw  one group's spline parameters, then their gradients
@@ -63,7 +64,7 @@ __global__ void __launch_bounds__(THREADS)
   float* gh = gd + P * d;    // P*h   dL/dh of the current layer
   float* ga = gh + P * h;    // P*h   product accumulator
   float* gl = ga + P * h;    // P     dL/dladj
-  WeightStream ws(m, ring_start(smem, P * (3 * d + 3 * h + gw + 1)), SL, gw, true);
+  WeightStream<Made> ws(m, ring_start(smem, P * (3 * d + 3 * h + gw + 1)), SL, gw, true, true);
   ws.start();
 
   const int row0 = blockIdx.x * P;
@@ -89,11 +90,11 @@ __global__ void __launch_bounds__(THREADS)
                                 Out{pg, nullptr, nullptr, gw, c.g0, row0, n});
       if (c.pass == 0 && c.group_end) {
         __syncthreads();
-        const int k0 = c.g0 / NPARAMS, gdim = (c.gend - c.g0) / NPARAMS;
+        const int k0 = c.g0 / Head::NP, gdim = (c.gend - c.g0) / Head::NP;
         for (int idx = threadIdx.x; idx < P * gdim; idx += THREADS) {
           const int p = idx / gdim, k = k0 + idx - p * gdim;
-          gd[p * d + k] = rqs_forward_vjp(xs[p * d + k], pg + p * gw + (k - k0) * NPARAMS,
-                                          gx[p * d + k], gl[p]);
+          gd[p * d + k] = Head::forward_vjp(xs[p * d + k], pg + p * gw + (k - k0) * Head::NP,
+                                            gx[p * d + k], gl[p]);
         }
         __syncthreads();
         const int cols = c.gend - c.g0;
@@ -144,30 +145,38 @@ __global__ void __launch_bounds__(THREADS)
   }
 }
 
-template <int RP>
+template <class Head, int RP>
 int launch(const Saved& sv, const float* gz, const float* gladj, float* gy, const Deltas& dl,
            int n, const Made& m, int P, int gw, int SL, size_t smem, cudaStream_t stream) {
-  cudaError_t err = cudaFuncSetAttribute(made_rqs_backward_kernel<RP>,
+  cudaError_t err = cudaFuncSetAttribute(made_rqs_backward_kernel<Head, RP>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  made_rqs_backward_kernel<RP><<<(n + P - 1) / P, THREADS, smem, stream>>>(sv, gz, gladj, gy, dl,
-                                                                          n, m, P, gw, SL);
+  made_rqs_backward_kernel<Head, RP><<<(n + P - 1) / P, THREADS, smem, stream>>>(
+      sv, gz, gladj, gy, dl, n, m, P, gw, SL);
   return (int)cudaGetLastError();
+}
+
+template <class Head>
+int launch_tile(const Saved& sv, const float* gz, const float* gladj, float* gy, const Deltas& dl,
+                int n, const Made& m, int P, int gw, int SL, size_t smem, cudaStream_t s) {
+  if (P >= 16) return launch<Head, 4>(sv, gz, gladj, gy, dl, n, m, P, gw, SL, smem, s);
+  if (P >= 2) return launch<Head, 2>(sv, gz, gladj, gy, dl, n, m, P, gw, SL, smem, s);
+  return launch<Head, 1>(sv, gz, gladj, gy, dl, n, m, P, gw, SL, smem, s);
 }
 
 }  // namespace
 
 // shared-memory floats of one block: the tile's state, up to 4 floats of
 // padding and the ring
-extern "C" int made_rqs_backward_smem_floats(int P, int G, int d, int h, int SL) {
-  return P * (3 * d + 3 * h + G * pocomc::NPARAMS + 1) + 4 + 2 * SL;
+extern "C" int made_rqs_backward_smem_floats(int P, int G, int d, int h, int SL, int np) {
+  return P * (3 * d + 3 * h + G * np + 1) + 4 + 2 * SL;
 }
 
 // Plain C entry point, loaded with ctypes. a0 (T, n, d) and a1..a3
 // (T, n, h) are the inputs of every layer's product as the forward kernel
 // saved them; gz (n, d) and gladj (n,) are dL/dz and dL/dladj; gy (n, d)
-// receives dL/dy and g0..g3 (T, n, h|h|h|d*NPARAMS) the deltas of the four
-// layers. Weights, P, G and SL as for made_rqs_forward_launch. Launches on
+// receives dL/dy and g0..g3 (T, n, h|h|h|d*np) the deltas of the four
+// layers. Weights, np, P, G and SL as for made_rqs_forward_launch. Launches on
 // `stream` and returns cudaGetLastError().
 extern "C" int made_rqs_backward_launch(const float* a0, const float* a1, const float* a2,
                                         const float* a3, const float* gz, const float* gladj,
@@ -175,19 +184,21 @@ extern "C" int made_rqs_backward_launch(const float* a0, const float* a1, const 
                                         const float* b0, const float* w1, const float* b1,
                                         const float* w2, const float* b2, const float* w3,
                                         const float* b3, float* g0, float* g1, float* g2,
-                                        float* g3, int P, int G, int SL, int device,
+                                        float* g3, int np, int P, int G, int SL, int device,
                                         void* stream) {
+  if (np != pocomc::RqsHead::NP && np != pocomc::AffineHead::NP)
+    return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  const size_t smem = sizeof(float) * (size_t)made_rqs_backward_smem_floats(P, G, d, h, SL);
+  const size_t smem = sizeof(float) * (size_t)made_rqs_backward_smem_floats(P, G, d, h, SL, np);
   if (!pocomc::k2_args_ok(P, G, SL, d, h, smem)) return (int)cudaErrorInvalidValue;
-  const pocomc::Made m{{w0, w1, w2, w3}, {b0, b1, b2, b3}, d, h, T};
+  const pocomc::Made m{{w0, w1, w2, w3}, {b0, b1, b2, b3}, d, h, T, np};
   const pocomc::Saved sv{{const_cast<float*>(a0), const_cast<float*>(a1), const_cast<float*>(a2),
                           const_cast<float*>(a3)}};
   const Deltas dl{{g0, g1, g2, g3}};
-  const int gw = G * pocomc::NPARAMS;
+  const int gw = G * np;
   cudaStream_t s = (cudaStream_t)stream;
-  if (P >= 16) return launch<4>(sv, gz, gladj, gy, dl, n, m, P, gw, SL, smem, s);
-  if (P >= 2) return launch<2>(sv, gz, gladj, gy, dl, n, m, P, gw, SL, smem, s);
-  return launch<1>(sv, gz, gladj, gy, dl, n, m, P, gw, SL, smem, s);
+  if (np == pocomc::AffineHead::NP)
+    return launch_tile<pocomc::AffineHead>(sv, gz, gladj, gy, dl, n, m, P, gw, SL, smem, s);
+  return launch_tile<pocomc::RqsHead>(sv, gz, gladj, gy, dl, n, m, P, gw, SL, smem, s);
 }

@@ -1,5 +1,8 @@
-// K2 forward: fused MADE + rational-quadratic-spline forward pass of a whole
-// NSF transform stack, data -> latent, with the summed log|det dz/dy|.
+// K2 forward: fused MADE + element-transform forward pass of a whole
+// masked autoregressive transform stack, data -> latent, with the summed
+// log|det dz/dy|. The element transform is the head (heads.cuh), a
+// template parameter: the 8-bin spline of the nsf* flows (23 parameters a
+// dimension) or the affine map of the maf* flows (2).
 //
 // Replaces the Pallas kernel `_made_kernel` / `_pallas_made_call` /
 // `make_made_apply` of pocomc_tpu/ops/pallas_kernels.py (deleted in commit
@@ -26,7 +29,7 @@
 // weight read feeds RP FMAs. The output layer runs a group of G whole
 // dimensions at a time (all of them up to d=50, as many as half the shared
 // memory holds beyond), each group's P*G splines in parallel right after
-// it, one thread each; the tile's shared memory is P*(d + 2h + 23G + 1)
+// it, one thread each; the tile's shared memory is P*(d + 2h + NP*G + 1)
 // floats beside the ring. With `sv` set it also writes
 // every layer's input of every transform (Saved), which the backward kernel
 // (made_rqs_backward.cu) and the weight-gradient products take. fp32 FMAs
@@ -39,7 +42,7 @@ namespace {
 
 using namespace pocomc;
 
-template <int RP>
+template <class Head, int RP>
 __global__ void __launch_bounds__(THREADS)
     made_rqs_forward_kernel(const float* __restrict__ y, float* __restrict__ z,
                             float* __restrict__ ladj, Saved sv, int n, Made m, int P, int gw,
@@ -51,7 +54,7 @@ __global__ void __launch_bounds__(THREADS)
   float* hn = hs + P * h;    // P*h   next hidden state; per-dimension log-dets
   float* ps = hn + P * h;    // P*gw  spline parameters of one column group
   float* ls = ps + P * gw;   // P     log-det accumulator
-  WeightStream ws(m, ring_start(smem, P * (d + 2 * h + gw + 1)), SL, gw, false);
+  WeightStream<Made> ws(m, ring_start(smem, P * (d + 2 * h + gw + 1)), SL, gw, false, false);
   ws.start();
   const bool save = sv.a[0] != nullptr;
 
@@ -83,12 +86,12 @@ __global__ void __launch_bounds__(THREADS)
                                  Out{ps, nullptr, nullptr, gw, c.g0, row0, n});
         ws.release();
         if (l == 3 && c.group_end) {
-          // the group's splines: dimensions k0 .. k0 + gd - 1 of every row
-          const int k0 = c.g0 / NPARAMS, gd = (c.gend - c.g0) / NPARAMS;
+          // the group's heads: dimensions k0 .. k0 + gd - 1 of every row
+          const int k0 = c.g0 / Head::NP, gd = (c.gend - c.g0) / Head::NP;
           for (int idx = threadIdx.x; idx < P * gd; idx += THREADS) {
             const int p = idx / gd, k = k0 + idx - p * gd;
             float lg;
-            xs[p * d + k] = rqs_forward(xs[p * d + k], ps + p * gw + (k - k0) * NPARAMS, &lg);
+            xs[p * d + k] = Head::forward(xs[p * d + k], ps + p * gw + (k - k0) * Head::NP, &lg);
             hn[p * d + k] = lg;
           }
         }
@@ -116,30 +119,39 @@ __global__ void __launch_bounds__(THREADS)
     if (row0 + p < n) ladj[row0 + p] = ls[p];
 }
 
-template <int RP>
+template <class Head, int RP>
 int launch(const float* y, float* z, float* ladj, const Saved& sv, int n, const Made& m, int P,
            int gw, int SL, size_t smem, cudaStream_t stream) {
-  cudaError_t err = cudaFuncSetAttribute(made_rqs_forward_kernel<RP>,
+  cudaError_t err = cudaFuncSetAttribute(made_rqs_forward_kernel<Head, RP>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  made_rqs_forward_kernel<RP><<<(n + P - 1) / P, THREADS, smem, stream>>>(y, z, ladj, sv, n, m,
-                                                                         P, gw, SL);
+  made_rqs_forward_kernel<Head, RP><<<(n + P - 1) / P, THREADS, smem, stream>>>(
+      y, z, ladj, sv, n, m, P, gw, SL);
   return (int)cudaGetLastError();
+}
+
+template <class Head>
+int launch_tile(const float* y, float* z, float* ladj, const Saved& sv, int n, const Made& m,
+                int P, int gw, int SL, size_t smem, cudaStream_t s) {
+  if (P >= 16) return launch<Head, 4>(y, z, ladj, sv, n, m, P, gw, SL, smem, s);
+  if (P >= 2) return launch<Head, 2>(y, z, ladj, sv, n, m, P, gw, SL, smem, s);
+  return launch<Head, 1>(y, z, ladj, sv, n, m, P, gw, SL, smem, s);
 }
 
 }  // namespace
 
-// shared-memory floats of one block: the tile's state, up to 4 floats of
-// padding and the ring
-extern "C" int made_rqs_forward_smem_floats(int P, int G, int d, int h, int SL) {
-  return P * (d + 2 * h + G * pocomc::NPARAMS + 1) + 4 + 2 * SL;
+// shared-memory floats of one block with a head of np parameters: the
+// tile's state, up to 4 floats of padding and the ring
+extern "C" int made_rqs_forward_smem_floats(int P, int G, int d, int h, int SL, int np) {
+  return P * (d + 2 * h + G * np + 1) + 4 + 2 * SL;
 }
 
 // Plain C entry point, loaded with ctypes. Weights are the (T, fan_in,
 // fan_out) masked weights and (T, fan_out) biases of the four MADE layers,
 // contiguous fp32 on the device. a0..a3 are all null, or receive the input
 // of every layer's product: a0 (T, n, d) the transform inputs, a1..a3
-// (T, n, h) relu(h0), relu(h1), relu(h2). P is the tile (1, 2, 4, 8 or 16
+// (T, n, h) relu(h0), relu(h1), relu(h2). np picks the head: 23 the spline,
+// 2 the affine map (w3 and b3 have d*np columns). P is the tile (1, 2, 4, 8 or 16
 // rows), G the dimensions of an output-layer group (1..d), SL the floats of
 // one ring stage (a multiple of 4, at least h + 1). Launches on `stream`
 // and returns cudaGetLastError().
@@ -147,17 +159,19 @@ extern "C" int made_rqs_forward_launch(const float* y, float* z, float* ladj, in
                                        int h, int T, const float* w0, const float* b0,
                                        const float* w1, const float* b1, const float* w2,
                                        const float* b2, const float* w3, const float* b3,
-                                       float* a0, float* a1, float* a2, float* a3, int P, int G,
-                                       int SL, int device, void* stream) {
+                                       float* a0, float* a1, float* a2, float* a3, int np,
+                                       int P, int G, int SL, int device, void* stream) {
+  if (np != pocomc::RqsHead::NP && np != pocomc::AffineHead::NP)
+    return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  const size_t smem = sizeof(float) * (size_t)made_rqs_forward_smem_floats(P, G, d, h, SL);
+  const size_t smem = sizeof(float) * (size_t)made_rqs_forward_smem_floats(P, G, d, h, SL, np);
   if (!pocomc::k2_args_ok(P, G, SL, d, h, smem)) return (int)cudaErrorInvalidValue;
-  const pocomc::Made m{{w0, w1, w2, w3}, {b0, b1, b2, b3}, d, h, T};
+  const pocomc::Made m{{w0, w1, w2, w3}, {b0, b1, b2, b3}, d, h, T, np};
   const pocomc::Saved sv{{a0, a1, a2, a3}};
-  const int gw = G * pocomc::NPARAMS;
+  const int gw = G * np;
   cudaStream_t s = (cudaStream_t)stream;
-  if (P >= 16) return launch<4>(y, z, ladj, sv, n, m, P, gw, SL, smem, s);
-  if (P >= 2) return launch<2>(y, z, ladj, sv, n, m, P, gw, SL, smem, s);
-  return launch<1>(y, z, ladj, sv, n, m, P, gw, SL, smem, s);
+  if (np == pocomc::AffineHead::NP)
+    return launch_tile<pocomc::AffineHead>(y, z, ladj, sv, n, m, P, gw, SL, smem, s);
+  return launch_tile<pocomc::RqsHead>(y, z, ladj, sv, n, m, P, gw, SL, smem, s);
 }

@@ -1,28 +1,35 @@
 // Shared device code of K2's forward and backward kernels
-// (made_rqs_forward.cu, made_rqs_backward.cu): the masked MADE weights of
-// every transform streamed through a two-stage ring in shared memory with
+// (made_rqs_forward.cu, made_rqs_backward.cu) and of K5's
+// (coupling_forward.cu, coupling_backward.cu): the weights of every
+// transform streamed through a two-stage ring in shared memory with
 // cp.async, the register-tiled products of a particle tile with a staged
 // weight chunk in both directions, and their store epilogue.
 //
+// A network is four layers K_0 -> h -> h -> h -> N_3 a transform: the
+// masked MADE of an autoregressive transform (Made: K_0 = d, N_3 = d*NP)
+// or the residual MLP of a coupling transform (Coupling: K_0 = the
+// conditioning half's width, N_3 = the transformed half's width * NP); NP
+// is the head's raw parameters a dimension (heads.cuh).
 // A chunk is all K rows of a layer's (K, N) weight and nc of its columns,
 // plus those columns' biases; it lands in a ring stage as a dense (K, nc)
 // block followed by the nc biases. Where a chunk is a whole layer (every
 // layer at d=10) its weights are one contiguous block of device memory,
 // copied 16 bytes a thread-instruction. The stream walks a fixed schedule
 // of (transform, layer) steps and loads chunk i+2 while the block computes
-// on chunk i. The output layer's d*NPARAMS columns are cut into groups of
-// G whole dimensions (gw = G*NPARAMS columns), so a block holds one group's
-// spline parameters at a time and its shared memory grows with d + h, not
-// with d*NPARAMS: at d=10 (h=32) a layer and the whole output layer are one
-// chunk each and a transform's four layers (38.9 KB) pass through the ring
-// one after another. At d=50 (h=256, 1.75 MB a transform) the layers run in
-// chunks of 59-86 columns; the forward's output layer is one group of all
-// 50 dimensions, the backward's groups of 3 dimensions, one chunk each.
+// on chunk i. The output layer's columns are cut into groups of G whole
+// dimensions (gw = G*NP columns), so a block holds one group's head
+// parameters at a time and its shared memory grows with d + h, not with
+// d*NP: at d=10 (h=32) a layer and the whole output layer are one chunk
+// each and a transform's four layers (38.9 KB with the spline head) pass
+// through the ring one after another. At d=50 (h=256, 1.75 MB a
+// transform) the layers run in chunks of 59-86 columns; the forward's
+// output layer is one group of all 50 dimensions, the backward's groups
+// of 3 dimensions, one chunk each.
 #pragma once
 
 #include <cuda_runtime.h>
 
-#include "rqs.cuh"
+#include "heads.cuh"
 
 namespace pocomc {
 
@@ -63,14 +70,44 @@ __device__ __forceinline__ float* ring_start(float* smem, int used) {
   return smem + ((used + 3) & ~3);
 }
 
-// The four masked layers d -> h -> h -> h -> d*NPARAMS of all T transforms:
-// w[l] is (T, K_l, N_l) and b[l] is (T, N_l), row-major fp32.
+// The four masked layers d -> h -> h -> h -> d*np of all T transforms of
+// a MADE stack: w[l] is (T, K_l, N_l) and b[l] is (T, N_l), row-major fp32.
 struct Made {
   const float* w[4];
   const float* b[4];
-  int d, h, T;
-  __device__ __forceinline__ int fan_in(int l) const { return l == 0 ? d : h; }
-  __device__ __forceinline__ int fan_out(int l) const { return l == 3 ? d * NPARAMS : h; }
+  int d, h, T, np;
+  __device__ __forceinline__ int fan_in(int, int l) const { return l == 0 ? d : h; }
+  __device__ __forceinline__ int fan_out(int, int l) const { return l == 3 ? d * np : h; }
+  __device__ __forceinline__ const float* weights(int t, int l) const {
+    return w[l] + (size_t)t * fan_in(t, l) * fan_out(t, l);
+  }
+  __device__ __forceinline__ const float* biases(int t, int l) const {
+    return b[l] + (size_t)t * fan_out(t, l);
+  }
+};
+
+// The residual MLPs of T coupling transforms (models/coupling.py), each
+// its own (K, N) weights and (N,) biases: tab holds 8T device pointers,
+// w0 b0 w1 b1 w2 b2 w3 b3 of transform 0, then of 1, and so on. The halves
+// alternate as make_coupling_masks lays them out: an even transform
+// conditions on dimensions [0, half) and transforms [half, d), an odd one
+// conditions on [half, d) and transforms [0, half), half = ceil(d/2).
+struct Coupling {
+  const float* const* tab;
+  int d, h, T, np;
+  __host__ __device__ __forceinline__ int half() const { return (d + 1) / 2; }
+  __device__ __forceinline__ int n_cond(int t) const { return (t & 1) ? d - half() : half(); }
+  __device__ __forceinline__ int cond0(int t) const { return (t & 1) ? half() : 0; }
+  __device__ __forceinline__ int trans0(int t) const { return (t & 1) ? 0 : half(); }
+  __device__ __forceinline__ int n_trans(int t) const { return d - n_cond(t); }
+  __device__ __forceinline__ int fan_in(int t, int l) const { return l == 0 ? n_cond(t) : h; }
+  __device__ __forceinline__ int fan_out(int t, int l) const {
+    return l == 3 ? n_trans(t) * np : h;
+  }
+  __device__ __forceinline__ const float* weights(int t, int l) const { return tab[8 * t + 2 * l]; }
+  __device__ __forceinline__ const float* biases(int t, int l) const {
+    return tab[8 * t + 2 * l + 1];
+  }
 };
 
 // The input of every layer's product in every transform, (T, n, K_l): the
@@ -98,40 +135,45 @@ struct Cursor {
   int step, c0, g0, pass;
 };
 
-// The two-stage weight ring. Every thread of the block holds the same
-// state and calls the same methods in the same order. The loader's cursor
-// runs two chunks ahead of the consumer's; both walk the same schedule.
+// The two-stage weight ring over the layers of a Net (Made or Coupling).
+// Every thread of the block holds the same state and calls the same
+// methods in the same order. The loader's cursor runs two chunks ahead of
+// the consumer's; both walk the same schedule: transforms 0..T-1, or
+// T-1..0 with rev_t; layers 0..3, or 3..0 in the backward (bwd).
+template <class Net>
 struct WeightStream {
-  Made m;
+  Net m;
   float* stage;   // 2 * SL floats of shared memory from ring_start
   int SL;         // floats per stage, a multiple of 4, at least h + 1
   int gw;         // columns of an output-layer group
-  bool backward;  // schedule: forward t = 0..T-1, layers 0..3; backward t = T-1..0, layers 3..0
+  bool backward;  // layers 3..0, and an output-layer group may run twice
+  bool rev_t;     // transforms T-1..0
   bool twopass;   // backward, and an output-layer group does not fit one stage
-  int wd_d, wd_h;  // columns of a stage at fan-in d and at fan-in h
   int nsteps, slot;
   Cursor ld, use;
 
-  __device__ WeightStream(const Made& made, float* ring, int sl, int group, bool bwd)
-      : m(made), stage(ring), SL(sl), gw(group), backward(bwd),
-        twopass(bwd && (made.h + 1) * group > sl), wd_d(sl / (made.d + 1)),
-        wd_h(sl / (made.h + 1)), nsteps(4 * made.T), slot(0), ld{0, 0, 0, 0}, use{0, 0, 0, 0} {}
+  __device__ WeightStream(const Net& net, float* ring, int sl, int group, bool bwd, bool rev)
+      : m(net), stage(ring), SL(sl), gw(group), backward(bwd), rev_t(rev),
+        twopass(bwd && (net.h + 1) * group > sl), nsteps(4 * net.T), slot(0), ld{0, 0, 0, 0},
+        use{0, 0, 0, 0} {}
 
-  __device__ __forceinline__ int group_width(int l) const { return l == 3 ? gw : m.fan_out(l); }
+  __device__ __forceinline__ int group_width(int t, int l) const {
+    return l == 3 ? gw : m.fan_out(t, l);
+  }
   // columns of one chunk of layer l: as many as fit a stage, within a group
-  __device__ __forceinline__ int width(int l) const {
-    return min(l == 0 ? wd_d : wd_h, group_width(l));
+  __device__ __forceinline__ int width(int t, int l) const {
+    return min(SL / (m.fan_in(t, l) + 1), group_width(t, l));
   }
   // the chunk at *cur, and *cur moved on to the next one
   __device__ __forceinline__ Chunk next(Cursor* cur) const {
     Chunk c;
-    c.t = backward ? m.T - 1 - (cur->step >> 2) : cur->step >> 2;
+    c.t = rev_t ? m.T - 1 - (cur->step >> 2) : cur->step >> 2;
     c.l = backward ? 3 - (cur->step & 3) : cur->step & 3;
-    const int N = m.fan_out(c.l);
+    const int N = m.fan_out(c.t, c.l);
     c.c0 = cur->c0;
     c.g0 = cur->g0;
-    c.gend = min(c.g0 + group_width(c.l), N);
-    c.nc = min(width(c.l), c.gend - c.c0);
+    c.gend = min(c.g0 + group_width(c.t, c.l), N);
+    c.nc = min(width(c.t, c.l), c.gend - c.c0);
     c.pass = cur->pass;
     const bool two = c.l == 3 && twopass;
     c.group_end = c.c0 + c.nc == c.gend;
@@ -153,8 +195,8 @@ struct WeightStream {
   __device__ __forceinline__ void load_next(float* dst) {
     if (ld.step < nsteps) {
       const Chunk c = next(&ld);
-      const int K = m.fan_in(c.l), N = m.fan_out(c.l);
-      const float* W = m.w[c.l] + (size_t)c.t * K * N + c.c0;
+      const int K = m.fan_in(c.t, c.l), N = m.fan_out(c.t, c.l);
+      const float* W = m.weights(c.t, c.l) + c.c0;
       if (c.nc == N) {
         copy_flat(dst, W, K * N);
       } else {
@@ -163,7 +205,7 @@ struct WeightStream {
           cp_async4(dst + idx, W + (size_t)k * N + j);
         }
       }
-      const float* bias = m.b[c.l] + (size_t)c.t * N + c.c0;
+      const float* bias = m.biases(c.t, c.l) + c.c0;
       for (int j = threadIdx.x; j < c.nc; j += THREADS) cp_async4(dst + K * c.nc + j, bias + j);
     }
     cp_async_commit();
@@ -274,9 +316,9 @@ __device__ __forceinline__ void tile_product_t(const float* gout, int ldo, int c
 // largest dynamic shared memory a block may ask for on Hopper
 constexpr int MAX_SMEM_BYTES = 227 * 1024;
 
-// the launch checks both entry points make: the tile (1-16 rows, RP of the
-// kernel divides it), G whole dimensions a group, and a ring stage of at
-// least one column of every layer
+// the launch checks every entry point makes: the tile (1-16 rows, RP of
+// the kernel divides it), G whole dimensions a group, and a ring stage of
+// at least one column of every layer
 __host__ __forceinline__ bool k2_args_ok(int P, int G, int SL, int d, int h, size_t smem) {
   return smem <= (size_t)MAX_SMEM_BYTES && P >= 1 && P <= 16 && (P & (P - 1)) == 0 &&
          G >= 1 && G <= d && SL >= h + 1 && SL >= d + 1 && SL % 4 == 0;

@@ -1,28 +1,37 @@
-"""Masked-autoregressive neural spline flows (NSF), torch.
+"""Normalizing flows, torch: masked-autoregressive (``maf*``, ``nsf*``)
+and coupling (``nsfc*``) stacks and their trainer.
 
-Counterpart of ``pocomc_tpu/models/flow.py`` for the ``nsf*`` kinds: T
-masked-autoregressive transforms with alternating variable order (identity
-on even transforms, reversed on odd ones), each a 3-hidden-layer residual
-MADE with n_hidden = max(next_pow2(3*d), 32) feeding an 8-bin
-rational-quadratic spline, a standard-normal base, and an affine whitening
-pre-layer refit in closed form at every training round.
+Counterpart of ``pocomc_tpu/models/flow.py`` and its menu. The
+masked-autoregressive kinds: T transforms with alternating variable order
+(identity on even transforms, reversed on odd ones), each a 3-hidden-layer
+residual MADE with n_hidden = max(next_pow2(3*d), 32) feeding an element
+transform, the affine map for ``maf*`` and an 8-bin rational-quadratic
+spline for ``nsf*``. The coupling kind ``nsfc*`` (``models/coupling.py``):
+T transforms over alternating halves, each a residual MLP of the same
+widths on one half feeding 8-bin splines on the other. All have a
+standard-normal base and an affine whitening pre-layer refit in closed
+form at every training round.
 
-Directions: ``forward`` data -> latent (one MADE pass per transform, the K2
-kernel on CUDA); ``inverse`` latent -> data (autoregressive, T*d MADE
-passes, the K1 kernel on CUDA). The pre-layer ``y = (x - mean) @ w_fwd``
-and its inverse ``y @ w_inv + mean`` stay ``torch.matmul``.
+Directions: ``forward`` data -> latent (one pass per transform: the K2
+kernel on CUDA, or K5 for coupling); ``inverse`` latent -> data (K1 on
+CUDA: autoregressive, T*d MADE passes; K5 for coupling: one pass per
+transform). The pre-layer ``y = (x - mean) @ w_fwd`` and its inverse
+``y @ w_inv + mean`` stay ``torch.matmul``.
 
-``Flow`` is an ``nn.Module`` whose trainable parameters are the stacked
-per-layer weights (T, fan_in, fan_out) and biases (T, fan_out); the masks,
-the inverse dimension orders and the pre-layer are buffers. Compute goes
-through ``FlowParams`` snapshots (masked weights, biases, pre-layer), so a
-sweep masks the weights once and every call reuses them, and training
-forms ``w * mask`` inside the autograd graph.
+``Flow`` is an ``nn.Module``. A masked-autoregressive flow's trainable
+parameters are the stacked per-layer weights (T, fan_in, fan_out) and
+biases (T, fan_out), its masks and inverse dimension orders buffers; a
+coupling flow's are each transform's own four weights and biases (the
+shapes differ between transforms at odd d), in ``weights[4t + l]``. The
+pre-layer is a buffer. Compute goes through ``FlowParams`` or
+``CouplingParams`` snapshots (weights, biases, pre-layer), so a sweep masks
+the weights once and every call reuses them, and training forms
+``w * mask`` inside the autograd graph.
 
 Training: ``fit_stack`` is the AdamW loop both fits share (the device
 loop's phase B and ``Flow.fit``, the host fit with its ``annealing`` and
 ``noise`` options); its loss ``Flow._loss_fn`` runs the forward through K2
-on CUDA, and its gradient through K2's backward kernel.
+(K5) on CUDA, and its gradient through K2's (K5's) backward kernel.
 """
 
 from __future__ import annotations
@@ -34,20 +43,16 @@ import numpy as np
 import torch
 from torch import nn
 
+from .coupling import init_coupling, make_coupling_masks
 from .made import init_made
 from . import transforms as tr
+from ..ops.coupling_kernels import coupling_forward, coupling_inverse
 from ..ops.flow_kernels import made_rqs_forward, ar_inverse
 
 _ARCHS = {
     "maf3": ("maf", 3), "maf6": ("maf", 6), "maf12": ("maf", 12),
     "nsf3": ("nsf", 3), "nsf6": ("nsf", 6), "nsf12": ("nsf", 12),
     "nsfc3": ("nsfc", 3), "nsfc6": ("nsfc", 6), "nsfc12": ("nsfc", 12),
-}
-_NOT_PORTED = {
-    "maf": "masked affine flows ('maf*') are not ported yet (ROADMAP.md, "
-           "port queue: maf*)",
-    "nsfc": "coupling spline flows ('nsfc*') are not ported yet (ROADMAP.md, "
-            "port queue: nsfc* + K5)",
 }
 
 
@@ -133,18 +138,32 @@ def fit_pre_torch(x, w, rel_eps=1e-6, min_ess=8.0, mode="full"):
 
 
 class FlowParams(NamedTuple):
-    """Compute-ready flow parameters: masked weights ``ws[l]`` (T, fi, fo),
-    biases ``bs[l]`` (T, fo), the (T, d) int32 inverse dimension orders and
-    the whitening pre-layer dict (mean, w_fwd, w_inv, ladj)."""
+    """Compute-ready parameters of a masked-autoregressive flow: masked
+    weights ``ws[l]`` (T, fi, fo), biases ``bs[l]`` (T, fo), the (T, d)
+    int32 inverse dimension orders and the whitening pre-layer dict (mean,
+    w_fwd, w_inv, ladj)."""
     ws: list
     bs: list
     inv_orders: torch.Tensor
     pre: dict
 
 
+class CouplingParams(NamedTuple):
+    """Compute-ready parameters of a coupling flow: ``ws[t]`` and ``bs[t]``
+    the four weights and biases of transform t, ``masks[t]`` its boolean
+    conditioning mask over the d dimensions (numpy; its ``True`` entries
+    are the conditioning indices, the others the transformed ones), and
+    the whitening pre-layer dict."""
+    ws: list
+    bs: list
+    masks: list
+    pre: dict
+
+
 class Flow(nn.Module):
-    """Masked-autoregressive neural spline flow (``nsf3``/``nsf6``/``nsf12``),
-    with its parameters and buffers on ``device`` (the card by default;
+    """A normalizing flow of the menu ``maf3|6|12`` (masked affine),
+    ``nsf3|6|12`` (masked spline) or ``nsfc3|6|12`` (coupling spline), with
+    its parameters and buffers on ``device`` (the card by default;
     ``device="cpu"`` runs the plain versions of the kernels)."""
 
     def __init__(self, n_dim: int, flow: str = "nsf6", bins: int = 8,
@@ -157,10 +176,12 @@ class Flow(nn.Module):
         if flow not in _ARCHS:
             raise ValueError(f"Invalid flow {flow!r}. Choose from {sorted(_ARCHS)}.")
         kind, n_transforms = _ARCHS[flow]
-        if kind in _NOT_PORTED:
-            raise NotImplementedError(_NOT_PORTED[kind])
         if int(bins) != 8:
-            raise NotImplementedError("the flow kernels are built for 8 spline bins")
+            raise NotImplementedError("the flow kernels are built for 8 spline bins (other "
+                                      "bins: ROADMAP.md, port queue: bins != 8)")
+        if kind == "nsfc" and int(n_dim) < 2:
+            raise ValueError("Coupling flows ('nsfc*') need n_dim >= 2 (the dimensions are "
+                             "split into two halves); use 'maf*' or 'nsf*' for 1-D problems.")
         if whiten not in (True, False, None, "none", "full", "diag"):
             raise ValueError(f"Invalid whiten {whiten!r}. Choose True/'full', "
                              f"'diag', or False/'none'.")
@@ -172,9 +193,21 @@ class Flow(nn.Module):
         self.bins = int(bins)
         self.n_hidden = max(_next_pow2(3 * self.n_dim), 32)
         self.hidden_sizes = [self.n_hidden] * 3
-        self.n_params = tr.rqs_n_params(self.bins)
+        self.head = "affine" if kind == "maf" else "rqs"
+        self.n_params = (tr.AFFINE_N_PARAMS if kind == "maf" else tr.rqs_n_params(self.bins))
 
         rng = np.random.default_rng(seed)
+        if kind == "nsfc":
+            self.coupling_masks = make_coupling_masks(self.n_dim, n_transforms)
+            layers = [init_coupling(rng, self.n_dim, self.hidden_sizes, self.n_params, m)
+                      for m in self.coupling_masks]
+            self.weights = nn.ParameterList(
+                nn.Parameter(torch.from_numpy(layer["w"])) for tp in layers for layer in tp)
+            self.biases = nn.ParameterList(
+                nn.Parameter(torch.from_numpy(layer["b"])) for tp in layers for layer in tp)
+            self.to(device)
+            self.set_pre(identity_pre(self.n_dim))
+            return
         base = np.arange(self.n_dim)
         self.orders = [base if t % 2 == 0 else base[::-1].copy()
                        for t in range(n_transforms)]
@@ -207,7 +240,21 @@ class Flow(nn.Module):
 
     @property
     def masks(self):
+        """The MADE masks of a masked-autoregressive flow (a coupling flow
+        has none)."""
+        if self.kind == "nsfc":
+            return []
         return [getattr(self, f"mask{l}") for l in range(len(self.weights))]
+
+    def stack_numpy(self) -> list:
+        """The transform stack's parameters in the JAX package's layout
+        (``Flow.params["stack"]``), as numpy: four {w, b} with a leading
+        transform axis, or, for a coupling flow, T lists of four {w, b}."""
+        layers = [dict(w=w.detach().cpu().numpy(), b=b.detach().cpu().numpy())
+                  for w, b in zip(self.weights, self.biases)]
+        if self.kind == "nsfc":
+            return [layers[4 * t:4 * t + 4] for t in range(self.n_transforms)]
+        return layers
 
     def set_pre(self, pre: dict):
         """Install a whitening pre-layer (numpy arrays or tensors)."""
@@ -221,9 +268,16 @@ class Flow(nn.Module):
         return {k: getattr(self, f"pre_{k}")
                 for k in ("mean", "w_fwd", "w_inv", "ladj")}
 
-    def params(self) -> FlowParams:
+    def params(self):
         """Masked weights and biases (inside the autograd graph when grad is
-        enabled) plus the pre-layer: what every compute call consumes."""
+        enabled) plus the pre-layer, as ``FlowParams``; a coupling flow's
+        weights, biases, masks and pre-layer as ``CouplingParams``: what
+        every compute call consumes."""
+        if self.kind == "nsfc":
+            T = self.n_transforms
+            return CouplingParams([list(self.weights[4 * t:4 * t + 4]) for t in range(T)],
+                                  [list(self.biases[4 * t:4 * t + 4]) for t in range(T)],
+                                  self.coupling_masks, self.get_pre())
         ws = [w * m for w, m in zip(self.weights, self.masks)]
         return FlowParams(ws, list(self.biases), self.inv_orders, self.get_pre())
 
@@ -234,11 +288,15 @@ class Flow(nn.Module):
 
     def stack_forward(self, y, fp=None):
         fp = self._fp(fp)
-        return made_rqs_forward(y.contiguous(), fp.ws, fp.bs)
+        if self.kind == "nsfc":
+            return coupling_forward(y.contiguous(), fp.ws, fp.bs, fp.masks)
+        return made_rqs_forward(y.contiguous(), fp.ws, fp.bs, head=self.head)
 
     def stack_inverse(self, z, fp=None):
         fp = self._fp(fp)
-        return ar_inverse(z.contiguous(), fp.ws, fp.bs, fp.inv_orders)
+        if self.kind == "nsfc":
+            return coupling_inverse(z.contiguous(), fp.ws, fp.bs, fp.masks)
+        return ar_inverse(z.contiguous(), fp.ws, fp.bs, fp.inv_orders, head=self.head)
 
     def forward(self, x, fp=None):
         """data -> (latent, log|det dz/dx|)."""

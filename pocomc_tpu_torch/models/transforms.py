@@ -3,8 +3,8 @@
 Counterpart of ``pocomc_tpu/models/transforms.py``: the monotonic affine
 map and the 8-bin rational-quadratic spline (RQS) on [-B, B] with identity
 tails. Raw parameters of 0 give the identity map in both families. These
-are the plain versions of the spline math that the CUDA kernels in
-``csrc/rqs.cuh`` carry out per element.
+are the plain versions of the element math that the CUDA kernels carry
+out per element (``csrc/rqs.cuh``, ``csrc/heads.cuh``).
 """
 
 from __future__ import annotations
@@ -34,6 +34,20 @@ def affine_forward(x, params):
     loc = params[..., 0]
     log_s = LOG_SCALE_BOUND * torch.tanh(params[..., 1] / LOG_SCALE_BOUND)
     return (x - loc) * torch.exp(-log_s), -log_s
+
+
+def affine_forward_vjp(x, params, g_z, g_l):
+    """Closed-form vector-Jacobian product of ``affine_forward``: (g_x,
+    g_params) given g_z = dL/dz and g_l = dL/dladj. With t = tanh(raw / B),
+    s = B t: dz/dx = e^-s, dz/dloc = -e^-s, dz/ds = -z, dladj/ds = -1 and
+    ds/draw = 1 - t^2 (autograd's tanh derivative). ``csrc/heads.cuh``
+    ``AffineHead::forward_vjp`` is the same arithmetic for one element."""
+    t = torch.tanh(params[..., 1] / LOG_SCALE_BOUND)
+    e = torch.exp(-(LOG_SCALE_BOUND * t))
+    z = (x - params[..., 0]) * e
+    g_x = g_z * e
+    g_raw = (-(g_z * z) - g_l) * (1 - t * t)
+    return g_x, torch.stack([-g_x, g_raw], dim=-1)
 
 
 def affine_inverse(z, params):

@@ -1,7 +1,8 @@
-"""The hand-written CUDA kernels of the flow and their plain versions.
+"""The hand-written CUDA kernels of the masked autoregressive flows and
+their plain versions.
 
-K2, ``made_rqs_forward``: the whole NSF transform stack data -> latent in
-one launch (every MADE pass, spline forward and log-det), and its gradient
+K2, ``made_rqs_forward``: the whole transform stack data -> latent in
+one launch (every MADE pass, element transform and log-det), and its gradient
 ``made_rqs_backward``: one launch back through the stack from the layer
 inputs the forward saved, then the weight gradients as batched products of
 those inputs and the deltas it writes.
@@ -19,11 +20,15 @@ package's round-2 fused whole-transform inverse (specified in RESULTS.md
 
 All take the MADE weights ALREADY multiplied by their masks, stacked over
 transforms: ``ws[l]`` of shape (T, fan_in, fan_out) and ``bs[l]`` of shape
-(T, fan_out) for the four layers d -> h -> h -> h -> d*23.
+(T, fan_out) for the four layers d -> h -> h -> h -> d*NP, and the head:
+``"rqs"``, the 8-bin spline of the nsf* flows (NP = 23), or ``"affine"``,
+the affine map of the maf* flows (NP = 2). The kernels take the head as a
+template parameter (``csrc/heads.cuh``); one library a source holds both.
 
 Dispatch is by device and nothing else: a CPU tensor goes to the plain
 version (``*_ref``), a CUDA tensor launches the kernel or raises. Each
-wrapper counts its launches in a plain integer attribute ``launches``.
+wrapper counts its launches in plain integer attributes: ``launches``
+with the spline head, ``launches_affine`` with the affine one.
 """
 
 from __future__ import annotations
@@ -39,8 +44,24 @@ from . import _build
 
 BINS = 8
 N_PARAMS = tr.rqs_n_params(BINS)
+# raw parameters a dimension of each head, and the plain element maps:
+# forward (x, p) -> (z, ladj), its VJP (x, p, g_z, g_ladj) -> (g_x, g_p) and
+# inverse (z, p) -> (x, ladj)
+HEADS = {"rqs": N_PARAMS, "affine": tr.AFFINE_N_PARAMS}
+_ELEMENT = {
+    "rqs": (lambda x, p: tr.rqs_forward(x, p, BINS),
+            lambda x, p, g_z, g_l: tr.rqs_forward_vjp(x, p, g_z, g_l, BINS),
+            lambda z, p: tr.rqs_inverse(z, p, BINS)),
+    "affine": (tr.affine_forward, tr.affine_forward_vjp, tr.affine_inverse),
+}
 # largest dynamic shared memory a block may use on Hopper
 _MAX_SMEM = 227 * 1024
+
+
+def _head(head):
+    if head not in HEADS:
+        raise ValueError(f"unknown head {head!r}; the kernels have {sorted(HEADS)}")
+    return HEADS[head]
 
 
 # ---------------------------------------------------------------------------
@@ -58,11 +79,12 @@ def _layer_inputs(w, b, x):
     return acts
 
 
-def made_rqs_forward_ref(y, ws, bs, save_inputs=False):
+def made_rqs_forward_ref(y, ws, bs, save_inputs=False, head="rqs"):
     """Plain forward of the transform stack: y (n, d) -> (z, ladj), plus,
     when ``save_inputs``, the input of every layer's product in every
     transform: [x_t (T, n, d), relu(h0), relu(h1), relu(h2) (T, n, h)]."""
     n, d = y.shape
+    n_params, element = _head(head), _ELEMENT[head][0]
     x = y
     saved = [[] for _ in range(4)]
     ladj = torch.zeros(n, dtype=y.dtype, device=y.device)
@@ -70,29 +92,30 @@ def made_rqs_forward_ref(y, ws, bs, save_inputs=False):
         acts = _layer_inputs([w[t] for w in ws], [b[t] for b in bs], x)
         for s, a in zip(saved, acts):
             s.append(a)
-        p = (acts[3] @ ws[3][t] + bs[3][t]).reshape(n, d, N_PARAMS)
-        x, l = tr.rqs_forward(x, p, BINS)
+        p = (acts[3] @ ws[3][t] + bs[3][t]).reshape(n, d, n_params)
+        x, l = element(x, p)
         ladj = ladj + l.sum(-1)
     return (x, ladj, [torch.stack(s) for s in saved]) if save_inputs else (x, ladj)
 
 
-def made_rqs_backward_ref(y, ws, bs, g_z, g_ladj, acts=None):
+def made_rqs_backward_ref(y, ws, bs, g_z, g_ladj, acts=None, head="rqs"):
     """Plain backward of the transform stack, with no autograd: the
     gradients (g_y, g_ws, g_bs) of a loss L with dL/dz = g_z (n, d) and
     dL/dladj = g_ladj (n,), for the input, the masked weights (T, fi, fo)
     and the biases (T, fo). ``acts`` are the layer inputs that
     ``made_rqs_forward_ref(..., save_inputs=True)`` returns (computed when
     None). The same closed-form derivatives as the kernel
-    (``csrc/made_rqs_backward.cu``): transforms in reverse, each's spline
-    parameters from relu(h2), the spline's VJP, then delta @ W^T back
+    (``csrc/made_rqs_backward.cu``): transforms in reverse, each's head
+    parameters from relu(h2), the head's VJP, then delta @ W^T back
     through the output layer, the residual layers (skip path plus ReLU
     path, the ReLU's mask from the saved activations) and the input layer;
     the weight gradients are A^T @ delta of each layer's input and output
     delta, the bias gradients delta's row sums."""
     n, d = y.shape
     T = ws[0].shape[0]
+    n_params, vjp = _head(head), _ELEMENT[head][1]
     if acts is None:
-        acts = made_rqs_forward_ref(y, ws, bs, save_inputs=True)[2]
+        acts = made_rqs_forward_ref(y, ws, bs, save_inputs=True, head=head)[2]
     g_ws = [torch.empty_like(w) for w in ws]
     g_bs = [torch.empty_like(b) for b in bs]
     g_l = g_ladj[:, None].expand(n, d)
@@ -100,9 +123,9 @@ def made_rqs_backward_ref(y, ws, bs, g_z, g_ladj, acts=None):
     for t in reversed(range(T)):
         w = [a[t] for a in ws]
         a = [s[t] for s in acts]
-        p = (a[3] @ w[3] + bs[3][t]).reshape(n, d, N_PARAMS)
-        g_dir, g_p = tr.rqs_forward_vjp(a[0], p, g_x, g_l, BINS)
-        g3 = g_p.reshape(n, d * N_PARAMS)
+        p = (a[3] @ w[3] + bs[3][t]).reshape(n, d, n_params)
+        g_dir, g_p = vjp(a[0], p, g_x, g_l)
+        g3 = g_p.reshape(n, d * n_params)
         g2 = (g3 @ w[3].T) * (a[3] > 0)
         g1 = g2 + (g2 @ w[2].T) * (a[2] > 0)
         g0 = g1 + (g1 @ w[1].T) * (a[1] > 0)
@@ -113,10 +136,11 @@ def made_rqs_backward_ref(y, ws, bs, g_z, g_ladj, acts=None):
     return g_x, g_ws, g_bs
 
 
-def ar_inverse_ref(z, ws, bs, inv_dim_orders):
+def ar_inverse_ref(z, ws, bs, inv_dim_orders, head="rqs"):
     """Plain autoregressive inverse: z (n, d) -> (x, ladj), transforms in
     reverse, dimensions of transform t in the order inv_dim_orders[t]."""
     n, d = z.shape
+    n_params, element = _head(head), _ELEMENT[head][2]
     orders = torch.as_tensor(inv_dim_orders).tolist()
     cols = torch.arange(d, device=z.device)
     ladj = torch.zeros(n, dtype=z.dtype, device=z.device)
@@ -125,8 +149,8 @@ def ar_inverse_ref(z, ws, bs, inv_dim_orders):
         bt = [b[t] for b in bs]
         x = torch.zeros_like(z)
         for dim in orders[t]:
-            p = apply_made_dim(wt, bt, x, dim, N_PARAMS)
-            x_dim, l = tr.rqs_inverse(z[:, dim], p, BINS)
+            p = apply_made_dim(wt, bt, x, dim, n_params)
+            x_dim, l = element(z[:, dim], p)
             x = torch.where(cols == dim, x_dim[:, None], x)
             ladj = ladj + l
         z = x
@@ -137,9 +161,10 @@ def ar_inverse_ref(z, ws, bs, inv_dim_orders):
 # argument checks and launches
 # ---------------------------------------------------------------------------
 
-def _check(x, ws, bs, name):
-    """Validate (n, d) input and the stacked masked MADE layers; returns
-    (n, d, h, T)."""
+def _check(x, ws, bs, name, head="rqs"):
+    """Validate (n, d) input and the stacked masked MADE layers of the
+    head's output width; returns (n, d, h, T)."""
+    n_params = _head(head)
     tensors = [x, *ws, *bs]
     if len(ws) != 4 or len(bs) != 4:
         raise ValueError(f"{name}: expects the four MADE layers, got "
@@ -155,28 +180,31 @@ def _check(x, ws, bs, name):
         raise ValueError(f"{name}: expects an (n, d) input, got {tuple(x.shape)}")
     n, d = x.shape
     T, _, h = ws[0].shape
-    want_w = [(T, d, h), (T, h, h), (T, h, h), (T, h, d * N_PARAMS)]
-    want_b = [(T, h), (T, h), (T, h), (T, d * N_PARAMS)]
+    want_w = [(T, d, h), (T, h, h), (T, h, h), (T, h, d * n_params)]
+    want_b = [(T, h), (T, h), (T, h), (T, d * n_params)]
     for a, want in zip(list(ws) + list(bs), want_w + want_b):
         if tuple(a.shape) != want:
             raise ValueError(f"{name}: layer shape {tuple(a.shape)}, expected {want}")
     return n, d, h, T
 
 
-# K1's column group: one dimension's spline parameters (csrc/ar_inverse.cu GROUP)
+# K1's column group: one dimension's spline parameters (csrc/ar_inverse.cu
+# GROUP), and each head's output group (heads.cuh OG)
 _K1_GROUP = 24
+_K1_OUT_GROUP = {"rqs": 24, "affine": 4}
 # SMs of the H100
 _SMS = 132
 
 
-def _launch_config(n, d, h):
+def _launch_config(n, d, h, head="rqs"):
     """K1's launch: (R, W, S, SL, blocks, smem bytes). A consumer warp owns
     R rows (1, 2 or 4) for the whole chain, a block has W consumer warps
     (1-8) and one producer warp, and the weight ring S stages (2-8) of SL
     floats. R grows only once every SM has 4 warps of one row (n >= 1,056
     for 2, 2,112 for 4), and W is the warp count over the 132 SMs, so the
     sweep's n=256 runs 128 blocks of 2 warps and n=4096 128 blocks of 8
-    warps of 4 rows. A warp's state is R * (3h + 3d + 24) floats; the ring
+    warps of 4 rows. A warp's state is R * (3h + 3d + OG) floats (OG: 24
+    with the spline head, 4 with the affine one); the ring
     takes the rest of the 227 KB, a stage up to one 24-column group with
     all h fan-in rows (padded to 4), and at least 4,096 floats, so that at
     small d a stage holds the groups of several steps. W, then R, halve
@@ -184,7 +212,7 @@ def _launch_config(n, d, h):
     row alone leaves less: from h = 16384 (d > 2730), as K2's launch
     does."""
     limit = _MAX_SMEM // 4 - 4 * 8  # floats, less the 2 x 8 mbarriers
-    row = 3 * h + 3 * d + _K1_GROUP
+    row = 3 * h + 3 * d + _K1_OUT_GROUP[head]
     least = 33 * _K1_GROUP
     R = 4 if n >= 16 * _SMS else (2 if n >= 8 * _SMS else 1)
     W = min(8, max(1, round(-(-n // R) / _SMS)))
@@ -204,8 +232,10 @@ def _launch_config(n, d, h):
 
 
 @functools.lru_cache(maxsize=None)
-def _k2_config(n, d, h, backward):
-    """(P, G, SL) of a K2 launch: P particle rows a block, the largest of 16,
+def _k2_config(n, d, h, backward, n_params=N_PARAMS, d_out=None):
+    """(P, G, SL) of a K2 or K5 launch with a head of ``n_params``
+    parameters and ``d_out`` transformed dimensions a transform (d for K2,
+    at most ceil(d/2) for K5): P particle rows a block, the largest of 16,
     8, 4, 2 that still gives ~128 blocks (one per SM of the H100) and
     leaves half of the shared memory to the weight ring; G whole dimensions
     in a group of the output layer (made_tile.cuh); SL floats a ring stage
@@ -218,24 +248,25 @@ def _k2_config(n, d, h, backward):
     stage cannot hold one column of a square layer: from h = 16384
     (d > 2730), where the flow's weights, gradients and AdamW moments alone
     pass the H100's 80 GB."""
+    d_out = d if d_out is None else d_out
     limit = _MAX_SMEM // 4 - 4
     state = (3 * d + 3 * h + 1) if backward else (d + 2 * h + 1)
     P = 16
     while P > 2 and -(-n // P) < 128:
         P //= 2
-    while P > 1 and P * (state + N_PARAMS) > limit // 2:
+    while P > 1 and P * (state + n_params) > limit // 2:
         P //= 2
 
     def stage(g):
-        need = max(h * (d + 1), h * (h + 1), g * N_PARAMS * (h + 1))
-        return min(-(-need // 4) * 4, (limit - P * (state + g * N_PARAMS)) // 8 * 4)
+        need = max(h * (d + 1), h * (h + 1), g * n_params * (h + 1))
+        return min(-(-need // 4) * 4, (limit - P * (state + g * n_params)) // 8 * 4)
 
     if backward:
-        G = max(1, min(d, (limit - P * state) // (N_PARAMS * (2 * h + 2 + P))))
-        while G > 1 and G * N_PARAMS * (h + 1) > stage(G):
+        G = max(1, min(d_out, (limit - P * state) // (n_params * (2 * h + 2 + P))))
+        while G > 1 and G * n_params * (h + 1) > stage(G):
             G -= 1
     else:
-        G = max(1, min(d, (limit // 2 // P - state) // N_PARAMS))
+        G = max(1, min(d_out, (limit // 2 // P - state) // n_params))
     SL = stage(G)
     if SL < h + 1:
         raise ValueError(f"made_rqs_{'backward' if backward else 'forward'}: d={d}, h={h} "
@@ -266,25 +297,49 @@ def _stream(x):
     return torch.cuda.current_stream(x.device).cuda_stream
 
 
-def _launch_forward(y, ws, bs, save_inputs=False):
-    n, d, h, T = _check(y, ws, bs, "made_rqs_forward")
+def _count(wrapper, head):
+    """One launch of ``wrapper``'s kernel with ``head``."""
+    attr = "launches" if head == "rqs" else f"launches_{head}"
+    setattr(wrapper, attr, getattr(wrapper, attr) + 1)
+
+
+def _launch_forward(y, ws, bs, save_inputs=False, head="rqs"):
+    n, d, h, T = _check(y, ws, bs, "made_rqs_forward", head)
+    n_params = HEADS[head]
     z = torch.empty_like(y)
     ladj = torch.empty(n, dtype=y.dtype, device=y.device)
     acts = ([torch.empty(T, n, k, dtype=y.dtype, device=y.device) for k in (d, h, h, h)]
             if save_inputs else None)
     if n > 0:
-        P, G, SL = _k2_config(n, d, h, backward=False)
-        fn = _entry("made_rqs_forward", "made_rqs_forward_launch", "PPPIIII" + "P" * 12 + "IIIIP")
+        P, G, SL = _k2_config(n, d, h, False, n_params)
+        fn = _entry("made_rqs_forward", "made_rqs_forward_launch",
+                    "PPPIIII" + "P" * 12 + "IIIIIP")
         weights = [a.data_ptr() for pair in zip(ws, bs) for a in pair]
         saved = [a.data_ptr() for a in acts] if save_inputs else [None] * 4
         err = fn(y.data_ptr(), z.data_ptr(), ladj.data_ptr(), n, d, h, T, *weights, *saved,
-                 P, G, SL, y.device.index, _stream(y))
+                 n_params, P, G, SL, y.device.index, _stream(y))
         _raise_if(err, "made_rqs_forward")
-        made_rqs_forward.launches += 1
+        _count(made_rqs_forward, head)
     return (z, ladj, acts) if save_inputs else (z, ladj)
 
 
-def _launch_backward(acts, ws, bs, g_z, g_ladj):
+def _check_saved(name, acts, g_z, g_ladj, widths):
+    """Validate the four saved layer inputs (T, n, widths[l]) and the
+    upstream gradients g_z (n, d), g_ladj (n,) of a backward launch;
+    returns (T, n)."""
+    T, n, d = acts[0].shape
+    dev = acts[0].device
+    for what, a, shape in (("g_z", g_z, (n, d)), ("g_ladj", g_ladj, (n,)),
+                           *[(f"acts[{l}]", a, (T, n, k))
+                             for l, (a, k) in enumerate(zip(acts, widths))]):
+        if (a.dtype != torch.float32 or a.device != dev or tuple(a.shape) != shape
+                or not a.is_contiguous()):
+            raise ValueError(f"{name}: {what} must be a contiguous float32 "
+                             f"{shape} tensor on {dev}")
+    return T, n
+
+
+def _launch_backward(acts, ws, bs, g_z, g_ladj, head="rqs"):
     """K2's backward kernel, then the weight gradients A^T @ delta of the
     saved layer inputs and its deltas with batched fp32 products over the T
     transforms, and the bias gradients as row sums (TF32 is off, see the
@@ -292,57 +347,51 @@ def _launch_backward(acts, ws, bs, g_z, g_ladj):
     if len(acts) != 4:
         raise ValueError(f"made_rqs_backward: expects the four saved layer inputs, "
                          f"got {len(acts)}")
-    T, n, d = acts[0].shape
-    _, _, h, _ = _check(acts[0][0], ws, bs, "made_rqs_backward")
+    _, _, h, _ = _check(acts[0][0], ws, bs, "made_rqs_backward", head)
+    d = acts[0].shape[2]
+    T, n = _check_saved("made_rqs_backward", acts, g_z, g_ladj, (d, h, h, h))
     dev = acts[0].device
-    for name, a, shape in (("g_z", g_z, (n, d)), ("g_ladj", g_ladj, (n,)),
-                           *[(f"acts[{l}]", a, (T, n, d if l == 0 else h))
-                             for l, a in enumerate(acts)]):
-        if (a.dtype != torch.float32 or a.device != dev or tuple(a.shape) != shape
-                or not a.is_contiguous()):
-            raise ValueError(f"made_rqs_backward: {name} must be a contiguous float32 "
-                             f"{shape} tensor on {dev}")
     g_y = torch.empty_like(g_z)
     deltas = [torch.empty(T, n, w.shape[2], dtype=g_z.dtype, device=dev) for w in ws]
     if n > 0:
-        P, G, SL = _k2_config(n, d, h, backward=True)
+        P, G, SL = _k2_config(n, d, h, True, HEADS[head])
         fn = _entry("made_rqs_backward", "made_rqs_backward_launch",
-                    "PPPPPPPIIII" + "P" * 12 + "IIIIP")
+                    "PPPPPPPIIII" + "P" * 12 + "IIIIIP")
         weights = [a.data_ptr() for pair in zip(ws, bs) for a in pair]
         err = fn(*[a.data_ptr() for a in acts], g_z.data_ptr(), g_ladj.data_ptr(),
                  g_y.data_ptr(), n, d, h, T, *weights, *[g.data_ptr() for g in deltas],
-                 P, G, SL, dev.index, _stream(g_z))
+                 HEADS[head], P, G, SL, dev.index, _stream(g_z))
         _raise_if(err, "made_rqs_backward")
-        made_rqs_backward.launches += 1
+        _count(made_rqs_backward, head)
     g_ws = [torch.bmm(a.transpose(1, 2), g) for a, g in zip(acts, deltas)]
     g_bs = [g.sum(1) for g in deltas]
     return g_y, g_ws, g_bs
 
 
-def _inverse_pack(ws, bs, inv_dim_orders, d, h, T):
+def _inverse_pack(ws, bs, inv_dim_orders, d, h, T, head):
     """K1's weights in the order its steps read them (``pack_kernel`` in
     ``csrc/ar_inverse.cu``), written on the device without a host sync and
     kept on ``ws[0]``, the first masked weight of the caller's
     ``FlowParams``: once per FlowParams, again only when one of its tensors
     is replaced or changed in place (its version moves)."""
-    key = tuple((id(a), a._version) for a in (*ws, *bs, inv_dim_orders))
+    key = (head, *((id(a), a._version) for a in (*ws, *bs, inv_dim_orders)))
     kept = getattr(ws[0], "_k1_pack", None)
     if kept is not None and kept[0] == key:
         return kept[1]
     size = _build.load("ar_inverse").ar_inverse_pack_floats
-    size.argtypes, size.restype = [_I, _I, _I], ctypes.c_longlong
-    pack = torch.empty(size(d, h, T), dtype=torch.float32, device=ws[0].device)
-    fn = _entry("ar_inverse", "ar_inverse_pack_launch", "P" * 10 + "IIIIP")
+    size.argtypes, size.restype = [_I, _I, _I, _I], ctypes.c_longlong
+    pack = torch.empty(size(d, h, T, HEADS[head]), dtype=torch.float32, device=ws[0].device)
+    fn = _entry("ar_inverse", "ar_inverse_pack_launch", "P" * 10 + "IIIIIP")
     weights = [a.data_ptr() for pair in zip(ws, bs) for a in pair]
-    err = fn(*weights, inv_dim_orders.data_ptr(), pack.data_ptr(), d, h, T,
+    err = fn(*weights, inv_dim_orders.data_ptr(), pack.data_ptr(), d, h, T, HEADS[head],
              ws[0].device.index, _stream(ws[0]))
     _raise_if(err, "ar_inverse (pack)")
     ws[0]._k1_pack = (key, pack)
     return pack
 
 
-def _launch_inverse(z, ws, bs, inv_dim_orders):
-    n, d, h, T = _check(z, ws, bs, "ar_inverse")
+def _launch_inverse(z, ws, bs, inv_dim_orders, head="rqs"):
+    n, d, h, T = _check(z, ws, bs, "ar_inverse", head)
     if (inv_dim_orders.dtype != torch.int32 or inv_dim_orders.device != z.device
             or tuple(inv_dim_orders.shape) != (T, d)
             or not inv_dim_orders.is_contiguous()):
@@ -352,13 +401,13 @@ def _launch_inverse(z, ws, bs, inv_dim_orders):
     ladj = torch.empty(n, dtype=z.dtype, device=z.device)
     if n == 0:
         return x, ladj
-    R, W, S, SL, _, _ = _launch_config(n, d, h)
-    pack = _inverse_pack(ws, bs, inv_dim_orders, d, h, T)
-    fn = _entry("ar_inverse", "ar_inverse_launch", "PPPIIIIPPIIIIIP")
+    R, W, S, SL, _, _ = _launch_config(n, d, h, head)
+    pack = _inverse_pack(ws, bs, inv_dim_orders, d, h, T, head)
+    fn = _entry("ar_inverse", "ar_inverse_launch", "PPPIIIIPPIIIIIIP")
     err = fn(z.data_ptr(), x.data_ptr(), ladj.data_ptr(), n, d, h, T, pack.data_ptr(),
-             inv_dim_orders.data_ptr(), R, W, S, SL, z.device.index, _stream(z))
+             inv_dim_orders.data_ptr(), HEADS[head], R, W, S, SL, z.device.index, _stream(z))
     _raise_if(err, "ar_inverse")
-    ar_inverse.launches += 1
+    _count(ar_inverse, head)
     return x, ladj
 
 
@@ -368,8 +417,9 @@ class _MadeRqsForward(torch.autograd.Function):
     follow through w * mask, which the caller formed in torch."""
 
     @staticmethod
-    def forward(ctx, y, *layers):
-        z, ladj, acts = _launch_forward(y, layers[:4], layers[4:], save_inputs=True)
+    def forward(ctx, head, y, *layers):
+        z, ladj, acts = _launch_forward(y, layers[:4], layers[4:], True, head)
+        ctx.head = head
         ctx.save_for_backward(*acts, *layers)
         return z, ladj
 
@@ -378,54 +428,58 @@ class _MadeRqsForward(torch.autograd.Function):
         saved = ctx.saved_tensors
         layers = saved[4:]
         g_y, g_ws, g_bs = _launch_backward(saved[:4], layers[:4], layers[4:], g_z.contiguous(),
-                                           g_ladj.contiguous())
+                                           g_ladj.contiguous(), ctx.head)
         grads = [g_y, *g_ws, *g_bs]
-        return tuple(g if need else None for g, need in zip(grads, ctx.needs_input_grad))
+        return (None, *(g if need else None
+                        for g, need in zip(grads, ctx.needs_input_grad[1:])))
 
 
 # ---------------------------------------------------------------------------
 # public wrappers
 # ---------------------------------------------------------------------------
 
-def made_rqs_forward(y, ws, bs, save_inputs=False):
+def _device_type(x, name):
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name}: unsupported device {x.device}")
+    return x.device.type
+
+
+def made_rqs_forward(y, ws, bs, save_inputs=False, head="rqs"):
     """K2: (z, ladj) of the transform stack at y; ladj = log|det dz/dy|.
     Differentiable on CUDA through the backward kernel. ``save_inputs``
     also returns the input of every layer's product in every transform,
     [x_t (T, n, d), relu(h0), relu(h1), relu(h2) (T, n, h)], which
-    ``made_rqs_backward`` takes (no gradient then)."""
+    ``made_rqs_backward`` takes (no gradient then). ``head``: "rqs" or
+    "affine"."""
     ws, bs = list(ws), list(bs)
-    if y.device.type == "cpu":
-        _check(y, ws, bs, "made_rqs_forward")
-        return made_rqs_forward_ref(y, ws, bs, save_inputs)
-    if y.device.type != "cuda":
-        raise ValueError(f"made_rqs_forward: unsupported device {y.device}")
+    if _device_type(y, "made_rqs_forward") == "cpu":
+        _check(y, ws, bs, "made_rqs_forward", head)
+        return made_rqs_forward_ref(y, ws, bs, save_inputs, head)
     if (not save_inputs and torch.is_grad_enabled()
             and any(a.requires_grad for a in [y, *ws, *bs])):
-        return _MadeRqsForward.apply(y, *ws, *bs)
+        return _MadeRqsForward.apply(head, y, *ws, *bs)
     with torch.no_grad():
-        return _launch_forward(y, ws, bs, save_inputs)
+        return _launch_forward(y, ws, bs, save_inputs, head)
 
 
-def made_rqs_backward(y, ws, bs, g_z, g_ladj, acts=None):
+def made_rqs_backward(y, ws, bs, g_z, g_ladj, acts=None, head="rqs"):
     """K2's backward: (g_y, g_ws, g_bs), the gradients of a loss with dL/dz
     = g_z and dL/dladj = g_ladj with respect to y, the masked weights and
     the biases. ``acts`` are the layer inputs that ``made_rqs_forward(...,
     save_inputs=True)`` returns; the plain version computes them when None,
     the CUDA route needs them."""
     ws, bs = list(ws), list(bs)
-    if y.device.type == "cpu":
-        _check(y, ws, bs, "made_rqs_backward")
-        return made_rqs_backward_ref(y, ws, bs, g_z, g_ladj, acts)
-    if y.device.type != "cuda":
-        raise ValueError(f"made_rqs_backward: unsupported device {y.device}")
+    if _device_type(y, "made_rqs_backward") == "cpu":
+        _check(y, ws, bs, "made_rqs_backward", head)
+        return made_rqs_backward_ref(y, ws, bs, g_z, g_ladj, acts, head)
     if acts is None:
         raise ValueError("made_rqs_backward: on CUDA it takes acts, the layer inputs "
                          "that made_rqs_forward(..., save_inputs=True) returns")
     with torch.no_grad():
-        return _launch_backward(list(acts), ws, bs, g_z, g_ladj)
+        return _launch_backward(list(acts), ws, bs, g_z, g_ladj, head)
 
 
-def ar_inverse(z, ws, bs, inv_dim_orders):
+def ar_inverse(z, ws, bs, inv_dim_orders, head="rqs"):
     """K1: (x, ladj) of the autoregressive inverse; ladj = log|det dx/dz|.
     ``inv_dim_orders[t]`` lists the dimensions of transform t by increasing
     degree. Precondition: ``ws`` are the weights already multiplied by
@@ -433,16 +487,14 @@ def ar_inverse(z, ws, bs, inv_dim_orders):
     ``Flow``'s are. The kernel skips the terms those masks zero, so with
     unmasked weights its result is not the plain version's."""
     ws, bs = list(ws), list(bs)
-    if z.device.type == "cpu":
-        _check(z, ws, bs, "ar_inverse")
-        return ar_inverse_ref(z, ws, bs, inv_dim_orders)
-    if z.device.type != "cuda":
-        raise ValueError(f"ar_inverse: unsupported device {z.device}")
+    if _device_type(z, "ar_inverse") == "cpu":
+        _check(z, ws, bs, "ar_inverse", head)
+        return ar_inverse_ref(z, ws, bs, inv_dim_orders, head)
     if torch.is_grad_enabled() and any(a.requires_grad for a in [z, *ws, *bs]):
         raise NotImplementedError("ar_inverse: the CUDA kernel has no gradient")
-    return _launch_inverse(z, ws, bs, inv_dim_orders)
+    return _launch_inverse(z, ws, bs, inv_dim_orders, head)
 
 
-made_rqs_forward.launches = 0
-made_rqs_backward.launches = 0
-ar_inverse.launches = 0
+for _wrapper in (made_rqs_forward, made_rqs_backward, ar_inverse):
+    _wrapper.launches = 0
+    _wrapper.launches_affine = 0

@@ -1162,8 +1162,7 @@ class Sampler:
                                       else dict(self.current_particles))
         state["flow_params"] = dict(
             pre={k: v.detach().cpu().numpy() for k, v in fl.get_pre().items()},
-            stack=[dict(w=w.detach().cpu().numpy(), b=b.detach().cpu().numpy())
-                   for w, b in zip(fl.weights, fl.biases)])
+            stack=fl.stack_numpy())
         sc = self.scaler
         state["scaler"] = dict(mu=np.asarray(sc.mu), sigma=np.asarray(sc.sigma),
                                L=None if sc.L is None else np.asarray(sc.L),

@@ -11,7 +11,7 @@ import torch
 
 import pocomc_tpu_torch  # noqa: F401
 from pocomc_tpu_torch.models.flow import Flow
-from pocomc_tpu_torch.ops import flow_kernels as fk
+from pocomc_tpu_torch.ops import coupling_kernels as ck, flow_kernels as fk
 
 pytestmark = pytest.mark.gpu
 
@@ -388,3 +388,101 @@ def copy_gen(gen):
     g = torch.Generator(device="cuda")
     g.set_state(gen.get_state())
     return g
+
+
+# -- the rest of the flow menu: maf* (the affine head) and nsfc* (K5) -------
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+TOL = dict(rtol=1e-5, atol=1e-5)
+LADJ = 1e-4
+
+
+def _random_card_flow(d, arch, seed=0):
+    """A flow of the menu on the card with N(0, 0.02^2) output weights and
+    biases (every transform's), from a numpy seed."""
+    rng = np.random.default_rng(seed)
+    f = Flow(d, arch, device="cuda")
+    with torch.no_grad():
+        for l, (w, b) in enumerate(zip(f.weights, f.biases)):
+            if l % 4 == 3:
+                w.copy_(torch.from_numpy(0.02 * rng.standard_normal(w.shape)))
+            b.copy_(torch.from_numpy(0.02 * rng.standard_normal(b.shape)))
+    return f
+
+
+@pytest.mark.parametrize("arch,d", [("maf6", 3), ("maf6", 10), ("nsfc6", 3), ("nsfc6", 10),
+                                    ("nsfc3", 2)])
+@pytest.mark.parametrize("n", [1, 37, 512])
+def test_kernels_match_plain_on_card(cuda, arch, d, n):
+    """K2 and K1 with the affine head, or K5 forward and inverse, against
+    their plain versions on the same card inputs, each launched once. A
+    coupling stack's values at atol 5e-5 and log-dets at 5e-4 (the spline
+    turns the MLP's rounding, summed in another order, into up to 3.1e-5
+    and 1.2e-4: chip_smoke.COUPLING_TOL), the rest at 1e-5 and 1e-4."""
+    flow = _random_card_flow(d, arch)
+    y = torch.randn(n, d, device=cuda, generator=torch.Generator("cuda").manual_seed(n))
+    with torch.no_grad():
+        fp = flow.params()
+        if arch.startswith("maf"):
+            before = (fk.made_rqs_forward.launches_affine, fk.ar_inverse.launches_affine)
+            got = (fk.made_rqs_forward(y, fp.ws, fp.bs, head="affine"),
+                   fk.ar_inverse(y, fp.ws, fp.bs, fp.inv_orders, head="affine"))
+            after = (fk.made_rqs_forward.launches_affine, fk.ar_inverse.launches_affine)
+            want = (fk.made_rqs_forward_ref(y, fp.ws, fp.bs, head="affine"),
+                    fk.ar_inverse_ref(y, fp.ws, fp.bs, fp.inv_orders, head="affine"))
+        else:
+            before = (ck.coupling_forward.launches, ck.coupling_inverse.launches)
+            got = (ck.coupling_forward(y, fp.ws, fp.bs, fp.masks),
+                   ck.coupling_inverse(y, fp.ws, fp.bs, fp.masks))
+            after = (ck.coupling_forward.launches, ck.coupling_inverse.launches)
+            want = (ck.coupling_forward_ref(y, fp.ws, fp.bs, fp.masks),
+                    ck.coupling_inverse_ref(y, fp.ws, fp.bs, fp.masks))
+            one, _ = ck.coupling_inverse(y, fp.ws[:1], fp.bs[:1], fp.masks[:1])
+            assert torch.equal(one[:, fp.masks[0]], y[:, fp.masks[0]])
+    assert after == (before[0] + 1, before[1] + 1)
+    maf = arch.startswith("maf")
+    tol = TOL if maf else dict(rtol=1e-5, atol=5e-5)
+    for (a, la), (b, lb) in zip(got, want):
+        torch.testing.assert_close(a, b, **tol)
+        torch.testing.assert_close(la, lb, rtol=1e-5, atol=LADJ if maf else 5e-4)
+
+
+@pytest.mark.parametrize("arch,d", [("maf6", 3), ("maf6", 10), ("nsfc6", 3), ("nsfc6", 10)])
+def test_kernel_gradients_match_plain_autograd_on_card(cuda, arch, d):
+    """The training loss's gradient through the kernels (K2 with the affine
+    head and its backward, or K5 and its backward) against plain autograd
+    of the plain forward, on the card: max |diff| / max |grad| <= 1e-4."""
+    flow = _random_card_flow(d, arch, seed=1)
+    g = torch.Generator("cuda").manual_seed(d)
+    xb = torch.randn(256, d, device=cuda, generator=g)
+    wb = torch.rand(256, device=cuda, generator=g)
+    grads = []
+    for plain in (False, True):
+        flow.zero_grad(set_to_none=True)
+        if plain:
+            fp = flow.params()
+            y = xb
+            if arch.startswith("maf"):
+                z, l = fk.made_rqs_forward_ref(y, fp.ws, fp.bs, head="affine")
+            else:
+                z, l = ck.coupling_forward_ref(y, fp.ws, fp.bs, fp.masks)
+            loss = (-(flow._base_logpdf(z) + l) * wb * 1000.0).sum() / wb.sum()
+        else:
+            loss = flow._loss_fn(xb, wb)
+        loss.backward()
+        grads.append([p.grad.clone() for p in flow.parameters()])
+    for a, b in zip(*grads):
+        assert float((a - b).abs().max()) <= 1e-4 * (float(b.abs().max()) + 1e-30)
+
+
+def test_coupling_inverse_refuses_a_gradient_on_card(cuda):
+    flow = _random_card_flow(4, "nsfc3")
+    z = torch.randn(8, 4, device=cuda, requires_grad=True)
+    with pytest.raises(NotImplementedError, match="no gradient"):
+        flow.inverse(z)

@@ -115,8 +115,6 @@ def test_train_phase_fits_and_keeps_input_on_nonfinite_loss():
 @pytest.mark.parametrize("kwargs,match", [
     (dict(sample="mala"), "mala/hmc with a K1 backward"),
     (dict(sample="hmc"), "mala/hmc with a K1 backward"),
-    (dict(flow="maf6"), "maf"),
-    (dict(flow="nsfc6"), "nsfc"),
     (dict(mesh=object()), "multi-GPU"),
 ])
 def test_unported_paths_raise(kwargs, match):

@@ -3,7 +3,8 @@
     python3 tools/k1_breakdown.py
 
 Builds ``pocomc_tpu_torch/csrc/ar_inverse.cu`` as it is and in variants
-with a part taken out (their results are wrong; only their times count):
+with a part taken out (their results are wrong; only their times count),
+all with the spline head:
 
   * ``no_spline``: x = z and no log-det in place of the spline inverse;
   * ``no_reduce``: no butterfly reduction of the products' sums;
@@ -32,7 +33,7 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 SPLINE_1 = "      const float x = rqs_inverse_warp(row[zo + dim], p, lane, &l);"
-SPLINE_R = "      const float x = rqs_inverse(row[zo + dim], row + 3 * d, &l);"
+SPLINE_R = "      const float x = Head::inverse(row[zo + dim], row + 3 * d, &l);"
 IDENTITY = "      l = 0.0f; const float x = row[zo + dim];"
 REDUCE = "    reduce_level<R * G, 0>(acc, lane);"
 LOOP = "      for (int i = lane; i < nf; i += 32) {"
@@ -67,7 +68,7 @@ def build(name, edits):
     if proc.returncode != 0:
         sys.exit(f"k1_breakdown: nvcc failed for {name}:\n{proc.stderr}")
     fn = ctypes.CDLL(str(lib)).ar_inverse_launch
-    fn.argtypes = [ctypes.c_void_p if c == "P" else ctypes.c_int for c in "PPPIIIIPPIIIIIP"]
+    fn.argtypes = [ctypes.c_void_p if c == "P" else ctypes.c_int for c in "PPPIIIIPPIIIIIIP"]
     return fn
 
 
@@ -91,12 +92,12 @@ def main():
             z = torch.from_numpy(rng.standard_normal((n, d)).astype(np.float32)).cuda()
             x, ladj = torch.empty_like(z), torch.empty(n, device="cuda")
             R, W, S, SL, _, _ = fk._launch_config(n, d, h)
-            pack = fk._inverse_pack(fp.ws, fp.bs, fp.inv_orders, d, h, T)
+            pack = fk._inverse_pack(fp.ws, fp.bs, fp.inv_orders, d, h, T, "rqs")
             row = {"d": d, "n": n}
             for name, fn in fns.items():
                 def call(fn=fn):
                     err = fn(z.data_ptr(), x.data_ptr(), ladj.data_ptr(), n, d, h, T,
-                             pack.data_ptr(), fp.inv_orders.data_ptr(), R, W, S, SL,
+                             pack.data_ptr(), fp.inv_orders.data_ptr(), fk.N_PARAMS, R, W, S, SL,
                              z.device.index, torch.cuda.current_stream().cuda_stream)
                     if err:
                         sys.exit(f"k1_breakdown: {name} failed with cudaError {err}")
