@@ -8,6 +8,10 @@ printing one JSON line:
   2. build: compiles the five CUDA libraries from ``pocomc_tpu_torch/csrc``
      (K2's forward and backward and K1, each with both heads, and K5's
      forward/inverse and backward), one nvcc each, all started together;
+     ``k5_plans``, after phase 4, prints the tile each K5 launch of
+     phases 3-4 took, from the wrapper's own plans (the lane grid, BM rows
+     a block, the register tile, G, BK-row slabs in S stages, shared
+     bytes, packed weights or not);
   3. K2 against its plain versions at nsf6, d=10 (n=37, 256, 1024, 2048,
      4096) and d=50/h=256 (n=256, the sweep's population at any d, and
      4096), and at nsf3 on phase 10's shapes: d=2 (n=256, the imh
@@ -30,7 +34,8 @@ printing one JSON line:
      trip forward(inverse(z)) = z. Then the rest of the menu
      (``MENU_SHAPES``): maf6 (K2 and K1 with the affine head) and nsfc6
      (K5) at d=10, n=37, 256, 1024 and 4096, maf6 and nsfc12 at d=50,
-     n=256 and 4096, nsfc12 at d=50, n=65,536: forward, inverse, log_prob
+     n=256 and 4096, nsfc12 at d=50, n=1024 (the training batch) and
+     65,536: forward, inverse, log_prob
      and the round trip against the plain versions, up to 1024 rows (256
      at d=50) the training gradient end to end and the backward kernel on
      the saved inputs, and a coupling transform's conditioning columns bit
@@ -43,7 +48,8 @@ printing one JSON line:
      ``fit_stack`` batch step at d=10, batch 1024, on the kernel route
      and on plain autograd; the cost of the sweep's one scalar sync per
      step; the affine heads and K5 at the menu's shapes beside their plain
-     versions, their bounds, and K5's four products as torch.matmul;
+     versions, their bounds, K5's four products as torch.matmul and (n <=
+     4096) its backward's products as torch.matmul/bmm;
   6. the main path: ``Sampler`` on the 10-D Rosenbrock quickstart with an
      N(0, 3) prior and default settings, ``run(n_total=4096,
      n_evidence=4096)``, checked against the exact logZ -21.4021 (+-0.35)
@@ -146,8 +152,8 @@ LIBRARIES = ("made_rqs_forward", "made_rqs_backward", "ar_inverse", "coupling_fo
 # compute-bound bench line (bench.py:276-286), phase 12's sweep
 MENU_SHAPES = [("maf6", 10, 37), ("maf6", 10, 256), ("maf6", 10, 1024), ("maf6", 10, 4096),
                ("nsfc6", 10, 37), ("nsfc6", 10, 256), ("nsfc6", 10, 1024), ("nsfc6", 10, 4096),
-               ("maf6", 50, 256), ("maf6", 50, 4096), ("nsfc12", 50, 256), ("nsfc12", 50, 4096),
-               ("nsfc12", 50, 65536)]
+               ("maf6", 50, 256), ("maf6", 50, 4096), ("nsfc12", 50, 256), ("nsfc12", 50, 1024),
+               ("nsfc12", 50, 4096), ("nsfc12", 50, 65536)]
 # gradients are checked up to these rows (training batches are at most 1024)
 MENU_GRAD_ROWS = {10: 1024, 50: 256}
 # the menu's random output layers: std MENU_SCALE * sqrt(32 / h), scaled
@@ -766,6 +772,27 @@ def matmul_products(flow, x):
     return h
 
 
+def backward_matmul_products(flow, x, acts, g):
+    """K5 backward's products as torch.matmul (addmm, mm, bmm) on its shapes
+    at the rows x: the output layer's product again, relu(h2) W3 + b3, then
+    delta W^T back through the four layers (g3 W3^T, g2 W2^T, g1 W1^T, g0
+    W0^T), and the weight gradients A^T delta of every layer as one bmm over
+    the T transforms, without the spline's VJP, the masks or the residual
+    adds; ``acts`` are the saved layer inputs and ``g`` the four deltas
+    (T, n, .), the layout the kernel writes. The library's time for the
+    work of the backward's products."""
+    fp = flow.params()
+    for t in reversed(range(flow.n_transforms)):
+        w, b = fp.ws[t], fp.bs[t]
+        n3 = w[3].shape[1]
+        torch.addmm(b[3], acts[3][t], w[3])
+        g2 = torch.mm(g[3][t][:, :n3], w[3].T)
+        g1 = torch.mm(g2, w[2].T)
+        g0 = torch.mm(g1, w[1].T)
+        torch.mm(g0, w[0].T)
+    return [torch.bmm(a.transpose(1, 2), d) for a, d in zip(acts, g)]
+
+
 def main():
     # -- 1. environment ----------------------------------------------------
     if not torch.cuda.is_available():
@@ -805,7 +832,6 @@ def main():
     with ThreadPoolExecutor(len(LIBRARIES)) as ex:
         build = dict(ex.map(build_one, LIBRARIES))
     emit("build", wall_s=round(time.perf_counter() - t0, 3), **build)
-
     # -- 3./4. kernels against their plain versions ------------------------
     errs = dict.fromkeys(KERNELS, 0.0)
     checks = []
@@ -895,6 +921,17 @@ def main():
         for k, v in e.items():
             errs[k] = max(errs[k], v)
     emit("kernels_vs_plain", checks=checks, menu_checks=menu_checks)
+    # the tile each K5 launch of phases 3-4 took, as the wrapper planned and
+    # kept it: the lane grid (RL 4 a Tile, 1 a Row), BM rows a block, RM x
+    # RNH (hidden) and RM x RNO (output group) accumulators a thread, G
+    # dimensions an output group, BK-row slabs in an S-stage ring, the
+    # block's shared memory and whether the weights were packed
+    emit("k5_plans", plans=[
+        dict(kernel="coupling_backward" if backward else "coupling_forward/inverse", n=n, d=d,
+             h=h, T=T, **cfg._asdict())
+        for (backward, n, d, h, T), cfg in sorted({
+            (backward, *plan[:4]): plan[4]
+            for (backward, _), plan in ck._PLANS.items() if plan[4] is not None}.items())])
 
     # -- 5. times ------------------------------------------------------------
     # ms: device time of one call (graph replay); call_ms: one eager call
@@ -990,11 +1027,16 @@ def main():
                          "coupling_matmul": (lambda: matmul_products(flow, y), 20)}
                 if n <= 4096:
                     acts = ck.coupling_forward(y, *a, save_inputs=True)[2]
+                    T, h = flow.n_transforms, flow.n_hidden
+                    deltas = [torch.randn(T, n, k, device="cuda")
+                              for k in (h, h, h, (d + 1) // 2 * 23)]
                     calls.update({
                         "coupling_backward": (lambda: ck.coupling_backward(y, *a, g_z, g_l,
                                                                            acts), 20),
                         "coupling_backward_plain": (lambda: ck.coupling_backward_ref(
-                            y, *a, g_z, g_l, acts), reps_plain)})
+                            y, *a, g_z, g_l, acts), reps_plain),
+                        "coupling_backward_matmul": (lambda: backward_matmul_products(
+                            flow, y, acts, deltas), 20)})
                 bounds = coupling_bounds(n, flow)
             else:
                 acts = fk.made_rqs_forward(y, fp.ws, fp.bs, save_inputs=True, head="affine")[2]
@@ -1340,13 +1382,23 @@ def main():
                  "bound_ms": row[f"{name}_bound_ms"], "bound_by": row[f"{name}_bound_by"],
                  "library_ms": None, "flow": flow_name, "d": 10, "n": n}
         if name.startswith("coupling"):
-            entry["products_matmul_ms"] = row["coupling_matmul_ms"]
             if name != "coupling_backward":
+                entry["products_matmul_ms"] = row["coupling_matmul_ms"]
                 big = next(r for r in menu_times if r["d"] == 50 and r["n"] == 65536)
                 entry["bench_line"] = dict(
                     d=50, n=65536, ms=big[f"{name}_ms"], plain_ms=big[f"{name}_plain_ms"],
                     bound_ms=big[f"{name}_bound_ms"], bound_by=big[f"{name}_bound_by"],
                     products_matmul_ms=big["coupling_matmul_ms"])
+            else:
+                # the backward at d=50: the training batch and the evidence
+                # draws' row count
+                entry["backward_products_matmul_ms"] = row["coupling_backward_matmul_ms"]
+                entry["bench_line"] = [dict(
+                    d=50, n=r["n"], ms=r[f"{name}_ms"], call_ms=r[f"{name}_call_ms"],
+                    plain_ms=r[f"{name}_plain_ms"], bound_ms=r[f"{name}_bound_ms"],
+                    bound_by=r[f"{name}_bound_by"],
+                    backward_products_matmul_ms=r["coupling_backward_matmul_ms"])
+                    for r in menu_times if r["flow"] == "nsfc12" and r["n"] in (1024, 4096)]
         line.append(entry)
     print(json.dumps({"kernels": line}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -13,168 +13,319 @@
 //
 // What bounds it on the H100: fp32 FMAs of the four dense products,
 // 2 * T * (n_cond*h + 2*h*h + h*23*n_trans) flops a row (70,656 at nsfc6,
-// d=10, h=32; 284,672 a transform at d=50, h=256: 4.5e11 flops, 6.7 ms at
-// the 67 TFLOP/s fp32 peak, for 12 transforms and 65,536 rows). At the
-// sweep's n=256-4096 and d=10 a launch is latency: T transforms of four
-// dependent products and a spline each.
+// d=10, h=32; 284,672 multiply-adds a transform at d=50, h=256: 4.5e11
+// flops, 6.7 ms at the 67 TFLOP/s fp32 peak, for 12 transforms and 65,536
+// rows). At the sweep's n=256-4096 and d=10 a launch is latency: T
+// transforms of four dependent products and a spline each.
 //
-// Design: K2's forward (made_rqs_forward.cu) over the Coupling network of
-// made_tile.cuh. One block of 256 threads per tile of P particles runs all
-// T transforms, the tile's rows in shared memory; each transform's layer 0
-// reads the conditioning columns in place (an offset into the row), its
-// output layer runs a group of G whole transformed dimensions at a time
-// and each group's P*G splines right after it, one thread each, writing
-// the transformed columns in place; the conditioning columns are never
-// written, so they pass through bit for bit. Weights stream through
-// WeightStream's two-stage cp.async ring, in the walk's order of
-// transforms; each transform's weights are its own tensors, read through
-// a device table of 8T pointers. With `sv` set (the forward only) it also
-// writes every layer's input of every transform, (T, n, d) x_t and
-// (T, n, h) relu(h0..h2), which the backward kernel
-// (coupling_backward.cu) and the weight-gradient products take. fp32 FMAs
-// only: no tensor cores, no fast-math.
+// Design: register-tiled outer products (coupling_tile.cuh). A block of
+// 8 consumer warps owns BM rows (8*RM on a Tile, RM on a Row) and runs all
+// T transforms on them; the rows, the hidden state and one output group's
+// head parameters sit in shared memory k-major. Up to h = 512 a hidden
+// layer is one pass over all its h columns (each thread an RM x RNH tile),
+// so a residual layer writes h + relu(h) W + b back into the one hidden
+// buffer after a barrier (the last one writes relu of it, the output
+// layer's input); a wider one runs in passes of columns into a second
+// hidden buffer, and the two swap. The output layer runs a group of
+// G whole transformed dimensions a pass (RM x RNO tiles), its head
+// parameters go to a staging buffer, and the group's BM*G splines run one
+// (row, dimension) a thread, writing the transformed columns in place; the
+// conditioning columns are never written, so they pass through bit for
+// bit. A producer warp streams the weights through coupling_tile.cuh's
+// ring in slabs of BK rows, in the walk's order of transforms, each
+// transform's weights its own tensors, read through a device table of 8T
+// pointers (the output layers from the wrapper's packed copy).
+// With `sv` set (the forward only) it also writes every layer's input of
+// every transform, (T, n, d) x_t and (T, n, h) relu(h0..h2), which the
+// backward kernel (coupling_backward.cu) and the weight-gradient products
+// take. fp32 FMAs only: no tensor cores, no fast-math.
 #include <cuda_runtime.h>
 
-#include "made_tile.cuh"
+#include "coupling_tile.cuh"
 
 namespace {
 
 using namespace pocomc;
+using k5::NP;
+using k5::Vec;
+using k5::col_of;
+using k5::row_of;
 
-template <bool INVERSE, int RP>
-__global__ void __launch_bounds__(THREADS)
-    coupling_kernel(const float* __restrict__ xin, float* __restrict__ xout,
-                    float* __restrict__ ladj, Saved sv, int n, Coupling m, int P, int gw,
-                    int SL) {
-  extern __shared__ __align__(16) float smem[];
-  const int d = m.d, h = m.h;
-  float* xs = smem;          // P*d   the rows, transformed in place
-  float* hs = xs + P * d;    // P*h   hidden state
-  float* hn = hs + P * h;    // P*h   next hidden state; per-dimension log-dets
-  float* ps = hn + P * h;    // P*gw  spline parameters of one column group
-  float* ls = ps + P * gw;   // P     log-det accumulator
-  WeightStream<Coupling> ws(m, ring_start(smem, P * (d + 2 * h + gw + 1)), SL, gw, false,
-                            INVERSE);
-  ws.start();
-  const bool save = sv.a[0] != nullptr;
-
-  const int row0 = blockIdx.x * P;
-  for (int idx = threadIdx.x; idx < P * d; idx += THREADS) {
-    const int r = row0 + idx / d;
-    xs[idx] = r < n ? xin[(size_t)row0 * d + idx] : 0.0f;
-  }
-  for (int p = threadIdx.x; p < P; p += THREADS) ls[p] = 0.0f;
-  __syncthreads();
-
-  for (int i = 0; i < m.T; ++i) {
-    const int t = INVERSE ? m.T - 1 - i : i;
-    const int c0 = m.cond0(t), nc = m.n_cond(t), tr0 = m.trans0(t), ntr = m.n_trans(t);
-    const size_t off = (size_t)t * n;
-    if (save) {
-      for (int idx = threadIdx.x; idx < P * d; idx += THREADS)
-        if (row0 + idx / d < n) sv.a[0][(off + row0) * d + idx] = xs[idx];
-    }
-    for (int l = 0; l < 4; ++l) {
-      float* act = save && l < 3 ? sv.a[l + 1] + off * h : nullptr;
-      Chunk c;
-      do {
-        const float* Ws = ws.acquire(&c);
-        if (l == 0)
-          tile_product<RP, false>(xs + c0, d, nc, Ws, c.nc, c.c0, P,
-                                  Out{hs, nullptr, act, h, 0, row0, n});
-        else if (l < 3)
-          tile_product<RP, true>(hs, h, h, Ws, c.nc, c.c0, P, Out{hn, hs, act, h, 0, row0, n});
-        else
-          tile_product<RP, true>(hs, h, h, Ws, c.nc, c.c0, P,
-                                 Out{ps, nullptr, nullptr, gw, c.g0, row0, n});
-        ws.release();
-        if (l == 3 && c.group_end) {
-          // the group's splines: transformed dimensions k0 .. k0 + gd - 1
-          const int k0 = c.g0 / RqsHead::NP, gd = (c.gend - c.g0) / RqsHead::NP;
-          for (int idx = threadIdx.x; idx < P * gd; idx += THREADS) {
-            const int p = idx / gd, k = k0 + idx - p * gd;
-            const float* pk = ps + p * gw + (k - k0) * RqsHead::NP;
-            float* x = xs + p * d + tr0 + k;
-            float lg;
-            *x = INVERSE ? RqsHead::inverse(*x, pk, &lg) : RqsHead::forward(*x, pk, &lg);
-            hn[p * d + k] = lg;
-          }
+// o = [Hin[col][row] +] (acc + bias[col]) for the thread's tile, columns <
+// w, to Hout[col][row], or relu(o) where relu_out (the output layer's
+// input, which nothing else reads); where act is set, relu(o) also goes to
+// act (row-major, row stride ld, rows < n), 16 bytes a store where the row
+// allows it. Hin and Hout may be one buffer (the thread's own elements).
+template <int RM, int RN, int BMP, class Ln>
+__device__ __forceinline__ void hidden_epilogue(float (&acc)[RM][RN], const float* Hin,
+                                                float* Hout, const float* __restrict__ bias,
+                                                int w, bool residual, bool relu_out, float* act,
+                                                int ld, int row0, int n, const Ln& L) {
+  using CR = Vec<RM>;
+  using CC = Vec<RN>;
+#pragma unroll
+  for (int ci = 0; ci < CC::N; ++ci)
+#pragma unroll
+    for (int cj = 0; cj < CC::W; ++cj) {
+      const int col = col_of<RN>(L, ci) + cj, c = ci * CC::W + cj;
+      if (col >= w) continue;
+      const float b = __ldg(bias + col);
+#pragma unroll
+      for (int ri = 0; ri < CR::N; ++ri) {
+        const int at = col * BMP + row_of<RM>(L, ri);
+        float base[CR::W], o[CR::W];
+        if (residual) k5::load_vec<CR::W>(Hin + at, base);
+#pragma unroll
+        for (int rj = 0; rj < CR::W; ++rj) {
+          const float v = acc[ri * CR::W + rj][c] + b;
+          o[rj] = residual ? base[rj] + v : v;
+          acc[ri * CR::W + rj][c] = o[rj];
+          if (relu_out) o[rj] = fmaxf(o[rj], 0.0f);
         }
-      } while (!c.layer_end);
-      if (l == 1 || l == 2) {
-        float* tmp = hs;
-        hs = hn;
-        hn = tmp;
+        k5::store_vec<CR::W>(Hout + at, o);
       }
     }
-    __syncthreads();
-    for (int p = threadIdx.x; p < P; p += THREADS) {
-      float s = 0.0f;
-      for (int k = 0; k < ntr; ++k) s += hn[p * d + k];
-      ls[p] += s;
-    }
-  }
-  __syncthreads();
-
-  for (int idx = threadIdx.x; idx < P * d; idx += THREADS) {
-    const int r = row0 + idx / d;
-    if (r < n) xout[(size_t)row0 * d + idx] = xs[idx];
-  }
-  for (int p = threadIdx.x; p < P; p += THREADS)
-    if (row0 + p < n) ladj[row0 + p] = ls[p];
+  if (act != nullptr) k5::store_rows<RM, RN, true>(acc, act, ld, w, row0, n, L);
 }
 
-template <bool INVERSE, int RP>
-int launch(const float* xin, float* xout, float* ladj, const Saved& sv, int n,
-           const Coupling& m, int P, int gw, int SL, size_t smem, cudaStream_t stream) {
-  cudaError_t err = cudaFuncSetAttribute(coupling_kernel<INVERSE, RP>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+template <bool INVERSE, class Ln, int RM, int RNH, int RNO>
+__global__ void __launch_bounds__(k5::BLOCK, 1)
+    coupling_kernel(const float* __restrict__ xin, float* __restrict__ xout,
+                    float* __restrict__ ladj, Saved sv, int n, k5::Coupling m, k5::Packed pk,
+                    int G, int BK, int S) {
+  extern __shared__ __align__(16) float smem[];
+  constexpr int BM = Ln::rows(RM), BMP = Ln::stride(RM);
+  using CR = Vec<RM>;
+  using CO = Vec<RNO>;
+  const int d = m.d, h = m.h;
+  const int nh = k5::multi_pass<Ln, RNH>() ? (h + Ln::cols(RNH) - 1) / Ln::cols(RNH) : 1;
+  float* X = smem;                       // [d][BMP]      the rows, transformed in place
+  float* H = X + d * BMP;                // [h][BMP]      hidden state
+  float* H2 = nh > 1 ? H + h * BMP : H;  // [h][BMP]      a residual layer's output (nh > 1)
+  float* P = H + (nh > 1 ? 2 : 1) * h * BMP;  // [G*NP][BMP]  one output group's head parameters
+  float* LG = P + G * NP * BMP;          // [half][BMP]   per-dimension log-dets
+  float* LS = LG + m.half() * BMP;       // [BM]          log-det accumulator
+  k5::Ring ring = k5::make_ring(k5::Plan{m, G, BK, Ln::cols(RNH), false, INVERSE, pk}, smem,
+                                (LS + BM) - smem, S, BK, Ln::cols(RNH), Ln::cols(RNO));
+  if (threadIdx.x >= THREADS) {
+    k5::produce(ring);
+    return;
+  }
+  const k5::Plan& plan = ring.pl;
+  const Ln L;
+  const bool save = sv.a[0] != nullptr;
+
+  const int row0 = blockIdx.x * BM;
+  for (int idx = threadIdx.x; idx < BM * d; idx += THREADS) {
+    const int r = idx / d, c = idx - r * d;
+    X[c * BMP + r] = row0 + r < n ? xin[(size_t)(row0 + r) * d + c] : 0.0f;
+  }
+  for (int r = threadIdx.x; r < BM; r += THREADS) LS[r] = 0.0f;
+  k5::consumer_sync();
+
+  for (int i = 0; i < m.T; ++i) {
+    const int t = plan.transform(i);
+    const int c0 = m.cond0(t), tr0 = m.trans0(t), ntr = m.n_trans(t);
+    const size_t off = (size_t)t * n;
+    if (save) {
+      for (int idx = threadIdx.x; idx < BM * d; idx += THREADS) {
+        const int r = idx / d, c = idx - r * d;
+        if (row0 + r < n) sv.a[0][(off + row0 + r) * d + c] = X[c * BMP + r];
+      }
+    }
+    // -- layer 0 on the conditioning columns, then the two residual layers,
+    //    each nh passes of columns; with one pass a residual layer updates
+    //    H in place, with several it writes H2 and the two swap
+    for (int l = 0; l < 3; ++l) {
+      float* out = l == 0 || nh == 1 ? H : H2;
+      for (int c = 0; c < nh; ++c) {
+        const k5::Pass q = plan.pass(t, l * nh + c, nh);
+        float acc[RM][RNH];
+        k5::zero(acc);
+        if (l == 0) {
+          k5::run_pass<RM, RNH, false>(acc, ring, q, X + c0 * BMP, BMP, L);
+        } else {
+          k5::run_pass<RM, RNH, true>(acc, ring, q, H, BMP, L);
+          if (nh == 1) k5::consumer_sync();  // every thread has read H: update it in place
+        }
+        hidden_epilogue<RM, RNH, BMP>(acc, H + q.o0 * BMP, out + q.o0 * BMP,
+                                      m.biases(t, l) + q.o0, q.no, l > 0, l == 2,
+                                      save ? sv.a[l + 1] + off * h + q.o0 : nullptr, h, row0,
+                                      n, L);
+      }
+      if (out != H) {
+        H2 = H;
+        H = out;
+      }
+      k5::consumer_sync();
+    }
+    // -- the output layer, a group of whole transformed dimensions a pass,
+    //    each group's splines right after it
+    const float* b3 = m.biases(t, 3);
+    for (int g = 0; g < plan.groups(t); ++g) {
+      const k5::Pass q = plan.pass(t, 3 * nh + g, nh);
+      float acc[RM][RNO];
+      k5::zero(acc);
+      k5::run_pass<RM, RNO, false>(acc, ring, q, H, BMP, L);
+#pragma unroll
+      for (int ci = 0; ci < CO::N; ++ci)
+#pragma unroll
+        for (int cj = 0; cj < CO::W; ++cj) {
+          const int col = col_of<RNO>(L, ci) + cj;
+          if (col >= q.no) continue;
+          const float b = __ldg(b3 + q.o0 + col);
+#pragma unroll
+          for (int ri = 0; ri < CR::N; ++ri) {
+            float o[CR::W];
+#pragma unroll
+            for (int rj = 0; rj < CR::W; ++rj) o[rj] = acc[ri * CR::W + rj][ci * CO::W + cj] + b;
+            k5::store_vec<CR::W>(P + col * BMP + row_of<RM>(L, ri), o);
+          }
+        }
+      k5::consumer_sync();
+      const int k0 = q.o0 / NP, gd = q.no / NP;
+      for (int idx = threadIdx.x; idx < BM * gd; idx += THREADS) {
+        const int r = idx % BM, k = idx / BM;
+        float p[NP];
+#pragma unroll
+        for (int j = 0; j < NP; ++j) p[j] = P[(k * NP + j) * BMP + r];
+        float* x = X + (tr0 + k0 + k) * BMP + r;
+        float lg;
+        *x = INVERSE ? RqsHead::inverse(*x, p, &lg) : RqsHead::forward(*x, p, &lg);
+        LG[(k0 + k) * BMP + r] = lg;
+      }
+      k5::consumer_sync();  // the splines are done with P, X and LG
+    }
+    for (int r = threadIdx.x; r < BM; r += THREADS) {
+      float s = 0.0f;
+      for (int k = 0; k < ntr; ++k) s += LG[k * BMP + r];
+      LS[r] += s;
+    }
+  }
+  k5::consumer_sync();
+
+  for (int idx = threadIdx.x; idx < BM * d; idx += THREADS) {
+    const int r = idx / d, c = idx - r * d;
+    if (row0 + r < n) xout[(size_t)(row0 + r) * d + c] = X[c * BMP + r];
+  }
+  for (int r = threadIdx.x; r < BM; r += THREADS)
+    if (row0 + r < n) ladj[row0 + r] = LS[r];
+}
+
+struct Args {
+  const float* xin;
+  float* xout;
+  float* ladj;
+  Saved sv;
+  int n;
+  k5::Coupling m;
+  k5::Packed pk;
+  int G, BK, S;
+  size_t smem;
+  cudaStream_t stream;
+};
+
+template <bool INVERSE, class Ln, int RM, int RNH, int RNO>
+int launch(const Args& a) {
+  auto kernel = coupling_kernel<INVERSE, Ln, RM, RNH, RNO>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)a.smem);
   if (err != cudaSuccess) return (int)err;
-  coupling_kernel<INVERSE, RP><<<(n + P - 1) / P, THREADS, smem, stream>>>(xin, xout, ladj, sv, n,
-                                                                          m, P, gw, SL);
+  constexpr int BM = Ln::rows(RM);
+  kernel<<<(a.n + BM - 1) / BM, k5::BLOCK, a.smem, a.stream>>>(
+      a.xin, a.xout, a.ladj, a.sv, a.n, a.m, a.pk, a.G, a.BK, a.S);
   return (int)cudaGetLastError();
 }
 
+// the compiled Tile instances: RM in {1, 2, 4, 8} with RM * max(RNH, RNO)
+// <= 64
+template <bool INVERSE, int RNH, int RNO>
+int by_rows(int RM, const Args& a) {
+  using k5::Tile;
+  constexpr int RN = RNH > RNO ? RNH : RNO;
+  switch (RM) {
+    case 1: return launch<INVERSE, Tile, 1, RNH, RNO>(a);
+    case 2: return launch<INVERSE, Tile, 2, RNH, RNO>(a);
+    case 4: return launch<INVERSE, Tile, 4, RNH, RNO>(a);
+    case 8:
+      if constexpr (8 * RN <= 64) return launch<INVERSE, Tile, 8, RNH, RNO>(a);
+      break;
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+// the compiled Row instances: RM in {1, 2, 4}, RNH 2 and RNO 1 (passes of
+// 512 hidden and 256 output columns)
 template <bool INVERSE>
-int launch_tile(const float* xin, float* xout, float* ladj, const Saved& sv, int n,
-                const Coupling& m, int P, int gw, int SL, size_t smem, cudaStream_t s) {
-  if (P >= 16) return launch<INVERSE, 4>(xin, xout, ladj, sv, n, m, P, gw, SL, smem, s);
-  if (P >= 2) return launch<INVERSE, 2>(xin, xout, ladj, sv, n, m, P, gw, SL, smem, s);
-  return launch<INVERSE, 1>(xin, xout, ladj, sv, n, m, P, gw, SL, smem, s);
+int by_row_tile(int RM, int RNH, int RNO, const Args& a) {
+  using k5::Row;
+  if (RNH != 2 || RNO != 1) return (int)cudaErrorInvalidValue;
+  switch (RM) {
+    case 1: return launch<INVERSE, Row, 1, 2, 1>(a);
+    case 2: return launch<INVERSE, Row, 2, 2, 1>(a);
+    case 4: return launch<INVERSE, Row, 4, 2, 1>(a);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+template <bool INVERSE>
+int by_tile(int RL, int BM, int RNH, int RNO, const Args& a) {
+  if (RL == 1) return by_row_tile<INVERSE>(BM, RNH, RNO, a);
+  const int RM = BM / 8;
+  if (RNH == 1 && RNO == 4) return by_rows<INVERSE, 1, 4>(RM, a);
+  if (RNH == 2 && RNO == 8) return by_rows<INVERSE, 2, 8>(RM, a);
+  if (RNH == 4 && RNO == 8) return by_rows<INVERSE, 4, 8>(RM, a);
+  if (RNH == 8 && RNO == 8) return by_rows<INVERSE, 8, 8>(RM, a);
+  if (RNH == 16 && RNO == 8) return by_rows<INVERSE, 16, 8>(RM, a);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// shared-memory floats of one block: the tile's state, up to 4 floats of
-// padding and the ring (made_rqs_forward_smem_floats' at NP = 23)
-extern "C" int coupling_forward_smem_floats(int P, int G, int d, int h, int SL) {
-  return P * (d + 2 * h + G * pocomc::RqsHead::NP + 1) + 4 + 2 * SL;
+// shared-memory floats of one block: the rows, the hidden state (twice
+// where a hidden layer takes several passes), one output group's
+// parameters and the per-dimension log-dets, each [.][BMP], the log-det
+// accumulator and the S-stage ring
+extern "C" int coupling_forward_smem_floats(int RL, int BM, int RNH, int RNO, int G, int BK,
+                                            int S, int d, int h) {
+  const int bmp = RL == 4 ? BM + 4 : BM, cl = RL == 4 ? 32 : 256;
+  const int hidden = h > cl * RNH ? 2 * h : h;
+  return bmp * (d + hidden + G * pocomc::RqsHead::NP + (d + 1) / 2) + BM +
+         pocomc::k5::ring_floats(S, BK, cl * RNH, cl * RNO);
 }
 
 // Plain C entry point, loaded with ctypes. table holds the 8T device
 // pointers of the T coupling transforms' fp32 weights and biases (w0 b0
 // w1 b1 w2 b2 w3 b3 of each; w0 (n_cond_t, h), w3 (h, n_trans_t*23), the
-// halves of make_coupling_masks). inverse = 0 maps data -> latent through
-// transforms 0..T-1 (the spline forward, ladj = log|dz/dx|), 1 latent ->
-// data through T-1..0 (ladj = log|dx/dz|). a0..a3 are all null, or
-// (forward only) receive the input of every layer's product: a0 (T, n, d)
-// the transform inputs, a1..a3 (T, n, h) relu(h0), relu(h1), relu(h2). P,
-// G (whole transformed dimensions an output group, 1..ceil(d/2)) and SL as
-// for made_rqs_forward_launch. Launches on `stream` and returns
-// cudaGetLastError().
+// halves of make_coupling_masks; every pointer 16-byte aligned). inverse =
+// 0 maps data -> latent through transforms 0..T-1 (the spline forward,
+// ladj = log|dz/dx|), 1 latent -> data through T-1..0 (ladj = log|dx/dz|).
+// a0..a3 are all null, or (forward only) receive the input of every
+// layer's product: a0 (T, n, d) the transform inputs, a1..a3 (T, n, h)
+// relu(h0), relu(h1), relu(h2). The tile: RL = 4 a Tile of BM rows a block
+// (8, 16, 32, 64), passes of 32*RNH hidden and 32*RNO output columns, or RL
+// = 1 a Row of BM = 1, 2 or 4 rows, passes of 256*RNH and 256*RNO; an
+// output group of G whole transformed dimensions (G*23 columns, at most an
+// output pass), slabs of BK weight rows in an S-stage ring. w3 holds the
+// output layers packed as coupling_tile.cuh Packed describes ((T,
+// ceil(ceil(d/2)/G), h, output pass width), 16-byte aligned). Launches on
+// `stream` and returns cudaGetLastError().
 extern "C" int coupling_forward_launch(const float* xin, float* xout, float* ladj, int n, int d,
-                                       int h, int T, const float* const* table, float* a0,
-                                       float* a1, float* a2, float* a3, int inverse, int P,
-                                       int G, int SL, int device, void* stream) {
-  if (d < 2 || G > (d + 1) / 2 || (inverse && a0 != nullptr)) return (int)cudaErrorInvalidValue;
+                                       int h, int T, const float* const* table, const float* w3,
+                                       float* a0, float* a1, float* a2, float* a3, int inverse,
+                                       int RL, int BM, int RNH, int RNO, int G, int BK, int S,
+                                       int device, void* stream) {
+  if ((inverse && a0 != nullptr) || w3 == nullptr) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  const size_t smem = sizeof(float) * (size_t)coupling_forward_smem_floats(P, G, d, h, SL);
-  if (!pocomc::k2_args_ok(P, G, SL, d, h, smem)) return (int)cudaErrorInvalidValue;
-  const pocomc::Coupling m{table, d, h, T, pocomc::RqsHead::NP};
-  const pocomc::Saved sv{{a0, a1, a2, a3}};
-  const int gw = G * pocomc::RqsHead::NP;
-  cudaStream_t s = (cudaStream_t)stream;
-  if (inverse) return launch_tile<true>(xin, xout, ladj, sv, n, m, P, gw, SL, smem, s);
-  return launch_tile<false>(xin, xout, ladj, sv, n, m, P, gw, SL, smem, s);
+  const size_t smem =
+      sizeof(float) * (size_t)coupling_forward_smem_floats(RL, BM, RNH, RNO, G, BK, S, d, h);
+  if (!pocomc::k5::k5_args_ok(RL, BM, RNH, RNO, G, BK, S, d, h, smem))
+    return (int)cudaErrorInvalidValue;
+  const Args a{xin, xout, ladj, pocomc::Saved{{a0, a1, a2, a3}}, n,
+               pocomc::k5::Coupling{table, d, h, T},
+               pocomc::k5::Packed{w3, nullptr, ((d + 1) / 2 + G - 1) / G}, G, BK, S, smem,
+               (cudaStream_t)stream};
+  if (inverse) return by_tile<true>(RL, BM, RNH, RNO, a);
+  return by_tile<false>(RL, BM, RNH, RNO, a);
 }

@@ -64,7 +64,7 @@ __global__ void __launch_bounds__(THREADS)
   float* gh = gd + P * d;    // P*h   dL/dh of the current layer
   float* ga = gh + P * h;    // P*h   product accumulator
   float* gl = ga + P * h;    // P     dL/dladj
-  WeightStream<Made> ws(m, ring_start(smem, P * (3 * d + 3 * h + gw + 1)), SL, gw, true, true);
+  WeightStream ws(m, ring_start(smem, P * (3 * d + 3 * h + gw + 1)), SL, gw, true);
   ws.start();
 
   const int row0 = blockIdx.x * P;

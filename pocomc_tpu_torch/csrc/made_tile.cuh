@@ -1,15 +1,14 @@
 // Shared device code of K2's forward and backward kernels
-// (made_rqs_forward.cu, made_rqs_backward.cu) and of K5's
-// (coupling_forward.cu, coupling_backward.cu): the weights of every
+// (made_rqs_forward.cu, made_rqs_backward.cu): the weights of every
 // transform streamed through a two-stage ring in shared memory with
 // cp.async, the register-tiled products of a particle tile with a staged
-// weight chunk in both directions, and their store epilogue.
+// weight chunk in both directions, and their store epilogue. K5
+// (coupling_tile.cuh) takes from here Saved, the layer inputs a forward
+// saves, the block size and the shared-memory limit.
 //
 // A network is four layers K_0 -> h -> h -> h -> N_3 a transform: the
-// masked MADE of an autoregressive transform (Made: K_0 = d, N_3 = d*NP)
-// or the residual MLP of a coupling transform (Coupling: K_0 = the
-// conditioning half's width, N_3 = the transformed half's width * NP); NP
-// is the head's raw parameters a dimension (heads.cuh).
+// masked MADE of an autoregressive transform (Made: K_0 = d, N_3 = d*NP);
+// NP is the head's raw parameters a dimension (heads.cuh).
 // A chunk is all K rows of a layer's (K, N) weight and nc of its columns,
 // plus those columns' biases; it lands in a ring stage as a dense (K, nc)
 // block followed by the nc biases. Where a chunk is a whole layer (every
@@ -86,30 +85,6 @@ struct Made {
   }
 };
 
-// The residual MLPs of T coupling transforms (models/coupling.py), each
-// its own (K, N) weights and (N,) biases: tab holds 8T device pointers,
-// w0 b0 w1 b1 w2 b2 w3 b3 of transform 0, then of 1, and so on. The halves
-// alternate as make_coupling_masks lays them out: an even transform
-// conditions on dimensions [0, half) and transforms [half, d), an odd one
-// conditions on [half, d) and transforms [0, half), half = ceil(d/2).
-struct Coupling {
-  const float* const* tab;
-  int d, h, T, np;
-  __host__ __device__ __forceinline__ int half() const { return (d + 1) / 2; }
-  __device__ __forceinline__ int n_cond(int t) const { return (t & 1) ? d - half() : half(); }
-  __device__ __forceinline__ int cond0(int t) const { return (t & 1) ? half() : 0; }
-  __device__ __forceinline__ int trans0(int t) const { return (t & 1) ? 0 : half(); }
-  __device__ __forceinline__ int n_trans(int t) const { return d - n_cond(t); }
-  __device__ __forceinline__ int fan_in(int t, int l) const { return l == 0 ? n_cond(t) : h; }
-  __device__ __forceinline__ int fan_out(int t, int l) const {
-    return l == 3 ? n_trans(t) * np : h;
-  }
-  __device__ __forceinline__ const float* weights(int t, int l) const { return tab[8 * t + 2 * l]; }
-  __device__ __forceinline__ const float* biases(int t, int l) const {
-    return tab[8 * t + 2 * l + 1];
-  }
-};
-
 // The input of every layer's product in every transform, (T, n, K_l): the
 // transform's input x_t, then relu(h0), relu(h1), relu(h2). The forward
 // writes them when asked to, the backward reads them, and the weight
@@ -135,25 +110,23 @@ struct Cursor {
   int step, c0, g0, pass;
 };
 
-// The two-stage weight ring over the layers of a Net (Made or Coupling).
+// The two-stage weight ring over the layers of a Made stack.
 // Every thread of the block holds the same state and calls the same
 // methods in the same order. The loader's cursor runs two chunks ahead of
-// the consumer's; both walk the same schedule: transforms 0..T-1, or
-// T-1..0 with rev_t; layers 0..3, or 3..0 in the backward (bwd).
-template <class Net>
+// the consumer's; both walk the same schedule: transforms 0..T-1 and
+// layers 0..3, or in the backward (bwd) transforms T-1..0 and layers 3..0.
 struct WeightStream {
-  Net m;
+  Made m;
   float* stage;   // 2 * SL floats of shared memory from ring_start
   int SL;         // floats per stage, a multiple of 4, at least h + 1
   int gw;         // columns of an output-layer group
-  bool backward;  // layers 3..0, and an output-layer group may run twice
-  bool rev_t;     // transforms T-1..0
+  bool backward;  // T-1..0 and layers 3..0; an output-layer group may run twice
   bool twopass;   // backward, and an output-layer group does not fit one stage
   int nsteps, slot;
   Cursor ld, use;
 
-  __device__ WeightStream(const Net& net, float* ring, int sl, int group, bool bwd, bool rev)
-      : m(net), stage(ring), SL(sl), gw(group), backward(bwd), rev_t(rev),
+  __device__ WeightStream(const Made& net, float* ring, int sl, int group, bool bwd)
+      : m(net), stage(ring), SL(sl), gw(group), backward(bwd),
         twopass(bwd && (net.h + 1) * group > sl), nsteps(4 * net.T), slot(0), ld{0, 0, 0, 0},
         use{0, 0, 0, 0} {}
 
@@ -167,7 +140,7 @@ struct WeightStream {
   // the chunk at *cur, and *cur moved on to the next one
   __device__ __forceinline__ Chunk next(Cursor* cur) const {
     Chunk c;
-    c.t = rev_t ? m.T - 1 - (cur->step >> 2) : cur->step >> 2;
+    c.t = backward ? m.T - 1 - (cur->step >> 2) : cur->step >> 2;
     c.l = backward ? 3 - (cur->step & 3) : cur->step & 3;
     const int N = m.fan_out(c.t, c.l);
     c.c0 = cur->c0;

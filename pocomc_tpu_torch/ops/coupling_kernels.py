@@ -26,14 +26,16 @@ wrapper counts its launches in a plain integer attribute ``launches``.
 from __future__ import annotations
 
 import functools
+from typing import NamedTuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from ..models import transforms as tr
 from ..models.coupling import BINS, coupling_forward as _transform_forward, \
     coupling_inverse as _transform_inverse, halves, layer_inputs, make_coupling_masks
-from .flow_kernels import (N_PARAMS, _check_saved, _device_type, _entry, _k2_config,
+from .flow_kernels import (_MAX_SMEM, N_PARAMS, _check_saved, _device_type, _entry,
                            _raise_if, _stream)
 
 
@@ -147,6 +149,128 @@ def _check_kernel_layout(masks, d, T, name):
                          f"make_coupling_masks(d, T) at d >= 2")
 
 
+class K5Config(NamedTuple):
+    """A K5 launch's tile: the lane grid (RL = 4 a Tile of BM = 8*RM rows a
+    block and passes of 32*RN columns, RL = 1 a Row of BM = RM rows and
+    passes of 256*RN columns; csrc/coupling_tile.cuh), RM rows and RNH (a
+    hidden layer) or RNO (an output group) columns a thread, G whole
+    transformed dimensions an output group, slabs of BK weight rows in an
+    S-stage ring, and the block's shared memory in bytes."""
+    RL: int
+    BM: int
+    RM: int
+    RNH: int
+    RNO: int
+    G: int
+    BK: int
+    S: int
+    smem: int
+
+    @property
+    def PW(self):
+        """Columns of a hidden layer's pass (and rows a pass of W^T)."""
+        return _lanes(self.RL) * self.RNH
+
+    @property
+    def ldo(self):
+        """Columns of an output group's pass."""
+        return _lanes(self.RL) * self.RNO
+
+
+def _lanes(RL):
+    """Consumer threads across the columns of a pass: 32 on a Tile (4 x 8
+    lanes of 2 x 4 warps), 256 on a Row."""
+    return 32 if RL == 4 else 256
+
+
+# (RNH, RNO) pairs the Tile instances are compiled for, and their bound on
+# RM: RM * max(RNH, RNO) <= 64 accumulators a thread in the forward, RM *
+# (RNH + RNO) <= 64 in the backward, whose output layer holds both tiles
+# (``by_tile`` and ``by_rows`` in csrc/coupling_forward.cu,
+# coupling_backward.cu); the Row instances: RM 1, 2 or 4, passes of 512
+# hidden and 256 output columns
+K5_TILES = ((1, 4), (2, 8), (4, 8), (8, 8), (16, 8))
+K5_ACCUMULATORS = 64
+K5_ROW = (2, 1)
+# blocks a launch aims for: about one per SM of the H100
+K5_BLOCKS = 128
+def k5_instances(backward):
+    """The (RL, RM, RNH, RNO) tiles a K5 kernel has an instance of."""
+    tiles = {(4, rm, rnh, rno) for rnh, rno in K5_TILES for rm in (1, 2, 4, 8)
+             if rm * ((rnh + rno) if backward else max(rnh, rno)) <= K5_ACCUMULATORS}
+    return tiles | {(1, rm, *K5_ROW) for rm in (1, 2, 4)}
+
+
+def _k5_smem_floats(RL, BM, RNH, RNO, G, BK, S, d, h, backward):
+    """``coupling_{forward,backward}_smem_floats`` of the sources: the
+    k-major buffers [.][BMP] (BMP = BM + 4 on a Tile, BM on a Row: the
+    rows, the hidden state, twice where a hidden layer takes several
+    passes, one output group's parameters, and the per-dimension log-dets
+    in the forward or the input gradient in the backward), BM floats of
+    per-row state and the ring (``ring_floats`` of csrc/coupling_tile.cuh:
+    up to 4 floats of padding, S stages, 2*S mbarriers)."""
+    bmp, lanes = (BM + 4 if RL == 4 else BM), _lanes(RL)
+    hidden = 2 * h if h > lanes * RNH else h
+    rows = (2 * d + hidden + G * N_PARAMS) if backward else \
+        (d + hidden + G * N_PARAMS + (d + 1) // 2)
+    return bmp * rows + BM + 4 + S * BK * lanes * max(RNH, RNO) + 4 * S
+
+
+def _k5_fit(RL, BMs, RNH, RNO, G, d, h, backward):
+    """The first tile of rows BMs (largest first) that fits a Hopper block,
+    with slabs of BK = 32 weight rows (128 in the backward at RNH = 1,
+    where its transposed output layer, 23*ceil(d/2) rows, is then one
+    slab), or 16 or 8 where two stages do not fit, and as many stages as
+    fit, up to 8 (fewer, larger slabs measured faster:
+    tools/k5_breakdown.py); None where none fits."""
+    for BM in BMs:
+        for BK in (128, 32, 16, 8) if RNH == 1 and backward else (32, 16, 8):
+            for S in range(8, 1, -1):
+                smem = 4 * _k5_smem_floats(RL, BM, RNH, RNO, G, BK, S, d, h, backward)
+                if smem <= _MAX_SMEM:
+                    RM = BM // 8 if RL == 4 else BM
+                    return K5Config(RL, BM, RM, RNH, RNO, G, BK, S, smem)
+    return None
+
+
+@functools.lru_cache(maxsize=None)
+def _k5_config(n, d, h, backward):
+    """K5's launch plan at n rows, d dimensions and hidden width h.
+    On a Tile, RNH is the least power of two with 32 * RNH >= h, up to 16
+    (a hidden layer is one pass, the whole layer in registers, up to h =
+    512; wider ones run in passes of 512 columns); RNO 4 at h <= 32, else 8
+    (an output group of up to 5 or 11 dimensions a pass). BM is the largest
+    of 64, 32, 16, 8 that still gives 128 blocks (one per SM of the H100; 8
+    below n = 1024), within the accumulator bound of ``k5_instances``, and
+    shrinks where the shared memory does not fit. Where even 8 rows do not
+    fit (h >= 2048, where 8 rows of two hidden buffers pass 227 KB), a Row
+    of 4, 2 or 1 rows. Raises where h is not a multiple of 4 (a hidden
+    layer's rows are whole 16-byte copies) and where no tile fits (from h
+    = 32768, d > 5461, where 1 row of two hidden buffers passes the
+    block's shared memory)."""
+    if h % 4:
+        raise ValueError(f"coupling kernels: the hidden width h={h} must be a multiple of 4")
+    half = (d + 1) // 2
+    rnh = 1
+    while 32 * rnh < h and rnh < 16:
+        rnh *= 2
+    rno = 4 if rnh == 1 else 8
+    BM = 64
+    while BM > 8 and -(-n // BM) < K5_BLOCKS:
+        BM //= 2
+    instances = k5_instances(backward)
+    while BM > 8 and (4, BM // 8, rnh, rno) not in instances:
+        BM //= 2
+    plan = _k5_fit(4, [b for b in (64, 32, 16, 8) if b <= BM], rnh, rno,
+                   min(half, 32 * rno // N_PARAMS), d, h, backward)
+    plan = plan or _k5_fit(1, (4, 2, 1), *K5_ROW, min(half, 256 * K5_ROW[1] // N_PARAMS),
+                           d, h, backward)
+    if plan is None:
+        raise ValueError(f"coupling kernels: d={d}, h={h} needs more shared memory than "
+                         f"a Hopper block has")
+    return plan
+
+
 @functools.lru_cache(maxsize=64)
 def _table(device_index, ptrs):
     """The device table of the transforms' weight and bias pointers that
@@ -155,25 +279,110 @@ def _table(device_index, ptrs):
     return torch.tensor(ptrs, dtype=torch.int64, device=torch.device("cuda", device_index))
 
 
-def _pointers(ws, bs, device):
-    return _table(device.index, tuple(a.data_ptr() for t in range(len(ws))
-                                      for pair in zip(ws[t], bs[t]) for a in pair))
+def _layers(ws, bs):
+    """Every transform's weights and biases, w0 b0 w1 b1 w2 b2 w3 b3 of
+    transform 0, then of 1, and so on: the table's order."""
+    return [a for t in range(len(ws)) for pair in zip(ws[t], bs[t]) for a in pair]
+
+
+def _key(layers, others, masks, n):
+    """The cache key of a launch's checks: every weight and bias tensor's
+    pointer, shape, dtype, device and contiguity, the same but the pointer
+    of the per-call tensors ``others`` (whose memory is new every call),
+    the masks and n. A tensor that reuses an address with another shape,
+    dtype or layout gives another key."""
+    return (n, tuple((a.data_ptr(), a.shape, a.dtype, a.get_device(), a.is_contiguous())
+                     for a in layers),
+            tuple((a.shape, a.dtype, a.get_device(), a.is_contiguous()) for a in others),
+            tuple(np.asarray(m, dtype=bool).tobytes() for m in masks))
+
+
+_PLANS = {}
+_PLANS_MAX = 256
+
+
+def _plan(key, check, backward):
+    """(n, d, h, T, K5Config, weight pointers) of a launch: ``check()``
+    validates the arguments and returns (n, d, h, T, layers) the first time
+    a key is seen; later calls with the same key skip it. Kept in
+    ``_PLANS`` under (backward, key)."""
+    key = (backward, key)
+    plan = _PLANS.get(key)
+    if plan is None:
+        n, d, h, T, layers = check()
+        if any(a.data_ptr() % 16 for a in layers):
+            raise ValueError("coupling kernels: every weight and bias must start on a "
+                             "16-byte boundary")
+        plan = (n, d, h, T, _k5_config(n, d, h, backward) if n > 0 else None,
+                tuple(a.data_ptr() for a in layers))
+        if len(_PLANS) >= _PLANS_MAX:
+            _PLANS.clear()
+        _PLANS[key] = plan
+    return plan
+
+
+def _in_passes(a, PW):
+    """(T, rows, K) -> (T, P*rows, PW): K zero-padded to P = ceil(K / PW)
+    passes of PW columns, the passes one after another."""
+    T, rows, K = a.shape
+    P = -(-K // PW)
+    a = F.pad(a, (0, P * PW - K)).view(T, rows, P, PW)
+    return a.transpose(1, 2).reshape(T, P * rows, PW)
+
+
+def _packed(layers, ws, cfg, d, h, transposed):
+    """The weights repacked as csrc/coupling_tile.cuh ``Packed`` lays them
+    out, for whole-slab bulk copies (an output layer's rows, 23*n_trans
+    floats, sit off 16-byte boundaries, and W^T gathers columns): the
+    output layers by group, (T, NG, h,
+    ldo), or (``transposed``) every layer's W^T in passes of PW columns,
+    (T, rows, PW); zero padding. Kept on ``ws[0][0]``, the first
+    transform's first weight, so it lives as long as the flow's tensors:
+    rebuilt when any of them is replaced or changed in place (its version
+    moves, as an optimizer step moves it), so a sweep packs once per
+    flow."""
+    key = (cfg.RL, cfg.G, cfg.RNH, cfg.RNO, *((a.data_ptr(), a._version) for a in layers))
+    kept = getattr(ws[0][0], "_k5_packs", {}).get(transposed)
+    if kept is not None and kept[0] == key:
+        return kept[1]
+    T, half = len(ws), (d + 1) // 2
+    with torch.no_grad():
+        if not transposed:
+            ng, gw = -(-half // cfg.G), cfg.G * N_PARAMS
+            w3 = torch.stack([F.pad(w[3], (0, ng * gw - w[3].shape[1])) for w in ws])
+            w3 = F.pad(w3.view(T, h, ng, gw), (0, cfg.ldo - gw))
+            pack = w3.permute(0, 2, 1, 3).contiguous()
+        else:
+            rows = [torch.stack([F.pad(w[0], (0, 0, 0, half - w[0].shape[0])) for w in ws]),
+                    torch.stack([w[1] for w in ws]), torch.stack([w[2] for w in ws]),
+                    torch.stack([F.pad(w[3], (0, half * N_PARAMS - w[3].shape[1]))
+                                 for w in ws])]
+            pack = torch.cat([_in_passes(r.transpose(1, 2), cfg.PW) for r in rows], dim=1)
+    ws[0][0]._k5_packs = {**getattr(ws[0][0], "_k5_packs", {}), transposed: (key, pack)}
+    return pack
 
 
 def _launch_stack(x, ws, bs, masks, inverse, save_inputs, name):
-    n, d, h, T = _check(x, ws, bs, masks, name)
-    _check_kernel_layout(masks, d, T, name)
+    layers = _layers(ws, bs)
+
+    def check():
+        n, d, h, T = _check(x, ws, bs, masks, name)
+        _check_kernel_layout(masks, d, T, name)
+        return n, d, h, T, layers
+
+    n, d, h, T, cfg, ptrs = _plan(_key(layers, (x,), masks, x.shape[0]), check, False)
     out = torch.empty_like(x)
     ladj = torch.empty(n, dtype=x.dtype, device=x.device)
     acts = ([torch.empty(T, n, k, dtype=x.dtype, device=x.device) for k in (d, h, h, h)]
             if save_inputs else None)
     if n > 0:
-        P, G, SL = _k2_config(n, d, h, False, N_PARAMS, (d + 1) // 2)
-        fn = _entry("coupling_forward", "coupling_forward_launch", "PPPIIIIPPPPPIIIIIP")
+        fn = _entry("coupling_forward", "coupling_forward_launch", "PPPIIIIPPPPPPIIIIIIIIIP")
         saved = [a.data_ptr() for a in acts] if save_inputs else [None] * 4
-        err = fn(x.data_ptr(), out.data_ptr(), ladj.data_ptr(), n, d, h, T,
-                 _pointers(ws, bs, x.device).data_ptr(), *saved, int(inverse), P, G, SL,
-                 x.device.index, _stream(x))
+        table = _table(x.device.index, ptrs)
+        w3 = _packed(layers, ws, cfg, d, h, False).data_ptr()
+        err = fn(x.data_ptr(), out.data_ptr(), ladj.data_ptr(), n, d, h, T, table.data_ptr(),
+                 w3, *saved, int(inverse), cfg.RL, cfg.BM, cfg.RNH, cfg.RNO, cfg.G, cfg.BK,
+                 cfg.S, x.device.index, _stream(x))
         _raise_if(err, name)
         wrapper = coupling_inverse if inverse else coupling_forward
         wrapper.launches += 1
@@ -189,20 +398,29 @@ def _launch_backward(acts, ws, bs, masks, g_z, g_ladj):
     name = "coupling_backward"
     if len(acts) != 4:
         raise ValueError(f"{name}: expects the four saved layer inputs, got {len(acts)}")
-    _, d, h, T = _check(acts[0][0], ws, bs, masks, name)
-    _check_kernel_layout(masks, d, T, name)
-    _, n = _check_saved(name, acts, g_z, g_ladj, (d, h, h, h))
+    layers = _layers(ws, bs)
+
+    def check():
+        _, d, h, T = _check(acts[0][0], ws, bs, masks, name)
+        _check_kernel_layout(masks, d, T, name)
+        _, n = _check_saved(name, acts, g_z, g_ladj, (d, h, h, h))
+        return n, d, h, T, layers
+
+    n, d, h, T, cfg, ptrs = _plan(_key(layers, (*acts, g_z, g_ladj), masks, g_z.shape[0]),
+                                  check, True)
     dev = acts[0].device
     g_x = torch.empty_like(g_z)
     half = (d + 1) // 2
     deltas = [torch.empty(T, n, k, dtype=g_z.dtype, device=dev)
               for k in (h, h, h, half * N_PARAMS)]
     if n > 0:
-        P, G, SL = _k2_config(n, d, h, True, N_PARAMS, half)
-        fn = _entry("coupling_backward", "coupling_backward_launch", "PPPPPPPIIIIPPPPPIIIIP")
+        fn = _entry("coupling_backward", "coupling_backward_launch",
+                    "PPPPPPPIIIIPPPPPPPIIIIIIIIP")
+        packs = [_packed(layers, ws, cfg, d, h, t).data_ptr() for t in (False, True)]
         err = fn(*[a.data_ptr() for a in acts], g_z.data_ptr(), g_ladj.data_ptr(),
-                 g_x.data_ptr(), n, d, h, T, _pointers(ws, bs, dev).data_ptr(),
-                 *[g.data_ptr() for g in deltas], P, G, SL, dev.index, _stream(g_z))
+                 g_x.data_ptr(), n, d, h, T, _table(dev.index, ptrs).data_ptr(), *packs,
+                 *[g.data_ptr() for g in deltas], cfg.RL, cfg.BM, cfg.RNH, cfg.RNO, cfg.G,
+                 cfg.BK, cfg.S, dev.index, _stream(g_z))
         _raise_if(err, name)
         coupling_backward.launches += 1
     full_w = [torch.bmm(a.transpose(1, 2), g) for a, g in zip(acts, deltas)]

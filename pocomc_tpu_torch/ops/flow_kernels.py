@@ -232,10 +232,9 @@ def _launch_config(n, d, h, head="rqs"):
 
 
 @functools.lru_cache(maxsize=None)
-def _k2_config(n, d, h, backward, n_params=N_PARAMS, d_out=None):
-    """(P, G, SL) of a K2 or K5 launch with a head of ``n_params``
-    parameters and ``d_out`` transformed dimensions a transform (d for K2,
-    at most ceil(d/2) for K5): P particle rows a block, the largest of 16,
+def _k2_config(n, d, h, backward, n_params=N_PARAMS):
+    """(P, G, SL) of a K2 launch with a head of ``n_params`` parameters:
+    P particle rows a block, the largest of 16,
     8, 4, 2 that still gives ~128 blocks (one per SM of the H100) and
     leaves half of the shared memory to the weight ring; G whole dimensions
     in a group of the output layer (made_tile.cuh); SL floats a ring stage
@@ -248,7 +247,6 @@ def _k2_config(n, d, h, backward, n_params=N_PARAMS, d_out=None):
     stage cannot hold one column of a square layer: from h = 16384
     (d > 2730), where the flow's weights, gradients and AdamW moments alone
     pass the H100's 80 GB."""
-    d_out = d if d_out is None else d_out
     limit = _MAX_SMEM // 4 - 4
     state = (3 * d + 3 * h + 1) if backward else (d + 2 * h + 1)
     P = 16
@@ -262,11 +260,11 @@ def _k2_config(n, d, h, backward, n_params=N_PARAMS, d_out=None):
         return min(-(-need // 4) * 4, (limit - P * (state + g * n_params)) // 8 * 4)
 
     if backward:
-        G = max(1, min(d_out, (limit - P * state) // (n_params * (2 * h + 2 + P))))
+        G = max(1, min(d, (limit - P * state) // (n_params * (2 * h + 2 + P))))
         while G > 1 and G * n_params * (h + 1) > stage(G):
             G -= 1
     else:
-        G = max(1, min(d_out, (limit // 2 // P - state) // n_params))
+        G = max(1, min(d, (limit // 2 // P - state) // n_params))
     SL = stage(G)
     if SL < h + 1:
         raise ValueError(f"made_rqs_{'backward' if backward else 'forward'}: d={d}, h={h} "

@@ -486,3 +486,149 @@ def test_coupling_inverse_refuses_a_gradient_on_card(cuda):
     z = torch.randn(8, 4, device=cuda, requires_grad=True)
     with pytest.raises(NotImplementedError, match="no gradient"):
         flow.inverse(z)
+
+
+# -- K5 at the edges of its tiles: odd halves, every hidden width class --
+
+def _menu_card_flow(d, arch, seed=0):
+    """A coupling flow on the card with the menu's random output layers
+    (std 0.02 * sqrt(32 / h): chip_smoke.MENU_SCALE) and N(0, 0.02^2)
+    biases, from a numpy seed."""
+    rng = np.random.default_rng(seed)
+    f = Flow(d, arch, device="cuda")
+    scale = 0.02 * (32 / f.n_hidden) ** 0.5
+    with torch.no_grad():
+        for l, (w, b) in enumerate(zip(f.weights, f.biases)):
+            if l % 4 == 3:
+                w.copy_(torch.from_numpy(scale * rng.standard_normal(w.shape)))
+            b.copy_(torch.from_numpy(0.02 * rng.standard_normal(b.shape)))
+    return f
+
+
+def _coupling_edge_rows(flow, y, g_l, window=1e-5):
+    """Rows whose gradient two correct fp32 routes may give differently
+    (chip_smoke.edge_rows for a coupling stack): in the float64 forward some
+    transformed input lies within `window` of a knot of its spline (the
+    clamp edges +-B among them), where the log-det's gradient jumps and a
+    rounding of ~1e-6 picks the side, and the row's dL/dladj is nonzero.
+    (n,) bool."""
+    import copy
+    from pocomc_tpu_torch.models import transforms as tr
+    n = y.shape[0]
+    fp = copy.deepcopy(flow).double().params()
+    near = torch.zeros(n, dtype=torch.bool, device=y.device)
+    with torch.no_grad():
+        acts = ck.coupling_forward_ref(y.double(), fp.ws, fp.bs, fp.masks, save_inputs=True)[2]
+        for t, m in enumerate(fp.masks):
+            x = acts[0][t][:, torch.as_tensor(~m, device=y.device)]
+            p = (acts[3][t] @ fp.ws[t][3] + fp.bs[t][3]).reshape(n, x.shape[1], 23)
+            near |= ((x[..., None] - tr._rqs_setup(p, 8)[0]).abs() < window).any(-1).any(-1)
+    return near & (g_l != 0)
+
+
+def _check_coupling_kernels(d, n, arch="nsfc6"):
+    """K5 forward, inverse and backward of a menu coupling flow at d
+    against their plain versions on the same card inputs, at chip_smoke's
+    tolerances for h > 32: values and log-dets within max(5e-4 / 1e-2, 4x
+    the plain fp32 version's distance) of the plain version in float64
+    (chip_smoke.COUPLING_TOL[50], check_vs_float64), the gradients within
+    1e-3 of the largest (chip_smoke.TOL[50]), rows on a float64 knot with
+    dL/dladj != 0 left out as chip_smoke leaves them out of K2's gradient;
+    conditioning columns bit for bit."""
+    import copy
+    flow = _menu_card_flow(d, arch)
+    g = torch.Generator("cuda").manual_seed(n)
+    y = torch.randn(n, d, device="cuda", generator=g)
+    with torch.no_grad():
+        fp = flow.params()
+        fp64 = copy.deepcopy(flow).double().params()
+        for fn, ref in ((ck.coupling_forward, ck.coupling_forward_ref),
+                        (ck.coupling_inverse, ck.coupling_inverse_ref)):
+            got = fn(y, fp.ws, fp.bs, fp.masks)
+            plain = ref(y, fp.ws, fp.bs, fp.masks)
+            exact = ref(y.double(), fp64.ws, fp64.bs, fp64.masks)
+            for a, b, e, atol in zip(got, plain, exact, (5e-4, 1e-2)):
+                limit = max(atol, 4 * float((b.double() - e).abs().max()))
+                assert float((a.double() - e).abs().max()) <= limit
+        one, _ = ck.coupling_forward(y, fp.ws[:1], fp.bs[:1], fp.masks[:1])
+        assert torch.equal(one[:, fp.masks[0]], y[:, fp.masks[0]])
+        g_z = torch.randn(n, d, device="cuda", generator=g)
+        g_l = torch.randn(n, device="cuda", generator=g)
+        edge = _coupling_edge_rows(flow, y, g_l)
+        g_z, g_l = g_z.masked_fill(edge[:, None], 0.0), g_l.masked_fill(edge, 0.0)
+        _, _, acts = ck.coupling_forward(y, fp.ws, fp.bs, fp.masks, save_inputs=True)
+        got = ck.coupling_backward(y, fp.ws, fp.bs, fp.masks, g_z, g_l, acts)
+        want = ck.coupling_backward_ref(y, fp.ws, fp.bs, fp.masks, g_z, g_l, acts)
+    flat = lambda g: [g[0], *[a for t in g[1] for a in t], *[a for t in g[2] for a in t]]
+    for a, b in zip(flat(got), flat(want)):
+        assert float((a - b).abs().max()) <= 1e-3 * (float(b.abs().max()) + 1e-30)
+
+
+@pytest.mark.parametrize("d", [20, 30, 51, 171, 200])
+@pytest.mark.parametrize("n", [1, 7, 9, 31, 33, 4097])
+def test_coupling_kernels_match_plain_at_tile_edges(cuda, d, n):
+    """K5 at odd halves (d=51: 26/25, h=256), h=64 and 128 (d=20, 30), h =
+    1024 (d=171, 200: hidden layers in two passes of 512 columns, 8-row
+    blocks), and n at the edges of 8- and 32-row blocks, held as
+    ``_check_coupling_kernels`` holds it (at d=30, n=4097 one row lies on a
+    knot: the kernel, whose spline parameters sum in the forward's order,
+    and the plain version, which takes them from torch.matmul, put its
+    input on the two sides of it)."""
+    _check_coupling_kernels(d, n)
+
+
+@pytest.mark.parametrize("n", [1, 3, 5, 9, 257])
+def test_coupling_kernels_match_plain_on_row_tiles(cuda, n):
+    """K5 where 8 rows of hidden state do not fit a block: d=342 (h=2048),
+    Row tiles of 4 rows and hidden layers in four passes of 512 columns;
+    n at the edges of a 4-row block."""
+    for backward in (False, True):
+        assert ck._k5_config(n, 342, 2048, backward)[:2] == (1, 4)
+    _check_coupling_kernels(342, n, "nsfc3")
+
+
+def test_coupling_kernels_follow_adamw_steps(cuda):
+    """The packed weights follow the weights through foreach
+    AdamW steps as ``models.flow.fit_stack`` takes them, at ``Flow.fit``'s
+    default learning rate: after each step the forward and inverse match
+    their plain versions on the new weights (against float64, as
+    ``_check_coupling_kernels`` holds them), the step moved the plain
+    forward by over 100x the kernel's distance to it (a pack of the old
+    weights would not follow), and the loss gradient through K5 matches
+    the plain autograd one (rows on a float64 knot carry no weight)."""
+    import copy
+    d, n = 50, 1024
+    flow = _menu_card_flow(d, "nsfc3")
+    g = torch.Generator("cuda").manual_seed(0)
+    y = torch.randn(n, d, device=cuda, generator=g)
+    params = list(flow.parameters())
+    opt = torch.optim.AdamW(params, lr=1e-3, foreach=True)
+    for _ in range(3):
+        w = torch.full((n,), 1.0 / n, device=cuda)
+        w = w.masked_fill(_coupling_edge_rows(flow, y, w), 0.0)
+        opt.zero_grad(set_to_none=True)
+        flow._loss_fn(y, w).backward()
+        got = [p.grad.clone() for p in params]
+        fp = flow.params()
+        z, ladj = ck.coupling_forward_ref(y, fp.ws, fp.bs, fp.masks)
+        loss = (-(flow._base_logpdf(z) + ladj) * w * 1000.0).sum() / w.sum()
+        want = torch.autograd.grad(loss, params)
+        for a, b in zip(got, want):
+            assert float((a - b).abs().max()) <= 1e-3 * (float(b.abs().max()) + 1e-30)
+        before = z.detach()
+        torch.nn.utils.clip_grad_norm_(params, 1.0)
+        opt.step()
+        with torch.no_grad():
+            fp = flow.params()
+            fp64 = copy.deepcopy(flow).double().params()
+            for fn, ref in ((ck.coupling_forward, ck.coupling_forward_ref),
+                            (ck.coupling_inverse, ck.coupling_inverse_ref)):
+                got = fn(y, fp.ws, fp.bs, fp.masks)
+                plain = ref(y, fp.ws, fp.bs, fp.masks)
+                exact = ref(y.double(), fp64.ws, fp64.bs, fp64.masks)
+                for a, b, e, atol in zip(got, plain, exact, (5e-4, 1e-2)):
+                    limit = max(atol, 4 * float((b.double() - e).abs().max()))
+                    assert float((a.double() - e).abs().max()) <= limit
+                if fn is ck.coupling_forward:
+                    moved = float((plain[0] - before).abs().max())
+                    assert moved > 100 * float((got[0] - plain[0]).abs().max())
