@@ -5,9 +5,10 @@ printing one JSON line:
 
   1. environment: card name and power limit (nvidia-smi), torch/CUDA
      versions, the TF32 flags (both must be off);
-  2. build: compiles the five CUDA libraries from ``pocomc_tpu_torch/csrc``
-     (K2's forward and backward and K1, each with both heads, and K5's
-     forward/inverse and backward), one nvcc each, all started together;
+  2. build: compiles the six CUDA libraries from ``pocomc_tpu_torch/csrc``
+     (K2's forward and backward, K1 and its backward K1-bwd, each with both
+     heads, and K5's forward/inverse and backward, the latter with the
+     inverse's gradient, K5-inv-bwd), one nvcc each, all started together;
      ``k5_plans``, after phase 4, prints the tile each K5 launch of
      phases 3-4 took, from the wrapper's own plans (the lane grid, BM rows
      a block, the register tile, G, BK-row slabs in S stages, shared
@@ -93,9 +94,25 @@ printing one JSON line:
      compute-bound bench line (``bench.py:276-286``): the d=50 Rosenbrock,
      nsfc12, 65,536 particles, the preconditioned t-pCN sweep with the
      stopping rule held off, exactly 4 steps x 2 chained sweeps, its
-     particle-steps/s and peak device memory.
+     particle-steps/s and peak device memory;
+ 13. ``gradient_kernels``, ``sample="mala"``/``"hmc"``: (a) the gradients of
+     the inverses (``GRAD_SHAPES``: K1-bwd with the spline head at nsf6,
+     d=10, n=37, 256, 1024, 4096, nsf3 at d=4 and nsf6 at d=50; with the
+     affine head at maf6, d=10 and 50; K5-inv-bwd at nsfc6, d=10 and nsfc12,
+     d=50) through the kernels by autograd against plain autograd of the
+     plain inverses (``check_gradient``: rows on a knot or a ReLU kink left
+     out; K5-inv-bwd also against float64), then their device and eager
+     times beside their plain versions, the forward that saves their layer
+     inputs and their bounds; (b) phase 6's quickstart with
+     ``sample="mala"`` and with ``"hmc"`` (the same logZ gate, launches of
+     K2, K1 and K1-bwd, sweep steps and ms a sweep step); (c)
+     tests/test_mala.py:97-144's two runs (d=4, nsf3, n_active 128,
+     analytic logZ +-0.35); (d) a preconditioned mala sweep of 20 steps at
+     d=10, n=256 on phase 12's random maf6 and nsfc6 flows (finite states,
+     mean acceptance in (0.2, 0.98), launches of K1-bwd's affine head and
+     of K5-inv-bwd).
 
-Every path (phases 6-12) runs with the launch counts set to 0 just before
+Every path (phases 6-13) runs with the launch counts set to 0 just before
 it and read just after, and fails unless every kernel of the path ran.
 Then the kernels line and, last, the contract
 line. Any failed check exits non-zero before those two lines. Without a
@@ -141,10 +158,13 @@ HBM_BYTES = 3.35e12
 RQS = ("made_rqs_forward", "made_rqs_backward", "ar_inverse")
 AFFINE = ("made_rqs_forward_affine", "made_rqs_backward_affine", "ar_inverse_affine")
 COUPLING = ("coupling_forward", "coupling_inverse", "coupling_backward")
-KERNELS = RQS + AFFINE + COUPLING
-# the CUDA sources, one library each (both heads in each of the first three)
-LIBRARIES = ("made_rqs_forward", "made_rqs_backward", "ar_inverse", "coupling_forward",
-             "coupling_backward")
+# the gradient kernels of the inverses (phase 13): K1-bwd with each head and
+# K5-inv-bwd (the inverse instances of K5's backward)
+GRADIENT = ("ar_inverse_backward", "ar_inverse_backward_affine", "coupling_inverse_backward")
+KERNELS = RQS + AFFINE + COUPLING + GRADIENT
+# the CUDA sources, one library each (both heads in each of the first four)
+LIBRARIES = ("made_rqs_forward", "made_rqs_backward", "ar_inverse", "ar_inverse_backward",
+             "coupling_forward", "coupling_backward")
 # (flow, n_dim, n_particles) of the rest of the menu for phases 3-5: maf6
 # and nsfc6 at the quickstart's d=10 (37 a ragged tile, 256 the sweep, 1024
 # the training batch, 4096 the evidence draws), maf6 and nsfc12 at d=50
@@ -172,6 +192,20 @@ MENU_SCALE = 0.02
 # coupling inverse is 3.9e-5 from float64 at d=10, n=4096 on the CPU; nsf6's
 # autoregressive inverse 7.8e-6)
 COUPLING_TOL = {10: (5e-5, 5e-4), 50: (5e-4, 1e-2)}
+# (flow, n_dim, n_particles) of phase 13 (a), the inverses' gradient
+# kernels: K1-bwd with the spline head at nsf6, d=10 (37 a ragged tile, 256
+# the sweep, 1024 and 4096: K1's one-, two- and four-row launches), nsf3 at
+# d=4 (tests/test_mala.py's), nsf6 at d=50 (h=256); with the affine head
+# maf6 at d=10 and d=50; K5-inv-bwd at nsfc6, d=10 and nsfc12, d=50
+GRAD_SHAPES = [("nsf6", 10, 37), ("nsf6", 10, 256), ("nsf6", 10, 1024), ("nsf6", 10, 4096),
+               ("nsf3", 4, 128), ("nsf6", 50, 256), ("nsf6", 50, 4096), ("maf6", 10, 256),
+               ("maf6", 50, 4096), ("nsfc6", 10, 256), ("nsfc6", 10, 1024),
+               ("nsfc12", 50, 256), ("nsfc12", 50, 4096)]
+# arithmetic of one element's inverse VJP (heads.cuh inverse_vjp), counted
+# from the source: the spline's setup (two softmaxes, seven softplus and
+# sigmoid), bin, slope, chain and knot VJPs, a transcendental as one
+# operation; the affine map's few. The bounds count it beside the products.
+ELEMENT_VJP_OPS = {"rqs": 560, "affine": 12}
 
 
 def rosenbrock_row(x):
@@ -772,7 +806,7 @@ def matmul_products(flow, x):
     return h
 
 
-def backward_matmul_products(flow, x, acts, g):
+def backward_matmul_products(flow, x, acts, g, weight_grads=True):
     """K5 backward's products as torch.matmul (addmm, mm, bmm) on its shapes
     at the rows x: the output layer's product again, relu(h2) W3 + b3, then
     delta W^T back through the four layers (g3 W3^T, g2 W2^T, g1 W1^T, g0
@@ -780,7 +814,8 @@ def backward_matmul_products(flow, x, acts, g):
     the T transforms, without the spline's VJP, the masks or the residual
     adds; ``acts`` are the saved layer inputs and ``g`` the four deltas
     (T, n, .), the layout the kernel writes. The library's time for the
-    work of the backward's products."""
+    work of the backward's products; without ``weight_grads``, those of
+    K5-inv-bwd, which has no weight gradients."""
     fp = flow.params()
     for t in reversed(range(flow.n_transforms)):
         w, b = fp.ws[t], fp.bs[t]
@@ -790,7 +825,191 @@ def backward_matmul_products(flow, x, acts, g):
         g1 = torch.mm(g2, w[2].T)
         g0 = torch.mm(g1, w[1].T)
         torch.mm(g0, w[0].T)
+    if not weight_grads:
+        return g0
     return [torch.bmm(a.transpose(1, 2), d) for a, d in zip(acts, g)]
+
+
+def knot_rows(flow, y, g_l, window=1e-5):
+    """``edge_rows`` for every kind of the menu: rows of the stack input y
+    where, in the float64 forward, some spline input lies within `window`
+    of a knot of its spline and dL/dladj is nonzero (none for the affine
+    head, which has no knots). (n,) bool."""
+    from pocomc_tpu_torch.models import transforms as tr
+    from pocomc_tpu_torch.ops import coupling_kernels as ck
+    n = y.shape[0]
+    if flow.kind == "maf":
+        return torch.zeros(n, dtype=torch.bool, device=y.device)
+    if flow.kind == "nsf":
+        return edge_rows(flow, y, g_l, window)
+    fp = copy.deepcopy(flow).double().params()
+    near = torch.zeros(n, dtype=torch.bool, device=y.device)
+    with torch.no_grad():
+        acts = ck.coupling_forward_ref(y.double(), fp.ws, fp.bs, fp.masks, save_inputs=True)[2]
+        for t, m in enumerate(fp.masks):
+            x = acts[0][t][:, torch.as_tensor(~m, device=y.device)]
+            p = (acts[3][t] @ fp.ws[t][3] + fp.bs[t][3]).reshape(n, x.shape[1], 23)
+            near |= ((x[..., None] - tr._rqs_setup(p, 8)[0]).abs() < window).any(-1).any(-1)
+    return near & (g_l != 0)
+
+
+def kink_rows(flow, y, window=1e-5):
+    """Rows of the stack input y where, in the float64 forward, some hidden
+    pre-activation of some transform's network lies within `window` of 0:
+    the ReLU's derivative jumps there, so an inverse's gradient does, and
+    which side a row takes turns on the last bits of a sum two correct fp32
+    routes order differently (plain fp32 autograd and the plain VJP, in
+    agreement, lie 0.11 from float64 in one such row of 4096 at nsf6, d=10,
+    on the CPU). (n,) bool."""
+    from pocomc_tpu_torch.ops import coupling_kernels as ck, flow_kernels as fk
+    fp = copy.deepcopy(flow).double().params()
+    near = torch.zeros(y.shape[0], dtype=torch.bool, device=y.device)
+    with torch.no_grad():
+        if flow.kind == "nsfc":
+            xs = ck.coupling_forward_ref(y.double(), fp.ws, fp.bs, fp.masks, True)[2][0]
+            nets = [(xs[t][:, torch.as_tensor(m, device=y.device)], fp.ws[t], fp.bs[t])
+                    for t, m in enumerate(fp.masks)]
+        else:
+            xs = fk.made_rqs_forward_ref(y.double(), fp.ws, fp.bs, save_inputs=True,
+                                         head=flow.head)[2][0]
+            nets = [(xs[t], [w[t] for w in fp.ws], [b[t] for b in fp.bs])
+                    for t in range(xs.shape[0])]
+        for inp, w, b in nets:
+            h = inp @ w[0] + b[0]
+            near |= (h.abs() < window).any(-1)
+            for l in (1, 2):
+                h = h + torch.relu(h) @ w[l] + b[l]
+                near |= (h.abs() < window).any(-1)
+    return near
+
+
+def gradient_kernel(flow):
+    """The gradient kernel of a flow's inverse: its name in GRADIENT."""
+    if flow.kind == "nsfc":
+        return GRADIENT[2]
+    return GRADIENT[0] if flow.head == "rqs" else GRADIENT[1]
+
+
+def inverse_routes(flow):
+    """(inverse kernel, plain inverse, the gradient kernel's call, its plain
+    twin, the forward that saves the layer inputs) of a flow's stack, each
+    on FlowParams or CouplingParams p."""
+    from pocomc_tpu_torch.ops import coupling_kernels as ck, flow_kernels as fk
+    if flow.kind == "nsfc":
+        return (lambda v, p: ck.coupling_inverse(v, p.ws, p.bs, p.masks),
+                lambda v, p: ck.coupling_inverse_ref(v, p.ws, p.bs, p.masks),
+                lambda x, p, gx, gl: ck.coupling_inverse_backward(x, p.ws, p.bs, p.masks, gx,
+                                                                  gl),
+                lambda x, p, gx, gl: ck.coupling_inverse_vjp_ref(x, p.ws, p.bs, p.masks, gx,
+                                                                 gl),
+                lambda x, p: ck.coupling_forward(x, p.ws, p.bs, p.masks, save_inputs=True))
+    head = flow.head
+    return (lambda v, p: fk.ar_inverse(v, p.ws, p.bs, p.inv_orders, head=head),
+            lambda v, p: fk.ar_inverse_ref(v, p.ws, p.bs, p.inv_orders, head=head),
+            lambda x, p, gx, gl: fk.ar_inverse_backward(x, p.ws, p.bs, p.inv_orders, gx, gl,
+                                                        head),
+            lambda x, p, gx, gl: fk.ar_inverse_vjp_ref(x, p.ws, p.bs, p.inv_orders, gx, gl,
+                                                       head),
+            lambda x, p: fk.made_rqs_forward(x, p.ws, p.bs, save_inputs=True, head=head))
+
+
+def rows_past(label, got, want, limit, near):
+    """The rows where max |got - want| passes `limit`; fails unless every
+    one of them lies in `near` (within 1e-3 of a knot or a ReLU kink):
+    there two correct fp32 routes take the two sides of a jump of the
+    gradient, since the inverse's own fp32 error reaches 1e-4 (nsfc12 at
+    d=50: plain fp32 autograd lies 3.3 from float64 autograd in such a row
+    of 256 on the CPU, outside the 1e-5 windows). Returns their count."""
+    past = (got.double() - want.double()).abs().max(1).values > limit
+    if bool((past & ~near).any()):
+        worst = float((got.double() - want.double()).abs().max())
+        fail(f"{label}: max |diff| {worst:.3e} over {limit:.3e} in "
+             f"{int((past & ~near).sum())} rows that lie near no knot or ReLU kink")
+    return int(past.sum())
+
+
+def check_gradient(name, d, n, flow, rng):
+    """Phase 13 (a) at one shape: g_z of a loss on the stack's inverse (x and
+    the log-det, dL/dladj ~ N(0, 1)) through the kernels as a sweep takes
+    it (the inverse kernel, then its gradient kernel, by autograd) against
+    plain autograd of the plain inverse in fp32 on the same z: within
+    TOL's gradient tolerance of the largest, or within twice the plain
+    fp32 version's own distance to float64 where that is larger (the
+    spread that decides K2's gate, here measured against the plain VJP in
+    float64 at the same x), a row past the limit lying within 1e-3 of a
+    jump (``rows_past``: the two routes evaluate the gradient at points
+    that differ by the inverse's fp32 error); and, at the same x, to the
+    plain VJP in float64 within K5's rule (the tolerance, or 4x the
+    plain fp32 VJP's own distance to it), every row. Rows on a float64
+    knot with dL/dladj != 0 and rows on a ReLU kink are left out (their
+    gradient jumps). The kernel's direct call gives the autograd route's
+    bits. Returns (the numbers, max |diff|)."""
+    from pocomc_tpu_torch.mcmc import _detached
+    inv, ref, bwd, twin, _ = inverse_routes(flow)
+    kname = gradient_kernel(flow)
+    tol = TOL[max(d, 10)]["grad"]
+    fp = _detached(flow.params())
+    fp64 = _detached(copy.deepcopy(flow).double().params())
+    z, g_x = (torch.from_numpy(rng.standard_normal((n, d)).astype(np.float32)).cuda()
+              for _ in range(2))
+    g_l = torch.from_numpy(rng.standard_normal(n).astype(np.float32)).cuda()
+    with torch.no_grad():
+        x, _ = inv(z, fp)
+    edge = knot_rows(flow, x, g_l) | kink_rows(flow, x)
+    g_x, g_l = g_x.masked_fill(edge[:, None], 0.0), g_l.masked_fill(edge, 0.0)
+
+    def by_autograd(inverse):
+        zz = z.clone().requires_grad_(True)
+        xx, ll = inverse(zz, fp)
+        return torch.autograd.grad((xx, ll), zz, (g_x, g_l))[0]
+
+    before = getattr(*_counter(kname))
+    g_k = by_autograd(inv)
+    launched = getattr(*_counter(kname)) - before
+    g_p = by_autograd(ref)
+    with torch.no_grad():
+        g_e = twin(x.double(), fp64, g_x.double(), g_l.double())
+        g_t = twin(x, fp, g_x, g_l)
+        direct = bwd(x, fp, g_x, g_l)
+    torch.cuda.synchronize()
+    label = f"{kname} {name} d={d} n={n}"
+    if launched != 1:
+        fail(f"{label}: the gradient went through {launched} launches of its kernel, not 1")
+    if not torch.equal(direct, g_k):
+        fail(f"{label}: the kernel's direct call and the autograd route differ")
+    spread = max_err(g_p.double(), g_e)
+    e_kp = max_err(g_k, g_p)
+    limit = max(tol * float(g_p.abs().max()), 2 * spread)
+    near = knot_rows(flow, x, g_l, 1e-3) | kink_rows(flow, x, 1e-3)
+    out = dict(kernel=kname, flow=name, d=d, n=n, tol=tol, edge_rows=int(edge.sum()),
+               max_grad=float(g_p.abs().max()), kernel_vs_plain=e_kp, limit=limit,
+               plain_vs_f64=spread, kernel_vs_f64=max_err(g_k.double(), g_e),
+               rows_near_a_jump=int(near.sum()),
+               rows_past_limit=rows_past(f"{label} vs plain autograd", g_k, g_p, limit, near))
+    out["vs_float64"] = check_vs_float64(f"{label} vs float64 at the same x", g_k, g_t, g_e,
+                                         tol * float(g_e.abs().max()))
+    return out, e_kp
+
+
+def gradient_bounds(n, flow):
+    """(bound_ms, bound_by) of an inverse's gradient kernel at n rows: one
+    cotangent pass through every transform's products (the masked
+    multiply-adds that ``made_bounds`` counts, or K5's dense ones) plus the
+    element VJPs (ELEMENT_VJP_OPS each), at the fp32 peak; x, g_x, g_ladj
+    and the weights read once, g_z written once, at the HBM rate. The
+    forward that recomputes the layer inputs is a K2 (or K5) launch of its
+    own, timed beside it."""
+    d, h, T = flow.n_dim, flow.n_hidden, flow.n_transforms
+    if flow.kind == "nsfc":
+        total = sum(w.numel() for w in flow.weights)
+        elements = T * ((d + 1) // 2 + d // 2) // 2
+        weights = 4 * sum(p.numel() for p in flow.parameters())
+    else:
+        total = sum(int(m.sum()) for m in flow.masks)
+        elements = T * d
+        weights = 4 * (total + T * (3 * h + flow.n_params * d))
+    ops = 2 * n * total + n * elements * ELEMENT_VJP_OPS[flow.head]
+    return bound(ops, 4 * (3 * n * d + n) + weights)
 
 
 def main():
@@ -1311,8 +1530,151 @@ def main():
         fail("flow_menu bench sweep: the particles are not a finite (65536, 50) array")
     emit("flow_menu", card=card, quickstart=menu_runs, bench_sweep=bench)
 
+    # -- 13. the gradient kernels: mala and hmc -------------------------------
+    # (a) K1-bwd (both heads) and K5-inv-bwd against the plain versions on
+    # the card, then their times beside the plain versions and their bounds
+    grad_checks = []
+    for name, d, n in GRAD_SHAPES:
+        flow, rng = flows[name, d]
+        out, e = check_gradient(name, d, n, flow, rng)
+        grad_checks.append(out)
+        errs[out["kernel"]] = max(errs.get(out["kernel"], 0.0), e)
+    from pocomc_tpu_torch.mcmc import _detached
+    grad_times = []
+    for name, d, n in GRAD_SHAPES:
+        if n == 37:
+            continue
+        flow, rng = flows[name, d]
+        _, _, bwd, twin, fwd_saved = inverse_routes(flow)
+        fp = _detached(flow.params())
+        kname = gradient_kernel(flow)
+        x, g_x = (torch.from_numpy(rng.standard_normal((n, d)).astype(np.float32)).cuda()
+                  for _ in range(2))
+        g_l = torch.from_numpy(rng.standard_normal(n).astype(np.float32)).cuda()
+        reps_plain = 3 if d == 50 else 10
+        # the plain twin reads the visit orders on the host, as phase 5's K1
+        fp_host = fp if flow.kind == "nsfc" else fp._replace(inv_orders=fp.inv_orders.cpu())
+        with torch.no_grad():
+            calls = {kname: (lambda: bwd(x, fp, g_x, g_l), 20),
+                     f"{kname}_plain": (lambda: twin(x, fp_host, g_x, g_l), reps_plain),
+                     "saving_forward": (lambda: fwd_saved(x, fp), 20)}
+            if flow.kind == "nsfc":
+                acts = fwd_saved(x, fp)[2]
+                T, h = flow.n_transforms, flow.n_hidden
+                deltas = [torch.randn(T, n, k, device="cuda")
+                          for k in (h, h, h, (d + 1) // 2 * 23)]
+                calls[f"{kname}_matmul"] = (lambda: backward_matmul_products(
+                    flow, x, acts, deltas, weight_grads=False), 20)
+            row = dict(kernel=kname, flow=name, d=d, n=n)
+            for key, (fn, reps) in calls.items():
+                row[f"{key}_ms"] = graph_ms(fn, reps)
+                row[f"{key}_call_ms"] = cuda_ms(fn, reps, warmup=1)
+            row[f"{kname}_bound_ms"], row[f"{kname}_bound_by"] = gradient_bounds(n, flow)
+        grad_times.append(row)
+    # (b) the slice's path at full width: phase 6's quickstart with
+    # sample="mala", then "hmc" (n_leapfrog 5, the default)
+    grad_runs = []
+
+    def drive_gradient(label, prior_, like_, names, truth, run_kw, **kw):
+        s = pt.Sampler(prior_, like_, vectorize=True, random_state=0, device="cuda", **kw)
+        reset_launches(fk)
+        t0 = time.perf_counter()
+        s.run(progress=False, **run_kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = read_launches(fk, names)
+        logz, dlogz = s.evidence()
+        steps = sum(st["steps"] for st in s._iter_stats)
+        x, w, _, _ = s.posterior()
+        row = dict(run=label, logz=logz, dlogz=dlogz, true_logz=truth, calls=s.calls,
+                   iterations=s.t, wall_s=wall, phase_s=dict(s.phase_seconds),
+                   sweep_steps=steps, ms_per_sweep_step=1e3 * s.phase_seconds["mutate"] / steps,
+                   launches=counts)
+        grad_runs.append(row)
+        by_path[label] = counts
+        if not all(counts.values()):
+            fail(f"{label}: a kernel of the path was never launched: {counts}")
+        if not (np.isfinite(logz) and abs(logz - truth) < LOGZ_GATE):
+            fail(f"{label}: logZ {logz} outside {truth} +- {LOGZ_GATE}")
+        if not (np.isfinite(x).all() and np.isfinite(w).all()):
+            fail(f"{label}: posterior samples are not finite")
+
+    for sample in ("mala", "hmc"):
+        drive_gradient(f"gradient_quickstart_{sample}", prior, log_like, RQS + GRADIENT[:1],
+                       TRUE_LOGZ, dict(n_total=4096, n_evidence=4096), sample=sample)
+    # (c) tests/test_mala.py:97-144 on the card: d=4, nsf3, n_active 128
+    from scipy.stats import multivariate_normal
+    d4 = 4
+    rng4 = np.random.default_rng(0)
+    q4, _ = np.linalg.qr(rng4.normal(size=(d4, d4)))
+    cov4 = (q4 * np.logspace(0, 1.5, d4)) @ q4.T
+    ci4 = torch.tensor(np.linalg.inv(cov4), dtype=torch.float32, device="cuda")
+    nc4 = -0.5 * (d4 * np.log(2 * np.pi) + np.linalg.slogdet(cov4)[1])
+    truth4 = multivariate_normal.logpdf(np.zeros(d4), np.zeros(d4), cov4 + 100.0 * np.eye(d4))
+
+    def like4(x):
+        return nc4 - 0.5 * torch.einsum("ni,ij,nj->n", x, ci4, x)
+
+    for sample, leap in (("mala", 5), ("hmc", 3)):
+        drive_gradient(f"test_mala_{sample}", pt.Prior([pt.Normal(0.0, 10.0)] * d4), like4,
+                       RQS + GRADIENT[:1], truth4, dict(n_total=1024, n_evidence=1024),
+                       sample=sample, n_leapfrog=leap, n_effective=256, n_active=128,
+                       flow="nsf3", train_config=dict(epochs=60, patience=8))
+    # (d) the other heads on a path: one preconditioned mala sweep of 20
+    # steps (the stopping rule held off) at d=10, n=256, on phase 12's
+    # random maf6 and nsfc6 flows: a unit Gaussian likelihood under N(0, 3)
+    # priors from u ~ N(0, 0.5^2), beta 1
+    head_sweeps = []
+    prior10 = pt.Prior([pt.Normal(0.0, 3.0) for _ in range(10)])
+    scaler10 = pt.Reparameterize(10, bounds=prior10.bounds)
+
+    def unit_gauss(x):
+        return -0.5 * (x * x).sum(-1)
+
+    for name in ("maf6", "nsfc6"):
+        flow = flows[name, 10][0]
+        kname = gradient_kernel(flow)
+        sweep = Sweep(scaler10, prior10.logpdf, make_loglike(unit_gauss), flow, 10, 20, 20,
+                      kind="mala")
+        g = torch.Generator("cuda").manual_seed(SEED)
+        with torch.no_grad():
+            scp10 = scaler10.whitening_params("cuda")
+            fp = _detached(flow.params())
+            u = 0.5 * torch.randn(256, 10, device="cuda", generator=g)
+            x, ldj = scaler10.inverse(u, params=scp10)
+            theta, _ = flow.forward(u, fp)
+            geom = fit_geometry(theta, torch.full((256,), 1.0 / 256, device="cuda"), g)
+            reset_launches(fk)
+            st = sweep.init_state(u, x, ldj, unit_gauss(x), prior10.logpdf(x), 2.38 / 10 ** 0.5,
+                                  geom, fp, beta=1.0, scp=scp10)
+            accepts = []
+            for _ in range(20):
+                prop = sweep.propose(st, geom, fp, scp10, sweep.draw_noise(st, geom, g),
+                                     beta=1.0)
+                st, _ = sweep.accept_update(st, prop, prop["logl"], 1.0, geom)
+                accepts.append(float(st.accept))
+            torch.cuda.synchronize()
+        counts = read_launches(fk, (kname,))
+        by_path[f"gradient_head_{name}"] = counts
+        finite = all(bool(torch.isfinite(a).all()) for a in (st.u, st.x, st.logl, st.grad))
+        row = dict(flow=name, kernel=kname, steps=st.i, mean_accept=statistics.mean(accepts),
+                   sigma=float(st.sigma), finite=finite, launches=counts)
+        head_sweeps.append(row)
+        if not finite:
+            fail(f"gradient_head_{name}: the sweep's state is not finite")
+        if not 0.2 < row["mean_accept"] < 0.98:
+            fail(f"gradient_head_{name}: mean acceptance {row['mean_accept']} outside "
+                 f"(0.2, 0.98)")
+        if not counts[kname]:
+            fail(f"gradient_head_{name}: {kname} was never launched")
+    emit("gradient_kernels", card=card, checks=grad_checks, times=grad_times, runs=grad_runs,
+         head_sweeps=head_sweeps)
+
     paths = {"flow_menu_maf6": AFFINE, "flow_menu_nsfc6": COUPLING,
-             "flow_menu_bench_sweep": COUPLING[:2]}
+             "flow_menu_bench_sweep": COUPLING[:2],
+             "gradient_head_maf6": GRADIENT[1:2], "gradient_head_nsfc6": GRADIENT[2:]}
+    paths.update({k: RQS + GRADIENT[:1] for k in by_path if k.startswith(("gradient_quickstart",
+                                                                            "test_mala"))})
     for name, counts in by_path.items():
         want = paths.get(name, RQS)
         if set(counts) != set(want) or not all(counts.values()):
@@ -1399,6 +1761,31 @@ def main():
                     bound_by=r[f"{name}_bound_by"],
                     backward_products_matmul_ms=r["coupling_backward_matmul_ms"])
                     for r in menu_times if r["flow"] == "nsfc12" and r["n"] in (1024, 4096)]
+        line.append(entry)
+    # the gradient kernels at the sweep's population (d=10, n=256) of their
+    # flows; their times include the forward that saves the layer inputs,
+    # whose own time stands beside them
+    grad_sources = {
+        "ar_inverse_backward": ("pocomc_tpu_torch/csrc/ar_inverse_backward.cu",
+                                "pocomc_tpu/mcmc.py:350"),
+        "ar_inverse_backward_affine": ("pocomc_tpu_torch/csrc/ar_inverse_backward.cu",
+                                       "pocomc_tpu/mcmc.py:350"),
+        "coupling_inverse_backward": ("pocomc_tpu_torch/csrc/coupling_backward.cu",
+                                      "pocomc_tpu/models/coupling.py:83")}
+    for name in GRADIENT:
+        row = next(r for r in grad_times if r["kernel"] == name and r["d"] == 10
+                   and r["n"] == 256)
+        total, path_counts = launches_of(name)
+        entry = {"name": name, "route": "cuda", "source": grad_sources[name][0],
+                 "replaces": grad_sources[name][1], "launches": total,
+                 "launches_by_path": path_counts, "max_abs_err": errs[name],
+                 "ms": row[f"{name}_ms"], "plain_ms": row[f"{name}_plain_ms"],
+                 "call_ms": row[f"{name}_call_ms"], "plain_call_ms": row[f"{name}_plain_call_ms"],
+                 "bound_ms": row[f"{name}_bound_ms"], "bound_by": row[f"{name}_bound_by"],
+                 "library_ms": None, "flow": row["flow"], "d": 10, "n": 256,
+                 "saving_forward_ms": row["saving_forward_ms"]}
+        if name == "coupling_inverse_backward":
+            entry["products_matmul_ms"] = row[f"{name}_matmul_ms"]
         line.append(entry)
     print(json.dumps({"kernels": line}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -1,10 +1,14 @@
 // K5 backward: the gradient of a whole coupling spline stack
 // (coupling_forward.cu, data -> latent) with respect to its input and,
-// through the layers' deltas, every transform's weights and biases.
+// through the layers' deltas, every transform's weights and biases. Its
+// inverse instances (INV, K5-inv-bwd) give the gradient of the stack's
+// inverse (latent -> data) in its input alone.
 //
 // Replaces no Pallas kernel: the JAX package takes this gradient with
 // jax.value_and_grad of the training loss through the XLA coupling code
-// (pocomc_tpu/models/coupling.py, models/flow.py Flow._loss_fn).
+// (pocomc_tpu/models/coupling.py, models/flow.py Flow._loss_fn), and the
+// inverse's with jax.vjp through Flow.kernel_inv (pocomc_tpu/mcmc.py
+// _grad_target) at every step of a preconditioned mala/hmc sweep.
 //
 // What bounds it on the H100: the products back through the four layers
 // and the weight-gradient products, 2x the forward's flops, plus the
@@ -39,6 +43,15 @@
 // weight gradients from them and the saved activations with batched
 // products and row sums over T, so no float atomics sit on the gradient
 // path and every run gives the same bits. fp32 FMAs only.
+//
+// The inverse instances walk the same schedule with the same tiles, on the
+// layer inputs of the forward at the inverse's output x (the wrapper runs
+// K5's forward at x first): transforms 0..T-1 (the inverse ran T-1..0),
+// and the element step is the inverse's VJP (rqs.cuh rqs_inverse_vjp: g_z
+// of the transformed column from dL/dx, and the parameters' cotangent);
+// the conditioning columns take the same pass-through plus the net's
+// gradient. They write no deltas: the JAX package never differentiates the
+// inverse in the weights.
 #include <cuda_runtime.h>
 
 #include "coupling_tile.cuh"
@@ -68,7 +81,7 @@ __device__ __forceinline__ void load_k_major(float* dst, const float* src, int w
   }
 }
 
-template <class Ln, int RM, int RNH, int RNO>
+template <class Ln, int RM, int RNH, int RNO, bool INV>
 __global__ void __launch_bounds__(k5::BLOCK, 1)
     coupling_backward_kernel(Saved sv, const float* __restrict__ gz,
                              const float* __restrict__ gladj, float* __restrict__ gy, Deltas dl,
@@ -88,7 +101,7 @@ __global__ void __launch_bounds__(k5::BLOCK, 1)
                                                //              then their gradients
   float* GX = P + G * NP * BMP;            // [d][BMP]     dL/dx_{t+1}, then dL/dx_t
   float* GL = GX + d * BMP;                // [BM]         dL/dladj
-  k5::Ring ring = k5::make_ring(k5::Plan{m, G, BK, Ln::cols(RNH), true, true, pk}, smem,
+  k5::Ring ring = k5::make_ring(k5::Plan{m, G, BK, Ln::cols(RNH), true, !INV, pk}, smem,
                                 (GL + BM) - smem, S, BK, Ln::cols(RNH), Ln::cols(RNO));
   if (threadIdx.x >= THREADS) {
     k5::produce(ring);
@@ -111,7 +124,7 @@ __global__ void __launch_bounds__(k5::BLOCK, 1)
     load_k_major<BM, BMP>(AG, sv.a[3] + off * h, h, row0, n);
     k5::consumer_sync();
     // the output delta's columns past this transform's half stay 0
-    for (int idx = threadIdx.x; idx < BM * (dl.ldo - dout); idx += THREADS) {
+    for (int idx = threadIdx.x; !INV && idx < BM * (dl.ldo - dout); idx += THREADS) {
       const int p = idx / (dl.ldo - dout), j = dout + idx - p * (dl.ldo - dout);
       if (row0 + p < n) dl.g[3][(off + row0 + p) * dl.ldo + j] = 0.0f;
     }
@@ -154,13 +167,19 @@ __global__ void __launch_bounds__(k5::BLOCK, 1)
 #pragma unroll
         for (int j = 0; j < NP; ++j) p[j] = P[(k * NP + j) * BMP + r];
         float* gx = GX + col * BMP + r;
-        *gx = RqsHead::forward_vjp(X[col * BMP + r], p, *gx, GL[r]);
-        float* delta = dl.g[3] + (off + row0 + r) * dl.ldo + q.o0 + k * NP;
-        const bool real = row0 + r < n;
+        if constexpr (INV) {
+          *gx = RqsHead::inverse_vjp(X[col * BMP + r], p, *gx, GL[r]);
 #pragma unroll
-        for (int j = 0; j < NP; ++j) {
-          P[(k * NP + j) * BMP + r] = p[j];
-          if (real) delta[j] = p[j];
+          for (int j = 0; j < NP; ++j) P[(k * NP + j) * BMP + r] = p[j];
+        } else {
+          *gx = RqsHead::forward_vjp(X[col * BMP + r], p, *gx, GL[r]);
+          float* delta = dl.g[3] + (off + row0 + r) * dl.ldo + q.o0 + k * NP;
+          const bool real = row0 + r < n;
+#pragma unroll
+          for (int j = 0; j < NP; ++j) {
+            P[(k * NP + j) * BMP + r] = p[j];
+            if (real) delta[j] = p[j];
+          }
         }
       }
       k5::consumer_sync();
@@ -201,7 +220,8 @@ __global__ void __launch_bounds__(k5::BLOCK, 1)
             k5::store_vec<CR::W>(ap, a);
           }
         }
-      k5::store_rows<RM, RNH, false>(acc, dl.g[2] + off * h + o0, h, no, row0, n, L);
+      if constexpr (!INV)
+        k5::store_rows<RM, RNH, false>(acc, dl.g[2] + off * h + o0, h, no, row0, n, L);
     };
     if (nh == 1) {
       mask_h2(gacc, 0, h);
@@ -247,7 +267,9 @@ __global__ void __launch_bounds__(k5::BLOCK, 1)
               k5::store_vec<CR::W>(out + at, v);
             }
           }
-        k5::store_rows<RM, RNH, false>(acc, dl.g[l - 1] + off * h + q.o0, h, q.no, row0, n, L);
+        if constexpr (!INV)
+          k5::store_rows<RM, RNH, false>(acc, dl.g[l - 1] + off * h + q.o0, h, q.no, row0, n,
+                                         L);
       }
       if (out != AG) {
         B2 = AG;
@@ -298,13 +320,14 @@ struct Args {
   k5::Coupling m;
   k5::Packed pk;
   int G, BK, S;
+  bool inverse;
   size_t smem;
   cudaStream_t stream;
 };
 
-template <class Ln, int RM, int RNH, int RNO>
-int launch(const Args& a) {
-  auto kernel = coupling_backward_kernel<Ln, RM, RNH, RNO>;
+template <class Ln, int RM, int RNH, int RNO, bool INV>
+int launch_dir(const Args& a) {
+  auto kernel = coupling_backward_kernel<Ln, RM, RNH, RNO, INV>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)a.smem);
   if (err != cudaSuccess) return (int)err;
@@ -312,6 +335,13 @@ int launch(const Args& a) {
   kernel<<<(a.n + BM - 1) / BM, k5::BLOCK, a.smem, a.stream>>>(
       a.sv, a.gz, a.gladj, a.gy, a.dl, a.n, a.m, a.pk, a.G, a.BK, a.S);
   return (int)cudaGetLastError();
+}
+
+// the backward's or the inverse's instance of a tile
+template <class Ln, int RM, int RNH, int RNO>
+int launch(const Args& a) {
+  return a.inverse ? launch_dir<Ln, RM, RNH, RNO, true>(a)
+                   : launch_dir<Ln, RM, RNH, RNO, false>(a);
 }
 
 // the compiled Tile instances: RM in {1, 2, 4, 8} with RM * (RNH + RNO)
@@ -371,7 +401,10 @@ extern "C" int coupling_backward_smem_floats(int RL, int BM, int RNH, int RNO, i
 // (T, n, h) are the inputs of every layer's product as the forward kernel
 // saved them; gz (n, d) and gladj (n,) are dL/dz and dL/dladj; gy (n, d)
 // receives dL/dx and g0..g2 (T, n, h), g3 (T, n, ceil(d/2)*23) the deltas
-// of the four layers. table and the tile (RL, BM, RNH, RNO, G, BK, S) as
+// of the four layers. With inverse != 0, the gradient of the inverse: a0..a3
+// saved by the forward at x, the inverse's output, gz and gladj dL/dx and
+// dL/dladj of the inverse, gy receives dL/dz, and g0..g3 are not written
+// (null). table and the tile (RL, BM, RNH, RNO, G, BK, S) as
 // for coupling_forward_launch; w3 and wt the weights packed as
 // coupling_tile.cuh Packed describes (w3 as for coupling_forward_launch, wt
 // each transform's W^T in passes of the hidden pass width; 16-byte
@@ -382,8 +415,11 @@ extern "C" int coupling_backward_launch(const float* a0, const float* a1, const 
                                         const float* const* table, const float* w3,
                                         const float* wt, float* g0, float* g1,
                                         float* g2, float* g3, int RL, int BM, int RNH, int RNO,
-                                        int G, int BK, int S, int device, void* stream) {
+                                        int G, int BK, int S, int inverse, int device,
+                                        void* stream) {
   if (w3 == nullptr || wt == nullptr) return (int)cudaErrorInvalidValue;
+  if (!inverse && (g0 == nullptr || g1 == nullptr || g2 == nullptr || g3 == nullptr))
+    return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   const size_t smem =
@@ -394,7 +430,7 @@ extern "C" int coupling_backward_launch(const float* a0, const float* a1, const 
   const Args a{pocomc::Saved{{const_cast<float*>(a0), const_cast<float*>(a1),
                               const_cast<float*>(a2), const_cast<float*>(a3)}},
                gz, gladj, gy, Deltas{{g0, g1, g2, g3}, m.half() * pocomc::RqsHead::NP}, n, m,
-               pocomc::k5::Packed{w3, wt, ((d + 1) / 2 + G - 1) / G}, G, BK, S, smem,
-               (cudaStream_t)stream};
+               pocomc::k5::Packed{w3, wt, ((d + 1) / 2 + G - 1) / G}, G, BK, S, inverse != 0,
+               smem, (cudaStream_t)stream};
   return by_tile(RL, BM, RNH, RNO, a);
 }

@@ -3,9 +3,10 @@
 // dimension. RqsHead is the 8-bin rational-quadratic spline of rqs.cuh
 // (the nsf* and nsfc* flows), AffineHead the bounded-log-scale affine map
 // of the maf* flows, term for term models/transforms.py affine_forward,
-// affine_forward_vjp and affine_inverse. OG is the width of K1's output
-// column group (ar_inverse.cu): NP rounded up to a group its products
-// are instantiated for.
+// affine_forward_vjp and affine_inverse; inverse_vjp is the inverse's
+// element VJP (ops/flow_kernels.py inverse_element_vjp) in closed form.
+// OG is the width of K1's output column group (ar_inverse.cu): NP rounded
+// up to a group its products are instantiated for.
 #pragma once
 
 #include <math.h>
@@ -25,6 +26,9 @@ struct RqsHead {
   }
   __device__ __forceinline__ static float inverse(float y, const float* p, float* ladj) {
     return rqs_inverse(y, p, ladj);
+  }
+  __device__ __forceinline__ static float inverse_vjp(float x, float* p, float gx, float gl) {
+    return rqs_inverse_vjp(x, p, gx, gl);
   }
 };
 
@@ -55,6 +59,16 @@ struct AffineHead {
     const float s = LOG_SCALE_BOUND * tanhf(p[1] / LOG_SCALE_BOUND);
     *ladj = s;
     return y * expf(s) + p[0];
+  }
+  // the inverse's VJP at its data value x, given gx = dL/dx and gl =
+  // dL/dladj: returns dL/dz = gx e^s and overwrites p with dL/dloc = gx,
+  // dL/draw = (gx (x - loc) + gl)(1 - t^2)
+  __device__ __forceinline__ static float inverse_vjp(float x, float* p, float gx, float gl) {
+    const float t = tanhf(p[1] / LOG_SCALE_BOUND);
+    const float gz = gx * expf(LOG_SCALE_BOUND * t);
+    p[1] = (gx * (x - p[0]) + gl) * (1.0f - t * t);
+    p[0] = gx;
+    return gz;
   }
 };
 

@@ -1,7 +1,8 @@
 // Shared device code of the flow kernels: the 8-bin rational-quadratic
-// spline (spline setup, bin search, forward, its vector-Jacobian product,
-// inverse) for all three. The products are the kernels' own: K2's in
-// made_tile.cuh, K1's in ar_inverse.cu.
+// spline (spline setup, bin search, forward, the vector-Jacobian products
+// of the forward and of the inverse, inverse) for all of them. The
+// products are the kernels' own: K2's in made_tile.cuh, K1's in
+// ar_inverse.cu and ar_inverse_backward.cu, K5's in coupling_tile.cuh.
 //
 // The spline math follows pocomc_tpu/models/transforms.py term for term, in
 // fp32 with plain FMA arithmetic (no fast-math intrinsics): knots from a
@@ -111,6 +112,149 @@ __device__ __forceinline__ float rqs_forward(float x, const float* p, float* lad
   *ladj = inside ? logf(dydx) : 0.0f;
   return inside ? y : x;
 }
+
+// The spline of raw parameters p at x as the inverse's vector-Jacobian
+// product needs it: the two softmaxes, the sigmoids of the derivatives' raw
+// parameters, the bin and its local quantities; x must lie in (-B, B). The
+// arithmetic of rqs_forward_vjp below (models/transforms.py
+// rqs_forward_vjp), which keeps its own copy: its bits are a record (K2's
+// and K5's backwards, the runs they train), and merging the two moved them.
+struct SplineVjp {
+  float sm[2][BINS], sig[BINS - 1];
+  int i;
+  float w, h, s, xi, xi1m, c, q, denom, num, n2, d0, d1;
+  bool in_clamp;  // x in [-B+1e-6, B-1e-6], where clamp passes the gradient
+
+  __device__ __forceinline__ SplineVjp(float x, const float* p) {
+    const float B = SPLINE_BOUND;
+    // knots exactly as spline_knots, keeping the two softmaxes
+    float kn[2][BINS + 1];
+#pragma unroll
+    for (int a = 0; a < 2; ++a) {
+      const float* raw = p + a * BINS;
+      float m = raw[0];
+#pragma unroll
+      for (int j = 1; j < BINS; ++j) m = fmaxf(m, raw[j]);
+      float sum = 0.0f;
+#pragma unroll
+      for (int j = 0; j < BINS; ++j) {
+        sm[a][j] = expf(raw[j] - m);
+        sum += sm[a][j];
+      }
+      float run = 0.0f;
+      kn[a][0] = -B;
+#pragma unroll
+      for (int j = 0; j < BINS; ++j) {
+        sm[a][j] = sm[a][j] / sum;
+        run += (MIN_BIN + (1.0f - MIN_BIN * BINS) * sm[a][j]) * (2.0f * B);
+        kn[a][j + 1] = run - B;
+      }
+      kn[a][BINS] = B;
+    }
+    float dv[BINS + 1];
+    dv[0] = 1.0f;
+#pragma unroll
+    for (int j = 0; j < BINS - 1; ++j) {
+      const float zr = p[2 * BINS + j] + SOFTPLUS_INV_1;
+      dv[j + 1] = MIN_DERIV + softplusf(zr);
+      sig[j] = 1.0f / (1.0f + expf(-zr));
+    }
+    dv[BINS] = 1.0f;
+
+    const float lo = -B + 1e-6f, hi = B - 1e-6f;
+    const float xc = fminf(fmaxf(x, lo), hi);
+    in_clamp = x >= lo && x <= hi;
+    i = spline_bin(xc, kn[0]);
+    float x0, x1, y0, y1;
+    bin_edges(kn[0], i, &x0, &x1);
+    bin_edges(kn[1], i, &y0, &y1);
+    bin_edges(dv, i, &d0, &d1);
+    w = x1 - x0;
+    h = y1 - y0;
+    s = h / w;
+    xi = (xc - x0) / w;
+    xi1m = 1.0f - xi;
+    c = d1 + d0 - 2.0f * s;
+    q = xi * xi1m;
+    denom = s + c * q;
+    num = s * xi * xi + d0 * q;
+    n2 = d1 * xi * xi + 2.0f * s * q + d0 * xi1m * xi1m;
+  }
+
+  // dy/dx, the slope the forward's log-det is the log of
+  __device__ __forceinline__ float slope() const { return s * s * n2 / (denom * denom); }
+
+  // d(ladj)/dx: the log-slope's gradient in x (0 outside the clamp range)
+  __device__ __forceinline__ float log_slope_dx() const {
+    const float g_n2 = 1.0f / n2;
+    const float g_den = -2.0f / denom;
+    float g_xi = g_n2 * 2.0f * d1 * xi;
+    const float g_q = g_n2 * 2.0f * s + g_den * c;
+    float g_xi1m = g_n2 * 2.0f * d0 * xi1m;
+    g_xi = g_xi + g_q * xi1m;
+    g_xi1m = g_xi1m + g_q * xi;
+    g_xi = g_xi - g_xi1m;
+    return in_clamp ? g_xi / w : 0.0f;
+  }
+
+  // given gy = dL/dy and gl = dL/dladj, writes dL/dp into p and returns
+  // dL/dx
+  __device__ __forceinline__ float vjp(float gy, float gl, float* p) const {
+    // ladj = 2 log s + log n2 - 2 log denom; y = y0 + h * num / denom
+    float g_s = 2.0f * gl / s;
+    const float g_n2 = gl / n2;
+    const float g_den = -2.0f * gl / denom - gy * h * num / (denom * denom);
+    float g_y0 = gy;
+    float g_h = gy * num / denom;
+    const float g_num = gy * h / denom;
+    float g_d1 = g_n2 * xi * xi;
+    float g_xi = g_n2 * 2.0f * d1 * xi + g_num * 2.0f * s * xi;
+    g_s = g_s + g_n2 * 2.0f * q + g_num * xi * xi + g_den;
+    const float g_q = g_n2 * 2.0f * s + g_num * d0 + g_den * c;
+    float g_d0 = g_n2 * xi1m * xi1m + g_num * q;
+    float g_xi1m = g_n2 * 2.0f * d0 * xi1m;
+    const float g_c = g_den * q;
+    g_d1 = g_d1 + g_c;
+    g_d0 = g_d0 + g_c;
+    g_s = g_s - 2.0f * g_c;
+    g_xi = g_xi + g_q * xi1m;
+    g_xi1m = g_xi1m + g_q * xi;
+    g_xi = g_xi - g_xi1m;
+    const float g_xc = g_xi / w;
+    float g_x0 = -g_xi / w;
+    float g_w = -g_xi * xi / w;
+    g_h = g_h + g_s / w;
+    g_w = g_w - g_s * s / w;
+    const float g_y1 = g_h;
+    g_y0 = g_y0 - g_h;
+    const float g_x1 = g_w;
+    g_x0 = g_x0 - g_w;
+
+    // knot j (1..BINS-1) is the running sum of bin sizes 0..j-1, so bin
+    // size m collects the gradients of knots m+1..BINS-1; then the softmax
+    const float B = SPLINE_BOUND;
+    const float g0[2] = {g_x0, g_y0}, g1[2] = {g_x1, g_y1};
+#pragma unroll
+    for (int a = 0; a < 2; ++a) {
+      float gsm[BINS];
+      float dot = 0.0f;
+#pragma unroll
+      for (int m = 0; m < BINS; ++m) {
+        const float gsize = (m < i ? g0[a] : 0.0f) + ((m <= i && i <= BINS - 2) ? g1[a] : 0.0f);
+        gsm[m] = gsize * ((1.0f - MIN_BIN * BINS) * (2.0f * B));
+        dot += sm[a][m] * gsm[m];
+      }
+#pragma unroll
+      for (int m = 0; m < BINS; ++m) p[a * BINS + m] = sm[a][m] * (gsm[m] - dot);
+    }
+#pragma unroll
+    for (int k = 1; k < BINS; ++k) {
+      const float gd = (k == i ? g_d0 : 0.0f) + (k == i + 1 ? g_d1 : 0.0f);
+      p[2 * BINS + k - 1] = gd * sig[k - 1];
+    }
+    return in_clamp ? g_xc : 0.0f;
+  }
+};
 
 // Vector-Jacobian product of rqs_forward for one element, the arithmetic of
 // models/transforms.py rqs_forward_vjp: given gy = dL/dy and gl = dL/dladj,
@@ -230,6 +374,28 @@ __device__ __forceinline__ float rqs_forward_vjp(float x, float* p, float gy, fl
     p[2 * BINS + k - 1] = gd * sig[k - 1];
   }
   return (x >= lo && x <= hi) ? g_xc : 0.0f;
+}
+
+// Vector-Jacobian product of the inverse for one element, at its data
+// value x = rqs_inverse(z, p), the arithmetic of ops/flow_kernels.py
+// inverse_element_vjp: given gx = dL/dx (every path to x) and gl =
+// dL/dladj of the inverse's log-det -log(dy/dx), returns dL/dz = (gx -
+// gl dlog(dy/dx)/dx) / (dy/dx) and overwrites p with dL/dp, minus the
+// forward VJP's parameter gradient for (dL/dz, gl). Outside (-B, B) the
+// inverse is the identity: dL/dz = gx, zero parameter gradients.
+__device__ __forceinline__ float rqs_inverse_vjp(float x, float* p, float gx, float gl) {
+  const float B = SPLINE_BOUND;
+  if (!((x > -B) && (x < B))) {
+#pragma unroll
+    for (int i = 0; i < NPARAMS; ++i) p[i] = 0.0f;
+    return gx;
+  }
+  const SplineVjp sp(x, p);
+  const float gz = (gx - gl * sp.log_slope_dx()) / sp.slope();
+  sp.vjp(gz, gl, p);
+#pragma unroll
+  for (int i = 0; i < NPARAMS; ++i) p[i] = -p[i];
+  return gz;
 }
 
 // y -> x; *ladj = log|dx/dy|, from the spline's knots and derivatives

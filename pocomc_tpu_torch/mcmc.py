@@ -1,10 +1,11 @@
 """Adaptive MCMC sweeps over the active population: t-pCN, random-walk
-Metropolis and independence MH, with and without the flow.
+Metropolis, independence MH and the gradient kernels MALA and HMC, with
+and without the flow.
 
-Counterpart of ``pocomc_tpu/mcmc.py`` ``make_sweep`` for ``kind`` in
-``"tpcn"``, ``"rwm"`` and ``"imh"``. Proposals, Student-t quadratic forms
-and Metropolis corrections are batched over the whole (n_active, d)
-population. ``preconditioned=True`` proposes in the flow's latent space and
+Counterpart of ``pocomc_tpu/mcmc.py`` ``make_sweep`` for every ``kind``:
+``"tpcn"``, ``"rwm"``, ``"imh"``, ``"mala"`` and ``"hmc"``. Proposals,
+Student-t quadratic forms and Metropolis corrections are batched over the
+whole (n_active, d) population. ``preconditioned=True`` proposes in the flow's latent space and
 the flow's inverse (K1) maps every proposal back to the sampling space;
 ``preconditioned=False`` proposes in the scaler's u space and never calls a
 flow. ``imh_every`` (preconditioned t-pCN only; inert elsewhere, as in the
@@ -16,6 +17,17 @@ floor ``plateau_floor``, the decorrelation target ``corr_threshold``, the
 equilibrium-drift test ``calib_z`` with its residual-hotness
 extrapolation, the bias-budget and bias-rate rules (``bias_budget``,
 ``bias_rate``/``bias_floor``), and t-pCN's misfit-adaptive sigma cap.
+
+The gradient kinds differentiate the v-space log-target (``_grad_target``:
+one ``torch.enable_grad()`` pass through the flow's inverse, the scaler,
+the prior and the likelihood, then ``torch.autograd.grad`` in v only).
+With the flow, that pass runs the inverse's kernel and its backward (K1
+and K1-bwd, or K5's inverse and K5-inv-bwd on CUDA), with the flow's
+weights detached: the sweep never differentiates in them. MALA proposes
+with the geometry's normal covariance as the mass matrix; HMC leapfrogs
+in the whitened coordinates with a trajectory of 1..``n_leapfrog`` steps
+drawn each step (one host read of that count), its inner likelihood
+passes counted as calls.
 
 The JAX ``lax.while_loop`` becomes a host loop: each step evaluates the
 stopping rule on the device and reads it with one scalar sync. The step
@@ -44,7 +56,11 @@ CALIB_W = 6
 MIN_CALIB_N = 16
 _ACCEPT_TARGET = 0.234
 _SIGMA_CAP = 0.99
-KINDS = ("tpcn", "rwm", "imh")
+KINDS = ("tpcn", "rwm", "imh", "mala", "hmc")
+GRADIENT_KINDS = ("mala", "hmc")
+# acceptance optima of the gradient kernels (pocomc_tpu/mcmc.py:305): MALA
+# (Roberts & Rosenthal 1998) and HMC (Beskos et al. 2013)
+_GRADIENT_TARGET = {"mala": 0.574, "hmc": 0.651}
 
 
 @dataclasses.dataclass
@@ -58,6 +74,7 @@ class SweepState:
     logdetj_flow: torch.Tensor   # log|det du/dtheta| at the current state
     sigma: torch.Tensor
     mu: torch.Tensor
+    grad: torch.Tensor           # v-space target gradient (mala/hmc; else zeros)
     i: int                       # step counter (host)
     cnt: torch.Tensor            # plateau counter
     logp2: torch.Tensor          # best plateau metric so far
@@ -129,14 +146,23 @@ def _masked_var(logl):
     return torch.where(ok, (logl - m) ** 2, zero).sum() / nn
 
 
+def _detached(fp):
+    """A flow's FlowParams or CouplingParams with every weight and bias
+    detached (None stays None)."""
+    if fp is None:
+        return None
+    det = lambda a: [det(b) for b in a] if isinstance(a, (list, tuple)) else a.detach()
+    return fp._replace(ws=det(fp.ws), bs=det(fp.bs))
+
+
 def _half_sq_diff(v_prime, cur):
     """log q(cur) - log q(v') of the N(0, I) independence proposal."""
     return 0.5 * ((v_prime * v_prime).sum(-1) - (cur * cur).sum(-1))
 
 
 class Sweep:
-    """Adaptive sweep of ``kind`` ("tpcn", "rwm" or "imh") over the active
-    population.
+    """Adaptive sweep of ``kind`` ("tpcn", "rwm", "imh", "mala" or "hmc")
+    over the active population.
 
     With ``preconditioned`` the sweep moves in the latent space of
     ``flow``, which supplies ``kernel_fwd(u, fp)`` / ``kernel_inv(theta,
@@ -144,13 +170,16 @@ class Sweep:
     snapshot. Without it ``flow`` may be None and ``fp`` is ignored.
     ``log_like`` is ``make_loglike(fn)``; ``log_prior`` maps (n, d) ->
     (n,). The geometry dict ``geom`` (``models.geometry.fit_geometry``)
-    gives t-pCN its Student-t fit and rwm its Cholesky ``normal_chol``."""
+    gives t-pCN its Student-t fit and rwm, mala and hmc their Cholesky
+    ``normal_chol``. The gradient kinds need ``log_like`` on the device and
+    a differentiable ``log_prior``; ``n_leapfrog`` is hmc's longest
+    trajectory."""
 
     def __init__(self, scaler, log_prior, log_like, flow, n_dim, n_steps, n_max,
                  kind="tpcn", preconditioned=True, imh_every=0,
                  plateau_z=0.0, corr_threshold=0.0, calib_z=0.0,
                  bias_budget=0.0, bias_rate=0.0, bias_floor=0.0,
-                 plateau_floor=4.0):
+                 plateau_floor=4.0, n_leapfrog=5):
         if kind not in KINDS:
             raise ValueError(f"Invalid kernel kind {kind!r}")
         if preconditioned and flow is None:
@@ -169,6 +198,7 @@ class Sweep:
         self.calib_z, self.bias_budget = calib_z, bias_budget
         self.bias_rate, self.bias_floor = bias_rate, bias_floor
         self.plateau_floor = plateau_floor
+        self.n_leapfrog = n_leapfrog
         self.sqrt_d_scale = 2.38 / math.sqrt(self.n_dim)
 
     # -- pieces ------------------------------------------------------------
@@ -191,11 +221,45 @@ class Sweep:
             x_p, ldj_p = sc.inverse(u_p, params=scp)
         return u_p, x_p, ldj_p, theta_p, ldjf_p
 
+    def _grad_target(self, v, beta, fallback_x, fp, scp):
+        """(gradient, proposal dict) of the v-space log-target beta logl +
+        logp + logdetj + logdetj_flow at v (``_target_sum``/``_grad_target``
+        of the JAX package): one pass with the gradient on, every
+        sub-evaluation on sanitised rows (a non-finite row takes
+        ``fallback_x``), the sum over the rows where every term is finite,
+        and the gradient in v only, set to 0 where it is not finite, so a
+        row out of the support gets 0 and never NaN. The dict holds the
+        pass's u, x, x_safe, logdetj, theta, logdetj_flow, logp, logl and
+        the pre-likelihood ``finite`` mask, detached."""
+        with torch.enable_grad():
+            vv = v.detach().requires_grad_(True)
+            u_p, x_p, ldj_p, theta_p, ldjf_p = self._to_x(vv, fp, scp)
+            finite = torch.isfinite(ldj_p) & torch.isfinite(x_p).all(1)
+            x_safe = torch.where(finite[:, None], x_p, fallback_x)
+            logp = torch.where(finite, self.log_prior(x_safe),
+                               torch.full_like(ldj_p, -math.inf))
+            finite = finite & torch.isfinite(logp)
+            logl = self.log_like(x_safe, finite)
+            logt = beta * logl + logp + ldj_p + ldjf_p
+            ok = finite & torch.isfinite(logl)
+            total = torch.where(ok, logt, torch.zeros_like(logt)).sum()
+            g, = torch.autograd.grad(total, vv)
+        g = torch.where(torch.isfinite(g), g, torch.zeros_like(g))
+        aux = dict(u=u_p, x=x_p, x_safe=x_safe, logdetj=ldj_p, theta=theta_p,
+                   logdetj_flow=ldjf_p, logp=logp, logl=logl)
+        aux = {k: a.detach() for k, a in aux.items()}
+        aux["finite"] = finite
+        return g, aux
+
     def _use_imh(self, st):
         """True on the independence-refresh steps of the cadence."""
         return self.imh_every > 0 and st.i % self.imh_every == self.imh_every - 1
 
-    def init_state(self, u, x, logdetj, logl, logp, sigma0, geom, fp, dbeta=0.0):
+    def init_state(self, u, x, logdetj, logl, logp, sigma0, geom, fp, dbeta=0.0, beta=None,
+                   scp=None):
+        """The sweep's start. The gradient kinds also take the start's
+        gradient there, at ``beta`` with the scaler parameters ``scp``, a
+        likelihood pass counted in ``calls``."""
         dt, dev = u.dtype, u.device
         if self.preconditioned:
             theta0, ldjf0 = self.flow.kernel_fwd(u, fp)
@@ -209,12 +273,18 @@ class Sweep:
             mu = torch.zeros(u.shape[1], dtype=dt, device=dev)
         metric0 = logl + logp + (logdetj if self.kind == "rwm" else 0.0)
         zero = torch.zeros((), dtype=dt, device=dev)
+        calls = torch.zeros((), dtype=torch.int64, device=dev)
+        if self.kind in GRADIENT_KINDS:
+            grad, aux = self._grad_target(theta0 if self.preconditioned else u, beta, x, fp,
+                                          scp)
+            calls = calls + aux["finite"].sum()
+        else:
+            grad = torch.zeros_like(u)
         return SweepState(
             u=u, x=x, logdetj=logdetj, logl=logl, logp=logp,
-            theta=theta0, logdetj_flow=ldjf0, sigma=sigma, mu=mu, i=0,
+            theta=theta0, logdetj_flow=ldjf0, sigma=sigma, mu=mu, grad=grad, i=0,
             cnt=torch.zeros((), dtype=torch.int64, device=dev),
-            logp2=metric0.mean(),
-            calls=torch.zeros((), dtype=torch.int64, device=dev),
+            logp2=metric0.mean(), calls=calls,
             accept=zero, v0=u, corr=torch.ones((), dtype=dt, device=dev),
             u_snap=u, logl_snap=logl, i_snap=0, hot=zero, resid=zero,
             z_logl=zero, z_dim=zero, misfit=zero,
@@ -225,10 +295,14 @@ class Sweep:
         """The step's random numbers: normals z (n, d) and acceptance
         uniforms (n,); for t-pCN also the gamma mix g (n,), and on a
         refresh step the base draw v_imh (n, d) (the local move is drawn
-        too, as in the JAX package)."""
+        too, as in the JAX package); for hmc first the trajectory's
+        leapfrog count ``n_leap`` in 1..n_leapfrog, a host int."""
         n, d = st.u.shape
         dev = st.u.device
         noise = {}
+        if self.kind == "hmc":
+            noise["n_leap"] = int(torch.randint(1, self.n_leapfrog + 1, (), generator=generator,
+                                                device=dev))
         if self.kind == "tpcn":
             alpha = (0.5 * (d + geom["t_nu"])).expand(n).contiguous()
             noise["g"] = torch._standard_gamma(alpha, generator=generator)
@@ -238,9 +312,15 @@ class Sweep:
         noise["unif"] = torch.rand(n, generator=generator, device=dev)
         return noise
 
-    def propose(self, st, geom, fp, scp, noise):
-        """Proposals and everything that needs no likelihood."""
+    def propose(self, st, geom, fp, scp, noise, beta=None):
+        """Proposals and everything that needs no likelihood; the gradient
+        kinds evaluate the likelihood in their gradient pass at ``beta``
+        (its logl in the dict)."""
         cur = st.theta if self.preconditioned else st.u
+        if self.kind == "mala":
+            return self._propose_mala(st, cur, geom, fp, scp, noise, beta)
+        if self.kind == "hmc":
+            return self._propose_hmc(st, cur, geom, fp, scp, noise, beta)
         prop = {}
         if self.kind == "tpcn":
             inv_cov, t_chol, nu = geom["t_inv_cov"], geom["t_chol"], geom["t_nu"]
@@ -269,13 +349,53 @@ class Sweep:
                     unif=noise["unif"])
         return prop
 
+    def _propose_mala(self, st, cur, geom, fp, scp, noise, beta):
+        """Preconditioned Langevin (``pocomc_tpu/mcmc.py:372-399``): mass
+        matrix M = L L^T, L the geometry's ``normal_chol``; drift (sigma^2 /
+        2) M grad, noise sigma L z; ``corr`` is log q(v | v') - log q(v' |
+        v)."""
+        L, z = geom["normal_chol"], noise["z"]
+        drift = 0.5 * st.sigma ** 2 * ((st.grad @ L) @ L.T)
+        v_prime = cur + drift + st.sigma * (z @ L.T)
+        grad_p, prop = self._grad_target(v_prime, beta, st.x, fp, scp)
+        drift_p = 0.5 * st.sigma ** 2 * ((grad_p @ L) @ L.T)
+        r = cur - v_prime - drift_p
+        w = torch.linalg.solve_triangular(L, r.T, upper=False).T
+        prop.update(corr=-0.5 * (w * w).sum(-1) / st.sigma ** 2 + 0.5 * (z * z).sum(-1),
+                    grad=grad_p, unif=noise["unif"])
+        return prop
+
+    def _propose_hmc(self, st, cur, geom, fp, scp, noise, beta):
+        """Leapfrog with unit mass in the whitened coordinates y = L^-1 v,
+        step sigma, ``noise["n_leap"]`` steps (``pocomc_tpu/mcmc.py:
+        401-454``); ``corr`` is the kinetic-energy difference, and the
+        inner passes' finite rows beyond the endpoint's are
+        ``extra_calls``."""
+        L, z, eps = geom["normal_chol"], noise["z"], st.sigma
+        y = torch.linalg.solve_triangular(L, cur.T, upper=False).T
+        g_y = st.grad @ L
+        p = z + 0.5 * eps * g_y
+        calls = torch.zeros((), dtype=st.calls.dtype, device=cur.device)
+        for _ in range(noise["n_leap"]):
+            y = y + eps * p
+            g_v, prop = self._grad_target(y @ L.T, beta, st.x, fp, scp)
+            calls = calls + prop["finite"].sum()
+            g_y = g_v @ L
+            p = p + eps * g_y
+        p = p - 0.5 * eps * g_y
+        eye = torch.eye(L.shape[0], dtype=L.dtype, device=L.device)
+        prop.update(corr=0.5 * (z * z).sum(-1) - 0.5 * (p * p).sum(-1),
+                    grad=g_y @ torch.linalg.solve_triangular(L, eye, upper=False),
+                    extra_calls=calls - prop["finite"].sum(), unif=noise["unif"])
+        return prop
+
     def accept_update(self, st, prop, logl_p, beta, geom):
         """Metropolis accept + diminishing adaptation + stopping statistics.
         Returns (new_state, accept_mask)."""
         n, d = st.u.shape
         i1 = float(st.i + 1)
         use_imh = self._use_imh(st)
-        calls = st.calls + prop["finite"].sum()
+        calls = st.calls + prop["finite"].sum() + prop.get("extra_calls", 0)
         log_ratio = (beta * (logl_p - st.logl) + (prop["logp"] - st.logp)
                      + (prop["logdetj"] - st.logdetj))
         if self.preconditioned:
@@ -303,7 +423,7 @@ class Sweep:
             mis_mean = torch.where(mis_ok, mis_vals, zero_n).sum() / mis_n
             misfit = torch.sqrt(torch.where(mis_ok, (mis_vals - mis_mean) ** 2,
                                             zero_n).sum() / mis_n).to(st.sigma.dtype)
-        elif self.kind == "imh":
+        elif self.kind in ("imh", *GRADIENT_KINDS):
             log_ratio = log_ratio + prop["corr"]
 
         alpha = torch.clamp(torch.exp(log_ratio), max=1.0)
@@ -320,6 +440,7 @@ class Sweep:
         logp = sel(prop["logp"], st.logp)
         theta = sel(prop["theta"], st.theta)
         ldjf = sel(prop["logdetj_flow"], st.logdetj_flow)
+        grad = sel(prop["grad"], st.grad) if self.kind in GRADIENT_KINDS else st.grad
 
         alpha_mean = alpha.mean()
         mu = st.mu
@@ -334,6 +455,9 @@ class Sweep:
                 mu = st.mu + (theta.mean(0) - st.mu) / i1
         elif self.kind == "imh":
             sigma = st.sigma  # no proposal scale to adapt
+        elif self.kind in GRADIENT_KINDS:
+            # uncapped: the Langevin/leapfrog step scale is problem-dependent
+            sigma = torch.abs(st.sigma + (alpha_mean - _GRADIENT_TARGET[self.kind]) / i1 ** 0.75)
         else:
             sigma = st.sigma + (alpha_mean - _ACCEPT_TARGET) / i1
             if not self.preconditioned:
@@ -391,7 +515,7 @@ class Sweep:
 
         new_st = SweepState(
             u=u, x=x, logdetj=logdetj, logl=logl, logp=logp, theta=theta,
-            logdetj_flow=ldjf, sigma=sigma, mu=mu, i=st.i + 1, cnt=cnt,
+            logdetj_flow=ldjf, sigma=sigma, mu=mu, grad=grad, i=st.i + 1, cnt=cnt,
             logp2=logp2, calls=calls, accept=alpha_mean, v0=st.v0, corr=corr,
             misfit=misfit, dbeta=st.dbeta, **new)
         return new_st, accept
@@ -408,8 +532,9 @@ class Sweep:
         """The device part of the stopping rule, a 0-d bool tensor (the
         step-count bounds are the host's, in ``keep_going``)."""
         ratio = self.sqrt_d_scale / st.sigma
-        if self.kind == "imh":
-            # sigma is not a random-walk scale here: no window stretch
+        if self.kind in ("imh", *GRADIENT_KINDS):
+            # sigma is not a random-walk scale here (imh has none, mala/hmc
+            # a Langevin step): no window stretch
             thresh = torch.full_like(st.sigma, float(self.n_steps))
         else:
             if self.kind == "rwm" and self.preconditioned:
@@ -447,11 +572,14 @@ class Sweep:
     def run(self, u, x, logdetj, logl, logp, beta, sigma0, geom, fp, scp,
             generator, dbeta=0.0):
         """Run the adaptive sweep; returns the results dict."""
-        st = self.init_state(u, x, logdetj, logl, logp, sigma0, geom, fp, dbeta)
+        gradient = self.kind in GRADIENT_KINDS
+        if gradient:
+            fp = _detached(fp)
+        st = self.init_state(u, x, logdetj, logl, logp, sigma0, geom, fp, dbeta, beta, scp)
         while self.keep_going(st):
-            prop = self.propose(st, geom, fp, scp,
-                                self.draw_noise(st, geom, generator))
-            logl_p = self.log_like(prop["x_safe"], prop["finite"])
+            prop = self.propose(st, geom, fp, scp, self.draw_noise(st, geom, generator), beta)
+            logl_p = (prop["logl"] if gradient
+                      else self.log_like(prop["x_safe"], prop["finite"]))
             st, _ = self.accept_update(st, prop, logl_p, beta, geom)
         return self._results(st)
 

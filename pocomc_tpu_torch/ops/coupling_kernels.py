@@ -8,7 +8,11 @@ half (``csrc/coupling_forward.cu``, templated on the direction);
 ``coupling_backward``: one launch back through the stack from the layer
 inputs the forward saved, then the weight gradients as batched products
 of those inputs and the deltas it writes (``csrc/coupling_backward.cu``).
-``_CouplingForward`` joins the two as an ``autograd.Function``. They
+``_CouplingForward`` joins the two as an ``autograd.Function``.
+``coupling_inverse_backward`` (K5-inv-bwd): the inverse's gradient in z,
+from the layer inputs of the forward at the inverse's output, by the
+backward kernel's inverse instances; ``_CouplingInverse`` joins it to the
+inverse. They
 replace no Pallas kernel: the JAX package runs coupling flows as XLA code
 (``pocomc_tpu/models/coupling.py``).
 
@@ -36,7 +40,8 @@ from ..models import transforms as tr
 from ..models.coupling import BINS, coupling_forward as _transform_forward, \
     coupling_inverse as _transform_inverse, halves, layer_inputs, make_coupling_masks
 from .flow_kernels import (_MAX_SMEM, N_PARAMS, _check_saved, _device_type, _entry,
-                           _raise_if, _stream)
+                           _made_vjp_input, _raise_if, _refuse_weight_grad, _stream,
+                           inverse_element_vjp)
 
 
 # ---------------------------------------------------------------------------
@@ -108,6 +113,32 @@ def coupling_backward_ref(x, ws, bs, masks, g_z, g_ladj, acts=None):
         g_ws[t] = [a_l.T @ g for a_l, g in zip(a, deltas)]
         g_bs[t] = [g.sum(0) for g in deltas]
     return g_x, g_ws, g_bs
+
+
+def coupling_inverse_vjp_ref(x, ws, bs, masks, g_x, g_ladj):
+    """Plain VJP of the coupling inverse, with no autograd: g_z (n, d) of
+    a loss with dL/dx = g_x (n, d) and dL/dladj = g_ladj (n,), where (x,
+    ladj) = coupling_inverse(z). Transforms in forward order 0..T-1 at the
+    inputs and activations of the forward at x: the transformed half takes
+    ``inverse_element_vjp`` (g_z and the spline parameters' cotangent),
+    the conditioning half passes its g_x through plus the MLP's VJP of
+    that cotangent. The kernel (``csrc/coupling_backward.cu``, its inverse
+    instances) takes the same steps."""
+    n = x.shape[0]
+    acts = coupling_forward_ref(x, ws, bs, masks, save_inputs=True)[2]
+    g = g_x
+    for t in range(len(ws)):
+        w = ws[t]
+        cond, trans = halves(masks[t], x.device)
+        a = [acts[0][t][:, cond], acts[1][t], acts[2][t], acts[3][t]]
+        p = (a[3] @ w[3] + bs[t][3]).reshape(n, trans.numel(), N_PARAMS)
+        g_z, g_p = inverse_element_vjp(acts[0][t][:, trans], p, g[:, trans],
+                                       g_ladj[:, None].expand(n, trans.numel()))
+        g_prev = g.clone()
+        g_prev[:, cond] = g[:, cond] + _made_vjp_input(w, a, g_p.reshape(n, -1))
+        g_prev[:, trans] = g_z
+        g = g_prev
+    return g
 
 
 # ---------------------------------------------------------------------------
@@ -389,13 +420,16 @@ def _launch_stack(x, ws, bs, masks, inverse, save_inputs, name):
     return (out, ladj, acts) if save_inputs else (out, ladj)
 
 
-def _launch_backward(acts, ws, bs, masks, g_z, g_ladj):
+def _launch_backward(acts, ws, bs, masks, g_z, g_ladj, inverse=False):
     """K5's backward kernel, then the weight gradients A^T @ delta of the
     saved layer inputs and its deltas with batched fp32 products over the T
     transforms (layer 0's over the whole saved row, then each transform's
     conditioning rows; the output layer's over the widest half, then each
-    transform's columns), and the bias gradients as row sums."""
-    name = "coupling_backward"
+    transform's columns), and the bias gradients as row sums. With
+    ``inverse``, the gradient of the inverse (K5-inv-bwd): the kernel's
+    inverse instances walk the transforms forward with the inverse's
+    element VJP and write no deltas; returns the input gradient only."""
+    name = "coupling_inverse_backward" if inverse else "coupling_backward"
     if len(acts) != 4:
         raise ValueError(f"{name}: expects the four saved layer inputs, got {len(acts)}")
     layers = _layers(ws, bs)
@@ -411,18 +445,21 @@ def _launch_backward(acts, ws, bs, masks, g_z, g_ladj):
     dev = acts[0].device
     g_x = torch.empty_like(g_z)
     half = (d + 1) // 2
-    deltas = [torch.empty(T, n, k, dtype=g_z.dtype, device=dev)
-              for k in (h, h, h, half * N_PARAMS)]
+    deltas = [] if inverse else [torch.empty(T, n, k, dtype=g_z.dtype, device=dev)
+                                 for k in (h, h, h, half * N_PARAMS)]
     if n > 0:
         fn = _entry("coupling_backward", "coupling_backward_launch",
-                    "PPPPPPPIIIIPPPPPPPIIIIIIIIP")
+                    "PPPPPPPIIIIPPPPPPPIIIIIIIIIP")
         packs = [_packed(layers, ws, cfg, d, h, t).data_ptr() for t in (False, True)]
         err = fn(*[a.data_ptr() for a in acts], g_z.data_ptr(), g_ladj.data_ptr(),
                  g_x.data_ptr(), n, d, h, T, _table(dev.index, ptrs).data_ptr(), *packs,
-                 *[g.data_ptr() for g in deltas], cfg.RL, cfg.BM, cfg.RNH, cfg.RNO, cfg.G,
-                 cfg.BK, cfg.S, dev.index, _stream(g_z))
+                 *([g.data_ptr() for g in deltas] if deltas else [None] * 4), cfg.RL, cfg.BM,
+                 cfg.RNH, cfg.RNO, cfg.G, cfg.BK, cfg.S, int(inverse), dev.index, _stream(g_z))
         _raise_if(err, name)
-        coupling_backward.launches += 1
+        wrapper = coupling_inverse_backward if inverse else coupling_backward
+        wrapper.launches += 1
+    if inverse:
+        return g_x
     full_w = [torch.bmm(a.transpose(1, 2), g) for a, g in zip(acts, deltas)]
     full_b = [g.sum(1) for g in deltas]
     g_ws, g_bs = [], []
@@ -433,6 +470,14 @@ def _launch_backward(acts, ws, bs, masks, g_z, g_ladj):
         g_ws.append([full_w[0][t, rows], full_w[1][t], full_w[2][t], full_w[3][t][:, cols]])
         g_bs.append([full_b[0][t], full_b[1][t], full_b[2][t], full_b[3][t, cols]])
     return g_x, g_ws, g_bs
+
+
+def _launch_inverse_backward(x, ws, bs, masks, g_x, g_ladj):
+    """K5-inv-bwd: K5's forward at x saves every transform's layer inputs
+    (a K5 forward launch), then the backward kernel's inverse instances;
+    g_z."""
+    _, _, acts = _launch_stack(x, ws, bs, masks, False, True, "coupling_forward")
+    return _launch_backward(acts, ws, bs, masks, g_x, g_ladj, inverse=True)
 
 
 def _nest(flat, T):
@@ -466,6 +511,29 @@ class _CouplingForward(torch.autograd.Function):
                         for g, need in zip(grads, ctx.needs_input_grad[1:])))
 
 
+class _CouplingInverse(torch.autograd.Function):
+    """K5's inverse with its gradient in z: the backward is K5-inv-bwd
+    (``coupling_inverse_backward``) at the x the forward gave. Inputs as
+    ``_CouplingForward``'s; the weights take no gradient."""
+
+    @staticmethod
+    def forward(ctx, masks, z, *layers):
+        T = len(masks)
+        ws, bs = _nest(layers[:4 * T], T), _nest(layers[4 * T:], T)
+        x, ladj = _launch_stack(z, ws, bs, masks, True, False, "coupling_inverse")
+        ctx.masks = masks
+        ctx.save_for_backward(x, *layers)
+        return x, ladj
+
+    @staticmethod
+    def backward(ctx, g_x, g_ladj):
+        x, *layers = ctx.saved_tensors
+        T = len(ctx.masks)
+        g_z = _launch_inverse_backward(x, _nest(layers[:4 * T], T), _nest(layers[4 * T:], T),
+                                       ctx.masks, g_x.contiguous(), g_ladj.contiguous())
+        return (None, g_z, *[None] * len(layers))
+
+
 # ---------------------------------------------------------------------------
 # public wrappers
 # ---------------------------------------------------------------------------
@@ -493,14 +561,28 @@ def coupling_forward(x, ws, bs, masks, save_inputs=False):
 def coupling_inverse(z, ws, bs, masks):
     """K5 inverse: (x, ladj) of the coupling stack at z, one pass a
     transform; ladj = log|det dx/dz|. The conditioning columns of each
-    transform pass through bit for bit."""
+    transform pass through bit for bit. Differentiable in z on CUDA
+    through K5-inv-bwd; weights that require a gradient raise there."""
     ws, bs = [list(w) for w in ws], [list(b) for b in bs]
     if _device_type(z, "coupling_inverse") == "cpu":
         _check(z, ws, bs, masks, "coupling_inverse")
         return coupling_inverse_ref(z, ws, bs, masks)
-    if torch.is_grad_enabled() and any(a.requires_grad for a in [z, *_flat(ws, bs)]):
-        raise NotImplementedError("coupling_inverse: the CUDA kernel has no gradient")
+    _refuse_weight_grad("coupling_inverse", _flat(ws, bs))
+    if torch.is_grad_enabled() and z.requires_grad:
+        return _CouplingInverse.apply(list(masks), z, *_flat(ws, bs))
     return _launch_stack(z, ws, bs, masks, True, False, "coupling_inverse")
+
+
+def coupling_inverse_backward(x, ws, bs, masks, g_x, g_ladj):
+    """K5-inv-bwd: g_z, the gradient of a loss with dL/dx = g_x and
+    dL/dladj = g_ladj with respect to z, where (x, ladj) =
+    coupling_inverse(z, ...)."""
+    ws, bs = [list(w) for w in ws], [list(b) for b in bs]
+    if _device_type(x, "coupling_inverse_backward") == "cpu":
+        _check(x, ws, bs, masks, "coupling_inverse_backward")
+        return coupling_inverse_vjp_ref(x, ws, bs, masks, g_x, g_ladj)
+    with torch.no_grad():
+        return _launch_inverse_backward(x, ws, bs, masks, g_x, g_ladj)
 
 
 def coupling_backward(x, ws, bs, masks, g_z, g_ladj, acts=None):
@@ -523,3 +605,4 @@ def coupling_backward(x, ws, bs, masks, g_z, g_ladj, acts=None):
 coupling_forward.launches = 0
 coupling_inverse.launches = 0
 coupling_backward.launches = 0
+coupling_inverse_backward.launches = 0

@@ -17,6 +17,12 @@ data in one launch, each hidden unit computed once, at the step where its
 degree makes it final. Source: ``csrc/ar_inverse.cu``; it replaces the JAX
 package's round-2 fused whole-transform inverse (specified in RESULTS.md
 "Pallas postmortem" and ``pocomc_tpu/models/flow.py:170-184``).
+``ar_inverse_backward`` (K1-bwd): its gradient in z, K1's degree walk in
+reverse over the layer inputs of K2's forward at K1's output; source
+``csrc/ar_inverse_backward.cu`` (with ``ar_walk.cuh``, which K1 shares).
+``_ArInverse`` joins the two as an ``autograd.Function``; neither gives a
+gradient in the weights (the JAX package takes one in the state only,
+``pocomc_tpu/mcmc.py:347-354``).
 
 All take the MADE weights ALREADY multiplied by their masks, stacked over
 transforms: ``ws[l]`` of shape (T, fan_in, fan_out) and ``bs[l]`` of shape
@@ -134,6 +140,63 @@ def made_rqs_backward_ref(y, ws, bs, g_z, g_ladj, acts=None, head="rqs"):
             g_ws[l][t] = a[l].T @ g
             g_bs[l][t] = g.sum(0)
     return g_x, g_ws, g_bs
+
+
+def inverse_element_vjp(x, p, g_x, g_l, head="rqs"):
+    """VJP of one element of the inverse, x = tau^-1(z; p) with log-det
+    -log tau'(x; p) (tau the head's forward map), at the element's data
+    value x: (g_z, g_p) given g_x = dL/dx, every path to x included, and
+    g_l = dL/dladj. With the forward's element VJP, tau'(x) = exp(its
+    log-det), dlog tau'/dx its x-gradient for (0, 1), and g_z = (g_x -
+    g_l dlog tau'/dx) / tau'; g_p is minus the forward VJP's parameter
+    gradient for (g_z, g_l). ``csrc/heads.cuh`` ``inverse_vjp`` is the
+    same arithmetic for one element."""
+    forward, vjp = _ELEMENT[head][:2]
+    _, log_slope = forward(x, p)
+    g_xl, _ = vjp(x, p, torch.zeros_like(g_x), g_l)
+    g_z = (g_x - g_xl) * torch.exp(-log_slope)
+    _, g_p = vjp(x, p, g_z, g_l)
+    return g_z, -g_p
+
+
+def _made_vjp_input(w, a, g3):
+    """dL/dx of one MADE pass, with layer inputs a (x, relu(h0), relu(h1),
+    relu(h2)), for the cotangent g3 (n, d*NP) of its outputs."""
+    g2 = (g3 @ w[3].T) * (a[3] > 0)
+    g1 = g2 + (g2 @ w[2].T) * (a[2] > 0)
+    g0 = g1 + (g1 @ w[1].T) * (a[1] > 0)
+    return g0 @ w[0].T
+
+
+def ar_inverse_vjp_ref(x, ws, bs, inv_dim_orders, g_x, g_ladj, head="rqs"):
+    """Plain VJP of the autoregressive inverse, with no autograd: g_z (n,
+    d) of a loss with dL/dx = g_x (n, d) and dL/dladj = g_ladj (n,), where
+    (x, ladj) = ar_inverse(z). Every transform's input and activations come
+    from the forward at x (``made_rqs_forward_ref(x, save_inputs=True)``).
+    Transforms in forward order 0..T-1 (the inverse ran T-1..0); in each,
+    the dimensions by decreasing degree: dimension j's x-cotangent is g_x
+    plus c_j, the MADE's VJP of the parameter cotangents of the dimensions
+    already done (those of higher degree, the only ones that read x_j),
+    and ``inverse_element_vjp`` turns it into g_z,j and dimension j's
+    parameter cotangent. The kernel (``csrc/ar_inverse_backward.cu``) walks
+    the same order one degree at a time."""
+    n, d = x.shape
+    n_params = _head(head)
+    orders = torch.as_tensor(inv_dim_orders).tolist()
+    acts = made_rqs_forward_ref(x, ws, bs, save_inputs=True, head=head)[2]
+    g = g_x
+    for t in range(ws[0].shape[0]):
+        w = [a[t] for a in ws]
+        a = [s[t] for s in acts]
+        p = (a[3] @ w[3] + bs[3][t]).reshape(n, d, n_params)
+        g_p = torch.zeros_like(p)
+        g_z = torch.empty_like(g)
+        for dim in reversed(orders[t]):
+            c = _made_vjp_input(w, a, g_p.reshape(n, -1))[:, dim]
+            g_z[:, dim], g_p[:, dim] = inverse_element_vjp(a[0][:, dim], p[:, dim],
+                                                           g[:, dim] + c, g_ladj, head)
+        g = g_z
+    return g
 
 
 def ar_inverse_ref(z, ws, bs, inv_dim_orders, head="rqs"):
@@ -409,6 +472,55 @@ def _launch_inverse(z, ws, bs, inv_dim_orders, head="rqs"):
     return x, ladj
 
 
+def _backward_config(n, d, h, head="rqs"):
+    """K1-bwd's launch: (R, W, S, SL), as K1's (``_launch_config``) but
+    for a warp's state of R * (6h + 3d + OG) floats (the saved activations
+    and their cotangents, x, its cotangent in visit order and by
+    dimension, the head parameters) and stages that hold the widest group
+    of the pack whole, 24 columns of h fan-in (no batching: the groups go
+    one to a stage, in reverse). Raises where two stages and one row do
+    not fit: from h = 2048 (d >= 342)."""
+    limit = _MAX_SMEM // 4 - 4 * 8
+    row = 6 * h + 3 * d + _K1_OUT_GROUP[head]
+    SL = _K1_GROUP * (-(-h // 4) * 4) + _K1_GROUP
+    R = 4 if n >= 16 * _SMS else (2 if n >= 8 * _SMS else 1)
+    W = min(8, max(1, round(-(-n // R) / _SMS)))
+    while limit - R * W * row < 2 * SL:
+        if W > 1:
+            W //= 2
+        elif R > 1:
+            R //= 2
+        else:
+            raise ValueError(f"ar_inverse_backward: d={d}, h={h} needs more shared memory "
+                             f"than a Hopper block has")
+    return R, W, min(8, (limit - R * W * row) // SL), SL
+
+
+def _launch_inverse_backward(x, ws, bs, inv_dim_orders, g_x, g_ladj, head="rqs"):
+    """K1-bwd: K2's forward at x saves every transform's input and
+    activations (a K2 launch), then the backward kernel walks K1's pack in
+    reverse; g_z."""
+    n, d, h, T = _check(x, ws, bs, "ar_inverse_backward", head)
+    for what, a, shape in (("g_x", g_x, (n, d)), ("g_ladj", g_ladj, (n,))):
+        if (a.dtype != torch.float32 or a.device != x.device or tuple(a.shape) != shape
+                or not a.is_contiguous()):
+            raise ValueError(f"ar_inverse_backward: {what} must be a contiguous float32 "
+                             f"{shape} tensor on {x.device}")
+    g_z = torch.empty_like(g_x)
+    if n == 0:
+        return g_z
+    R, W, S, SL = _backward_config(n, d, h, head)
+    _, _, acts = _launch_forward(x, ws, bs, True, head)
+    pack = _inverse_pack(ws, bs, inv_dim_orders, d, h, T, head)
+    fn = _entry("ar_inverse_backward", "ar_inverse_backward_launch", "PPPPPPPIIIIPPIIIIIIP")
+    err = fn(*[a.data_ptr() for a in acts], g_x.data_ptr(), g_ladj.data_ptr(), g_z.data_ptr(),
+             n, d, h, T, pack.data_ptr(), inv_dim_orders.data_ptr(), HEADS[head], R, W, S, SL,
+             x.device.index, _stream(x))
+    _raise_if(err, "ar_inverse_backward")
+    _count(ar_inverse_backward, head)
+    return g_z
+
+
 class _MadeRqsForward(torch.autograd.Function):
     """K2 with its gradient: the forward kernel saves every layer's input,
     the backward kernel takes them (``made_rqs_backward``). Mask gradients
@@ -430,6 +542,33 @@ class _MadeRqsForward(torch.autograd.Function):
         grads = [g_y, *g_ws, *g_bs]
         return (None, *(g if need else None
                         for g, need in zip(grads, ctx.needs_input_grad[1:])))
+
+
+class _ArInverse(torch.autograd.Function):
+    """K1 with its gradient in z: the backward is K1-bwd
+    (``ar_inverse_backward``) at the x the forward gave. The weights take
+    no gradient (the wrapper refuses weights that require one)."""
+
+    @staticmethod
+    def forward(ctx, head, z, inv_dim_orders, *layers):
+        x, ladj = _launch_inverse(z, layers[:4], layers[4:], inv_dim_orders, head)
+        ctx.head = head
+        ctx.save_for_backward(x, inv_dim_orders, *layers)
+        return x, ladj
+
+    @staticmethod
+    def backward(ctx, g_x, g_ladj):
+        x, orders, *layers = ctx.saved_tensors
+        g_z = _launch_inverse_backward(x, layers[:4], layers[4:], orders, g_x.contiguous(),
+                                       g_ladj.contiguous(), ctx.head)
+        return (None, g_z, None, *[None] * len(layers))
+
+
+def _refuse_weight_grad(name, layers):
+    if torch.is_grad_enabled() and any(a.requires_grad for a in layers):
+        raise NotImplementedError(
+            f"{name}: the CUDA kernels give the gradient in the input only, not in the "
+            f"weights and biases; pass weights that do not require a gradient (detached)")
 
 
 # ---------------------------------------------------------------------------
@@ -483,16 +622,31 @@ def ar_inverse(z, ws, bs, inv_dim_orders, head="rqs"):
     degree. Precondition: ``ws`` are the weights already multiplied by
     ``made.make_masks``' masks for (d, h) and those degrees, as every
     ``Flow``'s are. The kernel skips the terms those masks zero, so with
-    unmasked weights its result is not the plain version's."""
+    unmasked weights its result is not the plain version's. Differentiable
+    in z on CUDA through K1-bwd; weights that require a gradient raise
+    there."""
     ws, bs = list(ws), list(bs)
     if _device_type(z, "ar_inverse") == "cpu":
         _check(z, ws, bs, "ar_inverse", head)
         return ar_inverse_ref(z, ws, bs, inv_dim_orders, head)
-    if torch.is_grad_enabled() and any(a.requires_grad for a in [z, *ws, *bs]):
-        raise NotImplementedError("ar_inverse: the CUDA kernel has no gradient")
+    _refuse_weight_grad("ar_inverse", [*ws, *bs])
+    if torch.is_grad_enabled() and z.requires_grad:
+        return _ArInverse.apply(head, z, inv_dim_orders, *ws, *bs)
     return _launch_inverse(z, ws, bs, inv_dim_orders, head)
 
 
-for _wrapper in (made_rqs_forward, made_rqs_backward, ar_inverse):
+def ar_inverse_backward(x, ws, bs, inv_dim_orders, g_x, g_ladj, head="rqs"):
+    """K1-bwd: g_z, the gradient of a loss with dL/dx = g_x and dL/dladj =
+    g_ladj with respect to z, where (x, ladj) = ar_inverse(z, ...) (the
+    weights' precondition is K1's)."""
+    ws, bs = list(ws), list(bs)
+    if _device_type(x, "ar_inverse_backward") == "cpu":
+        _check(x, ws, bs, "ar_inverse_backward", head)
+        return ar_inverse_vjp_ref(x, ws, bs, inv_dim_orders, g_x, g_ladj, head)
+    with torch.no_grad():
+        return _launch_inverse_backward(x, ws, bs, inv_dim_orders, g_x, g_ladj, head)
+
+
+for _wrapper in (made_rqs_forward, made_rqs_backward, ar_inverse, ar_inverse_backward):
     _wrapper.launches = 0
     _wrapper.launches_affine = 0

@@ -10,6 +10,7 @@ import pytest
 import torch
 
 import pocomc_tpu_torch  # noqa: F401
+from pocomc_tpu_torch.mcmc import _detached
 from pocomc_tpu_torch.models.flow import Flow
 from pocomc_tpu_torch.ops import coupling_kernels as ck, flow_kernels as fk
 
@@ -133,10 +134,13 @@ def test_k2_kernels_match_plain_at_h_4096():
 
 
 def test_cuda_inputs_are_checked(flow):
+    """K1 refuses a transposed input, and a gradient in the weights (its
+    backward gives the input's alone): the masked weights of
+    ``Flow.params()`` with the gradient on require one."""
     fp = flow.params()
     with torch.no_grad(), pytest.raises(ValueError, match="contiguous"):
         fk.ar_inverse(torch.zeros(6, 8, device="cuda").T, fp.ws, fp.bs, fp.inv_orders)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError, match="weights"):
         fk.ar_inverse(torch.zeros(8, 6, device="cuda", requires_grad=True), fp.ws, fp.bs,
                       fp.inv_orders)
 
@@ -482,10 +486,24 @@ def test_kernel_gradients_match_plain_autograd_on_card(cuda, arch, d):
 
 
 def test_coupling_inverse_refuses_a_gradient_on_card(cuda):
+    """K5's inverse refuses a gradient in the weights (the flow's own
+    parameters require one); with them detached it gives z's through
+    K5-inv-bwd, equal to the plain VJP at the same x."""
     flow = _random_card_flow(4, "nsfc3")
     z = torch.randn(8, 4, device=cuda, requires_grad=True)
-    with pytest.raises(NotImplementedError, match="no gradient"):
+    with pytest.raises(NotImplementedError, match="weights"):
         flow.inverse(z)
+    fp = _detached(flow.params())
+    before = ck.coupling_inverse_backward.launches
+    x, l = flow.inverse(z, fp)
+    g_x = torch.randn_like(x)
+    g_z, = torch.autograd.grad((x, l), z, (g_x, torch.ones_like(l)))
+    assert ck.coupling_inverse_backward.launches == before + 1
+    with torch.no_grad():
+        y = (x - fp.pre["mean"]) @ fp.pre["w_fwd"]
+        want = ck.coupling_inverse_vjp_ref(y.contiguous(), fp.ws, fp.bs, fp.masks,
+                                           g_x @ fp.pre["w_inv"].T, torch.ones_like(l))
+    assert float((g_z - want).abs().max()) <= 1e-4 * float(want.abs().max())
 
 
 # -- K5 at the edges of its tiles: odd halves, every hidden width class --
@@ -632,3 +650,211 @@ def test_coupling_kernels_follow_adamw_steps(cuda):
                 if fn is ck.coupling_forward:
                     moved = float((plain[0] - before).abs().max())
                     assert moved > 100 * float((got[0] - plain[0]).abs().max())
+
+
+# -- the gradient kernels: K1-bwd and K5-inv-bwd --------------------------
+
+def _made_edge_rows(flow, x, g_l, window=1e-5):
+    """Rows of an nsf* stack at its data value x whose gradient two correct
+    fp32 routes may give differently (chip_smoke.edge_rows): in the float64
+    forward some transform input lies within `window` of a knot of its
+    spline and the row's dL/dladj is nonzero. None for the affine head."""
+    import copy
+    from pocomc_tpu_torch.models import transforms as tr
+    n, d = x.shape
+    near = torch.zeros(n, dtype=torch.bool, device=x.device)
+    if flow.head != "rqs":
+        return near
+    fp = copy.deepcopy(flow).double().params()
+    with torch.no_grad():
+        acts = fk.made_rqs_forward_ref(x.double(), fp.ws, fp.bs, save_inputs=True)[2]
+        for t in range(acts[0].shape[0]):
+            p = (acts[3][t] @ fp.ws[3][t] + fp.bs[3][t]).reshape(n, d, 23)
+            knots = tr._rqs_setup(p, 8)[0]
+            near |= ((acts[0][t][..., None] - knots).abs() < window).any(-1).any(-1)
+    return near & (g_l != 0)
+
+
+def _kink_rows(flow, x, window=1e-5):
+    """Rows of a flow's stack at its data value x where, in the float64
+    forward, some hidden pre-activation of some transform's network lies
+    within `window` of 0: the ReLU's derivative jumps there, so the
+    inverse's gradient does, and which side a row takes turns on the
+    last bits of a sum that two correct fp32 routes order differently
+    (found on the CPU: plain fp32 autograd and the plain VJP, in
+    agreement, 0.11 from float64 in one row of 4096 at nsf6, d=10). (n,)
+    bool."""
+    import copy
+    fp = copy.deepcopy(flow).double().params()
+    n = x.shape[0]
+    near = torch.zeros(n, dtype=torch.bool, device=x.device)
+    with torch.no_grad():
+        if flow.kind == "nsfc":
+            xs = ck.coupling_forward_ref(x.double(), fp.ws, fp.bs, fp.masks, True)[2][0]
+            nets = [(xs[t][:, torch.as_tensor(m, device=x.device)], fp.ws[t], fp.bs[t])
+                    for t, m in enumerate(fp.masks)]
+        else:
+            xs = fk.made_rqs_forward_ref(x.double(), fp.ws, fp.bs, save_inputs=True,
+                                         head=flow.head)[2][0]
+            nets = [(xs[t], [w[t] for w in fp.ws], [b[t] for b in fp.bs])
+                    for t in range(xs.shape[0])]
+        for inp, w, b in nets:
+            h = inp @ w[0] + b[0]
+            near |= (h.abs() < window).any(-1)
+            for l in (1, 2):
+                h = h + torch.relu(h) @ w[l] + b[l]
+                near |= (h.abs() < window).any(-1)
+    return near
+
+
+def _check_vs_float64(got, plain, exact, tol):
+    """K5's rule (``check_vs_float64`` of chip_smoke.py): |got - exact|
+    within max(tol * max|exact|, 4x the plain fp32 version's own distance
+    to exact)."""
+    e_plain = float((plain.double() - exact).abs().max())
+    limit = max(tol * float(exact.abs().max()), 4 * e_plain)
+    assert float((got.double() - exact).abs().max()) <= limit
+
+
+@pytest.mark.parametrize("arch,d,n", [
+    ("nsf6", 2, 37), ("nsf3", 4, 128), ("nsf6", 10, 37), ("nsf6", 10, 256), ("nsf6", 10, 1100),
+    ("nsf6", 10, 2200), ("nsf6", 10, 4096), ("nsf6", 50, 256), ("nsf6", 50, 4096),
+    ("maf6", 2, 37), ("maf6", 4, 128), ("maf6", 10, 256), ("maf6", 10, 2200),
+    ("maf6", 50, 4096)])
+def test_k1_backward_matches_plain(cuda, arch, d, n):
+    """K1-bwd against ``ar_inverse_vjp_ref`` at the same x (K1's output),
+    both heads, at a ragged n (37), at n taking K1's one-, two- and
+    four-row launches (256, 1100, 2200 and up) and at d = 2, 4, 10, 50:
+    within 1e-4 (d <= 10) or 1e-3 (d = 50) of the largest g_z of the plain
+    version in float64, chip_smoke's TOL, or within 4x the plain fp32
+    version's own distance to it where that is larger (K5's rule), rows
+    on a float64 knot with dL/dladj != 0 or on a ReLU kink left out (the
+    gradient jumps there). The same inputs give the same bits twice."""
+    import copy
+    f = _random_card_flow(d, arch, seed=d)
+    g = torch.Generator("cuda").manual_seed(n)
+    z = torch.randn(n, d, device=cuda, generator=g)
+    g_x = torch.randn(n, d, device=cuda, generator=g)
+    g_l = torch.randn(n, device=cuda, generator=g)
+    with torch.no_grad():
+        fp = f.params()
+        x, _ = fk.ar_inverse(z, fp.ws, fp.bs, fp.inv_orders, head=f.head)
+        edge = _made_edge_rows(f, x, g_l) | _kink_rows(f, x)
+        g_x, g_l = g_x.masked_fill(edge[:, None], 0.0), g_l.masked_fill(edge, 0.0)
+        counter = "launches" if f.head == "rqs" else "launches_affine"
+        before = getattr(fk.ar_inverse_backward, counter)
+        got = fk.ar_inverse_backward(x, fp.ws, fp.bs, fp.inv_orders, g_x, g_l, head=f.head)
+        again = fk.ar_inverse_backward(x, fp.ws, fp.bs, fp.inv_orders, g_x, g_l, head=f.head)
+        assert getattr(fk.ar_inverse_backward, counter) == before + 2
+        plain = fk.ar_inverse_vjp_ref(x, fp.ws, fp.bs, fp.inv_orders, g_x, g_l, head=f.head)
+        fp64 = copy.deepcopy(f).double().params()
+        exact = fk.ar_inverse_vjp_ref(x.double(), fp64.ws, fp64.bs, fp64.inv_orders,
+                                      g_x.double(), g_l.double(), head=f.head)
+    assert torch.equal(got, again)
+    _check_vs_float64(got, plain, exact, 1e-3 if d == 50 else 1e-4)
+
+
+@pytest.mark.parametrize("arch", ["nsf6", "maf6"])
+def test_k1_gradient_through_the_flow_matches_plain_autograd(cuda, arch):
+    """The flow's inverse with detached weights is differentiable in z on
+    the card (K1, then K1-bwd on the way back): z's gradient of a loss on
+    x and the log-det, pre-layer included, against plain autograd of the
+    plain inverse on the same z, rows on a float64 knot left out."""
+    f = _random_card_flow(10, arch, seed=3)
+    g = torch.Generator("cuda").manual_seed(5)
+    z = torch.randn(256, 10, device=cuda, generator=g)
+    g_x = torch.randn(256, 10, device=cuda, generator=g)
+    g_l = torch.randn(256, device=cuda, generator=g)
+    fp = _detached(f.params())
+    with torch.no_grad():
+        x, _ = f.inverse(z, fp)
+        y = ((x - fp.pre["mean"]) @ fp.pre["w_fwd"]).contiguous()
+        edge = _made_edge_rows(f, y, g_l) | _kink_rows(f, y)
+    g_x, g_l = g_x.masked_fill(edge[:, None], 0.0), g_l.masked_fill(edge, 0.0)
+    grads = []
+    for inverse in (fk.ar_inverse, fk.ar_inverse_ref):
+        zz = z.clone().requires_grad_(True)
+        yy, l = inverse(zz, fp.ws, fp.bs, fp.inv_orders, head=f.head)
+        xx = yy @ fp.pre["w_inv"] + fp.pre["mean"]
+        grads.append(torch.autograd.grad((xx, l), zz, (g_x, g_l))[0])
+    assert float((grads[0] - grads[1]).abs().max()) <= 1e-4 * float(grads[1].abs().max())
+
+
+@pytest.mark.parametrize("d,arch", [(20, "nsfc6"), (51, "nsfc6"), (171, "nsfc6"), (342, "nsfc3")])
+@pytest.mark.parametrize("n", [1, 9, 33, 257])
+def test_k5_inverse_backward_matches_plain_at_tile_edges(cuda, d, arch, n):
+    """K5-inv-bwd at K5's tile edges (d=20: h=64; 51: odd halves, h=256;
+    171: two passes of 512 columns on 8-row Tiles; 342: Row tiles) against
+    ``coupling_inverse_vjp_ref`` at the same x (K5's inverse output): within
+    max(1e-3 of the largest g_z, 4x the plain fp32 version's distance to
+    the plain version in float64) of that float64 value, rows on a float64
+    knot with dL/dladj != 0 (``_coupling_edge_rows``) or on a ReLU kink
+    (``_kink_rows``) left out."""
+    import copy
+    flow = _menu_card_flow(d, arch)
+    g = torch.Generator("cuda").manual_seed(n)
+    z = torch.randn(n, d, device=cuda, generator=g)
+    g_x = torch.randn(n, d, device=cuda, generator=g)
+    g_l = torch.randn(n, device=cuda, generator=g)
+    with torch.no_grad():
+        fp = flow.params()
+        fp64 = copy.deepcopy(flow).double().params()
+        x, _ = ck.coupling_inverse(z, fp.ws, fp.bs, fp.masks)
+        edge = _coupling_edge_rows(flow, x, g_l) | _kink_rows(flow, x)
+        g_x, g_l = g_x.masked_fill(edge[:, None], 0.0), g_l.masked_fill(edge, 0.0)
+        before = ck.coupling_inverse_backward.launches
+        got = ck.coupling_inverse_backward(x, fp.ws, fp.bs, fp.masks, g_x, g_l)
+        assert ck.coupling_inverse_backward.launches == before + 1
+        plain = ck.coupling_inverse_vjp_ref(x, fp.ws, fp.bs, fp.masks, g_x, g_l)
+        exact = ck.coupling_inverse_vjp_ref(x.double(), fp64.ws, fp64.bs, fp64.masks,
+                                            g_x.double(), g_l.double())
+    _check_vs_float64(got, plain, exact, 1e-3)
+
+
+@pytest.mark.parametrize("arch", ["nsf3", "maf3", "nsfc3"])
+def test_mala_step_on_card_matches_cpu(cuda, arch):
+    """One preconditioned mala step with injected noise on the card (K1 or
+    K5's inverse and its backward in the gradient pass) against the same
+    step on the CPU (the plain versions): the start's gradient, the
+    proposal, its gradient and Metropolis correction within 1e-4 of the
+    largest element of each (the gradient tolerance: the two sum in
+    other orders, and the proposal moves along the gradient), and the
+    same accept decisions."""
+    import pocomc_tpu_torch as pt
+    from pocomc_tpu_torch.mcmc import Sweep, make_loglike
+    from pocomc_tpu_torch.models.geometry import fit_geometry
+    d, n = 4, 128
+    prior = pt.Prior([pt.Normal(0.0, 5.0)] * d)
+    scaler = pt.Reparameterize(d, bounds=prior.bounds)
+    rng = np.random.default_rng(0)
+    scaler.fit(5.0 * rng.standard_normal((512, d)))
+    flow = _random_card_flow(d, arch, seed=1)
+    u = (0.5 * rng.standard_normal((n, d)) + 0.1).astype(np.float32)
+    noise_np = dict(z=rng.standard_normal((n, d)).astype(np.float32),
+                    unif=rng.uniform(size=n).astype(np.float32))
+
+    def like(x):
+        return -0.5 * ((x - 0.5) ** 2 / 0.3).sum(-1)
+
+    out = []
+    for dev in ("cuda", "cpu"):
+        f = flow if dev == "cuda" else flow.to("cpu")
+        sweep = Sweep(scaler, prior.logpdf, make_loglike(like), f, d, 2, 10, kind="mala")
+        scp = scaler.whitening_params(dev)
+        ut = torch.from_numpy(u).to(dev)
+        with torch.no_grad():
+            fp = _detached(f.params())
+            x, ldj = scaler.inverse(ut, params=scp)
+            theta, _ = f.forward(ut, fp)
+            geom = fit_geometry(theta)
+            st = sweep.init_state(ut, x, ldj, like(x), prior.logpdf(x), 0.5, geom, fp,
+                                  beta=0.6, scp=scp)
+            noise = {k: torch.from_numpy(v).to(dev) for k, v in noise_np.items()}
+            prop = sweep.propose(st, geom, fp, scp, noise, beta=0.6)
+            st2, acc = sweep.accept_update(st, prop, prop["logl"], 0.6, geom)
+        out.append(dict(grad0=st.grad, u=prop["u"], grad=prop["grad"], corr=prop["corr"],
+                        acc=acc))
+    card, cpu = out
+    for k in ("grad0", "u", "grad", "corr"):
+        assert float((card[k].cpu() - cpu[k]).abs().max()) <= 1e-4 * float(cpu[k].abs().max())
+    assert torch.equal(card["acc"].cpu(), cpu["acc"])

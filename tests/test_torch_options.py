@@ -122,8 +122,8 @@ def test_profile_dir_writes_trace(tmp_path):
 
 def test_reference_keywords():
     """Every JAX keyword but mesh is accepted: compile_cache is ignored,
-    n_leapfrog is validated and kept, output_dir/output_label default to
-    states/pmc; sample='mala'/'hmc' still raises, after the validation."""
+    n_leapfrog is validated and kept (and reaches hmc's sweep),
+    output_dir/output_label default to states/pmc."""
     s = tpc.Sampler(make_prior(), gauss_like, compile_cache=False, n_leapfrog=3,
                     **small())
     assert s.n_leapfrog == 3 and s.pipeline == 1 and s.profile_dir is None
@@ -131,8 +131,9 @@ def test_reference_keywords():
     for bad in (0, 2.0):
         with pytest.raises(ValueError, match="n_leapfrog"):
             tpc.Sampler(make_prior(), gauss_like, n_leapfrog=bad, **small())
-    with pytest.raises(NotImplementedError, match="mala/hmc"):
-        tpc.Sampler(make_prior(), gauss_like, sample="hmc", n_leapfrog=4, **small())
+    s = tpc.Sampler(make_prior(), gauss_like, sample="hmc", n_leapfrog=4, **small())
+    assert s.sample == "hmc" and s.n_leapfrog == 4 and s._sweep.n_leapfrog == 4
+    assert s._sweep.kind == "hmc"
     import inspect
     jax_keys = set(inspect.signature(jpc.Sampler.__init__).parameters)
     assert jax_keys <= set(inspect.signature(tpc.Sampler.__init__).parameters)

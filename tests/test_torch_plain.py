@@ -1,15 +1,18 @@
-"""The PyTorch port's flow-free sweeps and the rwm/imh kernels against the
-JAX package on the CPU: one step of each sweep with the same draws, the
+"""The PyTorch port's flow-free sweeps and the rwm/imh/mala/hmc kernels
+against the JAX package on the CPU: one step of each sweep with the same draws, the
 knobs ``run(n_evidence=...)`` resolves, the loop routing, and the
 known-answer gates of ``tests/test_statistical.py:14-40`` and
 ``tests/test_imh.py`` at those tests' sizes.
 
 JAX threefry and torch generators never give the same numbers, so the step
 test rebuilds each JAX step's draws from its key (``pocomc_tpu/mcmc.py``
-``propose``: the split into gamma mix, normals and acceptance uniforms, and
-``fold_in(k_norm, 1)`` for the independence refresh) and hands the same
+``propose``: the split into gamma mix, normals and acceptance uniforms,
+``fold_in(k_norm, 1)`` for the independence refresh, and hmc's second
+split of the normals' key for its leapfrog count) and hands the same
 numbers to the port's step."""
 
+import copy
+import dataclasses
 import math
 
 import numpy as np
@@ -28,6 +31,7 @@ import pocomc_tpu_torch as tpc
 from pocomc_tpu_torch.convert import load_flow_params, tensors_from_jax
 from pocomc_tpu_torch.mcmc import Sweep, make_loglike
 from pocomc_tpu_torch.models.flow import Flow
+from pocomc_tpu_torch.ops.flow_kernels import made_rqs_forward_ref
 from pocomc_tpu_torch.sampler import Sampler
 
 D, N, NU, STEPS = 3, 64, 5.0, 8
@@ -92,10 +96,35 @@ def _sweeps(kind, preconditioned, imh_every):
     return jsweep, tsweep, jf, tf, scp_j, scp_t, geom, start
 
 
+def _kink_rows(flow, u, window=1e-5):
+    """(n,) bool: rows where, in the float64 forward of the flow at u, a
+    hidden pre-activation of some transform's MADE lies within `window`
+    of 0. The ReLU's derivative jumps there, so the target's gradient
+    does, and which side a row takes turns on the last bits of a sum that
+    the two packages order differently."""
+    fp = copy.deepcopy(flow).double().params()
+    y = (u.double() - fp.pre["mean"]) @ fp.pre["w_fwd"]
+    near = torch.zeros(u.shape[0], dtype=torch.bool)
+    with torch.no_grad():
+        xs = made_rqs_forward_ref(y, fp.ws, fp.bs, save_inputs=True)[2][0]
+        for k in range(xs.shape[0]):
+            w, b = [a[k] for a in fp.ws], [a[k] for a in fp.bs]
+            h = xs[k] @ w[0] + b[0]
+            near |= (h.abs() < window).any(-1)
+            for l in (1, 2):
+                h = h + torch.relu(h) @ w[l] + b[l]
+                near |= (h.abs() < window).any(-1)
+    return near
+
+
 def _jax_draws(sj, kind, imh_every):
     """The numbers the JAX step draws from its key, as the port's noise dict."""
     _, kg, kn, ku = jax.random.split(sj.key, 4)
-    noise = dict(z=t(jax.random.normal(kn, (N, D))), unif=t(jax.random.uniform(ku, (N,))))
+    noise = {}
+    if kind == "hmc":
+        kn, k_len = jax.random.split(kn)
+        noise["n_leap"] = int(jax.random.randint(k_len, (), 1, 6))  # n_leapfrog = 5
+    noise.update(z=t(jax.random.normal(kn, (N, D))), unif=t(jax.random.uniform(ku, (N,))))
     if kind == "tpcn":
         noise["g"] = t(jax.random.gamma(kg, 0.5 * (D + NU), (N,)))
         if imh_every and int(sj.i) % imh_every == imh_every - 1:
@@ -105,18 +134,25 @@ def _jax_draws(sj, kind, imh_every):
 
 @pytest.mark.parametrize("kind,preconditioned,imh_every", [
     ("tpcn", False, 0), ("rwm", False, 0), ("rwm", True, 0), ("imh", True, 0),
-    ("tpcn", True, 2), ("tpcn", False, 2)])
+    ("tpcn", True, 2), ("tpcn", False, 2), ("mala", False, 0), ("mala", True, 0),
+    ("hmc", False, 0), ("hmc", True, 0)])
 def test_sweep_steps_match_jax_with_injected_draws(kind, preconditioned, imh_every):
     """Eight steps (a drift window closes at step 6) of propose +
     accept_update with the JAX draws injected, for the flow-free t-pCN,
-    rwm with and without the flow, imh, and the independence refresh every
-    2nd step (inert without the flow): the same proposals, the same mean
-    Metropolis acceptance (the ratio's image), the same accept decisions
-    and states (1e-4; fp32 and the t-pCN correction's form), and the same
-    stopping decision as the JAX host rule."""
+    rwm with and without the flow, imh, the independence refresh every
+    2nd step (inert without the flow), and mala and hmc with and without
+    the flow (their gradient passes through the plain inverse under
+    autograd, hmc's 1..5 leapfrog steps as the JAX key draws them): the
+    same proposals, the same mean Metropolis acceptance (the ratio's
+    image), the same accept decisions and states, the carried gradient
+    among them (1e-4; fp32 and the t-pCN correction's form), the same
+    likelihood calls and the same stopping decision as the JAX host
+    rule."""
     jsweep, tsweep, jf, tf, scp_j, scp_t, geom, start = _sweeps(kind, preconditioned,
                                                                 imh_every)
-    beta, sigma0, dbeta = 0.6, 0.5, 0.1
+    # hmc's step: a 5-step leapfrog at 0.5 leaves the flow's range (|u| ~ 80)
+    # and amplifies fp32 rounding there by 1e4; 0.2 keeps its trajectories
+    beta, sigma0, dbeta = 0.6, 0.2 if kind == "hmc" else 0.5, 0.1
     sj = jsweep.init_state(*map(jnp.asarray, start), jnp.float32(beta), jnp.float32(sigma0),
                            geom, jax.random.key(42), flow_params=jf.params,
                            scaler_params=scp_j, dbeta=dbeta)
@@ -125,11 +161,12 @@ def test_sweep_steps_match_jax_with_injected_draws(kind, preconditioned, imh_eve
     decisions = []
     with torch.no_grad():
         fp = tf.params() if preconditioned else None
-        st = tsweep.init_state(*map(t, start), sigma0, geom_t, fp, dbeta=dbeta)
+        st = tsweep.init_state(*map(t, start), sigma0, geom_t, fp, dbeta=dbeta, beta=beta,
+                               scp=scp_t)
         for step in range(STEPS):
             noise = _jax_draws(sj, kind, tsweep.imh_every)
             prop_j = jsweep.propose(sj, jnp.float32(beta), geom, jf.params, scp_j)
-            prop_t = tsweep.propose(st, geom_t, fp, scp_t, noise)
+            prop_t = tsweep.propose(st, geom_t, fp, scp_t, noise, beta=beta)
             for name in ("u", "x", "logdetj", "logp", "theta", "logdetj_flow"):
                 np.testing.assert_allclose(prop_t[name].numpy(), np.asarray(prop_j[name]),
                                            rtol=1e-4, atol=1e-4, err_msg=f"{name} @ {step}")
@@ -147,6 +184,20 @@ def test_sweep_steps_match_jax_with_injected_draws(kind, preconditioned, imh_eve
                 np.testing.assert_allclose(getattr(st, name).numpy(),
                                            np.asarray(getattr(sj, name)),
                                            rtol=1e-4, atol=1e-4, err_msg=f"{name} @ {step}")
+            # the carried gradient within 1e-4 of its largest element, the
+            # gradient tolerance of tests/test_torch_gradient.py, but where
+            # the flow's ReLU kinks make it jump
+            g_j = np.asarray(sj.grad)
+            keep = ~_kink_rows(tf, st.u).numpy() if preconditioned else slice(None)
+            assert np.abs(st.grad.numpy() - g_j)[keep].max() <= 1e-4 * max(np.abs(g_j).max(),
+                                                                             1.0)
+            if kind in ("mala", "hmc"):
+                # a gradient kernel moves each walker along its gradient,
+                # whose fp32 rounding through a spline stack (1e-4 of the
+                # largest) grows over steps: each step starts from JAX's state
+                st = dataclasses.replace(st, **{name: t(np.asarray(getattr(sj, name))) for name in (
+                    "u", "x", "logdetj", "logl", "logp", "theta", "logdetj_flow", "sigma",
+                    "grad")})
             assert int(st.cnt) == int(sj.cnt) and int(st.calls) == int(sj.calls)
             assert st.i == int(sj.i) and st.i_snap == int(sj.i_snap)
             s = np.asarray(stats_j)
@@ -163,7 +214,7 @@ def test_sweep_steps_match_jax_with_injected_draws(kind, preconditioned, imh_eve
 def test_sweep_kinds_validate():
     ts = tpc.Reparameterize(D, bounds=np.array([[-np.inf, np.inf]] * D))
     with pytest.raises(ValueError, match="kind"):
-        Sweep(ts, None, None, None, D, 2, 10, kind="mala", preconditioned=False)
+        Sweep(ts, None, None, None, D, 2, 10, kind="hamiltonian", preconditioned=False)
     with pytest.raises(ValueError, match="precondition"):
         Sweep(ts, None, None, None, D, 2, 10, kind="imh", preconditioned=False)
     with pytest.raises(ValueError, match="flow"):
