@@ -99,18 +99,23 @@ printing one JSON line:
      the inverses (``GRAD_SHAPES``: K1-bwd with the spline head at nsf6,
      d=10, n=37, 256, 1024, 4096, nsf3 at d=4 and nsf6 at d=50; with the
      affine head at maf6, d=10 and 50; K5-inv-bwd at nsfc6, d=10 and nsfc12,
-     d=50) through the kernels by autograd against plain autograd of the
-     plain inverses (``check_gradient``: rows on a knot or a ReLU kink left
-     out; K5-inv-bwd also against float64), then their device and eager
-     times beside their plain versions, the forward that saves their layer
-     inputs and their bounds; (b) phase 6's quickstart with
+     d=50; nsf3 and maf3 at d=342, h=2048, where K1-bwd's groups go in
+     fan-in chunks) through the kernels by autograd against plain autograd
+     of the plain inverses (``check_gradient``: rows on a knot or a ReLU kink
+     left out; each also against float64), then their device and eager
+     times beside their plain versions, the forward each gradient needs
+     (K1's save instance, which writes K1-bwd's state, beside K1 without
+     it; K5's forward that saves the layer inputs) and their bounds; (b)
+     phase 6's quickstart with
      ``sample="mala"`` and with ``"hmc"`` (the same logZ gate, launches of
      K2, K1 and K1-bwd, sweep steps and ms a sweep step); (c)
      tests/test_mala.py:97-144's two runs (d=4, nsf3, n_active 128,
      analytic logZ +-0.35); (d) a preconditioned mala sweep of 20 steps at
      d=10, n=256 on phase 12's random maf6 and nsfc6 flows (finite states,
      mean acceptance in (0.2, 0.98), launches of K1-bwd's affine head and
-     of K5-inv-bwd).
+     of K5-inv-bwd); (e) the same 20-step mala sweep on random nsf flows
+     at d=50, nsf6, n=4096 (ms a step, acceptance) and at d=342, nsf3,
+     n=256 (it must run: finite states and gradients).
 
 Every path (phases 6-13) runs with the launch counts set to 0 just before
 it and read just after, and fails unless every kernel of the path ran.
@@ -196,11 +201,13 @@ COUPLING_TOL = {10: (5e-5, 5e-4), 50: (5e-4, 1e-2)}
 # kernels: K1-bwd with the spline head at nsf6, d=10 (37 a ragged tile, 256
 # the sweep, 1024 and 4096: K1's one-, two- and four-row launches), nsf3 at
 # d=4 (tests/test_mala.py's), nsf6 at d=50 (h=256); with the affine head
-# maf6 at d=10 and d=50; K5-inv-bwd at nsfc6, d=10 and nsfc12, d=50
+# maf6 at d=10 and d=50; both heads at d=342 (nsf3, maf3: h=2048, groups in
+# fan-in chunks; the menu's scaled output layers); K5-inv-bwd at nsfc6, d=10
+# and nsfc12, d=50. Past d=10 the gradients take TOL[50]'s tolerance.
 GRAD_SHAPES = [("nsf6", 10, 37), ("nsf6", 10, 256), ("nsf6", 10, 1024), ("nsf6", 10, 4096),
                ("nsf3", 4, 128), ("nsf6", 50, 256), ("nsf6", 50, 4096), ("maf6", 10, 256),
-               ("maf6", 50, 4096), ("nsfc6", 10, 256), ("nsfc6", 10, 1024),
-               ("nsfc12", 50, 256), ("nsfc12", 50, 4096)]
+               ("maf6", 50, 4096), ("nsf3", 342, 64), ("maf3", 342, 64), ("nsfc6", 10, 256),
+               ("nsfc6", 10, 1024), ("nsfc12", 50, 256), ("nsfc12", 50, 4096)]
 # arithmetic of one element's inverse VJP (heads.cuh inverse_vjp), counted
 # from the source: the spline's setup (two softmaxes, seven softplus and
 # sigmoid), bin, slope, chain and knot VJPs, a transcendental as one
@@ -892,8 +899,12 @@ def gradient_kernel(flow):
 
 def inverse_routes(flow):
     """(inverse kernel, plain inverse, the gradient kernel's call, its plain
-    twin, the forward that saves the layer inputs) of a flow's stack, each
-    on FlowParams or CouplingParams p."""
+    twin, the forward the gradient needs) of a flow's stack, each on
+    FlowParams or CouplingParams p. The gradient kernel's call takes (data,
+    p, g_x, g_ladj): K1-bwd's data is the state that K1's save instance
+    writes, which the last route gives from z as (x, ladj, state);
+    K5-inv-bwd's is x, and its forward is K5's at x, saving the layer
+    inputs."""
     from pocomc_tpu_torch.ops import coupling_kernels as ck, flow_kernels as fk
     if flow.kind == "nsfc":
         return (lambda v, p: ck.coupling_inverse(v, p.ws, p.bs, p.masks),
@@ -902,15 +913,15 @@ def inverse_routes(flow):
                                                                   gl),
                 lambda x, p, gx, gl: ck.coupling_inverse_vjp_ref(x, p.ws, p.bs, p.masks, gx,
                                                                  gl),
-                lambda x, p: ck.coupling_forward(x, p.ws, p.bs, p.masks, save_inputs=True))
+                lambda z, x, p: ck.coupling_forward(x, p.ws, p.bs, p.masks, save_inputs=True))
     head = flow.head
     return (lambda v, p: fk.ar_inverse(v, p.ws, p.bs, p.inv_orders, head=head),
             lambda v, p: fk.ar_inverse_ref(v, p.ws, p.bs, p.inv_orders, head=head),
-            lambda x, p, gx, gl: fk.ar_inverse_backward(x, p.ws, p.bs, p.inv_orders, gx, gl,
-                                                        head),
+            lambda state, p, gx, gl: fk.ar_inverse_backward(state, p.ws, p.bs, p.inv_orders,
+                                                            gx, gl, head),
             lambda x, p, gx, gl: fk.ar_inverse_vjp_ref(x, p.ws, p.bs, p.inv_orders, gx, gl,
                                                        head),
-            lambda x, p: fk.made_rqs_forward(x, p.ws, p.bs, save_inputs=True, head=head))
+            lambda z, x, p: fk._launch_inverse(z, p.ws, p.bs, p.inv_orders, head, True))
 
 
 def rows_past(label, got, want, limit, near):
@@ -942,12 +953,13 @@ def check_gradient(name, d, n, flow, rng):
     plain VJP in float64 within K5's rule (the tolerance, or 4x the
     plain fp32 VJP's own distance to it), every row. Rows on a float64
     knot with dL/dladj != 0 and rows on a ReLU kink are left out (their
-    gradient jumps). The kernel's direct call gives the autograd route's
-    bits. Returns (the numbers, max |diff|)."""
+    gradient jumps). The kernel's direct call, on the state K1's save
+    instance writes at the same z, gives the autograd route's bits.
+    Returns (the numbers, max |diff|)."""
     from pocomc_tpu_torch.mcmc import _detached
-    inv, ref, bwd, twin, _ = inverse_routes(flow)
+    inv, ref, bwd, twin, saving = inverse_routes(flow)
     kname = gradient_kernel(flow)
-    tol = TOL[max(d, 10)]["grad"]
+    tol = TOL[min(max(d, 10), 50)]["grad"]
     fp = _detached(flow.params())
     fp64 = _detached(copy.deepcopy(flow).double().params())
     z, g_x = (torch.from_numpy(rng.standard_normal((n, d)).astype(np.float32)).cuda()
@@ -955,6 +967,7 @@ def check_gradient(name, d, n, flow, rng):
     g_l = torch.from_numpy(rng.standard_normal(n).astype(np.float32)).cuda()
     with torch.no_grad():
         x, _ = inv(z, fp)
+        data = x if flow.kind == "nsfc" else saving(z, x, fp)[2]
     edge = knot_rows(flow, x, g_l) | kink_rows(flow, x)
     g_x, g_l = g_x.masked_fill(edge[:, None], 0.0), g_l.masked_fill(edge, 0.0)
 
@@ -970,7 +983,7 @@ def check_gradient(name, d, n, flow, rng):
     with torch.no_grad():
         g_e = twin(x.double(), fp64, g_x.double(), g_l.double())
         g_t = twin(x, fp, g_x, g_l)
-        direct = bwd(x, fp, g_x, g_l)
+        direct = bwd(data, fp, g_x, g_l)
     torch.cuda.synchronize()
     label = f"{kname} {name} d={d} n={n}"
     if launched != 1:
@@ -996,9 +1009,11 @@ def gradient_bounds(n, flow):
     cotangent pass through every transform's products (the masked
     multiply-adds that ``made_bounds`` counts, or K5's dense ones) plus the
     element VJPs (ELEMENT_VJP_OPS each), at the fp32 peak; x, g_x, g_ladj
-    and the weights read once, g_z written once, at the HBM rate. The
-    forward that recomputes the layer inputs is a K2 (or K5) launch of its
-    own, timed beside it."""
+    and the weights read once, g_z written once, at the HBM rate: what the
+    function needs. K1's saved state is an intermediate of this design, not
+    an input of the function, so its size is reported beside the bound
+    (``k1_state_bytes``) and moves no roofline; the forward the gradient
+    needs (K1's save instance, or a K5 launch) is timed beside it."""
     d, h, T = flow.n_dim, flow.n_hidden, flow.n_transforms
     if flow.kind == "nsfc":
         total = sum(w.numel() for w in flow.weights)
@@ -1535,6 +1550,9 @@ def main():
     # the card, then their times beside the plain versions and their bounds
     grad_checks = []
     for name, d, n in GRAD_SHAPES:
+        if (name, d) not in flows:
+            h = max(2 ** (3 * d - 1).bit_length(), 32)  # Flow.n_hidden
+            flows[name, d] = random_flow(name, d, MENU_SCALE * math.sqrt(32 / h))
         flow, rng = flows[name, d]
         out, e = check_gradient(name, d, n, flow, rng)
         grad_checks.append(out)
@@ -1545,21 +1563,31 @@ def main():
         if n == 37:
             continue
         flow, rng = flows[name, d]
-        _, _, bwd, twin, fwd_saved = inverse_routes(flow)
+        inv, _, bwd, twin, saving = inverse_routes(flow)
         fp = _detached(flow.params())
         kname = gradient_kernel(flow)
         x, g_x = (torch.from_numpy(rng.standard_normal((n, d)).astype(np.float32)).cuda()
                   for _ in range(2))
         g_l = torch.from_numpy(rng.standard_normal(n).astype(np.float32)).cuda()
-        reps_plain = 3 if d == 50 else 10
+        reps_plain = 3 if d >= 50 else 10
         # the plain twin reads the visit orders on the host, as phase 5's K1
         fp_host = fp if flow.kind == "nsfc" else fp._replace(inv_orders=fp.inv_orders.cpu())
         with torch.no_grad():
-            calls = {kname: (lambda: bwd(x, fp, g_x, g_l), 20),
-                     f"{kname}_plain": (lambda: twin(x, fp_host, g_x, g_l), reps_plain),
-                     "saving_forward": (lambda: fwd_saved(x, fp), 20)}
+            data = x
             if flow.kind == "nsfc":
-                acts = fwd_saved(x, fp)[2]
+                forward = {"saving_forward": (lambda: saving(None, x, fp), 20)}
+            else:
+                # K1-bwd on the state K1's save instance writes at z, x its
+                # output; K1 without the save beside it
+                z = x
+                x, _, data = saving(z, None, fp)
+                forward = {"k1_save": (lambda: saving(z, None, fp), 20),
+                           "k1": (lambda: inv(z, fp), 20)}
+            calls = {kname: (lambda: bwd(data, fp, g_x, g_l), 20),
+                     f"{kname}_plain": (lambda: twin(x, fp_host, g_x, g_l), reps_plain),
+                     **forward}
+            if flow.kind == "nsfc":
+                acts = saving(None, x, fp)[2]
                 T, h = flow.n_transforms, flow.n_hidden
                 deltas = [torch.randn(T, n, k, device="cuda")
                           for k in (h, h, h, (d + 1) // 2 * 23)]
@@ -1570,6 +1598,8 @@ def main():
                 row[f"{key}_ms"] = graph_ms(fn, reps)
                 row[f"{key}_call_ms"] = cuda_ms(fn, reps, warmup=1)
             row[f"{kname}_bound_ms"], row[f"{kname}_bound_by"] = gradient_bounds(n, flow)
+            if flow.kind != "nsfc":
+                row["k1_state_bytes"] = sum(a.numel() * a.element_size() for a in data)
         grad_times.append(row)
     # (b) the slice's path at full width: phase 6's quickstart with
     # sample="mala", then "hmc" (n_leapfrog 5, the default)
@@ -1667,14 +1697,59 @@ def main():
                  f"(0.2, 0.98)")
         if not counts[kname]:
             fail(f"gradient_head_{name}: {kname} was never launched")
+    # (e) the same sweep on random nsf flows past d=10: d=50, nsf6 at n=4096
+    # (ms a step and acceptance) and d=342, nsf3 at n=256 (h=2048: K1-bwd's
+    # groups in fan-in chunks; it must run, with finite states and
+    # gradients); launches counted from the start's gradient on, ms over the
+    # 20 steps
+    wide_sweeps = []
+    for name, d, n in (("nsf6", 50, 4096), ("nsf3", 342, 256)):
+        flow = flows[name, d][0]
+        prior_d = pt.Prior([pt.Normal(0.0, 3.0) for _ in range(d)])
+        scaler_d = pt.Reparameterize(d, bounds=prior_d.bounds)
+        sweep = Sweep(scaler_d, prior_d.logpdf, make_loglike(unit_gauss), flow, d, 20, 20,
+                      kind="mala")
+        g = torch.Generator("cuda").manual_seed(SEED)
+        with torch.no_grad():
+            scp = scaler_d.whitening_params("cuda")
+            fp = _detached(flow.params())
+            u = 0.5 * torch.randn(n, d, device="cuda", generator=g)
+            x, ldj = scaler_d.inverse(u, params=scp)
+            theta, _ = flow.forward(u, fp)
+            geom = fit_geometry(theta, torch.full((n,), 1.0 / n, device="cuda"), g)
+            reset_launches(fk)
+            st = sweep.init_state(u, x, ldj, unit_gauss(x), prior_d.logpdf(x), 2.38 / d ** 0.5,
+                                  geom, fp, beta=1.0, scp=scp)
+            torch.cuda.synchronize()
+            accepts = []
+            t0 = time.perf_counter()
+            for _ in range(20):
+                prop = sweep.propose(st, geom, fp, scp, sweep.draw_noise(st, geom, g), beta=1.0)
+                st, _ = sweep.accept_update(st, prop, prop["logl"], 1.0, geom)
+                accepts.append(float(st.accept))
+            torch.cuda.synchronize()
+            ms = 1e3 * (time.perf_counter() - t0) / 20
+        label = f"gradient_sweep_{name}_d{d}"
+        counts = read_launches(fk, ("ar_inverse", GRADIENT[0]))
+        by_path[label] = counts
+        finite = all(bool(torch.isfinite(a).all()) for a in (st.u, st.x, st.logl, st.grad))
+        wide_sweeps.append(dict(flow=name, d=d, n=n, steps=st.i, ms_per_step=ms,
+                                mean_accept=statistics.mean(accepts), sigma=float(st.sigma),
+                                finite=finite, launches=counts))
+        if not finite:
+            fail(f"{label}: the sweep's state or gradient is not finite")
+        if not all(counts.values()):
+            fail(f"{label}: a kernel of the path was never launched: {counts}")
     emit("gradient_kernels", card=card, checks=grad_checks, times=grad_times, runs=grad_runs,
-         head_sweeps=head_sweeps)
+         head_sweeps=head_sweeps, wide_sweeps=wide_sweeps)
 
     paths = {"flow_menu_maf6": AFFINE, "flow_menu_nsfc6": COUPLING,
              "flow_menu_bench_sweep": COUPLING[:2],
              "gradient_head_maf6": GRADIENT[1:2], "gradient_head_nsfc6": GRADIENT[2:]}
     paths.update({k: RQS + GRADIENT[:1] for k in by_path if k.startswith(("gradient_quickstart",
                                                                             "test_mala"))})
+    paths.update({k: ("ar_inverse",) + GRADIENT[:1] for k in by_path
+                  if k.startswith("gradient_sweep")})
     for name, counts in by_path.items():
         want = paths.get(name, RQS)
         if set(counts) != set(want) or not all(counts.values()):
@@ -1763,8 +1838,9 @@ def main():
                     for r in menu_times if r["flow"] == "nsfc12" and r["n"] in (1024, 4096)]
         line.append(entry)
     # the gradient kernels at the sweep's population (d=10, n=256) of their
-    # flows; their times include the forward that saves the layer inputs,
-    # whose own time stands beside them
+    # flows, beside the forward each needs: K1's save instance (and K1
+    # without it) for K1-bwd, the K5 forward that saves the layer inputs
+    # for K5-inv-bwd
     grad_sources = {
         "ar_inverse_backward": ("pocomc_tpu_torch/csrc/ar_inverse_backward.cu",
                                 "pocomc_tpu/mcmc.py:350"),
@@ -1782,10 +1858,13 @@ def main():
                  "ms": row[f"{name}_ms"], "plain_ms": row[f"{name}_plain_ms"],
                  "call_ms": row[f"{name}_call_ms"], "plain_call_ms": row[f"{name}_plain_call_ms"],
                  "bound_ms": row[f"{name}_bound_ms"], "bound_by": row[f"{name}_bound_by"],
-                 "library_ms": None, "flow": row["flow"], "d": 10, "n": 256,
-                 "saving_forward_ms": row["saving_forward_ms"]}
+                 "library_ms": None, "flow": row["flow"], "d": 10, "n": 256}
         if name == "coupling_inverse_backward":
-            entry["products_matmul_ms"] = row[f"{name}_matmul_ms"]
+            entry.update(saving_forward_ms=row["saving_forward_ms"],
+                         products_matmul_ms=row[f"{name}_matmul_ms"])
+        else:
+            entry.update(k1_save_ms=row["k1_save_ms"], k1_ms=row["k1_ms"],
+                         k1_state_bytes=row["k1_state_bytes"])
         line.append(entry)
     print(json.dumps({"kernels": line}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

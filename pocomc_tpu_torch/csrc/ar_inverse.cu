@@ -49,6 +49,11 @@
 //   for a stage, one chunk of its fan-in, so every d up to 2730 (h = 8192)
 //   fits a block.
 // - Small blocks (1-8 consumer warps), so n=256 spreads over ~128 SMs.
+// - When a gradient will follow (the sampler's mala/hmc passes), a save
+//   instance also writes the state K1-bwd (ar_inverse_backward.cu) reads
+//   (SavedState in ar_walk.cuh): each step's head parameters and x as the
+//   step leaves them, each transform's hidden signs as bit masks. The
+//   instances without it are the same code with the stores compiled out.
 // fp32 with plain FMAs, no fast-math; the spline is rqs.cuh's rqs_inverse
 // (a one-row warp runs it warp-wide), the affine map heads.cuh's.
 #include <cuda_runtime.h>
@@ -120,7 +125,7 @@ struct Producer {
     off += floats;
   }
   __device__ __forceinline__ void step_end(int, int) {}
-  __device__ __forceinline__ void transform_end() {}
+  __device__ __forceinline__ void transform_end(int) {}
 };
 
 // rqs_inverse of one row by the whole warp: lane j < NPARAMS holds raw
@@ -164,7 +169,8 @@ __device__ __forceinline__ float rqs_inverse_warp(float y, float p, int lane, fl
 // its R rows. Row r's state starts at rows + r * RS: h0, h1, h2 (h each,
 // degree-sorted), z and x by dimension (d each, swapped between
 // transforms), x in visit order (d), the current head parameters (OG).
-template <class Head, int R>
+// With SAVE, rows row0.. (of n) also go to `save` as the walk leaves them.
+template <class Head, int R, bool SAVE>
 struct Consumer {
   Ring ring;
   Degrees g;
@@ -172,6 +178,8 @@ struct Consumer {
   float* rows;
   int RS, lane, zo, xo;
   float ladj;  // lane r < R: row r's log-det
+  SavedState save;
+  int row0, n;
 
   // one column group over all its fan-in pieces; out[r * RS + jj] =
   // base[r * RS + jj] (when a residual layer) + sum + bias
@@ -276,18 +284,44 @@ struct Consumer {
       ladj += l;
     }
     __syncwarp();
+    if constexpr (SAVE) {
+      // lane i < NP: the step's parameter i; lane NP: its x
+      for (int r = 0; r < R; ++r) {
+        const float* st = rows + r * RS + 3 * h;
+        if (row0 + r < n && lane <= Head::NP)
+          save.px[(((size_t)t * n + row0 + r) * d + k) * (Head::NP + 1) + lane] =
+              lane < Head::NP ? st[3 * d + lane] : st[2 * d + k];
+      }
+    }
   }
-  __device__ __forceinline__ void transform_end() {
+  __device__ __forceinline__ void transform_end(int t) {
     const int tmp = zo;
     zo = xo;
     xo = tmp;
+    if constexpr (SAVE) {
+      // every hidden unit is final: the signs of its pre-activation, a
+      // ballot a word
+      const int h = g.h, HW = sign_words(h);
+      for (int r = 0; r < R; ++r) {
+        const bool real = row0 + r < n;
+        for (int l = 0; l < 3; ++l) {
+          const float* hl = rows + r * RS + l * h;
+          unsigned* out = save.signs + (((size_t)t * n + (real ? row0 + r : 0)) * 3 + l) * HW;
+          for (int w = 0; w < HW; ++w) {
+            const int s = w * 32 + lane;
+            const unsigned b = __ballot_sync(FULL_MASK, s < h && hl[s] > 0.0f);
+            if (lane == 0 && real) out[w] = b;
+          }
+        }
+      }
+    }
   }
 };
 
-template <class Head, int R>
+template <class Head, int R, bool SAVE>
 __global__ void __launch_bounds__(32 * (MAX_WARPS + 1))
     ar_inverse_kernel(const float* __restrict__ z, float* __restrict__ x,
-                      float* __restrict__ ladj, int n, int d, int h, int T,
+                      float* __restrict__ ladj, SavedState save, int n, int d, int h, int T,
                       const float* __restrict__ pack, const int* __restrict__ inv_order, int W,
                       int S, int SL) {
   extern __shared__ __align__(16) unsigned char smem[];
@@ -315,7 +349,8 @@ __global__ void __launch_bounds__(32 * (MAX_WARPS + 1))
 
   const int RS = 3 * h + 3 * d + Head::OG;
   const int row0 = (blockIdx.x * W + warp) * R;
-  Consumer<Head, R> c{ring, g, inv_order, rows + warp * R * RS, RS, lane, 0, d, 0.0f};
+  Consumer<Head, R, SAVE> c{ring, g, inv_order, rows + warp * R * RS, RS, lane, 0, d, 0.0f,
+                            save, row0, n};
   for (int r = 0; r < R; ++r) {
     const int row = row0 + r;
     for (int i = lane; i < d; i += 32)
@@ -388,30 +423,48 @@ __global__ void pack_kernel(Layers m, const int* __restrict__ inv_order, float* 
   write(3, 0, np, g.count(k));
 }
 
-template <class Head, int R>
-int launch(const float* z, float* x, float* ladj, int n, int d, int h, int T, const float* pack,
-           const int* inv_order, int W, int S, int SL, size_t smem, cudaStream_t stream) {
+template <class Head, int R, bool SAVE>
+int launch(const float* z, float* x, float* ladj, SavedState save, int n, int d, int h, int T,
+           const float* pack, const int* inv_order, int W, int S, int SL, size_t smem,
+           cudaStream_t stream) {
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        ar_inverse_kernel<Head, R>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        ar_inverse_kernel<Head, R, SAVE>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
   }
   const int blocks = (n + R * W - 1) / (R * W);
-  ar_inverse_kernel<Head, R><<<blocks, 32 * (W + 1), smem, stream>>>(z, x, ladj, n, d, h, T, pack,
-                                                                    inv_order, W, S, SL);
+  ar_inverse_kernel<Head, R, SAVE><<<blocks, 32 * (W + 1), smem, stream>>>(
+      z, x, ladj, save, n, d, h, T, pack, inv_order, W, S, SL);
   return (int)cudaGetLastError();
 }
 
-template <class Head>
-int launch_rows(int rows, const float* z, float* x, float* ladj, int n, int d, int h, int T,
-                const float* pack, const int* inv_order, int W, int S, int SL, size_t smem,
-                cudaStream_t s) {
+template <class Head, bool SAVE>
+int launch_rows(int rows, const float* z, float* x, float* ladj, SavedState save, int n, int d,
+                int h, int T, const float* pack, const int* inv_order, int W, int S, int SL,
+                size_t smem, cudaStream_t s) {
   switch (rows) {
-    case 1: return launch<Head, 1>(z, x, ladj, n, d, h, T, pack, inv_order, W, S, SL, smem, s);
-    case 2: return launch<Head, 2>(z, x, ladj, n, d, h, T, pack, inv_order, W, S, SL, smem, s);
-    case 4: return launch<Head, 4>(z, x, ladj, n, d, h, T, pack, inv_order, W, S, SL, smem, s);
+    case 1:
+      return launch<Head, 1, SAVE>(z, x, ladj, save, n, d, h, T, pack, inv_order, W, S, SL, smem,
+                                   s);
+    case 2:
+      return launch<Head, 2, SAVE>(z, x, ladj, save, n, d, h, T, pack, inv_order, W, S, SL, smem,
+                                   s);
+    case 4:
+      return launch<Head, 4, SAVE>(z, x, ladj, save, n, d, h, T, pack, inv_order, W, S, SL, smem,
+                                   s);
     default: return (int)cudaErrorInvalidValue;
   }
+}
+
+template <class Head>
+int launch_save(int rows, const float* z, float* x, float* ladj, SavedState save, int n, int d,
+                int h, int T, const float* pack, const int* inv_order, int W, int S, int SL,
+                size_t smem, cudaStream_t s) {
+  if (save.px != nullptr)
+    return launch_rows<Head, true>(rows, z, x, ladj, save, n, d, h, T, pack, inv_order, W, S,
+                                   SL, smem, s);
+  return launch_rows<Head, false>(rows, z, x, ladj, save, n, d, h, T, pack, inv_order, W, S, SL,
+                                  smem, s);
 }
 
 bool head_ok(int np) { return np == RqsHead::NP || np == AffineHead::NP; }
@@ -447,15 +500,20 @@ extern "C" int ar_inverse_pack_launch(const float* w0, const float* b0, const fl
 
 // Plain C entry point, loaded with ctypes: the inverse of n rows of z
 // through the pack that ar_inverse_pack_launch wrote, with the same
-// inv_order and np. rows (1, 2 or 4) a consumer warp, warps (1-8) consumer warps a
-// block, stages (2-8) of stage_floats floats in the ring (a multiple of 4,
-// at least 5 * 24). Launches on `stream` and returns cudaGetLastError(), or
-// cudaErrorInvalidValue for arguments it does not take.
-extern "C" int ar_inverse_launch(const float* z, float* x, float* ladj, int n, int d, int h,
-                                 int T, const float* pack, const int* inv_order, int np,
-                                 int rows, int warps, int stages, int stage_floats, int device,
+// inv_order and np. With save_px non-null, also K1-bwd's state (SavedState
+// in ar_walk.cuh): save_px (T, n, d, np + 1) floats and save_signs (T, n, 3,
+// ceil(h / 32)) words; both null otherwise. rows (1, 2 or 4) a consumer
+// warp, warps (1-8) consumer warps a block, stages (2-8) of stage_floats
+// floats in the ring (a multiple of 4, at least 5 * 24). Launches on
+// `stream` and returns cudaGetLastError(), or cudaErrorInvalidValue for
+// arguments it does not take.
+extern "C" int ar_inverse_launch(const float* z, float* x, float* ladj, float* save_px,
+                                 unsigned* save_signs, int n, int d, int h, int T,
+                                 const float* pack, const int* inv_order, int np, int rows,
+                                 int warps, int stages, int stage_floats, int device,
                                  void* stream) {
-  if (!head_ok(np)) return (int)cudaErrorInvalidValue;
+  if (!head_ok(np) || (save_px == nullptr) != (save_signs == nullptr))
+    return (int)cudaErrorInvalidValue;
   const size_t row =
       3 * (size_t)h + 3 * (size_t)d + (np == AffineHead::NP ? AffineHead::OG : RqsHead::OG);
   const size_t smem = 16 * (size_t)stages +
@@ -468,8 +526,10 @@ extern "C" int ar_inverse_launch(const float* z, float* x, float* ladj, int n, i
   if (err != cudaSuccess) return (int)err;
   const cudaStream_t s = (cudaStream_t)stream;
   const int W = warps, S = stages, SL = stage_floats;
+  const SavedState save{save_px, save_signs};
   if (np == AffineHead::NP)
-    return launch_rows<AffineHead>(rows, z, x, ladj, n, d, h, T, pack, inv_order, W, S, SL, smem,
-                                   s);
-  return launch_rows<RqsHead>(rows, z, x, ladj, n, d, h, T, pack, inv_order, W, S, SL, smem, s);
+    return launch_save<AffineHead>(rows, z, x, ladj, save, n, d, h, T, pack, inv_order, W, S, SL,
+                                   smem, s);
+  return launch_save<RqsHead>(rows, z, x, ladj, save, n, d, h, T, pack, inv_order, W, S, SL, smem,
+                              s);
 }

@@ -132,13 +132,14 @@ __device__ __forceinline__ void walk(const Degrees& g, int T, Visitor& v) {
       v.group(t, k, 3, 0, Head::NP, Head::OG, g.count(k));
       v.step_end(t, k);
     }
-    v.transform_end();
+    v.transform_end(t);
   }
 }
 
 // The reverse of walk(): transforms 0..T-1, steps k = d-1..0; in each step
 // the output group first, then layers 2, 1, 0, each layer's groups last
-// first. K1-bwd's order: each group of the pack, in reverse.
+// first. K1-bwd's order: each group of the pack, in reverse, so consecutive
+// groups of this walk are one contiguous range of the pack.
 template <class Head, class Visitor>
 __device__ __forceinline__ void walk_back(const Degrees& g, int T, Visitor& v) {
   for (int t = 0; t < T; ++t) {
@@ -174,7 +175,10 @@ __host__ __device__ inline long long step_floats(const Degrees& g, int k, int np
 // The stage ring as one side sees it: piece i lands in stage i mod S;
 // `phase` is the parity of the round (i / S) the current stage is in. A
 // piece is either consecutive whole groups of the walk, as many as fit a
-// stage, or one fan-in chunk of a group too large for one.
+// stage, or one fan-in chunk of a group too large for one. K1 lands a
+// piece of whole groups at the stage's start and takes them front first
+// (take); K1-bwd, whose walk runs the pack backwards, lands it at the
+// stage's end, in pack order, and takes them back first (take_back).
 struct Ring {
   float* stage;
   uint64_t* full;   // S barriers: the producer arrives, and its copies land
@@ -220,12 +224,37 @@ struct Ring {
     used = floats;
     return st;
   }
+  // consumer: the next whole group of `floats` of a reverse walk, in the
+  // held piece (below the groups taken from it) or at the next one's end
+  __device__ __forceinline__ const float* take_back(int floats) {
+    if (held && used + floats <= SL) {
+      used += floats;
+      return stage + slot * SL + SL - used;
+    }
+    const float* st = acquire();
+    held = true;
+    used = floats;
+    return st + SL - floats;
+  }
   // producer: the stage for the next piece, once every consumer left it
   __device__ __forceinline__ float* fill_begin() const {
     if (wrapped) mbar_wait(empty + slot, phase ^ 1u);
     return stage + slot * SL;
   }
 };
+
+// The state K1's save instances write for K1-bwd, in the walk's terms:
+// px (T, n, d, np + 1): at transform t, row and step k, the head's np raw
+// parameters of dimension inv_order[t, k], then its data value x (the
+// inverse's output at that step); signs (T, n, 3, sign_words(h)): the
+// signs (> 0) of the three hidden layers' pre-activations, bit s of word
+// s / 32 for the unit at place s of the degree-sorted order.
+struct SavedState {
+  float* px;
+  unsigned* signs;
+};
+
+__host__ __device__ __forceinline__ int sign_words(int h) { return (h + 31) / 32; }
 
 __host__ __device__ constexpr int halvings(int v, int left = 5) {
   return (left > 0 && v % 2 == 0) ? 1 + halvings(v / 2, left - 1) : 0;

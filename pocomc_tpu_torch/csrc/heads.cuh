@@ -4,7 +4,11 @@
 // (the nsf* and nsfc* flows), AffineHead the bounded-log-scale affine map
 // of the maf* flows, term for term models/transforms.py affine_forward,
 // affine_forward_vjp and affine_inverse; inverse_vjp is the inverse's
-// element VJP (ops/flow_kernels.py inverse_element_vjp) in closed form.
+// element VJP (ops/flow_kernels.py inverse_element_vjp) in closed form;
+// K1-bwd runs it for one row by a whole warp (inverse_vjp_warp, lane j
+// holding raw parameter j) or by a group of 8 lanes (inverse_vjp_group,
+// each lane holding its Slice of the row's step, read by slice from the NP
+// raw parameters and x in global memory).
 // OG is the width of K1's output column group (ar_inverse.cu): NP rounded
 // up to a group its products are instantiated for.
 #pragma once
@@ -29,6 +33,16 @@ struct RqsHead {
   }
   __device__ __forceinline__ static float inverse_vjp(float x, float* p, float gx, float gl) {
     return rqs_inverse_vjp(x, p, gx, gl);
+  }
+  __device__ __forceinline__ static float inverse_vjp_warp(float x, float p, float gx, float gl,
+                                                           int lane, float* gp) {
+    return rqs_inverse_vjp_warp(x, p, gx, gl, lane, gp);
+  }
+  using Slice = RqsSlice;
+  __device__ __forceinline__ static Slice slice(const float* p, int m) { return rqs_slice(p, m); }
+  __device__ __forceinline__ static float inverse_vjp_group(const Slice& q, float gx, float gl,
+                                                            int m, float* gp) {
+    return rqs_inverse_vjp_group(q, gx, gl, m, gp);
   }
 };
 
@@ -68,6 +82,33 @@ struct AffineHead {
     const float gz = gx * expf(LOG_SCALE_BOUND * t);
     p[1] = (gx * (x - p[0]) + gl) * (1.0f - t * t);
     p[0] = gx;
+    return gz;
+  }
+  // inverse_vjp with lane j < 2 holding p[j]: every lane computes it from
+  // the two broadcast, lane j keeps dL/dp_j in *gp (0 from lane 2)
+  __device__ __forceinline__ static float inverse_vjp_warp(float x, float p, float gx, float gl,
+                                                           int lane, float* gp) {
+    const float loc = __shfl_sync(0xffffffffu, p, 0), raw = __shfl_sync(0xffffffffu, p, 1);
+    const float t = tanhf(raw / LOG_SCALE_BOUND);
+    const float gz = gx * expf(LOG_SCALE_BOUND * t);
+    *gp = lane == 0 ? gx : (lane == 1 ? (gx * (x - loc) + gl) * (1.0f - t * t) : 0.0f);
+    return gz;
+  }
+  // inverse_vjp by every lane of a row's group, lane 0 writing dL/dp
+  struct Slice {
+    float loc, raw, x;
+  };
+  __device__ __forceinline__ static Slice slice(const float* p, int) {
+    return {__ldg(p), __ldg(p + 1), __ldg(p + NP)};
+  }
+  __device__ __forceinline__ static float inverse_vjp_group(const Slice& q, float gx, float gl,
+                                                            int m, float* gp) {
+    const float t = tanhf(q.raw / LOG_SCALE_BOUND);
+    const float gz = gx * expf(LOG_SCALE_BOUND * t);
+    if (gp != nullptr && m == 0) {
+      gp[1] = (gx * (q.x - q.loc) + gl) * (1.0f - t * t);
+      gp[0] = gx;
+    }
     return gz;
   }
 };

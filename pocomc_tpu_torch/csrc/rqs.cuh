@@ -119,11 +119,21 @@ __device__ __forceinline__ float rqs_forward(float x, const float* p, float* lad
 // arithmetic of rqs_forward_vjp below (models/transforms.py
 // rqs_forward_vjp), which keeps its own copy: its bits are a record (K2's
 // and K5's backwards, the runs they train), and merging the two moved them.
+// A warp-wide caller (rqs_inverse_vjp_warp) builds the knots itself and
+// takes only local() and knot_grads().
 struct SplineVjp {
   float sm[2][BINS], sig[BINS - 1];
   int i;
   float w, h, s, xi, xi1m, c, q, denom, num, n2, d0, d1;
   bool in_clamp;  // x in [-B+1e-6, B-1e-6], where clamp passes the gradient
+
+  // the gradients of the bin's knots (x0, x1, y0, y1), derivatives (d0,
+  // d1) and of the clamped position xc
+  struct KnotGrads {
+    float x0, x1, y0, y1, d0, d1, xc;
+  };
+
+  SplineVjp() = default;
 
   __device__ __forceinline__ SplineVjp(float x, const float* p) {
     const float B = SPLINE_BOUND;
@@ -160,14 +170,20 @@ struct SplineVjp {
       sig[j] = 1.0f / (1.0f + expf(-zr));
     }
     dv[BINS] = 1.0f;
+    local(x, kn[0], kn[1], dv);
+  }
 
+  // the bin of x and its local quantities, from the knots and derivatives
+  __device__ __forceinline__ void local(float x, const float* xk, const float* yk,
+                                        const float* dv) {
+    const float B = SPLINE_BOUND;
     const float lo = -B + 1e-6f, hi = B - 1e-6f;
     const float xc = fminf(fmaxf(x, lo), hi);
     in_clamp = x >= lo && x <= hi;
-    i = spline_bin(xc, kn[0]);
+    i = spline_bin(xc, xk);
     float x0, x1, y0, y1;
-    bin_edges(kn[0], i, &x0, &x1);
-    bin_edges(kn[1], i, &y0, &y1);
+    bin_edges(xk, i, &x0, &x1);
+    bin_edges(yk, i, &y0, &y1);
     bin_edges(dv, i, &d0, &d1);
     w = x1 - x0;
     h = y1 - y0;
@@ -197,9 +213,9 @@ struct SplineVjp {
     return in_clamp ? g_xi / w : 0.0f;
   }
 
-  // given gy = dL/dy and gl = dL/dladj, writes dL/dp into p and returns
-  // dL/dx
-  __device__ __forceinline__ float vjp(float gy, float gl, float* p) const {
+  // given gy = dL/dy and gl = dL/dladj, the gradients of the bin's knots,
+  // derivatives and clamped position
+  __device__ __forceinline__ KnotGrads knot_grads(float gy, float gl) const {
     // ladj = 2 log s + log n2 - 2 log denom; y = y0 + h * num / denom
     float g_s = 2.0f * gl / s;
     const float g_n2 = gl / n2;
@@ -229,11 +245,17 @@ struct SplineVjp {
     g_y0 = g_y0 - g_h;
     const float g_x1 = g_w;
     g_x0 = g_x0 - g_w;
+    return {g_x0, g_x1, g_y0, g_y1, g_d0, g_d1, g_xc};
+  }
 
+  // given gy = dL/dy and gl = dL/dladj, writes dL/dp into p and returns
+  // dL/dx
+  __device__ __forceinline__ float vjp(float gy, float gl, float* p) const {
+    const KnotGrads kg = knot_grads(gy, gl);
     // knot j (1..BINS-1) is the running sum of bin sizes 0..j-1, so bin
     // size m collects the gradients of knots m+1..BINS-1; then the softmax
     const float B = SPLINE_BOUND;
-    const float g0[2] = {g_x0, g_y0}, g1[2] = {g_x1, g_y1};
+    const float g0[2] = {kg.x0, kg.y0}, g1[2] = {kg.x1, kg.y1};
 #pragma unroll
     for (int a = 0; a < 2; ++a) {
       float gsm[BINS];
@@ -249,10 +271,10 @@ struct SplineVjp {
     }
 #pragma unroll
     for (int k = 1; k < BINS; ++k) {
-      const float gd = (k == i ? g_d0 : 0.0f) + (k == i + 1 ? g_d1 : 0.0f);
+      const float gd = (k == i ? kg.d0 : 0.0f) + (k == i + 1 ? kg.d1 : 0.0f);
       p[2 * BINS + k - 1] = gd * sig[k - 1];
     }
-    return in_clamp ? g_xc : 0.0f;
+    return in_clamp ? kg.xc : 0.0f;
   }
 };
 
@@ -396,6 +418,172 @@ __device__ __forceinline__ float rqs_inverse_vjp(float x, float* p, float gx, fl
 #pragma unroll
   for (int i = 0; i < NPARAMS; ++i) p[i] = -p[i];
   return gz;
+}
+
+// rqs_inverse_vjp of one row by the whole warp: lane j < NPARAMS holds raw
+// parameter j (0 in the other lanes), every lane x, gx and gl. The setup is
+// split across lanes as K1's rqs_inverse_warp splits it (ar_inverse.cu):
+// lanes 0-7 and 8-15 the two softmaxes (max and sum by xor-butterflies, so
+// every lane of a group gets the same bits) and the knots as an inclusive
+// scan of the bin sizes, lanes 16-22 the interior derivatives and their
+// sigmoids; every lane gathers the knots and derivatives, then computes
+// the bin, dL/dz and the bin's knot gradients; last, lane j's parameter
+// gradient: a softmax's VJP over its group of 8 lanes (one more butterfly
+// for the dot product) or a derivative's. Returns dL/dz in every lane and
+// writes lane j's dL/dp_j into *gp (0 from lane NPARAMS). The arithmetic of
+// rqs_inverse_vjp but for the order of the sums.
+__device__ __forceinline__ float rqs_inverse_vjp_warp(float x, float p, float gx, float gl,
+                                                      int lane, float* gp) {
+  constexpr unsigned ALL = 0xffffffffu;
+  const float B = SPLINE_BOUND;
+  if (!((x > -B) && (x < B))) {  // x is the same in every lane
+    *gp = 0.0f;
+    return gx;
+  }
+  float m = p;
+#pragma unroll
+  for (int o = 4; o >= 1; o >>= 1) m = fmaxf(m, __shfl_xor_sync(ALL, m, o));
+  const float e = expf(p - m);
+  float sum = e;
+#pragma unroll
+  for (int o = 4; o >= 1; o >>= 1) sum += __shfl_xor_sync(ALL, sum, o);
+  const float sm = e / sum;
+  float run = (MIN_BIN + (1.0f - MIN_BIN * BINS) * sm) * (2.0f * B);
+#pragma unroll
+  for (int o = 1; o < BINS; o <<= 1) {
+    const float v = __shfl_up_sync(ALL, run, o);
+    if ((lane & (BINS - 1)) >= o) run += v;
+  }
+  const float knot = run - B;
+  const float zr = p + SOFTPLUS_INV_1;
+  const float deriv = MIN_DERIV + softplusf(zr);
+  const float sig = 1.0f / (1.0f + expf(-zr));
+  float xk[BINS + 1], yk[BINS + 1], dv[BINS + 1];
+  xk[0] = yk[0] = -B;
+  xk[BINS] = yk[BINS] = B;
+  dv[0] = dv[BINS] = 1.0f;
+#pragma unroll
+  for (int i = 1; i < BINS; ++i) {
+    xk[i] = __shfl_sync(ALL, knot, i - 1);
+    yk[i] = __shfl_sync(ALL, knot, BINS + i - 1);
+    dv[i] = __shfl_sync(ALL, deriv, 2 * BINS + i - 1);
+  }
+  SplineVjp sp;
+  sp.local(x, xk, yk, dv);
+  const float gz = (gx - gl * sp.log_slope_dx()) / sp.slope();
+  const SplineVjp::KnotGrads kg = sp.knot_grads(gz, gl);
+  // bin size mm of softmax a (lanes 0-7: x, 8-15: y) collects the
+  // gradients of knots mm+1..BINS-1
+  const int a = lane >> 3, mm = lane & (BINS - 1);
+  const float g0 = a == 0 ? kg.x0 : kg.y0, g1 = a == 0 ? kg.x1 : kg.y1;
+  const float gsize = (mm < sp.i ? g0 : 0.0f) + ((mm <= sp.i && sp.i <= BINS - 2) ? g1 : 0.0f);
+  const float gsm = gsize * ((1.0f - MIN_BIN * BINS) * (2.0f * B));
+  float dot = sm * gsm;
+#pragma unroll
+  for (int o = 4; o >= 1; o >>= 1) dot += __shfl_xor_sync(ALL, dot, o);
+  // interior derivative k = lane - 15 (lanes 16-22)
+  const int k = lane - 2 * BINS + 1;
+  const float gd = (k == sp.i ? kg.d0 : 0.0f) + (k == sp.i + 1 ? kg.d1 : 0.0f);
+  const float g = lane < 2 * BINS ? sm * (gsm - dot) : (lane < NPARAMS ? gd * sig : 0.0f);
+  *gp = -g;
+  return gz;
+}
+
+// A row's step as rqs_inverse_vjp_group takes it: lane m (0-7) of the
+// row's group of 8 lanes holds bin m's two raw sizes, the raw parameter of
+// interior derivative m + 1 (0 at m = 7) and the row's x. From the NPARAMS
+// raw parameters then x, in global memory (K1's saved state).
+struct RqsSlice {
+  float px, py, pd, x;
+};
+
+__device__ __forceinline__ RqsSlice rqs_slice(const float* p, int m) {
+  return {__ldg(p + m), __ldg(p + BINS + m), m < BINS - 1 ? __ldg(p + 2 * BINS + m) : 0.0f,
+          __ldg(p + NPARAMS)};
+}
+
+// rqs_inverse_vjp of one row by a group of 8 lanes (lane m of the group
+// holds the row's slice), so one pass of a warp serves up to 4 rows. The
+// setup is split across the group as K1's rqs_inverse_warp splits the
+// inverse's: each lane takes its bin of both softmaxes (max and sum by
+// xor-butterflies, so every lane of the group gets the same bits) and of
+// the knots (inclusive scans of the bin sizes) and its interior
+// derivative and sigmoid; every lane gathers the knots and derivatives,
+// then computes the bin, dL/dz and the bin's knot gradients; last, lane m
+// the gradients of its three parameters (a softmax's VJP takes one more
+// butterfly for the dot product). Returns dL/dz, given gx = dL/dx and gl =
+// dL/dladj (the same in the group's lanes), and writes lane m's share of
+// the row's dL/dp into gp (NPARAMS floats) unless it is null. The
+// arithmetic of rqs_inverse_vjp but for the order of the sums; outside (-B,
+// B) dL/dz = gx and dL/dp = 0.
+__device__ __forceinline__ float rqs_inverse_vjp_group(const RqsSlice& q, float gx, float gl,
+                                                       int m, float* gp) {
+  constexpr unsigned ALL = 0xffffffffu;
+  constexpr int G = BINS;  // lanes a row
+  const float B = SPLINE_BOUND;
+  float mx = q.px, my = q.py;
+#pragma unroll
+  for (int o = G / 2; o >= 1; o >>= 1) {
+    mx = fmaxf(mx, __shfl_xor_sync(ALL, mx, o));
+    my = fmaxf(my, __shfl_xor_sync(ALL, my, o));
+  }
+  const float ex = expf(q.px - mx), ey = expf(q.py - my);
+  float sx = ex, sy = ey;
+#pragma unroll
+  for (int o = G / 2; o >= 1; o >>= 1) {
+    sx += __shfl_xor_sync(ALL, sx, o);
+    sy += __shfl_xor_sync(ALL, sy, o);
+  }
+  const float smx = ex / sx, smy = ey / sy;
+  float rx = (MIN_BIN + (1.0f - MIN_BIN * BINS) * smx) * (2.0f * B);
+  float ry = (MIN_BIN + (1.0f - MIN_BIN * BINS) * smy) * (2.0f * B);
+#pragma unroll
+  for (int o = 1; o < G; o <<= 1) {
+    const float vx = __shfl_up_sync(ALL, rx, o, G), vy = __shfl_up_sync(ALL, ry, o, G);
+    if (m >= o) {
+      rx += vx;
+      ry += vy;
+    }
+  }
+  const float knot_x = rx - B, knot_y = ry - B;
+  const float zr = q.pd + SOFTPLUS_INV_1;
+  const float deriv = MIN_DERIV + softplusf(zr);
+  const float sig = 1.0f / (1.0f + expf(-zr));
+  float xk[BINS + 1], yk[BINS + 1], dv[BINS + 1];
+  xk[0] = yk[0] = -B;
+  xk[BINS] = yk[BINS] = B;
+  dv[0] = dv[BINS] = 1.0f;
+#pragma unroll
+  for (int i = 1; i < BINS; ++i) {
+    xk[i] = __shfl_sync(ALL, knot_x, i - 1, G);
+    yk[i] = __shfl_sync(ALL, knot_y, i - 1, G);
+    dv[i] = __shfl_sync(ALL, deriv, i - 1, G);
+  }
+  SplineVjp sp;
+  sp.local(q.x, xk, yk, dv);
+  const float gz = (gx - gl * sp.log_slope_dx()) / sp.slope();
+  const SplineVjp::KnotGrads kg = sp.knot_grads(gz, gl);
+  // bin size m collects the gradients of knots m+1..BINS-1, then each
+  // softmax's VJP
+  const float scale = (1.0f - MIN_BIN * BINS) * (2.0f * B);
+  const bool last = m <= sp.i && sp.i <= BINS - 2;
+  const float gsx = ((m < sp.i ? kg.x0 : 0.0f) + (last ? kg.x1 : 0.0f)) * scale;
+  const float gsy = ((m < sp.i ? kg.y0 : 0.0f) + (last ? kg.y1 : 0.0f)) * scale;
+  float dx = smx * gsx, dy = smy * gsy;
+#pragma unroll
+  for (int o = G / 2; o >= 1; o >>= 1) {
+    dx += __shfl_xor_sync(ALL, dx, o);
+    dy += __shfl_xor_sync(ALL, dy, o);
+  }
+  const int k = m + 1;  // interior derivative k
+  const float gd = (k == sp.i ? kg.d0 : 0.0f) + (k == sp.i + 1 ? kg.d1 : 0.0f);
+  const bool inside = (q.x > -B) && (q.x < B);
+  if (gp != nullptr) {
+    gp[m] = inside ? -(smx * (gsx - dx)) : 0.0f;
+    gp[BINS + m] = inside ? -(smy * (gsy - dy)) : 0.0f;
+    if (m < BINS - 1) gp[2 * BINS + m] = inside ? -(gd * sig) : 0.0f;
+  }
+  return inside ? gz : gx;
 }
 
 // y -> x; *ladj = log|dx/dy|, from the spline's knots and derivatives

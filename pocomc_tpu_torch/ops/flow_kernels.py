@@ -18,7 +18,8 @@ degree makes it final. Source: ``csrc/ar_inverse.cu``; it replaces the JAX
 package's round-2 fused whole-transform inverse (specified in RESULTS.md
 "Pallas postmortem" and ``pocomc_tpu/models/flow.py:170-184``).
 ``ar_inverse_backward`` (K1-bwd): its gradient in z, K1's degree walk in
-reverse over the layer inputs of K2's forward at K1's output; source
+reverse over the state a save instance of K1 wrote (each step's head
+parameters and x, each transform's hidden signs); source
 ``csrc/ar_inverse_backward.cu`` (with ``ar_walk.cuh``, which K1 shares).
 ``_ArInverse`` joins the two as an ``autograd.Function``; neither gives a
 gradient in the weights (the JAX package takes one in the state only,
@@ -259,6 +260,12 @@ _K1_OUT_GROUP = {"rqs": 24, "affine": 4}
 _SMS = 132
 
 
+def _sign_words(h):
+    """32-bit words of one hidden layer's sign mask (csrc/ar_walk.cuh
+    sign_words)."""
+    return -(-h // 32)
+
+
 def _launch_config(n, d, h, head="rqs"):
     """K1's launch: (R, W, S, SL, blocks, smem bytes). A consumer warp owns
     R rows (1, 2 or 4) for the whole chain, a block has W consumer warps
@@ -274,8 +281,12 @@ def _launch_config(n, d, h, head="rqs"):
     until a stage holds at least 33 rows of such a group; raises where one
     row alone leaves less: from h = 16384 (d > 2730), as K2's launch
     does."""
+    return _plan(n, d, h, 3 * h + 3 * d + _K1_OUT_GROUP[head], "ar_inverse")
+
+
+def _plan(n, d, h, row, name):
+    """``_launch_config``'s rule for a warp's state of R * row floats."""
     limit = _MAX_SMEM // 4 - 4 * 8  # floats, less the 2 x 8 mbarriers
-    row = 3 * h + 3 * d + _K1_OUT_GROUP[head]
     least = 33 * _K1_GROUP
     R = 4 if n >= 16 * _SMS else (2 if n >= 8 * _SMS else 1)
     W = min(8, max(1, round(-(-n // R) / _SMS)))
@@ -285,7 +296,7 @@ def _launch_config(n, d, h, head="rqs"):
         elif R > 1:
             R //= 2
         else:
-            raise ValueError(f"ar_inverse: d={d}, h={h} needs more shared memory than a "
+            raise ValueError(f"{name}: d={d}, h={h} needs more shared memory than a "
                              f"Hopper block has")
     free = limit - R * W * row
     SL = min(max(_K1_GROUP * (-(-h // 4) * 4 + 1), 4096), free // 2 // 4 * 4)
@@ -451,7 +462,11 @@ def _inverse_pack(ws, bs, inv_dim_orders, d, h, T, head):
     return pack
 
 
-def _launch_inverse(z, ws, bs, inv_dim_orders, head="rqs"):
+def _launch_inverse(z, ws, bs, inv_dim_orders, head="rqs", save=False):
+    """K1: (x, ladj), and with ``save`` the state K1-bwd reads (K1's save
+    instance): (px (T, n, d, NP + 1) float32, each step's head parameters
+    and x in visit order; signs (T, n, 3, ceil(h/32)) int32, each
+    transform's hidden signs as bit masks in degree-sorted order)."""
     n, d, h, T = _check(z, ws, bs, "ar_inverse", head)
     if (inv_dim_orders.dtype != torch.int32 or inv_dim_orders.device != z.device
             or tuple(inv_dim_orders.shape) != (T, d)
@@ -460,65 +475,88 @@ def _launch_inverse(z, ws, bs, inv_dim_orders, head="rqs"):
                          "int32 tensor on the input's device")
     x = torch.empty_like(z)
     ladj = torch.empty(n, dtype=z.dtype, device=z.device)
-    if n == 0:
-        return x, ladj
-    R, W, S, SL, _, _ = _launch_config(n, d, h, head)
-    pack = _inverse_pack(ws, bs, inv_dim_orders, d, h, T, head)
-    fn = _entry("ar_inverse", "ar_inverse_launch", "PPPIIIIPPIIIIIIP")
-    err = fn(z.data_ptr(), x.data_ptr(), ladj.data_ptr(), n, d, h, T, pack.data_ptr(),
-             inv_dim_orders.data_ptr(), HEADS[head], R, W, S, SL, z.device.index, _stream(z))
-    _raise_if(err, "ar_inverse")
-    _count(ar_inverse, head)
-    return x, ladj
+    state = ((torch.empty(T, n, d, HEADS[head] + 1, dtype=z.dtype, device=z.device),
+              torch.empty(T, n, 3, _sign_words(h), dtype=torch.int32, device=z.device))
+             if save else None)
+    if n > 0:
+        R, W, S, SL, _, _ = _launch_config(n, d, h, head)
+        pack = _inverse_pack(ws, bs, inv_dim_orders, d, h, T, head)
+        fn = _entry("ar_inverse", "ar_inverse_launch", "PPPPPIIIIPPIIIIIIP")
+        saved = [a.data_ptr() for a in state] if save else [None, None]
+        err = fn(z.data_ptr(), x.data_ptr(), ladj.data_ptr(), *saved, n, d, h, T,
+                 pack.data_ptr(), inv_dim_orders.data_ptr(), HEADS[head], R, W, S, SL,
+                 z.device.index, _stream(z))
+        _raise_if(err, "ar_inverse")
+        _count(ar_inverse, head)
+    return (x, ladj, state) if save else (x, ladj)
 
 
 def _backward_config(n, d, h, head="rqs"):
-    """K1-bwd's launch: (R, W, S, SL), as K1's (``_launch_config``) but
-    for a warp's state of R * (6h + 3d + OG) floats (the saved activations
-    and their cotangents, x, its cotangent in visit order and by
-    dimension, the head parameters) and stages that hold the widest group
-    of the pack whole, 24 columns of h fan-in (no batching: the groups go
-    one to a stage, in reverse). Raises where two stages and one row do
-    not fit: from h = 2048 (d >= 342)."""
-    limit = _MAX_SMEM // 4 - 4 * 8
-    row = 6 * h + 3 * d + _K1_OUT_GROUP[head]
-    SL = _K1_GROUP * (-(-h // 4) * 4) + _K1_GROUP
-    R = 4 if n >= 16 * _SMS else (2 if n >= 8 * _SMS else 1)
-    W = min(8, max(1, round(-(-n // R) / _SMS)))
-    while limit - R * W * row < 2 * SL:
-        if W > 1:
-            W //= 2
-        elif R > 1:
-            R //= 2
-        else:
-            raise ValueError(f"ar_inverse_backward: d={d}, h={h} needs more shared memory "
-                             f"than a Hopper block has")
-    return R, W, min(8, (limit - R * W * row) // SL), SL
+    """K1-bwd's launch: (R, W, S, SL, blocks, smem bytes) by K1's rule
+    (``_plan``) for a warp's state of R * (3h + 3 ceil(h/32) + 2d + OG)
+    floats: the three layers' cotangents, their sign masks, x's cotangent
+    in visit order and by dimension, the head parameters' cotangent. A
+    group too large for a stage goes in fan-in chunks. It reads K1's
+    state, so it refuses wherever K1's launch does (``_launch_config``):
+    from h = 16384 (d > 2730). Its row is no wider than K1's where 3
+    ceil(h/32) <= d, as at every flow's (d, h), so there its own plan holds
+    wherever K1's does."""
+    _launch_config(n, d, h, head)
+    return _plan(n, d, h, 3 * h + 3 * _sign_words(h) + 2 * d + _K1_OUT_GROUP[head],
+                 "ar_inverse_backward")
 
 
-def _launch_inverse_backward(x, ws, bs, inv_dim_orders, g_x, g_ladj, head="rqs"):
-    """K1-bwd: K2's forward at x saves every transform's input and
-    activations (a K2 launch), then the backward kernel walks K1's pack in
-    reverse; g_z."""
-    n, d, h, T = _check(x, ws, bs, "ar_inverse_backward", head)
-    for what, a, shape in (("g_x", g_x, (n, d)), ("g_ladj", g_ladj, (n,))):
-        if (a.dtype != torch.float32 or a.device != x.device or tuple(a.shape) != shape
+def _check_state(state, T, n, d, h, head, device):
+    """Validate K1's saved state (``_launch_inverse(..., save=True)``)."""
+    name = "ar_inverse_backward"
+    if not isinstance(state, (tuple, list)) or len(state) != 2:
+        raise ValueError(f"{name}: on CUDA it takes, in place of x, the state that K1's "
+                         f"save instance writes at z (_launch_inverse(z, ..., save=True))")
+    for what, a, shape, dtype in (
+            ("state[0]", state[0], (T, n, d, HEADS[head] + 1), torch.float32),
+            ("state[1]", state[1], (T, n, 3, _sign_words(h)), torch.int32)):
+        if (a.dtype != dtype or a.device != device or tuple(a.shape) != shape
                 or not a.is_contiguous()):
-            raise ValueError(f"ar_inverse_backward: {what} must be a contiguous float32 "
-                             f"{shape} tensor on {x.device}")
+            raise ValueError(f"{name}: {what} must be a contiguous {dtype} {shape} tensor "
+                             f"on {device}")
+
+
+def _launch_inverse_backward(state, ws, bs, inv_dim_orders, g_x, g_ladj, head="rqs"):
+    """K1-bwd on the state K1's save instance wrote: the kernel walks K1's
+    pack in reverse; g_z."""
+    n, d, h, T = _check(g_x, ws, bs, "ar_inverse_backward", head)
+    if (g_ladj.dtype != torch.float32 or g_ladj.device != g_x.device
+            or tuple(g_ladj.shape) != (n,) or not g_ladj.is_contiguous()):
+        raise ValueError(f"ar_inverse_backward: g_ladj must be a contiguous float32 ({n},) "
+                         f"tensor on {g_x.device}")
+    _check_state(state, T, n, d, h, head, g_x.device)
     g_z = torch.empty_like(g_x)
     if n == 0:
         return g_z
-    R, W, S, SL = _backward_config(n, d, h, head)
-    _, _, acts = _launch_forward(x, ws, bs, True, head)
+    R, W, S, SL, _, _ = _backward_config(n, d, h, head)
     pack = _inverse_pack(ws, bs, inv_dim_orders, d, h, T, head)
-    fn = _entry("ar_inverse_backward", "ar_inverse_backward_launch", "PPPPPPPIIIIPPIIIIIIP")
-    err = fn(*[a.data_ptr() for a in acts], g_x.data_ptr(), g_ladj.data_ptr(), g_z.data_ptr(),
-             n, d, h, T, pack.data_ptr(), inv_dim_orders.data_ptr(), HEADS[head], R, W, S, SL,
-             x.device.index, _stream(x))
+    fn = _entry("ar_inverse_backward", "ar_inverse_backward_launch", "PPPPPIIIIPPIIIIIIP")
+    err = fn(state[0].data_ptr(), state[1].data_ptr(), g_x.data_ptr(), g_ladj.data_ptr(),
+             g_z.data_ptr(), n, d, h, T, pack.data_ptr(), inv_dim_orders.data_ptr(),
+             HEADS[head], R, W, S, SL, g_x.device.index, _stream(g_x))
     _raise_if(err, "ar_inverse_backward")
     _count(ar_inverse_backward, head)
     return g_z
+
+
+def _element_vjp(x, p, g_x, g_l, head="rqs", lanes=32):
+    """K1-bwd's element VJP on the card, for the tests: (g_z (n,), g_p (n,
+    NP)) of ``inverse_element_vjp`` at x (n,), p (n, NP), g_x, g_l (n,), on
+    ``lanes`` lanes a row: the kernel's versions (32: a warp, 8: a group of
+    8 lanes) or the one-lane one (1)."""
+    n = x.shape[0]
+    px = torch.cat([p, x[:, None]], 1).contiguous()
+    g_z, g_p = torch.empty_like(x), torch.empty_like(p)
+    fn = _entry("ar_inverse_backward", "ar_inverse_element_vjp_launch", "PPPPPIIIIP")
+    err = fn(px.data_ptr(), g_x.data_ptr(), g_l.data_ptr(), g_z.data_ptr(), g_p.data_ptr(), n,
+             HEADS[head], lanes, x.device.index, _stream(x))
+    _raise_if(err, "ar_inverse_backward (element VJP)")
+    return g_z, g_p
 
 
 class _MadeRqsForward(torch.autograd.Function):
@@ -545,22 +583,23 @@ class _MadeRqsForward(torch.autograd.Function):
 
 
 class _ArInverse(torch.autograd.Function):
-    """K1 with its gradient in z: the backward is K1-bwd
-    (``ar_inverse_backward``) at the x the forward gave. The weights take
-    no gradient (the wrapper refuses weights that require one)."""
+    """K1 with its gradient in z: the forward is K1's save instance, the
+    backward K1-bwd (``ar_inverse_backward``) on the state it wrote. The
+    weights take no gradient (the wrapper refuses weights that require
+    one)."""
 
     @staticmethod
     def forward(ctx, head, z, inv_dim_orders, *layers):
-        x, ladj = _launch_inverse(z, layers[:4], layers[4:], inv_dim_orders, head)
+        x, ladj, state = _launch_inverse(z, layers[:4], layers[4:], inv_dim_orders, head, True)
         ctx.head = head
-        ctx.save_for_backward(x, inv_dim_orders, *layers)
+        ctx.save_for_backward(inv_dim_orders, *state, *layers)
         return x, ladj
 
     @staticmethod
     def backward(ctx, g_x, g_ladj):
-        x, orders, *layers = ctx.saved_tensors
-        g_z = _launch_inverse_backward(x, layers[:4], layers[4:], orders, g_x.contiguous(),
-                                       g_ladj.contiguous(), ctx.head)
+        orders, px, signs, *layers = ctx.saved_tensors
+        g_z = _launch_inverse_backward((px, signs), layers[:4], layers[4:], orders,
+                                       g_x.contiguous(), g_ladj.contiguous(), ctx.head)
         return (None, g_z, None, *[None] * len(layers))
 
 
@@ -638,9 +677,14 @@ def ar_inverse(z, ws, bs, inv_dim_orders, head="rqs"):
 def ar_inverse_backward(x, ws, bs, inv_dim_orders, g_x, g_ladj, head="rqs"):
     """K1-bwd: g_z, the gradient of a loss with dL/dx = g_x and dL/dladj =
     g_ladj with respect to z, where (x, ladj) = ar_inverse(z, ...) (the
-    weights' precondition is K1's)."""
+    weights' precondition is K1's). On the CPU x is the inverse's output,
+    from which the plain version recomputes what it needs. On CUDA x is the
+    state that K1's save instance writes at z (``_launch_inverse(z, ...,
+    save=True)``'s third item, as ``ar_inverse``'s autograd route keeps
+    it), which holds each step's x and all the kernel reads; x alone
+    raises there."""
     ws, bs = list(ws), list(bs)
-    if _device_type(x, "ar_inverse_backward") == "cpu":
+    if _device_type(g_x, "ar_inverse_backward") == "cpu":
         _check(x, ws, bs, "ar_inverse_backward", head)
         return ar_inverse_vjp_ref(x, ws, bs, inv_dim_orders, g_x, g_ladj, head)
     with torch.no_grad():

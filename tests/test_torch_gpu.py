@@ -716,42 +716,282 @@ def _check_vs_float64(got, plain, exact, tol):
     assert float((got.double() - exact).abs().max()) <= limit
 
 
-@pytest.mark.parametrize("arch,d,n", [
-    ("nsf6", 2, 37), ("nsf3", 4, 128), ("nsf6", 10, 37), ("nsf6", 10, 256), ("nsf6", 10, 1100),
-    ("nsf6", 10, 2200), ("nsf6", 10, 4096), ("nsf6", 50, 256), ("nsf6", 50, 4096),
-    ("maf6", 2, 37), ("maf6", 4, 128), ("maf6", 10, 256), ("maf6", 10, 2200),
-    ("maf6", 50, 4096)])
-def test_k1_backward_matches_plain(cuda, arch, d, n):
-    """K1-bwd against ``ar_inverse_vjp_ref`` at the same x (K1's output),
-    both heads, at a ragged n (37), at n taking K1's one-, two- and
-    four-row launches (256, 1100, 2200 and up) and at d = 2, 4, 10, 50:
-    within 1e-4 (d <= 10) or 1e-3 (d = 50) of the largest g_z of the plain
-    version in float64, chip_smoke's TOL, or within 4x the plain fp32
-    version's own distance to it where that is larger (K5's rule), rows
-    on a float64 knot with dL/dladj != 0 or on a ReLU kink left out (the
-    gradient jumps there). The same inputs give the same bits twice."""
+def _grad_card_flow(d, arch, seed):
+    """A flow for K1-bwd's checks: ``_random_card_flow``, or past d = 50
+    ``_menu_card_flow``'s output layers scaled with the fan-in (std 0.02 *
+    sqrt(32 / h)), which keep the head parameters spread as at h = 32 and
+    the stack well conditioned in fp32."""
+    if d <= 50:
+        return _random_card_flow(d, arch, seed=seed)
+    return _menu_card_flow(d, arch, seed=seed)
+
+
+def _k1_backward_case(arch, d, n):
+    """K1-bwd at (arch, d, n) on K1's saved state: (got, again, plain,
+    exact) with rows on a float64 knot with dL/dladj != 0 or on a ReLU kink
+    left out; ``again`` the same call repeated."""
     import copy
-    f = _random_card_flow(d, arch, seed=d)
+    f = _grad_card_flow(d, arch, seed=d)
     g = torch.Generator("cuda").manual_seed(n)
-    z = torch.randn(n, d, device=cuda, generator=g)
-    g_x = torch.randn(n, d, device=cuda, generator=g)
-    g_l = torch.randn(n, device=cuda, generator=g)
+    z = torch.randn(n, d, device="cuda", generator=g)
+    g_x = torch.randn(n, d, device="cuda", generator=g)
+    g_l = torch.randn(n, device="cuda", generator=g)
     with torch.no_grad():
         fp = f.params()
-        x, _ = fk.ar_inverse(z, fp.ws, fp.bs, fp.inv_orders, head=f.head)
+        x, _, state = fk._launch_inverse(z, fp.ws, fp.bs, fp.inv_orders, f.head, True)
         edge = _made_edge_rows(f, x, g_l) | _kink_rows(f, x)
         g_x, g_l = g_x.masked_fill(edge[:, None], 0.0), g_l.masked_fill(edge, 0.0)
         counter = "launches" if f.head == "rqs" else "launches_affine"
         before = getattr(fk.ar_inverse_backward, counter)
-        got = fk.ar_inverse_backward(x, fp.ws, fp.bs, fp.inv_orders, g_x, g_l, head=f.head)
-        again = fk.ar_inverse_backward(x, fp.ws, fp.bs, fp.inv_orders, g_x, g_l, head=f.head)
+        got = fk.ar_inverse_backward(state, fp.ws, fp.bs, fp.inv_orders, g_x, g_l, f.head)
+        again = fk.ar_inverse_backward(state, fp.ws, fp.bs, fp.inv_orders, g_x, g_l, f.head)
         assert getattr(fk.ar_inverse_backward, counter) == before + 2
         plain = fk.ar_inverse_vjp_ref(x, fp.ws, fp.bs, fp.inv_orders, g_x, g_l, head=f.head)
         fp64 = copy.deepcopy(f).double().params()
         exact = fk.ar_inverse_vjp_ref(x.double(), fp64.ws, fp64.bs, fp64.inv_orders,
                                       g_x.double(), g_l.double(), head=f.head)
+    return got, again, plain, exact
+
+
+@pytest.mark.parametrize("arch,d,n", [
+    ("nsf6", 2, 37), ("nsf3", 4, 128), ("nsf6", 10, 37), ("nsf6", 10, 256), ("nsf6", 10, 1100),
+    ("nsf6", 10, 2200), ("nsf6", 10, 4096), ("nsf6", 50, 256), ("nsf6", 50, 4096),
+    ("maf6", 2, 37), ("maf6", 4, 128), ("maf6", 10, 256), ("maf6", 10, 2200),
+    ("maf6", 50, 4096), ("nsf3", 342, 64), ("maf3", 342, 64), ("nsf3", 683, 64),
+    ("maf3", 683, 64)])
+def test_k1_backward_matches_plain(cuda, arch, d, n):
+    """K1-bwd on the state K1's save instance wrote, against
+    ``ar_inverse_vjp_ref`` at the same x (K1's output), both heads, at a
+    ragged n (37), at n taking K1's one-, two- and four-row launches (256,
+    1100, 2200 and up) and at d = 2, 4, 10, 50, 342 (h = 2048: groups in
+    fan-in chunks) and 683 (h = 4096; wider in
+    ``test_k1_backward_inverts_the_forward_at_every_width``), n <= 64 past
+    d = 50: within 1e-4 (d <= 10) or 1e-3 (d >= 50) of the largest g_z of
+    the plain version in
+    float64, chip_smoke's TOL, or within 4x the plain fp32 version's own
+    distance to it where that is larger (K5's rule), rows on a float64
+    knot with dL/dladj != 0 or on a ReLU kink left out (the gradient jumps
+    there). The same inputs give the same bits twice."""
+    got, again, plain, exact = _k1_backward_case(arch, d, n)
     assert torch.equal(got, again)
-    _check_vs_float64(got, plain, exact, 1e-3 if d == 50 else 1e-4)
+    _check_vs_float64(got, plain, exact, 1e-3 if d >= 50 else 1e-4)
+
+
+@pytest.mark.parametrize("arch", ["nsf6", "maf6"])
+@pytest.mark.parametrize("d", [2, 4, 10])
+@pytest.mark.parametrize("n", [1, 37])
+def test_k1_backward_batched_stages_at_their_edges(cuda, arch, d, n):
+    """One-row warps take whole groups of the reverse walk from shared
+    stages (``Ring::take_back``): at d = 2, 4 and 10 a stage holds the
+    groups of several steps, the last stage of a transform ends inside a
+    step, and step 0's output group has no fan-in. Held as
+    ``test_k1_backward_matches_plain`` holds it."""
+    got, again, plain, exact = _k1_backward_case(arch, d, n)
+    assert torch.equal(got, again)
+    _check_vs_float64(got, plain, exact, 1e-4)
+
+
+@pytest.mark.parametrize("n,rows", [(256, 1), (1100, 2), (2200, 4)])
+def test_k1_backward_launches_one_two_and_four_rows_a_warp(cuda, n, rows):
+    """The planner gives K1-bwd warps of 1, 2 and 4 rows at these n (the
+    element VJP warp-wide for one row, on 8 lanes a row for two and four),
+    each held to the plain version as ``test_k1_backward_matches_plain``
+    holds it."""
+    assert fk._backward_config(n, 10, 32)[0] == rows
+    got, again, plain, exact = _k1_backward_case("nsf6", 10, n)
+    assert torch.equal(got, again)
+    _check_vs_float64(got, plain, exact, 1e-4)
+
+
+@pytest.mark.parametrize("head", ["rqs", "affine"])
+@pytest.mark.parametrize("lanes", [32, 8])
+def test_kernel_element_vjp_matches_the_one_lane_one(cuda, head, lanes):
+    """K1-bwd's element VJP, warp-wide (``inverse_vjp_warp``, one-row warps)
+    or on 8 lanes a row (``inverse_vjp_group``, warps of 2 or 4 rows),
+    against the one-lane one (``inverse_vjp``) and the plain
+    ``inverse_element_vjp`` in float64, on rows inside the spline's range,
+    on its edges and beyond, n = 4093 (the last warp part empty): the
+    spline's sums run in another order (butterflies and a scan), so within
+    1e-5 of each tensor's largest value, rows within 1e-5 of a knot in
+    float64 left out (a rounding picks the bin there); the affine map bit
+    for bit."""
+    from pocomc_tpu_torch.models import transforms as tr
+    n, npar = 4093, fk.HEADS[head]
+    rng = np.random.default_rng(7)
+    x = rng.uniform(-6.0, 6.0, n).astype(np.float32)
+    x[:4] = [5.0, -5.0, 4.999999, -4.999999]
+    p = torch.from_numpy((0.5 * rng.standard_normal((n, npar))).astype(np.float32)).cuda()
+    x = torch.from_numpy(x).cuda()
+    g_x, g_l = (torch.from_numpy(rng.standard_normal(n).astype(np.float32)).cuda()
+                for _ in range(2))
+    kernel = fk._element_vjp(x, p, g_x, g_l, head, lanes)
+    lane = fk._element_vjp(x, p, g_x, g_l, head, 1)
+    exact = fk.inverse_element_vjp(x.double(), p.double(), g_x.double(), g_l.double(), head)
+    if head == "affine":
+        assert all(torch.equal(a, b) for a, b in zip(kernel, lane))
+        return
+    knots = tr._rqs_setup(p.double(), 8)[0]
+    keep = ~((x.double()[:, None] - knots).abs() < 1e-5).any(-1)
+    for a, b, e in zip(kernel, lane, exact):
+        a, b, e = a[keep].double(), b[keep].double(), e[keep]
+        assert float((a - b).abs().max()) <= 1e-5 * float(e.abs().max())
+        assert float((a - e).abs().max()) <= 1e-4 * float(e.abs().max())
+
+
+@pytest.mark.parametrize("arch", ["nsf6", "maf6"])
+def test_k1_saved_state_route_matches_the_direct_call(cuda, arch):
+    """The gradient through the autograd route (K1's save instance in the
+    forward, K1-bwd on its state in the backward) has the bits of the
+    direct call on the state ``_launch_inverse(..., save=True)`` gives,
+    and K1's save instance gives the bits of K1 without it; the autograd
+    route launches no K2."""
+    f = _random_card_flow(10, arch, seed=3)
+    g = torch.Generator("cuda").manual_seed(9)
+    z = torch.randn(256, 10, device=cuda, generator=g)
+    g_x = torch.randn(256, 10, device=cuda, generator=g)
+    g_l = torch.randn(256, device=cuda, generator=g)
+    fp = _detached(f.params())
+    counter = "launches" if f.head == "rqs" else "launches_affine"
+    k2 = getattr(fk.made_rqs_forward, counter)
+    zz = z.clone().requires_grad_(True)
+    xx, ll = fk.ar_inverse(zz, fp.ws, fp.bs, fp.inv_orders, head=f.head)
+    via_autograd = torch.autograd.grad((xx, ll), zz, (g_x, g_l))[0]
+    assert getattr(fk.made_rqs_forward, counter) == k2
+    with torch.no_grad():
+        x, ladj, state = fk._launch_inverse(z, fp.ws, fp.bs, fp.inv_orders, f.head, True)
+        x0, ladj0 = fk.ar_inverse(z, fp.ws, fp.bs, fp.inv_orders, head=f.head)
+        direct = fk.ar_inverse_backward(state, fp.ws, fp.bs, fp.inv_orders, g_x, g_l, f.head)
+    assert torch.equal(x, x0) and torch.equal(ladj, ladj0) and torch.equal(xx.detach(), x)
+    assert torch.equal(direct, via_autograd)
+    with pytest.raises(ValueError, match="state"):
+        fk.ar_inverse_backward(x, fp.ws, fp.bs, fp.inv_orders, g_x, g_l, head=f.head)
+
+
+@pytest.mark.parametrize("kind", ["mala", "hmc"])
+def test_gradient_sweep_runs_at_d_342_on_card(cuda, kind):
+    """A preconditioned mala or hmc sweep of a few steps at d = 342 (nsf3,
+    h = 2048) on the card, where K1-bwd refused to launch before its
+    groups went in fan-in chunks: every step's gradient goes through K1's
+    save instance and K1-bwd, and the state stays finite."""
+    import pocomc_tpu_torch as pt
+    from pocomc_tpu_torch.mcmc import Sweep, make_loglike
+    from pocomc_tpu_torch.models.geometry import fit_geometry
+    d, n = 342, 64
+    prior = pt.Prior([pt.Normal(0.0, 3.0)] * d)
+    scaler = pt.Reparameterize(d, bounds=prior.bounds)
+    flow = _menu_card_flow(d, "nsf3", seed=2)
+
+    def like(x):
+        return -0.5 * (x * x).sum(-1)
+
+    sweep = Sweep(scaler, prior.logpdf, make_loglike(like), flow, d, 3, 3, kind=kind)
+    g = torch.Generator("cuda").manual_seed(0)
+    with torch.no_grad():
+        scp = scaler.whitening_params("cuda")
+        fp = _detached(flow.params())
+        u = 0.5 * torch.randn(n, d, device=cuda, generator=g)
+        x, ldj = scaler.inverse(u, params=scp)
+        theta, _ = flow.forward(u, fp)
+        geom = fit_geometry(theta, torch.full((n,), 1.0 / n, device=cuda), g)
+        before = fk.ar_inverse_backward.launches
+        st = sweep.init_state(u, x, ldj, like(x), prior.logpdf(x), 2.38 / d ** 0.5, geom, fp,
+                              beta=1.0, scp=scp)
+        for _ in range(3):
+            prop = sweep.propose(st, geom, fp, scp, sweep.draw_noise(st, geom, g), beta=1.0)
+            st, _ = sweep.accept_update(st, prop, prop["logl"], 1.0, geom)
+        torch.cuda.synchronize()
+    assert fk.ar_inverse_backward.launches >= before + 4
+    assert all(bool(torch.isfinite(a).all()) for a in (st.u, st.x, st.logl, st.grad))
+
+
+@pytest.mark.parametrize("kind", ["mala", "hmc"])
+def test_gradient_sampler_runs_at_d_342_on_card(cuda, kind):
+    """``Sampler.run`` with sample="mala" or "hmc" and an nsf3 flow at d =
+    342 (h = 2048) on the card, on a broad Gaussian likelihood that takes
+    beta to 1 in a few iterations: the run ends with a finite evidence and
+    finite posterior, and its gradients went through K1-bwd."""
+    import pocomc_tpu_torch as pt
+    d = 342
+    prior = pt.Prior([pt.Normal(0.0, 3.0)] * d)
+
+    def like(x):
+        return -0.5 * ((x - 0.1) ** 2).sum(-1) / 100.0
+
+    s = pt.Sampler(prior, like, vectorize=True, random_state=0, n_effective=128, n_active=64,
+                   flow="nsf3", sample=kind, n_steps=2, n_max_steps=4,
+                   train_config=dict(epochs=2, patience=2), device="cuda")
+    before = fk.ar_inverse_backward.launches
+    s.run(n_total=128, n_evidence=128, progress=False)
+    torch.cuda.synchronize()
+    assert fk.ar_inverse_backward.launches > before
+    logz, _ = s.evidence()
+    x, w, ll, _ = s.posterior()
+    assert np.isfinite(logz)
+    assert all(np.isfinite(np.asarray(a)).all() for a in (x, w, ll))
+
+
+def _forward_f64(fp, x, g_l, head, window=1e-5):
+    """The stack's forward (``made_rqs_forward_ref``) at x in float64, one
+    transform's weights in float64 at a time: (each transform's input, the
+    output, and the rows whose gradient two correct fp32 routes may give
+    differently: in the float64 forward some hidden pre-activation lies
+    within `window` of 0, or, with dL/dladj != 0, some transform input
+    within `window` of a knot of its spline), as ``_kink_rows`` and
+    ``_made_edge_rows`` find them without a float64 copy of the flow."""
+    from pocomc_tpu_torch.models import transforms as tr
+    n, d = x.shape
+    near = torch.zeros(n, dtype=torch.bool, device=x.device)
+    xs = [x.double()]
+    for t in range(fp.ws[0].shape[0]):
+        w = [a[t].double() for a in fp.ws]
+        b = [a[t].double() for a in fp.bs]
+        h = xs[-1] @ w[0] + b[0]
+        near |= (h.abs() < window).any(-1)
+        for l in (1, 2):
+            h = h + torch.relu(h) @ w[l] + b[l]
+            near |= (h.abs() < window).any(-1)
+        p = (torch.relu(h) @ w[3] + b[3]).reshape(n, d, fk.HEADS[head])
+        if head == "rqs":
+            knots = tr._rqs_setup(p, 8)[0]
+            near |= ((xs[-1][..., None] - knots).abs() < window).any(-1).any(-1) & (g_l != 0)
+        xs.append(fk._ELEMENT[head][0](xs[-1], p)[0])
+    return xs[:-1], xs[-1], near
+
+
+@pytest.mark.parametrize("arch,d,n", [("nsf3", 342, 8), ("maf3", 342, 8), ("nsf3", 683, 8),
+                                      ("maf3", 683, 8), ("nsf3", 1366, 8), ("maf3", 1366, 8),
+                                      ("nsf3", 2730, 4), ("maf3", 2730, 4)])
+def test_k1_backward_inverts_the_forward_at_every_width(cuda, arch, d, n):
+    """K1 and K1-bwd up to d = 2730 (h = 8192, the widest K1 runs), where
+    the plain VJP's d network VJPs a transform would read terabytes: held
+    to float64 through the forward's Jacobian J instead. x = K1(z) goes
+    back to z through the float64 forward within 1e-3 of max |z|; and
+    since g_z = J^-T (g_x - g_ladj grad log|det J|), the float64 forward's
+    VJP at x (``made_rqs_backward_ref``) of K1-bwd's g_z, with the same
+    g_ladj, gives back g_x within 1e-3 of max |g_x| (chip_smoke's gradient
+    tolerance past d = 10), rows on a ReLU kink or a float64 knot left out
+    (the gradient jumps there)."""
+    f = _grad_card_flow(d, arch, seed=d)
+    g = torch.Generator("cuda").manual_seed(n)
+    z = torch.randn(n, d, device="cuda", generator=g)
+    g_x = torch.randn(n, d, device="cuda", generator=g)
+    g_l = torch.randn(n, device="cuda", generator=g)
+    with torch.no_grad():
+        fp = f.params()
+        x, _, state = fk._launch_inverse(z, fp.ws, fp.bs, fp.inv_orders, f.head, True)
+        xs, back, edge = _forward_f64(fp, x, g_l, f.head)
+        assert float((back - z.double()).abs().max()) <= 1e-3 * float(z.abs().max())
+        g_x, g_l = g_x.masked_fill(edge[:, None], 0.0), g_l.masked_fill(edge, 0.0)
+        before = fk.ar_inverse_backward.launches + fk.ar_inverse_backward.launches_affine
+        g_z = fk.ar_inverse_backward(state, fp.ws, fp.bs, fp.inv_orders, g_x, g_l, f.head)
+        after = fk.ar_inverse_backward.launches + fk.ar_inverse_backward.launches_affine
+        assert after == before + 1 and bool(torch.isfinite(g_z).all())
+        g = g_z.double()
+        for t in reversed(range(len(xs))):
+            w = [a[t:t + 1].double() for a in fp.ws]
+            b = [a[t:t + 1].double() for a in fp.bs]
+            g = fk.made_rqs_backward_ref(xs[t], w, b, g, g_l.double(), head=f.head)[0]
+    assert float((g - g_x.double()).abs().max()) <= 1e-3 * float(g_x.abs().max())
 
 
 @pytest.mark.parametrize("arch", ["nsf6", "maf6"])

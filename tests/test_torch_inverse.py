@@ -7,8 +7,9 @@ closed forms for the degree-sorted unit order, is held to the plain
 version ``ar_inverse_ref`` (the same sums less exact zeros, in another
 order: 1e-10 in float64) on random masked weights, and to the JAX
 package's ``Flow.inverse`` (1e-5 on x, 1e-4 on the log-det).
-Also: ``convert.tensors_from_jax``'s device rule and K1's launch
-configuration."""
+Also: ``convert.tensors_from_jax``'s device rule, K1's and K1-bwd's launch
+configurations, and a plain mirror of the order in which K1-bwd's
+producer warp lands the pack in its ring and its consumers take it."""
 
 import numpy as np
 import jax
@@ -197,3 +198,167 @@ def test_k1_launch_config_refuses_what_no_block_holds():
     assert (R, W, blocks) == (1, 1, 1) and smem <= 227 * 1024
     with pytest.raises(ValueError, match="shared memory"):
         fk._launch_config(1, 2731, 16384)
+
+
+@pytest.mark.parametrize("head", ["rqs", "affine"])
+@pytest.mark.parametrize("n", [1, 256, 4096])
+@pytest.mark.parametrize("d", [2, 4, 10, 50, 171, 342, 683, 1366, 2730])
+def test_k1_backward_config_fits_a_hopper_block(d, n, head):
+    """K1-bwd launches at every width K1 launches, up to d = 2730 (h =
+    8192): every row has a warp, the block's shared memory (mbarriers,
+    ring, the warps' row states of 3h + 3 ceil(h/32) + 2d + OG floats) fits
+    the 227 KB a block may use, a stage holds at least 33 rows of a
+    24-column group (a larger group goes in fan-in chunks), and the
+    sweep's n=256 puts work on at least 128 of the 132 SMs."""
+    h = max(1 << (3 * d - 1).bit_length(), 32)
+    og = 24 if head == "rqs" else 4
+    fk._launch_config(n, d, h, head)
+    R, W, S, SL, blocks, smem = fk._backward_config(n, d, h, head)
+    assert R in (1, 2, 4) and 1 <= W <= 8 and 2 <= S <= 8 and SL % 4 == 0
+    assert blocks == -(-n // (R * W)) and (blocks - 1) * R * W < n
+    assert smem == 16 * S + 4 * (S * SL + R * W * (3 * h + 3 * -(-h // 32) + 2 * d + og))
+    assert smem <= 227 * 1024
+    assert ((SL - 24) // 24) & ~3 >= 32
+    if n >= 256:
+        assert blocks >= 128
+
+
+def test_k1_backward_config_refuses_where_k1_does():
+    """K1-bwd reads the state K1 writes, so its planner refuses exactly
+    where K1's does: from h = 16384 (d > 2730), though its own row state
+    there would leave room for a ring."""
+    fk._backward_config(1, 2730, 8192)
+    for config in (fk._launch_config, fk._backward_config):
+        with pytest.raises(ValueError, match="shared memory"):
+            config(1, 2731, 16384)
+
+
+def _round4(v):
+    return (v + 3) // 4 * 4
+
+
+def pack_groups(d, h, T, n_params):
+    """The groups of K1's pack in the order of its walk (``walk`` in
+    csrc/ar_walk.cuh): (ncg, fan, offset, floats) each, laid out as
+    ``group_floats`` says (ncg columns of round4(fan) floats, the biases
+    padded to 4); returns them and the pack's size."""
+    _, count = sorted_units(d, h)
+    groups, off = [], 0
+
+    def add(ncg, fan):
+        nonlocal off
+        floats = ncg * _round4(fan) + _round4(ncg)
+        groups.append((ncg, fan, off, floats))
+        off += floats
+
+    for _ in range(T):
+        for k in range(d):
+            if k >= 1:
+                nc = count[k] - count[k - 1]
+                gw = 4 if nc <= 4 else (8 if nc <= 8 else 24)
+                for l in range(3):
+                    for g0 in range(0, nc, gw):
+                        add(min(gw, nc - g0), k if l == 0 else count[k])
+            add(n_params, count[k])
+    return groups, off
+
+
+def back_schedule(groups, size, SL, R):
+    """K1-bwd's ring in plain numpy, on a pack whose floats are their own
+    offsets: the stages its producer warp fills (``BackProducer``: walk_back
+    order, i.e. the groups reversed; whole groups at a stage's end, batched
+    for one-row warps; larger groups in chunks of ``chunk_rows`` rows at a
+    stage's start, column by column, then the biases), and for each group
+    what its consumers read (``BackConsumer::push``: ``take_back`` or one
+    stage a group, then a stage a chunk): a list of (group, [(chunk's first
+    row, its column values (ncg, nf), its biases)]) and the count of stages
+    filled."""
+    pack = np.arange(size, dtype=np.float64)
+    stages = []
+    gathered, off = 0, size
+
+    def flush():
+        nonlocal gathered
+        if gathered:
+            st = np.full(SL, np.nan)
+            st[SL - gathered:] = pack[off:off + gathered]
+            stages.append(st)
+            gathered = 0
+
+    def chunk(ncg):
+        return ((SL - _round4(ncg)) // ncg) & ~3
+
+    for ncg, fan, _, floats in reversed(groups):
+        fanp, ch = _round4(fan), chunk(ncg)
+        if fanp <= ch:
+            if gathered + floats > SL:
+                flush()
+            off -= floats
+            gathered += floats
+            if R != 1:
+                flush()
+            continue
+        flush()
+        off -= floats
+        for i0 in range(0, fan, ch):
+            nf = min(ch, fan - i0)
+            nfp = _round4(nf)
+            st = np.full(SL, np.nan)
+            for jj in range(ncg):
+                st[jj * nfp:(jj + 1) * nfp] = pack[off + jj * fanp + i0:off + jj * fanp + i0 + nfp]
+            st[ncg * nfp:ncg * nfp + _round4(ncg)] = pack[off + ncg * fanp:
+                                                          off + ncg * fanp + _round4(ncg)]
+            stages.append(st)
+    flush()
+    reads, nxt, held, used = [], 0, False, 0
+    for grp in reversed(groups):
+        ncg, fan, _, floats = grp
+        fanp, ch = _round4(fan), chunk(ncg)
+        if fanp <= ch:
+            if R == 1 and held and used + floats <= SL:
+                used += floats
+                st, at = stages[nxt - 1], SL - used
+            else:
+                st, at = stages[nxt], SL - floats
+                nxt += 1
+                held, used = R == 1, floats
+            pieces = [(0, st[at:at + ncg * fanp].reshape(ncg, fanp)[:, :fan],
+                       st[at + ncg * fanp:at + ncg * fanp + ncg])]
+        else:
+            held, pieces = False, []
+            for i0 in range(0, fan, ch):
+                nf = min(ch, fan - i0)
+                st = stages[nxt]
+                nxt += 1
+                nfp = _round4(nf)
+                pieces.append((i0, st[:ncg * nfp].reshape(ncg, nfp)[:, :nf],
+                               st[ncg * nfp:ncg * nfp + ncg]))
+        reads.append((grp, pieces))
+    return reads, nxt, len(stages)
+
+
+@pytest.mark.parametrize("R", [1, 2])
+@pytest.mark.parametrize("d,h,T,n_params,SL", [
+    (2, 32, 2, 23, 4096), (4, 32, 2, 23, 4096), (10, 32, 3, 23, 4096), (10, 32, 2, 2, 4096),
+    (50, 256, 2, 23, 6168), (17, 64, 2, 23, 240), (10, 32, 2, 23, 120)])
+def test_k1_backward_stages_hold_the_groups_in_reverse(d, h, T, n_params, SL, R):
+    """What K1-bwd's consumers read from its ring, in the plain mirror
+    ``back_schedule``, is the pack's groups in walk_back order: each whole
+    group's columns and biases, each chunk's rows of every column, every
+    stage taken once. Stages of 4,096 floats hold several steps' groups at
+    d <= 10; 240 and 120 floats cut the wide groups into chunks (120: 4
+    rows of a 24-column group)."""
+    groups, size = pack_groups(d, h, T, n_params)
+    reads, taken, filled = back_schedule(groups, size, SL, R)
+    assert taken == filled
+    assert [g for g, _ in reads] == list(reversed(groups))
+    for (ncg, fan, off, _), pieces in reads:
+        fanp = _round4(fan)
+        cols = off + np.arange(ncg)[:, None] * fanp + np.arange(fan)[None, :]
+        np.testing.assert_array_equal(np.concatenate([c for _, c, _ in pieces], axis=1), cols)
+        for _, _, bias in pieces:
+            np.testing.assert_array_equal(bias, off + ncg * fanp + np.arange(ncg))
+    if R == 1 and SL == 4096:
+        assert filled < len(groups)
+    if R == 2:
+        assert filled == sum(len(p) for _, p in reads)

@@ -68,7 +68,7 @@ def build(name, edits):
     if proc.returncode != 0:
         sys.exit(f"k1_breakdown: nvcc failed for {name}:\n{proc.stderr}")
     fn = ctypes.CDLL(str(lib)).ar_inverse_launch
-    fn.argtypes = [ctypes.c_void_p if c == "P" else ctypes.c_int for c in "PPPIIIIPPIIIIIIP"]
+    fn.argtypes = [ctypes.c_void_p if c == "P" else ctypes.c_int for c in "PPPPPIIIIPPIIIIIIP"]
     return fn
 
 
@@ -96,7 +96,7 @@ def main():
             row = {"d": d, "n": n}
             for name, fn in fns.items():
                 def call(fn=fn):
-                    err = fn(z.data_ptr(), x.data_ptr(), ladj.data_ptr(), n, d, h, T,
+                    err = fn(z.data_ptr(), x.data_ptr(), ladj.data_ptr(), None, None, n, d, h, T,
                              pack.data_ptr(), fp.inv_orders.data_ptr(), fk.N_PARAMS, R, W, S, SL,
                              z.device.index, torch.cuda.current_stream().cuda_stream)
                     if err:
