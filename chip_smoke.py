@@ -50,7 +50,9 @@ printing one JSON line:
      and on plain autograd; the cost of the sweep's one scalar sync per
      step; the affine heads and K5 at the menu's shapes beside their plain
      versions, their bounds, K5's four products as torch.matmul and (n <=
-     4096) its backward's products as torch.matmul/bmm;
+     4096) its backward's products as torch.matmul/bmm; K2's backward also
+     at d=50, n=1024 (the d=50 training batch), and its products, both
+     heads, as torch.matmul/bmm;
   6. the main path: ``Sampler`` on the 10-D Rosenbrock quickstart with an
      N(0, 3) prior and default settings, ``run(n_total=4096,
      n_evidence=4096)``, checked against the exact logZ -21.4021 (+-0.35)
@@ -103,9 +105,11 @@ printing one JSON line:
      fan-in chunks) through the kernels by autograd against plain autograd
      of the plain inverses (``check_gradient``: rows on a knot or a ReLU kink
      left out; each also against float64), then their device and eager
-     times beside their plain versions, the forward each gradient needs
-     (K1's save instance, which writes K1-bwd's state, beside K1 without
-     it; K5's forward that saves the layer inputs) and their bounds; (b)
+     times beside their plain versions, the inverse's save instance each
+     gradient reads (K1's, which writes K1-bwd's state, and K5's inverse's,
+     which writes K5-inv-bwd's) beside the inverse without it, and their
+     bounds; the save instance must give the inverse's x and log-det bit
+     for bit; (b)
      phase 6's quickstart with
      ``sample="mala"`` and with ``"hmc"`` (the same logZ gate, launches of
      K2, K1 and K1-bwd, sweep steps and ms a sweep step); (c)
@@ -113,7 +117,8 @@ printing one JSON line:
      analytic logZ +-0.35); (d) a preconditioned mala sweep of 20 steps at
      d=10, n=256 on phase 12's random maf6 and nsfc6 flows (finite states,
      mean acceptance in (0.2, 0.98), launches of K1-bwd's affine head and
-     of K5-inv-bwd); (e) the same 20-step mala sweep on random nsf flows
+     of K5-inv-bwd, and no K5 forward launch in nsfc6's 20 steps: its
+     gradient reads the inverse's saved state); (e) the same 20-step mala sweep on random nsf flows
      at d=50, nsf6, n=4096 (ms a step, acceptance) and at d=342, nsf3,
      n=256 (it must run: finite states and gradients).
 
@@ -145,8 +150,8 @@ SEED = 0
 SHAPES = [("nsf6", 10, 37), ("nsf6", 10, 256), ("nsf6", 10, 1024), ("nsf6", 10, 2048),
           ("nsf6", 10, 4096), ("nsf6", 50, 256), ("nsf6", 50, 4096),
           ("nsf3", 2, 256), ("nsf3", 2, 2048), ("nsf3", 4, 128), ("nsf3", 4, 512)]
-# the shapes phase 5 times
-TIMED = [(d, n) for flow, d, n in SHAPES if flow == "nsf6" and n != 37]
+# the shapes phase 5 times: those, and d=50 at the training batch (1024)
+TIMED = sorted({(d, n) for flow, d, n in SHAPES if flow == "nsf6" and n != 37} | {(50, 1024)})
 # stated tolerances: rtol/atol on z and x, atol on ladj, and on gradients
 # max |diff| over max |grad| of each tensor. At d=10 the kernel and torch
 # sum the same ~1.5k terms per output in another order; at d=50 (h=256)
@@ -814,18 +819,23 @@ def matmul_products(flow, x):
 
 
 def backward_matmul_products(flow, x, acts, g, weight_grads=True):
-    """K5 backward's products as torch.matmul (addmm, mm, bmm) on its shapes
-    at the rows x: the output layer's product again, relu(h2) W3 + b3, then
-    delta W^T back through the four layers (g3 W3^T, g2 W2^T, g1 W1^T, g0
-    W0^T), and the weight gradients A^T delta of every layer as one bmm over
-    the T transforms, without the spline's VJP, the masks or the residual
-    adds; ``acts`` are the saved layer inputs and ``g`` the four deltas
-    (T, n, .), the layout the kernel writes. The library's time for the
-    work of the backward's products; without ``weight_grads``, those of
-    K5-inv-bwd, which has no weight gradients."""
+    """K5's or K2's backward's products as torch.matmul (addmm, mm, bmm) on
+    its shapes at the rows x: the output layer's product again, relu(h2) W3
+    + b3, then delta W^T back through the four layers (g3 W3^T, g2 W2^T, g1
+    W1^T, g0 W0^T), and the weight gradients A^T delta of every layer as
+    one bmm over the T transforms, without the head's VJP, the ReLU masks
+    or the residual adds (a MADE stack's masked weights dense); ``acts``
+    are the saved layer inputs and ``g`` the four deltas (T, n, .), the
+    layout the kernel writes. The library's time for the work of the
+    backward's products; without ``weight_grads``, those of K5-inv-bwd,
+    which has no weight gradients."""
     fp = flow.params()
+    ws, bs = fp.ws, fp.bs
+    if flow.kind != "nsfc":  # a MADE stack's layers are stacked over T
+        ws = [[w[t] for w in fp.ws] for t in range(flow.n_transforms)]
+        bs = [[b_[t] for b_ in fp.bs] for t in range(flow.n_transforms)]
     for t in reversed(range(flow.n_transforms)):
-        w, b = fp.ws[t], fp.bs[t]
+        w, b = ws[t], bs[t]
         n3 = w[3].shape[1]
         torch.addmm(b[3], acts[3][t], w[3])
         g2 = torch.mm(g[3][t][:, :n3], w[3].T)
@@ -899,21 +909,28 @@ def gradient_kernel(flow):
 
 def inverse_routes(flow):
     """(inverse kernel, plain inverse, the gradient kernel's call, its plain
-    twin, the forward the gradient needs) of a flow's stack, each on
-    FlowParams or CouplingParams p. The gradient kernel's call takes (data,
-    p, g_x, g_ladj): K1-bwd's data is the state that K1's save instance
-    writes, which the last route gives from z as (x, ladj, state);
-    K5-inv-bwd's is x, and its forward is K5's at x, saving the layer
-    inputs."""
+    twin, the inverse's save instance, the twin's point) of a flow's
+    stack, each on FlowParams or CouplingParams p. The gradient kernel's
+    call takes (data, p, g_x, g_ladj): its data is the state that the
+    inverse's save instance writes (K1's for K1-bwd, K5's inverse's for
+    K5-inv-bwd), which the fifth route gives from z as (x, ladj, state).
+    The plain twin takes the same arguments, its data from the last route
+    at (z, x, p) in p's precision, computed by plain code alone: x, the
+    inverse's output, for K1-bwd's twin (the forward's state at x); for
+    K5-inv-bwd's, the plain save mode's state at z (the inverse's own
+    intermediates)."""
     from pocomc_tpu_torch.ops import coupling_kernels as ck, flow_kernels as fk
     if flow.kind == "nsfc":
         return (lambda v, p: ck.coupling_inverse(v, p.ws, p.bs, p.masks),
                 lambda v, p: ck.coupling_inverse_ref(v, p.ws, p.bs, p.masks),
-                lambda x, p, gx, gl: ck.coupling_inverse_backward(x, p.ws, p.bs, p.masks, gx,
-                                                                  gl),
-                lambda x, p, gx, gl: ck.coupling_inverse_vjp_ref(x, p.ws, p.bs, p.masks, gx,
-                                                                 gl),
-                lambda z, x, p: ck.coupling_forward(x, p.ws, p.bs, p.masks, save_inputs=True))
+                lambda state, p, gx, gl: ck.coupling_inverse_backward(state, p.ws, p.bs,
+                                                                      p.masks, gx, gl),
+                lambda state, p, gx, gl: ck.coupling_inverse_vjp_ref(state, p.ws, p.bs,
+                                                                     p.masks, gx, gl),
+                lambda z, x, p: ck._launch_stack(z, p.ws, p.bs, p.masks, True, True,
+                                                 "coupling_inverse"),
+                lambda z, x, p: ck.coupling_inverse_ref(z.to(p.ws[0][0].dtype), p.ws, p.bs,
+                                                        p.masks, save_inputs=True)[2])
     head = flow.head
     return (lambda v, p: fk.ar_inverse(v, p.ws, p.bs, p.inv_orders, head=head),
             lambda v, p: fk.ar_inverse_ref(v, p.ws, p.bs, p.inv_orders, head=head),
@@ -921,7 +938,8 @@ def inverse_routes(flow):
                                                             gx, gl, head),
             lambda x, p, gx, gl: fk.ar_inverse_vjp_ref(x, p.ws, p.bs, p.inv_orders, gx, gl,
                                                        head),
-            lambda z, x, p: fk._launch_inverse(z, p.ws, p.bs, p.inv_orders, head, True))
+            lambda z, x, p: fk._launch_inverse(z, p.ws, p.bs, p.inv_orders, head, True),
+            lambda z, x, p: x.to(p.ws[0].dtype))
 
 
 def rows_past(label, got, want, limit, near):
@@ -947,17 +965,24 @@ def check_gradient(name, d, n, flow, rng):
     TOL's gradient tolerance of the largest, or within twice the plain
     fp32 version's own distance to float64 where that is larger (the
     spread that decides K2's gate, here measured against the plain VJP in
-    float64 at the same x), a row past the limit lying within 1e-3 of a
-    jump (``rows_past``: the two routes evaluate the gradient at points
-    that differ by the inverse's fp32 error); and, at the same x, to the
-    plain VJP in float64 within K5's rule (the tolerance, or 4x the
-    plain fp32 VJP's own distance to it), every row. Rows on a float64
+    float64 at the same point), a row past the limit lying within 1e-3 of
+    a jump (``rows_past``: the two routes evaluate the gradient at points
+    that differ by the inverse's fp32 error); and, at the same point, to
+    the plain VJP in float64 within K5's rule (the tolerance, or 4x the
+    plain fp32 VJP's own distance to it), every row. The same point is x
+    for K1-bwd (the plain VJP takes the forward's state at x) and z for
+    K5-inv-bwd: the plain save mode's state at z, in fp32 and in float64,
+    which differentiates at the inverse's own intermediates, as
+    ``jax.vjp`` and the kernel do (at nsfc12, d=50 a forward recomputed
+    at x moved the float64 g_z 4.4 from the kernel's, past the 4x rule's
+    3.96), and reads nothing the kernels wrote. Rows on a float64
     knot with dL/dladj != 0 and rows on a ReLU kink are left out (their
-    gradient jumps). The kernel's direct call, on the state K1's save
-    instance writes at the same z, gives the autograd route's bits.
-    Returns (the numbers, max |diff|)."""
+    gradient jumps). The kernel's direct call, on the state the inverse's
+    save instance writes at the same z, gives the autograd route's bits,
+    and the save instance's x and log-det are the inverse's without the
+    save, bit for bit. Returns (the numbers, max |diff|)."""
     from pocomc_tpu_torch.mcmc import _detached
-    inv, ref, bwd, twin, saving = inverse_routes(flow)
+    inv, ref, bwd, twin, saving, point = inverse_routes(flow)
     kname = gradient_kernel(flow)
     tol = TOL[min(max(d, 10), 50)]["grad"]
     fp = _detached(flow.params())
@@ -966,8 +991,10 @@ def check_gradient(name, d, n, flow, rng):
               for _ in range(2))
     g_l = torch.from_numpy(rng.standard_normal(n).astype(np.float32)).cuda()
     with torch.no_grad():
-        x, _ = inv(z, fp)
-        data = x if flow.kind == "nsfc" else saving(z, x, fp)[2]
+        x, ladj = inv(z, fp)
+        x_s, ladj_s, data = saving(z, x, fp)
+    if not (torch.equal(x_s, x) and torch.equal(ladj_s, ladj)):
+        fail(f"{name} d={d} n={n}: the inverse's save instance changed its x or log-det")
     edge = knot_rows(flow, x, g_l) | kink_rows(flow, x)
     g_x, g_l = g_x.masked_fill(edge[:, None], 0.0), g_l.masked_fill(edge, 0.0)
 
@@ -981,8 +1008,8 @@ def check_gradient(name, d, n, flow, rng):
     launched = getattr(*_counter(kname)) - before
     g_p = by_autograd(ref)
     with torch.no_grad():
-        g_e = twin(x.double(), fp64, g_x.double(), g_l.double())
-        g_t = twin(x, fp, g_x, g_l)
+        g_e = twin(point(z, x, fp64), fp64, g_x.double(), g_l.double())
+        g_t = twin(point(z, x, fp), fp, g_x, g_l)
         direct = bwd(data, fp, g_x, g_l)
     torch.cuda.synchronize()
     label = f"{kname} {name} d={d} n={n}"
@@ -999,7 +1026,7 @@ def check_gradient(name, d, n, flow, rng):
                plain_vs_f64=spread, kernel_vs_f64=max_err(g_k.double(), g_e),
                rows_near_a_jump=int(near.sum()),
                rows_past_limit=rows_past(f"{label} vs plain autograd", g_k, g_p, limit, near))
-    out["vs_float64"] = check_vs_float64(f"{label} vs float64 at the same x", g_k, g_t, g_e,
+    out["vs_float64"] = check_vs_float64(f"{label} vs float64 at the same point", g_k, g_t, g_e,
                                          tol * float(g_e.abs().max()))
     return out, e_kp
 
@@ -1012,8 +1039,8 @@ def gradient_bounds(n, flow):
     and the weights read once, g_z written once, at the HBM rate: what the
     function needs. K1's saved state is an intermediate of this design, not
     an input of the function, so its size is reported beside the bound
-    (``k1_state_bytes``) and moves no roofline; the forward the gradient
-    needs (K1's save instance, or a K5 launch) is timed beside it."""
+    (``k1_state_bytes``) and moves no roofline; the inverse's save
+    instance that writes the state is timed beside it."""
     d, h, T = flow.n_dim, flow.n_hidden, flow.n_transforms
     if flow.kind == "nsfc":
         total = sum(w.numel() for w in flow.weights)
@@ -1176,6 +1203,7 @@ def main():
         with torch.no_grad():
             fp = flow.params()
             _, _, acts = fk.made_rqs_forward(y, fp.ws, fp.bs, save_inputs=True)
+            deltas = [torch.randn(w.shape[0], n, w.shape[2], device="cuda") for w in fp.ws]
             orders_cpu = fp.inv_orders.cpu()
             reps_plain = 3 if d == 50 else 10
             calls = {
@@ -1184,6 +1212,7 @@ def main():
                 "k2_bwd": (lambda: fk.made_rqs_backward(y, fp.ws, fp.bs, g_z, g_l, acts), 20),
                 "k2_bwd_plain": (lambda: fk.made_rqs_backward_ref(y, fp.ws, fp.bs, g_z, g_l,
                                                                   acts), reps_plain),
+                "k2_bwd_matmul": (lambda: backward_matmul_products(flow, y, acts, deltas), 20),
                 "k1": (lambda: fk.ar_inverse(y, fp.ws, fp.bs, fp.inv_orders), 20),
                 "k1_plain": (lambda: fk.ar_inverse_ref(y, fp.ws, fp.bs, orders_cpu),
                              reps_plain)}
@@ -1274,6 +1303,7 @@ def main():
                 bounds = coupling_bounds(n, flow)
             else:
                 acts = fk.made_rqs_forward(y, fp.ws, fp.bs, save_inputs=True, head="affine")[2]
+                deltas = [torch.randn(w.shape[0], n, w.shape[2], device="cuda") for w in fp.ws]
                 orders_cpu = fp.inv_orders.cpu()
                 calls = {
                     "made_rqs_forward_affine": (lambda: fk.made_rqs_forward(
@@ -1284,6 +1314,8 @@ def main():
                         y, fp.ws, fp.bs, g_z, g_l, acts, head="affine"), 20),
                     "made_rqs_backward_affine_plain": (lambda: fk.made_rqs_backward_ref(
                         y, fp.ws, fp.bs, g_z, g_l, acts, head="affine"), reps_plain),
+                    "made_rqs_backward_affine_matmul": (lambda: backward_matmul_products(
+                        flow, y, acts, deltas), 20),
                     "ar_inverse_affine": (lambda: fk.ar_inverse(
                         y, fp.ws, fp.bs, fp.inv_orders, head="affine"), 20),
                     "ar_inverse_affine_plain": (lambda: fk.ar_inverse_ref(
@@ -1563,7 +1595,7 @@ def main():
         if n == 37:
             continue
         flow, rng = flows[name, d]
-        inv, _, bwd, twin, saving = inverse_routes(flow)
+        inv, _, bwd, twin, saving, point = inverse_routes(flow)
         fp = _detached(flow.params())
         kname = gradient_kernel(flow)
         x, g_x = (torch.from_numpy(rng.standard_normal((n, d)).astype(np.float32)).cuda()
@@ -1573,26 +1605,23 @@ def main():
         # the plain twin reads the visit orders on the host, as phase 5's K1
         fp_host = fp if flow.kind == "nsfc" else fp._replace(inv_orders=fp.inv_orders.cpu())
         with torch.no_grad():
-            data = x
-            if flow.kind == "nsfc":
-                forward = {"saving_forward": (lambda: saving(None, x, fp), 20)}
-            else:
-                # K1-bwd on the state K1's save instance writes at z, x its
-                # output; K1 without the save beside it
-                z = x
-                x, _, data = saving(z, None, fp)
-                forward = {"k1_save": (lambda: saving(z, None, fp), 20),
-                           "k1": (lambda: inv(z, fp), 20)}
+            # the kernel on the state the inverse's save instance writes at
+            # z, x its output; the inverse without the save beside it
+            z = x
+            x, _, data = saving(z, None, fp)
+            key = "k5_inv" if flow.kind == "nsfc" else "k1"
+            forward = {f"{key}_save": (lambda: saving(z, None, fp), 20),
+                       key: (lambda: inv(z, fp), 20)}
+            plain_at = point(z, x, fp)
             calls = {kname: (lambda: bwd(data, fp, g_x, g_l), 20),
-                     f"{kname}_plain": (lambda: twin(x, fp_host, g_x, g_l), reps_plain),
+                     f"{kname}_plain": (lambda: twin(plain_at, fp_host, g_x, g_l), reps_plain),
                      **forward}
             if flow.kind == "nsfc":
-                acts = saving(None, x, fp)[2]
                 T, h = flow.n_transforms, flow.n_hidden
                 deltas = [torch.randn(T, n, k, device="cuda")
                           for k in (h, h, h, (d + 1) // 2 * 23)]
                 calls[f"{kname}_matmul"] = (lambda: backward_matmul_products(
-                    flow, x, acts, deltas, weight_grads=False), 20)
+                    flow, x, data[:4], deltas, weight_grads=False), 20)
             row = dict(kernel=kname, flow=name, d=d, n=n)
             for key, (fn, reps) in calls.items():
                 row[f"{key}_ms"] = graph_ms(fn, reps)
@@ -1678,17 +1707,20 @@ def main():
             st = sweep.init_state(u, x, ldj, unit_gauss(x), prior10.logpdf(x), 2.38 / 10 ** 0.5,
                                   geom, fp, beta=1.0, scp=scp10)
             accepts = []
+            forwards = ck.coupling_forward.launches
             for _ in range(20):
                 prop = sweep.propose(st, geom, fp, scp10, sweep.draw_noise(st, geom, g),
                                      beta=1.0)
                 st, _ = sweep.accept_update(st, prop, prop["logl"], 1.0, geom)
                 accepts.append(float(st.accept))
+            forwards = ck.coupling_forward.launches - forwards
             torch.cuda.synchronize()
         counts = read_launches(fk, (kname,))
         by_path[f"gradient_head_{name}"] = counts
         finite = all(bool(torch.isfinite(a).all()) for a in (st.u, st.x, st.logl, st.grad))
         row = dict(flow=name, kernel=kname, steps=st.i, mean_accept=statistics.mean(accepts),
-                   sigma=float(st.sigma), finite=finite, launches=counts)
+                   sigma=float(st.sigma), finite=finite, launches=counts,
+                   coupling_forward_launches_in_steps=forwards)
         head_sweeps.append(row)
         if not finite:
             fail(f"gradient_head_{name}: the sweep's state is not finite")
@@ -1697,6 +1729,8 @@ def main():
                  f"(0.2, 0.98)")
         if not counts[kname]:
             fail(f"gradient_head_{name}: {kname} was never launched")
+        if forwards:
+            fail(f"gradient_head_{name}: {forwards} K5 forward launches in the mala steps")
     # (e) the same sweep on random nsf flows past d=10: d=50, nsf6 at n=4096
     # (ms a step and acceptance) and d=342, nsf3 at n=256 (h=2048: K1-bwd's
     # groups in fan-in chunks; it must run, with finite states and
@@ -1795,6 +1829,16 @@ def main():
                      "call_ms": row[f"{key}_call_ms"],
                      "plain_call_ms": row[f"{key}_plain_call_ms"],
                      "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None})
+        if name == "made_rqs_backward":
+            # its products as torch.matmul, and the shapes at d=50: the
+            # training batch and the evidence draws' row count
+            flow50 = flows["nsf6", 50][0]
+            line[-1].update(backward_products_matmul_ms=row["k2_bwd_matmul_ms"], d50=[dict(
+                n=r["n"], ms=r["k2_bwd_ms"], call_ms=r["k2_bwd_call_ms"],
+                plain_ms=r["k2_bwd_plain_ms"],
+                bound_ms=made_bounds(r["n"], flow50)[name][0],
+                backward_products_matmul_ms=r["k2_bwd_matmul_ms"])
+                for r in times if r["d"] == 50 and r["n"] in (1024, 4096)])
         if name == "ar_inverse":
             bridge_row = next(r for r in times if r["d"] == 10 and r["n"] == 1024)
             line[-1].update(chain_ms=chain["k1_chain_ms_d10"],
@@ -1818,6 +1862,12 @@ def main():
                  "call_ms": row[f"{name}_call_ms"], "plain_call_ms": row[f"{name}_plain_call_ms"],
                  "bound_ms": row[f"{name}_bound_ms"], "bound_by": row[f"{name}_bound_by"],
                  "library_ms": None, "flow": flow_name, "d": 10, "n": n}
+        if name == "made_rqs_backward_affine":
+            entry["backward_products_matmul_ms"] = row[f"{name}_matmul_ms"]
+            entry["d50"] = [dict(n=r["n"], ms=r[f"{name}_ms"], plain_ms=r[f"{name}_plain_ms"],
+                                 bound_ms=r[f"{name}_bound_ms"],
+                                 backward_products_matmul_ms=r[f"{name}_matmul_ms"])
+                            for r in menu_times if r["flow"] == "maf6" and r["d"] == 50]
         if name.startswith("coupling"):
             if name != "coupling_backward":
                 entry["products_matmul_ms"] = row["coupling_matmul_ms"]
@@ -1838,9 +1888,8 @@ def main():
                     for r in menu_times if r["flow"] == "nsfc12" and r["n"] in (1024, 4096)]
         line.append(entry)
     # the gradient kernels at the sweep's population (d=10, n=256) of their
-    # flows, beside the forward each needs: K1's save instance (and K1
-    # without it) for K1-bwd, the K5 forward that saves the layer inputs
-    # for K5-inv-bwd
+    # flows, beside the inverse's save instance each reads and the inverse
+    # without the save: K1's for K1-bwd, K5's for K5-inv-bwd
     grad_sources = {
         "ar_inverse_backward": ("pocomc_tpu_torch/csrc/ar_inverse_backward.cu",
                                 "pocomc_tpu/mcmc.py:350"),
@@ -1860,8 +1909,14 @@ def main():
                  "bound_ms": row[f"{name}_bound_ms"], "bound_by": row[f"{name}_bound_by"],
                  "library_ms": None, "flow": row["flow"], "d": 10, "n": 256}
         if name == "coupling_inverse_backward":
-            entry.update(saving_forward_ms=row["saving_forward_ms"],
-                         products_matmul_ms=row[f"{name}_matmul_ms"])
+            entry.update(k5_inv_save_ms=row["k5_inv_save_ms"], k5_inv_ms=row["k5_inv_ms"],
+                         products_matmul_ms=row[f"{name}_matmul_ms"],
+                         d50=[dict(n=r["n"], ms=r[f"{name}_ms"], plain_ms=r[f"{name}_plain_ms"],
+                                   bound_ms=r[f"{name}_bound_ms"],
+                                   k5_inv_save_ms=r["k5_inv_save_ms"],
+                                   k5_inv_ms=r["k5_inv_ms"],
+                                   products_matmul_ms=r[f"{name}_matmul_ms"])
+                              for r in grad_times if r["kernel"] == name and r["d"] == 50])
         else:
             entry.update(k1_save_ms=row["k1_save_ms"], k1_ms=row["k1_ms"],
                          k1_state_bytes=row["k1_state_bytes"])

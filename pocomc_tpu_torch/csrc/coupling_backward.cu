@@ -16,421 +16,66 @@
 // d=10 it is latency: a chain of T transforms, each a spline backward and
 // four transposed products, with block barriers between.
 //
-// Design: the register tiles and weight ring of coupling_tile.cuh. A
-// block of 8 consumer warps owns BM rows (8*RM on a Tile, RM on a Row; a
-// producer warp streams the weights, the output layer and every W^T from
-// the wrapper's packed copies, every slab one bulk copy) and walks the
-// transforms in reverse, reading the layer inputs the forward kernel
-// saved. The output layer runs a group of G
-// whole transformed dimensions at a time: the group's spline parameters
-// from relu(h2) (an RM x RNO tile a thread, the forward's sum order), the
-// spline's VJP of its BM*G (row, dim) pairs
-// (rqs.cuh rqs_forward_vjp, one thread each), then their gradients through
-// W3^T into an RM x RNH accumulator that stays in registers across the
-// groups (where h is wider than a pass, h > 512, a pass of columns at a
-// time into a second hidden buffer, each column's sum in the same order).
-// Then delta W^T back through the residual layers and the input
-// layer, whose fan-in is the conditioning half: dL/dx_t of a conditioning
-// column is the net's gradient plus the pass-through dL/dx_{t+1}, of a
-// transformed column the spline's own. A product with W^T stages each slab
-// of W transposed and sums j, its contraction index, in ascending order.
-// Barriers among the consumer warps only where one warp's writes meet
-// another's reads: around the in-place updates (or the swap of the two
-// hidden buffers), the staging buffer and the spline's VJP.
-// The deltas of the four layers go to scratch (T, n, .), rows < n only,
-// the output layer's at the widest transformed half (ceil(d/2)*23 columns,
-// the columns a narrower half leaves set to 0); the wrapper takes the
-// weight gradients from them and the saved activations with batched
-// products and row sums over T, so no float atomics sit on the gradient
-// path and every run gives the same bits. fp32 FMAs only.
+// Design: stack_backward.cuh's kernel on the coupling network
+// (coupling_tile.cuh Coupling, the halves of make_coupling_masks) with the
+// spline head: a producer warp streams the output layer and every W^T from
+// the wrapper's packed copies into an S-stage ring, 8 consumer warps hold
+// register tiles of BM rows and walk the transforms in reverse over the
+// layer inputs the forward kernel saved.
 //
-// The inverse instances walk the same schedule with the same tiles, on the
-// layer inputs of the forward at the inverse's output x (the wrapper runs
-// K5's forward at x first): transforms 0..T-1 (the inverse ran T-1..0),
-// and the element step is the inverse's VJP (rqs.cuh rqs_inverse_vjp: g_z
-// of the transformed column from dL/dx, and the parameters' cotangent);
-// the conditioning columns take the same pass-through plus the net's
-// gradient. They write no deltas: the JAX package never differentiates the
-// inverse in the weights.
+// The inverse instances (INV, K5-inv-bwd) run on the state that K5's
+// inverse save instance wrote (coupling_forward.cu): each transform's x_t
+// as the inverse computed it (the point at which the JAX package's
+// jax.vjp differentiates), relu(h0..h2) and the output layer's spline
+// parameters, so no K5 forward runs in the gradient and the output layer's
+// product is not computed again. They walk transforms 0..T-1 with the
+// inverse's element VJP and write no deltas.
 #include <cuda_runtime.h>
 
-#include "coupling_tile.cuh"
+#include "stack_backward.cuh"
 
-namespace {
-
-using namespace pocomc;
-using k5::NP;
-using k5::Vec;
-using k5::col_of;
-using k5::row_of;
-
-// each layer's output delta g[l] (T, n, N_l), the output layer's at the
-// row width ldo
-struct Deltas {
-  float* g[4];
-  int ldo;
-};
-
-// [k][row] <- the block's rows of a row-major (n, w) array (0 past n)
-template <int BM, int BMP>
-__device__ __forceinline__ void load_k_major(float* dst, const float* src, int w, int row0,
-                                             int n) {
-  for (int idx = threadIdx.x; idx < BM * w; idx += THREADS) {
-    const int r = idx / w, c = idx - r * w;
-    dst[c * BMP + r] = row0 + r < n ? src[(size_t)(row0 + r) * w + c] : 0.0f;
-  }
-}
-
-template <class Ln, int RM, int RNH, int RNO, bool INV>
-__global__ void __launch_bounds__(k5::BLOCK, 1)
-    coupling_backward_kernel(Saved sv, const float* __restrict__ gz,
-                             const float* __restrict__ gladj, float* __restrict__ gy, Deltas dl,
-                             int n, k5::Coupling m, k5::Packed pk, int G, int BK, int S) {
-  extern __shared__ __align__(16) float smem[];
-  constexpr int BM = Ln::rows(RM), BMP = Ln::stride(RM);
-  using CR = Vec<RM>;
-  using CH = Vec<RNH>;
-  using CO = Vec<RNO>;
-  const int d = m.d, h = m.h;
-  const int nh = k5::multi_pass<Ln, RNH>() ? (h + Ln::cols(RNH) - 1) / Ln::cols(RNH) : 1;
-  const int per = 1 + nh;
-  float* X = smem;                         // [d][BMP]     the transform's input x_t
-  float* AG = X + d * BMP;                 // [h][BMP]     relu(h2), then dL/dh of the layer
-  float* B2 = nh > 1 ? AG + h * BMP : AG;  // [h][BMP]     g W3^T, then the next dL/dh (nh > 1)
-  float* P = AG + (nh > 1 ? 2 : 1) * h * BMP;  // [G*NP][BMP]  one group's spline parameters,
-                                               //              then their gradients
-  float* GX = P + G * NP * BMP;            // [d][BMP]     dL/dx_{t+1}, then dL/dx_t
-  float* GL = GX + d * BMP;                // [BM]         dL/dladj
-  k5::Ring ring = k5::make_ring(k5::Plan{m, G, BK, Ln::cols(RNH), true, !INV, pk}, smem,
-                                (GL + BM) - smem, S, BK, Ln::cols(RNH), Ln::cols(RNO));
-  if (threadIdx.x >= THREADS) {
-    k5::produce(ring);
-    return;
-  }
-  const k5::Plan& plan = ring.pl;
-  const Ln L;
-
-  const int row0 = blockIdx.x * BM;
-  load_k_major<BM, BMP>(GX, gz, d, row0, n);
-  for (int r = threadIdx.x; r < BM; r += THREADS) GL[r] = row0 + r < n ? gladj[row0 + r] : 0.0f;
-
-  for (int i = 0; i < m.T; ++i) {
-    const int t = plan.transform(i);
-    const int c0 = m.cond0(t), tr0 = m.trans0(t);
-    const int dout = m.n_trans(t) * NP, ng = plan.groups(t);
-    const size_t off = (size_t)t * n;
-    k5::consumer_sync();  // the transform before is done with X and AG
-    load_k_major<BM, BMP>(X, sv.a[0] + off * d, d, row0, n);
-    load_k_major<BM, BMP>(AG, sv.a[3] + off * h, h, row0, n);
-    k5::consumer_sync();
-    // the output delta's columns past this transform's half stay 0
-    for (int idx = threadIdx.x; !INV && idx < BM * (dl.ldo - dout); idx += THREADS) {
-      const int p = idx / (dl.ldo - dout), j = dout + idx - p * (dl.ldo - dout);
-      if (row0 + p < n) dl.g[3][(off + row0 + p) * dl.ldo + j] = 0.0f;
-    }
-    // -- output layer, a group at a time: params = relu(h2) W3 + b3, the
-    //    spline backward in place over them, then their part of g W3^T,
-    //    summed over the groups in registers (one pass of h) or, a pass of
-    //    columns at a time, in B2
-    const float* b3 = m.biases(t, 3);
-    float gacc[RM][RNH];
-    k5::zero(gacc);
-    for (int g = 0; g < ng; ++g) {
-      const k5::Pass q = plan.pass(t, g * per, nh);
-      {
-        float acc[RM][RNO];
-        k5::zero(acc);
-        k5::run_pass<RM, RNO, false>(acc, ring, q, AG, BMP, L);
-        if (g > 0) k5::consumer_sync();  // the group before is done with P
-#pragma unroll
-        for (int ci = 0; ci < CO::N; ++ci)
-#pragma unroll
-          for (int cj = 0; cj < CO::W; ++cj) {
-            const int col = col_of<RNO>(L, ci) + cj;
-            if (col >= q.no) continue;
-            const float b = __ldg(b3 + q.o0 + col);
-#pragma unroll
-            for (int ri = 0; ri < CR::N; ++ri) {
-              float o[CR::W];
-#pragma unroll
-              for (int rj = 0; rj < CR::W; ++rj)
-                o[rj] = acc[ri * CR::W + rj][ci * CO::W + cj] + b;
-              k5::store_vec<CR::W>(P + col * BMP + row_of<RM>(L, ri), o);
-            }
-          }
-      }
-      k5::consumer_sync();
-      const int k0 = q.o0 / NP, gd = q.no / NP;
-      for (int idx = threadIdx.x; idx < BM * gd; idx += THREADS) {
-        const int r = idx % BM, k = idx / BM, col = tr0 + k0 + k;
-        float p[NP];
-#pragma unroll
-        for (int j = 0; j < NP; ++j) p[j] = P[(k * NP + j) * BMP + r];
-        float* gx = GX + col * BMP + r;
-        if constexpr (INV) {
-          *gx = RqsHead::inverse_vjp(X[col * BMP + r], p, *gx, GL[r]);
-#pragma unroll
-          for (int j = 0; j < NP; ++j) P[(k * NP + j) * BMP + r] = p[j];
-        } else {
-          *gx = RqsHead::forward_vjp(X[col * BMP + r], p, *gx, GL[r]);
-          float* delta = dl.g[3] + (off + row0 + r) * dl.ldo + q.o0 + k * NP;
-          const bool real = row0 + r < n;
-#pragma unroll
-          for (int j = 0; j < NP; ++j) {
-            P[(k * NP + j) * BMP + r] = p[j];
-            if (real) delta[j] = p[j];
-          }
-        }
-      }
-      k5::consumer_sync();
-      if (nh == 1) {
-        k5::run_pass<RM, RNH, false>(gacc, ring, plan.pass(t, g * per + 1, nh), P, BMP, L);
-      } else {
-        for (int c = 0; c < nh; ++c) {
-          const k5::Pass qt = plan.pass(t, g * per + 1 + c, nh);
-          float acc[RM][RNH];
-          if (g == 0) {
-            k5::zero(acc);
-          } else {
-            k5::load_tile<RM, RNH, BMP>(acc, B2 + qt.o0 * BMP, qt.no, L);
-          }
-          k5::run_pass<RM, RNH, false>(acc, ring, qt, P, BMP, L);
-          k5::store_tile<RM, RNH, BMP>(acc, B2 + qt.o0 * BMP, qt.no, L);
-        }
-      }
-    }
-    // -- dL/dh2 = (g W3^T) masked by ReLU'(h2), in place over relu(h2)
-    auto mask_h2 = [&](float (&acc)[RM][RNH], int o0, int no) {
-#pragma unroll
-      for (int ci = 0; ci < CH::N; ++ci)
-#pragma unroll
-        for (int cj = 0; cj < CH::W; ++cj) {
-          const int col = col_of<RNH>(L, ci) + cj, c = ci * CH::W + cj;
-          if (col >= no) continue;
-#pragma unroll
-          for (int ri = 0; ri < CR::N; ++ri) {
-            float* ap = AG + (o0 + col) * BMP + row_of<RM>(L, ri);
-            float a[CR::W];
-            k5::load_vec<CR::W>(ap, a);
-#pragma unroll
-            for (int rj = 0; rj < CR::W; ++rj) {
-              a[rj] = a[rj] > 0.0f ? acc[ri * CR::W + rj][c] : 0.0f;
-              acc[ri * CR::W + rj][c] = a[rj];
-            }
-            k5::store_vec<CR::W>(ap, a);
-          }
-        }
-      if constexpr (!INV)
-        k5::store_rows<RM, RNH, false>(acc, dl.g[2] + off * h + o0, h, no, row0, n, L);
-    };
-    if (nh == 1) {
-      mask_h2(gacc, 0, h);
-    } else {
-      for (int c = 0; c < nh; ++c) {
-        const int o0 = c * plan.PW, no = min(plan.PW, h - o0);
-        float acc[RM][RNH];
-        k5::load_tile<RM, RNH, BMP>(acc, B2 + o0 * BMP, no, L);
-        mask_h2(acc, o0, no);
-      }
-    }
-    k5::consumer_sync();
-    // -- residual layers l = 2, 1: dL/dh_{l-1} = dL/dh_l + (dL/dh_l W_l^T
-    //    masked by ReLU'(h_{l-1})), relu(h_{l-1}) being the saved a[l]; in
-    //    place over AG with one pass of h, else into B2 and the two swap
-    for (int l = 2; l >= 1; --l) {
-      float* out = nh == 1 ? AG : B2;
-      for (int c = 0; c < nh; ++c) {
-        const k5::Pass q = plan.pass(t, ng * per + (2 - l) * nh + c, nh);
-        float acc[RM][RNH];
-        k5::zero(acc);
-        k5::run_pass<RM, RNH, false>(acc, ring, q, AG, BMP, L);
-        float a[RM][RNH];
-        k5::load_rows<RM, RNH>(a, sv.a[l] + off * h + q.o0, h, q.no, row0, n, L);
-        if (nh == 1) k5::consumer_sync();  // every thread has read dL/dh_l: update it in place
-#pragma unroll
-        for (int ci = 0; ci < CH::N; ++ci)
-#pragma unroll
-          for (int cj = 0; cj < CH::W; ++cj) {
-            const int col = col_of<RNH>(L, ci) + cj, c2 = ci * CH::W + cj;
-            if (col >= q.no) continue;
-#pragma unroll
-            for (int ri = 0; ri < CR::N; ++ri) {
-              const int at = (q.o0 + col) * BMP + row_of<RM>(L, ri);
-              float v[CR::W];
-              k5::load_vec<CR::W>(AG + at, v);
-#pragma unroll
-              for (int rj = 0; rj < CR::W; ++rj) {
-                const int r = ri * CR::W + rj;
-                v[rj] = v[rj] + (a[r][c2] > 0.0f ? acc[r][c2] : 0.0f);
-                acc[r][c2] = v[rj];
-              }
-              k5::store_vec<CR::W>(out + at, v);
-            }
-          }
-        if constexpr (!INV)
-          k5::store_rows<RM, RNH, false>(acc, dl.g[l - 1] + off * h + q.o0, h, q.no, row0, n,
-                                         L);
-      }
-      if (out != AG) {
-        B2 = AG;
-        AG = out;
-      }
-      k5::consumer_sync();
-    }
-    // -- input layer: the conditioning columns' net gradient dL/dh0 W0^T
-    //    plus their pass-through; the transformed columns hold the
-    //    spline's own since the VJP
-    for (int p = ng * per + 2 * nh; p < plan.passes(t, nh); ++p) {
-      const k5::Pass q = plan.pass(t, p, nh);
-      float acc[RM][RNH];
-      k5::zero(acc);
-      k5::run_pass<RM, RNH, false>(acc, ring, q, AG, BMP, L);
-#pragma unroll
-      for (int ci = 0; ci < CH::N; ++ci)
-#pragma unroll
-        for (int cj = 0; cj < CH::W; ++cj) {
-          const int col = col_of<RNH>(L, ci) + cj, c = ci * CH::W + cj;
-          if (col >= q.no) continue;
-#pragma unroll
-          for (int ri = 0; ri < CR::N; ++ri) {
-            float* gp = GX + (c0 + q.o0 + col) * BMP + row_of<RM>(L, ri);
-            float v[CR::W];
-            k5::load_vec<CR::W>(gp, v);
-#pragma unroll
-            for (int rj = 0; rj < CR::W; ++rj) v[rj] = acc[ri * CR::W + rj][c] + v[rj];
-            k5::store_vec<CR::W>(gp, v);
-          }
-        }
-    }
-  }
-  k5::consumer_sync();
-  for (int idx = threadIdx.x; idx < BM * d; idx += THREADS) {
-    const int r = idx / d, c = idx - r * d;
-    if (row0 + r < n) gy[(size_t)(row0 + r) * d + c] = GX[c * BMP + r];
-  }
-}
-
-struct Args {
-  Saved sv;
-  const float* gz;
-  const float* gladj;
-  float* gy;
-  Deltas dl;
-  int n;
-  k5::Coupling m;
-  k5::Packed pk;
-  int G, BK, S;
-  bool inverse;
-  size_t smem;
-  cudaStream_t stream;
-};
-
-template <class Ln, int RM, int RNH, int RNO, bool INV>
-int launch_dir(const Args& a) {
-  auto kernel = coupling_backward_kernel<Ln, RM, RNH, RNO, INV>;
-  cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)a.smem);
-  if (err != cudaSuccess) return (int)err;
-  constexpr int BM = Ln::rows(RM);
-  kernel<<<(a.n + BM - 1) / BM, k5::BLOCK, a.smem, a.stream>>>(
-      a.sv, a.gz, a.gladj, a.gy, a.dl, a.n, a.m, a.pk, a.G, a.BK, a.S);
-  return (int)cudaGetLastError();
-}
-
-// the backward's or the inverse's instance of a tile
-template <class Ln, int RM, int RNH, int RNO>
-int launch(const Args& a) {
-  return a.inverse ? launch_dir<Ln, RM, RNH, RNO, true>(a)
-                   : launch_dir<Ln, RM, RNH, RNO, false>(a);
-}
-
-// the compiled Tile instances: RM in {1, 2, 4, 8} with RM * (RNH + RNO)
-// <= 64, the two accumulators the output layer holds at once
-template <int RNH, int RNO>
-int by_rows(int RM, const Args& a) {
-  using k5::Tile;
-  constexpr int RN = RNH + RNO;
-  switch (RM) {
-    case 1: return launch<Tile, 1, RNH, RNO>(a);
-    case 2:
-      if constexpr (2 * RN <= 64) return launch<Tile, 2, RNH, RNO>(a);
-      break;
-    case 4:
-      if constexpr (4 * RN <= 64) return launch<Tile, 4, RNH, RNO>(a);
-      break;
-    case 8:
-      if constexpr (8 * RN <= 64) return launch<Tile, 8, RNH, RNO>(a);
-      break;
-  }
-  return (int)cudaErrorInvalidValue;
-}
-
-int by_tile(int RL, int BM, int RNH, int RNO, const Args& a) {
-  if (RL == 1) {
-    // the compiled Row instances: RM = BM in {1, 2, 4}, RNH 2, RNO 1
-    if (RNH != 2 || RNO != 1) return (int)cudaErrorInvalidValue;
-    if (BM == 1) return launch<k5::Row, 1, 2, 1>(a);
-    if (BM == 2) return launch<k5::Row, 2, 2, 1>(a);
-    if (BM == 4) return launch<k5::Row, 4, 2, 1>(a);
-    return (int)cudaErrorInvalidValue;
-  }
-  const int RM = BM / 8;
-  if (RNH == 1 && RNO == 4) return by_rows<1, 4>(RM, a);
-  if (RNH == 2 && RNO == 8) return by_rows<2, 8>(RM, a);
-  if (RNH == 4 && RNO == 8) return by_rows<4, 8>(RM, a);
-  if (RNH == 8 && RNO == 8) return by_rows<8, 8>(RM, a);
-  if (RNH == 16 && RNO == 8) return by_rows<16, 8>(RM, a);
-  return (int)cudaErrorInvalidValue;
-}
-
-}  // namespace
-
-// shared-memory floats of one block: the transform's input, relu(h2) (then
-// the hidden delta; twice where a hidden layer takes several passes), one
-// output group's parameters and the input gradient, each [.][BMP],
-// dL/dladj and the S-stage ring
+// shared-memory floats of one block (stack_backward.cuh smem_floats)
 extern "C" int coupling_backward_smem_floats(int RL, int BM, int RNH, int RNO, int G, int BK,
                                              int S, int d, int h) {
-  const int bmp = RL == 4 ? BM + 4 : BM, cl = RL == 4 ? 32 : 256;
-  const int hidden = h > cl * RNH ? 2 * h : h;
-  return bmp * (2 * d + hidden + G * pocomc::RqsHead::NP) + BM +
-         pocomc::k5::ring_floats(S, BK, cl * RNH, cl * RNO);
+  return pocomc::stack::smem_floats(RL, BM, RNH, RNO, G, BK, S, d, h, pocomc::RqsHead::NP);
 }
 
 // Plain C entry point, loaded with ctypes. a0 (T, n, d) and a1..a3
 // (T, n, h) are the inputs of every layer's product as the forward kernel
 // saved them; gz (n, d) and gladj (n,) are dL/dz and dL/dladj; gy (n, d)
 // receives dL/dx and g0..g2 (T, n, h), g3 (T, n, ceil(d/2)*23) the deltas
-// of the four layers. With inverse != 0, the gradient of the inverse: a0..a3
-// saved by the forward at x, the inverse's output, gz and gladj dL/dx and
-// dL/dladj of the inverse, gy receives dL/dz, and g0..g3 are not written
-// (null). table and the tile (RL, BM, RNH, RNO, G, BK, S) as
-// for coupling_forward_launch; w3 and wt the weights packed as
+// of the four layers. With inverse != 0, the gradient of the inverse:
+// a0..a3 and ap (T, n, ceil(d/2)*23; or null, and the kernel computes the
+// parameters from a3) the state K5's inverse save instance wrote, gz and
+// gladj dL/dx and dL/dladj of the inverse, gy receives dL/dz, and g0..g3
+// are not written (null). table and the tile (RL, BM, RNH, RNO, G, BK, S)
+// as for coupling_forward_launch; w3 and wt the weights packed as
 // coupling_tile.cuh Packed describes (w3 as for coupling_forward_launch, wt
 // each transform's W^T in passes of the hidden pass width; 16-byte
 // aligned). Launches on `stream` and returns cudaGetLastError().
 extern "C" int coupling_backward_launch(const float* a0, const float* a1, const float* a2,
-                                        const float* a3, const float* gz, const float* gladj,
-                                        float* gy, int n, int d, int h, int T,
-                                        const float* const* table, const float* w3,
-                                        const float* wt, float* g0, float* g1,
-                                        float* g2, float* g3, int RL, int BM, int RNH, int RNO,
-                                        int G, int BK, int S, int inverse, int device,
-                                        void* stream) {
-  if (w3 == nullptr || wt == nullptr) return (int)cudaErrorInvalidValue;
+                                        const float* a3, const float* ap, const float* gz,
+                                        const float* gladj, float* gy, int n, int d, int h,
+                                        int T, const float* const* table, const float* w3,
+                                        const float* wt, float* g0, float* g1, float* g2,
+                                        float* g3, int RL, int BM, int RNH, int RNO, int G,
+                                        int BK, int S, int inverse, int device, void* stream) {
+  if (w3 == nullptr || wt == nullptr || (!inverse && ap != nullptr))
+    return (int)cudaErrorInvalidValue;
   if (!inverse && (g0 == nullptr || g1 == nullptr || g2 == nullptr || g3 == nullptr))
     return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   const size_t smem =
       sizeof(float) * (size_t)coupling_backward_smem_floats(RL, BM, RNH, RNO, G, BK, S, d, h);
-  if (!pocomc::k5::k5_args_ok(RL, BM, RNH, RNO, G, BK, S, d, h, smem))
-    return (int)cudaErrorInvalidValue;
   const pocomc::k5::Coupling m{table, d, h, T};
-  const Args a{pocomc::Saved{{const_cast<float*>(a0), const_cast<float*>(a1),
-                              const_cast<float*>(a2), const_cast<float*>(a3)}},
-               gz, gladj, gy, Deltas{{g0, g1, g2, g3}, m.half() * pocomc::RqsHead::NP}, n, m,
-               pocomc::k5::Packed{w3, wt, ((d + 1) / 2 + G - 1) / G}, G, BK, S, inverse != 0,
-               smem, (cudaStream_t)stream};
-  return by_tile(RL, BM, RNH, RNO, a);
+  if (!pocomc::k5::k5_args_ok(RL, BM, RNH, RNO, G, BK, S, m, smem))
+    return (int)cudaErrorInvalidValue;
+  const pocomc::stack::Args a{
+      pocomc::Saved{{const_cast<float*>(a0), const_cast<float*>(a1), const_cast<float*>(a2),
+                     const_cast<float*>(a3)}},
+      ap, gz, gladj, gy, pocomc::stack::Deltas{{g0, g1, g2, g3}, m.half() * pocomc::RqsHead::NP},
+      n, m, pocomc::k5::Packed{w3, wt, ((d + 1) / 2 + G - 1) / G}, G, BK, S, inverse != 0, smem,
+      (cudaStream_t)stream};
+  return pocomc::stack::by_tile<pocomc::RqsHead, true>(RL, BM, RNH, RNO, a);
 }

@@ -35,10 +35,17 @@
 // ring in slabs of BK rows, in the walk's order of transforms, each
 // transform's weights its own tensors, read through a device table of 8T
 // pointers (the output layers from the wrapper's packed copy).
-// With `sv` set (the forward only) it also writes every layer's input of
-// every transform, (T, n, d) x_t and (T, n, h) relu(h0..h2), which the
+// With `sv` set it also writes every layer's input of every transform,
+// (T, n, d) x_t and (T, n, h) relu(h0..h2): in the forward, what the
 // backward kernel (coupling_backward.cu) and the weight-gradient products
-// take. fp32 FMAs only: no tensor cores, no fast-math.
+// take; in the inverse (its save instance), the state of K5-inv-bwd, x_t
+// being the transform's data-side value after its splines (the inverse's
+// own intermediate; the conditioning columns pass through, so relu(h0..h2)
+// equal a forward's at x value for value), with, at `ps`, the output
+// layer's spline parameters (T, n, ceil(d/2)*23), so that the gradient
+// neither runs K5's forward nor recomputes the output layer's product.
+// The instances without the save compute the same values in the same
+// order. fp32 FMAs only: no tensor cores, no fast-math.
 #include <cuda_runtime.h>
 
 #include "coupling_tile.cuh"
@@ -91,8 +98,8 @@ __device__ __forceinline__ void hidden_epilogue(float (&acc)[RM][RN], const floa
 template <bool INVERSE, class Ln, int RM, int RNH, int RNO>
 __global__ void __launch_bounds__(k5::BLOCK, 1)
     coupling_kernel(const float* __restrict__ xin, float* __restrict__ xout,
-                    float* __restrict__ ladj, Saved sv, int n, k5::Coupling m, k5::Packed pk,
-                    int G, int BK, int S) {
+                    float* __restrict__ ladj, Saved sv, float* __restrict__ ps, int n,
+                    k5::Coupling m, k5::Packed pk, int G, int BK, int S) {
   extern __shared__ __align__(16) float smem[];
   constexpr int BM = Ln::rows(RM), BMP = Ln::stride(RM);
   using CR = Vec<RM>;
@@ -127,7 +134,7 @@ __global__ void __launch_bounds__(k5::BLOCK, 1)
     const int t = plan.transform(i);
     const int c0 = m.cond0(t), tr0 = m.trans0(t), ntr = m.n_trans(t);
     const size_t off = (size_t)t * n;
-    if (save) {
+    if (save && !INVERSE) {
       for (int idx = threadIdx.x; idx < BM * d; idx += THREADS) {
         const int r = idx / d, c = idx - r * d;
         if (row0 + r < n) sv.a[0][(off + row0 + r) * d + c] = X[c * BMP + r];
@@ -178,10 +185,18 @@ __global__ void __launch_bounds__(k5::BLOCK, 1)
           for (int ri = 0; ri < CR::N; ++ri) {
             float o[CR::W];
 #pragma unroll
-            for (int rj = 0; rj < CR::W; ++rj) o[rj] = acc[ri * CR::W + rj][ci * CO::W + cj] + b;
+            for (int rj = 0; rj < CR::W; ++rj) {
+              float& a = acc[ri * CR::W + rj][ci * CO::W + cj];
+              a = a + b;
+              o[rj] = a;
+            }
             k5::store_vec<CR::W>(P + col * BMP + row_of<RM>(L, ri), o);
           }
         }
+      if (ps != nullptr) {
+        const int lp = m.half() * NP;
+        k5::store_rows<RM, RNO, false>(acc, ps + off * lp + q.o0, lp, q.no, row0, n, L);
+      }
       k5::consumer_sync();
       const int k0 = q.o0 / NP, gd = q.no / NP;
       for (int idx = threadIdx.x; idx < BM * gd; idx += THREADS) {
@@ -195,6 +210,19 @@ __global__ void __launch_bounds__(k5::BLOCK, 1)
         LG[(k0 + k) * BMP + r] = lg;
       }
       k5::consumer_sync();  // the splines are done with P, X and LG
+    }
+    if (save && INVERSE) {
+      for (int idx = threadIdx.x; idx < BM * d; idx += THREADS) {
+        const int r = idx / d, c = idx - r * d;
+        if (row0 + r < n) sv.a[0][(off + row0 + r) * d + c] = X[c * BMP + r];
+      }
+      // at odd d a transform of half - 1 dimensions leaves its last NP
+      // parameter columns zero, as the plain layout has them
+      const int lp = m.half() * NP, pad = lp - ntr * NP;
+      for (int idx = threadIdx.x; idx < BM * pad; idx += THREADS) {
+        const int r = idx / pad, c = lp - pad + idx % pad;
+        if (row0 + r < n) ps[(off + row0 + r) * lp + c] = 0.0f;
+      }
     }
     for (int r = threadIdx.x; r < BM; r += THREADS) {
       float s = 0.0f;
@@ -217,6 +245,7 @@ struct Args {
   float* xout;
   float* ladj;
   Saved sv;
+  float* ps;
   int n;
   k5::Coupling m;
   k5::Packed pk;
@@ -233,7 +262,7 @@ int launch(const Args& a) {
   if (err != cudaSuccess) return (int)err;
   constexpr int BM = Ln::rows(RM);
   kernel<<<(a.n + BM - 1) / BM, k5::BLOCK, a.smem, a.stream>>>(
-      a.xin, a.xout, a.ladj, a.sv, a.n, a.m, a.pk, a.G, a.BK, a.S);
+      a.xin, a.xout, a.ladj, a.sv, a.ps, a.n, a.m, a.pk, a.G, a.BK, a.S);
   return (int)cudaGetLastError();
 }
 
@@ -300,9 +329,12 @@ extern "C" int coupling_forward_smem_floats(int RL, int BM, int RNH, int RNO, in
 // halves of make_coupling_masks; every pointer 16-byte aligned). inverse =
 // 0 maps data -> latent through transforms 0..T-1 (the spline forward,
 // ladj = log|dz/dx|), 1 latent -> data through T-1..0 (ladj = log|dx/dz|).
-// a0..a3 are all null, or (forward only) receive the input of every
-// layer's product: a0 (T, n, d) the transform inputs, a1..a3 (T, n, h)
-// relu(h0), relu(h1), relu(h2). The tile: RL = 4 a Tile of BM rows a block
+// a0..a3 are all null, or receive the input of every layer's product:
+// a0 (T, n, d) the transform inputs (the inverse: each transform's output
+// of the inverse, its x_t), a1..a3 (T, n, h) relu(h0), relu(h1),
+// relu(h2); ap (given with a0 in the inverse, else null) receives the
+// output layers' spline parameters (T, n, ceil(d/2)*23), zero past a
+// transform's own. The tile: RL = 4 a Tile of BM rows a block
 // (8, 16, 32, 64), passes of 32*RNH hidden and 32*RNO output columns, or RL
 // = 1 a Row of BM = 1, 2 or 4 rows, passes of 256*RNH and 256*RNO; an
 // output group of G whole transformed dimensions (G*23 columns, at most an
@@ -312,18 +344,19 @@ extern "C" int coupling_forward_smem_floats(int RL, int BM, int RNH, int RNO, in
 // `stream` and returns cudaGetLastError().
 extern "C" int coupling_forward_launch(const float* xin, float* xout, float* ladj, int n, int d,
                                        int h, int T, const float* const* table, const float* w3,
-                                       float* a0, float* a1, float* a2, float* a3, int inverse,
-                                       int RL, int BM, int RNH, int RNO, int G, int BK, int S,
-                                       int device, void* stream) {
-  if ((inverse && a0 != nullptr) || w3 == nullptr) return (int)cudaErrorInvalidValue;
+                                       float* a0, float* a1, float* a2, float* a3, float* ap,
+                                       int inverse, int RL, int BM, int RNH, int RNO, int G,
+                                       int BK, int S, int device, void* stream) {
+  if (w3 == nullptr || (ap != nullptr) != (inverse && a0 != nullptr))
+    return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   const size_t smem =
       sizeof(float) * (size_t)coupling_forward_smem_floats(RL, BM, RNH, RNO, G, BK, S, d, h);
-  if (!pocomc::k5::k5_args_ok(RL, BM, RNH, RNO, G, BK, S, d, h, smem))
+  const pocomc::k5::Coupling m{table, d, h, T};
+  if (!pocomc::k5::k5_args_ok(RL, BM, RNH, RNO, G, BK, S, m, smem))
     return (int)cudaErrorInvalidValue;
-  const Args a{xin, xout, ladj, pocomc::Saved{{a0, a1, a2, a3}}, n,
-               pocomc::k5::Coupling{table, d, h, T},
+  const Args a{xin, xout, ladj, pocomc::Saved{{a0, a1, a2, a3}}, ap, n, m,
                pocomc::k5::Packed{w3, nullptr, ((d + 1) / 2 + G - 1) / G}, G, BK, S, smem,
                (cudaStream_t)stream};
   if (inverse) return by_tile<true>(RL, BM, RNH, RNO, a);

@@ -1,7 +1,8 @@
 // Shared device code of K5's two kernels (coupling_forward.cu,
-// coupling_backward.cu): register-tiled fp32 products of a block's particle
-// tile with a coupling stack's weights, and the ring that streams those
-// weights through shared memory a slab at a time.
+// coupling_backward.cu) and of K2's backward (made_rqs_backward.cu), the
+// last two through stack_backward.cuh: register-tiled fp32 products of a
+// block's particle tile with a stack's weights, and the ring that streams
+// those weights through shared memory a slab at a time.
 //
 // Tile geometry. A block has 8 consumer warps (256 threads) and one
 // producer warp. The consumers form a grid of row lanes by column lanes
@@ -277,21 +278,34 @@ __device__ __forceinline__ void store_tile(const float (&v)[RM][RN], float* S, i
 // alternate as make_coupling_masks lays them out: an even transform
 // conditions on dimensions [0, half) and transforms [half, d), an odd one
 // conditions on [half, d) and transforms [0, half), half = ceil(d/2).
+// Or, with made_b3 set, the T masked MADE networks of an autoregressive
+// stack (K2's backward, made_rqs_backward.cu): every transform reads all d
+// dimensions and transforms all d, its masked weights taken as dense; its
+// kernel streams every weight from the packed copies (Packed) and reads
+// only the output biases, made_b3 (T, d*np). np is the head's raw
+// parameters a transformed dimension (heads.cuh).
 struct Coupling {
   const float* const* tab;
   int d, h, T;
+  int np = NP;
+  const float* made_b3 = nullptr;
+  __host__ __device__ __forceinline__ bool made() const { return made_b3 != nullptr; }
   __host__ __device__ __forceinline__ int half() const { return (d + 1) / 2; }
-  __device__ __forceinline__ int n_cond(int t) const { return (t & 1) ? d - half() : half(); }
-  __device__ __forceinline__ int cond0(int t) const { return (t & 1) ? half() : 0; }
-  __device__ __forceinline__ int trans0(int t) const { return (t & 1) ? 0 : half(); }
-  __device__ __forceinline__ int n_trans(int t) const { return d - n_cond(t); }
+  // the most dimensions a transform conditions on or transforms
+  __host__ __device__ __forceinline__ int wide() const { return made() ? d : half(); }
+  __device__ __forceinline__ int n_cond(int t) const {
+    return made() ? d : (t & 1) ? d - half() : half();
+  }
+  __device__ __forceinline__ int cond0(int t) const { return made() || !(t & 1) ? 0 : half(); }
+  __device__ __forceinline__ int trans0(int t) const { return made() || (t & 1) ? 0 : half(); }
+  __device__ __forceinline__ int n_trans(int t) const { return made() ? d : d - n_cond(t); }
   __device__ __forceinline__ int fan_in(int t, int l) const { return l == 0 ? n_cond(t) : h; }
   __device__ __forceinline__ int fan_out(int t, int l) const {
-    return l == 3 ? n_trans(t) * NP : h;
+    return l == 3 ? n_trans(t) * np : h;
   }
   __device__ __forceinline__ const float* weights(int t, int l) const { return tab[8 * t + 2 * l]; }
   __device__ __forceinline__ const float* biases(int t, int l) const {
-    return tab[8 * t + 2 * l + 1];
+    return made() ? made_b3 + (size_t)t * d * np : tab[8 * t + 2 * l + 1];
   }
 };
 
@@ -313,11 +327,12 @@ struct Pass {
 // transform's output groups as (T, NG, h, ldo) blocks, a group's columns
 // zero-padded to ldo, the output pass width; wt (backward), each
 // transform's four weights transposed, W0^T (h rows, n_cond of its k),
-// W1^T, W2^T, then W3^T (one row per output column, 23*half), each cut
+// W1^T, W2^T, then W3^T (one row per output column, np*wide), each cut
 // into passes of PW columns of k (k zero-padded to a whole pass: the
-// halves' ceil(half / PW) passes for W0^T, ceil(h / PW) for the others),
+// halves' ceil(wide / PW) passes for W0^T, ceil(h / PW) for the others),
 // a layer's passes one after another, each (rows, PW). At h <= PW that is
-// (T, 3h + 23*half, PW). wt is null in the forward.
+// (T, 3h + np*wide, PW); wide is Coupling::wide(), half a coupling
+// stack's d or all d of a MADE one. wt is null in the forward.
 struct Packed {
   const float* w3;
   const float* wt;
@@ -328,12 +343,12 @@ struct Packed {
     return w3 + ((size_t)t * NG + g) * h * ldo;
   }
   // the first row of pass c of layer l's W^T of transform t in wt
-  __device__ __forceinline__ const float* wt_pass(int t, int l, int c, int h, int half,
-                                                  int PW) const {
-    const size_t p0 = (half + PW - 1) / PW, ph = (h + PW - 1) / PW;
+  __device__ __forceinline__ const float* wt_pass(int t, int l, int c, int h, int wide,
+                                                  int np, int PW) const {
+    const size_t p0 = (wide + PW - 1) / PW, ph = (h + PW - 1) / PW;
     const size_t sec = l == 0 ? 0 : p0 * h + (l - 1) * ph * h;
-    const size_t per_t = p0 * h + 2 * ph * h + ph * half * NP;
-    return wt + ((size_t)t * per_t + sec + (size_t)c * (l == 3 ? half * NP : h)) * PW;
+    const size_t per_t = p0 * h + 2 * ph * h + ph * wide * np;
+    return wt + ((size_t)t * per_t + sec + (size_t)c * (l == 3 ? wide * np : h)) * PW;
   }
 };
 
@@ -343,36 +358,42 @@ struct Packed {
 // passes nh: a kernel instance that only takes h <= PW passes the constant
 // 1, so its schedule folds to PR 7's), and one
 // pass per output group of G whole transformed dimensions; in the
-// backward (bwd) each output group's parameters, then nh passes of their
-// gradients through W3^T, then nh passes each of W2^T and W1^T and the
-// passes of W0^T over the conditioning half. A pass is cut into slabs of
-// BK contraction rows.
+// backward (bwd) each output group's parameters (unless psaved: the
+// kernel reads the parameters a save instance wrote), then nh passes of
+// their gradients through W3^T, then nh passes each of W2^T and W1^T and
+// the passes of W0^T over the conditioning half. A pass is cut into slabs
+// of BK contraction rows.
 struct Plan {
   Coupling m;
   int G, BK, PW;
   bool bwd, rev;
   Packed pk;
+  bool psaved = false;
 
   __device__ __forceinline__ int transform(int i) const { return rev ? m.T - 1 - i : i; }
   __device__ __forceinline__ int groups(int t) const { return (m.n_trans(t) + G - 1) / G; }
   __device__ __forceinline__ int nh() const { return (m.h + PW - 1) / PW; }
+  // the backward's passes a group: its parameters' (unless psaved) and nh
+  // through W3^T
+  __device__ __forceinline__ int per(int nh) const { return (psaved ? 0 : 1) + nh; }
   __device__ __forceinline__ int passes(int t, int nh) const {
-    return bwd ? groups(t) * (1 + nh) + 2 * nh + (m.n_cond(t) + PW - 1) / PW
+    return bwd ? groups(t) * per(nh) + 2 * nh + (m.n_cond(t) + PW - 1) / PW
                : 3 * nh + groups(t);
   }
   __device__ __forceinline__ Pass pass(int t, int p, int nh) const {
-    const int h = m.h, n3 = m.n_trans(t) * NP;
+    const int h = m.h, n3 = m.n_trans(t) * m.np, gw = G * m.np;
     if (!bwd) {
       if (p < 3 * nh) {
         const int l = p / nh, o0 = (p - l * nh) * PW;
         return Pass{t, l, false, 0, l == 0 ? m.n_cond(t) : h, o0, min(PW, h - o0)};
       }
-      const int o0 = (p - 3 * nh) * G * NP;
-      return Pass{t, 3, false, 0, h, o0, min(G * NP, n3 - o0)};
+      const int o0 = (p - 3 * nh) * gw;
+      return Pass{t, 3, false, 0, h, o0, min(gw, n3 - o0)};
     }
-    const int per = 1 + nh;
+    const int per = this->per(nh);
     if (p < groups(t) * per) {
-      const int g = p / per, r = p - g * per, c0 = g * G * NP, w = min(G * NP, n3 - c0);
+      const int g = p / per, r = p - g * per + (psaved ? 1 : 0), c0 = g * gw,
+                w = min(gw, n3 - c0);
       if (r == 0) return Pass{t, 3, false, 0, h, c0, w};
       const int o0 = (r - 1) * PW;
       return Pass{t, 3, true, c0, w, o0, min(PW, h - o0)};
@@ -500,8 +521,9 @@ __device__ __forceinline__ void produce(Ring ring) {
       const Pass q = pl.pass(t, c.p, nh);
       const int N = pl.m.fan_out(t, q.l), ldn = ring.ld_of(q), ns = pl.slabs(q);
       const float* packed =
-          q.trans ? pl.pk.wt_pass(t, q.l, q.o0 / pl.PW, pl.m.h, pl.m.half(), pl.PW)
-                  : (q.l == 3 ? pl.pk.w3_group(t, q.o0 / (pl.G * NP), q.len, ldn) : nullptr);
+          q.trans ? pl.pk.wt_pass(t, q.l, q.o0 / pl.PW, pl.m.h, pl.m.wide(), pl.m.np, pl.PW)
+                  : (q.l == 3 ? pl.pk.w3_group(t, q.o0 / (pl.G * pl.m.np), q.len, ldn)
+                              : nullptr);
       for (c.s = 0; c.s < ns; ++c.s) {
         if (ring.wrapped) mbar_wait(ring.empty + ring.slot, ring.phase ^ 1u);
         float* dst = ring.base + ring.slot * ring.stage_floats;
@@ -580,18 +602,18 @@ __host__ __device__ constexpr bool multi_pass() {
   return Ln::RL == 1 || RNH >= 16;
 }
 
-// the launch checks both entry points make; RL is the tile's row lanes, 4
+// the launch checks the entry points make; RL is the tile's row lanes, 4
 // a Tile (BM = 8, 16, 32 or 64) and 1 a Row (BM = 1, 2 or 4); h a multiple
 // of 4, so that a hidden layer's rows are whole bulk copies, and within one
-// pass on a Tile below RNH = 16
+// pass on a Tile below RNH = 16; an output group of G whole dimensions of
+// m (at most m.wide()) within an output pass
 __host__ __forceinline__ bool k5_args_ok(int RL, int BM, int RNH, int RNO, int G, int BK, int S,
-                                         int d, int h, size_t smem) {
-  const int half = (d + 1) / 2;
+                                         const Coupling& m, size_t smem) {
   const bool tile = RL == 4 ? (BM == 8 || BM == 16 || BM == 32 || BM == 64)
                             : RL == 1 && (BM == 1 || BM == 2 || BM == 4);
-  return smem <= (size_t)MAX_SMEM_BYTES && tile && d >= 2 && h >= 4 && h % 4 == 0 &&
-         (RL == 1 || RNH >= 16 || h <= Tile::cols(RNH)) &&
-         G >= 1 && G <= half && G * NP <= (RL == 4 ? Tile::cols(RNO) : Row::cols(RNO)) &&
+  return smem <= (size_t)MAX_SMEM_BYTES && tile && m.d >= (m.made() ? 1 : 2) && m.h >= 4 &&
+         m.h % 4 == 0 && (RL == 1 || RNH >= 16 || m.h <= Tile::cols(RNH)) && G >= 1 &&
+         G <= m.wide() && G * m.np <= (RL == 4 ? Tile::cols(RNO) : Row::cols(RNO)) &&
          BK >= 4 && BK <= 128 && BK % 4 == 0 && S >= 2 && S <= MAX_STAGES;
 }
 

@@ -54,7 +54,7 @@ __global__ void __launch_bounds__(THREADS)
   float* hn = hs + P * h;    // P*h   next hidden state; per-dimension log-dets
   float* ps = hn + P * h;    // P*gw  spline parameters of one column group
   float* ls = ps + P * gw;   // P     log-det accumulator
-  WeightStream ws(m, ring_start(smem, P * (d + 2 * h + gw + 1)), SL, gw, false);
+  WeightStream ws(m, ring_start(smem, P * (d + 2 * h + gw + 1)), SL, gw);
   ws.start();
   const bool save = sv.a[0] != nullptr;
 

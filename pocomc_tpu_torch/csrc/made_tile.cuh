@@ -1,10 +1,10 @@
-// Shared device code of K2's forward and backward kernels
-// (made_rqs_forward.cu, made_rqs_backward.cu): the weights of every
-// transform streamed through a two-stage ring in shared memory with
-// cp.async, the register-tiled products of a particle tile with a staged
-// weight chunk in both directions, and their store epilogue. K5
-// (coupling_tile.cuh) takes from here Saved, the layer inputs a forward
-// saves, the block size and the shared-memory limit.
+// Device code of K2's forward kernel (made_rqs_forward.cu): the weights of
+// every transform streamed through a two-stage ring in shared memory with
+// cp.async, the register-tiled product of a particle tile with a staged
+// weight chunk, and its store epilogue. K5 (coupling_tile.cuh) and the
+// backward kernels of both stacks (stack_backward.cuh) take from here
+// Saved, the layer inputs a forward saves, the block size and the
+// shared-memory limit.
 //
 // A network is four layers K_0 -> h -> h -> h -> N_3 a transform: the
 // masked MADE of an autoregressive transform (Made: K_0 = d, N_3 = d*NP);
@@ -21,9 +21,8 @@
 // d*NP: at d=10 (h=32) a layer and the whole output layer are one chunk
 // each and a transform's four layers (38.9 KB with the spline head) pass
 // through the ring one after another. At d=50 (h=256, 1.75 MB a
-// transform) the layers run in chunks of 59-86 columns; the forward's
-// output layer is one group of all 50 dimensions, the backward's groups
-// of 3 dimensions, one chunk each.
+// transform) the layers run in chunks of 59-86 columns; the output layer
+// is one group of all 50 dimensions.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -94,41 +93,35 @@ struct Saved {
 };
 
 // One chunk of the schedule: columns [c0, c0 + nc) of layer l of
-// transform t, in the column group [g0, gend). The backward runs an
-// output-layer group twice when it spans several chunks (pass 0 computes
-// its spline parameters, pass 1 takes their gradients back through W^T);
-// otherwise pass is 0.
+// transform t, in the column group [g0, gend).
 struct Chunk {
-  int t, l, c0, nc, g0, gend, pass;
-  bool group_end;  // last chunk of its group in this pass
+  int t, l, c0, nc, g0, gend;
+  bool group_end;  // last chunk of its group
   bool layer_end;  // last chunk of the layer
 };
 
 // a place in the schedule: the step (transform, layer), the chunk's first
-// column, its group's first column and the pass
+// column and its group's first column
 struct Cursor {
-  int step, c0, g0, pass;
+  int step, c0, g0;
 };
 
 // The two-stage weight ring over the layers of a Made stack.
 // Every thread of the block holds the same state and calls the same
 // methods in the same order. The loader's cursor runs two chunks ahead of
 // the consumer's; both walk the same schedule: transforms 0..T-1 and
-// layers 0..3, or in the backward (bwd) transforms T-1..0 and layers 3..0.
+// layers 0..3.
 struct WeightStream {
   Made m;
   float* stage;   // 2 * SL floats of shared memory from ring_start
   int SL;         // floats per stage, a multiple of 4, at least h + 1
   int gw;         // columns of an output-layer group
-  bool backward;  // T-1..0 and layers 3..0; an output-layer group may run twice
-  bool twopass;   // backward, and an output-layer group does not fit one stage
   int nsteps, slot;
   Cursor ld, use;
 
-  __device__ WeightStream(const Made& net, float* ring, int sl, int group, bool bwd)
-      : m(net), stage(ring), SL(sl), gw(group), backward(bwd),
-        twopass(bwd && (net.h + 1) * group > sl), nsteps(4 * net.T), slot(0), ld{0, 0, 0, 0},
-        use{0, 0, 0, 0} {}
+  __device__ WeightStream(const Made& net, float* ring, int sl, int group)
+      : m(net), stage(ring), SL(sl), gw(group), nsteps(4 * net.T), slot(0), ld{0, 0, 0},
+        use{0, 0, 0} {}
 
   __device__ __forceinline__ int group_width(int t, int l) const {
     return l == 3 ? gw : m.fan_out(t, l);
@@ -140,24 +133,18 @@ struct WeightStream {
   // the chunk at *cur, and *cur moved on to the next one
   __device__ __forceinline__ Chunk next(Cursor* cur) const {
     Chunk c;
-    c.t = backward ? m.T - 1 - (cur->step >> 2) : cur->step >> 2;
-    c.l = backward ? 3 - (cur->step & 3) : cur->step & 3;
+    c.t = cur->step >> 2;
+    c.l = cur->step & 3;
     const int N = m.fan_out(c.t, c.l);
     c.c0 = cur->c0;
     c.g0 = cur->g0;
     c.gend = min(c.g0 + group_width(c.t, c.l), N);
     c.nc = min(width(c.t, c.l), c.gend - c.c0);
-    c.pass = cur->pass;
-    const bool two = c.l == 3 && twopass;
     c.group_end = c.c0 + c.nc == c.gend;
-    c.layer_end = c.group_end && c.gend == N && (!two || c.pass == 1);
+    c.layer_end = c.group_end && c.gend == N;
     if (!c.group_end) {
       cur->c0 += c.nc;
-    } else if (two && c.pass == 0) {
-      cur->pass = 1;
-      cur->c0 = c.g0;
     } else {
-      cur->pass = 0;
       cur->c0 = cur->g0 = c.layer_end ? 0 : c.gend;
       cur->step += c.layer_end;
     }
@@ -251,47 +238,12 @@ __device__ __forceinline__ void tile_product(const float* in, int ldi, int K, co
   }
 }
 
-// gin[p, k] (+)= sum_j gout[p, c0 + j] * Ws[k, j] for k < K: the product
-// with the transposed chunk, accumulated over the chunks of a layer in
-// schedule order (first chunk writes, later chunks add), so every sum has
-// one fixed order and no atomics. Thread k walks j from k mod nc around
-// the chunk, so that the 32 threads of a warp read 32 banks where reading
-// down one column of the dense (K, nc) block would pile them on a few
-// (on one when nc is a multiple of 32).
-template <int RP>
-__device__ __forceinline__ void tile_product_t(const float* gout, int ldo, int c0, int nc,
-                                               const float* Ws, int K, float* gin, int ldi,
-                                               int P, bool first) {
-  const int items = (P / RP) * K;
-  for (int item = threadIdx.x; item < items; item += THREADS) {
-    const int rg = item / K, k = item - rg * K;
-    const float* g = gout + rg * RP * ldo + c0;
-    const float* wr = Ws + k * nc;
-    float acc[RP];
-#pragma unroll
-    for (int r = 0; r < RP; ++r) acc[r] = 0.0f;
-    int j = k % nc;
-#pragma unroll 4
-    for (int c = 0; c < nc; ++c) {
-      const float w = wr[j];
-#pragma unroll
-      for (int r = 0; r < RP; ++r) acc[r] = fmaf(g[r * ldo + j], w, acc[r]);
-      j = j + 1 == nc ? 0 : j + 1;
-    }
-#pragma unroll
-    for (int r = 0; r < RP; ++r) {
-      float* o = gin + (rg * RP + r) * ldi + k;
-      *o = first ? acc[r] : *o + acc[r];
-    }
-  }
-}
-
 // largest dynamic shared memory a block may ask for on Hopper
 constexpr int MAX_SMEM_BYTES = 227 * 1024;
 
-// the launch checks every entry point makes: the tile (1-16 rows, RP of
-// the kernel divides it), G whole dimensions a group, and a ring stage of
-// at least one column of every layer
+// the launch checks K2's forward makes: the tile (1-16 rows, RP of the
+// kernel divides it), G whole dimensions a group, and a ring stage of at
+// least one column of every layer
 __host__ __forceinline__ bool k2_args_ok(int P, int G, int SL, int d, int h, size_t smem) {
   return smem <= (size_t)MAX_SMEM_BYTES && P >= 1 && P <= 16 && (P & (P - 1)) == 0 &&
          G >= 1 && G <= d && SL >= h + 1 && SL >= d + 1 && SL % 4 == 0;

@@ -167,7 +167,11 @@ class Flow(nn.Module):
     ``device="cpu"`` runs the plain versions of the kernels)."""
 
     def __init__(self, n_dim: int, flow: str = "nsf6", bins: int = 8,
-                 seed: int = 0, whiten=True, device="cuda"):
+                 seed: int = 0, use_pallas="auto", use_pallas_inverse="auto",
+                 whiten=True, *, device="cuda"):
+        # use_pallas / use_pallas_inverse: accepted and ignored, as in the
+        # JAX package (its flags no longer select anything), so that code
+        # and configs written for it keep their positional meaning.
         super().__init__()
         device = torch.device(device)
         if device.type == "cuda" and not torch.cuda.is_available():
@@ -325,7 +329,7 @@ class Flow(nn.Module):
         pre = fp.pre
         return self.stack_log_prob((x - pre["mean"]) @ pre["w_fwd"], fp) + pre["ladj"]
 
-    def sample(self, size, generator=None, fp=None):
+    def sample(self, size=1, generator=None, fp=None):
         """(x, log q(x)) for ``size`` draws from the flow."""
         dev = self.weights[0].device
         z = torch.randn(size, self.n_dim, generator=generator, device=dev)
@@ -378,7 +382,8 @@ class Flow(nn.Module):
     def fit(self, x, weights=None, validation_split=0.0, epochs=1000,
             batch_size=1000, patience=20, learning_rate=1e-3, weight_decay=0.0,
             laplace_scale=None, gaussian_scale=None, annealing=True, noise=None,
-            shuffle=True, clip_grad_norm=1.0, verbose=0, seed=None):
+            shuffle=True, clip_grad_norm=1.0, verbose=0, seed=None, mesh=None,
+            epoch_chunk="auto"):
         """Weighted maximum-likelihood training on host rows ``x`` (n, d),
         as ``pocomc_tpu.models.flow.Flow.fit``: the pre-layer is refit on
         the host and the stack trains in whitened space; the row count is
@@ -389,7 +394,14 @@ class Flow(nn.Module):
         decays the learning rate on plateaus. The host reads every epoch's
         loss, so the schedule and the early stop act after each epoch (the
         JAX package's ``epoch_chunk`` batching for a remote device has no
-        counterpart). Returns the history {"loss", "val_loss"}."""
+        counterpart: ``epoch_chunk`` is checked as the JAX package checks it
+        and then ignored). ``mesh`` is not ported (ROADMAP.md, port queue 1
+        item 3). Returns the history {"loss", "val_loss"}."""
+        if mesh is not None:
+            raise NotImplementedError("Flow.fit(mesh=...) is not ported yet (ROADMAP.md, "
+                                      "port queue 1 item 3: multi-GPU)")
+        if epoch_chunk != "auto":
+            int(epoch_chunk)  # JAX's check: a non-integer raises, any integer runs
         x = np.asarray(x.detach().cpu() if torch.is_tensor(x) else x, dtype=np.float32)
         n_samples = x.shape[0]
         if weights is None:

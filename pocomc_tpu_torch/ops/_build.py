@@ -22,7 +22,8 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "pocomc_tpu_torch"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v"]
-_HEADERS = ("rqs.cuh", "heads.cuh", "made_tile.cuh", "coupling_tile.cuh", "ar_walk.cuh")
+_HEADERS = ("rqs.cuh", "heads.cuh", "made_tile.cuh", "coupling_tile.cuh", "stack_backward.cuh",
+            "ar_walk.cuh")
 
 
 def _nvcc() -> str:

@@ -10,11 +10,13 @@ inputs the forward saved, then the weight gradients as batched products
 of those inputs and the deltas it writes (``csrc/coupling_backward.cu``).
 ``_CouplingForward`` joins the two as an ``autograd.Function``.
 ``coupling_inverse_backward`` (K5-inv-bwd): the inverse's gradient in z,
-from the layer inputs of the forward at the inverse's output, by the
-backward kernel's inverse instances; ``_CouplingInverse`` joins it to the
-inverse. They
-replace no Pallas kernel: the JAX package runs coupling flows as XLA code
-(``pocomc_tpu/models/coupling.py``).
+by the backward kernel's inverse instances, from the state a save instance
+of the inverse wrote (each transform's x_t as the inverse computed it, its
+layer inputs and its output layer's spline parameters);
+``_CouplingInverse`` joins it to the inverse. They replace no Pallas
+kernel: the JAX package runs coupling flows as XLA code
+(``pocomc_tpu/models/coupling.py``). ``_k5_config`` also plans K2's
+backward (``ops/flow_kernels.py``), which runs on the same tiles.
 
 The weights are the JAX package's per-transform layout: ``ws[t]`` and
 ``bs[t]`` the four weights (K, N) and biases (N,) of transform t, for
@@ -67,13 +69,32 @@ def coupling_forward_ref(x, ws, bs, masks, save_inputs=False):
     return (x, ladj, [torch.stack(s) for s in saved]) if save_inputs else (x, ladj)
 
 
-def coupling_inverse_ref(z, ws, bs, masks):
+def coupling_inverse_ref(z, ws, bs, masks, save_inputs=False):
     """Plain inverse of the stack: z (n, d) -> (x, ladj), transforms
-    T-1..0, one pass each; ladj = log|det dx/dz|."""
-    ladj = torch.zeros(z.shape[0], dtype=z.dtype, device=z.device)
+    T-1..0, one pass each; ladj = log|det dx/dz|. With ``save_inputs``
+    also the state K5-inv-bwd reads, the kernel's save instance's layout:
+    [x_t (T, n, d), relu(h0), relu(h1), relu(h2) (T, n, h), params (T, n,
+    ceil(d/2)*23)], by transform t: x_t the inverse's value after transform
+    t (the input of the forward's transform t), the layer inputs of its
+    network and its output layer's spline parameters (columns past the
+    transform's half 0)."""
+    n = z.shape[0]
+    ladj = torch.zeros(n, dtype=z.dtype, device=z.device)
+    saved = [[None] * len(ws) for _ in range(5)]
+    half = (z.shape[1] + 1) // 2
     for t in reversed(range(len(ws))):
+        if save_inputs:
+            cond, trans = halves(masks[t], z.device)
+            acts = layer_inputs(ws[t], bs[t], z[:, cond])
+            p = acts[3] @ ws[t][3] + bs[t][3]
+            for l in (1, 2, 3):
+                saved[l][t] = acts[l]
+            saved[4][t] = F.pad(p, (0, half * N_PARAMS - p.shape[1]))
         z, l = _transform_inverse(ws[t], bs[t], masks[t], z)
         ladj = ladj + l
+        saved[0][t] = z
+    if save_inputs:
+        return z, ladj, [torch.stack(s) for s in saved]
     return z, ladj
 
 
@@ -115,24 +136,26 @@ def coupling_backward_ref(x, ws, bs, masks, g_z, g_ladj, acts=None):
     return g_x, g_ws, g_bs
 
 
-def coupling_inverse_vjp_ref(x, ws, bs, masks, g_x, g_ladj):
+def coupling_inverse_vjp_ref(state, ws, bs, masks, g_x, g_ladj):
     """Plain VJP of the coupling inverse, with no autograd: g_z (n, d) of
     a loss with dL/dx = g_x (n, d) and dL/dladj = g_ladj (n,), where (x,
-    ladj) = coupling_inverse(z). Transforms in forward order 0..T-1 at the
-    inputs and activations of the forward at x: the transformed half takes
+    ladj) = coupling_inverse(z), on the state that
+    ``coupling_inverse_ref(z, ..., save_inputs=True)`` returns (x_t, the
+    layer inputs and the spline parameters of every transform: the
+    inverse's own intermediates, where jax.vjp differentiates).
+    Transforms in forward order 0..T-1: the transformed half takes
     ``inverse_element_vjp`` (g_z and the spline parameters' cotangent),
     the conditioning half passes its g_x through plus the MLP's VJP of
-    that cotangent. The kernel (``csrc/coupling_backward.cu``, its inverse
-    instances) takes the same steps."""
-    n = x.shape[0]
-    acts = coupling_forward_ref(x, ws, bs, masks, save_inputs=True)[2]
+    that cotangent. The kernel (``csrc/coupling_backward.cu``, its
+    inverse instances) takes the same steps."""
+    n = g_x.shape[0]
     g = g_x
     for t in range(len(ws)):
         w = ws[t]
-        cond, trans = halves(masks[t], x.device)
-        a = [acts[0][t][:, cond], acts[1][t], acts[2][t], acts[3][t]]
-        p = (a[3] @ w[3] + bs[t][3]).reshape(n, trans.numel(), N_PARAMS)
-        g_z, g_p = inverse_element_vjp(acts[0][t][:, trans], p, g[:, trans],
+        cond, trans = halves(masks[t], g_x.device)
+        a = [state[0][t][:, cond], state[1][t], state[2][t], state[3][t]]
+        p = state[4][t][:, :trans.numel() * N_PARAMS].reshape(n, trans.numel(), N_PARAMS)
+        g_z, g_p = inverse_element_vjp(state[0][t][:, trans], p, g[:, trans],
                                        g_ladj[:, None].expand(n, trans.numel()))
         g_prev = g.clone()
         g_prev[:, cond] = g[:, cond] + _made_vjp_input(w, a, g_p.reshape(n, -1))
@@ -225,6 +248,13 @@ K5_ACCUMULATORS = 64
 K5_ROW = (2, 1)
 # blocks a launch aims for: about one per SM of the H100
 K5_BLOCKS = 128
+# K5-inv-bwd takes a Row of 4 rows where h >= 256 and 8-row Tiles would
+# give fewer than 64 blocks (n <= 504): at nsfc12, d=50, n=256 it ran in
+# 0.508 ms against 0.612 on the Tile (tools/k5invbwd_breakdown.py, NVIDIA
+# H100 80GB HBM3, 700 W); at h=32 the Row's 512-column passes lose
+K5_INV_ROW = (256, 64)
+
+
 def k5_instances(backward):
     """The (RL, RM, RNH, RNO) tiles a K5 kernel has an instance of."""
     tiles = {(4, rm, rnh, rno) for rnh, rno in K5_TILES for rm in (1, 2, 4, 8)
@@ -232,8 +262,9 @@ def k5_instances(backward):
     return tiles | {(1, rm, *K5_ROW) for rm in (1, 2, 4)}
 
 
-def _k5_smem_floats(RL, BM, RNH, RNO, G, BK, S, d, h, backward):
-    """``coupling_{forward,backward}_smem_floats`` of the sources: the
+def _k5_smem_floats(RL, BM, RNH, RNO, G, BK, S, d, h, backward, n_params=N_PARAMS):
+    """``coupling_forward_smem_floats`` and ``stack_backward.cuh
+    smem_floats`` of the sources (a head of ``n_params``): the
     k-major buffers [.][BMP] (BMP = BM + 4 on a Tile, BM on a Row: the
     rows, the hidden state, twice where a hidden layer takes several
     passes, one output group's parameters, and the per-dimension log-dets
@@ -242,12 +273,12 @@ def _k5_smem_floats(RL, BM, RNH, RNO, G, BK, S, d, h, backward):
     up to 4 floats of padding, S stages, 2*S mbarriers)."""
     bmp, lanes = (BM + 4 if RL == 4 else BM), _lanes(RL)
     hidden = 2 * h if h > lanes * RNH else h
-    rows = (2 * d + hidden + G * N_PARAMS) if backward else \
+    rows = (2 * d + hidden + G * n_params) if backward else \
         (d + hidden + G * N_PARAMS + (d + 1) // 2)
     return bmp * rows + BM + 4 + S * BK * lanes * max(RNH, RNO) + 4 * S
 
 
-def _k5_fit(RL, BMs, RNH, RNO, G, d, h, backward):
+def _k5_fit(RL, BMs, RNH, RNO, G, d, h, backward, n_params=N_PARAMS):
     """The first tile of rows BMs (largest first) that fits a Hopper block,
     with slabs of BK = 32 weight rows (128 in the backward at RNH = 1,
     where its transposed output layer, 23*ceil(d/2) rows, is then one
@@ -257,7 +288,8 @@ def _k5_fit(RL, BMs, RNH, RNO, G, d, h, backward):
     for BM in BMs:
         for BK in (128, 32, 16, 8) if RNH == 1 and backward else (32, 16, 8):
             for S in range(8, 1, -1):
-                smem = 4 * _k5_smem_floats(RL, BM, RNH, RNO, G, BK, S, d, h, backward)
+                smem = 4 * _k5_smem_floats(RL, BM, RNH, RNO, G, BK, S, d, h, backward,
+                                           n_params)
                 if smem <= _MAX_SMEM:
                     RM = BM // 8 if RL == 4 else BM
                     return K5Config(RL, BM, RM, RNH, RNO, G, BK, S, smem)
@@ -265,8 +297,12 @@ def _k5_fit(RL, BMs, RNH, RNO, G, d, h, backward):
 
 
 @functools.lru_cache(maxsize=None)
-def _k5_config(n, d, h, backward):
-    """K5's launch plan at n rows, d dimensions and hidden width h.
+def _k5_config(n, d, h, backward, made=False, n_params=N_PARAMS, inverse=False):
+    """K5's launch plan at n rows, d dimensions and hidden width h; with
+    ``made``, the plan of K2's backward on the same tiles (every one of the
+    d dimensions transformed, a head of ``n_params``: its output groups
+    hold whole dimensions of all d, not of the half); with ``inverse``,
+    K5-inv-bwd's (``K5_INV_ROW``).
     On a Tile, RNH is the least power of two with 32 * RNH >= h, up to 16
     (a hidden layer is one pass, the whole layer in registers, up to h =
     512; wider ones run in passes of 512 columns); RNO 4 at h <= 32, else 8
@@ -281,7 +317,7 @@ def _k5_config(n, d, h, backward):
     block's shared memory)."""
     if h % 4:
         raise ValueError(f"coupling kernels: the hidden width h={h} must be a multiple of 4")
-    half = (d + 1) // 2
+    wide = d if made else (d + 1) // 2
     rnh = 1
     while 32 * rnh < h and rnh < 16:
         rnh *= 2
@@ -292,10 +328,13 @@ def _k5_config(n, d, h, backward):
     instances = k5_instances(backward)
     while BM > 8 and (4, BM // 8, rnh, rno) not in instances:
         BM //= 2
-    plan = _k5_fit(4, [b for b in (64, 32, 16, 8) if b <= BM], rnh, rno,
-                   min(half, 32 * rno // N_PARAMS), d, h, backward)
-    plan = plan or _k5_fit(1, (4, 2, 1), *K5_ROW, min(half, 256 * K5_ROW[1] // N_PARAMS),
-                           d, h, backward)
+    row_g = min(wide, 256 * K5_ROW[1] // n_params)
+    plan = None
+    if inverse and h >= K5_INV_ROW[0] and -(-n // 8) < K5_INV_ROW[1]:
+        plan = _k5_fit(1, (4,), *K5_ROW, row_g, d, h, backward, n_params)
+    plan = plan or _k5_fit(4, [b for b in (64, 32, 16, 8) if b <= BM], rnh, rno,
+                           min(wide, 32 * rno // n_params), d, h, backward, n_params)
+    plan = plan or _k5_fit(1, (4, 2, 1), *K5_ROW, row_g, d, h, backward, n_params)
     if plan is None:
         raise ValueError(f"coupling kernels: d={d}, h={h} needs more shared memory than "
                          f"a Hopper block has")
@@ -332,11 +371,12 @@ _PLANS = {}
 _PLANS_MAX = 256
 
 
-def _plan(key, check, backward):
+def _plan(key, check, backward, inverse=False):
     """(n, d, h, T, K5Config, weight pointers) of a launch: ``check()``
     validates the arguments and returns (n, d, h, T, layers) the first time
     a key is seen; later calls with the same key skip it. Kept in
-    ``_PLANS`` under (backward, key)."""
+    ``_PLANS`` under (backward, key); ``inverse`` plans K5-inv-bwd, whose
+    key holds the five tensors of the inverse's state."""
     key = (backward, key)
     plan = _PLANS.get(key)
     if plan is None:
@@ -344,7 +384,7 @@ def _plan(key, check, backward):
         if any(a.data_ptr() % 16 for a in layers):
             raise ValueError("coupling kernels: every weight and bias must start on a "
                              "16-byte boundary")
-        plan = (n, d, h, T, _k5_config(n, d, h, backward) if n > 0 else None,
+        plan = (n, d, h, T, _k5_config(n, d, h, backward, inverse=inverse) if n > 0 else None,
                 tuple(a.data_ptr() for a in layers))
         if len(_PLANS) >= _PLANS_MAX:
             _PLANS.clear()
@@ -404,11 +444,13 @@ def _launch_stack(x, ws, bs, masks, inverse, save_inputs, name):
     n, d, h, T, cfg, ptrs = _plan(_key(layers, (x,), masks, x.shape[0]), check, False)
     out = torch.empty_like(x)
     ladj = torch.empty(n, dtype=x.dtype, device=x.device)
-    acts = ([torch.empty(T, n, k, dtype=x.dtype, device=x.device) for k in (d, h, h, h)]
+    widths = (d, h, h, h, (d + 1) // 2 * N_PARAMS) if inverse else (d, h, h, h)
+    acts = ([torch.empty(T, n, k, dtype=x.dtype, device=x.device) for k in widths]
             if save_inputs else None)
     if n > 0:
-        fn = _entry("coupling_forward", "coupling_forward_launch", "PPPIIIIPPPPPPIIIIIIIIIP")
-        saved = [a.data_ptr() for a in acts] if save_inputs else [None] * 4
+        fn = _entry("coupling_forward", "coupling_forward_launch", "PPPIIIIPPPPPPPIIIIIIIIIP")
+        saved = [a.data_ptr() for a in acts] if save_inputs else []
+        saved += [None] * (5 - len(saved))
         table = _table(x.device.index, ptrs)
         w3 = _packed(layers, ws, cfg, d, h, False).data_ptr()
         err = fn(x.data_ptr(), out.data_ptr(), ladj.data_ptr(), n, d, h, T, table.data_ptr(),
@@ -426,22 +468,26 @@ def _launch_backward(acts, ws, bs, masks, g_z, g_ladj, inverse=False):
     transforms (layer 0's over the whole saved row, then each transform's
     conditioning rows; the output layer's over the widest half, then each
     transform's columns), and the bias gradients as row sums. With
-    ``inverse``, the gradient of the inverse (K5-inv-bwd): the kernel's
+    ``inverse``, the gradient of the inverse (K5-inv-bwd) on the five
+    tensors of the state the inverse's save instance wrote: the kernel's
     inverse instances walk the transforms forward with the inverse's
-    element VJP and write no deltas; returns the input gradient only."""
+    element VJP, read the saved spline parameters and write no deltas;
+    returns the input gradient only."""
     name = "coupling_inverse_backward" if inverse else "coupling_backward"
-    if len(acts) != 4:
-        raise ValueError(f"{name}: expects the four saved layer inputs, got {len(acts)}")
+    want = 5 if inverse else 4
+    if len(acts) != want:
+        raise ValueError(f"{name}: takes {want} saved tensors, got {len(acts)}")
     layers = _layers(ws, bs)
 
     def check():
         _, d, h, T = _check(acts[0][0], ws, bs, masks, name)
         _check_kernel_layout(masks, d, T, name)
-        _, n = _check_saved(name, acts, g_z, g_ladj, (d, h, h, h))
+        widths = (d, h, h, h, (d + 1) // 2 * N_PARAMS)[:want]
+        _, n = _check_saved(name, acts, g_z, g_ladj, widths)
         return n, d, h, T, layers
 
     n, d, h, T, cfg, ptrs = _plan(_key(layers, (*acts, g_z, g_ladj), masks, g_z.shape[0]),
-                                  check, True)
+                                  check, True, inverse)
     dev = acts[0].device
     g_x = torch.empty_like(g_z)
     half = (d + 1) // 2
@@ -449,9 +495,10 @@ def _launch_backward(acts, ws, bs, masks, g_z, g_ladj, inverse=False):
                                  for k in (h, h, h, half * N_PARAMS)]
     if n > 0:
         fn = _entry("coupling_backward", "coupling_backward_launch",
-                    "PPPPPPPIIIIPPPPPPPIIIIIIIIIP")
+                    "PPPPPPPPIIIIPPPPPPPIIIIIIIIIP")
         packs = [_packed(layers, ws, cfg, d, h, t).data_ptr() for t in (False, True)]
-        err = fn(*[a.data_ptr() for a in acts], g_z.data_ptr(), g_ladj.data_ptr(),
+        err = fn(*[a.data_ptr() for a in acts[:4]],
+                 acts[4].data_ptr() if inverse else None, g_z.data_ptr(), g_ladj.data_ptr(),
                  g_x.data_ptr(), n, d, h, T, _table(dev.index, ptrs).data_ptr(), *packs,
                  *([g.data_ptr() for g in deltas] if deltas else [None] * 4), cfg.RL, cfg.BM,
                  cfg.RNH, cfg.RNO, cfg.G, cfg.BK, cfg.S, int(inverse), dev.index, _stream(g_z))
@@ -470,14 +517,6 @@ def _launch_backward(acts, ws, bs, masks, g_z, g_ladj, inverse=False):
         g_ws.append([full_w[0][t, rows], full_w[1][t], full_w[2][t], full_w[3][t][:, cols]])
         g_bs.append([full_b[0][t], full_b[1][t], full_b[2][t], full_b[3][t, cols]])
     return g_x, g_ws, g_bs
-
-
-def _launch_inverse_backward(x, ws, bs, masks, g_x, g_ladj):
-    """K5-inv-bwd: K5's forward at x saves every transform's layer inputs
-    (a K5 forward launch), then the backward kernel's inverse instances;
-    g_z."""
-    _, _, acts = _launch_stack(x, ws, bs, masks, False, True, "coupling_forward")
-    return _launch_backward(acts, ws, bs, masks, g_x, g_ladj, inverse=True)
 
 
 def _nest(flat, T):
@@ -512,25 +551,27 @@ class _CouplingForward(torch.autograd.Function):
 
 
 class _CouplingInverse(torch.autograd.Function):
-    """K5's inverse with its gradient in z: the backward is K5-inv-bwd
-    (``coupling_inverse_backward``) at the x the forward gave. Inputs as
-    ``_CouplingForward``'s; the weights take no gradient."""
+    """K5's inverse with its gradient in z: the forward is the inverse's
+    save instance, the backward K5-inv-bwd (``coupling_inverse_backward``)
+    on the state it wrote. Inputs as ``_CouplingForward``'s; the weights
+    take no gradient."""
 
     @staticmethod
     def forward(ctx, masks, z, *layers):
         T = len(masks)
         ws, bs = _nest(layers[:4 * T], T), _nest(layers[4 * T:], T)
-        x, ladj = _launch_stack(z, ws, bs, masks, True, False, "coupling_inverse")
+        x, ladj, state = _launch_stack(z, ws, bs, masks, True, True, "coupling_inverse")
         ctx.masks = masks
-        ctx.save_for_backward(x, *layers)
+        ctx.save_for_backward(*state, *layers)
         return x, ladj
 
     @staticmethod
     def backward(ctx, g_x, g_ladj):
-        x, *layers = ctx.saved_tensors
+        saved = ctx.saved_tensors
         T = len(ctx.masks)
-        g_z = _launch_inverse_backward(x, _nest(layers[:4 * T], T), _nest(layers[4 * T:], T),
-                                       ctx.masks, g_x.contiguous(), g_ladj.contiguous())
+        layers = saved[5:]
+        g_z = _launch_backward(saved[:5], _nest(layers[:4 * T], T), _nest(layers[4 * T:], T),
+                               ctx.masks, g_x.contiguous(), g_ladj.contiguous(), inverse=True)
         return (None, g_z, *[None] * len(layers))
 
 
@@ -562,7 +603,8 @@ def coupling_inverse(z, ws, bs, masks):
     """K5 inverse: (x, ladj) of the coupling stack at z, one pass a
     transform; ladj = log|det dx/dz|. The conditioning columns of each
     transform pass through bit for bit. Differentiable in z on CUDA
-    through K5-inv-bwd; weights that require a gradient raise there."""
+    through the inverse's save instance (the same x and ladj bits) and
+    K5-inv-bwd; weights that require a gradient raise there."""
     ws, bs = [list(w) for w in ws], [list(b) for b in bs]
     if _device_type(z, "coupling_inverse") == "cpu":
         _check(z, ws, bs, masks, "coupling_inverse")
@@ -573,16 +615,23 @@ def coupling_inverse(z, ws, bs, masks):
     return _launch_stack(z, ws, bs, masks, True, False, "coupling_inverse")
 
 
-def coupling_inverse_backward(x, ws, bs, masks, g_x, g_ladj):
+def coupling_inverse_backward(state, ws, bs, masks, g_x, g_ladj):
     """K5-inv-bwd: g_z, the gradient of a loss with dL/dx = g_x and
     dL/dladj = g_ladj with respect to z, where (x, ladj) =
-    coupling_inverse(z, ...)."""
+    coupling_inverse(z, ...), on the inverse's state at z: each
+    transform's x_t as the inverse computed it, its layer inputs and its
+    spline parameters (``coupling_inverse_ref(z, ..., save_inputs=True)``'s
+    third item; on CUDA the inverse's save instance writes it, and
+    ``coupling_inverse``'s autograd route keeps it)."""
     ws, bs = [list(w) for w in ws], [list(b) for b in bs]
-    if _device_type(x, "coupling_inverse_backward") == "cpu":
-        _check(x, ws, bs, masks, "coupling_inverse_backward")
-        return coupling_inverse_vjp_ref(x, ws, bs, masks, g_x, g_ladj)
+    if not isinstance(state, (list, tuple)) or len(state) != 5:
+        raise ValueError("coupling_inverse_backward: takes the inverse's state at z, five "
+                         "tensors (coupling_inverse_ref(z, ..., save_inputs=True)'s third item)")
+    if _device_type(g_x, "coupling_inverse_backward") == "cpu":
+        _check(g_x, ws, bs, masks, "coupling_inverse_backward")
+        return coupling_inverse_vjp_ref(state, ws, bs, masks, g_x, g_ladj)
     with torch.no_grad():
-        return _launch_inverse_backward(x, ws, bs, masks, g_x, g_ladj)
+        return _launch_backward(list(state), ws, bs, masks, g_x, g_ladj, inverse=True)
 
 
 def coupling_backward(x, ws, bs, masks, g_z, g_ladj, acts=None):

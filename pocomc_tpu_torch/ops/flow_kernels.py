@@ -4,11 +4,13 @@ their plain versions.
 K2, ``made_rqs_forward``: the whole transform stack data -> latent in
 one launch (every MADE pass, element transform and log-det), and its gradient
 ``made_rqs_backward``: one launch back through the stack from the layer
-inputs the forward saved, then the weight gradients as batched products of
-those inputs and the deltas it writes.
-``_MadeRqsForward`` joins the two as an ``autograd.Function``. Sources:
-``csrc/made_rqs_forward.cu``, ``csrc/made_rqs_backward.cu`` (with
-``made_tile.cuh``); they replace the JAX package's Pallas MADE kernel
+inputs the forward saved (K5's backward kernel on the MADE network, after
+a kernel that packs the masked weights for its bulk copies), then the
+weight gradients as batched products of those inputs and the deltas it
+writes. ``_MadeRqsForward`` joins the two as an ``autograd.Function``.
+Sources: ``csrc/made_rqs_forward.cu`` (with ``made_tile.cuh``),
+``csrc/made_rqs_backward.cu`` (with ``stack_backward.cuh`` and
+``coupling_tile.cuh``, K5's); they replace the JAX package's Pallas MADE kernel
 (``pocomc_tpu/ops/pallas_kernels.py`` ``_made_kernel``, deleted in 246a898)
 and the XLA gradient of its training loss.
 
@@ -306,44 +308,52 @@ def _plan(n, d, h, row, name):
 
 
 @functools.lru_cache(maxsize=None)
-def _k2_config(n, d, h, backward, n_params=N_PARAMS):
-    """(P, G, SL) of a K2 launch with a head of ``n_params`` parameters:
-    P particle rows a block, the largest of 16,
-    8, 4, 2 that still gives ~128 blocks (one per SM of the H100) and
-    leaves half of the shared memory to the weight ring; G whole dimensions
-    in a group of the output layer (made_tile.cuh); SL floats a ring stage
-    (a multiple of 4), enough for a whole layer where it fits. The forward
-    takes as many dimensions a group as half the shared memory holds (all
-    of them at d <= 50), so its output layer streams in chunks as wide as
-    a stage allows; the backward as many as fit one ring stage (at least
-    one), so one chunk serves both of its products. The floats per block
-    are those of ``made_rqs_*_smem_floats`` in the sources. Raises where a
-    stage cannot hold one column of a square layer: from h = 16384
-    (d > 2730), where the flow's weights, gradients and AdamW moments alone
-    pass the H100's 80 GB."""
+def _k2_config(n, d, h, n_params=N_PARAMS):
+    """(P, G, SL) of a K2 forward launch with a head of ``n_params``
+    parameters: P particle rows a block, the largest of 16, 8, 4, 2 that
+    still gives ~128 blocks (one per SM of the H100) and leaves half of the
+    shared memory to the weight ring; G whole dimensions in a group of the
+    output layer (made_tile.cuh), as many as half the shared memory holds
+    (all of them at d <= 50), so the output layer streams in chunks as
+    wide as a stage allows; SL floats a ring stage (a multiple of 4),
+    enough for a whole layer where it fits. The floats per block are those
+    of ``made_rqs_forward_smem_floats`` in the source. Raises where a stage
+    cannot hold one column of a square layer: from h = 16384 (d > 2730),
+    where the flow's weights, gradients and AdamW moments alone pass the
+    H100's 80 GB."""
     limit = _MAX_SMEM // 4 - 4
-    state = (3 * d + 3 * h + 1) if backward else (d + 2 * h + 1)
+    state = d + 2 * h + 1
     P = 16
     while P > 2 and -(-n // P) < 128:
         P //= 2
     while P > 1 and P * (state + n_params) > limit // 2:
         P //= 2
-
-    def stage(g):
-        need = max(h * (d + 1), h * (h + 1), g * n_params * (h + 1))
-        return min(-(-need // 4) * 4, (limit - P * (state + g * n_params)) // 8 * 4)
-
-    if backward:
-        G = max(1, min(d, (limit - P * state) // (n_params * (2 * h + 2 + P))))
-        while G > 1 and G * n_params * (h + 1) > stage(G):
-            G -= 1
-    else:
-        G = max(1, min(d, (limit // 2 // P - state) // n_params))
-    SL = stage(G)
+    G = max(1, min(d, (limit // 2 // P - state) // n_params))
+    need = max(h * (d + 1), h * (h + 1), G * n_params * (h + 1))
+    SL = min(-(-need // 4) * 4, (limit - P * (state + G * n_params)) // 8 * 4)
     if SL < h + 1:
-        raise ValueError(f"made_rqs_{'backward' if backward else 'forward'}: d={d}, h={h} "
-                         f"needs more shared memory than a Hopper block has")
+        raise ValueError(f"made_rqs_forward: d={d}, h={h} needs more shared memory than a "
+                         f"Hopper block has")
     return P, G, SL
+
+
+@functools.lru_cache(maxsize=None)
+def _k2_backward_plan(n, d, h, T, n_params=N_PARAMS):
+    """K2's backward launch: (K5Config, pack floats). The tile is K5's
+    (``coupling_kernels._k5_config`` with ``made``: BM rows a block, RM x
+    RNH and RM x RNO register tiles, output groups of G whole dimensions of
+    d, slabs of BK rows in an S-stage ring); the pack is the weights laid
+    out for it (``made_rqs_backward_pack_floats`` of the source: the output
+    layers by group, (T, ceil(d/G), h, ldo), then every layer's W^T in
+    passes of PW columns). It reads what K2's forward saved, so it refuses
+    wherever the forward's launch does (``_k2_config``: from h = 16384)."""
+    from .coupling_kernels import _k5_config
+    _k2_config(n, d, h, n_params)
+    cfg = _k5_config(n, d, h, True, made=True, n_params=n_params)
+    PW, n3 = cfg.PW, d * n_params
+    p0, ph = -(-d // PW), -(-h // PW)
+    pack = T * (-(-d // cfg.G) * h * cfg.ldo + (p0 * h + 2 * ph * h + ph * n3) * PW)
+    return cfg, pack
 
 
 _P = ctypes.c_void_p
@@ -383,7 +393,7 @@ def _launch_forward(y, ws, bs, save_inputs=False, head="rqs"):
     acts = ([torch.empty(T, n, k, dtype=y.dtype, device=y.device) for k in (d, h, h, h)]
             if save_inputs else None)
     if n > 0:
-        P, G, SL = _k2_config(n, d, h, False, n_params)
+        P, G, SL = _k2_config(n, d, h, n_params)
         fn = _entry("made_rqs_forward", "made_rqs_forward_launch",
                     "PPPIIII" + "P" * 12 + "IIIIIP")
         weights = [a.data_ptr() for pair in zip(ws, bs) for a in pair]
@@ -412,10 +422,11 @@ def _check_saved(name, acts, g_z, g_ladj, widths):
 
 
 def _launch_backward(acts, ws, bs, g_z, g_ladj, head="rqs"):
-    """K2's backward kernel, then the weight gradients A^T @ delta of the
-    saved layer inputs and its deltas with batched fp32 products over the T
-    transforms, and the bias gradients as row sums (TF32 is off, see the
-    package's __init__)."""
+    """K2's backward launch (its pack kernel into a scratch tensor, then
+    the backward kernel, which writes the four layers' deltas), then the
+    weight gradients A^T @ delta of the saved layer inputs and its
+    deltas with batched fp32 products over the T transforms, and the bias
+    gradients as row sums (TF32 is off, see the package's __init__)."""
     if len(acts) != 4:
         raise ValueError(f"made_rqs_backward: expects the four saved layer inputs, "
                          f"got {len(acts)}")
@@ -424,15 +435,18 @@ def _launch_backward(acts, ws, bs, g_z, g_ladj, head="rqs"):
     T, n = _check_saved("made_rqs_backward", acts, g_z, g_ladj, (d, h, h, h))
     dev = acts[0].device
     g_y = torch.empty_like(g_z)
-    deltas = [torch.empty(T, n, w.shape[2], dtype=g_z.dtype, device=dev) for w in ws]
+    n_params = HEADS[head]
+    widths = [w.shape[2] for w in ws]
+    cfg, n_pack = _k2_backward_plan(n, d, h, T, n_params) if n > 0 else (None, 0)
+    pack = torch.empty(n_pack, dtype=g_z.dtype, device=dev)
+    deltas = [torch.empty(T, n, k, dtype=g_z.dtype, device=dev) for k in widths]
     if n > 0:
-        P, G, SL = _k2_config(n, d, h, True, HEADS[head])
         fn = _entry("made_rqs_backward", "made_rqs_backward_launch",
-                    "PPPPPPPIIII" + "P" * 12 + "IIIIIP")
-        weights = [a.data_ptr() for pair in zip(ws, bs) for a in pair]
+                    "PPPPPPPIIII" + "P" * 10 + "IIIIIIIIIP")
         err = fn(*[a.data_ptr() for a in acts], g_z.data_ptr(), g_ladj.data_ptr(),
-                 g_y.data_ptr(), n, d, h, T, *weights, *[g.data_ptr() for g in deltas],
-                 HEADS[head], P, G, SL, dev.index, _stream(g_z))
+                 g_y.data_ptr(), n, d, h, T, *[w.data_ptr() for w in ws], bs[3].data_ptr(),
+                 *[g.data_ptr() for g in deltas], pack.data_ptr(), n_params, cfg.RL,
+                 cfg.BM, cfg.RNH, cfg.RNO, cfg.G, cfg.BK, cfg.S, dev.index, _stream(g_z))
         _raise_if(err, "made_rqs_backward")
         _count(made_rqs_backward, head)
     g_ws = [torch.bmm(a.transpose(1, 2), g) for a, g in zip(acts, deltas)]

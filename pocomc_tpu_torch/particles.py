@@ -35,6 +35,13 @@ class Particles:
             if key in self.past:
                 self.past[key].append(value)
 
+    def pop(self, key):
+        """Drop the newest stored value of one key (reference parity:
+        pocoMC ``particles.py:150-164``, which likewise discards it). The
+        caller pops every per-iteration key it rolls back; the MIS cache
+        sees the shorter history and rebuilds (``mis_denominator``)."""
+        self.past[key].pop()
+
     def get(self, key, index=None, flat=False):
         if index is None:
             if flat:

@@ -167,7 +167,7 @@ class Sampler:
                  output_dir: str = None, output_label: str = None,
                  random_state: int = None, mesh=None, device_loop="auto",
                  pipeline: int = 1, compile_cache: bool = True, profile_dir: str = None,
-                 pytorch_threads=None, n_ess: int = None, device="cuda"):
+                 pytorch_threads=None, n_ess: int = None, *, device="cuda"):
         if n_ess is not None:
             warnings.warn("n_ess is deprecated. Use n_effective instead.",
                           DeprecationWarning, stacklevel=2)

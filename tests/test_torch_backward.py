@@ -20,7 +20,7 @@ import pocomc_tpu_torch as tpc
 from pocomc_tpu_torch.convert import load_flow_params
 from pocomc_tpu_torch.models import transforms as ttr
 from pocomc_tpu_torch.models.flow import Flow
-from pocomc_tpu_torch.ops import flow_kernels as fk
+from pocomc_tpu_torch.ops import coupling_kernels as ck, flow_kernels as fk
 
 CASES = ["random", "tails", "knots", "zero_rows", "identity"]
 
@@ -202,37 +202,50 @@ def test_saved_layer_inputs_are_the_made_states(d, arch):
 @pytest.mark.parametrize("d", [1, 2, 10, 50, 200, 817, 1341, 2730])
 @pytest.mark.parametrize("backward", [False, True], ids=["forward", "backward"])
 def test_k2_launch_config_fits_a_hopper_block(d, backward):
-    """The tile, output-layer group and ring stage of a K2 launch fit the
-    227 KB of shared memory a block may have (the sources' smem formulas)
-    at every d up to 2730 (h = 8192), leave at least one column of every
-    layer per chunk, and give ~128 blocks where n allows; a backward group
-    of several dimensions fits one ring stage. The tile's state
-    grows with d + h, so d = 817 and 1341, where a state of d*23 floats a
-    row no longer fit, still launch."""
+    """The tile of a K2 launch fits the 227 KB of shared memory a block may
+    have (the sources' smem formulas) at every d up to 2730 (h = 8192).
+    Forward: P rows, a group and a ring stage of at least one column of
+    every layer, ~128 blocks where n allows; the state grows with d + h, so
+    d = 817 and 1341, where a state of d*23 floats a row no longer fit,
+    still launch. Backward (K5's tiles, ``_k2_backward_plan``): an instance
+    the source compiles, output groups of whole dimensions within an output
+    pass, ~128 blocks where n allows, and a pack of the weights' size or
+    more (every weight once, padded)."""
     h = max(1 << (3 * d - 1).bit_length(), 32)
-    state = (3 * d + 3 * h + 1) if backward else (d + 2 * h + 1)
     for n in (1, 37, 256, 1024, 4096, 16384):
-        P, G, SL = fk._k2_config(n, d, h, backward)
-        assert P in (1, 2, 4, 8, 16) and 1 <= G <= d
-        assert SL >= h + 1 and SL % 4 == 0
-        assert 4 * (P * (state + G * fk.N_PARAMS) + 4 + 2 * SL) <= 227 * 1024
-        if backward and G > 1:
-            # a group of more than one dimension is one chunk of the ring
-            assert G * fk.N_PARAMS * (h + 1) <= SL
         if not backward:
+            state = d + 2 * h + 1
+            P, G, SL = fk._k2_config(n, d, h)
+            assert P in (1, 2, 4, 8, 16) and 1 <= G <= d
+            assert SL >= h + 1 and SL % 4 == 0
+            assert 4 * (P * (state + G * fk.N_PARAMS) + 4 + 2 * SL) <= 227 * 1024
             # the forward's groups take up to half the block, all of d <= 50
             assert 4 * P * (state + G * fk.N_PARAMS) <= 227 * 1024 // 2
             assert G == d or d > 50
-        if n >= 256 and d <= 10:
-            assert -(-n // P) >= 128 and G == d
+            if n >= 256 and d <= 10:
+                assert -(-n // P) >= 128 and G == d
+            continue
+        for np_ in (fk.N_PARAMS, 2):
+            cfg, pack = fk._k2_backward_plan(n, d, h, 6, np_)
+            assert (cfg.RL, cfg.RM, cfg.RNH, cfg.RNO) in ck.k5_instances(True)
+            assert cfg.smem == 4 * ck._k5_smem_floats(cfg.RL, cfg.BM, cfg.RNH, cfg.RNO, cfg.G,
+                                                      cfg.BK, cfg.S, d, h, True, np_)
+            assert cfg.smem <= 227 * 1024
+            assert 1 <= cfg.G <= d and cfg.G * np_ <= cfg.ldo
+            assert cfg.G == min(d, cfg.ldo // np_)
+            assert pack >= 6 * (d * h + 2 * h * h + h * d * np_) and pack % 4 == 0
+            if n >= 1024 and h <= 512:
+                assert -(-n // cfg.BM) >= 128
 
 
 def test_k2_launch_config_refuses_what_no_block_holds():
     """From h = 16384 (d > 2730) a ring stage cannot hold a column of a
-    square layer beside the tile; both directions refuse."""
-    for backward in (False, True):
-        with pytest.raises(ValueError, match="shared memory"):
-            fk._k2_config(1024, 2731, 16384, backward=backward)
+    square layer beside the tile; the forward refuses, and the backward,
+    which reads what the forward saved, refuses with it."""
+    with pytest.raises(ValueError, match="shared memory"):
+        fk._k2_config(1024, 2731, 16384)
+    with pytest.raises(ValueError, match="shared memory"):
+        fk._k2_backward_plan(1024, 2731, 16384, 6)
 
 
 def test_flow_defaults_to_the_card(monkeypatch):

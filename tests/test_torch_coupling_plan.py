@@ -219,3 +219,22 @@ def test_packed_weights_follow_the_kernels_layout_and_the_versions(d, arch):
         fp.ws[1][3].add_(1.0)
     again = ck._packed(layers, fp.ws, cfg, d, h, False)
     assert again is not w3 and torch.equal(again[1, 0, :, :3], fp.ws[1][3][:, :3])
+
+
+@pytest.mark.parametrize("n", [1, 37, 256, 504, 505, 1024, 4096])
+def test_k5_inverse_backward_plan(n):
+    """K5-inv-bwd's plan: a Row of 4 rows where h >= 256 and 8-row Tiles
+    would give fewer than 64 blocks (n <= 504), else the backward's own;
+    every plan a compiled instance that fits a Hopper block, at d = 2..342."""
+    instances = ck.k5_instances(True)
+    for d in (2, 10, 20, 50, 51, 128, 171, 342):
+        h = _width(d)
+        cfg = ck._k5_config(n, d, h, True, inverse=True)
+        assert (cfg.RL, cfg.RM, cfg.RNH, cfg.RNO) in instances
+        assert cfg.smem <= HOPPER_SMEM
+        assert cfg.smem == 4 * ck._k5_smem_floats(cfg.RL, cfg.BM, cfg.RNH, cfg.RNO, cfg.G,
+                                                  cfg.BK, cfg.S, d, h, True)
+        if h >= 256 and n <= 504:
+            assert (cfg.RL, cfg.BM) == (1, 4)
+        else:
+            assert cfg == ck._k5_config(n, d, h, True)

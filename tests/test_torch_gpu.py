@@ -488,7 +488,8 @@ def test_kernel_gradients_match_plain_autograd_on_card(cuda, arch, d):
 def test_coupling_inverse_refuses_a_gradient_on_card(cuda):
     """K5's inverse refuses a gradient in the weights (the flow's own
     parameters require one); with them detached it gives z's through
-    K5-inv-bwd, equal to the plain VJP at the same x."""
+    K5-inv-bwd, equal to the plain VJP on the plain save mode's state at
+    the same z (``coupling_inverse_ref(..., save_inputs=True)``)."""
     flow = _random_card_flow(4, "nsfc3")
     z = torch.randn(8, 4, device=cuda, requires_grad=True)
     with pytest.raises(NotImplementedError, match="weights"):
@@ -500,8 +501,8 @@ def test_coupling_inverse_refuses_a_gradient_on_card(cuda):
     g_z, = torch.autograd.grad((x, l), z, (g_x, torch.ones_like(l)))
     assert ck.coupling_inverse_backward.launches == before + 1
     with torch.no_grad():
-        y = (x - fp.pre["mean"]) @ fp.pre["w_fwd"]
-        want = ck.coupling_inverse_vjp_ref(y.contiguous(), fp.ws, fp.bs, fp.masks,
+        state = ck.coupling_inverse_ref(z.detach(), fp.ws, fp.bs, fp.masks, save_inputs=True)[2]
+        want = ck.coupling_inverse_vjp_ref(state, fp.ws, fp.bs, fp.masks,
                                            g_x @ fp.pre["w_inv"].T, torch.ones_like(l))
     assert float((g_z - want).abs().max()) <= 1e-4 * float(want.abs().max())
 
@@ -1024,12 +1025,17 @@ def test_k1_gradient_through_the_flow_matches_plain_autograd(cuda, arch):
 @pytest.mark.parametrize("n", [1, 9, 33, 257])
 def test_k5_inverse_backward_matches_plain_at_tile_edges(cuda, d, arch, n):
     """K5-inv-bwd at K5's tile edges (d=20: h=64; 51: odd halves, h=256;
-    171: two passes of 512 columns on 8-row Tiles; 342: Row tiles) against
-    ``coupling_inverse_vjp_ref`` at the same x (K5's inverse output): within
-    max(1e-3 of the largest g_z, 4x the plain fp32 version's distance to
-    the plain version in float64) of that float64 value, rows on a float64
-    knot with dL/dladj != 0 (``_coupling_edge_rows``) or on a ReLU kink
-    (``_kink_rows``) left out."""
+    171: two passes of 512 columns on 8-row Tiles; 342: Row tiles), on the
+    state the inverse's save instance writes, against the plain save mode
+    at the same z (``coupling_inverse_ref(..., save_inputs=True)``) and
+    ``coupling_inverse_vjp_ref`` on its state, in fp32 and in float64. The
+    saved state (x_t, relu(h0..h2), the spline parameters, zero past a
+    transform's own at odd d) within max(5e-4 of its largest, at least 1,
+    4x the plain fp32 state's distance to float64) of the float64 state;
+    g_z within max(1e-3 of the largest g_z, 4x the plain fp32 version's
+    distance to the plain version in float64) of that float64 value, rows
+    on a float64 knot with dL/dladj != 0 (``_coupling_edge_rows``) or on a
+    ReLU kink (``_kink_rows``) left out."""
     import copy
     flow = _menu_card_flow(d, arch)
     g = torch.Generator("cuda").manual_seed(n)
@@ -1039,14 +1045,24 @@ def test_k5_inverse_backward_matches_plain_at_tile_edges(cuda, d, arch, n):
     with torch.no_grad():
         fp = flow.params()
         fp64 = copy.deepcopy(flow).double().params()
-        x, _ = ck.coupling_inverse(z, fp.ws, fp.bs, fp.masks)
-        edge = _coupling_edge_rows(flow, x, g_l) | _kink_rows(flow, x)
+        x, _, state = ck._launch_stack(z, fp.ws, fp.bs, fp.masks, True, True, "coupling_inverse")
+        x_p, _, plain_state = ck.coupling_inverse_ref(z, fp.ws, fp.bs, fp.masks, save_inputs=True)
+        state64 = ck.coupling_inverse_ref(z.double(), fp64.ws, fp64.bs, fp64.masks,
+                                          save_inputs=True)[2]
+        for a, b, e in zip(state, plain_state, state64):
+            assert a.shape == e.shape
+            limit = max(5e-4 * max(float(e.abs().max()), 1.0),
+                        4 * float((b.double() - e).abs().max()))
+            assert float((a.double() - e).abs().max()) <= limit
+        edge = _coupling_edge_rows(flow, x_p, g_l) | _kink_rows(flow, x_p)
         g_x, g_l = g_x.masked_fill(edge[:, None], 0.0), g_l.masked_fill(edge, 0.0)
         before = ck.coupling_inverse_backward.launches
-        got = ck.coupling_inverse_backward(x, fp.ws, fp.bs, fp.masks, g_x, g_l)
+        got = ck.coupling_inverse_backward(state, fp.ws, fp.bs, fp.masks, g_x, g_l)
         assert ck.coupling_inverse_backward.launches == before + 1
-        plain = ck.coupling_inverse_vjp_ref(x, fp.ws, fp.bs, fp.masks, g_x, g_l)
-        exact = ck.coupling_inverse_vjp_ref(x.double(), fp64.ws, fp64.bs, fp64.masks,
+        with pytest.raises(ValueError, match="state"):
+            ck.coupling_inverse_backward(x, fp.ws, fp.bs, fp.masks, g_x, g_l)
+        plain = ck.coupling_inverse_vjp_ref(plain_state, fp.ws, fp.bs, fp.masks, g_x, g_l)
+        exact = ck.coupling_inverse_vjp_ref(state64, fp64.ws, fp64.bs, fp64.masks,
                                             g_x.double(), g_l.double())
     _check_vs_float64(got, plain, exact, 1e-3)
 
@@ -1098,3 +1114,92 @@ def test_mala_step_on_card_matches_cpu(cuda, arch):
     for k in ("grad0", "u", "grad", "corr"):
         assert float((card[k].cpu() - cpu[k]).abs().max()) <= 1e-4 * float(cpu[k].abs().max())
     assert torch.equal(card["acc"].cpu(), cpu["acc"])
+
+
+# -- K2's backward on K5's tiles, and K5-inv-bwd through the save instance --
+
+@pytest.mark.parametrize("head", ["rqs", "affine"])
+@pytest.mark.parametrize("d", [2, 10, 50, 820])
+@pytest.mark.parametrize("n", [1, 37, 1024, 4096])
+def test_k2_backward_at_tile_edges(cuda, head, d, n):
+    """K2's backward (the pack kernel, then the backward on K5's tiles:
+    a ragged 8-row tile at n = 1 and 37, 8-row Tiles at 1024, 32-row ones
+    at 4096 from d = 10, Row tiles at d = 820, h = 4096) with the
+    weight-gradient products against ``made_rqs_backward_ref`` on the same
+    saved layer inputs, masked weights of a flow (nsf/maf6, nsf/maf3 at
+    d = 820) with random output layers, rows in the tails and rows of zero
+    upstream gradient included: every gradient within chip_smoke.py's
+    gradient tolerance of its largest (1e-4 at d <= 10, 1e-3 past). As
+    chip_smoke.py's checks do, a row whose spline input lies within 1e-5
+    of a knot in the float64 forward takes dL/dladj = 0 (``_made_edge_rows``:
+    the log-det's gradient jumps there, and the two routes' fp32 head
+    parameters pick its side; one such row of 4096 at d = 50 moved g_y by
+    1.3e-3 of its largest)."""
+    arch = ("nsf" if head == "rqs" else "maf") + ("3" if d > 50 else "6")
+    flow = _grad_card_flow(d, arch, seed=d)
+    g = torch.Generator("cuda").manual_seed(n + d)
+    y = 1.5 * torch.randn(n, d, device=cuda, generator=g)
+    y[::5, 0] = 6.0
+    g_z = torch.randn(n, d, device=cuda, generator=g)
+    g_l = torch.randn(n, device=cuda, generator=g)
+    g_z[1::3] = 0.0
+    g_l[1::3] = 0.0
+    g_l = g_l.masked_fill(_made_edge_rows(flow, y, g_l), 0.0)
+    with torch.no_grad():
+        fp = flow.params()
+        _, _, acts = fk.made_rqs_forward(y, fp.ws, fp.bs, save_inputs=True, head=head)
+        attr = "launches" if head == "rqs" else "launches_affine"
+        before = getattr(fk.made_rqs_backward, attr)
+        got = fk.made_rqs_backward(y, fp.ws, fp.bs, g_z, g_l, acts, head=head)
+        assert getattr(fk.made_rqs_backward, attr) == before + 1
+        want = fk.made_rqs_backward_ref(y, fp.ws, fp.bs, g_z, g_l, acts, head=head)
+    tol = 1e-4 if d <= 10 else 1e-3
+    for a, b in zip([got[0], *got[1], *got[2]], [want[0], *want[1], *want[2]]):
+        assert a.shape == b.shape
+        assert float((a - b).abs().max()) <= tol * (float(b.abs().max()) + 1e-30)
+    # the wrapper's pack size is the source's
+    import ctypes
+    h, T, np_ = flow.n_hidden, flow.n_transforms, fk.HEADS[head]
+    cfg, n_pack = fk._k2_backward_plan(n, d, h, T, np_)
+    count = fk._build.load("made_rqs_backward").made_rqs_backward_pack_floats
+    count.argtypes, count.restype = [ctypes.c_int] * 7, ctypes.c_longlong
+    assert count(d, h, T, np_, cfg.G, cfg.ldo, cfg.PW) == n_pack
+
+
+@pytest.mark.parametrize("d", [10, 50])
+@pytest.mark.parametrize("n", [1, 37, 256, 4096])
+def test_k5_inverse_backward_through_the_save_instance(cuda, d, n):
+    """K5-inv-bwd through the inverse's save instance: the autograd route
+    (``coupling_inverse`` with z requiring a gradient) and the direct call
+    on the state the save instance writes (``_launch_stack`` with the
+    save) give the same bits, each with one launch of the kernel and none
+    of K5's forward; the save instance's x and log-det are the inverse's without
+    the save, bit for bit, and its state is the plain save mode's on the
+    same z within the coupling tolerance (chip_smoke.COUPLING_TOL's atol
+    on values)."""
+    arch = "nsfc6" if d == 10 else "nsfc12"
+    flow = _menu_card_flow(d, arch, seed=n)
+    fp = _detached(flow.params())
+    g = torch.Generator("cuda").manual_seed(d + n)
+    z = torch.randn(n, d, device=cuda, generator=g)
+    g_x = torch.randn(n, d, device=cuda, generator=g)
+    g_l = torch.randn(n, device=cuda, generator=g)
+    with torch.no_grad():
+        x0, l0 = ck.coupling_inverse(z, fp.ws, fp.bs, fp.masks)
+        x1, l1, state = ck._launch_stack(z, fp.ws, fp.bs, fp.masks, True, True,
+                                         "coupling_inverse")
+        assert torch.equal(x0, x1) and torch.equal(l0, l1)
+        want = ck.coupling_inverse_ref(z, fp.ws, fp.bs, fp.masks, save_inputs=True)[2]
+        atol = 5e-5 if d == 10 else 5e-4
+        for a, b in zip(state, want):
+            assert a.shape == b.shape
+            assert float((a - b).abs().max()) <= atol * max(float(b.abs().max()), 1.0)
+    forwards, inv_bwd = ck.coupling_forward.launches, ck.coupling_inverse_backward.launches
+    zz = z.clone().requires_grad_(True)
+    x, l = ck.coupling_inverse(zz, fp.ws, fp.bs, fp.masks)
+    by_autograd, = torch.autograd.grad((x, l), zz, (g_x, g_l))
+    assert ck.coupling_forward.launches == forwards
+    assert ck.coupling_inverse_backward.launches == inv_bwd + 1
+    with torch.no_grad():
+        direct = ck.coupling_inverse_backward(state, fp.ws, fp.bs, fp.masks, g_x, g_l)
+    assert torch.equal(by_autograd, direct)

@@ -146,7 +146,8 @@ def test_inverse_gradient_matches_jax(arch, d):
         y, _ = flow.stack_inverse(t(z), fp)
         g_y = t(g_x) @ fp.pre["w_inv"].T
         if flow.kind == "nsfc":
-            twin = ck.coupling_inverse_vjp_ref(y, fp.ws, fp.bs, fp.masks, g_y, t(g_l))
+            state = ck.coupling_inverse_ref(t(z), fp.ws, fp.bs, fp.masks, save_inputs=True)[2]
+            twin = ck.coupling_inverse_vjp_ref(state, fp.ws, fp.bs, fp.masks, g_y, t(g_l))
         else:
             twin = fk.ar_inverse_vjp_ref(y, fp.ws, fp.bs, fp.inv_orders, g_y, t(g_l),
                                          flow.head)

@@ -137,6 +137,47 @@ def test_reference_keywords():
     import inspect
     jax_keys = set(inspect.signature(jpc.Sampler.__init__).parameters)
     assert jax_keys <= set(inspect.signature(tpc.Sampler.__init__).parameters)
+    # every class of both __all__s: __init__ and each public method take
+    # JAX's parameters in JAX's positional order, up to ALLOWED
+    classes = [k for k in jpc.__all__ if k in tpc.__all__ and inspect.isclass(getattr(jpc, k))]
+    assert len(classes) == 19
+    for name in classes:
+        jcls, tcls = getattr(jpc, name), getattr(tpc, name)
+        for meth in [m for m in dir(jcls) if m == "__init__" or not m.startswith("_")]:
+            if not callable(getattr(jcls, meth)):
+                continue
+            assert hasattr(tcls, meth), f"{name}.{meth} missing from the port"
+            got = _positional(getattr(tcls, meth))
+            want = [ALLOWED_RENAMES.get((name, meth, p), p)
+                    for p in _positional(getattr(jcls, meth))]
+            extra = ALLOWED_EXTRA.get((name, meth), ())
+            assert got == want + list(extra), (name, meth, got, want)
+            kw_only = [p.name for p in inspect.signature(getattr(tcls, meth)).parameters.values()
+                       if p.kind is p.KEYWORD_ONLY]
+            assert set(kw_only) <= {"device"}, (name, meth, kw_only)
+
+
+def _positional(fn):
+    import inspect
+    return [p.name for p in inspect.signature(fn).parameters.values()
+            if p.kind is p.POSITIONAL_OR_KEYWORD]
+
+
+# The port's deliberate departures from the JAX signatures: a random
+# source is a numpy Generator or a torch.Generator in place of a JAX key
+# (the two streams cannot agree, ROADMAP "stochastic components"), a flow
+# method takes the parameters as an optional trailing ``fp`` (the sweep
+# hands in one FlowParams for many calls), and whitening_params names the
+# device of the tensors it returns. ``device`` of Sampler and Flow is
+# keyword-only, so it never shifts a JAX positional argument.
+_DISTRIBUTIONS = ("Beta", "Cauchy", "Exponential", "Gamma", "HalfNormal", "Laplace",
+                  "LogNormal", "LogUniform", "Normal", "StudentT", "TruncatedNormal", "Uniform")
+ALLOWED_RENAMES = {**{(k, "sample", "key"): "rng" for k in _DISTRIBUTIONS},
+                   ("Flow", "sample", "key"): "generator",
+                   ("Geometry", "fit", "key"): "generator"}
+ALLOWED_EXTRA = {("Flow", "forward"): ("fp",), ("Flow", "inverse"): ("fp",),
+                 ("Flow", "log_prob"): ("fp",), ("Flow", "sample"): ("fp",),
+                 ("Reparameterize", "whitening_params"): ("device",)}
 
 
 def test_public_names_match_jax():
