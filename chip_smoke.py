@@ -8,7 +8,10 @@ printing one JSON line:
   2. build: compiles the six CUDA libraries from ``pocomc_tpu_torch/csrc``
      (K2's forward and backward, K1 and its backward K1-bwd, each with both
      heads, and K5's forward/inverse and backward, the latter with the
-     inverse's gradient, K5-inv-bwd), one nvcc each, all started together;
+     inverse's gradient, K5-inv-bwd) for the default 8 spline bins and for
+     each of phase 14's (``SPLINE_BINS``), one nvcc each, all started
+     together, with each library's seconds and ptxas's count of its
+     instances, their most registers and their spills;
      ``k5_plans``, after phase 4, prints the tile each K5 launch of
      phases 3-4 took, from the wrapper's own plans (the lane grid, BM rows
      a block, the register tile, G, BK-row slabs in S stages, shared
@@ -28,7 +31,12 @@ printing one JSON line:
      against ``made_rqs_backward_ref`` and against plain autograd,
      transform by transform, on the layer inputs the forward kernel saved;
      rows in the spline tails (|y| >= 5), rows on a knot and rows of zero
-     weight among the inputs;
+     weight among the inputs. A value past the plain version's tolerance
+     must lie within it of float64 (``check_values``), and a row whose
+     input gradient is past the limit must lie within 1e-5 of a knot or a
+     ReLU kink (in the float64 forward, or in the saved inputs the
+     backward reads), and only such rows are left out (``grads_off_jumps``);
+     phases 4 and 14 take the same rules;
   4. K1 (autoregressive inverse) against its plain version at the same
      shapes (n=1024 and 2048: the bridge's ``bridge_n`` for n_active up to
      512 and up to 1024; 2048 takes K1's two-row launch), plus the round
@@ -79,15 +87,14 @@ printing one JSON line:
      mixture (logZ +-0.3, mode mass +-0.1); ``imh_every=2`` on its 4-D
      Gaussian (+-0.4, calls below 1.5x the run with ``imh_every=0``);
  11. ``reference_surface``: a script written against the reference, on
-     phase 6's problem: (a) ``Prior([scipy.stats.norm(0, 3)] * 10)``, which
-     must repeat phase 6's logZ and calls bit for bit; (b) a prior in numpy
-     alone (``logpdf``/``rvs``/``bounds``/``dim``), which takes the host
-     route and the host loop, stays in the logZ gate, sees only finite
-     rows and launches all three kernels; (c) phase 6's run with
-     ``save_every=10``, which must repeat phase 6 bit for bit, then a
-     sampler of another ``random_state`` that resumes from the state saved
-     at t=20 (logZ in the gate, t >= the finished run's t - 2), and the
-     finished run through ``save_state``/``load_state`` (posterior,
+     phase 6's problem: (a) ``Prior([scipy.stats.norm(0, 3)] * 10)`` with
+     ``save_every=10``, which must repeat phase 6's logZ and calls bit for
+     bit; (b) a prior in numpy alone (``logpdf``/``rvs``/``bounds``/``dim``),
+     which takes the host route and the host loop, stays in the logZ gate,
+     sees only finite rows and launches all three kernels; (c) on (a)'s
+     states, a sampler of another ``random_state`` that resumes from the
+     state saved at t=20 (logZ in the gate, t >= the finished run's t - 2),
+     and the finished run through ``save_state``/``load_state`` (posterior,
      evidence and the CUDA generator's state bit for bit). The states are
      written under ``build/`` and removed;
  12. ``flow_menu``: (a) phase 6's quickstart with ``flow="maf6"`` and with
@@ -120,9 +127,27 @@ printing one JSON line:
      of K5-inv-bwd, and no K5 forward launch in nsfc6's 20 steps: its
      gradient reads the inverse's saved state); (e) the same 20-step mala sweep on random nsf flows
      at d=50, nsf6, n=4096 (ms a step, acceptance) and at d=342, nsf3,
-     n=256 (it must run: finite states and gradients).
+     n=256 (it must run: finite states and gradients);
+ 14. ``spline_bins``, ``Flow(bins=)`` at other bins than 8: (b) every
+     spline-head kernel against its plain version (and float64 where
+     phases 4 and 13 hold it so) at those phases' tolerances and exclusion
+     windows: K2, its gradient end to end, K2-bwd, K1 and its round trip at
+     2, 5, 12 and 16 bins at (d, n) = (10, 256), and at 16 bins also at
+     (10, 2048), (10, 4096) (K1's two- and four-row launches), (50, 1024)
+     and nsf3 at (342, 64); K5's forward, inverse and backward at the same
+     bins at (10, 256) and 16 bins at (50, 1024); K1-bwd and K5-inv-bwd at
+     5 and 16 bins at (10, 256) and 16 at (50, 1024); (c) the 16-bin
+     kernels timed at the kernels line's shapes as phase 5 times the 8-bin
+     ones, beside their plain versions, bounds and products as
+     torch.matmul/bmm; (d) phase 6's quickstart with ``flow=Flow(10,
+     "nsf6", bins=16)`` (the same logZ gate, launches of the 16-bin K2,
+     K2-bwd and K1 and of no 8-bin kernel), run twice at the same seed,
+     which must repeat its bits; (e) a 20-step mala sweep at d=10, n=256 on
+     random nsf6 and nsfc6 flows of 16 bins, as phase 13 (d); (f) the
+     quickstart's state through ``save_state``/``load_state`` into a
+     sampler of another seed, bit for bit.
 
-Every path (phases 6-13) runs with the launch counts set to 0 just before
+Every path (phases 6-14) runs with the launch counts set to 0 just before
 it and read just after, and fails unless every kernel of the path ran.
 Then the kernels line and, last, the contract
 line. Any failed check exits non-zero before those two lines. Without a
@@ -172,7 +197,8 @@ COUPLING = ("coupling_forward", "coupling_inverse", "coupling_backward")
 # K5-inv-bwd (the inverse instances of K5's backward)
 GRADIENT = ("ar_inverse_backward", "ar_inverse_backward_affine", "coupling_inverse_backward")
 KERNELS = RQS + AFFINE + COUPLING + GRADIENT
-# the CUDA sources, one library each (both heads in each of the first four)
+# the CUDA sources, one library each and bins (both heads in each of the
+# first four)
 LIBRARIES = ("made_rqs_forward", "made_rqs_backward", "ar_inverse", "ar_inverse_backward",
              "coupling_forward", "coupling_backward")
 # (flow, n_dim, n_particles) of the rest of the menu for phases 3-5: maf6
@@ -214,10 +240,21 @@ GRAD_SHAPES = [("nsf6", 10, 37), ("nsf6", 10, 256), ("nsf6", 10, 1024), ("nsf6",
                ("maf6", 50, 4096), ("nsf3", 342, 64), ("maf3", 342, 64), ("nsfc6", 10, 256),
                ("nsfc6", 10, 1024), ("nsfc12", 50, 256), ("nsfc12", 50, 4096)]
 # arithmetic of one element's inverse VJP (heads.cuh inverse_vjp), counted
-# from the source: the spline's setup (two softmaxes, seven softplus and
-# sigmoid), bin, slope, chain and knot VJPs, a transcendental as one
-# operation; the affine map's few. The bounds count it beside the products.
-ELEMENT_VJP_OPS = {"rqs": 560, "affine": 12}
+# from the source, a transcendental as one operation: for the spline 56 a
+# bin (each bin's two softmax terms and running sums, its interior
+# derivative's softplus and sigmoid, its bin search and edge selects, and
+# the VJPs of its sizes and derivative) and 112 for the bin's local
+# quantities, slope and chain, so 560 at 8 bins and 1,008 at 16; the affine
+# map's 12. The bounds count it beside the products.
+def element_vjp_ops(head, bins=8):
+    return 112 + 56 * bins if head == "rqs" else 12
+
+
+# phase 14: the spline bins whose libraries phase 2 builds beside the
+# default 8 (2 the fewest, 5 not a power of two, 12 past the 10 whose
+# parameters fit a warp's lanes, 16 the most), and the bins timed
+SPLINE_BINS = (2, 5, 12, 16)
+TIMED_BINS = 16
 
 
 def rosenbrock_row(x):
@@ -241,17 +278,31 @@ class TimedLikelihood:
         return out
 
 
+def with_bins(name, bins):
+    """A kernel's name in the launch counts and the kernels line at the
+    spline's bins: ``made_rqs_forward_b16``; the 8-bin one keeps its name."""
+    return name if bins == 8 else f"{name}_b{bins}"
+
+
 def _counter(name):
-    """(wrapper, attribute) of a kernel's launch count."""
+    """(wrapper, attribute) of a kernel's launch count; a name ending in
+    _b<bins> counts the spline of those bins."""
     from pocomc_tpu_torch.ops import coupling_kernels as ck, flow_kernels as fk
-    if name.endswith("_affine"):
-        return getattr(fk, name[:-len("_affine")]), "launches_affine"
-    return getattr(ck if name.startswith("coupling") else fk, name), "launches"
+    base, bins = name, 8
+    if "_b" in name and name.rsplit("_b", 1)[1].isdigit():
+        base, tail = name.rsplit("_b", 1)
+        bins = int(tail)
+    if base.endswith("_affine"):
+        return getattr(fk, base[:-len("_affine")]), "launches_affine"
+    return (getattr(ck if base.startswith("coupling") else fk, base),
+            fk.launch_attr("rqs", bins))
 
 
 def reset_launches(fk=None):
-    for name in KERNELS:
-        setattr(*_counter(name), 0)
+    """Every kernel's launch count, each head and each bins, set to 0."""
+    from pocomc_tpu_torch.ops import coupling_kernels as ck, flow_kernels as fk
+    fk.zero_counts([getattr(fk, k) for k in RQS] + [getattr(ck, k) for k in COUPLING]
+                   + [fk.ar_inverse_backward, ck.coupling_inverse_backward])
 
 
 def read_launches(fk=None, names=RQS):
@@ -389,13 +440,17 @@ def reference_surface(pt, fk, log_like, main, states, device="cuda", **kw):
     launches, rows = {}, {}
     run_kw = dict(n_total=4096, n_evidence=4096)
     d = 10
-    # (a) scipy.stats columns, converted: phase 6's run bit for bit
-    s = drive("scipy_prior", pt.Prior([stats.norm(0, 3)] * d), run_kw, random_state=0)
+    # (a) scipy.stats columns, converted, with (c)'s save_every: phase 6's
+    # run bit for bit, writing its states (one run holds both)
+    shutil.rmtree(states, ignore_errors=True)
+    s = drive("scipy_prior_save_every", pt.Prior([stats.norm(0, 3)] * d),
+              dict(run_kw, save_every=10), random_state=0, output_dir=states)
     if not (s.prior_route == "device" and s._use_device_loop()):
         fail("reference_surface (a): the scipy prior did not take the device loop")
     if (s.logz, s.calls) != (main["logz"], main["calls"]):
-        fail(f"reference_surface (a): logZ {s.logz} and {s.calls} calls differ from "
-             f"phase 6's {main['logz']} and {main['calls']}")
+        fail(f"reference_surface (a): with save_every, logZ {s.logz} and {s.calls} calls "
+             f"differ from phase 6's {main['logz']} and {main['calls']}")
+    done = s
     # (b) a prior in numpy alone: the host route and the host loop
     host_prior = NumpyNormalPrior(d, 3.0)
     s = drive("host_prior", host_prior, run_kw, random_state=0)
@@ -404,13 +459,8 @@ def reference_surface(pt, fk, log_like, main, states, device="cuda", **kw):
         fail("reference_surface (b): the numpy prior did not take the host route and loop")
     if not (np.isfinite(s.logz) and abs(s.logz - TRUE_LOGZ) < LOGZ_GATE):
         fail(f"reference_surface (b): logZ {s.logz} outside {TRUE_LOGZ} +- {LOGZ_GATE}")
-    # (c) save_every, a resume by a sampler of another seed, a round trip
-    shutil.rmtree(states, ignore_errors=True)
-    s = drive("save_every", pt.Prior([pt.Normal(0.0, 3.0)] * d), dict(run_kw, save_every=10),
-              random_state=0, output_dir=states)
-    if (s.logz, s.calls) != (main["logz"], main["calls"]):
-        fail(f"reference_surface (c): with save_every, logZ {s.logz} and {s.calls} calls "
-             f"differ from phase 6's {main['logz']} and {main['calls']}")
+    # (c) (a)'s states: a resume by a sampler of another seed, a round trip
+    s = done
     saved = sorted(p.name for p in states.glob("pmc_*.state"))
     r = drive("resume", pt.Prior([pt.Normal(0.0, 3.0)] * d),
               dict(run_kw, resume_state_path=states / "pmc_20.state"), random_state=1)
@@ -434,8 +484,27 @@ def reference_surface(pt, fk, log_like, main, states, device="cuda", **kw):
                 generator=s._gen.device.type), launches
 
 
+def ptxas_summary(report):
+    """A library's kernel instances from nvcc's -Xptxas=-v report: their
+    count, the most registers a thread of any, and how many spill and the
+    most bytes one spills (stores + loads); None when nothing was built."""
+    import re
+    regs = [int(m) for m in re.findall(r"Used (\d+) registers", report)]
+    spills = [int(a) + int(b) for a, b in
+              re.findall(r"(\d+) bytes spill stores, (\d+) bytes spill loads", report)]
+    if not regs:
+        return None
+    return dict(instances=len(regs), max_registers=max(regs),
+                spilling=sum(1 for v in spills if v), max_spill_bytes=max(spills, default=0))
+
+
+T0 = time.perf_counter()
+
+
 def emit(phase, **kw):
-    print(json.dumps({"phase": phase, **kw}), flush=True)
+    """One phase's JSON line, with the seconds since the script started."""
+    print(json.dumps({"phase": phase, **kw,
+                      "elapsed_s": round(time.perf_counter() - T0, 1)}), flush=True)
 
 
 def fail(msg):
@@ -443,13 +512,13 @@ def fail(msg):
     sys.exit(1)
 
 
-def random_flow(name, d, scale=0.02):
+def random_flow(name, d, scale=0.02, bins=8):
     """A flow on the card with random non-zero weights from a numpy seed:
     init hidden layers, output layer ~ N(0, scale^2), biases ~ N(0, 0.02^2),
-    and a random whitening pre-layer."""
+    and a random whitening pre-layer; its spline of ``bins`` bins."""
     from pocomc_tpu_torch.models.flow import Flow
-    rng = np.random.default_rng(SEED + d)
-    flow = Flow(d, name, device="cuda")
+    rng = np.random.default_rng(SEED + d + (0 if bins == 8 else 1000 * bins))
+    flow = Flow(d, name, bins=bins, device="cuda")
     with torch.no_grad():
         # every transform's output layer: the last of four stacked layers,
         # or of each coupling transform's four
@@ -528,9 +597,9 @@ def grad_problem(flow, d, n, rng):
     knots = torch.arange(1, n, 8, device="cuda")
     with torch.no_grad():
         fp = flow.params()
-        p = apply_made([w[0] for w in fp.ws], [b[0] for b in fp.bs], y, d, 23)
-        xk = tr._rqs_setup(p[:, 0], 8)[0]
-        pick = torch.from_numpy(rng.integers(1, 8, knots.numel())).cuda()
+        p = apply_made([w[0] for w in fp.ws], [b[0] for b in fp.bs], y, d, flow.n_params)
+        xk = tr._rqs_setup(p[:, 0], flow.bins)[0]
+        pick = torch.from_numpy(rng.integers(1, flow.bins, knots.numel())).cuda()
         y[knots, 0] = xk[knots, pick]
     g_z = torch.from_numpy(rng.standard_normal((n, d)).astype(np.float32)).cuda()
     g_l = torch.from_numpy(rng.standard_normal(n).astype(np.float32)).cuda()
@@ -540,28 +609,150 @@ def grad_problem(flow, d, n, rng):
     return y, g_z, g_l
 
 
-def edge_rows(flow, y, g_l, window=1e-5):
-    """Rows whose gradient two correct fp32 routes may give differently:
-    in the float64 forward some transform input lies within `window` of a
-    knot of its spline (the clamp edges +-B among them), where the
-    log-det's gradient jumps and a rounding of ~1e-6 picks the side, and
-    the row's dL/dladj is nonzero. (n,) bool."""
-    from pocomc_tpu_torch.models import transforms as tr
-    from pocomc_tpu_torch.ops import flow_kernels as fk
-    n, d = y.shape
-    f64 = copy.deepcopy(flow).double()
-    near = torch.zeros(n, dtype=torch.bool, device=y.device)
+def forward_acts64(flow, y):
+    """The layer inputs that the flow's stack forward saves at the stack
+    input y, computed by the plain forward in float64."""
+    from pocomc_tpu_torch.ops import coupling_kernels as ck, flow_kernels as fk
+    fp = copy.deepcopy(flow).double().params()
     with torch.no_grad():
-        fp = f64.params()
-        acts = fk.made_rqs_forward_ref(y.double(), fp.ws, fp.bs, save_inputs=True)[2]
-        for t in range(acts[0].shape[0]):
-            p = (acts[3][t] @ fp.ws[3][t] + fp.bs[3][t]).reshape(n, d, 23)
-            xk = tr._rqs_setup(p, 8)[0]
-            near |= ((acts[0][t][..., None] - xk).abs() < window).any(-1).any(-1)
-    return near & (g_l != 0)
+        if flow.kind == "nsfc":
+            return ck.coupling_forward_ref(y.double(), fp.ws, fp.bs, fp.masks,
+                                           save_inputs=True, bins=flow.bins)[2]
+        return fk.made_rqs_forward_ref(y.double(), fp.ws, fp.bs, save_inputs=True,
+                                       head=flow.head, bins=flow.bins)[2]
 
 
-def autograd_by_transform(xs, ws, bs, g_z, g_l):
+def spline_knots(flow, state, inverse=False):
+    """[(x, knots)] by transform, in float64, from a saved state: each
+    spline input (n, k) and its spline's knots (n, k, bins + 1, the clamp
+    edges +-B among them). The state is the layer inputs a forward saves
+    (``forward_acts64``'s or a kernel's; the knots from the output layer's
+    input and the flow's weights), or with ``inverse`` the state the
+    coupling inverse saves (the spline's outputs x_t and its saved
+    parameters). None for the affine head, which has no knots."""
+    from pocomc_tpu_torch.models import transforms as tr
+    if flow.kind == "maf":
+        return None
+    fp = copy.deepcopy(flow).double().params()
+    n = state[0].shape[1]
+    out = []
+    with torch.no_grad():
+        for t in range(state[0].shape[0]):
+            x = state[0][t].double()
+            if flow.kind == "nsfc":
+                x = x[:, torch.as_tensor(~fp.masks[t], device=x.device)]
+                k = x.shape[1] * flow.n_params
+                p = (state[4][t][:, :k].double() if inverse
+                     else state[3][t].double() @ fp.ws[t][3] + fp.bs[t][3])
+            else:
+                p = state[3][t].double() @ fp.ws[3][t] + fp.bs[3][t]
+            out.append((x, tr._rqs_setup(p.reshape(n, x.shape[1], flow.n_params),
+                                         flow.bins)[0]))
+    return out
+
+
+def knot_distance(flow, state, inverse=False):
+    """(n,) float64: each row's least distance from a spline input to a
+    knot of its spline in a saved state (``spline_knots``); inf for the
+    affine head."""
+    n = state[0].shape[1]
+    dist = torch.full((n,), math.inf, dtype=torch.float64, device=state[0].device)
+    for x, xk in spline_knots(flow, state, inverse) or []:
+        dist = torch.minimum(dist, (x[..., None] - xk).abs().flatten(1).amin(1))
+    return dist
+
+
+def bins_differ(flow, state, other, inverse=False):
+    """(n,) bool: rows of which some spline input falls in another bin of
+    its spline in one saved state than in the other (``spline_knots``)."""
+    n = state[0].shape[1]
+    flip = torch.zeros(n, dtype=torch.bool, device=state[0].device)
+    for (x, xk), (xo, xko) in zip(spline_knots(flow, state, inverse) or [],
+                                  spline_knots(flow, other, inverse) or []):
+        flip |= ((x[..., None] >= xk).sum(-1) != (xo[..., None] >= xko).sum(-1)).any(1)
+    return flip
+
+
+def knot_rows(flow, y, g_l, window=1e-5):
+    """Rows whose gradient two correct fp32 routes may give differently:
+    in the float64 forward from the stack input y some spline input lies
+    within `window` of a knot (``knot_distance``), where the log-det's
+    gradient jumps and a rounding of ~1e-6 picks the side, and the row's
+    dL/dladj is nonzero. (n,) bool."""
+    return (knot_distance(flow, forward_acts64(flow, y)) < window) & (g_l != 0)
+
+
+def kink_distance(flow, y):
+    """(n,) float64: each row's least |pre-activation| over the hidden
+    layers of every transform's network in the float64 forward from the
+    stack input y: the ReLU's derivative jumps at 0, so the gradients do,
+    and which side a row takes turns on the last bits of a sum two correct
+    fp32 routes order differently (plain fp32 autograd and the plain VJP,
+    in agreement, lie 0.11 from float64 in one such row of 4096 at nsf6,
+    d=10, on the CPU)."""
+    fp = copy.deepcopy(flow).double().params()
+    xs = forward_acts64(flow, y)[0]
+    dist = torch.full((y.shape[0],), math.inf, dtype=torch.float64, device=y.device)
+    with torch.no_grad():
+        if flow.kind == "nsfc":
+            nets = [(xs[t][:, torch.as_tensor(m, device=y.device)], fp.ws[t], fp.bs[t])
+                    for t, m in enumerate(fp.masks)]
+        else:
+            nets = [(xs[t], [w[t] for w in fp.ws], [b[t] for b in fp.bs])
+                    for t in range(xs.shape[0])]
+        for inp, w, b in nets:
+            h = inp @ w[0] + b[0]
+            dist = torch.minimum(dist, h.abs().amin(-1))
+            for l in (1, 2):
+                h = h + torch.relu(h) @ w[l] + b[l]
+                dist = torch.minimum(dist, h.abs().amin(-1))
+    return dist
+
+
+def kink_rows(flow, y, window=1e-5):
+    """Rows of the stack input y on a ReLU kink (``kink_distance`` within
+    `window`). (n,) bool."""
+    return kink_distance(flow, y) < window
+
+
+def grads_off_jumps(label, grads, g_z, g_l, tol, near):
+    """``grad_rel_err`` of grads(g_z, g_l) -> (got, want), lists with the
+    input gradient first, at `tol`, every row kept where it passes. Rows
+    whose input gradient passes `tol` of its largest must each lie in
+    `near` (on a knot or a ReLU kink, where the gradient jumps and the
+    last bit of a sum picks the side); those rows alone are then left out
+    (their upstream gradients set to 0) and every tensor is checked again
+    on the rest. Returns (max |diff| / max |grad|, the rows left out)."""
+    got, want = grads(g_z, g_l)
+    lim = tol * float(want[0].abs().max())
+    past = (got[0].double() - want[0].double()).abs().amax(1) > lim
+    rows = past.nonzero().flatten().tolist()
+    if rows:
+        stray = (past & ~near).nonzero().flatten().tolist()
+        if stray:
+            worst = float((got[0].double() - want[0].double()).abs().max())
+            fail(f"{label}: input gradient {worst:.3e} past {lim:.3e} in rows {stray[:8]}, on "
+                 f"no knot or ReLU kink")
+        got, want = grads(g_z.masked_fill(past[:, None], 0.0), g_l.masked_fill(past, 0.0))
+    return grad_rel_err(label, got, want, tol), rows
+
+
+def jump_report(flow, y, rows, acts=None):
+    """For each row left out by ``grads_off_jumps``: its index, its least
+    distance to a knot in the float64 forward from y and, given `acts`, in
+    those saved inputs, and to a ReLU kink, and whether ``grad_problem``
+    planted it on a knot (every 8th row from 1)."""
+    if not rows:
+        return []
+    at = torch.as_tensor(rows, device=y.device)
+    k64 = knot_distance(flow, forward_acts64(flow, y))[at].tolist()
+    kink = kink_distance(flow, y)[at].tolist()
+    ks = knot_distance(flow, acts)[at].tolist() if acts is not None else [None] * len(rows)
+    return [dict(row=r, knot_f64=a, knot_saved=s, kink_f64=k, planted=r % 8 == 1)
+            for r, a, s, k in zip(rows, k64, ks, kink)]
+
+
+def autograd_by_transform(xs, ws, bs, g_z, g_l, bins=8):
     """Plain autograd of the stack's forward, one transform at a time at
     the given transform inputs xs (T, n, d): (g_y, g_ws, g_bs) for the
     masked weights. Independent of the closed-form derivatives."""
@@ -575,7 +766,7 @@ def autograd_by_transform(xs, ws, bs, g_z, g_l):
         x = xs[t].clone().requires_grad_(True)
         wt = [w[t].clone().requires_grad_(True) for w in ws]
         bt = [b[t].clone().requires_grad_(True) for b in bs]
-        z, l = tr.rqs_forward(x, apply_made(wt, bt, x, d, 23), 8)
+        z, l = tr.rqs_forward(x, apply_made(wt, bt, x, d, tr.rqs_n_params(bins)), bins)
         g, *gp = torch.autograd.grad((z, l.sum(-1)), [x, *wt, *bt], (g, g_l))
         for l_, gw in enumerate(gp[:4]):
             g_ws[l_][t] = gw
@@ -605,7 +796,7 @@ def grad_route(flow, forward, y, g_z, g_l):
     flow.zero_grad(set_to_none=True)
     yy = y.clone().requires_grad_(True)
     fp = flow.params()
-    z, ladj = forward(yy, fp.ws, fp.bs)
+    z, ladj = forward(yy, fp.ws, fp.bs, bins=fp.bins)
     torch.autograd.backward((z, ladj), (g_z, g_l))
     return [yy.grad, *[w.grad * m for w, m in zip(flow.weights, flow.masks)],
             *[b.grad for b in flow.biases]]
@@ -640,8 +831,9 @@ def made_bounds(n, flow):
 
 def coupling_bounds(n, flow):
     """Bounds of K5's forward, inverse and backward at n rows of a coupling
-    flow: the flops of its dense products (n_cond*h + 2*h*h + h*23*n_trans
-    multiply-adds a row and transform), each input read and each output
+    flow: the flops of its dense products (n_cond*h + 2*h*h + h*NP*n_trans
+    multiply-adds a row and transform, NP the spline's 3 bins - 1 raw
+    parameters a dimension), each input read and each output
     written once, the weights and biases once. The backward as K2's: the
     saved layer inputs, g_z, g_ladj and the weights in, g_x and the weight
     and bias gradients out, the output layer's product again, the products
@@ -661,8 +853,8 @@ def plain_stack(flow, y):
     from pocomc_tpu_torch.ops import coupling_kernels as ck, flow_kernels as fk
     fp = flow.params()
     if flow.kind == "nsfc":
-        return ck.coupling_forward_ref(y, fp.ws, fp.bs, fp.masks)
-    return fk.made_rqs_forward_ref(y, fp.ws, fp.bs, head=flow.head)
+        return ck.coupling_forward_ref(y, fp.ws, fp.bs, fp.masks, bins=fp.bins)
+    return fk.made_rqs_forward_ref(y, fp.ws, fp.bs, head=flow.head, bins=fp.bins)
 
 
 def stack_grads(flow, forward, y, g_z, g_l):
@@ -689,7 +881,160 @@ def check_vs_float64(name, got, plain, exact, atol):
                 kernel_vs_plain=max_err(got, plain))
 
 
-def check_menu(name, d, n, flow, rng, tol):
+def check_values(name, got, plain, exact, rtol, atol):
+    """Every element of got within atol + rtol |plain| of the plain fp32
+    version (``torch.allclose``'s rule) or, where not, within atol + rtol
+    |exact| of the plain version in float64: two fp32 routes that sum in
+    other orders may each lie up to the tolerance from float64 on opposite
+    sides (at 16 bins, nsf6 (10, 4096) K2's z and the plain fp32 z lie
+    1.02e-5 and 9.05e-6 from float64, 1.48e-5 from each other). Fails
+    naming the worst element; returns (max |got - plain|, the numbers)."""
+    g, p = got.double(), plain.double()
+    off_plain = (g - p).abs() > atol + rtol * p.abs()
+    off_exact = (g - exact).abs() > atol + rtol * exact.abs()
+    out = dict(kernel_vs_plain=max_err(g, p), kernel_vs_f64=max_err(g, exact),
+               plain_vs_f64=max_err(p, exact), held_by_float64=int(off_plain.sum()))
+    if bool(off_plain.any()):
+        at = int((g - p).abs().flatten().argmax())
+        out["worst"] = dict(index=at, row=at // (g.shape[1] if g.dim() > 1 else 1),
+                            vs_plain=float((g - p).flatten()[at]),
+                            vs_f64=float((g - exact).flatten()[at]),
+                            plain_vs_f64=float((p - exact).flatten()[at]),
+                            f64=float(exact.flatten()[at]))
+    if bool((off_plain & off_exact).any()):
+        fail(f"{name}: {int((off_plain & off_exact).sum())} elements past atol {atol} + rtol "
+             f"{rtol} of both the plain version and float64 (max |diff| to float64 "
+             f"{out['kernel_vs_f64']:.3e}, the plain fp32 version's {out['plain_vs_f64']:.3e})")
+    return out["kernel_vs_plain"], out
+
+
+def check_spline_made(name, d, n, flow, rng):
+    """Phases 3-4 and 14 for an nsf* flow (K2, K2-bwd and K1 with the
+    spline head of the flow's bins) at n rows: the forward's z and log-det
+    and K1's x and log-det against the plain version, or where an element
+    is past it against the plain version in float64 (``check_values``);
+    log_prob against the plain forward; the gradient through the
+    autograd.Function (the forward kernel, then the backward kernel)
+    against plain autograd of the plain forward on the same y
+    (``grad_problem``'s rows), rows on a float64 knot with dL/dladj != 0
+    left out (``knot_rows``), at the stated tolerance or twice the spread
+    of plain autograd on the CPU against the card where that is larger;
+    then, with every row, against the plain backward and per-transform
+    autograd on the layer inputs the forward kernel saved, which are held
+    to the plain forward's; K1's round trip. In both gradient checks a row
+    whose input gradient is past the limit must lie within 1e-5 of a
+    jump, and only such rows are left out (``grads_off_jumps``): of a
+    ReLU kink (``kink_rows``), and for the check on the saved inputs also
+    of a knot in those saved inputs, which both routes read (at 16 bins,
+    (50, 1024) K2-bwd's g_y lay 2.9e-2 of its largest from the plain
+    backward's on the same saved inputs with every row kept). TOL[10] up
+    to d=10, TOL[50] past it. Returns (the numbers to report, max |diff| by
+    kernel, under the kernels' names at the flow's bins)."""
+    from pocomc_tpu_torch.ops import flow_kernels as fk
+    tol = TOL[min(max(d, 10), 50)]
+    bins = flow.bins
+    k2, k2b, k1 = (with_bins(k, bins) for k in RQS)
+    y = torch.from_numpy(rng.standard_normal((n, d)).astype(np.float32)).cuda()
+    vs64 = {}
+
+    def close(label, got, plain, exact, rtol, atol):
+        e, vs64[label] = check_values(label, got, plain, exact, rtol, atol)
+        return e
+
+    with torch.no_grad():
+        fp = flow.params()
+        f64 = copy.deepcopy(flow).double().params()
+        z_k, l_k = fk.made_rqs_forward(y, fp.ws, fp.bs, bins=bins)
+        z_r, l_r = fk.made_rqs_forward_ref(y, fp.ws, fp.bs, bins=bins)
+        z_e, l_e = fk.made_rqs_forward_ref(y.double(), f64.ws, f64.bs, bins=bins)
+        torch.cuda.synchronize()
+        e_z = close(f"{k2} z d={d} n={n}", z_k, z_r, z_e, tol["rtol"], tol["atol"])
+        e_l = close(f"{k2} ladj d={d} n={n}", l_k, l_r, l_e, 0.0, tol["ladj"])
+        lp_k = flow.log_prob(y, fp)
+        pre = fp.pre
+        z_p, l_p = fk.made_rqs_forward_ref((y - pre["mean"]) @ pre["w_fwd"], fp.ws, fp.bs,
+                                           bins=bins)
+        lp_r = flow._base_logpdf(z_p) + l_p + pre["ladj"]
+        e_lp = check_close(f"{k2} log_prob d={d} n={n}", lp_k, lp_r, 0.0, tol["ladj"])
+    # K2 backward end to end: the kernel, through the autograd.Function
+    # as training calls it, against plain autograd of the plain forward
+    # on the same y. Rows on a knot in float64 with dL/dladj != 0 are
+    # left out (knot_rows). Elsewhere two correct fp32 routes still
+    # differ where a row's gradient is ill-conditioned (plain autograd
+    # on the CPU against the card: up to 1e-2 of the largest gradient at
+    # n=1024), so the stated tolerance rises to twice that spread,
+    # measured here, where it is larger.
+    yg, g_z, g_l = grad_problem(flow, d, n, rng)
+    edge = knot_rows(flow, yg, g_l)
+    kinks = kink_rows(flow, yg)
+    g_ze, g_le = g_z.masked_fill(edge[:, None], 0.0), g_l.masked_fill(edge, 0.0)
+    plain = grad_route(flow, fk.made_rqs_forward_ref, yg, g_ze, g_le)
+    e_cpu = max(rel_errs(grad_route(copy.deepcopy(flow).cpu(), fk.made_rqs_forward_ref,
+                                    yg.cpu(), g_ze.cpu(), g_le.cpu()), plain))
+    e2e_tol = max(tol["grad"], 2 * e_cpu)
+    e_ge, e2e_out = grads_off_jumps(
+        f"{k2b} gradient end to end d={d} n={n}",
+        lambda gz, gl: (grad_route(flow, fk.made_rqs_forward, yg, gz, gl),
+                        grad_route(flow, fk.made_rqs_forward_ref, yg, gz, gl)),
+        g_ze, g_le, e2e_tol, kinks)
+    # then, with every row, against the plain backward and per-transform
+    # autograd on the layer inputs the forward kernel saved, which are
+    # themselves held to the plain forward's
+    with torch.no_grad():
+        _, _, acts = fk.made_rqs_forward(yg, fp.ws, fp.bs, save_inputs=True, bins=bins)
+        acts_r = fk.made_rqs_forward_ref(yg, fp.ws, fp.bs, save_inputs=True, bins=bins)[2]
+    torch.cuda.synchronize()
+    # the saved inputs within 10x the value tolerance: each sums the
+    # rounding of the transforms before it, where a wrong offset is O(1)
+    e_acts = max(check_close(f"{k2} saved input {l} d={d} n={n}", a, b, 10 * tol["rtol"],
+                             10 * tol["atol"]) for l, (a, b) in enumerate(zip(acts, acts_r)))
+    flat = lambda g: [g[0], *[w * m for w, m in zip(g[1], flow.masks)], *g[2]]
+    on_saved = ((knot_distance(flow, acts) < 1e-5) & (g_l != 0)) | kinks
+
+    def by_plain(gz, gl):
+        with torch.no_grad():
+            g_ref = fk.made_rqs_backward_ref(yg, fp.ws, fp.bs, gz, gl, acts, bins=bins)
+        return grad_route(flow, fk.made_rqs_forward, yg, gz, gl), flat(g_ref)
+
+    def by_autograd(gz, gl):
+        return (grad_route(flow, fk.made_rqs_forward, yg, gz, gl),
+                flat(autograd_by_transform(acts[0], fp.ws, fp.bs, gz, gl, bins)))
+
+    e_gr, plain_out = grads_off_jumps(f"{k2b} vs plain d={d} n={n}", by_plain, g_z, g_l,
+                                      tol["grad"], on_saved)
+    e_ga, ag_out = grads_off_jumps(f"{k2b} vs autograd d={d} n={n}", by_autograd, g_z, g_l,
+                                   tol["grad"], on_saved)
+    off = torch.zeros(n, dtype=torch.bool, device=yg.device)
+    off[plain_out] = True
+    got, g_ref = by_plain(g_z.masked_fill(off[:, None], 0.0), g_l.masked_fill(off, 0.0))
+    with torch.no_grad():
+        zi = torch.from_numpy(rng.standard_normal((n, d)).astype(np.float32)).cuda()
+        x_k, li_k = fk.ar_inverse(zi, fp.ws, fp.bs, fp.inv_orders, bins=bins)
+        x_r, li_r = fk.ar_inverse_ref(zi, fp.ws, fp.bs, fp.inv_orders, bins=bins)
+        x_e, li_e = fk.ar_inverse_ref(zi.double(), f64.ws, f64.bs, f64.inv_orders, bins=bins)
+        torch.cuda.synchronize()
+        e_x = close(f"{k1} x d={d} n={n}", x_k, x_r, x_e, tol["rtol"], tol["atol"])
+        e_li = close(f"{k1} ladj d={d} n={n}", li_k, li_r, li_e, 0.0, tol["ladj"])
+        z_rt, l_rt = fk.made_rqs_forward(x_k, fp.ws, fp.bs, bins=bins)
+        e_rt = check_close(f"{k1} round trip d={d} n={n}", z_rt, zi, tol["rtol"],
+                           10 * tol["atol"])
+        e_rtl = check_close(f"{k1} round-trip ladj d={d} n={n}", l_rt + li_k,
+                            torch.zeros_like(l_rt), 0.0, 10 * tol["ladj"])
+    out = dict(flow=name, bins=bins, d=d, n=n, tol=tol, k2_z=e_z, k2_ladj=e_l, k2_logprob=e_lp,
+               k2_saved_inputs=e_acts, k2_grad_rel_end_to_end=e_ge,
+               k2_grad_end_to_end_tol=e2e_tol, k2_grad_rel_cpu_vs_card=e_cpu,
+               k2_edge_rows=int(edge.sum()), k2_grad_rel_plain=e_gr, k2_grad_rel_autograd=e_ga,
+               k1_x=e_x, k1_ladj=e_li, roundtrip_z=e_rt, roundtrip_ladj=e_rtl, vs_float64=vs64,
+               rows_left_out=dict(
+                   end_to_end=jump_report(flow, yg, e2e_out),
+                   vs_plain=jump_report(flow, yg, plain_out, acts),
+                   vs_autograd=jump_report(flow, yg, ag_out, acts)))
+    errs = {k2: max(e_z, e_l), k2b: max(max_err(a, b) for a, b in zip(got, g_ref)),
+            k1: max(e_x, e_li)}
+    return out, errs
+
+
+def check_menu(name, d, n, flow, rng, tol, grad_rows=None):
     """Phases 3-4 for a maf* flow (K2 and K1 with the affine head) or an
     nsfc* flow (K5): forward, log_prob and inverse against the plain
     versions on the same card inputs (K5's to the plain version in float64,
@@ -699,12 +1044,21 @@ def check_menu(name, d, n, flow, rng, tol):
     spread of plain autograd on the CPU against the card where that is
     larger, as for K2), the saved layer inputs, and the backward kernel
     against the plain backward on the inputs the forward kernel saved; a
-    coupling transform's conditioning columns bit for bit. Returns (the
-    numbers to report, max |diff| by kernel)."""
+    coupling transform's conditioning columns bit for bit. In both gradient
+    checks a row whose input gradient is past the limit must lie within
+    1e-5 of a jump, and only such rows are left out, as in
+    ``check_spline_made``: of a knot (``knot_rows``: in the float64
+    forward, or, for the check on the saved inputs, in those inputs) or a
+    ReLU kink (``kink_rows``). ``grad_rows`` moves the MENU_GRAD_ROWS
+    limit. Returns (the numbers to report, max |diff| by kernel, under the
+    kernels' names at the flow's bins)."""
     from pocomc_tpu_torch.ops import coupling_kernels as ck, flow_kernels as fk
     coupling = flow.kind == "nsfc"
+    bins = flow.bins
     kf, ki, kb = ((COUPLING[0], COUPLING[1], COUPLING[2]) if coupling
                   else (AFFINE[0], AFFINE[2], AFFINE[1]))
+    if coupling:
+        kf, ki, kb = (with_bins(k, bins) for k in (kf, ki, kb))
     if coupling:
         tol = dict(tol, atol=COUPLING_TOL[d][0], ladj=COUPLING_TOL[d][1])
     vtol = dict(rtol=tol["rtol"], atol=tol["atol"])
@@ -715,11 +1069,12 @@ def check_menu(name, d, n, flow, rng, tol):
     with torch.no_grad():
         fp = flow.params()
         if coupling:
-            fwd = lambda v: ck.coupling_forward(v, fp.ws, fp.bs, fp.masks)
-            got_f, want_f = fwd(y), ck.coupling_forward_ref(y, fp.ws, fp.bs, fp.masks)
-            got_i = ck.coupling_inverse(zi, fp.ws, fp.bs, fp.masks)
-            want_i = ck.coupling_inverse_ref(zi, fp.ws, fp.bs, fp.masks)
-            one = [f(zi, fp.ws[:1], fp.bs[:1], fp.masks[:1])[0]
+            fwd = lambda v: ck.coupling_forward(v, fp.ws, fp.bs, fp.masks, bins=bins)
+            got_f = fwd(y)
+            want_f = ck.coupling_forward_ref(y, fp.ws, fp.bs, fp.masks, bins=bins)
+            got_i = ck.coupling_inverse(zi, fp.ws, fp.bs, fp.masks, bins=bins)
+            want_i = ck.coupling_inverse_ref(zi, fp.ws, fp.bs, fp.masks, bins=bins)
+            one = [f(zi, fp.ws[:1], fp.bs[:1], fp.masks[:1], bins=bins)[0]
                    for f in (ck.coupling_forward, ck.coupling_inverse)]
             out["conditioning_bit_for_bit"] = all(
                 torch.equal(o[:, fp.masks[0]], zi[:, fp.masks[0]]) for o in one)
@@ -734,8 +1089,9 @@ def check_menu(name, d, n, flow, rng, tol):
         label = f"{name} d={d} n={n}"
         if coupling:
             fp64 = copy.deepcopy(flow).double().params()
-            exact_f = ck.coupling_forward_ref(y.double(), fp64.ws, fp64.bs, fp64.masks)
-            exact_i = ck.coupling_inverse_ref(zi.double(), fp64.ws, fp64.bs, fp64.masks)
+            exact_f = ck.coupling_forward_ref(y.double(), fp64.ws, fp64.bs, fp64.masks, bins=bins)
+            exact_i = ck.coupling_inverse_ref(zi.double(), fp64.ws, fp64.bs, fp64.masks,
+                                              bins=bins)
             acc = {f"{k}_{part}": check_vs_float64(f"{k} {part} {label}", g[j], w[j], e[j],
                                                    tol["ladj"] if j else tol["atol"])
                    for k, g, w, e in ((kf, got_f, want_f, exact_f), (ki, got_i, want_i, exact_i))
@@ -763,51 +1119,76 @@ def check_menu(name, d, n, flow, rng, tol):
         out["roundtrip_ladj"] = check_close(f"round-trip ladj {label}", l_rt + got_i[1],
                                             torch.zeros_like(l_rt), 0.0, 10 * tol["ladj"])
     out.update(value_err=errs[kf], inverse_err=errs[ki])
-    if n > MENU_GRAD_ROWS[d]:
+    if n > (grad_rows or MENU_GRAD_ROWS[d]):
         return out, errs
     g_z = torch.from_numpy(rng.standard_normal((n, d)).astype(np.float32)).cuda()
     g_l = torch.from_numpy(rng.standard_normal(n).astype(np.float32)).cuda()
     g_z[2::4], g_l[2::4] = 0.0, 0.0
+    kinks = kink_rows(flow, y)
     plain = stack_grads(flow, plain_stack, y, g_z, g_l)
     e_cpu = max(rel_errs(stack_grads(copy.deepcopy(flow).cpu(), plain_stack, y.cpu(),
                                      g_z.cpu(), g_l.cpu()), plain))
     e2e_tol = max(tol["grad"], 2 * e_cpu)
     kernel = lambda f, v: f.stack_forward(v)
-    out.update(grad_rel_end_to_end=grad_rel_err(f"{kb} end to end {label}",
-                                                stack_grads(flow, kernel, y, g_z, g_l), plain,
-                                                e2e_tol),
-               grad_end_to_end_tol=e2e_tol, grad_rel_cpu_vs_card=e_cpu)
+    e_ge, e2e_out = grads_off_jumps(
+        f"{kb} end to end {label}",
+        lambda gz, gl: (stack_grads(flow, kernel, y, gz, gl),
+                        stack_grads(flow, plain_stack, y, gz, gl)),
+        g_z, g_l, e2e_tol, knot_rows(flow, y, g_l) | kinks)
+    out.update(grad_rel_end_to_end=e_ge, grad_end_to_end_tol=e2e_tol,
+               grad_rel_cpu_vs_card=e_cpu)
     with torch.no_grad():
         if coupling:
-            _, _, acts = ck.coupling_forward(y, fp.ws, fp.bs, fp.masks, save_inputs=True)
-            acts_r = ck.coupling_forward_ref(y, fp.ws, fp.bs, fp.masks, save_inputs=True)[2]
-            g_k = ck.coupling_backward(y, fp.ws, fp.bs, fp.masks, g_z, g_l, acts)
-            g_r = ck.coupling_backward_ref(y, fp.ws, fp.bs, fp.masks, g_z, g_l, acts)
+            _, _, acts = ck.coupling_forward(y, fp.ws, fp.bs, fp.masks, save_inputs=True,
+                                             bins=bins)
+            acts_r = ck.coupling_forward_ref(y, fp.ws, fp.bs, fp.masks, save_inputs=True,
+                                             bins=bins)[2]
+            back = lambda gz, gl: ck.coupling_backward(y, fp.ws, fp.bs, fp.masks, gz, gl, acts,
+                                                       bins=bins)
+            back_r = lambda gz, gl: ck.coupling_backward_ref(y, fp.ws, fp.bs, fp.masks, gz, gl,
+                                                             acts, bins=bins)
             flat = lambda g: [g[0], *[a for t in g[1] for a in t], *[a for t in g[2] for a in t]]
         else:
             _, _, acts = fk.made_rqs_forward(y, fp.ws, fp.bs, save_inputs=True, head="affine")
             acts_r = fk.made_rqs_forward_ref(y, fp.ws, fp.bs, save_inputs=True, head="affine")[2]
-            g_k = fk.made_rqs_backward(y, fp.ws, fp.bs, g_z, g_l, acts, head="affine")
-            g_r = fk.made_rqs_backward_ref(y, fp.ws, fp.bs, g_z, g_l, acts, head="affine")
+            back = lambda gz, gl: fk.made_rqs_backward(y, fp.ws, fp.bs, gz, gl, acts,
+                                                       head="affine")
+            back_r = lambda gz, gl: fk.made_rqs_backward_ref(y, fp.ws, fp.bs, gz, gl, acts,
+                                                             head="affine")
             flat = lambda g: [g[0], *[w * m for w, m in zip(g[1], flow.masks)], *g[2]]
         torch.cuda.synchronize()
         out["saved_inputs"] = max(
             check_close(f"{kf} saved input {l} {label}", a, b, 10 * vtol["rtol"],
                         10 * vtol["atol"]) for l, (a, b) in enumerate(zip(acts, acts_r)))
-        out["grad_rel_plain"] = grad_rel_err(f"{kb} vs plain {label}", flat(g_k), flat(g_r),
-                                             tol["grad"])
-    errs[kb] = max(max_err(a, b) for a, b in zip(flat(g_k), flat(g_r)))
+        on_saved = ((knot_distance(flow, acts) < 1e-5) & (g_l != 0)) | kinks
+        pair = lambda gz, gl: (flat(back(gz, gl)), flat(back_r(gz, gl)))
+        out["grad_rel_plain"], plain_out = grads_off_jumps(f"{kb} vs plain {label}", pair, g_z,
+                                                           g_l, tol["grad"], on_saved)
+        off = torch.zeros(n, dtype=torch.bool, device=y.device)
+        off[plain_out] = True
+        g_k, g_r = pair(g_z.masked_fill(off[:, None], 0.0), g_l.masked_fill(off, 0.0))
+    out["rows_left_out"] = dict(end_to_end=jump_report(flow, y, e2e_out),
+                                vs_plain=jump_report(flow, y, plain_out, acts))
+    errs[kb] = max(max_err(a, b) for a, b in zip(g_k, g_r))
     return out, errs
 
 
 def matmul_products(flow, x):
-    """K5's four products of every transform as torch.matmul (addmm) on its
-    shapes at the rows x: x_cond W0 + b0, then h W1 + b1, h W2 + b2 and
-    h W3 + b3 at (n, h), without the spline, the residual adds or the
-    ReLUs; the library's time for the work of K5's products."""
+    """K5's (or K2's) four products of every transform as torch.matmul
+    (addmm) on its shapes at the rows x: x_cond W0 + b0 (x W0 + b0 for a
+    MADE stack, its masked weights dense), then h W1 + b1, h W2 + b2 and
+    h W3 + b3 at (n, h), without the head, the residual adds or the ReLUs;
+    the library's time for the work of the forward's products."""
     fp = flow.params()
     h = torch.empty(x.shape[0], flow.n_hidden, device=x.device)
     for t in range(flow.n_transforms):
+        if flow.kind != "nsfc":  # a MADE stack's layers are stacked over T
+            w, b = [a[t] for a in fp.ws], [a[t] for a in fp.bs]
+            h = torch.addmm(b[0], x, w[0])
+            h = torch.addmm(b[1], h, w[1])
+            h = torch.addmm(b[2], h, w[2])
+            torch.addmm(b[3], h, w[3])
+            continue
         w, b = fp.ws[t], fp.bs[t]
         c = int(fp.masks[t].sum())
         lo = 0 if fp.masks[t][0] else flow.n_dim - c
@@ -847,64 +1228,12 @@ def backward_matmul_products(flow, x, acts, g, weight_grads=True):
     return [torch.bmm(a.transpose(1, 2), d) for a, d in zip(acts, g)]
 
 
-def knot_rows(flow, y, g_l, window=1e-5):
-    """``edge_rows`` for every kind of the menu: rows of the stack input y
-    where, in the float64 forward, some spline input lies within `window`
-    of a knot of its spline and dL/dladj is nonzero (none for the affine
-    head, which has no knots). (n,) bool."""
-    from pocomc_tpu_torch.models import transforms as tr
-    from pocomc_tpu_torch.ops import coupling_kernels as ck
-    n = y.shape[0]
-    if flow.kind == "maf":
-        return torch.zeros(n, dtype=torch.bool, device=y.device)
-    if flow.kind == "nsf":
-        return edge_rows(flow, y, g_l, window)
-    fp = copy.deepcopy(flow).double().params()
-    near = torch.zeros(n, dtype=torch.bool, device=y.device)
-    with torch.no_grad():
-        acts = ck.coupling_forward_ref(y.double(), fp.ws, fp.bs, fp.masks, save_inputs=True)[2]
-        for t, m in enumerate(fp.masks):
-            x = acts[0][t][:, torch.as_tensor(~m, device=y.device)]
-            p = (acts[3][t] @ fp.ws[t][3] + fp.bs[t][3]).reshape(n, x.shape[1], 23)
-            near |= ((x[..., None] - tr._rqs_setup(p, 8)[0]).abs() < window).any(-1).any(-1)
-    return near & (g_l != 0)
-
-
-def kink_rows(flow, y, window=1e-5):
-    """Rows of the stack input y where, in the float64 forward, some hidden
-    pre-activation of some transform's network lies within `window` of 0:
-    the ReLU's derivative jumps there, so an inverse's gradient does, and
-    which side a row takes turns on the last bits of a sum two correct fp32
-    routes order differently (plain fp32 autograd and the plain VJP, in
-    agreement, lie 0.11 from float64 in one such row of 4096 at nsf6, d=10,
-    on the CPU). (n,) bool."""
-    from pocomc_tpu_torch.ops import coupling_kernels as ck, flow_kernels as fk
-    fp = copy.deepcopy(flow).double().params()
-    near = torch.zeros(y.shape[0], dtype=torch.bool, device=y.device)
-    with torch.no_grad():
-        if flow.kind == "nsfc":
-            xs = ck.coupling_forward_ref(y.double(), fp.ws, fp.bs, fp.masks, True)[2][0]
-            nets = [(xs[t][:, torch.as_tensor(m, device=y.device)], fp.ws[t], fp.bs[t])
-                    for t, m in enumerate(fp.masks)]
-        else:
-            xs = fk.made_rqs_forward_ref(y.double(), fp.ws, fp.bs, save_inputs=True,
-                                         head=flow.head)[2][0]
-            nets = [(xs[t], [w[t] for w in fp.ws], [b[t] for b in fp.bs])
-                    for t in range(xs.shape[0])]
-        for inp, w, b in nets:
-            h = inp @ w[0] + b[0]
-            near |= (h.abs() < window).any(-1)
-            for l in (1, 2):
-                h = h + torch.relu(h) @ w[l] + b[l]
-                near |= (h.abs() < window).any(-1)
-    return near
-
-
 def gradient_kernel(flow):
-    """The gradient kernel of a flow's inverse: its name in GRADIENT."""
+    """The gradient kernel of a flow's inverse: its name in GRADIENT, at
+    the flow's spline bins (``with_bins``)."""
     if flow.kind == "nsfc":
-        return GRADIENT[2]
-    return GRADIENT[0] if flow.head == "rqs" else GRADIENT[1]
+        return with_bins(GRADIENT[2], flow.bins)
+    return with_bins(GRADIENT[0], flow.bins) if flow.head == "rqs" else GRADIENT[1]
 
 
 def inverse_routes(flow):
@@ -920,25 +1249,26 @@ def inverse_routes(flow):
     K5-inv-bwd's, the plain save mode's state at z (the inverse's own
     intermediates)."""
     from pocomc_tpu_torch.ops import coupling_kernels as ck, flow_kernels as fk
+    b = flow.bins
     if flow.kind == "nsfc":
-        return (lambda v, p: ck.coupling_inverse(v, p.ws, p.bs, p.masks),
-                lambda v, p: ck.coupling_inverse_ref(v, p.ws, p.bs, p.masks),
+        return (lambda v, p: ck.coupling_inverse(v, p.ws, p.bs, p.masks, bins=b),
+                lambda v, p: ck.coupling_inverse_ref(v, p.ws, p.bs, p.masks, bins=b),
                 lambda state, p, gx, gl: ck.coupling_inverse_backward(state, p.ws, p.bs,
-                                                                      p.masks, gx, gl),
+                                                                      p.masks, gx, gl, b),
                 lambda state, p, gx, gl: ck.coupling_inverse_vjp_ref(state, p.ws, p.bs,
-                                                                     p.masks, gx, gl),
+                                                                     p.masks, gx, gl, b),
                 lambda z, x, p: ck._launch_stack(z, p.ws, p.bs, p.masks, True, True,
-                                                 "coupling_inverse"),
+                                                 "coupling_inverse", b),
                 lambda z, x, p: ck.coupling_inverse_ref(z.to(p.ws[0][0].dtype), p.ws, p.bs,
-                                                        p.masks, save_inputs=True)[2])
+                                                        p.masks, save_inputs=True, bins=b)[2])
     head = flow.head
-    return (lambda v, p: fk.ar_inverse(v, p.ws, p.bs, p.inv_orders, head=head),
-            lambda v, p: fk.ar_inverse_ref(v, p.ws, p.bs, p.inv_orders, head=head),
+    return (lambda v, p: fk.ar_inverse(v, p.ws, p.bs, p.inv_orders, head, b),
+            lambda v, p: fk.ar_inverse_ref(v, p.ws, p.bs, p.inv_orders, head, b),
             lambda state, p, gx, gl: fk.ar_inverse_backward(state, p.ws, p.bs, p.inv_orders,
-                                                            gx, gl, head),
+                                                            gx, gl, head, b),
             lambda x, p, gx, gl: fk.ar_inverse_vjp_ref(x, p.ws, p.bs, p.inv_orders, gx, gl,
-                                                       head),
-            lambda z, x, p: fk._launch_inverse(z, p.ws, p.bs, p.inv_orders, head, True),
+                                                       head, b),
+            lambda z, x, p: fk._launch_inverse(z, p.ws, p.bs, p.inv_orders, head, True, b),
             lambda z, x, p: x.to(p.ws[0].dtype))
 
 
@@ -957,30 +1287,70 @@ def rows_past(label, got, want, limit, near):
     return int(past.sum())
 
 
+def side_flips(label, flow, past, g_k, g_e, g_x, g_l, data, state64, fp64, twin, limit):
+    """The rows of K5-inv-bwd's g_z past `limit` from the float64 VJP at the
+    plain save mode's state at z, each held to two witnesses: the float64
+    VJP at the kernel's own saved state (``data``) gives the row's g_z
+    within `limit`, and the kernel's state and the float64 state take two
+    sides of a jump of the gradient in that row: a spline output in
+    neighbouring bins (``bins_differ``, with dL/dladj != 0: the log-det's
+    gradient jumps at a knot) or a hidden unit of a transform's network on
+    the two sides of its ReLU's kink (one state's relu(h) > 0, the
+    other's 0). The report gives each row's distance to a knot in the
+    kernel's state beside its inverse's own error (its largest |x_t - x_t
+    in float64|), and the largest relu(h) of a unit that changed sides.
+    Fails unless every row is such a flip; returns the report."""
+    with torch.no_grad():
+        at_own = twin([s.double() for s in data], fp64, g_x.double(), g_l.double())
+        own_err = (g_k.double() - at_own).abs().amax(1)
+        inv_err = (data[0].double() - state64[0]).abs().amax(-1).amax(0)
+        dist = knot_distance(flow, data, inverse=True)
+        flip = bins_differ(flow, data, state64, inverse=True)
+        sides = [(data[l] > 0) != (state64[l] > 0) for l in (1, 2, 3)]
+        relu_flip = torch.stack([s.any(-1).any(0) for s in sides]).any(0)
+        gap = torch.stack([torch.where(s, torch.maximum(data[l].double(), state64[l]), 0.0)
+                           .amax(-1).amax(0) for s, l in zip(sides, (1, 2, 3))]).amax(0)
+    rows = past.nonzero().flatten().tolist()
+    report = [dict(row=r, vs_f64=float((g_k[r].double() - g_e[r]).abs().max()),
+                   vs_f64_at_own_state=float(own_err[r]), bins_differ=bool(flip[r]),
+                   relu_sides_differ=bool(relu_flip[r]), relu_gap=float(gap[r]),
+                   knot_distance=float(dist[r]), inverse_error=float(inv_err[r]),
+                   g_ladj=float(g_l[r])) for r in rows]
+    bad = [x for x in report if not (x["vs_f64_at_own_state"] <= limit and (
+        (x["bins_differ"] and x["g_ladj"] != 0) or x["relu_sides_differ"]))]
+    if bad:
+        fail(f"{label}: rows past {limit:.3e} from float64 that are no flip: {bad[:4]}")
+    return report
+
+
 def check_gradient(name, d, n, flow, rng):
-    """Phase 13 (a) at one shape: g_z of a loss on the stack's inverse (x and
-    the log-det, dL/dladj ~ N(0, 1)) through the kernels as a sweep takes
-    it (the inverse kernel, then its gradient kernel, by autograd) against
-    plain autograd of the plain inverse in fp32 on the same z: within
-    TOL's gradient tolerance of the largest, or within twice the plain
-    fp32 version's own distance to float64 where that is larger (the
-    spread that decides K2's gate, here measured against the plain VJP in
-    float64 at the same point), a row past the limit lying within 1e-3 of
-    a jump (``rows_past``: the two routes evaluate the gradient at points
-    that differ by the inverse's fp32 error); and, at the same point, to
-    the plain VJP in float64 within K5's rule (the tolerance, or 4x the
-    plain fp32 VJP's own distance to it), every row. The same point is x
-    for K1-bwd (the plain VJP takes the forward's state at x) and z for
-    K5-inv-bwd: the plain save mode's state at z, in fp32 and in float64,
-    which differentiates at the inverse's own intermediates, as
-    ``jax.vjp`` and the kernel do (at nsfc12, d=50 a forward recomputed
-    at x moved the float64 g_z 4.4 from the kernel's, past the 4x rule's
-    3.96), and reads nothing the kernels wrote. Rows on a float64
-    knot with dL/dladj != 0 and rows on a ReLU kink are left out (their
-    gradient jumps). The kernel's direct call, on the state the inverse's
-    save instance writes at the same z, gives the autograd route's bits,
-    and the save instance's x and log-det are the inverse's without the
-    save, bit for bit. Returns (the numbers, max |diff|)."""
+    """Phase 13 (a) and 14 at one shape: g_z of a loss on the stack's
+    inverse (x and the log-det, dL/dladj ~ N(0, 1)) through the kernels as
+    a sweep takes it (the inverse kernel, then its gradient kernel, by
+    autograd) against plain autograd of the plain inverse in fp32 on the
+    same z: within TOL's gradient tolerance of the largest, or within
+    twice the plain fp32 version's own distance to float64 where that is
+    larger (the spread that decides K2's gate, here measured against the
+    plain VJP in float64 at the same point), a row past the limit lying
+    within 1e-3 of a jump (``rows_past``: the two routes evaluate the
+    gradient at points that differ by the inverse's fp32 error); and, at
+    the same point, to the plain VJP in float64 within K5's rule (the
+    tolerance, or 4x the plain fp32 VJP's own distance to it), every row.
+    The same point is x for K1-bwd (the plain VJP takes the forward's
+    state at x) and z for K5-inv-bwd: the plain save mode's state at z, in
+    fp32 and in float64, which differentiates at the inverse's own
+    intermediates, as ``jax.vjp`` and the kernel do (at nsfc12, d=50 a
+    forward recomputed at x moved the float64 g_z 4.4 from the kernel's,
+    past the 4x rule's 3.96), and reads nothing the kernels wrote. A
+    K5-inv-bwd row past that rule is left out only if it is a flip
+    (``side_flips``: the float64 VJP at the kernel's own state agrees, and
+    the kernel's state and float64's take two sides of a knot or a ReLU
+    kink in that row); the rest are held to the rule again. Rows on a float64 knot with dL/dladj != 0 and
+    rows on a ReLU kink, within 1e-5, are left out (their gradient
+    jumps). The kernel's direct call, on the state the inverse's save
+    instance writes at the same z, gives the autograd route's bits, and
+    the save instance's x and log-det are the inverse's without the save,
+    bit for bit. Returns (the numbers, max |diff|)."""
     from pocomc_tpu_torch.mcmc import _detached
     inv, ref, bwd, twin, saving, point = inverse_routes(flow)
     kname = gradient_kernel(flow)
@@ -1008,7 +1378,8 @@ def check_gradient(name, d, n, flow, rng):
     launched = getattr(*_counter(kname)) - before
     g_p = by_autograd(ref)
     with torch.no_grad():
-        g_e = twin(point(z, x, fp64), fp64, g_x.double(), g_l.double())
+        state64 = point(z, x, fp64)
+        g_e = twin(state64, fp64, g_x.double(), g_l.double())
         g_t = twin(point(z, x, fp), fp, g_x, g_l)
         direct = bwd(data, fp, g_x, g_l)
     torch.cuda.synchronize()
@@ -1026,8 +1397,18 @@ def check_gradient(name, d, n, flow, rng):
                plain_vs_f64=spread, kernel_vs_f64=max_err(g_k.double(), g_e),
                rows_near_a_jump=int(near.sum()),
                rows_past_limit=rows_past(f"{label} vs plain autograd", g_k, g_p, limit, near))
-    out["vs_float64"] = check_vs_float64(f"{label} vs float64 at the same point", g_k, g_t, g_e,
-                                         tol * float(g_e.abs().max()))
+    label64 = f"{label} vs float64 at the same point"
+    atol64 = tol * float(g_e.abs().max())
+    limit64 = max(atol64, 4.0 * max_err(g_t.double(), g_e))
+    past = (g_k.double() - g_e).abs().amax(1) > limit64
+    keep = torch.ones(n, dtype=torch.bool, device=z.device)
+    if flow.kind == "nsfc" and bool(past.any()):
+        out["flips"] = side_flips(label64, flow, past, g_k, g_e, g_x, g_l, data, state64,
+                                  fp64, twin, limit64)
+        out["every_row_vs_float64"] = dict(kernel_vs_f64=max_err(g_k.double(), g_e),
+                                           limit=limit64)
+        keep = ~past
+    out["vs_float64"] = check_vs_float64(label64, g_k[keep], g_t[keep], g_e[keep], atol64)
     return out, e_kp
 
 
@@ -1035,7 +1416,8 @@ def gradient_bounds(n, flow):
     """(bound_ms, bound_by) of an inverse's gradient kernel at n rows: one
     cotangent pass through every transform's products (the masked
     multiply-adds that ``made_bounds`` counts, or K5's dense ones) plus the
-    element VJPs (ELEMENT_VJP_OPS each), at the fp32 peak; x, g_x, g_ladj
+    element VJPs (``element_vjp_ops`` each, at the flow's bins), at the fp32
+    peak; x, g_x, g_ladj
     and the weights read once, g_z written once, at the HBM rate: what the
     function needs. K1's saved state is an intermediate of this design, not
     an input of the function, so its size is reported beside the bound
@@ -1050,7 +1432,7 @@ def gradient_bounds(n, flow):
         total = sum(int(m.sum()) for m in flow.masks)
         elements = T * d
         weights = 4 * (total + T * (3 * h + flow.n_params * d))
-    ops = 2 * n * total + n * elements * ELEMENT_VJP_OPS[flow.head]
+    ops = 2 * n * total + n * elements * element_vjp_ops(flow.head, flow.bins)
     return bound(ops, 4 * (3 * n * d + n) + weights)
 
 
@@ -1079,97 +1461,37 @@ def main():
          tf32_cudnn=torch.backends.cudnn.allow_tf32)
 
     # -- 2. build ----------------------------------------------------------
-    # One nvcc per source, started together, so the script's build cost is
-    # the slowest kernel's, not the sum; each kernel's seconds overlap the
-    # others', and wall_s is the build's own.
-    def build_one(name):
+    # One nvcc per source and bins (the default 8 and phase 14's), started
+    # together, so the script's build cost is the slowest kernel's, not the
+    # sum; each library's seconds overlap the others', and wall_s is the
+    # build's own.
+    def build_one(job):
+        name, bins = job
         t0 = time.perf_counter()
-        path, report = _build.build(name)
-        return name, dict(seconds=round(time.perf_counter() - t0, 3), library=path.name,
-                          ptxas=[l.strip() for l in report.splitlines()
-                                 if "registers" in l or "spill" in l])
+        path, report = _build.build(name, bins)
+        return with_bins(name, bins), dict(
+            seconds=round(time.perf_counter() - t0, 3), library=path.name,
+            ptxas=[l.strip() for l in report.splitlines() if "registers" in l or "spill" in l],
+            resources=ptxas_summary(report))
 
+    jobs = [(name, bins) for bins in (8, *SPLINE_BINS) for name in LIBRARIES]
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(LIBRARIES)) as ex:
-        build = dict(ex.map(build_one, LIBRARIES))
-    emit("build", wall_s=round(time.perf_counter() - t0, 3), **build)
+    with ThreadPoolExecutor(len(jobs)) as ex:
+        build = dict(ex.map(build_one, jobs))
+    emit("build", wall_s=round(time.perf_counter() - t0, 3),
+         **{k: v if k in LIBRARIES else {key: v[key] for key in ("seconds", "library",
+                                                                 "resources")}
+            for k, v in build.items()})
     # -- 3./4. kernels against their plain versions ------------------------
     errs = dict.fromkeys(KERNELS, 0.0)
     checks = []
     flows = {(f, d): random_flow(f, d) for f, d in sorted({(f, d) for f, d, _ in SHAPES})}
     for name, d, n in SHAPES:
         flow, rng = flows[name, d]
-        tol = TOL[max(d, 10)]
-        y = torch.from_numpy(rng.standard_normal((n, d)).astype(np.float32)).cuda()
-        with torch.no_grad():
-            fp = flow.params()
-            z_k, l_k = fk.made_rqs_forward(y, fp.ws, fp.bs)
-            z_r, l_r = fk.made_rqs_forward_ref(y, fp.ws, fp.bs)
-            torch.cuda.synchronize()
-            e_z = check_close(f"K2 z d={d} n={n}", z_k, z_r, tol["rtol"], tol["atol"])
-            e_l = check_close(f"K2 ladj d={d} n={n}", l_k, l_r, 0.0, tol["ladj"])
-            lp_k = flow.log_prob(y, fp)
-            pre = fp.pre
-            z_p, l_p = fk.made_rqs_forward_ref((y - pre["mean"]) @ pre["w_fwd"], fp.ws, fp.bs)
-            lp_r = flow._base_logpdf(z_p) + l_p + pre["ladj"]
-            e_lp = check_close(f"K2 log_prob d={d} n={n}", lp_k, lp_r, 0.0, tol["ladj"])
-        # K2 backward end to end: the kernel, through the autograd.Function
-        # as training calls it, against plain autograd of the plain forward
-        # on the same y. Rows on a knot in float64 with dL/dladj != 0 are
-        # left out (edge_rows). Elsewhere two correct fp32 routes still
-        # differ where a row's gradient is ill-conditioned (plain autograd
-        # on the CPU against the card: up to 1e-2 of the largest gradient at
-        # n=1024), so the stated tolerance rises to twice that spread,
-        # measured here, where it is larger.
-        yg, g_z, g_l = grad_problem(flow, d, n, rng)
-        edge = edge_rows(flow, yg, g_l)
-        g_ze, g_le = g_z.masked_fill(edge[:, None], 0.0), g_l.masked_fill(edge, 0.0)
-        plain = grad_route(flow, fk.made_rqs_forward_ref, yg, g_ze, g_le)
-        e_cpu = max(rel_errs(grad_route(copy.deepcopy(flow).cpu(), fk.made_rqs_forward_ref,
-                                        yg.cpu(), g_ze.cpu(), g_le.cpu()), plain))
-        e2e_tol = max(tol["grad"], 2 * e_cpu)
-        e_ge = grad_rel_err(f"K2 gradient end to end d={d} n={n}",
-                            grad_route(flow, fk.made_rqs_forward, yg, g_ze, g_le), plain, e2e_tol)
-        # then, with every row, against the plain backward and per-transform
-        # autograd on the layer inputs the forward kernel saved, which are
-        # themselves held to the plain forward's
-        got = grad_route(flow, fk.made_rqs_forward, yg, g_z, g_l)
-        with torch.no_grad():
-            _, _, acts = fk.made_rqs_forward(yg, fp.ws, fp.bs, save_inputs=True)
-            acts_r = fk.made_rqs_forward_ref(yg, fp.ws, fp.bs, save_inputs=True)[2]
-            g_ref = fk.made_rqs_backward_ref(yg, fp.ws, fp.bs, g_z, g_l, acts)
-        g_ag = autograd_by_transform(acts[0], fp.ws, fp.bs, g_z, g_l)
-        torch.cuda.synchronize()
-        # the saved inputs within 10x the value tolerance: each sums the
-        # rounding of the transforms before it, where a wrong offset is O(1)
-        e_acts = max(check_close(f"K2 saved input {l} d={d} n={n}", a, b, 10 * tol["rtol"],
-                                 10 * tol["atol"]) for l, (a, b) in enumerate(zip(acts, acts_r)))
-        flat = lambda g: [g[0], *[w * m for w, m in zip(g[1], flow.masks)], *g[2]]
-        e_gr = grad_rel_err(f"K2 backward vs plain d={d} n={n}", got, flat(g_ref), tol["grad"])
-        e_ga = grad_rel_err(f"K2 backward vs autograd d={d} n={n}", got, flat(g_ag),
-                            tol["grad"])
-        with torch.no_grad():
-            zi = torch.from_numpy(rng.standard_normal((n, d)).astype(np.float32)).cuda()
-            x_k, li_k = fk.ar_inverse(zi, fp.ws, fp.bs, fp.inv_orders)
-            x_r, li_r = fk.ar_inverse_ref(zi, fp.ws, fp.bs, fp.inv_orders)
-            torch.cuda.synchronize()
-            e_x = check_close(f"K1 x d={d} n={n}", x_k, x_r, tol["rtol"], tol["atol"])
-            e_li = check_close(f"K1 ladj d={d} n={n}", li_k, li_r, 0.0, tol["ladj"])
-            z_rt, l_rt = fk.made_rqs_forward(x_k, fp.ws, fp.bs)
-            e_rt = check_close(f"K1 round trip d={d} n={n}", z_rt, zi, tol["rtol"],
-                               10 * tol["atol"])
-            e_rtl = check_close(f"K1 round-trip ladj d={d} n={n}", l_rt + li_k,
-                                torch.zeros_like(l_rt), 0.0, 10 * tol["ladj"])
-        errs["made_rqs_forward"] = max(errs["made_rqs_forward"], e_z, e_l)
-        errs["made_rqs_backward"] = max(errs["made_rqs_backward"],
-                                        *[max_err(a, b) for a, b in zip(got, flat(g_ref))])
-        errs["ar_inverse"] = max(errs["ar_inverse"], e_x, e_li)
-        checks.append(dict(flow=name, d=d, n=n, tol=tol, k2_z=e_z, k2_ladj=e_l, k2_logprob=e_lp,
-                           k2_saved_inputs=e_acts, k2_grad_rel_end_to_end=e_ge,
-                           k2_grad_end_to_end_tol=e2e_tol, k2_grad_rel_cpu_vs_card=e_cpu,
-                           k2_edge_rows=int(edge.sum()),
-                           k2_grad_rel_plain=e_gr, k2_grad_rel_autograd=e_ga, k1_x=e_x,
-                           k1_ladj=e_li, roundtrip_z=e_rt, roundtrip_ladj=e_rtl))
+        out, e = check_spline_made(name, d, n, flow, rng)
+        checks.append(out)
+        for k, v in e.items():
+            errs[k] = max(errs[k], v)
     # the rest of the menu: maf* (the affine head) and nsfc* (K5)
     menu_checks = []
     for name, d, n in MENU_SHAPES:
@@ -1292,7 +1614,7 @@ def main():
                     acts = ck.coupling_forward(y, *a, save_inputs=True)[2]
                     T, h = flow.n_transforms, flow.n_hidden
                     deltas = [torch.randn(T, n, k, device="cuda")
-                              for k in (h, h, h, (d + 1) // 2 * 23)]
+                              for k in (h, h, h, (d + 1) // 2 * flow.n_params)]
                     calls.update({
                         "coupling_backward": (lambda: ck.coupling_backward(y, *a, g_z, g_l,
                                                                            acts), 20),
@@ -1619,13 +1941,16 @@ def main():
             if flow.kind == "nsfc":
                 T, h = flow.n_transforms, flow.n_hidden
                 deltas = [torch.randn(T, n, k, device="cuda")
-                          for k in (h, h, h, (d + 1) // 2 * 23)]
+                          for k in (h, h, h, (d + 1) // 2 * flow.n_params)]
                 calls[f"{kname}_matmul"] = (lambda: backward_matmul_products(
                     flow, x, data[:4], deltas, weight_grads=False), 20)
             row = dict(kernel=kname, flow=name, d=d, n=n)
             for key, (fn, reps) in calls.items():
                 row[f"{key}_ms"] = graph_ms(fn, reps)
-                row[f"{key}_call_ms"] = cuda_ms(fn, reps, warmup=1)
+                # one eager call of a plain twin past d=10 (~2 s at d=50):
+                # the script's time, with phase 14
+                eager = 1 if key.endswith("_plain") and d >= 50 else reps
+                row[f"{key}_call_ms"] = cuda_ms(fn, eager, warmup=1)
             row[f"{kname}_bound_ms"], row[f"{kname}_bound_by"] = gradient_bounds(n, flow)
             if flow.kind != "nsfc":
                 row["k1_state_bytes"] = sum(a.numel() * a.element_size() for a in data)
@@ -1738,6 +2063,9 @@ def main():
     # 20 steps
     wide_sweeps = []
     for name, d, n in (("nsf6", 50, 4096), ("nsf3", 342, 256)):
+        if (name, d) not in flows:
+            h = max(2 ** (3 * d - 1).bit_length(), 32)  # Flow.n_hidden
+            flows[name, d] = random_flow(name, d, MENU_SCALE * math.sqrt(32 / h))
         flow = flows[name, d][0]
         prior_d = pt.Prior([pt.Normal(0.0, 3.0) for _ in range(d)])
         scaler_d = pt.Reparameterize(d, bounds=prior_d.bounds)
@@ -1777,6 +2105,235 @@ def main():
     emit("gradient_kernels", card=card, checks=grad_checks, times=grad_times, runs=grad_runs,
          head_sweeps=head_sweeps, wide_sweeps=wide_sweeps)
 
+    # -- 14. the spline of 2-16 bins ----------------------------------------
+    # (b) every spline-head kernel at other bins than 8 against its plain
+    # version (and float64 where phases 4 and 13 hold it so), at phase 3-4's
+    # and 13's tolerances and exclusion windows: K2, K2-bwd and K1 at every
+    # SPLINE_BINS at (10, 256), and at 16 bins also K1's two- and four-row
+    # launches, d=50 and d=342; K5 forward, inverse and backward the same
+    # bins at (10, 256) and 16 at (50, 1024); K1-bwd and K5-inv-bwd at 5
+    # and 16 bins at (10, 256) and 16 at (50, 1024)
+    bflows = {}
+
+    def bins_flow(name, d, bins):
+        if (name, d, bins) not in bflows:
+            h = max(2 ** (3 * d - 1).bit_length(), 32)  # Flow.n_hidden
+            scaled = d > 50 or (name.startswith("nsfc") and d > 10)
+            bflows[name, d, bins] = random_flow(
+                name, d, MENU_SCALE * math.sqrt(32 / h) if scaled else 0.02, bins)
+        return bflows[name, d, bins]
+
+    bins_errs = {}
+
+    def keep_err(e):
+        for k, v in e.items():
+            bins_errs[k] = max(bins_errs.get(k, 0.0), v)
+
+    t14 = time.perf_counter()
+    bins_checks, bins_menu, bins_grad = [], [], []
+    for name, d, n, b in ([("nsf6", 10, 256, b) for b in SPLINE_BINS]
+                          + [("nsf6", 10, 2048, 16), ("nsf6", 10, 4096, 16),
+                             ("nsf6", 50, 1024, 16), ("nsf3", 342, 64, 16)]):
+        out, e = check_spline_made(name, d, n, *bins_flow(name, d, b))
+        bins_checks.append(out)
+        keep_err(e)
+    for name, d, n, b in ([("nsfc6", 10, 256, b) for b in SPLINE_BINS]
+                          + [("nsfc12", 50, 1024, 16)]):
+        out, e = check_menu(name, d, n, *bins_flow(name, d, b), TOL[d], grad_rows=1024)
+        bins_menu.append(dict(out, bins=b))
+        keep_err(e)
+    for name, d, n, b in ([(f, 10, 256, b) for f in ("nsf6", "nsfc6") for b in (5, 16)]
+                          + [("nsf6", 50, 1024, 16), ("nsfc12", 50, 1024, 16)]):
+        out, e = check_gradient(name, d, n, *bins_flow(name, d, b))
+        bins_grad.append(dict(out, bins=b))
+        keep_err({out["kernel"]: e})
+    check_s = time.perf_counter() - t14
+    # (c) the 16-bin kernels timed at the kernels line's shapes (phase 5's
+    # rule: device ms by graph replay, eager ms by events), beside their
+    # plain versions, bounds and products as torch.matmul/bmm
+    b16 = TIMED_BINS
+    f16, rng16 = bins_flow("nsf6", 10, b16)
+    c16, crng16 = bins_flow("nsfc6", 10, b16)
+    bins_times = {}
+
+    def timed(key, fn, reps):
+        bins_times[f"{key}_ms"] = graph_ms(fn, reps)
+        bins_times[f"{key}_call_ms"] = cuda_ms(fn, reps, warmup=1)
+
+    with torch.no_grad():
+        fp = f16.params()
+        orders_cpu = fp.inv_orders.cpu()
+        y1k, g_z1k, g_l1k = grad_problem(f16, 10, 1024, rng16)
+        y256 = torch.from_numpy(rng16.standard_normal((256, 10)).astype(np.float32)).cuda()
+        acts = fk.made_rqs_forward(y1k, fp.ws, fp.bs, save_inputs=True, bins=b16)[2]
+        deltas = [torch.randn(w.shape[0], 1024, w.shape[2], device="cuda") for w in fp.ws]
+        for key, fn, reps in (
+                ("made_rqs_forward", lambda: fk.made_rqs_forward(y1k, fp.ws, fp.bs, bins=b16), 20),
+                ("made_rqs_forward_plain",
+                 lambda: fk.made_rqs_forward_ref(y1k, fp.ws, fp.bs, bins=b16), 10),
+                ("made_rqs_forward_matmul", lambda: matmul_products(f16, y1k), 20),
+                ("made_rqs_backward", lambda: fk.made_rqs_backward(
+                    y1k, fp.ws, fp.bs, g_z1k, g_l1k, acts, bins=b16), 20),
+                ("made_rqs_backward_plain", lambda: fk.made_rqs_backward_ref(
+                    y1k, fp.ws, fp.bs, g_z1k, g_l1k, acts, bins=b16), 10),
+                ("made_rqs_backward_matmul", lambda: backward_matmul_products(
+                    f16, y1k, acts, deltas), 20),
+                ("ar_inverse", lambda: fk.ar_inverse(y256, fp.ws, fp.bs, fp.inv_orders,
+                                                     bins=b16), 20),
+                ("ar_inverse_plain", lambda: fk.ar_inverse_ref(y256, fp.ws, fp.bs, orders_cpu,
+                                                               bins=b16), 10)):
+            timed(key, fn, reps)
+        cp = c16.params()
+        a = (cp.ws, cp.bs, cp.masks)
+        yc1k = torch.from_numpy(crng16.standard_normal((1024, 10)).astype(np.float32)).cuda()
+        yc256 = yc1k[:256].contiguous()
+        g_zc = torch.from_numpy(crng16.standard_normal((1024, 10)).astype(np.float32)).cuda()
+        g_lc = torch.from_numpy(crng16.standard_normal(1024).astype(np.float32)).cuda()
+        cacts = ck.coupling_forward(yc1k, *a, save_inputs=True, bins=b16)[2]
+        cdeltas = [torch.randn(c16.n_transforms, 1024, k, device="cuda")
+                   for k in (c16.n_hidden,) * 3 + (5 * c16.n_params,)]
+        for key, fn, reps in (
+                ("coupling_forward", lambda: ck.coupling_forward(yc1k, *a, bins=b16), 20),
+                ("coupling_forward_plain", lambda: ck.coupling_forward_ref(yc1k, *a, bins=b16),
+                 10),
+                ("coupling_forward_matmul", lambda: matmul_products(c16, yc1k), 20),
+                ("coupling_inverse", lambda: ck.coupling_inverse(yc256, *a, bins=b16), 20),
+                ("coupling_inverse_plain", lambda: ck.coupling_inverse_ref(yc256, *a, bins=b16),
+                 10),
+                ("coupling_inverse_matmul", lambda: matmul_products(c16, yc256), 20),
+                ("coupling_backward", lambda: ck.coupling_backward(
+                    yc1k, *a, g_zc, g_lc, cacts, bins=b16), 20),
+                ("coupling_backward_plain", lambda: ck.coupling_backward_ref(
+                    yc1k, *a, g_zc, g_lc, cacts, bins=b16), 10),
+                ("coupling_backward_matmul", lambda: backward_matmul_products(
+                    c16, yc1k, cacts, cdeltas), 20)):
+            timed(key, fn, reps)
+        for flow, gname in ((f16, "ar_inverse_backward"), (c16, "coupling_inverse_backward")):
+            _, _, bwd, twin, saving, point = inverse_routes(flow)
+            gp = _detached(flow.params())
+            gp_host = gp if flow.kind == "nsfc" else gp._replace(inv_orders=gp.inv_orders.cpu())
+            z = y256 if flow.kind == "nsf" else yc256
+            g_x, g_l = g_zc[:256].contiguous(), g_lc[:256].contiguous()
+            x, _, data = saving(z, None, gp)
+            plain_at = point(z, x, gp)
+            timed(gname, lambda: bwd(data, gp, g_x, g_l), 20)
+            timed(f"{gname}_plain", lambda: twin(plain_at, gp_host, g_x, g_l), 10)
+            timed(f"{gname}_save", lambda: saving(z, None, gp), 20)
+            if flow.kind == "nsfc":
+                sdeltas = [torch.randn(c16.n_transforms, 256, k, device="cuda")
+                           for k in (c16.n_hidden,) * 3 + (5 * c16.n_params,)]
+                timed(f"{gname}_matmul", lambda: backward_matmul_products(
+                    c16, x, data[:4], sdeltas, weight_grads=False), 20)
+    bins_bounds = {**made_bounds(1024, f16), "ar_inverse": made_bounds(256, f16)["ar_inverse"],
+                   **coupling_bounds(1024, c16),
+                   "coupling_inverse": coupling_bounds(256, c16)["coupling_inverse"],
+                   "ar_inverse_backward": gradient_bounds(256, f16),
+                   "coupling_inverse_backward": gradient_bounds(256, c16)}
+    # (d) a 16-bin flow's main path at full width: phase 6's quickstart
+    # with flow=Flow(10, "nsf6", bins=16), twice at the same seed
+    k16 = tuple(with_bins(k, b16) for k in RQS)
+
+    def bins_quickstart():
+        s = pt.Sampler(prior, log_like, vectorize=True, random_state=0, device="cuda",
+                       flow=Flow(10, "nsf6", bins=b16, device="cuda"))
+        reset_launches(fk)
+        t0 = time.perf_counter()
+        s.run(n_total=4096, n_evidence=4096, progress=False)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = read_launches(fk, k16)
+        others = {k: v for k, v in read_launches(fk, KERNELS).items() if v}
+        x, w, _, _ = s.posterior()
+        return s, dict(logz=s.logz, dlogz=s.logz_err, true_logz=TRUE_LOGZ, khat=s.evidence_khat,
+                       calls=s.calls, iterations=s.t, wall_s=wall, phase_s=dict(s.phase_seconds),
+                       launches=counts, posterior_finite=bool(np.isfinite(x).all()
+                                                             and np.isfinite(w).all()),
+                       other_launches=others), (x, w)
+
+    s16, quick16, post16 = bins_quickstart()
+    _, again16, post16b = bins_quickstart()
+    by_path["spline_bins_quickstart"] = quick16["launches"]
+    quick16["repeats_bit_for_bit"] = (
+        (again16["logz"], again16["calls"], again16["iterations"])
+        == (quick16["logz"], quick16["calls"], quick16["iterations"])
+        and all(np.array_equal(u, v) for u, v in zip(post16, post16b)))
+    if not all(quick16["launches"].values()) or quick16["other_launches"]:
+        fail(f"spline_bins quickstart: launches {quick16['launches']}, of other kernels "
+             f"{quick16['other_launches']}")
+    if not (np.isfinite(quick16["logz"]) and abs(quick16["logz"] - TRUE_LOGZ) < LOGZ_GATE):
+        fail(f"spline_bins quickstart: logZ {quick16['logz']} outside {TRUE_LOGZ} +- {LOGZ_GATE}")
+    if not quick16["posterior_finite"]:
+        fail("spline_bins quickstart: posterior samples are not finite")
+    if not quick16["repeats_bit_for_bit"]:
+        fail(f"spline_bins quickstart: a second run at the same seed gave logZ "
+             f"{again16['logz']} and {again16['calls']} calls, not {quick16['logz']} and "
+             f"{quick16['calls']}, or another posterior")
+    # (e) a 20-step mala sweep at d=10, n=256 on random nsf6 and nsfc6 flows
+    # of 16 bins, as phase 13 (d)
+    bins_sweeps = []
+    for name in ("nsf6", "nsfc6"):
+        flow = bins_flow(name, 10, b16)[0]
+        kname = gradient_kernel(flow)
+        sweep = Sweep(scaler10, prior10.logpdf, make_loglike(unit_gauss), flow, 10, 20, 20,
+                      kind="mala")
+        g = torch.Generator("cuda").manual_seed(SEED)
+        with torch.no_grad():
+            scp10 = scaler10.whitening_params("cuda")
+            fp = _detached(flow.params())
+            u = 0.5 * torch.randn(256, 10, device="cuda", generator=g)
+            x, ldj = scaler10.inverse(u, params=scp10)
+            theta, _ = flow.forward(u, fp)
+            geom = fit_geometry(theta, torch.full((256,), 1.0 / 256, device="cuda"), g)
+            reset_launches(fk)
+            st = sweep.init_state(u, x, ldj, unit_gauss(x), prior10.logpdf(x), 2.38 / 10 ** 0.5,
+                                  geom, fp, beta=1.0, scp=scp10)
+            accepts = []
+            for _ in range(20):
+                prop = sweep.propose(st, geom, fp, scp10, sweep.draw_noise(st, geom, g),
+                                     beta=1.0)
+                st, _ = sweep.accept_update(st, prop, prop["logl"], 1.0, geom)
+                accepts.append(float(st.accept))
+            torch.cuda.synchronize()
+        counts = read_launches(fk, (kname,))
+        by_path[f"spline_bins_head_{name}"] = counts
+        finite = all(bool(torch.isfinite(a).all()) for a in (st.u, st.x, st.logl, st.grad))
+        row = dict(flow=name, bins=b16, kernel=kname, steps=st.i,
+                   mean_accept=statistics.mean(accepts), sigma=float(st.sigma), finite=finite,
+                   launches=counts)
+        bins_sweeps.append(row)
+        if not finite:
+            fail(f"spline_bins_head_{name}: the sweep's state is not finite")
+        if not 0.2 < row["mean_accept"] < 0.98:
+            fail(f"spline_bins_head_{name}: mean acceptance {row['mean_accept']} outside "
+                 f"(0.2, 0.98)")
+        if not counts[kname]:
+            fail(f"spline_bins_head_{name}: {kname} was never launched")
+    # (f) the quickstart's state through save_state and load_state into a
+    # sampler of another seed with such a flow: bit for bit
+    state_dir = Path("build/chip_smoke_states")
+    state_path = state_dir / "spline_bins.state"
+    s16.save_state(state_path)
+    back = pt.Sampler(prior, log_like, vectorize=True, random_state=5, device="cuda",
+                      flow=Flow(10, "nsf6", bins=b16, device="cuda"))
+    back.load_state(state_path)
+    shutil.rmtree(state_dir, ignore_errors=True)
+    pts = torch.from_numpy(np.random.default_rng(SEED).normal(0.0, 2.0, (64, 10))
+                           .astype(np.float32)).cuda()
+    with torch.no_grad():
+        round_trip = (back.evidence() == s16.evidence() and back.flow.bins == b16
+                      and all(np.array_equal(u, v) for u, v in zip(back.posterior(),
+                                                                   s16.posterior()))
+                      and all(torch.equal(u, v) for u, v in zip(back.flow.parameters(),
+                                                                s16.flow.parameters()))
+                      and torch.equal(back.flow.log_prob(pts), s16.flow.log_prob(pts)))
+    if not round_trip:
+        fail("spline_bins: the saved state did not load back bit for bit")
+    emit("spline_bins", card=card, bins=SPLINE_BINS, checks=bins_checks, menu_checks=bins_menu,
+         gradient_checks=bins_grad, check_s=check_s, times=dict(bins=b16, **bins_times),
+         bounds={k: dict(bound_ms=v[0], bound_by=v[1]) for k, v in bins_bounds.items()},
+         quickstart=quick16, quickstart_again=again16, head_sweeps=bins_sweeps,
+         state_round_trip=round_trip, wall_s=time.perf_counter() - t14)
+
     paths = {"flow_menu_maf6": AFFINE, "flow_menu_nsfc6": COUPLING,
              "flow_menu_bench_sweep": COUPLING[:2],
              "gradient_head_maf6": GRADIENT[1:2], "gradient_head_nsfc6": GRADIENT[2:]}
@@ -1784,6 +2341,9 @@ def main():
                                                                             "test_mala"))})
     paths.update({k: ("ar_inverse",) + GRADIENT[:1] for k in by_path
                   if k.startswith("gradient_sweep")})
+    paths.update({"spline_bins_quickstart": k16,
+                  "spline_bins_head_nsf6": (with_bins(GRADIENT[0], b16),),
+                  "spline_bins_head_nsfc6": (with_bins(GRADIENT[2], b16),)})
     for name, counts in by_path.items():
         want = paths.get(name, RQS)
         if set(counts) != set(want) or not all(counts.values()):
@@ -1921,6 +2481,40 @@ def main():
             entry.update(k1_save_ms=row["k1_save_ms"], k1_ms=row["k1_ms"],
                          k1_state_bytes=row["k1_state_bytes"])
         line.append(entry)
+    # the spline kernels at 16 bins (phase 14), at the shapes above on its
+    # nsf6 and nsfc6 flows of d=10, each with ptxas's count of its
+    # library's instances, their most registers and their spills; and on
+    # every spline kernel's entry the largest |diff| at each bins checked
+    at16 = {"made_rqs_forward": ("made_rqs_forward", "nsf6", 1024),
+            "made_rqs_backward": ("made_rqs_backward", "nsf6", 1024),
+            "ar_inverse": ("ar_inverse", "nsf6", 256),
+            "coupling_forward": ("coupling_forward", "nsfc6", 1024),
+            "coupling_inverse": ("coupling_forward", "nsfc6", 256),
+            "coupling_backward": ("coupling_backward", "nsfc6", 1024),
+            "ar_inverse_backward": ("ar_inverse_backward", "nsf6", 256),
+            "coupling_inverse_backward": ("coupling_backward", "nsfc6", 256)}
+    every_source = {**sources, **grad_sources}
+    for base, (lib, flow_name, n) in at16.items():
+        name = with_bins(base, b16)
+        total, path_counts = launches_of(name)
+        entry = {"name": name, "route": "cuda", "source": every_source[base][0],
+                 "replaces": every_source[base][1], "launches": total,
+                 "launches_by_path": path_counts, "max_abs_err": bins_errs.get(name, 0.0),
+                 "ms": bins_times[f"{base}_ms"], "plain_ms": bins_times[f"{base}_plain_ms"],
+                 "call_ms": bins_times[f"{base}_call_ms"],
+                 "plain_call_ms": bins_times[f"{base}_plain_call_ms"],
+                 "bound_ms": bins_bounds[base][0], "bound_by": bins_bounds[base][1],
+                 "library_ms": None, "flow": flow_name, "d": 10, "n": n, "bins": b16,
+                 "ptxas": build[with_bins(lib, b16)]["resources"]}
+        for extra in ("matmul", "save"):
+            if f"{base}_{extra}_ms" in bins_times:
+                entry[f"{extra}_ms"] = bins_times[f"{base}_{extra}_ms"]
+        line.append(entry)
+    for entry in line:
+        if entry["name"] in at16:
+            entry["bins_instances"] = {
+                str(b): bins_errs[with_bins(entry["name"], b)] for b in SPLINE_BINS
+                if with_bins(entry["name"], b) in bins_errs}
     print(json.dumps({"kernels": line}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -1,7 +1,8 @@
 // K1: autoregressive inverse of a whole masked autoregressive transform
 // stack, latent -> data, with the summed log|det dx/dz|. The element
-// transform is the head (heads.cuh), a template parameter: the 8-bin
-// spline of the nsf* flows or the affine map of the maf* flows.
+// transform is the head (heads.cuh), a template parameter: the spline of
+// the nsf* flows (BINS bins, one library a bins: rqs.cuh) or the affine map
+// of the maf* flows.
 //
 // Replaces the round-2 Pallas kernel of the JAX package, a fused
 // whole-transform autoregressive inverse with the masked weights resident
@@ -18,8 +19,8 @@
 // degree. So step k of transform t computes the layer-0, then layer-1, then
 // layer-2 units of degree k (fan-in: the inputs, or the units below, of
 // degree <= k), then the NP head parameters of dimension inv_order[t, k]
-// from the layer-2 units of degree <= k (23 for the spline, 2 for the
-// affine map), then that dimension's inverse. Masked-out terms are
+// from the layer-2 units of degree <= k (3 BINS - 1 for the spline, 2 for
+// the affine map), then that dimension's inverse. Masked-out terms are
 // skipped, not multiplied by zero; with unmasked weights the result is not
 // the plain version's.
 //
@@ -30,11 +31,12 @@
 // - Rows belong to warps. A consumer warp owns R rows for the whole chain
 //   and keeps their state in its own slice of shared memory: the three
 //   hidden layers in degree-sorted order (so the units of degree <= k are
-//   a prefix), z, x by dimension, x in visit order, and 23 spline
-//   head parameters (OG floats). Inside a step the warp synchronises with __syncwarp and
+//   a prefix), z, x by dimension, x in visit order, and the NP head
+//   parameters (OG floats). Inside a step the warp synchronises with __syncwarp and
 //   shuffles only; the step loop has no block barrier.
 // - A product splits its fan-in over the 32 lanes; each lane keeps R x G
-//   sums (G: 4, 8 or 24 columns of a group), and a butterfly
+//   sums (G: 4, 8 or 24 columns of a hidden group, OG of the output
+//   group), and a butterfly
 //   reduce-scatter of shuffles in one fixed order leaves every sum with one
 //   lane. No atomics: a seed repeats bit for bit.
 // - The weights each step needs (the degree-k columns cut to their live
@@ -55,7 +57,9 @@
 //   step leaves them, each transform's hidden signs as bit masks. The
 //   instances without it are the same code with the stores compiled out.
 // fp32 with plain FMAs, no fast-math; the spline is rqs.cuh's rqs_inverse
-// (a one-row warp runs it warp-wide), the affine map heads.cuh's.
+// (a one-row warp runs it warp-wide up to 10 bins, where the parameters fit
+// a lane each; past that its lane 0 runs the serial one, as a lane a row
+// does in warps of 2 or 4 rows), the affine map heads.cuh's.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -117,8 +121,12 @@ struct Producer {
       uint64_t* bar = ring.full + ring.slot;
       if (lane == 0) mbar_expect(bar, 4u * (uint32_t)(ncg * nfp + nb));
       __syncwarp();
-      if (lane < ncg) bulk_copy(dst + lane * nfp, blk + lane * fanp + i0, 4u * nfp, bar);
-      if (lane == ncg) bulk_copy(dst + ncg * nfp, blk + ncg * fanp, 4u * nb, bar);
+      // column c by lane c mod 32 (a spline head's output group passes 32
+      // columns from 11 bins), then the biases
+      for (int c = lane; c <= ncg; c += 32) {
+        if (c < ncg) bulk_copy(dst + c * nfp, blk + c * fanp + i0, 4u * nfp, bar);
+        else bulk_copy(dst + ncg * nfp, blk + ncg * fanp, 4u * nb, bar);
+      }
       ring.advance();
       i0 += nf;
     } while (i0 < fan);
@@ -128,28 +136,21 @@ struct Producer {
   __device__ __forceinline__ void transform_end(int) {}
 };
 
-// rqs_inverse of one row by the whole warp: lane j < NPARAMS holds raw
-// parameter j. Lanes 0-7 and 8-15 take the two softmaxes over the bins
-// (max and sum by xor-butterflies, so every lane of a group gets the same
-// bits) and the knots as an inclusive scan of the bin sizes; lanes 16-22
-// the interior derivatives; then every lane gathers the knots and runs the
-// same inverse on them. The arithmetic of spline_setup but for the order
-// of the two sums.
+// rqs_inverse of one row by the whole warp (WARP_SPLINE: up to 10 bins):
+// lane j < NPARAMS holds raw parameter j. Lanes 0..BINS-1 and
+// BINS..2*BINS-1 take the two softmaxes over the bins (rqs.cuh
+// segment_max and segment_sum: every lane of a segment gets the same bits)
+// and the knots as an inclusive scan of the bin sizes; the next BINS-1
+// lanes the interior derivatives; then every lane gathers the knots and
+// runs the same inverse on them. The arithmetic of spline_setup but for
+// the order of the two sums where BINS is a power of two, and exactly
+// spline_setup's where it is not.
 __device__ __forceinline__ float rqs_inverse_warp(float y, float p, int lane, float* ladj) {
   const float B = SPLINE_BOUND;
-  float m = p;
-#pragma unroll
-  for (int o = 4; o >= 1; o >>= 1) m = fmaxf(m, __shfl_xor_sync(FULL_MASK, m, o));
+  const float m = segment_max(p, lane);
   const float e = expf(p - m);
-  float s = e;
-#pragma unroll
-  for (int o = 4; o >= 1; o >>= 1) s += __shfl_xor_sync(FULL_MASK, s, o);
-  float c = (MIN_BIN + (1.0f - MIN_BIN * BINS) * (e / s)) * (2.0f * B);
-#pragma unroll
-  for (int o = 1; o < BINS; o <<= 1) {
-    const float v = __shfl_up_sync(FULL_MASK, c, o);
-    if ((lane & (BINS - 1)) >= o) c += v;
-  }
+  const float s = segment_sum(e, lane);
+  const float c = segment_scan((MIN_BIN + (1.0f - MIN_BIN * BINS) * (e / s)) * (2.0f * B), lane);
   const float knot = c - B;
   const float deriv = MIN_DERIV + softplusf(p + SOFTPLUS_INV_1);
   float xk[BINS + 1], yk[BINS + 1], dv[BINS + 1];
@@ -261,12 +262,12 @@ struct Consumer {
   }
 
   // the inverse of dimension inv_order[t, k]: the spline with one row by
-  // the whole warp (rqs_inverse_warp); else lane r for row r
+  // the whole warp (rqs_inverse_warp, up to 10 bins); else lane r for row r
   __device__ __forceinline__ void step_end(int t, int k) {
     const int d = g.d, h = g.h;
     const int dim = __ldg(inv_order + t * d + k);
     float* row = rows + 3 * h;  // z, x, x in visit order, head parameters
-    if constexpr (R == 1 && Head::NP == NPARAMS) {
+    if constexpr (R == 1 && Head::NP == NPARAMS && WARP_SPLINE) {
       const float p = lane < NPARAMS ? row[3 * d + lane] : 0.0f;
       float l;
       const float x = rqs_inverse_warp(row[zo + dim], p, lane, &l);
@@ -285,12 +286,13 @@ struct Consumer {
     }
     __syncwarp();
     if constexpr (SAVE) {
-      // lane i < NP: the step's parameter i; lane NP: its x
+      // value i < NP: the step's parameter i; value NP: its x
       for (int r = 0; r < R; ++r) {
         const float* st = rows + r * RS + 3 * h;
-        if (row0 + r < n && lane <= Head::NP)
-          save.px[(((size_t)t * n + row0 + r) * d + k) * (Head::NP + 1) + lane] =
-              lane < Head::NP ? st[3 * d + lane] : st[2 * d + k];
+        if (row0 + r < n)
+          for (int i = lane; i <= Head::NP; i += 32)
+            save.px[(((size_t)t * n + row0 + r) * d + k) * (Head::NP + 1) + i] =
+                i < Head::NP ? st[3 * d + i] : st[2 * d + k];
       }
     }
   }
@@ -467,7 +469,13 @@ int launch_save(int rows, const float* z, float* x, float* ladj, SavedState save
                                   smem, s);
 }
 
-bool head_ok(int np) { return np == RqsHead::NP || np == AffineHead::NP; }
+
+// K1's widest column group with the head of np parameters: a hidden
+// group (GROUP) or the output group (OG)
+int widest_group(int np) {
+  const int og = np == AffineHead::NP ? AffineHead::OG : RqsHead::OG;
+  return og > GROUP ? og : GROUP;
+}
 
 }  // namespace
 
@@ -482,15 +490,15 @@ extern "C" long long ar_inverse_pack_floats(int d, int h, int T, int np) {
 // Writes the pack (ar_inverse_pack_floats floats) of the masked weights,
 // stacked over transforms as for made_rqs_forward_launch, and the (T, d)
 // int32 order in which each transform's inverse visits the dimensions
-// (argsort of its autoregressive order); np picks the head (23 the spline,
-// 2 the affine map; w3 and b3 have d*np columns). Launches on `stream` and
+// (argsort of its autoregressive order); np picks the head (3 BINS - 1 the
+// library's spline, 2 the affine map; w3 and b3 have d*np columns). Launches on `stream` and
 // returns cudaGetLastError().
 extern "C" int ar_inverse_pack_launch(const float* w0, const float* b0, const float* w1,
                                       const float* b1, const float* w2, const float* b2,
                                       const float* w3, const float* b3, const int* inv_order,
                                       float* pack, int d, int h, int T, int np, int device,
                                       void* stream) {
-  if (d < 1 || h < 1 || T < 1 || !head_ok(np)) return (int)cudaErrorInvalidValue;
+  if (d < 1 || h < 1 || T < 1 || !head_compiled(np)) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   const Layers m{{w0, w1, w2, w3}, {b0, b1, b2, b3}};
@@ -504,7 +512,8 @@ extern "C" int ar_inverse_pack_launch(const float* w0, const float* b0, const fl
 // in ar_walk.cuh): save_px (T, n, d, np + 1) floats and save_signs (T, n, 3,
 // ceil(h / 32)) words; both null otherwise. rows (1, 2 or 4) a consumer
 // warp, warps (1-8) consumer warps a block, stages (2-8) of stage_floats
-// floats in the ring (a multiple of 4, at least 5 * 24). Launches on
+// floats in the ring (a multiple of 4, at least 5 times the widest group:
+// widest_group). Launches on
 // `stream` and returns cudaGetLastError(), or cudaErrorInvalidValue for
 // arguments it does not take.
 extern "C" int ar_inverse_launch(const float* z, float* x, float* ladj, float* save_px,
@@ -512,14 +521,14 @@ extern "C" int ar_inverse_launch(const float* z, float* x, float* ladj, float* s
                                  const float* pack, const int* inv_order, int np, int rows,
                                  int warps, int stages, int stage_floats, int device,
                                  void* stream) {
-  if (!head_ok(np) || (save_px == nullptr) != (save_signs == nullptr))
+  if (!head_compiled(np) || (save_px == nullptr) != (save_signs == nullptr))
     return (int)cudaErrorInvalidValue;
   const size_t row =
       3 * (size_t)h + 3 * (size_t)d + (np == AffineHead::NP ? AffineHead::OG : RqsHead::OG);
   const size_t smem = 16 * (size_t)stages +
                       sizeof(float) * ((size_t)stages * stage_floats + (size_t)warps * rows * row);
   if (n < 1 || d < 1 || h < 1 || T < 1 || warps < 1 || warps > MAX_WARPS || stages < 2 ||
-      stages > MAX_STAGES || stage_floats % 4 != 0 || stage_floats < 5 * GROUP ||
+      stages > MAX_STAGES || stage_floats % 4 != 0 || stage_floats < 5 * widest_group(np) ||
       smem > (size_t)MAX_SMEM_BYTES)
     return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
@@ -527,9 +536,11 @@ extern "C" int ar_inverse_launch(const float* z, float* x, float* ladj, float* s
   const cudaStream_t s = (cudaStream_t)stream;
   const int W = warps, S = stages, SL = stage_floats;
   const SavedState save{save_px, save_signs};
+#if POCOMC_AFFINE
   if (np == AffineHead::NP)
     return launch_save<AffineHead>(rows, z, x, ladj, save, n, d, h, T, pack, inv_order, W, S, SL,
                                    smem, s);
+#endif
   return launch_save<RqsHead>(rows, z, x, ladj, save, n, d, h, T, pack, inv_order, W, S, SL, smem,
                               s);
 }

@@ -42,9 +42,11 @@
 //   __syncwarp and shuffles.
 // - The element VJP runs warp-wide in one-row warps (heads.cuh
 //   inverse_vjp_warp: the spline's setup split across the lanes as K1's
-//   rqs_inverse_warp splits the inverse's, a parameter a lane), and on a
-//   group of 8 lanes a row in warps of 2 or 4 rows (inverse_vjp_group: a
-//   bin of each softmax and a derivative a lane), so that one pass serves
+//   rqs_inverse_warp splits the inverse's, a parameter a lane; up to 10
+//   bins, where the NP + 1 values fit a warp), and on a group of 8 lanes a
+//   row in warps of 2 or 4 rows and in one-row warps past 10 bins
+//   (inverse_vjp_group: ceil(BINS/8) bins of each softmax and as many
+//   derivatives a lane), so that one pass serves
 //   all of a warp's rows (each row warp-wide in turn, or one lane a row,
 //   measured slower there; 8 lanes a row slower in one-row warps: PERF.md).
 //   The step's saved parameters and x are read from global memory one step
@@ -122,8 +124,12 @@ struct BackProducer {
       uint64_t* bar = ring.full + ring.slot;
       if (lane == 0) mbar_expect(bar, 4u * (uint32_t)(ncg * nfp + nb));
       __syncwarp();
-      if (lane < ncg) bulk_copy(dst + lane * nfp, blk + lane * fanp + i0, 4u * nfp, bar);
-      if (lane == ncg) bulk_copy(dst + ncg * nfp, blk + ncg * fanp, 4u * nb, bar);
+      // column c by lane c mod 32 (a spline head's output group passes 32
+      // columns from 11 bins), then the biases
+      for (int c = lane; c <= ncg; c += 32) {
+        if (c < ncg) bulk_copy(dst + c * nfp, blk + c * fanp + i0, 4u * nfp, bar);
+        else bulk_copy(dst + ncg * nfp, blk + ncg * fanp, 4u * nb, bar);
+      }
       ring.advance();
       i0 += nf;
     } while (i0 < fan);
@@ -145,8 +151,9 @@ struct BackConsumer {
   float* rows;
   int RS, HW, lane, row0, n;
   float gl[R];  // each row's dL/dladj
-  // the element VJP warp-wide (one-row warps) or 8 lanes a row (PERF.md)
-  static constexpr bool WARP = R == 1;
+  // the element VJP warp-wide (one-row warps, where NP + 1 values fit a
+  // warp) or 8 lanes a row (PERF.md)
+  static constexpr bool WARP = R == 1 && Head::WARP;
   float pre[R];               // WARP: lane j <= NP holds value j of each row's next step
   typename Head::Slice nxt;  // else: the lane's share of its row's next step
 
@@ -393,7 +400,8 @@ int launch_rows(int rows, const SavedState& sv, const float* gx, const float* gl
 }
 
 // One element's inverse VJP a row, by one of the kernel's versions (LANES
-// 32: a warp a row, inverse_vjp_warp; 8: a group of 8 lanes a row,
+// 32: a warp a row, inverse_vjp_warp, where the head has WARP; 8: a group
+// of 8 lanes a row,
 // inverse_vjp_group) or by the one-lane one (LANES 1: heads.cuh
 // inverse_vjp), for the tests: px (n, NP + 1: the raw parameters, then x),
 // gx, gl (n,) -> gz (n,), gp (n, NP).
@@ -434,7 +442,7 @@ template <class Head>
 int launch_element(const float* px, const float* gx, const float* gl, float* gz, float* gp, int n,
                    int lanes, cudaStream_t s) {
   const int blocks = ((long long)lanes * n + 127) / 128;
-  if (lanes == 32)
+  if (lanes == 32 && Head::WARP)
     element_vjp_kernel<Head, 32><<<blocks, 128, 0, s>>>(px, gx, gl, gz, gp, n);
   else if (lanes == 8)
     element_vjp_kernel<Head, 8><<<blocks, 128, 0, s>>>(px, gx, gl, gz, gp, n);
@@ -454,11 +462,13 @@ int launch_element(const float* px, const float* gx, const float* gl, float* gz,
 extern "C" int ar_inverse_element_vjp_launch(const float* px, const float* gx, const float* gl,
                                              float* gz, float* gp, int n, int np, int lanes,
                                              int device, void* stream) {
-  if (n < 1 || (np != RqsHead::NP && np != AffineHead::NP)) return (int)cudaErrorInvalidValue;
+  if (n < 1 || !head_compiled(np)) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   const cudaStream_t s = (cudaStream_t)stream;
+#if POCOMC_AFFINE
   if (np == AffineHead::NP) return launch_element<AffineHead>(px, gx, gl, gz, gp, n, lanes, s);
+#endif
   return launch_element<RqsHead>(px, gx, gl, gz, gp, n, lanes, s);
 }
 
@@ -469,8 +479,9 @@ extern "C" int ar_inverse_element_vjp_launch(const float* px, const float* gx, c
 // gz (n, d) receives dL/dz. pack and inv_order are K1's (the pack that
 // ar_inverse_pack_launch wrote for the same weights, order and np). rows
 // (1, 2 or 4) a consumer warp, warps (1-8) consumer warps a block, stages
-// (2-8) of stage_floats floats, a multiple of 4, at least 5 * 24 (a group
-// too large for a stage goes in fan-in chunks). Launches on `stream` and
+// (2-8) of stage_floats floats, a multiple of 4, at least 5 times K1's
+// widest group (a group too large for a stage goes in fan-in chunks).
+// Launches on `stream` and
 // returns cudaGetLastError(), or cudaErrorInvalidValue for arguments it
 // does not take.
 extern "C" int ar_inverse_backward_launch(const float* px, const unsigned* signs,
@@ -479,13 +490,13 @@ extern "C" int ar_inverse_backward_launch(const float* px, const unsigned* signs
                                           const int* inv_order, int np, int rows, int warps,
                                           int stages, int stage_floats, int device,
                                           void* stream) {
-  if (np != RqsHead::NP && np != AffineHead::NP) return (int)cudaErrorInvalidValue;
-  const size_t row = 3 * (size_t)h + 3 * (size_t)sign_words(h) + 2 * (size_t)d +
-                     (np == AffineHead::NP ? AffineHead::OG : RqsHead::OG);
+  if (!head_compiled(np)) return (int)cudaErrorInvalidValue;
+  const int og = np == AffineHead::NP ? AffineHead::OG : RqsHead::OG;
+  const size_t row = 3 * (size_t)h + 3 * (size_t)sign_words(h) + 2 * (size_t)d + og;
   const size_t smem = 16 * (size_t)stages +
                       sizeof(float) * ((size_t)stages * stage_floats + (size_t)warps * rows * row);
   if (n < 1 || d < 1 || h < 1 || T < 1 || warps < 1 || warps > MAX_WARPS || stages < 2 ||
-      stages > MAX_STAGES || stage_floats % 4 != 0 || stage_floats < 5 * GROUP ||
+      stages > MAX_STAGES || stage_floats % 4 != 0 || stage_floats < 5 * (og > GROUP ? og : GROUP) ||
       smem > (size_t)MAX_SMEM_BYTES)
     return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
@@ -497,9 +508,11 @@ extern "C" int ar_inverse_backward_launch(const float* px, const unsigned* signs
   const SavedState sv{const_cast<float*>(px), const_cast<unsigned*>(signs)};
   const cudaStream_t s = (cudaStream_t)stream;
   const int W = warps, S = stages, SL = stage_floats;
+#if POCOMC_AFFINE
   if (np == AffineHead::NP)
     return launch_rows<AffineHead>(rows, sv, gx, gladj, gz, n, d, h, T, pack, pack_floats,
                                    inv_order, W, S, SL, smem, s);
+#endif
   return launch_rows<RqsHead>(rows, sv, gx, gladj, gz, n, d, h, T, pack, pack_floats, inv_order,
                               W, S, SL, smem, s);
 }

@@ -13,7 +13,7 @@ namespace pocomc {
 namespace k1 {
 
 constexpr unsigned FULL_MASK = 0xffffffffu;
-constexpr int GROUP = 24;       // widest column group: one dimension's spline parameters
+constexpr int GROUP = 24;       // widest hidden column group (the output group is the head's OG)
 constexpr int MAX_WARPS = 8;    // consumer warps a block
 constexpr int MAX_STAGES = 8;
 

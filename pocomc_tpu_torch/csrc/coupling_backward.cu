@@ -43,9 +43,9 @@ extern "C" int coupling_backward_smem_floats(int RL, int BM, int RNH, int RNO, i
 // Plain C entry point, loaded with ctypes. a0 (T, n, d) and a1..a3
 // (T, n, h) are the inputs of every layer's product as the forward kernel
 // saved them; gz (n, d) and gladj (n,) are dL/dz and dL/dladj; gy (n, d)
-// receives dL/dx and g0..g2 (T, n, h), g3 (T, n, ceil(d/2)*23) the deltas
+// receives dL/dx and g0..g2 (T, n, h), g3 (T, n, ceil(d/2)*NP) the deltas
 // of the four layers. With inverse != 0, the gradient of the inverse:
-// a0..a3 and ap (T, n, ceil(d/2)*23; or null, and the kernel computes the
+// a0..a3 and ap (T, n, ceil(d/2)*NP; or null, and the kernel computes the
 // parameters from a3) the state K5's inverse save instance wrote, gz and
 // gladj dL/dx and dL/dladj of the inverse, gy receives dL/dz, and g0..g3
 // are not written (null). table and the tile (RL, BM, RNH, RNO, G, BK, S)

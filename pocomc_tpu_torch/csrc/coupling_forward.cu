@@ -6,13 +6,14 @@
 // as XLA code (pocomc_tpu/models/coupling.py coupling_forward and
 // coupling_inverse, the loop over transforms in models/flow.py). A coupling
 // transform conditions a residual MLP on one half of the dimensions and
-// maps the other half through 8-bin rational-quadratic splines whose
+// maps the other half through rational-quadratic splines (BINS bins, one
+// library a bins: rqs.cuh) whose
 // parameters the MLP gives, so both directions are one pass a transform:
 // data -> latent runs transforms 0..T-1 with the spline forward, latent ->
 // data runs T-1..0 with the spline inverse.
 //
 // What bounds it on the H100: fp32 FMAs of the four dense products,
-// 2 * T * (n_cond*h + 2*h*h + h*23*n_trans) flops a row (70,656 at nsfc6,
+// 2 * T * (n_cond*h + 2*h*h + h*NP*n_trans) flops a row (70,656 at nsfc6, 8 bins,
 // d=10, h=32; 284,672 multiply-adds a transform at d=50, h=256: 4.5e11
 // flops, 6.7 ms at the 67 TFLOP/s fp32 peak, for 12 transforms and 65,536
 // rows). At the sweep's n=256-4096 and d=10 a launch is latency: T
@@ -42,7 +43,7 @@
 // being the transform's data-side value after its splines (the inverse's
 // own intermediate; the conditioning columns pass through, so relu(h0..h2)
 // equal a forward's at x value for value), with, at `ps`, the output
-// layer's spline parameters (T, n, ceil(d/2)*23), so that the gradient
+// layer's spline parameters (T, n, ceil(d/2)*NP), so that the gradient
 // neither runs K5's forward nor recomputes the output layer's product.
 // The instances without the save compute the same values in the same
 // order. fp32 FMAs only: no tensor cores, no fast-math.
@@ -325,7 +326,7 @@ extern "C" int coupling_forward_smem_floats(int RL, int BM, int RNH, int RNO, in
 
 // Plain C entry point, loaded with ctypes. table holds the 8T device
 // pointers of the T coupling transforms' fp32 weights and biases (w0 b0
-// w1 b1 w2 b2 w3 b3 of each; w0 (n_cond_t, h), w3 (h, n_trans_t*23), the
+// w1 b1 w2 b2 w3 b3 of each; w0 (n_cond_t, h), w3 (h, n_trans_t*NP), the
 // halves of make_coupling_masks; every pointer 16-byte aligned). inverse =
 // 0 maps data -> latent through transforms 0..T-1 (the spline forward,
 // ladj = log|dz/dx|), 1 latent -> data through T-1..0 (ladj = log|dx/dz|).
@@ -333,11 +334,11 @@ extern "C" int coupling_forward_smem_floats(int RL, int BM, int RNH, int RNO, in
 // a0 (T, n, d) the transform inputs (the inverse: each transform's output
 // of the inverse, its x_t), a1..a3 (T, n, h) relu(h0), relu(h1),
 // relu(h2); ap (given with a0 in the inverse, else null) receives the
-// output layers' spline parameters (T, n, ceil(d/2)*23), zero past a
+// output layers' spline parameters (T, n, ceil(d/2)*NP), zero past a
 // transform's own. The tile: RL = 4 a Tile of BM rows a block
 // (8, 16, 32, 64), passes of 32*RNH hidden and 32*RNO output columns, or RL
 // = 1 a Row of BM = 1, 2 or 4 rows, passes of 256*RNH and 256*RNO; an
-// output group of G whole transformed dimensions (G*23 columns, at most an
+// output group of G whole transformed dimensions (G*NP columns, at most an
 // output pass), slabs of BK weight rows in an S-stage ring. w3 holds the
 // output layers packed as coupling_tile.cuh Packed describes ((T,
 // ceil(ceil(d/2)/G), h, output pass width), 16-byte aligned). Launches on

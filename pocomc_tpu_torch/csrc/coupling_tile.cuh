@@ -35,7 +35,7 @@
 // boundaries, run under the current slab's FMAs, and no block-wide
 // barrier sits between slabs. A hidden layer's slab is one bulk copy
 // (TMA, 1-D), or one a row where the pass is narrower than the layer. An
-// output layer's rows are 23*n_trans floats, most of them off a 16-byte
+// output layer's rows are NP*n_trans floats, most of them off a 16-byte
 // boundary, and a transposed slab gathers columns: the wrapper repacks
 // those weights (Packed) so that each such slab is one bulk copy too.
 //
@@ -322,7 +322,7 @@ struct Pass {
 };
 
 // Weights repacked by the wrapper so that every slab is one contiguous,
-// 16-byte aligned block (the rows of an output layer are 23*n_trans floats,
+// 16-byte aligned block (the rows of an output layer are NP*n_trans floats,
 // which leaves most of them off a 16-byte boundary): w3 (forward), each
 // transform's output groups as (T, NG, h, ldo) blocks, a group's columns
 // zero-padded to ldo, the output pass width; wt (backward), each

@@ -1,16 +1,18 @@
 // The element transforms ("heads") the flow kernels are templated on: what
 // turns a dimension's NP raw network outputs into a monotone map of that
-// dimension. RqsHead is the 8-bin rational-quadratic spline of rqs.cuh
-// (the nsf* and nsfc* flows), AffineHead the bounded-log-scale affine map
+// dimension. RqsHead is the rational-quadratic spline of rqs.cuh, of the
+// library's BINS bins (the nsf* and nsfc* flows), AffineHead the
+// bounded-log-scale affine map
 // of the maf* flows, term for term models/transforms.py affine_forward,
 // affine_forward_vjp and affine_inverse; inverse_vjp is the inverse's
 // element VJP (ops/flow_kernels.py inverse_element_vjp) in closed form;
 // K1-bwd runs it for one row by a whole warp (inverse_vjp_warp, lane j
-// holding raw parameter j) or by a group of 8 lanes (inverse_vjp_group,
-// each lane holding its Slice of the row's step, read by slice from the NP
-// raw parameters and x in global memory).
-// OG is the width of K1's output column group (ar_inverse.cu): NP rounded
-// up to a group its products are instantiated for.
+// holding raw parameter j, where NP + 1 values fit a warp: WARP) or by a
+// group of 8 lanes (inverse_vjp_group, each lane holding its Slice of the
+// row's step, read by slice from the NP raw parameters and x in global
+// memory).
+// OG is the width of K1's output column group (ar_inverse.cu): NP + 1
+// rounded up to a multiple of 8 (24 at 8 bins, 48 at 16).
 #pragma once
 
 #include <math.h>
@@ -21,7 +23,8 @@ namespace pocomc {
 
 struct RqsHead {
   static constexpr int NP = NPARAMS;
-  static constexpr int OG = 24;
+  static constexpr int OG = (NP + 1 + 7) / 8 * 8;
+  static constexpr bool WARP = WARP_SPLINE;
   __device__ __forceinline__ static float forward(float x, const float* p, float* ladj) {
     return rqs_forward(x, p, ladj);
   }
@@ -52,6 +55,7 @@ constexpr float LOG_SCALE_BOUND = 5.0f;
 struct AffineHead {
   static constexpr int NP = 2;
   static constexpr int OG = 4;
+  static constexpr bool WARP = true;
   __device__ __forceinline__ static float forward(float x, const float* p, float* ladj) {
     const float s = LOG_SCALE_BOUND * tanhf(p[1] / LOG_SCALE_BOUND);
     *ladj = -s;
@@ -112,5 +116,11 @@ struct AffineHead {
     return gz;
   }
 };
+
+// whether np names a head this library has: the spline of its bins, or
+// (the default library only: POCOMC_AFFINE) the affine map
+__host__ __forceinline__ bool head_compiled(int np) {
+  return np == RqsHead::NP || (POCOMC_AFFINE && np == AffineHead::NP);
+}
 
 }  // namespace pocomc

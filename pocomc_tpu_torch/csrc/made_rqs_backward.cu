@@ -25,7 +25,7 @@
 // 64 rows a block and read the layer inputs the forward saved k-major;
 // the output layer runs in groups of whole dimensions as wide as an output
 // pass. The weights change at every optimizer step, and a MADE output
-// row (23*d floats) sits off a 16-byte boundary, so a first kernel of the
+// row (NP*d floats) sits off a 16-byte boundary, so a first kernel of the
 // same launch (pack_kernel) lays them out as coupling_tile.cuh Packed
 // describes, into a scratch tensor the wrapper allocates: no host repack
 // is added to a training step. The deltas of the four layers go to
@@ -127,8 +127,7 @@ extern "C" int made_rqs_backward_launch(const float* a0, const float* a1, const 
                                         float* g3, float* pack, int np, int RL, int BM, int RNH,
                                         int RNO, int G, int BK, int S, int device,
                                         void* stream) {
-  if (np != pocomc::RqsHead::NP && np != pocomc::AffineHead::NP)
-    return (int)cudaErrorInvalidValue;
+  if (!pocomc::head_compiled(np)) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   const size_t smem =
@@ -151,7 +150,9 @@ extern "C" int made_rqs_backward_launch(const float* a0, const float* a1, const 
                      const_cast<float*>(a3)}},
       nullptr, gz, gladj, gy, pocomc::stack::Deltas{{g0, g1, g2, g3}, d * np}, n, m,
       pocomc::k5::Packed{pack, pack + ps.w3_floats(), (int)ps.ng()}, G, BK, S, false, smem, s};
+#if POCOMC_AFFINE
   if (np == pocomc::AffineHead::NP)
     return pocomc::stack::by_tile<pocomc::AffineHead, false>(RL, BM, RNH, RNO, a);
+#endif
   return pocomc::stack::by_tile<pocomc::RqsHead, false>(RL, BM, RNH, RNO, a);
 }

@@ -1,8 +1,9 @@
 // K2 forward: fused MADE + element-transform forward pass of a whole
 // masked autoregressive transform stack, data -> latent, with the summed
 // log|det dz/dy|. The element transform is the head (heads.cuh), a
-// template parameter: the 8-bin spline of the nsf* flows (23 parameters a
-// dimension) or the affine map of the maf* flows (2).
+// template parameter: the spline of the nsf* flows (3 BINS - 1 parameters
+// a dimension, 23 at the default 8 bins; one library a bins: rqs.cuh) or
+// the affine map of the maf* flows (2).
 //
 // Replaces the Pallas kernel `_made_kernel` / `_pallas_made_call` /
 // `make_made_apply` of pocomc_tpu/ops/pallas_kernels.py (deleted in commit
@@ -150,8 +151,8 @@ extern "C" int made_rqs_forward_smem_floats(int P, int G, int d, int h, int SL, 
 // fan_out) masked weights and (T, fan_out) biases of the four MADE layers,
 // contiguous fp32 on the device. a0..a3 are all null, or receive the input
 // of every layer's product: a0 (T, n, d) the transform inputs, a1..a3
-// (T, n, h) relu(h0), relu(h1), relu(h2). np picks the head: 23 the spline,
-// 2 the affine map (w3 and b3 have d*np columns). P is the tile (1, 2, 4, 8 or 16
+// (T, n, h) relu(h0), relu(h1), relu(h2). np picks the head: 3 BINS - 1
+// the library's spline, 2 the affine map (w3 and b3 have d*np columns). P is the tile (1, 2, 4, 8 or 16
 // rows), G the dimensions of an output-layer group (1..d), SL the floats of
 // one ring stage (a multiple of 4, at least h + 1). Launches on `stream`
 // and returns cudaGetLastError().
@@ -161,8 +162,7 @@ extern "C" int made_rqs_forward_launch(const float* y, float* z, float* ladj, in
                                        const float* b2, const float* w3, const float* b3,
                                        float* a0, float* a1, float* a2, float* a3, int np,
                                        int P, int G, int SL, int device, void* stream) {
-  if (np != pocomc::RqsHead::NP && np != pocomc::AffineHead::NP)
-    return (int)cudaErrorInvalidValue;
+  if (!pocomc::head_compiled(np)) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   const size_t smem = sizeof(float) * (size_t)made_rqs_forward_smem_floats(P, G, d, h, SL, np);
@@ -171,7 +171,9 @@ extern "C" int made_rqs_forward_launch(const float* y, float* z, float* ladj, in
   const pocomc::Saved sv{{a0, a1, a2, a3}};
   const int gw = G * np;
   cudaStream_t s = (cudaStream_t)stream;
+#if POCOMC_AFFINE
   if (np == pocomc::AffineHead::NP)
     return launch_tile<pocomc::AffineHead>(y, z, ladj, sv, n, m, P, gw, SL, smem, s);
+#endif
   return launch_tile<pocomc::RqsHead>(y, z, ladj, sv, n, m, P, gw, SL, smem, s);
 }

@@ -1,8 +1,12 @@
-// Shared device code of the flow kernels: the 8-bin rational-quadratic
-// spline (spline setup, bin search, forward, the vector-Jacobian products
-// of the forward and of the inverse, inverse) for all of them. The
+// Shared device code of the flow kernels: the rational-quadratic spline of
+// BINS bins (spline setup, bin search, forward, the vector-Jacobian
+// products of the forward and of the inverse, inverse) for all of them. The
 // products are the kernels' own: K2's in made_tile.cuh, K1's in
 // ar_inverse.cu and ar_inverse_backward.cu, K5's in coupling_tile.cuh.
+//
+// BINS is a compile-time constant, POCOMC_BINS (2-16, 8 unless the build
+// defines it): ops/_build.py compiles one library a source and bins, so
+// every array below has a fixed size and stays in registers.
 //
 // The spline math follows pocomc_tpu/models/transforms.py term for term, in
 // fp32 with plain FMA arithmetic (no fast-math intrinsics): knots from a
@@ -17,8 +21,23 @@
 
 namespace pocomc {
 
-constexpr int BINS = 8;
+// The affine head's instances are the same in every library, so only the
+// default one (POCOMC_BINS not defined by the build) compiles them.
+#ifdef POCOMC_BINS
+#define POCOMC_AFFINE 0
+#else
+#define POCOMC_BINS 8
+#define POCOMC_AFFINE 1
+#endif
+
+constexpr int BINS = POCOMC_BINS;
+static_assert(BINS >= 2 && BINS <= 16, "the flow kernels take 2-16 spline bins");
 constexpr int NPARAMS = 3 * BINS - 1;           // raw parameters per dimension
+// the warp-wide versions (K1's rqs_inverse_warp, rqs_inverse_vjp_warp) hold
+// a raw parameter a lane and x in lane NPARAMS: up to 10 bins
+constexpr bool WARP_SPLINE = NPARAMS + 1 <= 32;
+// bins a lane of rqs_inverse_vjp_group's 8 lanes a row
+constexpr int SLICE_BINS = (BINS + 7) / 8;
 constexpr float SPLINE_BOUND = 5.0f;
 constexpr float MIN_BIN = 1e-3f;
 constexpr float MIN_DERIV = 1e-3f;
@@ -420,18 +439,78 @@ __device__ __forceinline__ float rqs_inverse_vjp(float x, float* p, float gx, fl
   return gz;
 }
 
-// rqs_inverse_vjp of one row by the whole warp: lane j < NPARAMS holds raw
-// parameter j (0 in the other lanes), every lane x, gx and gl. The setup is
-// split across lanes as K1's rqs_inverse_warp splits it (ar_inverse.cu):
-// lanes 0-7 and 8-15 the two softmaxes (max and sum by xor-butterflies, so
-// every lane of a group gets the same bits) and the knots as an inclusive
-// scan of the bin sizes, lanes 16-22 the interior derivatives and their
-// sigmoids; every lane gathers the knots and derivatives, then computes
-// the bin, dL/dz and the bin's knot gradients; last, lane j's parameter
-// gradient: a softmax's VJP over its group of 8 lanes (one more butterfly
-// for the dot product) or a derivative's. Returns dL/dz in every lane and
-// writes lane j's dL/dp_j into *gp (0 from lane NPARAMS). The arithmetic of
-// rqs_inverse_vjp but for the order of the sums.
+// Reductions over the segments of the warp-wide layout, lane j holding
+// raw parameter j: lanes 0..BINS-1 x's bins, BINS..2*BINS-1 y's (the lanes
+// past them take y's segment's results, which they do not use). With BINS
+// a power of two a segment is a group of xor-butterflies; otherwise every
+// lane gathers its segment's lanes in order, the serial order of
+// spline_knots. Every lane of a segment gets the same bits.
+__device__ __forceinline__ int segment_base(int lane) { return lane < BINS ? 0 : BINS; }
+
+__device__ __forceinline__ float segment_max(float v, int lane) {
+  constexpr unsigned ALL = 0xffffffffu;
+  if constexpr ((BINS & (BINS - 1)) == 0) {
+#pragma unroll
+    for (int o = BINS / 2; o >= 1; o >>= 1) v = fmaxf(v, __shfl_xor_sync(ALL, v, o));
+    return v;
+  } else {
+    const int a = segment_base(lane);
+    float m = __shfl_sync(ALL, v, a);
+#pragma unroll
+    for (int i = 1; i < BINS; ++i) m = fmaxf(m, __shfl_sync(ALL, v, a + i));
+    return m;
+  }
+}
+
+__device__ __forceinline__ float segment_sum(float v, int lane) {
+  constexpr unsigned ALL = 0xffffffffu;
+  if constexpr ((BINS & (BINS - 1)) == 0) {
+#pragma unroll
+    for (int o = BINS / 2; o >= 1; o >>= 1) v += __shfl_xor_sync(ALL, v, o);
+    return v;
+  } else {
+    const int a = segment_base(lane);
+    float s = __shfl_sync(ALL, v, a);
+#pragma unroll
+    for (int i = 1; i < BINS; ++i) s += __shfl_sync(ALL, v, a + i);
+    return s;
+  }
+}
+
+// inclusive scan over the segment, in bin order
+__device__ __forceinline__ float segment_scan(float v, int lane) {
+  constexpr unsigned ALL = 0xffffffffu;
+  if constexpr ((BINS & (BINS - 1)) == 0) {
+#pragma unroll
+    for (int o = 1; o < BINS; o <<= 1) {
+      const float u = __shfl_up_sync(ALL, v, o);
+      if ((lane & (BINS - 1)) >= o) v += u;
+    }
+    return v;
+  } else {
+    const int a = segment_base(lane);
+    float c = __shfl_sync(ALL, v, a);
+#pragma unroll
+    for (int i = 1; i < BINS; ++i) {
+      const float u = __shfl_sync(ALL, v, a + i);
+      if (i <= lane - a) c += u;
+    }
+    return c;
+  }
+}
+
+// rqs_inverse_vjp of one row by the whole warp (WARP_SPLINE: up to 10
+// bins): lane j < NPARAMS holds raw parameter j (0 in the other lanes),
+// every lane x, gx and gl. The setup is split across lanes as K1's
+// rqs_inverse_warp splits it (ar_inverse.cu): lanes 0..BINS-1 and
+// BINS..2*BINS-1 the two softmaxes (segment_max and segment_sum) and the
+// knots as an inclusive scan of the bin sizes, the next BINS-1 lanes the
+// interior derivatives and their sigmoids; every lane gathers the knots and
+// derivatives, then computes the bin, dL/dz and the bin's knot gradients;
+// last, lane j's parameter gradient: a softmax's VJP over its segment (one
+// more segment_sum for the dot product) or a derivative's. Returns dL/dz in
+// every lane and writes lane j's dL/dp_j into *gp (0 from lane NPARAMS).
+// The arithmetic of rqs_inverse_vjp but for the order of the sums.
 __device__ __forceinline__ float rqs_inverse_vjp_warp(float x, float p, float gx, float gl,
                                                       int lane, float* gp) {
   constexpr unsigned ALL = 0xffffffffu;
@@ -440,20 +519,11 @@ __device__ __forceinline__ float rqs_inverse_vjp_warp(float x, float p, float gx
     *gp = 0.0f;
     return gx;
   }
-  float m = p;
-#pragma unroll
-  for (int o = 4; o >= 1; o >>= 1) m = fmaxf(m, __shfl_xor_sync(ALL, m, o));
+  const float m = segment_max(p, lane);
   const float e = expf(p - m);
-  float sum = e;
-#pragma unroll
-  for (int o = 4; o >= 1; o >>= 1) sum += __shfl_xor_sync(ALL, sum, o);
+  const float sum = segment_sum(e, lane);
   const float sm = e / sum;
-  float run = (MIN_BIN + (1.0f - MIN_BIN * BINS) * sm) * (2.0f * B);
-#pragma unroll
-  for (int o = 1; o < BINS; o <<= 1) {
-    const float v = __shfl_up_sync(ALL, run, o);
-    if ((lane & (BINS - 1)) >= o) run += v;
-  }
+  const float run = segment_scan((MIN_BIN + (1.0f - MIN_BIN * BINS) * sm) * (2.0f * B), lane);
   const float knot = run - B;
   const float zr = p + SOFTPLUS_INV_1;
   const float deriv = MIN_DERIV + softplusf(zr);
@@ -472,16 +542,15 @@ __device__ __forceinline__ float rqs_inverse_vjp_warp(float x, float p, float gx
   sp.local(x, xk, yk, dv);
   const float gz = (gx - gl * sp.log_slope_dx()) / sp.slope();
   const SplineVjp::KnotGrads kg = sp.knot_grads(gz, gl);
-  // bin size mm of softmax a (lanes 0-7: x, 8-15: y) collects the
-  // gradients of knots mm+1..BINS-1
-  const int a = lane >> 3, mm = lane & (BINS - 1);
-  const float g0 = a == 0 ? kg.x0 : kg.y0, g1 = a == 0 ? kg.x1 : kg.y1;
+  // bin size mm of softmax a (lanes 0..BINS-1: x, BINS..2*BINS-1: y)
+  // collects the gradients of knots mm+1..BINS-1
+  const bool a = lane >= BINS;
+  const int mm = a ? lane - BINS : lane;
+  const float g0 = a ? kg.y0 : kg.x0, g1 = a ? kg.y1 : kg.x1;
   const float gsize = (mm < sp.i ? g0 : 0.0f) + ((mm <= sp.i && sp.i <= BINS - 2) ? g1 : 0.0f);
   const float gsm = gsize * ((1.0f - MIN_BIN * BINS) * (2.0f * B));
-  float dot = sm * gsm;
-#pragma unroll
-  for (int o = 4; o >= 1; o >>= 1) dot += __shfl_xor_sync(ALL, dot, o);
-  // interior derivative k = lane - 15 (lanes 16-22)
+  const float dot = segment_sum(sm * gsm, lane);
+  // interior derivative k = lane - 2*BINS + 1 (lanes 2*BINS..NPARAMS-1)
   const int k = lane - 2 * BINS + 1;
   const float gd = (k == sp.i ? kg.d0 : 0.0f) + (k == sp.i + 1 ? kg.d1 : 0.0f);
   const float g = lane < 2 * BINS ? sm * (gsm - dot) : (lane < NPARAMS ? gd * sig : 0.0f);
@@ -490,98 +559,171 @@ __device__ __forceinline__ float rqs_inverse_vjp_warp(float x, float p, float gx
 }
 
 // A row's step as rqs_inverse_vjp_group takes it: lane m (0-7) of the
-// row's group of 8 lanes holds bin m's two raw sizes, the raw parameter of
-// interior derivative m + 1 (0 at m = 7) and the row's x. From the NPARAMS
+// row's group of 8 lanes holds bins m*SLICE_BINS.. m*SLICE_BINS +
+// SLICE_BINS - 1 (one bin a lane up to 8 bins, two up to 16): their two
+// raw sizes (-inf past the last bin, so that they weigh nothing in the
+// softmaxes), the raw parameters of the interior derivatives of the same
+// indices plus one (0 past the last), and the row's x. From the NPARAMS
 // raw parameters then x, in global memory (K1's saved state).
 struct RqsSlice {
-  float px, py, pd, x;
+  float px[SLICE_BINS], py[SLICE_BINS], pd[SLICE_BINS], x;
 };
 
 __device__ __forceinline__ RqsSlice rqs_slice(const float* p, int m) {
-  return {__ldg(p + m), __ldg(p + BINS + m), m < BINS - 1 ? __ldg(p + 2 * BINS + m) : 0.0f,
-          __ldg(p + NPARAMS)};
+  RqsSlice q;
+#pragma unroll
+  for (int c = 0; c < SLICE_BINS; ++c) {
+    const int b = m * SLICE_BINS + c;
+    q.px[c] = b < BINS ? __ldg(p + b) : -INFINITY;
+    q.py[c] = b < BINS ? __ldg(p + BINS + b) : -INFINITY;
+    q.pd[c] = b < BINS - 1 ? __ldg(p + 2 * BINS + b) : 0.0f;
+  }
+  q.x = __ldg(p + NPARAMS);
+  return q;
 }
 
 // rqs_inverse_vjp of one row by a group of 8 lanes (lane m of the group
 // holds the row's slice), so one pass of a warp serves up to 4 rows. The
 // setup is split across the group as K1's rqs_inverse_warp splits the
-// inverse's: each lane takes its bin of both softmaxes (max and sum by
-// xor-butterflies, so every lane of the group gets the same bits) and of
-// the knots (inclusive scans of the bin sizes) and its interior
-// derivative and sigmoid; every lane gathers the knots and derivatives,
-// then computes the bin, dL/dz and the bin's knot gradients; last, lane m
-// the gradients of its three parameters (a softmax's VJP takes one more
-// butterfly for the dot product). Returns dL/dz, given gx = dL/dx and gl =
-// dL/dladj (the same in the group's lanes), and writes lane m's share of
-// the row's dL/dp into gp (NPARAMS floats) unless it is null. The
-// arithmetic of rqs_inverse_vjp but for the order of the sums; outside (-B,
-// B) dL/dz = gx and dL/dp = 0.
+// inverse's: each lane takes its bins of both softmaxes (max and sum over
+// its own, then xor-butterflies over the group, so every lane of the group
+// gets the same bits) and of the knots (its bins' running sum after an
+// inclusive scan of the lanes' totals) and its interior derivatives and
+// sigmoids; every lane gathers the knots and derivatives, then computes
+// the bin, dL/dz and the bin's knot gradients; last, lane m the gradients
+// of its parameters (a softmax's VJP takes one more butterfly for the dot
+// product). Returns dL/dz, given gx = dL/dx and gl = dL/dladj (the same in
+// the group's lanes), and writes lane m's share of the row's dL/dp into gp
+// (NPARAMS floats) unless it is null. The arithmetic of rqs_inverse_vjp
+// but for the order of the sums; outside (-B, B) dL/dz = gx and dL/dp = 0.
 __device__ __forceinline__ float rqs_inverse_vjp_group(const RqsSlice& q, float gx, float gl,
                                                        int m, float* gp) {
   constexpr unsigned ALL = 0xffffffffu;
-  constexpr int G = BINS;  // lanes a row
+  constexpr int G = 8;  // lanes a row
+  constexpr int C = SLICE_BINS;
   const float B = SPLINE_BOUND;
-  float mx = q.px, my = q.py;
+  float mx = q.px[0], my = q.py[0];
+#pragma unroll
+  for (int c = 1; c < C; ++c) {
+    mx = fmaxf(mx, q.px[c]);
+    my = fmaxf(my, q.py[c]);
+  }
 #pragma unroll
   for (int o = G / 2; o >= 1; o >>= 1) {
     mx = fmaxf(mx, __shfl_xor_sync(ALL, mx, o));
     my = fmaxf(my, __shfl_xor_sync(ALL, my, o));
   }
-  const float ex = expf(q.px - mx), ey = expf(q.py - my);
-  float sx = ex, sy = ey;
+  float ex[C], ey[C];
+#pragma unroll
+  for (int c = 0; c < C; ++c) {
+    ex[c] = expf(q.px[c] - mx);
+    ey[c] = expf(q.py[c] - my);
+  }
+  float sx = ex[0], sy = ey[0];
+#pragma unroll
+  for (int c = 1; c < C; ++c) {
+    sx += ex[c];
+    sy += ey[c];
+  }
 #pragma unroll
   for (int o = G / 2; o >= 1; o >>= 1) {
     sx += __shfl_xor_sync(ALL, sx, o);
     sy += __shfl_xor_sync(ALL, sy, o);
   }
-  const float smx = ex / sx, smy = ey / sy;
-  float rx = (MIN_BIN + (1.0f - MIN_BIN * BINS) * smx) * (2.0f * B);
-  float ry = (MIN_BIN + (1.0f - MIN_BIN * BINS) * smy) * (2.0f * B);
+  // the lane's bins' sizes as a running sum, then the lanes' totals scanned
+  float smx[C], smy[C], rx[C], ry[C];
+  float runx = 0.0f, runy = 0.0f;
+#pragma unroll
+  for (int c = 0; c < C; ++c) {
+    smx[c] = ex[c] / sx;
+    smy[c] = ey[c] / sy;
+    const float ux = (MIN_BIN + (1.0f - MIN_BIN * BINS) * smx[c]) * (2.0f * B);
+    const float uy = (MIN_BIN + (1.0f - MIN_BIN * BINS) * smy[c]) * (2.0f * B);
+    runx = c == 0 ? ux : runx + ux;
+    runy = c == 0 ? uy : runy + uy;
+    rx[c] = runx;
+    ry[c] = runy;
+  }
+  float tx = rx[C - 1], ty = ry[C - 1];
 #pragma unroll
   for (int o = 1; o < G; o <<= 1) {
-    const float vx = __shfl_up_sync(ALL, rx, o, G), vy = __shfl_up_sync(ALL, ry, o, G);
+    const float vx = __shfl_up_sync(ALL, tx, o, G), vy = __shfl_up_sync(ALL, ty, o, G);
     if (m >= o) {
-      rx += vx;
-      ry += vy;
+      tx += vx;
+      ty += vy;
     }
   }
-  const float knot_x = rx - B, knot_y = ry - B;
-  const float zr = q.pd + SOFTPLUS_INV_1;
-  const float deriv = MIN_DERIV + softplusf(zr);
-  const float sig = 1.0f / (1.0f + expf(-zr));
+  float knot_x[C], knot_y[C];
+  knot_x[C - 1] = tx - B;
+  knot_y[C - 1] = ty - B;
+  if constexpr (C > 1) {
+    // the lanes before this one: the previous lane's inclusive total
+    const float bx = __shfl_up_sync(ALL, tx, 1, G), by = __shfl_up_sync(ALL, ty, 1, G);
+#pragma unroll
+    for (int c = 0; c < C - 1; ++c) {
+      knot_x[c] = (m > 0 ? bx + rx[c] : rx[c]) - B;
+      knot_y[c] = (m > 0 ? by + ry[c] : ry[c]) - B;
+    }
+  }
+  float deriv[C], sig[C];
+#pragma unroll
+  for (int c = 0; c < C; ++c) {
+    const float zr = q.pd[c] + SOFTPLUS_INV_1;
+    deriv[c] = MIN_DERIV + softplusf(zr);
+    sig[c] = 1.0f / (1.0f + expf(-zr));
+  }
   float xk[BINS + 1], yk[BINS + 1], dv[BINS + 1];
   xk[0] = yk[0] = -B;
   xk[BINS] = yk[BINS] = B;
   dv[0] = dv[BINS] = 1.0f;
 #pragma unroll
   for (int i = 1; i < BINS; ++i) {
-    xk[i] = __shfl_sync(ALL, knot_x, i - 1, G);
-    yk[i] = __shfl_sync(ALL, knot_y, i - 1, G);
-    dv[i] = __shfl_sync(ALL, deriv, i - 1, G);
+    const int src = (i - 1) / C, c = (i - 1) % C;
+    xk[i] = __shfl_sync(ALL, knot_x[c], src, G);
+    yk[i] = __shfl_sync(ALL, knot_y[c], src, G);
+    dv[i] = __shfl_sync(ALL, deriv[c], src, G);
   }
   SplineVjp sp;
   sp.local(q.x, xk, yk, dv);
   const float gz = (gx - gl * sp.log_slope_dx()) / sp.slope();
   const SplineVjp::KnotGrads kg = sp.knot_grads(gz, gl);
-  // bin size m collects the gradients of knots m+1..BINS-1, then each
+  // bin size b collects the gradients of knots b+1..BINS-1, then each
   // softmax's VJP
   const float scale = (1.0f - MIN_BIN * BINS) * (2.0f * B);
-  const bool last = m <= sp.i && sp.i <= BINS - 2;
-  const float gsx = ((m < sp.i ? kg.x0 : 0.0f) + (last ? kg.x1 : 0.0f)) * scale;
-  const float gsy = ((m < sp.i ? kg.y0 : 0.0f) + (last ? kg.y1 : 0.0f)) * scale;
-  float dx = smx * gsx, dy = smy * gsy;
+  float gsx[C], gsy[C];
+#pragma unroll
+  for (int c = 0; c < C; ++c) {
+    const int b = m * C + c;
+    const bool last = b <= sp.i && sp.i <= BINS - 2;
+    gsx[c] = ((b < sp.i ? kg.x0 : 0.0f) + (last ? kg.x1 : 0.0f)) * scale;
+    gsy[c] = ((b < sp.i ? kg.y0 : 0.0f) + (last ? kg.y1 : 0.0f)) * scale;
+  }
+  float dx = smx[0] * gsx[0], dy = smy[0] * gsy[0];
+#pragma unroll
+  for (int c = 1; c < C; ++c) {
+    dx += smx[c] * gsx[c];
+    dy += smy[c] * gsy[c];
+  }
 #pragma unroll
   for (int o = G / 2; o >= 1; o >>= 1) {
     dx += __shfl_xor_sync(ALL, dx, o);
     dy += __shfl_xor_sync(ALL, dy, o);
   }
-  const int k = m + 1;  // interior derivative k
-  const float gd = (k == sp.i ? kg.d0 : 0.0f) + (k == sp.i + 1 ? kg.d1 : 0.0f);
   const bool inside = (q.x > -B) && (q.x < B);
   if (gp != nullptr) {
-    gp[m] = inside ? -(smx * (gsx - dx)) : 0.0f;
-    gp[BINS + m] = inside ? -(smy * (gsy - dy)) : 0.0f;
-    if (m < BINS - 1) gp[2 * BINS + m] = inside ? -(gd * sig) : 0.0f;
+#pragma unroll
+    for (int c = 0; c < C; ++c) {
+      const int b = m * C + c;
+      if (b < BINS) {
+        gp[b] = inside ? -(smx[c] * (gsx[c] - dx)) : 0.0f;
+        gp[BINS + b] = inside ? -(smy[c] * (gsy[c] - dy)) : 0.0f;
+      }
+      if (b < BINS - 1) {
+        const int k = b + 1;  // interior derivative k
+        const float gd = (k == sp.i ? kg.d0 : 0.0f) + (k == sp.i + 1 ? kg.d1 : 0.0f);
+        gp[2 * BINS + b] = inside ? -(gd * sig[c]) : 0.0f;
+      }
+    }
   }
   return inside ? gz : gx;
 }
@@ -625,3 +767,7 @@ __device__ __forceinline__ float rqs_inverse(float y, const float* p, float* lad
 }
 
 }  // namespace pocomc
+
+// the spline's bins the library was compiled for (ops/_build.py checks it
+// when it loads a library)
+extern "C" int pocomc_spline_bins() { return pocomc::BINS; }

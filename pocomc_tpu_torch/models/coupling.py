@@ -1,8 +1,8 @@
 """Coupling-layer spline flows (the ``nsfc*`` kinds), torch.
 
 Counterpart of ``pocomc_tpu/models/coupling.py``: RealNVP-style coupling
-transforms (Dinh et al. 2017) with 8-bin rational-quadratic splines
-(Durkan et al. 2019). Transform t conditions a residual MLP on one half
+transforms (Dinh et al. 2017) with rational-quadratic splines of ``bins``
+bins, 8 by default (Durkan et al. 2019). Transform t conditions a residual MLP on one half
 of the dimensions and maps the other half through splines whose
 parameters the MLP gives, so both directions are one pass a transform.
 The halves alternate: an even transform conditions on the first
@@ -21,6 +21,7 @@ import torch
 
 from . import transforms as tr
 
+# the spline's default bins
 BINS = 8
 
 
@@ -89,21 +90,21 @@ def halves(cond_mask, device):
     return _index_tensors(np.asarray(cond_mask, dtype=bool).tobytes(), torch.device(device))
 
 
-def _coupling(ws, bs, cond_mask, x, element):
+def _coupling(ws, bs, cond_mask, x, element, bins):
     cond, trans = halves(cond_mask, x.device)
     p = apply_coupling_net(ws, bs, x[:, cond]).reshape(x.shape[0], trans.numel(), -1)
-    xt, ladj = element(x[:, trans], p, BINS)
+    xt, ladj = element(x[:, trans], p, bins)
     out = x.clone()
     out[:, trans] = xt
     return out, ladj.sum(-1)
 
 
-def coupling_forward(ws, bs, cond_mask, x):
+def coupling_forward(ws, bs, cond_mask, x, bins=BINS):
     """One coupling transform, data -> latent: (z, ladj rows). The
     conditioning columns pass through unchanged."""
-    return _coupling(ws, bs, cond_mask, x, tr.rqs_forward)
+    return _coupling(ws, bs, cond_mask, x, tr.rqs_forward, bins)
 
 
-def coupling_inverse(ws, bs, cond_mask, z):
+def coupling_inverse(ws, bs, cond_mask, z, bins=BINS):
     """One coupling transform, latent -> data, one pass: (x, ladj rows)."""
-    return _coupling(ws, bs, cond_mask, z, tr.rqs_inverse)
+    return _coupling(ws, bs, cond_mask, z, tr.rqs_inverse, bins)

@@ -5,10 +5,12 @@ Counterpart of ``pocomc_tpu/models/flow.py`` and its menu. The
 masked-autoregressive kinds: T transforms with alternating variable order
 (identity on even transforms, reversed on odd ones), each a 3-hidden-layer
 residual MADE with n_hidden = max(next_pow2(3*d), 32) feeding an element
-transform, the affine map for ``maf*`` and an 8-bin rational-quadratic
-spline for ``nsf*``. The coupling kind ``nsfc*`` (``models/coupling.py``):
-T transforms over alternating halves, each a residual MLP of the same
-widths on one half feeding 8-bin splines on the other. All have a
+transform, the affine map for ``maf*`` and a rational-quadratic spline of
+``bins`` bins (8 by default) for ``nsf*``. The coupling kind ``nsfc*``
+(``models/coupling.py``): T transforms over alternating halves, each a
+residual MLP of the same widths on one half feeding splines of ``bins``
+bins on the other. ``bins`` >= 2 runs on the CPU, 2-16 on CUDA (the
+kernels' libraries are built per bins, at the first use of one). All have a
 standard-normal base and an affine whitening pre-layer refit in closed
 form at every training round.
 
@@ -47,7 +49,7 @@ from .coupling import init_coupling, make_coupling_masks
 from .made import init_made
 from . import transforms as tr
 from ..ops.coupling_kernels import coupling_forward, coupling_inverse
-from ..ops.flow_kernels import made_rqs_forward, ar_inverse
+from ..ops.flow_kernels import ar_inverse, check_bins, made_rqs_forward
 
 _ARCHS = {
     "maf3": ("maf", 3), "maf6": ("maf", 6), "maf12": ("maf", 12),
@@ -140,31 +142,36 @@ def fit_pre_torch(x, w, rel_eps=1e-6, min_ess=8.0, mode="full"):
 class FlowParams(NamedTuple):
     """Compute-ready parameters of a masked-autoregressive flow: masked
     weights ``ws[l]`` (T, fi, fo), biases ``bs[l]`` (T, fo), the (T, d)
-    int32 inverse dimension orders and the whitening pre-layer dict (mean,
-    w_fwd, w_inv, ladj)."""
+    int32 inverse dimension orders, the whitening pre-layer dict (mean,
+    w_fwd, w_inv, ladj) and the spline's bins (a maf flow ignores them)."""
     ws: list
     bs: list
     inv_orders: torch.Tensor
     pre: dict
+    bins: int = 8
 
 
 class CouplingParams(NamedTuple):
     """Compute-ready parameters of a coupling flow: ``ws[t]`` and ``bs[t]``
     the four weights and biases of transform t, ``masks[t]`` its boolean
     conditioning mask over the d dimensions (numpy; its ``True`` entries
-    are the conditioning indices, the others the transformed ones), and
-    the whitening pre-layer dict."""
+    are the conditioning indices, the others the transformed ones), the
+    whitening pre-layer dict and the spline's bins."""
     ws: list
     bs: list
     masks: list
     pre: dict
+    bins: int = 8
 
 
 class Flow(nn.Module):
     """A normalizing flow of the menu ``maf3|6|12`` (masked affine),
     ``nsf3|6|12`` (masked spline) or ``nsfc3|6|12`` (coupling spline), with
     its parameters and buffers on ``device`` (the card by default;
-    ``device="cpu"`` runs the plain versions of the kernels)."""
+    ``device="cpu"`` runs the plain versions of the kernels). The splines
+    have ``bins`` bins: any bins >= 2 on the CPU, 2-16 on CUDA (more raise
+    NotImplementedError here, at construction); a ``maf*`` flow keeps
+    ``bins`` and ignores it, as the JAX package's does."""
 
     def __init__(self, n_dim: int, flow: str = "nsf6", bins: int = 8,
                  seed: int = 0, use_pallas="auto", use_pallas_inverse="auto",
@@ -180,9 +187,8 @@ class Flow(nn.Module):
         if flow not in _ARCHS:
             raise ValueError(f"Invalid flow {flow!r}. Choose from {sorted(_ARCHS)}.")
         kind, n_transforms = _ARCHS[flow]
-        if int(bins) != 8:
-            raise NotImplementedError("the flow kernels are built for 8 spline bins (other "
-                                      "bins: ROADMAP.md, port queue: bins != 8)")
+        if kind != "maf":
+            check_bins(bins, device.type == "cuda")
         if kind == "nsfc" and int(n_dim) < 2:
             raise ValueError("Coupling flows ('nsfc*') need n_dim >= 2 (the dimensions are "
                              "split into two halves); use 'maf*' or 'nsf*' for 1-D problems.")
@@ -281,9 +287,9 @@ class Flow(nn.Module):
             T = self.n_transforms
             return CouplingParams([list(self.weights[4 * t:4 * t + 4]) for t in range(T)],
                                   [list(self.biases[4 * t:4 * t + 4]) for t in range(T)],
-                                  self.coupling_masks, self.get_pre())
+                                  self.coupling_masks, self.get_pre(), self.bins)
         ws = [w * m for w, m in zip(self.weights, self.masks)]
-        return FlowParams(ws, list(self.biases), self.inv_orders, self.get_pre())
+        return FlowParams(ws, list(self.biases), self.inv_orders, self.get_pre(), self.bins)
 
     # -- compute -----------------------------------------------------------
 
@@ -293,14 +299,15 @@ class Flow(nn.Module):
     def stack_forward(self, y, fp=None):
         fp = self._fp(fp)
         if self.kind == "nsfc":
-            return coupling_forward(y.contiguous(), fp.ws, fp.bs, fp.masks)
-        return made_rqs_forward(y.contiguous(), fp.ws, fp.bs, head=self.head)
+            return coupling_forward(y.contiguous(), fp.ws, fp.bs, fp.masks, bins=fp.bins)
+        return made_rqs_forward(y.contiguous(), fp.ws, fp.bs, head=self.head, bins=fp.bins)
 
     def stack_inverse(self, z, fp=None):
         fp = self._fp(fp)
         if self.kind == "nsfc":
-            return coupling_inverse(z.contiguous(), fp.ws, fp.bs, fp.masks)
-        return ar_inverse(z.contiguous(), fp.ws, fp.bs, fp.inv_orders, head=self.head)
+            return coupling_inverse(z.contiguous(), fp.ws, fp.bs, fp.masks, bins=fp.bins)
+        return ar_inverse(z.contiguous(), fp.ws, fp.bs, fp.inv_orders, head=self.head,
+                          bins=fp.bins)
 
     def forward(self, x, fp=None):
         """data -> (latent, log|det dz/dx|)."""

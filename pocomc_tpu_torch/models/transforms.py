@@ -1,7 +1,7 @@
 """Univariate monotone transforms for autoregressive flows (torch).
 
 Counterpart of ``pocomc_tpu/models/transforms.py``: the monotonic affine
-map and the 8-bin rational-quadratic spline (RQS) on [-B, B] with identity
+map and the rational-quadratic spline (RQS) of any bins on [-B, B] with identity
 tails. Raw parameters of 0 give the identity map in both families. These
 are the plain versions of the element math that the CUDA kernels carry
 out per element (``csrc/rqs.cuh``, ``csrc/heads.cuh``).

@@ -5,6 +5,13 @@ shared library with a plain C interface, loaded with ``ctypes``. The build
 happens at first use, never at import, into ``build/pocomc_tpu_torch/``
 beside the package; the library's file name carries a hash of its sources
 and flags, so an edited source is rebuilt and an unchanged one is reused.
+
+The spline's bins are a compile-time constant of the sources
+(``csrc/rqs.cuh`` BINS): a library is built for one (source, bins) pair,
+the default 8 bins with the plain flags, any other with
+``-DPOCOMC_BINS=<bins>`` and the bins in its file name, at the first use of
+that bins. The affine head of the maf* flows, which has no bins, is
+compiled into the default libraries only.
 """
 
 from __future__ import annotations
@@ -39,34 +46,49 @@ def _nvcc() -> str:
         "pocomc_tpu_torch are built from source at first use.")
 
 
-def library_path(name: str) -> Path:
-    """Path of the built library for ``csrc/<name>.cu`` (content-hashed)."""
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+def flags(bins: int = 8) -> list:
+    """nvcc's flags for a library of ``bins`` spline bins."""
+    return NVCC_FLAGS if bins == 8 else [*NVCC_FLAGS, f"-DPOCOMC_BINS={int(bins)}"]
+
+
+def library_path(name: str, bins: int = 8) -> Path:
+    """Path of the built library for ``csrc/<name>.cu`` at ``bins`` spline
+    bins (content-hashed)."""
+    h = hashlib.sha256(" ".join(flags(bins)).encode())
     for f in (f"{name}.cu",) + _HEADERS:
         h.update((CSRC / f).read_bytes())
-    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
+    tag = name if bins == 8 else f"{name}_b{int(bins)}"
+    return BUILD_DIR / f"lib{tag}-{h.hexdigest()[:16]}.so"
 
 
-def build(name: str) -> tuple[Path, str]:
-    """Compile ``csrc/<name>.cu`` unless an up-to-date library exists.
-    Returns (library path, nvcc's report; empty when nothing was built)."""
-    out = library_path(name)
+def build(name: str, bins: int = 8) -> tuple[Path, str]:
+    """Compile ``csrc/<name>.cu`` for ``bins`` spline bins unless an
+    up-to-date library exists. Returns (library path, nvcc's report; empty
+    when nothing was built)."""
+    out = library_path(name, bins)
     if out.exists():
         return out, ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")]
+    cmd = [_nvcc(), *flags(bins), "-o", tmp, str(CSRC / f"{name}.cu")]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
         os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed for {name}.cu:\n{proc.stdout}{proc.stderr}")
+        raise RuntimeError(f"nvcc failed for {name}.cu (bins={bins}):\n"
+                           f"{proc.stdout}{proc.stderr}")
     os.replace(tmp, out)
     return out, proc.stdout + proc.stderr
 
 
 @functools.lru_cache(maxsize=None)
-def load(name: str) -> ctypes.CDLL:
-    """The loaded library of ``csrc/<name>.cu``, built first if needed."""
-    path, _ = build(name)
-    return ctypes.CDLL(str(path))
+def load(name: str, bins: int = 8) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu`` at ``bins`` spline bins,
+    built first if needed; raises if it reports other bins."""
+    path, _ = build(name, bins)
+    lib = ctypes.CDLL(str(path))
+    lib.pocomc_spline_bins.restype = ctypes.c_int
+    if lib.pocomc_spline_bins() != bins:
+        raise RuntimeError(f"{path.name} holds the spline of {lib.pocomc_spline_bins()} bins, "
+                           f"not {bins}")
+    return lib

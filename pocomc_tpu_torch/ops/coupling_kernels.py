@@ -3,8 +3,8 @@ and their plain versions.
 
 ``coupling_forward`` (data -> latent) and ``coupling_inverse`` (latent ->
 data): a whole stack of T coupling transforms in one launch, each a
-residual MLP on the conditioning half and the 8-bin spline on the other
-half (``csrc/coupling_forward.cu``, templated on the direction);
+residual MLP on the conditioning half and the spline on the other half
+(``csrc/coupling_forward.cu``, templated on the direction);
 ``coupling_backward``: one launch back through the stack from the layer
 inputs the forward saved, then the weight gradients as batched products
 of those inputs and the deltas it writes (``csrc/coupling_backward.cu``).
@@ -20,13 +20,17 @@ backward (``ops/flow_kernels.py``), which runs on the same tiles.
 
 The weights are the JAX package's per-transform layout: ``ws[t]`` and
 ``bs[t]`` the four weights (K, N) and biases (N,) of transform t, for
-n_cond_t -> h -> h -> h -> n_trans_t*23, and ``masks[t]`` its boolean
+n_cond_t -> h -> h -> h -> n_trans_t*NP, and ``masks[t]`` its boolean
 conditioning mask (``models/coupling.py make_coupling_masks``; the kernels
-take the alternating halves that function lays out).
+take the alternating halves that function lays out). NP = 3 bins - 1 raw
+parameters a transformed dimension: every function takes the spline's
+``bins`` (8 by default; the CUDA route 2-16, one library a source and
+bins, as ``flow_kernels``).
 
 Dispatch is by device and nothing else: a CPU tensor goes to the plain
 version (``*_ref``), a CUDA tensor launches the kernel or raises. Each
-wrapper counts its launches in a plain integer attribute ``launches``.
+wrapper counts its launches in plain integer attributes, ``launches`` at
+8 bins and ``launches_b<bins>`` at other bins (``flow_kernels.launch_attr``).
 """
 
 from __future__ import annotations
@@ -41,16 +45,16 @@ import torch.nn.functional as F
 from ..models import transforms as tr
 from ..models.coupling import BINS, coupling_forward as _transform_forward, \
     coupling_inverse as _transform_inverse, halves, layer_inputs, make_coupling_masks
-from .flow_kernels import (_MAX_SMEM, N_PARAMS, _check_saved, _device_type, _entry,
-                           _made_vjp_input, _raise_if, _refuse_weight_grad, _stream,
-                           inverse_element_vjp)
+from .flow_kernels import (_MAX_SMEM, N_PARAMS, _check_saved, _count, _entry, _made_vjp_input,
+                           _raise_if, _refuse_weight_grad, _route, _stream, inverse_element_vjp,
+                           zero_counts)
 
 
 # ---------------------------------------------------------------------------
 # plain versions
 # ---------------------------------------------------------------------------
 
-def coupling_forward_ref(x, ws, bs, masks, save_inputs=False):
+def coupling_forward_ref(x, ws, bs, masks, save_inputs=False, bins=BINS):
     """Plain forward of the stack: x (n, d) -> (z, ladj), transforms
     0..T-1, plus, when ``save_inputs``, the input of every layer's product
     in every transform: [x_t (T, n, d), relu(h0), relu(h1), relu(h2) (T, n,
@@ -64,17 +68,17 @@ def coupling_forward_ref(x, ws, bs, masks, save_inputs=False):
             acts = layer_inputs(ws[t], bs[t], x[:, cond])
             for s, a in zip(saved, [x] + acts[1:]):
                 s.append(a)
-        x, l = _transform_forward(ws[t], bs[t], masks[t], x)
+        x, l = _transform_forward(ws[t], bs[t], masks[t], x, bins)
         ladj = ladj + l
     return (x, ladj, [torch.stack(s) for s in saved]) if save_inputs else (x, ladj)
 
 
-def coupling_inverse_ref(z, ws, bs, masks, save_inputs=False):
+def coupling_inverse_ref(z, ws, bs, masks, save_inputs=False, bins=BINS):
     """Plain inverse of the stack: z (n, d) -> (x, ladj), transforms
     T-1..0, one pass each; ladj = log|det dx/dz|. With ``save_inputs``
     also the state K5-inv-bwd reads, the kernel's save instance's layout:
     [x_t (T, n, d), relu(h0), relu(h1), relu(h2) (T, n, h), params (T, n,
-    ceil(d/2)*23)], by transform t: x_t the inverse's value after transform
+    ceil(d/2)*NP)], by transform t: x_t the inverse's value after transform
     t (the input of the forward's transform t), the layer inputs of its
     network and its output layer's spline parameters (columns past the
     transform's half 0)."""
@@ -89,8 +93,8 @@ def coupling_inverse_ref(z, ws, bs, masks, save_inputs=False):
             p = acts[3] @ ws[t][3] + bs[t][3]
             for l in (1, 2, 3):
                 saved[l][t] = acts[l]
-            saved[4][t] = F.pad(p, (0, half * N_PARAMS - p.shape[1]))
-        z, l = _transform_inverse(ws[t], bs[t], masks[t], z)
+            saved[4][t] = F.pad(p, (0, half * tr.rqs_n_params(bins) - p.shape[1]))
+        z, l = _transform_inverse(ws[t], bs[t], masks[t], z, bins)
         ladj = ladj + l
         saved[0][t] = z
     if save_inputs:
@@ -98,7 +102,7 @@ def coupling_inverse_ref(z, ws, bs, masks, save_inputs=False):
     return z, ladj
 
 
-def coupling_backward_ref(x, ws, bs, masks, g_z, g_ladj, acts=None):
+def coupling_backward_ref(x, ws, bs, masks, g_z, g_ladj, acts=None, bins=BINS):
     """Plain backward of the stack, with no autograd: the gradients (g_x,
     g_ws, g_bs) of a loss with dL/dz = g_z (n, d) and dL/dladj = g_ladj
     (n,), for the input and every transform's weights and biases (lists of
@@ -110,18 +114,18 @@ def coupling_backward_ref(x, ws, bs, masks, g_z, g_ladj, acts=None):
     input layers; a conditioning column's gradient is the net's plus the
     pass-through, a transformed column's the spline's own; the weight
     gradients are A^T @ delta of each layer's input and output delta."""
-    n = x.shape[0]
+    n, n_params = x.shape[0], tr.rqs_n_params(bins)
     if acts is None:
-        acts = coupling_forward_ref(x, ws, bs, masks, save_inputs=True)[2]
+        acts = coupling_forward_ref(x, ws, bs, masks, save_inputs=True, bins=bins)[2]
     g_ws, g_bs = [None] * len(ws), [None] * len(ws)
     g_x = g_z
     for t in reversed(range(len(ws))):
         w = ws[t]
         cond, trans = halves(masks[t], x.device)
         a = [acts[0][t][:, cond], acts[1][t], acts[2][t], acts[3][t]]
-        p = (a[3] @ w[3] + bs[t][3]).reshape(n, trans.numel(), N_PARAMS)
+        p = (a[3] @ w[3] + bs[t][3]).reshape(n, trans.numel(), n_params)
         g_dir, g_p = tr.rqs_forward_vjp(acts[0][t][:, trans], p, g_x[:, trans],
-                                        g_ladj[:, None].expand(n, trans.numel()), BINS)
+                                        g_ladj[:, None].expand(n, trans.numel()), bins)
         g3 = g_p.reshape(n, -1)
         g2 = (g3 @ w[3].T) * (a[3] > 0)
         g1 = g2 + (g2 @ w[2].T) * (a[2] > 0)
@@ -136,7 +140,7 @@ def coupling_backward_ref(x, ws, bs, masks, g_z, g_ladj, acts=None):
     return g_x, g_ws, g_bs
 
 
-def coupling_inverse_vjp_ref(state, ws, bs, masks, g_x, g_ladj):
+def coupling_inverse_vjp_ref(state, ws, bs, masks, g_x, g_ladj, bins=BINS):
     """Plain VJP of the coupling inverse, with no autograd: g_z (n, d) of
     a loss with dL/dx = g_x (n, d) and dL/dladj = g_ladj (n,), where (x,
     ladj) = coupling_inverse(z), on the state that
@@ -148,15 +152,15 @@ def coupling_inverse_vjp_ref(state, ws, bs, masks, g_x, g_ladj):
     the conditioning half passes its g_x through plus the MLP's VJP of
     that cotangent. The kernel (``csrc/coupling_backward.cu``, its
     inverse instances) takes the same steps."""
-    n = g_x.shape[0]
+    n, n_params = g_x.shape[0], tr.rqs_n_params(bins)
     g = g_x
     for t in range(len(ws)):
         w = ws[t]
         cond, trans = halves(masks[t], g_x.device)
         a = [state[0][t][:, cond], state[1][t], state[2][t], state[3][t]]
-        p = state[4][t][:, :trans.numel() * N_PARAMS].reshape(n, trans.numel(), N_PARAMS)
+        p = state[4][t][:, :trans.numel() * n_params].reshape(n, trans.numel(), n_params)
         g_z, g_p = inverse_element_vjp(state[0][t][:, trans], p, g[:, trans],
-                                       g_ladj[:, None].expand(n, trans.numel()))
+                                       g_ladj[:, None].expand(n, trans.numel()), "rqs", bins)
         g_prev = g.clone()
         g_prev[:, cond] = g[:, cond] + _made_vjp_input(w, a, g_p.reshape(n, -1))
         g_prev[:, trans] = g_z
@@ -168,9 +172,9 @@ def coupling_inverse_vjp_ref(state, ws, bs, masks, g_x, g_ladj):
 # argument checks and launches
 # ---------------------------------------------------------------------------
 
-def _check(x, ws, bs, masks, name):
+def _check(x, ws, bs, masks, name, bins=BINS):
     """Validate (n, d) input, T transforms of four layers each and their
-    masks; returns (n, d, h, T)."""
+    masks (a spline of ``bins`` bins); returns (n, d, h, T)."""
     if x.dim() != 2:
         raise ValueError(f"{name}: expects an (n, d) input, got {tuple(x.shape)}")
     n, d = x.shape
@@ -183,7 +187,8 @@ def _check(x, ws, bs, masks, name):
     h = ws[0][1].shape[0]
     for t in range(T):
         n_cond = int(np.sum(masks[t]))
-        want_w = [(max(n_cond, 1), h), (h, h), (h, h), (h, (d - n_cond) * N_PARAMS)]
+        n_out = (d - n_cond) * tr.rqs_n_params(bins)
+        want_w = [(max(n_cond, 1), h), (h, h), (h, h), (h, n_out)]
         for a, want in zip([*ws[t], *bs[t]], want_w + [(k[1],) for k in want_w]):
             if tuple(a.shape) != want:
                 raise ValueError(f"{name}: transform {t} layer shape {tuple(a.shape)}, "
@@ -274,14 +279,14 @@ def _k5_smem_floats(RL, BM, RNH, RNO, G, BK, S, d, h, backward, n_params=N_PARAM
     bmp, lanes = (BM + 4 if RL == 4 else BM), _lanes(RL)
     hidden = 2 * h if h > lanes * RNH else h
     rows = (2 * d + hidden + G * n_params) if backward else \
-        (d + hidden + G * N_PARAMS + (d + 1) // 2)
+        (d + hidden + G * n_params + (d + 1) // 2)
     return bmp * rows + BM + 4 + S * BK * lanes * max(RNH, RNO) + 4 * S
 
 
 def _k5_fit(RL, BMs, RNH, RNO, G, d, h, backward, n_params=N_PARAMS):
     """The first tile of rows BMs (largest first) that fits a Hopper block,
     with slabs of BK = 32 weight rows (128 in the backward at RNH = 1,
-    where its transposed output layer, 23*ceil(d/2) rows, is then one
+    where its transposed output layer, NP*ceil(d/2) rows, is then one
     slab), or 16 or 8 where two stages do not fit, and as many stages as
     fit, up to 8 (fewer, larger slabs measured faster:
     tools/k5_breakdown.py); None where none fits."""
@@ -371,12 +376,14 @@ _PLANS = {}
 _PLANS_MAX = 256
 
 
-def _plan(key, check, backward, inverse=False):
+def _plan(key, check, backward, inverse=False, bins=BINS):
     """(n, d, h, T, K5Config, weight pointers) of a launch: ``check()``
     validates the arguments and returns (n, d, h, T, layers) the first time
     a key is seen; later calls with the same key skip it. Kept in
     ``_PLANS`` under (backward, key); ``inverse`` plans K5-inv-bwd, whose
-    key holds the five tensors of the inverse's state."""
+    key holds the five tensors of the inverse's state. The spline's
+    ``bins`` need no place in the key: the output layers' shapes in it
+    differ between bins."""
     key = (backward, key)
     plan = _PLANS.get(key)
     if plan is None:
@@ -384,7 +391,8 @@ def _plan(key, check, backward, inverse=False):
         if any(a.data_ptr() % 16 for a in layers):
             raise ValueError("coupling kernels: every weight and bias must start on a "
                              "16-byte boundary")
-        plan = (n, d, h, T, _k5_config(n, d, h, backward, inverse=inverse) if n > 0 else None,
+        plan = (n, d, h, T, _k5_config(n, d, h, backward, n_params=tr.rqs_n_params(bins),
+                                       inverse=inverse) if n > 0 else None,
                 tuple(a.data_ptr() for a in layers))
         if len(_PLANS) >= _PLANS_MAX:
             _PLANS.clear()
@@ -401,10 +409,10 @@ def _in_passes(a, PW):
     return a.transpose(1, 2).reshape(T, P * rows, PW)
 
 
-def _packed(layers, ws, cfg, d, h, transposed):
+def _packed(layers, ws, cfg, d, h, transposed, n_params=N_PARAMS):
     """The weights repacked as csrc/coupling_tile.cuh ``Packed`` lays them
-    out, for whole-slab bulk copies (an output layer's rows, 23*n_trans
-    floats, sit off 16-byte boundaries, and W^T gathers columns): the
+    out, for whole-slab bulk copies (an output layer's rows, n_params *
+    n_trans floats, sit off 16-byte boundaries, and W^T gathers columns): the
     output layers by group, (T, NG, h,
     ldo), or (``transposed``) every layer's W^T in passes of PW columns,
     (T, rows, PW); zero padding. Kept on ``ws[0][0]``, the first
@@ -412,57 +420,60 @@ def _packed(layers, ws, cfg, d, h, transposed):
     rebuilt when any of them is replaced or changed in place (its version
     moves, as an optimizer step moves it), so a sweep packs once per
     flow."""
-    key = (cfg.RL, cfg.G, cfg.RNH, cfg.RNO, *((a.data_ptr(), a._version) for a in layers))
+    key = (n_params, cfg.RL, cfg.G, cfg.RNH, cfg.RNO,
+           *((a.data_ptr(), a._version) for a in layers))
     kept = getattr(ws[0][0], "_k5_packs", {}).get(transposed)
     if kept is not None and kept[0] == key:
         return kept[1]
     T, half = len(ws), (d + 1) // 2
     with torch.no_grad():
         if not transposed:
-            ng, gw = -(-half // cfg.G), cfg.G * N_PARAMS
+            ng, gw = -(-half // cfg.G), cfg.G * n_params
             w3 = torch.stack([F.pad(w[3], (0, ng * gw - w[3].shape[1])) for w in ws])
             w3 = F.pad(w3.view(T, h, ng, gw), (0, cfg.ldo - gw))
             pack = w3.permute(0, 2, 1, 3).contiguous()
         else:
             rows = [torch.stack([F.pad(w[0], (0, 0, 0, half - w[0].shape[0])) for w in ws]),
                     torch.stack([w[1] for w in ws]), torch.stack([w[2] for w in ws]),
-                    torch.stack([F.pad(w[3], (0, half * N_PARAMS - w[3].shape[1]))
+                    torch.stack([F.pad(w[3], (0, half * n_params - w[3].shape[1]))
                                  for w in ws])]
             pack = torch.cat([_in_passes(r.transpose(1, 2), cfg.PW) for r in rows], dim=1)
     ws[0][0]._k5_packs = {**getattr(ws[0][0], "_k5_packs", {}), transposed: (key, pack)}
     return pack
 
 
-def _launch_stack(x, ws, bs, masks, inverse, save_inputs, name):
+def _launch_stack(x, ws, bs, masks, inverse, save_inputs, name, bins=BINS):
     layers = _layers(ws, bs)
+    n_params = tr.rqs_n_params(bins)
 
     def check():
-        n, d, h, T = _check(x, ws, bs, masks, name)
+        n, d, h, T = _check(x, ws, bs, masks, name, bins)
         _check_kernel_layout(masks, d, T, name)
         return n, d, h, T, layers
 
-    n, d, h, T, cfg, ptrs = _plan(_key(layers, (x,), masks, x.shape[0]), check, False)
+    n, d, h, T, cfg, ptrs = _plan(_key(layers, (x,), masks, x.shape[0]), check, False,
+                                  bins=bins)
     out = torch.empty_like(x)
     ladj = torch.empty(n, dtype=x.dtype, device=x.device)
-    widths = (d, h, h, h, (d + 1) // 2 * N_PARAMS) if inverse else (d, h, h, h)
+    widths = (d, h, h, h, (d + 1) // 2 * n_params) if inverse else (d, h, h, h)
     acts = ([torch.empty(T, n, k, dtype=x.dtype, device=x.device) for k in widths]
             if save_inputs else None)
     if n > 0:
-        fn = _entry("coupling_forward", "coupling_forward_launch", "PPPIIIIPPPPPPPIIIIIIIIIP")
+        fn = _entry("coupling_forward", "coupling_forward_launch", "PPPIIIIPPPPPPPIIIIIIIIIP",
+                    bins)
         saved = [a.data_ptr() for a in acts] if save_inputs else []
         saved += [None] * (5 - len(saved))
         table = _table(x.device.index, ptrs)
-        w3 = _packed(layers, ws, cfg, d, h, False).data_ptr()
+        w3 = _packed(layers, ws, cfg, d, h, False, n_params).data_ptr()
         err = fn(x.data_ptr(), out.data_ptr(), ladj.data_ptr(), n, d, h, T, table.data_ptr(),
                  w3, *saved, int(inverse), cfg.RL, cfg.BM, cfg.RNH, cfg.RNO, cfg.G, cfg.BK,
                  cfg.S, x.device.index, _stream(x))
         _raise_if(err, name)
-        wrapper = coupling_inverse if inverse else coupling_forward
-        wrapper.launches += 1
+        _count(coupling_inverse if inverse else coupling_forward, "rqs", bins)
     return (out, ladj, acts) if save_inputs else (out, ladj)
 
 
-def _launch_backward(acts, ws, bs, masks, g_z, g_ladj, inverse=False):
+def _launch_backward(acts, ws, bs, masks, g_z, g_ladj, inverse=False, bins=BINS):
     """K5's backward kernel, then the weight gradients A^T @ delta of the
     saved layer inputs and its deltas with batched fp32 products over the T
     transforms (layer 0's over the whole saved row, then each transform's
@@ -478,33 +489,33 @@ def _launch_backward(acts, ws, bs, masks, g_z, g_ladj, inverse=False):
     if len(acts) != want:
         raise ValueError(f"{name}: takes {want} saved tensors, got {len(acts)}")
     layers = _layers(ws, bs)
+    n_params = tr.rqs_n_params(bins)
 
     def check():
-        _, d, h, T = _check(acts[0][0], ws, bs, masks, name)
+        _, d, h, T = _check(acts[0][0], ws, bs, masks, name, bins)
         _check_kernel_layout(masks, d, T, name)
-        widths = (d, h, h, h, (d + 1) // 2 * N_PARAMS)[:want]
+        widths = (d, h, h, h, (d + 1) // 2 * n_params)[:want]
         _, n = _check_saved(name, acts, g_z, g_ladj, widths)
         return n, d, h, T, layers
 
     n, d, h, T, cfg, ptrs = _plan(_key(layers, (*acts, g_z, g_ladj), masks, g_z.shape[0]),
-                                  check, True, inverse)
+                                  check, True, inverse, bins)
     dev = acts[0].device
     g_x = torch.empty_like(g_z)
     half = (d + 1) // 2
     deltas = [] if inverse else [torch.empty(T, n, k, dtype=g_z.dtype, device=dev)
-                                 for k in (h, h, h, half * N_PARAMS)]
+                                 for k in (h, h, h, half * n_params)]
     if n > 0:
         fn = _entry("coupling_backward", "coupling_backward_launch",
-                    "PPPPPPPPIIIIPPPPPPPIIIIIIIIIP")
-        packs = [_packed(layers, ws, cfg, d, h, t).data_ptr() for t in (False, True)]
+                    "PPPPPPPPIIIIPPPPPPPIIIIIIIIIP", bins)
+        packs = [_packed(layers, ws, cfg, d, h, t, n_params).data_ptr() for t in (False, True)]
         err = fn(*[a.data_ptr() for a in acts[:4]],
                  acts[4].data_ptr() if inverse else None, g_z.data_ptr(), g_ladj.data_ptr(),
                  g_x.data_ptr(), n, d, h, T, _table(dev.index, ptrs).data_ptr(), *packs,
                  *([g.data_ptr() for g in deltas] if deltas else [None] * 4), cfg.RL, cfg.BM,
                  cfg.RNH, cfg.RNO, cfg.G, cfg.BK, cfg.S, int(inverse), dev.index, _stream(g_z))
         _raise_if(err, name)
-        wrapper = coupling_inverse_backward if inverse else coupling_backward
-        wrapper.launches += 1
+        _count(coupling_inverse_backward if inverse else coupling_backward, "rqs", bins)
     if inverse:
         return g_x
     full_w = [torch.bmm(a.transpose(1, 2), g) for a, g in zip(acts, deltas)]
@@ -529,11 +540,11 @@ class _CouplingForward(torch.autograd.Function):
     the masks, x, then the 4T weights and the 4T biases, transform-major."""
 
     @staticmethod
-    def forward(ctx, masks, x, *layers):
+    def forward(ctx, masks, bins, x, *layers):
         T = len(masks)
         ws, bs = _nest(layers[:4 * T], T), _nest(layers[4 * T:], T)
-        z, ladj, acts = _launch_stack(x, ws, bs, masks, False, True, "coupling_forward")
-        ctx.masks = masks
+        z, ladj, acts = _launch_stack(x, ws, bs, masks, False, True, "coupling_forward", bins)
+        ctx.masks, ctx.bins = masks, bins
         ctx.save_for_backward(*acts, *layers)
         return z, ladj
 
@@ -544,10 +555,10 @@ class _CouplingForward(torch.autograd.Function):
         layers = saved[4:]
         g_x, g_ws, g_bs = _launch_backward(saved[:4], _nest(layers[:4 * T], T),
                                            _nest(layers[4 * T:], T), ctx.masks,
-                                           g_z.contiguous(), g_ladj.contiguous())
+                                           g_z.contiguous(), g_ladj.contiguous(), bins=ctx.bins)
         grads = [g_x, *[g for gt in g_ws for g in gt], *[g for gt in g_bs for g in gt]]
-        return (None, *(g if need else None
-                        for g, need in zip(grads, ctx.needs_input_grad[1:])))
+        return (None, None, *(g if need else None
+                              for g, need in zip(grads, ctx.needs_input_grad[2:])))
 
 
 class _CouplingInverse(torch.autograd.Function):
@@ -557,11 +568,11 @@ class _CouplingInverse(torch.autograd.Function):
     take no gradient."""
 
     @staticmethod
-    def forward(ctx, masks, z, *layers):
+    def forward(ctx, masks, bins, z, *layers):
         T = len(masks)
         ws, bs = _nest(layers[:4 * T], T), _nest(layers[4 * T:], T)
-        x, ladj, state = _launch_stack(z, ws, bs, masks, True, True, "coupling_inverse")
-        ctx.masks = masks
+        x, ladj, state = _launch_stack(z, ws, bs, masks, True, True, "coupling_inverse", bins)
+        ctx.masks, ctx.bins = masks, bins
         ctx.save_for_backward(*state, *layers)
         return x, ladj
 
@@ -571,8 +582,9 @@ class _CouplingInverse(torch.autograd.Function):
         T = len(ctx.masks)
         layers = saved[5:]
         g_z = _launch_backward(saved[:5], _nest(layers[:4 * T], T), _nest(layers[4 * T:], T),
-                               ctx.masks, g_x.contiguous(), g_ladj.contiguous(), inverse=True)
-        return (None, g_z, *[None] * len(layers))
+                               ctx.masks, g_x.contiguous(), g_ladj.contiguous(), inverse=True,
+                               bins=ctx.bins)
+        return (None, None, g_z, *[None] * len(layers))
 
 
 # ---------------------------------------------------------------------------
@@ -583,39 +595,39 @@ def _flat(ws, bs):
     return [a for t in ws for a in t] + [a for t in bs for a in t]
 
 
-def coupling_forward(x, ws, bs, masks, save_inputs=False):
+def coupling_forward(x, ws, bs, masks, save_inputs=False, bins=BINS):
     """K5: (z, ladj) of the coupling stack at x; ladj = log|det dz/dx|.
     Differentiable on CUDA through the backward kernel. ``save_inputs``
     also returns the input of every layer's product in every transform,
     which ``coupling_backward`` takes (no gradient then)."""
     ws, bs = [list(w) for w in ws], [list(b) for b in bs]
-    if _device_type(x, "coupling_forward") == "cpu":
-        _check(x, ws, bs, masks, "coupling_forward")
-        return coupling_forward_ref(x, ws, bs, masks, save_inputs)
+    if _route(x, "coupling_forward", bins) == "cpu":
+        _check(x, ws, bs, masks, "coupling_forward", bins)
+        return coupling_forward_ref(x, ws, bs, masks, save_inputs, bins)
     if (not save_inputs and torch.is_grad_enabled()
             and any(a.requires_grad for a in [x, *_flat(ws, bs)])):
-        return _CouplingForward.apply(list(masks), x, *_flat(ws, bs))
+        return _CouplingForward.apply(list(masks), bins, x, *_flat(ws, bs))
     with torch.no_grad():
-        return _launch_stack(x, ws, bs, masks, False, save_inputs, "coupling_forward")
+        return _launch_stack(x, ws, bs, masks, False, save_inputs, "coupling_forward", bins)
 
 
-def coupling_inverse(z, ws, bs, masks):
+def coupling_inverse(z, ws, bs, masks, bins=BINS):
     """K5 inverse: (x, ladj) of the coupling stack at z, one pass a
     transform; ladj = log|det dx/dz|. The conditioning columns of each
     transform pass through bit for bit. Differentiable in z on CUDA
     through the inverse's save instance (the same x and ladj bits) and
     K5-inv-bwd; weights that require a gradient raise there."""
     ws, bs = [list(w) for w in ws], [list(b) for b in bs]
-    if _device_type(z, "coupling_inverse") == "cpu":
-        _check(z, ws, bs, masks, "coupling_inverse")
-        return coupling_inverse_ref(z, ws, bs, masks)
+    if _route(z, "coupling_inverse", bins) == "cpu":
+        _check(z, ws, bs, masks, "coupling_inverse", bins)
+        return coupling_inverse_ref(z, ws, bs, masks, bins=bins)
     _refuse_weight_grad("coupling_inverse", _flat(ws, bs))
     if torch.is_grad_enabled() and z.requires_grad:
-        return _CouplingInverse.apply(list(masks), z, *_flat(ws, bs))
-    return _launch_stack(z, ws, bs, masks, True, False, "coupling_inverse")
+        return _CouplingInverse.apply(list(masks), bins, z, *_flat(ws, bs))
+    return _launch_stack(z, ws, bs, masks, True, False, "coupling_inverse", bins)
 
 
-def coupling_inverse_backward(state, ws, bs, masks, g_x, g_ladj):
+def coupling_inverse_backward(state, ws, bs, masks, g_x, g_ladj, bins=BINS):
     """K5-inv-bwd: g_z, the gradient of a loss with dL/dx = g_x and
     dL/dladj = g_ladj with respect to z, where (x, ladj) =
     coupling_inverse(z, ...), on the inverse's state at z: each
@@ -627,31 +639,29 @@ def coupling_inverse_backward(state, ws, bs, masks, g_x, g_ladj):
     if not isinstance(state, (list, tuple)) or len(state) != 5:
         raise ValueError("coupling_inverse_backward: takes the inverse's state at z, five "
                          "tensors (coupling_inverse_ref(z, ..., save_inputs=True)'s third item)")
-    if _device_type(g_x, "coupling_inverse_backward") == "cpu":
-        _check(g_x, ws, bs, masks, "coupling_inverse_backward")
-        return coupling_inverse_vjp_ref(state, ws, bs, masks, g_x, g_ladj)
+    if _route(g_x, "coupling_inverse_backward", bins) == "cpu":
+        _check(g_x, ws, bs, masks, "coupling_inverse_backward", bins)
+        return coupling_inverse_vjp_ref(state, ws, bs, masks, g_x, g_ladj, bins)
     with torch.no_grad():
-        return _launch_backward(list(state), ws, bs, masks, g_x, g_ladj, inverse=True)
+        return _launch_backward(list(state), ws, bs, masks, g_x, g_ladj, inverse=True,
+                                bins=bins)
 
 
-def coupling_backward(x, ws, bs, masks, g_z, g_ladj, acts=None):
+def coupling_backward(x, ws, bs, masks, g_z, g_ladj, acts=None, bins=BINS):
     """K5's backward: (g_x, g_ws, g_bs), the gradients of a loss with dL/dz
     = g_z and dL/dladj = g_ladj with respect to x and every transform's
     weights and biases. ``acts`` are the layer inputs that
     ``coupling_forward(..., save_inputs=True)`` returns; the plain version
     computes them when None, the CUDA route needs them."""
     ws, bs = [list(w) for w in ws], [list(b) for b in bs]
-    if _device_type(x, "coupling_backward") == "cpu":
-        _check(x, ws, bs, masks, "coupling_backward")
-        return coupling_backward_ref(x, ws, bs, masks, g_z, g_ladj, acts)
+    if _route(x, "coupling_backward", bins) == "cpu":
+        _check(x, ws, bs, masks, "coupling_backward", bins)
+        return coupling_backward_ref(x, ws, bs, masks, g_z, g_ladj, acts, bins)
     if acts is None:
         raise ValueError("coupling_backward: on CUDA it takes acts, the layer inputs "
                          "that coupling_forward(..., save_inputs=True) returns")
     with torch.no_grad():
-        return _launch_backward(list(acts), ws, bs, masks, g_z, g_ladj)
+        return _launch_backward(list(acts), ws, bs, masks, g_z, g_ladj, bins=bins)
 
 
-coupling_forward.launches = 0
-coupling_inverse.launches = 0
-coupling_backward.launches = 0
-coupling_inverse_backward.launches = 0
+zero_counts((coupling_forward, coupling_inverse, coupling_backward, coupling_inverse_backward))

@@ -30,14 +30,19 @@ gradient in the weights (the JAX package takes one in the state only,
 All take the MADE weights ALREADY multiplied by their masks, stacked over
 transforms: ``ws[l]`` of shape (T, fan_in, fan_out) and ``bs[l]`` of shape
 (T, fan_out) for the four layers d -> h -> h -> h -> d*NP, and the head:
-``"rqs"``, the 8-bin spline of the nsf* flows (NP = 23), or ``"affine"``,
-the affine map of the maf* flows (NP = 2). The kernels take the head as a
-template parameter (``csrc/heads.cuh``); one library a source holds both.
+``"rqs"``, the spline of the nsf* flows with ``bins`` bins (NP = 3 bins -
+1: 23 at the default 8), or ``"affine"``, the affine map of the maf* flows
+(NP = 2; it ignores ``bins``). The kernels take the head as a template
+parameter (``csrc/heads.cuh``) and the spline's bins as a compile-time
+constant (``csrc/rqs.cuh``): one library a source and bins holds both
+heads, built at the first use of its bins (``_build``); the CUDA route
+takes 2-16 bins (``check_bins``), the plain versions any bins >= 2.
 
 Dispatch is by device and nothing else: a CPU tensor goes to the plain
 version (``*_ref``), a CUDA tensor launches the kernel or raises. Each
 wrapper counts its launches in plain integer attributes: ``launches``
-with the spline head, ``launches_affine`` with the affine one.
+with the 8-bin spline head, ``launches_b<bins>`` with the spline of other
+bins (``launches_b16``), ``launches_affine`` with the affine one.
 """
 
 from __future__ import annotations
@@ -51,26 +56,52 @@ from ..models import transforms as tr
 from ..models.made import apply_made_dim
 from . import _build
 
+# the spline's default bins, and the most the CUDA kernels are built for
 BINS = 8
+MAX_BINS = 16
 N_PARAMS = tr.rqs_n_params(BINS)
-# raw parameters a dimension of each head, and the plain element maps:
-# forward (x, p) -> (z, ladj), its VJP (x, p, g_z, g_ladj) -> (g_x, g_p) and
-# inverse (z, p) -> (x, ladj)
+# raw parameters a dimension of each head at the default bins
 HEADS = {"rqs": N_PARAMS, "affine": tr.AFFINE_N_PARAMS}
-_ELEMENT = {
-    "rqs": (lambda x, p: tr.rqs_forward(x, p, BINS),
-            lambda x, p, g_z, g_l: tr.rqs_forward_vjp(x, p, g_z, g_l, BINS),
-            lambda z, p: tr.rqs_inverse(z, p, BINS)),
-    "affine": (tr.affine_forward, tr.affine_forward_vjp, tr.affine_inverse),
-}
 # largest dynamic shared memory a block may use on Hopper
 _MAX_SMEM = 227 * 1024
 
 
-def _head(head):
+def check_bins(bins, cuda=False):
+    """Refuse spline bins a route does not take: fewer than 2 on every
+    device (ValueError; the plain spline has no interior knot to move),
+    more than ``MAX_BINS`` on CUDA (NotImplementedError: the kernels keep a
+    spline's knots in registers and lay its parameters over a warp's lanes
+    for 2-16 bins; ROADMAP.md, port queue 1: bins > 16 on CUDA)."""
+    if int(bins) != bins or bins < 2:
+        raise ValueError(f"a spline needs an integer bins >= 2, got {bins!r}")
+    if cuda and bins > MAX_BINS:
+        raise NotImplementedError(
+            f"the CUDA flow kernels take 2-{MAX_BINS} spline bins, not {bins} (ROADMAP.md, "
+            f"port queue 1: bins > 16 on CUDA); device='cpu' runs any bins")
+    return int(bins)
+
+
+def _element(head, bins=BINS):
+    """The plain element maps of a head: forward (x, p) -> (z, ladj), its
+    VJP (x, p, g_z, g_ladj) -> (g_x, g_p) and inverse (z, p) -> (x, ladj)."""
+    if head == "affine":
+        return tr.affine_forward, tr.affine_forward_vjp, tr.affine_inverse
+    return (lambda x, p: tr.rqs_forward(x, p, bins),
+            lambda x, p, g_z, g_l: tr.rqs_forward_vjp(x, p, g_z, g_l, bins),
+            lambda z, p: tr.rqs_inverse(z, p, bins))
+
+
+def _head(head, bins=BINS):
+    """Raw parameters a dimension of ``head`` with ``bins`` spline bins."""
     if head not in HEADS:
         raise ValueError(f"unknown head {head!r}; the kernels have {sorted(HEADS)}")
-    return HEADS[head]
+    return tr.rqs_n_params(bins) if head == "rqs" else HEADS[head]
+
+
+def _lib_bins(head, bins):
+    """The bins of the library a head's launch loads: the affine head's
+    instances are the same in every library, so it takes the default one."""
+    return bins if head == "rqs" else BINS
 
 
 # ---------------------------------------------------------------------------
@@ -88,12 +119,12 @@ def _layer_inputs(w, b, x):
     return acts
 
 
-def made_rqs_forward_ref(y, ws, bs, save_inputs=False, head="rqs"):
+def made_rqs_forward_ref(y, ws, bs, save_inputs=False, head="rqs", bins=BINS):
     """Plain forward of the transform stack: y (n, d) -> (z, ladj), plus,
     when ``save_inputs``, the input of every layer's product in every
     transform: [x_t (T, n, d), relu(h0), relu(h1), relu(h2) (T, n, h)]."""
     n, d = y.shape
-    n_params, element = _head(head), _ELEMENT[head][0]
+    n_params, element = _head(head, bins), _element(head, bins)[0]
     x = y
     saved = [[] for _ in range(4)]
     ladj = torch.zeros(n, dtype=y.dtype, device=y.device)
@@ -107,7 +138,7 @@ def made_rqs_forward_ref(y, ws, bs, save_inputs=False, head="rqs"):
     return (x, ladj, [torch.stack(s) for s in saved]) if save_inputs else (x, ladj)
 
 
-def made_rqs_backward_ref(y, ws, bs, g_z, g_ladj, acts=None, head="rqs"):
+def made_rqs_backward_ref(y, ws, bs, g_z, g_ladj, acts=None, head="rqs", bins=BINS):
     """Plain backward of the transform stack, with no autograd: the
     gradients (g_y, g_ws, g_bs) of a loss L with dL/dz = g_z (n, d) and
     dL/dladj = g_ladj (n,), for the input, the masked weights (T, fi, fo)
@@ -122,9 +153,9 @@ def made_rqs_backward_ref(y, ws, bs, g_z, g_ladj, acts=None, head="rqs"):
     delta, the bias gradients delta's row sums."""
     n, d = y.shape
     T = ws[0].shape[0]
-    n_params, vjp = _head(head), _ELEMENT[head][1]
+    n_params, vjp = _head(head, bins), _element(head, bins)[1]
     if acts is None:
-        acts = made_rqs_forward_ref(y, ws, bs, save_inputs=True, head=head)[2]
+        acts = made_rqs_forward_ref(y, ws, bs, save_inputs=True, head=head, bins=bins)[2]
     g_ws = [torch.empty_like(w) for w in ws]
     g_bs = [torch.empty_like(b) for b in bs]
     g_l = g_ladj[:, None].expand(n, d)
@@ -145,7 +176,7 @@ def made_rqs_backward_ref(y, ws, bs, g_z, g_ladj, acts=None, head="rqs"):
     return g_x, g_ws, g_bs
 
 
-def inverse_element_vjp(x, p, g_x, g_l, head="rqs"):
+def inverse_element_vjp(x, p, g_x, g_l, head="rqs", bins=BINS):
     """VJP of one element of the inverse, x = tau^-1(z; p) with log-det
     -log tau'(x; p) (tau the head's forward map), at the element's data
     value x: (g_z, g_p) given g_x = dL/dx, every path to x included, and
@@ -154,7 +185,7 @@ def inverse_element_vjp(x, p, g_x, g_l, head="rqs"):
     g_l dlog tau'/dx) / tau'; g_p is minus the forward VJP's parameter
     gradient for (g_z, g_l). ``csrc/heads.cuh`` ``inverse_vjp`` is the
     same arithmetic for one element."""
-    forward, vjp = _ELEMENT[head][:2]
+    forward, vjp = _element(head, bins)[:2]
     _, log_slope = forward(x, p)
     g_xl, _ = vjp(x, p, torch.zeros_like(g_x), g_l)
     g_z = (g_x - g_xl) * torch.exp(-log_slope)
@@ -171,7 +202,7 @@ def _made_vjp_input(w, a, g3):
     return g0 @ w[0].T
 
 
-def ar_inverse_vjp_ref(x, ws, bs, inv_dim_orders, g_x, g_ladj, head="rqs"):
+def ar_inverse_vjp_ref(x, ws, bs, inv_dim_orders, g_x, g_ladj, head="rqs", bins=BINS):
     """Plain VJP of the autoregressive inverse, with no autograd: g_z (n,
     d) of a loss with dL/dx = g_x (n, d) and dL/dladj = g_ladj (n,), where
     (x, ladj) = ar_inverse(z). Every transform's input and activations come
@@ -184,9 +215,9 @@ def ar_inverse_vjp_ref(x, ws, bs, inv_dim_orders, g_x, g_ladj, head="rqs"):
     parameter cotangent. The kernel (``csrc/ar_inverse_backward.cu``) walks
     the same order one degree at a time."""
     n, d = x.shape
-    n_params = _head(head)
+    n_params = _head(head, bins)
     orders = torch.as_tensor(inv_dim_orders).tolist()
-    acts = made_rqs_forward_ref(x, ws, bs, save_inputs=True, head=head)[2]
+    acts = made_rqs_forward_ref(x, ws, bs, save_inputs=True, head=head, bins=bins)[2]
     g = g_x
     for t in range(ws[0].shape[0]):
         w = [a[t] for a in ws]
@@ -197,16 +228,16 @@ def ar_inverse_vjp_ref(x, ws, bs, inv_dim_orders, g_x, g_ladj, head="rqs"):
         for dim in reversed(orders[t]):
             c = _made_vjp_input(w, a, g_p.reshape(n, -1))[:, dim]
             g_z[:, dim], g_p[:, dim] = inverse_element_vjp(a[0][:, dim], p[:, dim],
-                                                           g[:, dim] + c, g_ladj, head)
+                                                           g[:, dim] + c, g_ladj, head, bins)
         g = g_z
     return g
 
 
-def ar_inverse_ref(z, ws, bs, inv_dim_orders, head="rqs"):
+def ar_inverse_ref(z, ws, bs, inv_dim_orders, head="rqs", bins=BINS):
     """Plain autoregressive inverse: z (n, d) -> (x, ladj), transforms in
     reverse, dimensions of transform t in the order inv_dim_orders[t]."""
     n, d = z.shape
-    n_params, element = _head(head), _ELEMENT[head][2]
+    n_params, element = _head(head, bins), _element(head, bins)[2]
     orders = torch.as_tensor(inv_dim_orders).tolist()
     cols = torch.arange(d, device=z.device)
     ladj = torch.zeros(n, dtype=z.dtype, device=z.device)
@@ -227,10 +258,10 @@ def ar_inverse_ref(z, ws, bs, inv_dim_orders, head="rqs"):
 # argument checks and launches
 # ---------------------------------------------------------------------------
 
-def _check(x, ws, bs, name, head="rqs"):
+def _check(x, ws, bs, name, head="rqs", bins=BINS):
     """Validate (n, d) input and the stacked masked MADE layers of the
     head's output width; returns (n, d, h, T)."""
-    n_params = _head(head)
+    n_params = _head(head, bins)
     tensors = [x, *ws, *bs]
     if len(ws) != 4 or len(bs) != 4:
         raise ValueError(f"{name}: expects the four MADE layers, got "
@@ -254,10 +285,8 @@ def _check(x, ws, bs, name, head="rqs"):
     return n, d, h, T
 
 
-# K1's column group: one dimension's spline parameters (csrc/ar_inverse.cu
-# GROUP), and each head's output group (heads.cuh OG)
+# K1's widest hidden column group (csrc/ar_walk.cuh GROUP)
 _K1_GROUP = 24
-_K1_OUT_GROUP = {"rqs": 24, "affine": 4}
 # SMs of the H100
 _SMS = 132
 
@@ -268,28 +297,37 @@ def _sign_words(h):
     return -(-h // 32)
 
 
-def _launch_config(n, d, h, head="rqs"):
+def _out_group(head, bins=BINS):
+    """K1's output column group (csrc/heads.cuh OG): the spline's NP + 1
+    rounded up to a multiple of 8 (24 at 8 bins, 48 at 16), 4 for the
+    affine head."""
+    return -(-(_head(head, bins) + 1) // 8) * 8 if head == "rqs" else 4
+
+
+def _launch_config(n, d, h, head="rqs", bins=BINS):
     """K1's launch: (R, W, S, SL, blocks, smem bytes). A consumer warp owns
     R rows (1, 2 or 4) for the whole chain, a block has W consumer warps
     (1-8) and one producer warp, and the weight ring S stages (2-8) of SL
     floats. R grows only once every SM has 4 warps of one row (n >= 1,056
     for 2, 2,112 for 4), and W is the warp count over the 132 SMs, so the
     sweep's n=256 runs 128 blocks of 2 warps and n=4096 128 blocks of 8
-    warps of 4 rows. A warp's state is R * (3h + 3d + OG) floats (OG: 24
-    with the spline head, 4 with the affine one); the ring
-    takes the rest of the 227 KB, a stage up to one 24-column group with
-    all h fan-in rows (padded to 4), and at least 4,096 floats, so that at
-    small d a stage holds the groups of several steps. W, then R, halve
-    until a stage holds at least 33 rows of such a group; raises where one
-    row alone leaves less: from h = 16384 (d > 2730), as K2's launch
-    does."""
-    return _plan(n, d, h, 3 * h + 3 * d + _K1_OUT_GROUP[head], "ar_inverse")
+    warps of 4 rows. A warp's state is R * (3h + 3d + OG) floats (OG,
+    ``_out_group``: 24 with the 8-bin spline head, 48 with 16 bins, 4 with
+    the affine one); the ring takes the rest of the 227 KB, a stage up to
+    one group of the widest (24 columns, or OG where wider) with all h
+    fan-in rows (padded to 4), and at least 4,096 floats, so that at small
+    d a stage holds the groups of several steps. W, then R, halve until a
+    stage holds at least 33 rows of such a group; raises where one row
+    alone leaves less: from h = 16384 (d > 2730), as K2's launch does."""
+    og = _out_group(head, bins)
+    return _plan(n, d, h, 3 * h + 3 * d + og, "ar_inverse", max(_K1_GROUP, og))
 
 
-def _plan(n, d, h, row, name):
-    """``_launch_config``'s rule for a warp's state of R * row floats."""
+def _plan(n, d, h, row, name, widest=_K1_GROUP):
+    """``_launch_config``'s rule for a warp's state of R * row floats and a
+    widest column group of ``widest`` columns."""
     limit = _MAX_SMEM // 4 - 4 * 8  # floats, less the 2 x 8 mbarriers
-    least = 33 * _K1_GROUP
+    least = 33 * widest
     R = 4 if n >= 16 * _SMS else (2 if n >= 8 * _SMS else 1)
     W = min(8, max(1, round(-(-n // R) / _SMS)))
     while limit - R * W * row < 2 * least:
@@ -301,7 +339,7 @@ def _plan(n, d, h, row, name):
             raise ValueError(f"{name}: d={d}, h={h} needs more shared memory than a "
                              f"Hopper block has")
     free = limit - R * W * row
-    SL = min(max(_K1_GROUP * (-(-h // 4) * 4 + 1), 4096), free // 2 // 4 * 4)
+    SL = min(max(widest * (-(-h // 4) * 4 + 1), 4096), free // 2 // 4 * 4)
     S = min(8, free // SL)
     smem = 16 * S + 4 * (S * SL + R * W * row)
     return R, W, S, SL, -(-n // (R * W)), smem
@@ -361,10 +399,11 @@ _I = ctypes.c_int
 
 
 @functools.lru_cache(maxsize=None)
-def _entry(lib_name, fn_name, sig):
-    """The C entry point ``fn_name`` of ``csrc/<lib_name>.cu``; ``sig`` has
-    one letter an argument, P for a pointer and I for an int."""
-    fn = getattr(_build.load(lib_name), fn_name)
+def _entry(lib_name, fn_name, sig, bins=BINS):
+    """The C entry point ``fn_name`` of ``csrc/<lib_name>.cu`` built for
+    ``bins`` spline bins; ``sig`` has one letter an argument, P for a
+    pointer and I for an int."""
+    fn = getattr(_build.load(lib_name, bins), fn_name)
     fn.argtypes = [_P if c == "P" else _I for c in sig]
     fn.restype = _I
     return fn
@@ -379,15 +418,23 @@ def _stream(x):
     return torch.cuda.current_stream(x.device).cuda_stream
 
 
-def _count(wrapper, head):
-    """One launch of ``wrapper``'s kernel with ``head``."""
-    attr = "launches" if head == "rqs" else f"launches_{head}"
-    setattr(wrapper, attr, getattr(wrapper, attr) + 1)
+def _count(wrapper, head, bins=BINS):
+    """One launch of ``wrapper``'s kernel with ``head`` (and ``bins``)."""
+    setattr(wrapper, launch_attr(head, bins), getattr(wrapper, launch_attr(head, bins)) + 1)
 
 
-def _launch_forward(y, ws, bs, save_inputs=False, head="rqs"):
-    n, d, h, T = _check(y, ws, bs, "made_rqs_forward", head)
-    n_params = HEADS[head]
+def launch_attr(head="rqs", bins=BINS):
+    """The attribute a wrapper counts its launches with ``head`` in:
+    ``launches`` (the 8-bin spline), ``launches_b<bins>`` (the spline of
+    other bins) or ``launches_affine``."""
+    if head != "rqs":
+        return f"launches_{head}"
+    return "launches" if bins == BINS else f"launches_b{bins}"
+
+
+def _launch_forward(y, ws, bs, save_inputs=False, head="rqs", bins=BINS):
+    n, d, h, T = _check(y, ws, bs, "made_rqs_forward", head, bins)
+    n_params = _head(head, bins)
     z = torch.empty_like(y)
     ladj = torch.empty(n, dtype=y.dtype, device=y.device)
     acts = ([torch.empty(T, n, k, dtype=y.dtype, device=y.device) for k in (d, h, h, h)]
@@ -395,13 +442,13 @@ def _launch_forward(y, ws, bs, save_inputs=False, head="rqs"):
     if n > 0:
         P, G, SL = _k2_config(n, d, h, n_params)
         fn = _entry("made_rqs_forward", "made_rqs_forward_launch",
-                    "PPPIIII" + "P" * 12 + "IIIIIP")
+                    "PPPIIII" + "P" * 12 + "IIIIIP", _lib_bins(head, bins))
         weights = [a.data_ptr() for pair in zip(ws, bs) for a in pair]
         saved = [a.data_ptr() for a in acts] if save_inputs else [None] * 4
         err = fn(y.data_ptr(), z.data_ptr(), ladj.data_ptr(), n, d, h, T, *weights, *saved,
                  n_params, P, G, SL, y.device.index, _stream(y))
         _raise_if(err, "made_rqs_forward")
-        _count(made_rqs_forward, head)
+        _count(made_rqs_forward, head, bins)
     return (z, ladj, acts) if save_inputs else (z, ladj)
 
 
@@ -421,7 +468,7 @@ def _check_saved(name, acts, g_z, g_ladj, widths):
     return T, n
 
 
-def _launch_backward(acts, ws, bs, g_z, g_ladj, head="rqs"):
+def _launch_backward(acts, ws, bs, g_z, g_ladj, head="rqs", bins=BINS):
     """K2's backward launch (its pack kernel into a scratch tensor, then
     the backward kernel, which writes the four layers' deltas), then the
     weight gradients A^T @ delta of the saved layer inputs and its
@@ -430,58 +477,60 @@ def _launch_backward(acts, ws, bs, g_z, g_ladj, head="rqs"):
     if len(acts) != 4:
         raise ValueError(f"made_rqs_backward: expects the four saved layer inputs, "
                          f"got {len(acts)}")
-    _, _, h, _ = _check(acts[0][0], ws, bs, "made_rqs_backward", head)
+    _, _, h, _ = _check(acts[0][0], ws, bs, "made_rqs_backward", head, bins)
     d = acts[0].shape[2]
     T, n = _check_saved("made_rqs_backward", acts, g_z, g_ladj, (d, h, h, h))
     dev = acts[0].device
     g_y = torch.empty_like(g_z)
-    n_params = HEADS[head]
+    n_params = _head(head, bins)
     widths = [w.shape[2] for w in ws]
     cfg, n_pack = _k2_backward_plan(n, d, h, T, n_params) if n > 0 else (None, 0)
     pack = torch.empty(n_pack, dtype=g_z.dtype, device=dev)
     deltas = [torch.empty(T, n, k, dtype=g_z.dtype, device=dev) for k in widths]
     if n > 0:
         fn = _entry("made_rqs_backward", "made_rqs_backward_launch",
-                    "PPPPPPPIIII" + "P" * 10 + "IIIIIIIIIP")
+                    "PPPPPPPIIII" + "P" * 10 + "IIIIIIIIIP", _lib_bins(head, bins))
         err = fn(*[a.data_ptr() for a in acts], g_z.data_ptr(), g_ladj.data_ptr(),
                  g_y.data_ptr(), n, d, h, T, *[w.data_ptr() for w in ws], bs[3].data_ptr(),
                  *[g.data_ptr() for g in deltas], pack.data_ptr(), n_params, cfg.RL,
                  cfg.BM, cfg.RNH, cfg.RNO, cfg.G, cfg.BK, cfg.S, dev.index, _stream(g_z))
         _raise_if(err, "made_rqs_backward")
-        _count(made_rqs_backward, head)
+        _count(made_rqs_backward, head, bins)
     g_ws = [torch.bmm(a.transpose(1, 2), g) for a, g in zip(acts, deltas)]
     g_bs = [g.sum(1) for g in deltas]
     return g_y, g_ws, g_bs
 
 
-def _inverse_pack(ws, bs, inv_dim_orders, d, h, T, head):
+def _inverse_pack(ws, bs, inv_dim_orders, d, h, T, head, bins=BINS):
     """K1's weights in the order its steps read them (``pack_kernel`` in
     ``csrc/ar_inverse.cu``), written on the device without a host sync and
     kept on ``ws[0]``, the first masked weight of the caller's
     ``FlowParams``: once per FlowParams, again only when one of its tensors
     is replaced or changed in place (its version moves)."""
-    key = (head, *((id(a), a._version) for a in (*ws, *bs, inv_dim_orders)))
+    key = (head, bins, *((id(a), a._version) for a in (*ws, *bs, inv_dim_orders)))
     kept = getattr(ws[0], "_k1_pack", None)
     if kept is not None and kept[0] == key:
         return kept[1]
-    size = _build.load("ar_inverse").ar_inverse_pack_floats
+    lib_bins, n_params = _lib_bins(head, bins), _head(head, bins)
+    size = _build.load("ar_inverse", lib_bins).ar_inverse_pack_floats
     size.argtypes, size.restype = [_I, _I, _I, _I], ctypes.c_longlong
-    pack = torch.empty(size(d, h, T, HEADS[head]), dtype=torch.float32, device=ws[0].device)
-    fn = _entry("ar_inverse", "ar_inverse_pack_launch", "P" * 10 + "IIIIIP")
+    pack = torch.empty(size(d, h, T, n_params), dtype=torch.float32, device=ws[0].device)
+    fn = _entry("ar_inverse", "ar_inverse_pack_launch", "P" * 10 + "IIIIIP", lib_bins)
     weights = [a.data_ptr() for pair in zip(ws, bs) for a in pair]
-    err = fn(*weights, inv_dim_orders.data_ptr(), pack.data_ptr(), d, h, T, HEADS[head],
+    err = fn(*weights, inv_dim_orders.data_ptr(), pack.data_ptr(), d, h, T, n_params,
              ws[0].device.index, _stream(ws[0]))
     _raise_if(err, "ar_inverse (pack)")
     ws[0]._k1_pack = (key, pack)
     return pack
 
 
-def _launch_inverse(z, ws, bs, inv_dim_orders, head="rqs", save=False):
+def _launch_inverse(z, ws, bs, inv_dim_orders, head="rqs", save=False, bins=BINS):
     """K1: (x, ladj), and with ``save`` the state K1-bwd reads (K1's save
     instance): (px (T, n, d, NP + 1) float32, each step's head parameters
     and x in visit order; signs (T, n, 3, ceil(h/32)) int32, each
     transform's hidden signs as bit masks in degree-sorted order)."""
-    n, d, h, T = _check(z, ws, bs, "ar_inverse", head)
+    n, d, h, T = _check(z, ws, bs, "ar_inverse", head, bins)
+    n_params = _head(head, bins)
     if (inv_dim_orders.dtype != torch.int32 or inv_dim_orders.device != z.device
             or tuple(inv_dim_orders.shape) != (T, d)
             or not inv_dim_orders.is_contiguous()):
@@ -489,23 +538,24 @@ def _launch_inverse(z, ws, bs, inv_dim_orders, head="rqs", save=False):
                          "int32 tensor on the input's device")
     x = torch.empty_like(z)
     ladj = torch.empty(n, dtype=z.dtype, device=z.device)
-    state = ((torch.empty(T, n, d, HEADS[head] + 1, dtype=z.dtype, device=z.device),
+    state = ((torch.empty(T, n, d, n_params + 1, dtype=z.dtype, device=z.device),
               torch.empty(T, n, 3, _sign_words(h), dtype=torch.int32, device=z.device))
              if save else None)
     if n > 0:
-        R, W, S, SL, _, _ = _launch_config(n, d, h, head)
-        pack = _inverse_pack(ws, bs, inv_dim_orders, d, h, T, head)
-        fn = _entry("ar_inverse", "ar_inverse_launch", "PPPPPIIIIPPIIIIIIP")
+        R, W, S, SL, _, _ = _launch_config(n, d, h, head, bins)
+        pack = _inverse_pack(ws, bs, inv_dim_orders, d, h, T, head, bins)
+        fn = _entry("ar_inverse", "ar_inverse_launch", "PPPPPIIIIPPIIIIIIP",
+                    _lib_bins(head, bins))
         saved = [a.data_ptr() for a in state] if save else [None, None]
         err = fn(z.data_ptr(), x.data_ptr(), ladj.data_ptr(), *saved, n, d, h, T,
-                 pack.data_ptr(), inv_dim_orders.data_ptr(), HEADS[head], R, W, S, SL,
+                 pack.data_ptr(), inv_dim_orders.data_ptr(), n_params, R, W, S, SL,
                  z.device.index, _stream(z))
         _raise_if(err, "ar_inverse")
-        _count(ar_inverse, head)
+        _count(ar_inverse, head, bins)
     return (x, ladj, state) if save else (x, ladj)
 
 
-def _backward_config(n, d, h, head="rqs"):
+def _backward_config(n, d, h, head="rqs", bins=BINS):
     """K1-bwd's launch: (R, W, S, SL, blocks, smem bytes) by K1's rule
     (``_plan``) for a warp's state of R * (3h + 3 ceil(h/32) + 2d + OG)
     floats: the three layers' cotangents, their sign masks, x's cotangent
@@ -515,19 +565,20 @@ def _backward_config(n, d, h, head="rqs"):
     from h = 16384 (d > 2730). Its row is no wider than K1's where 3
     ceil(h/32) <= d, as at every flow's (d, h), so there its own plan holds
     wherever K1's does."""
-    _launch_config(n, d, h, head)
-    return _plan(n, d, h, 3 * h + 3 * _sign_words(h) + 2 * d + _K1_OUT_GROUP[head],
-                 "ar_inverse_backward")
+    _launch_config(n, d, h, head, bins)
+    og = _out_group(head, bins)
+    return _plan(n, d, h, 3 * h + 3 * _sign_words(h) + 2 * d + og, "ar_inverse_backward",
+                 max(_K1_GROUP, og))
 
 
-def _check_state(state, T, n, d, h, head, device):
+def _check_state(state, T, n, d, h, head, device, bins=BINS):
     """Validate K1's saved state (``_launch_inverse(..., save=True)``)."""
     name = "ar_inverse_backward"
     if not isinstance(state, (tuple, list)) or len(state) != 2:
         raise ValueError(f"{name}: on CUDA it takes, in place of x, the state that K1's "
                          f"save instance writes at z (_launch_inverse(z, ..., save=True))")
     for what, a, shape, dtype in (
-            ("state[0]", state[0], (T, n, d, HEADS[head] + 1), torch.float32),
+            ("state[0]", state[0], (T, n, d, _head(head, bins) + 1), torch.float32),
             ("state[1]", state[1], (T, n, 3, _sign_words(h)), torch.int32)):
         if (a.dtype != dtype or a.device != device or tuple(a.shape) != shape
                 or not a.is_contiguous()):
@@ -535,40 +586,43 @@ def _check_state(state, T, n, d, h, head, device):
                              f"on {device}")
 
 
-def _launch_inverse_backward(state, ws, bs, inv_dim_orders, g_x, g_ladj, head="rqs"):
+def _launch_inverse_backward(state, ws, bs, inv_dim_orders, g_x, g_ladj, head="rqs",
+                             bins=BINS):
     """K1-bwd on the state K1's save instance wrote: the kernel walks K1's
     pack in reverse; g_z."""
-    n, d, h, T = _check(g_x, ws, bs, "ar_inverse_backward", head)
+    n, d, h, T = _check(g_x, ws, bs, "ar_inverse_backward", head, bins)
     if (g_ladj.dtype != torch.float32 or g_ladj.device != g_x.device
             or tuple(g_ladj.shape) != (n,) or not g_ladj.is_contiguous()):
         raise ValueError(f"ar_inverse_backward: g_ladj must be a contiguous float32 ({n},) "
                          f"tensor on {g_x.device}")
-    _check_state(state, T, n, d, h, head, g_x.device)
+    _check_state(state, T, n, d, h, head, g_x.device, bins)
     g_z = torch.empty_like(g_x)
     if n == 0:
         return g_z
-    R, W, S, SL, _, _ = _backward_config(n, d, h, head)
-    pack = _inverse_pack(ws, bs, inv_dim_orders, d, h, T, head)
-    fn = _entry("ar_inverse_backward", "ar_inverse_backward_launch", "PPPPPIIIIPPIIIIIIP")
+    R, W, S, SL, _, _ = _backward_config(n, d, h, head, bins)
+    pack = _inverse_pack(ws, bs, inv_dim_orders, d, h, T, head, bins)
+    fn = _entry("ar_inverse_backward", "ar_inverse_backward_launch", "PPPPPIIIIPPIIIIIIP",
+                _lib_bins(head, bins))
     err = fn(state[0].data_ptr(), state[1].data_ptr(), g_x.data_ptr(), g_ladj.data_ptr(),
              g_z.data_ptr(), n, d, h, T, pack.data_ptr(), inv_dim_orders.data_ptr(),
-             HEADS[head], R, W, S, SL, g_x.device.index, _stream(g_x))
+             _head(head, bins), R, W, S, SL, g_x.device.index, _stream(g_x))
     _raise_if(err, "ar_inverse_backward")
-    _count(ar_inverse_backward, head)
+    _count(ar_inverse_backward, head, bins)
     return g_z
 
 
-def _element_vjp(x, p, g_x, g_l, head="rqs", lanes=32):
+def _element_vjp(x, p, g_x, g_l, head="rqs", lanes=32, bins=BINS):
     """K1-bwd's element VJP on the card, for the tests: (g_z (n,), g_p (n,
     NP)) of ``inverse_element_vjp`` at x (n,), p (n, NP), g_x, g_l (n,), on
-    ``lanes`` lanes a row: the kernel's versions (32: a warp, 8: a group of
-    8 lanes) or the one-lane one (1)."""
+    ``lanes`` lanes a row: the kernel's versions (32: a warp, up to 10
+    bins; 8: a group of 8 lanes) or the one-lane one (1)."""
     n = x.shape[0]
     px = torch.cat([p, x[:, None]], 1).contiguous()
     g_z, g_p = torch.empty_like(x), torch.empty_like(p)
-    fn = _entry("ar_inverse_backward", "ar_inverse_element_vjp_launch", "PPPPPIIIIP")
+    fn = _entry("ar_inverse_backward", "ar_inverse_element_vjp_launch", "PPPPPIIIIP",
+                _lib_bins(head, bins))
     err = fn(px.data_ptr(), g_x.data_ptr(), g_l.data_ptr(), g_z.data_ptr(), g_p.data_ptr(), n,
-             HEADS[head], lanes, x.device.index, _stream(x))
+             _head(head, bins), lanes, x.device.index, _stream(x))
     _raise_if(err, "ar_inverse_backward (element VJP)")
     return g_z, g_p
 
@@ -579,9 +633,9 @@ class _MadeRqsForward(torch.autograd.Function):
     follow through w * mask, which the caller formed in torch."""
 
     @staticmethod
-    def forward(ctx, head, y, *layers):
-        z, ladj, acts = _launch_forward(y, layers[:4], layers[4:], True, head)
-        ctx.head = head
+    def forward(ctx, head, bins, y, *layers):
+        z, ladj, acts = _launch_forward(y, layers[:4], layers[4:], True, head, bins)
+        ctx.head, ctx.bins = head, bins
         ctx.save_for_backward(*acts, *layers)
         return z, ladj
 
@@ -590,10 +644,10 @@ class _MadeRqsForward(torch.autograd.Function):
         saved = ctx.saved_tensors
         layers = saved[4:]
         g_y, g_ws, g_bs = _launch_backward(saved[:4], layers[:4], layers[4:], g_z.contiguous(),
-                                           g_ladj.contiguous(), ctx.head)
+                                           g_ladj.contiguous(), ctx.head, ctx.bins)
         grads = [g_y, *g_ws, *g_bs]
-        return (None, *(g if need else None
-                        for g, need in zip(grads, ctx.needs_input_grad[1:])))
+        return (None, None, *(g if need else None
+                              for g, need in zip(grads, ctx.needs_input_grad[2:])))
 
 
 class _ArInverse(torch.autograd.Function):
@@ -603,9 +657,10 @@ class _ArInverse(torch.autograd.Function):
     one)."""
 
     @staticmethod
-    def forward(ctx, head, z, inv_dim_orders, *layers):
-        x, ladj, state = _launch_inverse(z, layers[:4], layers[4:], inv_dim_orders, head, True)
-        ctx.head = head
+    def forward(ctx, head, bins, z, inv_dim_orders, *layers):
+        x, ladj, state = _launch_inverse(z, layers[:4], layers[4:], inv_dim_orders, head, True,
+                                         bins)
+        ctx.head, ctx.bins = head, bins
         ctx.save_for_backward(inv_dim_orders, *state, *layers)
         return x, ladj
 
@@ -613,8 +668,8 @@ class _ArInverse(torch.autograd.Function):
     def backward(ctx, g_x, g_ladj):
         orders, px, signs, *layers = ctx.saved_tensors
         g_z = _launch_inverse_backward((px, signs), layers[:4], layers[4:], orders,
-                                       g_x.contiguous(), g_ladj.contiguous(), ctx.head)
-        return (None, g_z, None, *[None] * len(layers))
+                                       g_x.contiguous(), g_ladj.contiguous(), ctx.head, ctx.bins)
+        return (None, None, g_z, None, *[None] * len(layers))
 
 
 def _refuse_weight_grad(name, layers):
@@ -634,42 +689,51 @@ def _device_type(x, name):
     return x.device.type
 
 
-def made_rqs_forward(y, ws, bs, save_inputs=False, head="rqs"):
+def _route(x, name, bins, head="rqs"):
+    """The device type a wrapper dispatches on, with the spline's bins
+    checked (the affine head ignores them)."""
+    device = _device_type(x, name)
+    if head == "rqs":
+        check_bins(bins, device == "cuda")
+    return device
+
+
+def made_rqs_forward(y, ws, bs, save_inputs=False, head="rqs", bins=BINS):
     """K2: (z, ladj) of the transform stack at y; ladj = log|det dz/dy|.
     Differentiable on CUDA through the backward kernel. ``save_inputs``
     also returns the input of every layer's product in every transform,
     [x_t (T, n, d), relu(h0), relu(h1), relu(h2) (T, n, h)], which
-    ``made_rqs_backward`` takes (no gradient then). ``head``: "rqs" or
-    "affine"."""
+    ``made_rqs_backward`` takes (no gradient then). ``head``: "rqs" (with
+    ``bins`` spline bins) or "affine"."""
     ws, bs = list(ws), list(bs)
-    if _device_type(y, "made_rqs_forward") == "cpu":
-        _check(y, ws, bs, "made_rqs_forward", head)
-        return made_rqs_forward_ref(y, ws, bs, save_inputs, head)
+    if _route(y, "made_rqs_forward", bins, head) == "cpu":
+        _check(y, ws, bs, "made_rqs_forward", head, bins)
+        return made_rqs_forward_ref(y, ws, bs, save_inputs, head, bins)
     if (not save_inputs and torch.is_grad_enabled()
             and any(a.requires_grad for a in [y, *ws, *bs])):
-        return _MadeRqsForward.apply(head, y, *ws, *bs)
+        return _MadeRqsForward.apply(head, bins, y, *ws, *bs)
     with torch.no_grad():
-        return _launch_forward(y, ws, bs, save_inputs, head)
+        return _launch_forward(y, ws, bs, save_inputs, head, bins)
 
 
-def made_rqs_backward(y, ws, bs, g_z, g_ladj, acts=None, head="rqs"):
+def made_rqs_backward(y, ws, bs, g_z, g_ladj, acts=None, head="rqs", bins=BINS):
     """K2's backward: (g_y, g_ws, g_bs), the gradients of a loss with dL/dz
     = g_z and dL/dladj = g_ladj with respect to y, the masked weights and
     the biases. ``acts`` are the layer inputs that ``made_rqs_forward(...,
     save_inputs=True)`` returns; the plain version computes them when None,
     the CUDA route needs them."""
     ws, bs = list(ws), list(bs)
-    if _device_type(y, "made_rqs_backward") == "cpu":
-        _check(y, ws, bs, "made_rqs_backward", head)
-        return made_rqs_backward_ref(y, ws, bs, g_z, g_ladj, acts, head)
+    if _route(y, "made_rqs_backward", bins, head) == "cpu":
+        _check(y, ws, bs, "made_rqs_backward", head, bins)
+        return made_rqs_backward_ref(y, ws, bs, g_z, g_ladj, acts, head, bins)
     if acts is None:
         raise ValueError("made_rqs_backward: on CUDA it takes acts, the layer inputs "
                          "that made_rqs_forward(..., save_inputs=True) returns")
     with torch.no_grad():
-        return _launch_backward(list(acts), ws, bs, g_z, g_ladj, head)
+        return _launch_backward(list(acts), ws, bs, g_z, g_ladj, head, bins)
 
 
-def ar_inverse(z, ws, bs, inv_dim_orders, head="rqs"):
+def ar_inverse(z, ws, bs, inv_dim_orders, head="rqs", bins=BINS):
     """K1: (x, ladj) of the autoregressive inverse; ladj = log|det dx/dz|.
     ``inv_dim_orders[t]`` lists the dimensions of transform t by increasing
     degree. Precondition: ``ws`` are the weights already multiplied by
@@ -679,16 +743,16 @@ def ar_inverse(z, ws, bs, inv_dim_orders, head="rqs"):
     in z on CUDA through K1-bwd; weights that require a gradient raise
     there."""
     ws, bs = list(ws), list(bs)
-    if _device_type(z, "ar_inverse") == "cpu":
-        _check(z, ws, bs, "ar_inverse", head)
-        return ar_inverse_ref(z, ws, bs, inv_dim_orders, head)
+    if _route(z, "ar_inverse", bins, head) == "cpu":
+        _check(z, ws, bs, "ar_inverse", head, bins)
+        return ar_inverse_ref(z, ws, bs, inv_dim_orders, head, bins)
     _refuse_weight_grad("ar_inverse", [*ws, *bs])
     if torch.is_grad_enabled() and z.requires_grad:
-        return _ArInverse.apply(head, z, inv_dim_orders, *ws, *bs)
-    return _launch_inverse(z, ws, bs, inv_dim_orders, head)
+        return _ArInverse.apply(head, bins, z, inv_dim_orders, *ws, *bs)
+    return _launch_inverse(z, ws, bs, inv_dim_orders, head, bins=bins)
 
 
-def ar_inverse_backward(x, ws, bs, inv_dim_orders, g_x, g_ladj, head="rqs"):
+def ar_inverse_backward(x, ws, bs, inv_dim_orders, g_x, g_ladj, head="rqs", bins=BINS):
     """K1-bwd: g_z, the gradient of a loss with dL/dx = g_x and dL/dladj =
     g_ladj with respect to z, where (x, ladj) = ar_inverse(z, ...) (the
     weights' precondition is K1's). On the CPU x is the inverse's output,
@@ -698,13 +762,18 @@ def ar_inverse_backward(x, ws, bs, inv_dim_orders, g_x, g_ladj, head="rqs"):
     it), which holds each step's x and all the kernel reads; x alone
     raises there."""
     ws, bs = list(ws), list(bs)
-    if _device_type(g_x, "ar_inverse_backward") == "cpu":
-        _check(x, ws, bs, "ar_inverse_backward", head)
-        return ar_inverse_vjp_ref(x, ws, bs, inv_dim_orders, g_x, g_ladj, head)
+    if _route(g_x, "ar_inverse_backward", bins, head) == "cpu":
+        _check(x, ws, bs, "ar_inverse_backward", head, bins)
+        return ar_inverse_vjp_ref(x, ws, bs, inv_dim_orders, g_x, g_ladj, head, bins)
     with torch.no_grad():
-        return _launch_inverse_backward(x, ws, bs, inv_dim_orders, g_x, g_ladj, head)
+        return _launch_inverse_backward(x, ws, bs, inv_dim_orders, g_x, g_ladj, head, bins)
 
 
-for _wrapper in (made_rqs_forward, made_rqs_backward, ar_inverse, ar_inverse_backward):
-    _wrapper.launches = 0
-    _wrapper.launches_affine = 0
+def zero_counts(wrappers):
+    """Every launch count of ``wrappers`` (each head, each bins) set to 0."""
+    for wrapper in wrappers:
+        for attr in {launch_attr(h, b) for h in HEADS for b in range(2, MAX_BINS + 1)}:
+            setattr(wrapper, attr, 0)
+
+
+zero_counts((made_rqs_forward, made_rqs_backward, ar_inverse, ar_inverse_backward))

@@ -47,6 +47,35 @@ def test_k5_config_fits_a_hopper_block(n, backward):
             assert -(-n // cfg.BM) >= 128
 
 
+@pytest.mark.parametrize("bins", [2, 5, 12, 16])
+@pytest.mark.parametrize("backward", [False, True], ids=["forward", "backward"])
+def test_k5_and_k2_plans_at_bins(backward, bins):
+    """With the spline of ``bins`` bins (NP = 3 bins - 1 raw parameters a
+    dimension): K5's tile at every d in 2..128 and at d = 171, 342 fits
+    227 KB with the NP-wide output groups the kernels' shared-memory
+    formula counts, and a group's NP*G columns fit the output tile; K2's
+    backward plan (K5's tile on the MADE network, every dimension an
+    output) and K2's forward plan fit too, at n = 1, 256 and 4096."""
+    from pocomc_tpu_torch.ops import flow_kernels as fk
+    np_ = 3 * bins - 1
+    for d in [*range(2, 129), 171, 342]:
+        h = _width(d)
+        for n in (1, 256, 4096):
+            cfg = ck._k5_config(n, d, h, backward, n_params=np_)
+            assert cfg.smem <= HOPPER_SMEM
+            assert cfg.smem == 4 * ck._k5_smem_floats(cfg.RL, cfg.BM, cfg.RNH, cfg.RNO, cfg.G,
+                                                      cfg.BK, cfg.S, d, h, backward, np_)
+            assert 1 <= cfg.G <= (d + 1) // 2 and cfg.G * np_ <= cfg.ldo
+            if backward:
+                plan, _ = fk._k2_backward_plan(n, d, h, 2, np_)
+                assert plan.smem <= HOPPER_SMEM and 1 <= plan.G <= d
+                assert plan.G * np_ <= plan.ldo
+            else:
+                P, G, SL = fk._k2_config(n, d, h, np_)
+                assert 4 * (P * (d + 2 * h + G * np_ + 1) + 4 + 2 * SL) <= 227 * 1024
+                assert 1 <= G <= d and SL >= h + 1
+
+
 def test_k5_config_tiles_of_the_main_shapes():
     """The bench line runs 64-row blocks (1,024 of them), d=50 at n=4096
     32-row blocks (128), the d=10 training batch 8-row ones."""

@@ -268,12 +268,24 @@ def test_kernel_wrappers_reject_bad_inputs():
 
 
 def test_unported_flow_kinds_raise():
-    """Every kind of the menu is ported; what is not, a spline of other
-    than 8 bins, raises and names its ROADMAP item, for every kind."""
+    """Every kind of the menu is ported at every bins the JAX package runs
+    on the CPU; what is not, a spline of more than 16 bins on CUDA, raises
+    and names its ROADMAP item (held through the check the wrappers and
+    Flow(device="cuda") call, so that it runs without a card). Fewer than
+    2 bins raise ValueError for the spline kinds on every device."""
+    from pocomc_tpu_torch.ops.flow_kernels import check_bins
     for arch in ("maf6", "nsf6", "nsfc6"):
-        Flow(4, arch, device="cpu")
-        with pytest.raises(NotImplementedError, match="ROADMAP.md, port queue: bins != 8"):
-            Flow(4, arch, bins=12, device="cpu")
+        assert Flow(4, arch, device="cpu").bins == 8
+        assert Flow(4, arch, bins=12, device="cpu").bins == 12
+        assert Flow(4, arch, bins=17, device="cpu").bins == 17
+    for bins in range(2, 17):
+        assert check_bins(bins, cuda=True) == bins
+    with pytest.raises(NotImplementedError, match="ROADMAP.md, port queue 1: bins > 16"):
+        check_bins(17, cuda=True)
+    for arch in ("nsf6", "nsfc6"):
+        for bins in (0, 1):
+            with pytest.raises(ValueError, match="bins >= 2"):
+                Flow(4, arch, bins=bins, device="cpu")
 
 
 def test_import_leaves_jax_out():

@@ -47,13 +47,13 @@ def _layers(stack, arch):
     return [layer for tp in stack for layer in tp] if arch.startswith("nsfc") else stack
 
 
-def random_params(d, arch, seed, scale=0.02):
+def random_params(d, arch, seed, scale=0.02, bins=8):
     """A JAX flow with random non-zero weights: the init hidden layers,
     N(0, scale^2) output weights and biases, and a random whitening
     pre-layer; returns (the JAX flow, its params as numpy). Larger scales
     make the inverse ill-conditioned in fp32 for both packages (a round
     trip of a JAX nsfc6 at d=6 misses x by 8e-3 at 0.03)."""
-    jf = JFlow(d, arch, seed=seed)
+    jf = JFlow(d, arch, bins=bins, seed=seed)
     rng = np.random.default_rng(seed + 100)
     params = jax.tree_util.tree_map(np.array, jax.device_get(jf.params))
     layers = _layers(params["stack"], arch)
@@ -76,16 +76,23 @@ def close(got, want, **tol):
 
 MENU = [(arch, d) for arch in ("maf3", "maf6", "nsfc3", "nsfc6") for d in (2, 3, 4, 10)]
 MENU += [("maf12", 3), ("nsfc12", 3)]
+# the spline kinds at other bins: 2 (the fewest), 3, 5 (neither a power of
+# two), 12 and 16 (past the 10 whose parameters fit a warp's lanes in the
+# kernels); the menu's cases keep their ids at 8 bins
+BINS_MENU = [(arch, d, b) for arch in ("nsf3", "nsfc3") for d in (3, 10)
+             for b in (2, 3, 5, 12, 16)]
+MENU_BINS = ([pytest.param(arch, d, 8, id=f"{arch}-{d}") for arch, d in MENU]
+             + [pytest.param(*case, id="{}-{}-bins{}".format(*case)) for case in BINS_MENU])
 
 
-@pytest.mark.parametrize("arch,d", MENU)
-def test_forward_inverse_log_prob_match_jax(arch, d):
+@pytest.mark.parametrize("arch,d,bins", MENU_BINS)
+def test_forward_inverse_log_prob_match_jax(arch, d, bins):
     """forward (z, ladj), inverse (x, ladj) and log_prob of the port's
-    ``Flow(device="cpu")`` against the JAX ``Flow`` on the same weights; d=3
-    gives the coupling flows unequal halves."""
+    ``Flow(device="cpu")`` against the JAX ``Flow`` on the same weights, at
+    the spline's ``bins``; d=3 gives the coupling flows unequal halves."""
     ladj_tol = 5e-4 if arch == "nsfc12" else LADJ
-    jf, params = random_params(d, arch, seed=d)
-    tf = load_flow_params(Flow(d, arch, device="cpu"), params)
+    jf, params = random_params(d, arch, seed=d, bins=bins)
+    tf = load_flow_params(Flow(d, arch, bins=bins, device="cpu"), params)
     rng = np.random.default_rng(d + 7)
     x = (1.5 * rng.standard_normal((64, d))).astype(np.float32)
     with torch.no_grad():
@@ -122,21 +129,67 @@ def test_identity_at_init_round_trip_and_antisymmetry(arch, d):
     torch.testing.assert_close(l + li, torch.zeros_like(l), rtol=0, atol=1e-3)
 
 
-@pytest.mark.parametrize("arch,d,seed", [("maf3", 3, 1), ("maf6", 4, 2), ("nsfc3", 3, 3),
-                                         ("nsfc6", 4, 4)])
-def test_loss_gradient_matches_jax_grad(arch, d, seed):
+GRAD_MENU = [("maf3", 3, 1), ("maf6", 4, 2), ("nsfc3", 3, 3), ("nsfc6", 4, 4)]
+# the loss gradient at the bins where the kernels' layouts change (3 and 5,
+# neither a power of two; 16, past the 10 whose parameters fit a warp's
+# lanes), at d=3: JAX compiles each case anew (~2.5 s each on the CPU)
+GRAD_BINS = ([pytest.param(*case, 8, id="{}-{}-{}".format(*case)) for case in GRAD_MENU]
+             + [pytest.param(arch, 3, 8, b, id=f"{arch}-3-bins{b}")
+                for arch in ("nsf3", "nsfc3") for b in (3, 5, 16)])
+
+
+def on_kink_or_knot(flow, x, window=1e-5):
+    """Rows of x (n, d) at which a transform of ``flow``'s stack has a
+    hidden pre-activation (a ReLU's kink) or its spline's input (a knot,
+    where the bin changes) within ``window``: there the loss is not
+    differentiable, and two correct fp32 routes may take either side (at
+    nsf3, d=3, 12 bins a row's pre-activation of 5.8e-8 moved a weight's
+    gradient by 1.3e-3 of its size, the JAX route on float64's side)."""
+    fp = flow.params()
+    x = torch.from_numpy(x)
+    near = torch.zeros(x.shape[0], dtype=torch.bool)
+    with torch.no_grad():
+        for t in range(flow.n_transforms):
+            if flow.kind == "nsfc":
+                ws, bs = fp.ws[t], fp.bs[t]
+                cond, trans = tcoup.halves(fp.masks[t], "cpu")
+                inp, xs = x[:, cond], x[:, trans]
+            else:
+                ws, bs = [w[t] for w in fp.ws], [b[t] for b in fp.bs]
+                inp, xs = x, x
+            h = inp @ ws[0] + bs[0]
+            hs = [h]
+            for l in (1, 2):
+                h = h + (torch.relu(h) @ ws[l] + bs[l])
+                hs.append(h)
+            near |= torch.cat(hs, 1).abs().amin(1) < window
+            p = (torch.relu(h) @ ws[3] + bs[3]).reshape(x.shape[0], xs.shape[1], -1)
+            if flow.kind != "maf":
+                knots = ttr._rqs_setup(p, flow.bins)[0][..., 1:-1]
+                near |= (xs[..., None] - knots).abs().flatten(1).amin(1) < window
+            x = (tcoup.coupling_forward(ws, bs, fp.masks[t], x, flow.bins)[0]
+                 if flow.kind == "nsfc" else fk._element(flow.head, flow.bins)[0](x, p)[0])
+    return near.numpy()
+
+
+@pytest.mark.parametrize("arch,d,seed,bins", GRAD_BINS)
+def test_loss_gradient_matches_jax_grad(arch, d, seed, bins):
     """The gradient of the port's ``Flow._loss_fn`` (plain autograd on the
-    CPU) against ``jax.grad`` of the JAX package's, with the Laplace and
-    Gaussian penalties on every weight, a quarter of the rows of weight
-    zero: max |diff| / max |grad| <= 1e-4 for every weight and bias."""
-    jf, params = random_params(d, arch, seed)
+    CPU) against ``jax.grad`` of the JAX package's (jitted), with the
+    Laplace and Gaussian penalties on every weight, a quarter of the rows
+    of weight zero, at the spline's ``bins``: max |diff| / max |grad| <=
+    1e-4 for every weight and bias. At other bins than 8 the rows on a
+    kink or a knot take weight zero too (``on_kink_or_knot``)."""
+    jf, params = random_params(d, arch, seed, bins=bins)
     rng = np.random.default_rng(seed)
     xb = (1.5 * rng.standard_normal((128, d))).astype(np.float32)
     wb = rng.random(128).astype(np.float32)
     wb[::4] = 0.0
-    jg = jax.grad(lambda st: jf._loss_fn(st, jnp.asarray(xb), jnp.asarray(wb), 7.0, 3.0))(
-        jax.device_put(params["stack"]))
-    tf = load_flow_params(Flow(d, arch, device="cpu"), params)
+    tf = load_flow_params(Flow(d, arch, bins=bins, device="cpu"), params)
+    if bins != 8:
+        wb[on_kink_or_knot(tf, xb)] = 0.0
+    jg = jax.jit(jax.grad(lambda st: jf._loss_fn(st, jnp.asarray(xb), jnp.asarray(wb), 7.0,
+                                                 3.0)))(jax.device_put(params["stack"]))
     loss = tf._loss_fn(torch.from_numpy(xb), torch.from_numpy(wb), laplace_scale=7.0,
                        gaussian_scale=3.0)
     loss.backward()

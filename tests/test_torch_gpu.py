@@ -407,11 +407,11 @@ TOL = dict(rtol=1e-5, atol=1e-5)
 LADJ = 1e-4
 
 
-def _random_card_flow(d, arch, seed=0):
+def _random_card_flow(d, arch, seed=0, bins=8):
     """A flow of the menu on the card with N(0, 0.02^2) output weights and
     biases (every transform's), from a numpy seed."""
     rng = np.random.default_rng(seed)
-    f = Flow(d, arch, device="cuda")
+    f = Flow(d, arch, bins=bins, device="cuda")
     with torch.no_grad():
         for l, (w, b) in enumerate(zip(f.weights, f.biases)):
             if l % 4 == 3:
@@ -509,12 +509,12 @@ def test_coupling_inverse_refuses_a_gradient_on_card(cuda):
 
 # -- K5 at the edges of its tiles: odd halves, every hidden width class --
 
-def _menu_card_flow(d, arch, seed=0):
+def _menu_card_flow(d, arch, seed=0, bins=8):
     """A coupling flow on the card with the menu's random output layers
     (std 0.02 * sqrt(32 / h): chip_smoke.MENU_SCALE) and N(0, 0.02^2)
     biases, from a numpy seed."""
     rng = np.random.default_rng(seed)
-    f = Flow(d, arch, device="cuda")
+    f = Flow(d, arch, bins=bins, device="cuda")
     scale = 0.02 * (32 / f.n_hidden) ** 0.5
     with torch.no_grad():
         for l, (w, b) in enumerate(zip(f.weights, f.biases)):
@@ -526,7 +526,7 @@ def _menu_card_flow(d, arch, seed=0):
 
 def _coupling_edge_rows(flow, y, g_l, window=1e-5):
     """Rows whose gradient two correct fp32 routes may give differently
-    (chip_smoke.edge_rows for a coupling stack): in the float64 forward some
+    (chip_smoke.knot_rows for a coupling stack): in the float64 forward some
     transformed input lies within `window` of a knot of its spline (the
     clamp edges +-B among them), where the log-det's gradient jumps and a
     rounding of ~1e-6 picks the side, and the row's dL/dladj is nonzero.
@@ -537,11 +537,13 @@ def _coupling_edge_rows(flow, y, g_l, window=1e-5):
     fp = copy.deepcopy(flow).double().params()
     near = torch.zeros(n, dtype=torch.bool, device=y.device)
     with torch.no_grad():
-        acts = ck.coupling_forward_ref(y.double(), fp.ws, fp.bs, fp.masks, save_inputs=True)[2]
+        acts = ck.coupling_forward_ref(y.double(), fp.ws, fp.bs, fp.masks, save_inputs=True,
+                                       bins=flow.bins)[2]
         for t, m in enumerate(fp.masks):
             x = acts[0][t][:, torch.as_tensor(~m, device=y.device)]
-            p = (acts[3][t] @ fp.ws[t][3] + fp.bs[t][3]).reshape(n, x.shape[1], 23)
-            near |= ((x[..., None] - tr._rqs_setup(p, 8)[0]).abs() < window).any(-1).any(-1)
+            p = (acts[3][t] @ fp.ws[t][3] + fp.bs[t][3]).reshape(n, x.shape[1], flow.n_params)
+            near |= ((x[..., None] - tr._rqs_setup(p, flow.bins)[0]).abs()
+                     < window).any(-1).any(-1)
     return near & (g_l != 0)
 
 
@@ -657,7 +659,7 @@ def test_coupling_kernels_follow_adamw_steps(cuda):
 
 def _made_edge_rows(flow, x, g_l, window=1e-5):
     """Rows of an nsf* stack at its data value x whose gradient two correct
-    fp32 routes may give differently (chip_smoke.edge_rows): in the float64
+    fp32 routes may give differently (chip_smoke.knot_rows): in the float64
     forward some transform input lies within `window` of a knot of its
     spline and the row's dL/dladj is nonzero. None for the affine head."""
     import copy
@@ -668,10 +670,11 @@ def _made_edge_rows(flow, x, g_l, window=1e-5):
         return near
     fp = copy.deepcopy(flow).double().params()
     with torch.no_grad():
-        acts = fk.made_rqs_forward_ref(x.double(), fp.ws, fp.bs, save_inputs=True)[2]
+        acts = fk.made_rqs_forward_ref(x.double(), fp.ws, fp.bs, save_inputs=True,
+                                       bins=flow.bins)[2]
         for t in range(acts[0].shape[0]):
-            p = (acts[3][t] @ fp.ws[3][t] + fp.bs[3][t]).reshape(n, d, 23)
-            knots = tr._rqs_setup(p, 8)[0]
+            p = (acts[3][t] @ fp.ws[3][t] + fp.bs[3][t]).reshape(n, d, flow.n_params)
+            knots = tr._rqs_setup(p, flow.bins)[0]
             near |= ((acts[0][t][..., None] - knots).abs() < window).any(-1).any(-1)
     return near & (g_l != 0)
 
@@ -691,12 +694,13 @@ def _kink_rows(flow, x, window=1e-5):
     near = torch.zeros(n, dtype=torch.bool, device=x.device)
     with torch.no_grad():
         if flow.kind == "nsfc":
-            xs = ck.coupling_forward_ref(x.double(), fp.ws, fp.bs, fp.masks, True)[2][0]
+            xs = ck.coupling_forward_ref(x.double(), fp.ws, fp.bs, fp.masks, True,
+                                         flow.bins)[2][0]
             nets = [(xs[t][:, torch.as_tensor(m, device=x.device)], fp.ws[t], fp.bs[t])
                     for t, m in enumerate(fp.masks)]
         else:
             xs = fk.made_rqs_forward_ref(x.double(), fp.ws, fp.bs, save_inputs=True,
-                                         head=flow.head)[2][0]
+                                         head=flow.head, bins=flow.bins)[2][0]
             nets = [(xs[t], [w[t] for w in fp.ws], [b[t] for b in fp.bs])
                     for t in range(xs.shape[0])]
         for inp, w, b in nets:
@@ -717,40 +721,41 @@ def _check_vs_float64(got, plain, exact, tol):
     assert float((got.double() - exact).abs().max()) <= limit
 
 
-def _grad_card_flow(d, arch, seed):
+def _grad_card_flow(d, arch, seed, bins=8):
     """A flow for K1-bwd's checks: ``_random_card_flow``, or past d = 50
     ``_menu_card_flow``'s output layers scaled with the fan-in (std 0.02 *
     sqrt(32 / h)), which keep the head parameters spread as at h = 32 and
     the stack well conditioned in fp32."""
     if d <= 50:
-        return _random_card_flow(d, arch, seed=seed)
-    return _menu_card_flow(d, arch, seed=seed)
+        return _random_card_flow(d, arch, seed=seed, bins=bins)
+    return _menu_card_flow(d, arch, seed=seed, bins=bins)
 
 
-def _k1_backward_case(arch, d, n):
+def _k1_backward_case(arch, d, n, bins=8):
     """K1-bwd at (arch, d, n) on K1's saved state: (got, again, plain,
     exact) with rows on a float64 knot with dL/dladj != 0 or on a ReLU kink
     left out; ``again`` the same call repeated."""
     import copy
-    f = _grad_card_flow(d, arch, seed=d)
+    f = _grad_card_flow(d, arch, seed=d, bins=bins)
+    b = f.bins
     g = torch.Generator("cuda").manual_seed(n)
     z = torch.randn(n, d, device="cuda", generator=g)
     g_x = torch.randn(n, d, device="cuda", generator=g)
     g_l = torch.randn(n, device="cuda", generator=g)
     with torch.no_grad():
         fp = f.params()
-        x, _, state = fk._launch_inverse(z, fp.ws, fp.bs, fp.inv_orders, f.head, True)
+        x, _, state = fk._launch_inverse(z, fp.ws, fp.bs, fp.inv_orders, f.head, True, b)
         edge = _made_edge_rows(f, x, g_l) | _kink_rows(f, x)
         g_x, g_l = g_x.masked_fill(edge[:, None], 0.0), g_l.masked_fill(edge, 0.0)
-        counter = "launches" if f.head == "rqs" else "launches_affine"
+        counter = fk.launch_attr(f.head, b)
         before = getattr(fk.ar_inverse_backward, counter)
-        got = fk.ar_inverse_backward(state, fp.ws, fp.bs, fp.inv_orders, g_x, g_l, f.head)
-        again = fk.ar_inverse_backward(state, fp.ws, fp.bs, fp.inv_orders, g_x, g_l, f.head)
+        got = fk.ar_inverse_backward(state, fp.ws, fp.bs, fp.inv_orders, g_x, g_l, f.head, b)
+        again = fk.ar_inverse_backward(state, fp.ws, fp.bs, fp.inv_orders, g_x, g_l, f.head, b)
         assert getattr(fk.ar_inverse_backward, counter) == before + 2
-        plain = fk.ar_inverse_vjp_ref(x, fp.ws, fp.bs, fp.inv_orders, g_x, g_l, head=f.head)
+        plain = fk.ar_inverse_vjp_ref(x, fp.ws, fp.bs, fp.inv_orders, g_x, g_l, f.head, b)
         fp64 = copy.deepcopy(f).double().params()
         exact = fk.ar_inverse_vjp_ref(x.double(), fp64.ws, fp64.bs, fp64.inv_orders,
-                                      g_x.double(), g_l.double(), head=f.head)
+                                      g_x.double(), g_l.double(), f.head, b)
     return got, again, plain, exact
 
 
@@ -955,7 +960,7 @@ def _forward_f64(fp, x, g_l, head, window=1e-5):
         if head == "rqs":
             knots = tr._rqs_setup(p, 8)[0]
             near |= ((xs[-1][..., None] - knots).abs() < window).any(-1).any(-1) & (g_l != 0)
-        xs.append(fk._ELEMENT[head][0](xs[-1], p)[0])
+        xs.append(fk._element(head)[0](xs[-1], p)[0])
     return xs[:-1], xs[-1], near
 
 
@@ -1203,3 +1208,229 @@ def test_k5_inverse_backward_through_the_save_instance(cuda, d, n):
     with torch.no_grad():
         direct = ck.coupling_inverse_backward(state, fp.ws, fp.bs, fp.masks, g_x, g_l)
     assert torch.equal(by_autograd, direct)
+
+
+# -- the spline of 2-16 bins: one library a source and bins ----------------
+
+# the bins where the kernels' layouts change: 2 (the fewest), 3 and 5 (not
+# powers of two: the warp-wide spline gathers its segments), 10 (the last
+# whose NP + 1 = 30 values fit a warp a value a lane), 11 (the first that
+# does not: K1's one-row warps run the serial spline, K1-bwd's take 8 lanes
+# a row, two bins a lane) and 16 (the most)
+BINS = (2, 3, 5, 10, 11, 16)
+
+
+@pytest.fixture(scope="module")
+def bins_libraries():
+    """Every (source, bins) library these tests load, built at once, one
+    nvcc each, all started together."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from concurrent.futures import ThreadPoolExecutor
+    from pocomc_tpu_torch.ops import _build
+    names = ("made_rqs_forward", "made_rqs_backward", "ar_inverse", "ar_inverse_backward",
+             "coupling_forward", "coupling_backward")
+    with ThreadPoolExecutor(len(names) * len(BINS)) as pool:
+        list(pool.map(lambda job: _build.build(*job), [(a, b) for a in names for b in BINS]))
+
+
+@pytest.mark.parametrize("bins", BINS)
+@pytest.mark.parametrize("n", [37, 256])
+def test_k2_and_k1_match_plain_at_bins(bins_libraries, bins, n):
+    """nsf6 at d=10 with the spline of ``bins`` bins: K2's forward and K1
+    against their plain versions (values 1e-5, log-dets 1e-4, as
+    chip_smoke's TOL[10]), the round trip forward(inverse(z)) = z within
+    1e-4, the gradient through K2 and K2-bwd by autograd against plain
+    autograd of the plain forward, and K2-bwd on the saved inputs against
+    ``made_rqs_backward_ref``, to 1e-4 of the largest gradient, rows on a
+    float64 knot left out; each wrapper counts its launches under
+    ``launch_attr("rqs", bins)``."""
+    flow = _random_card_flow(10, "nsf6", seed=bins, bins=bins)
+    attr = fk.launch_attr("rqs", bins)
+    g = torch.Generator("cuda").manual_seed(n)
+    y = torch.randn(n, 10, device="cuda", generator=g)
+    counts = lambda: [getattr(w, attr) for w in (fk.made_rqs_forward, fk.made_rqs_backward,
+                                                  fk.ar_inverse)]
+    before = counts()
+    with torch.no_grad():
+        fp = flow.params()
+        z, l = fk.made_rqs_forward(y, fp.ws, fp.bs, bins=bins)
+        x, li = fk.ar_inverse(y, fp.ws, fp.bs, fp.inv_orders, bins=bins)
+        z_r, l_r = fk.made_rqs_forward_ref(y, fp.ws, fp.bs, bins=bins)
+        x_r, li_r = fk.ar_inverse_ref(y, fp.ws, fp.bs, fp.inv_orders, bins=bins)
+        back, _ = fk.made_rqs_forward(x, fp.ws, fp.bs, bins=bins)
+    torch.testing.assert_close(z, z_r, **TOL)
+    torch.testing.assert_close(l, l_r, rtol=0, atol=LADJ)
+    torch.testing.assert_close(x, x_r, **TOL)
+    torch.testing.assert_close(li, li_r, rtol=0, atol=LADJ)
+    torch.testing.assert_close(back, y, rtol=0, atol=1e-4)
+    g_z = torch.randn(n, 10, device="cuda", generator=g)
+    g_l = torch.randn(n, device="cuda", generator=g)
+    edge = _made_edge_rows(flow, y, g_l)
+    g_z, g_l = g_z.masked_fill(edge[:, None], 0.0), g_l.masked_fill(edge, 0.0)
+    grads = []
+    for f in (fk.made_rqs_forward, fk.made_rqs_forward_ref):
+        flow.zero_grad(set_to_none=True)
+        yy = y.clone().requires_grad_(True)
+        fp = flow.params()
+        out = f(yy, fp.ws, fp.bs, bins=bins)
+        torch.autograd.backward(out, (g_z, g_l))
+        grads.append([yy.grad] + [p.grad.clone() for p in flow.parameters()])
+    for a, b in zip(*grads):
+        assert float((a - b).abs().max()) <= 1e-4 * (float(b.abs().max()) + 1e-30)
+    with torch.no_grad():
+        fp = flow.params()
+        _, _, acts = fk.made_rqs_forward(y, fp.ws, fp.bs, save_inputs=True, bins=bins)
+        got = fk.made_rqs_backward(y, fp.ws, fp.bs, g_z, g_l, acts, bins=bins)
+        want = fk.made_rqs_backward_ref(y, fp.ws, fp.bs, g_z, g_l, acts, bins=bins)
+    for a, b in zip([got[0], *got[1], *got[2]], [want[0], *want[1], *want[2]]):
+        assert float((a - b).abs().max()) <= 1e-4 * (float(b.abs().max()) + 1e-30)
+    assert counts() == [before[0] + 4, before[1] + 2, before[2] + 1]
+
+
+@pytest.mark.parametrize("bins", BINS)
+@pytest.mark.parametrize("n", [37, 256])
+def test_k5_matches_plain_at_bins(bins_libraries, bins, n):
+    """nsfc6 at d=10 with the spline of ``bins`` bins: K5's forward and
+    inverse against their plain versions (values 5e-5, log-dets 5e-4:
+    chip_smoke.COUPLING_TOL[10]), the conditioning columns of a transform
+    bit for bit, and K5's backward on the saved inputs against
+    ``coupling_backward_ref``, to 1e-4 of the largest gradient, rows on a
+    float64 knot left out."""
+    flow = _random_card_flow(10, "nsfc6", seed=bins, bins=bins)
+    attr = fk.launch_attr("rqs", bins)
+    g = torch.Generator("cuda").manual_seed(n)
+    y = torch.randn(n, 10, device="cuda", generator=g)
+    before = [getattr(w, attr) for w in (ck.coupling_forward, ck.coupling_inverse,
+                                         ck.coupling_backward)]
+    with torch.no_grad():
+        fp = flow.params()
+        for fn, ref in ((ck.coupling_forward, ck.coupling_forward_ref),
+                        (ck.coupling_inverse, ck.coupling_inverse_ref)):
+            (a, la), (b, lb) = fn(y, fp.ws, fp.bs, fp.masks, bins=bins), \
+                ref(y, fp.ws, fp.bs, fp.masks, bins=bins)
+            torch.testing.assert_close(a, b, rtol=1e-5, atol=5e-5)
+            torch.testing.assert_close(la, lb, rtol=1e-5, atol=5e-4)
+        one, _ = ck.coupling_inverse(y, fp.ws[:1], fp.bs[:1], fp.masks[:1], bins=bins)
+        assert torch.equal(one[:, fp.masks[0]], y[:, fp.masks[0]])
+        g_z = torch.randn(n, 10, device="cuda", generator=g)
+        g_l = torch.randn(n, device="cuda", generator=g)
+        edge = _coupling_edge_rows(flow, y, g_l)
+        g_z, g_l = g_z.masked_fill(edge[:, None], 0.0), g_l.masked_fill(edge, 0.0)
+        _, _, acts = ck.coupling_forward(y, fp.ws, fp.bs, fp.masks, save_inputs=True, bins=bins)
+        got = ck.coupling_backward(y, fp.ws, fp.bs, fp.masks, g_z, g_l, acts, bins=bins)
+        want = ck.coupling_backward_ref(y, fp.ws, fp.bs, fp.masks, g_z, g_l, acts, bins=bins)
+    flat = lambda g: [g[0], *[a for t in g[1] for a in t], *[a for t in g[2] for a in t]]
+    for a, b in zip(flat(got), flat(want)):
+        assert float((a - b).abs().max()) <= 1e-4 * (float(b.abs().max()) + 1e-30)
+    after = [getattr(w, attr) for w in (ck.coupling_forward, ck.coupling_inverse,
+                                        ck.coupling_backward)]
+    assert after == [before[0] + 2, before[1] + 2, before[2] + 1]
+
+
+@pytest.mark.parametrize("bins", BINS)
+@pytest.mark.parametrize("n", [37, 256])
+def test_gradient_kernels_match_plain_at_bins(bins_libraries, bins, n):
+    """K1-bwd on K1's saved state (nsf6, d=10) and K5-inv-bwd on the
+    inverse's save instance's state (nsfc6, d=10), with the spline of
+    ``bins`` bins, against ``ar_inverse_vjp_ref`` and
+    ``coupling_inverse_vjp_ref`` in float64: within 1e-4 of the largest
+    g_z, or 4x the plain fp32 version's distance where that is larger
+    (``_check_vs_float64``), rows on a knot or a ReLU kink left out; K1-bwd
+    gives the same bits twice."""
+    import copy
+    got, again, plain, exact = _k1_backward_case("nsf6", 10, n, bins)
+    assert torch.equal(got, again)
+    _check_vs_float64(got, plain, exact, 1e-4)
+    flow = _random_card_flow(10, "nsfc6", seed=bins, bins=bins)
+    g = torch.Generator("cuda").manual_seed(n)
+    z = torch.randn(n, 10, device="cuda", generator=g)
+    g_x = torch.randn(n, 10, device="cuda", generator=g)
+    g_l = torch.randn(n, device="cuda", generator=g)
+    with torch.no_grad():
+        fp = flow.params()
+        fp64 = copy.deepcopy(flow).double().params()
+        _, _, state = ck._launch_stack(z, fp.ws, fp.bs, fp.masks, True, True, "coupling_inverse",
+                                       bins)
+        x_p, _, plain_state = ck.coupling_inverse_ref(z, fp.ws, fp.bs, fp.masks, True, bins)
+        state64 = ck.coupling_inverse_ref(z.double(), fp64.ws, fp64.bs, fp64.masks, True,
+                                          bins)[2]
+        edge = _coupling_edge_rows(flow, x_p, g_l) | _kink_rows(flow, x_p)
+        g_x, g_l = g_x.masked_fill(edge[:, None], 0.0), g_l.masked_fill(edge, 0.0)
+        attr = fk.launch_attr("rqs", bins)
+        before = getattr(ck.coupling_inverse_backward, attr)
+        got = ck.coupling_inverse_backward(state, fp.ws, fp.bs, fp.masks, g_x, g_l, bins=bins)
+        assert getattr(ck.coupling_inverse_backward, attr) == before + 1
+        plain = ck.coupling_inverse_vjp_ref(plain_state, fp.ws, fp.bs, fp.masks, g_x, g_l, bins)
+        exact = ck.coupling_inverse_vjp_ref(state64, fp64.ws, fp64.bs, fp64.masks,
+                                            g_x.double(), g_l.double(), bins)
+    _check_vs_float64(got, plain, exact, 1e-4)
+
+
+@pytest.mark.parametrize("bins", BINS)
+@pytest.mark.parametrize("lanes", [32, 8])
+def test_kernel_element_vjp_at_bins(bins_libraries, bins, lanes):
+    """K1-bwd's element VJP with the spline of ``bins`` bins, warp-wide
+    (up to 10 bins; past that the entry refuses it) or on 8 lanes a row,
+    against the plain ``inverse_element_vjp`` in float64 by K5's rule
+    (``_check_vs_float64``): within 1e-4 of each tensor's largest value, or
+    4x the one-lane version's own distance where that is larger, rows
+    within 1e-5 of a knot in float64 left out. The one-lane version sums in
+    the serial order and the kernel's in another (a lane's bins, then the
+    lanes' totals), so where the largest gradients pass 100 (slopes near
+    0) both lie ~1e-4 of it from float64 (one reading: 1.13e-4 warp-wide at
+    10 bins, where the 8-bin test holds kernel to one-lane at 1e-5)."""
+    from pocomc_tpu_torch.models import transforms as tr
+    n, npar = 4093, 3 * bins - 1
+    rng = np.random.default_rng(bins)
+    x = rng.uniform(-6.0, 6.0, n).astype(np.float32)
+    x[:4] = [5.0, -5.0, 4.999999, -4.999999]
+    p = torch.from_numpy((0.5 * rng.standard_normal((n, npar))).astype(np.float32)).cuda()
+    x = torch.from_numpy(x).cuda()
+    g_x, g_l = (torch.from_numpy(rng.standard_normal(n).astype(np.float32)).cuda()
+                for _ in range(2))
+    if lanes == 32 and bins > 10:
+        with pytest.raises(RuntimeError, match="cudaError"):
+            fk._element_vjp(x, p, g_x, g_l, "rqs", lanes, bins)
+        return
+    kernel = fk._element_vjp(x, p, g_x, g_l, "rqs", lanes, bins)
+    lane = fk._element_vjp(x, p, g_x, g_l, "rqs", 1, bins)
+    exact = fk.inverse_element_vjp(x.double(), p.double(), g_x.double(), g_l.double(), "rqs",
+                                   bins)
+    knots = tr._rqs_setup(p.double(), bins)[0]
+    keep = ~((x.double()[:, None] - knots).abs() < 1e-5).any(-1)
+    for a, b, e in zip(kernel, lane, exact):
+        _check_vs_float64(a[keep], b[keep], e[keep], 1e-4)
+
+
+@pytest.mark.parametrize("bins", [11, 16])
+def test_k1_and_k1_backward_chunk_a_wide_output_group(bins_libraries, bins):
+    """nsf3 at d=342 (h=2048) with the spline of ``bins`` bins, whose
+    output group (3 bins - 1 columns, 32 or more) is too large for a ring
+    stage at this width and goes in fan-in chunks, a column a lane and
+    more columns than lanes: K1 against the plain inverse (d=50's
+    tolerances, chip_smoke's TOL[50]) and K1-bwd on its saved state against
+    the plain VJP in float64 by K5's rule (1e-3 of the largest g_z, or 4x
+    the plain fp32 version's distance), rows on a knot or a kink left
+    out."""
+    f = _grad_card_flow(342, "nsf3", seed=342, bins=bins)
+    z = torch.randn(8, 342, device="cuda", generator=torch.Generator("cuda").manual_seed(bins))
+    with torch.no_grad():
+        fp = f.params()
+        x, l = fk.ar_inverse(z, fp.ws, fp.bs, fp.inv_orders, bins=bins)
+        x_r, l_r = fk.ar_inverse_ref(z, fp.ws, fp.bs, fp.inv_orders, bins=bins)
+    torch.testing.assert_close(x, x_r, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(l, l_r, rtol=0, atol=2e-3)
+    got, again, plain, exact = _k1_backward_case("nsf3", 342, 8, bins)
+    assert torch.equal(got, again)
+    _check_vs_float64(got, plain, exact, 1e-3)
+
+
+def test_bins_past_16_raise_at_construction_on_card(cuda):
+    """Flow(device="cuda") refuses a spline of 17 bins when it is built,
+    naming its ROADMAP item; a maf flow keeps any bins."""
+    with pytest.raises(NotImplementedError, match="bins > 16 on CUDA"):
+        Flow(4, "nsf6", bins=17, device="cuda")
+    with pytest.raises(NotImplementedError, match="bins > 16 on CUDA"):
+        Flow(4, "nsfc6", bins=17, device="cuda")
+    assert Flow(4, "maf6", bins=17, device="cuda").bins == 17

@@ -63,12 +63,12 @@ def t(a):
     return torch.from_numpy(np.array(a, dtype=np.float32))
 
 
-def random_params(d, arch, seed, scale=0.02):
+def random_params(d, arch, seed, scale=0.02, bins=8):
     """A JAX flow with random non-zero weights (tests/test_torch_flow_menu.py's
     recipe): the init hidden layers, N(0, scale^2) output weights and
     biases, and a random whitening pre-layer; returns (the JAX flow, its
     params as numpy)."""
-    jf = JFlow(d, arch, seed=seed)
+    jf = JFlow(d, arch, bins=bins, seed=seed)
     rng = np.random.default_rng(seed + 100)
     params = jax.tree_util.tree_map(np.array, jax.device_get(jf.params))
     stack = params["stack"]
@@ -96,18 +96,21 @@ def knot_rows(flow, y, g_l, window=1e-5):
         return near
     f64 = copy.deepcopy(flow).double()
     fp = f64.params()
+    bins, n_params = flow.bins, flow.n_params
     with torch.no_grad():
         if flow.kind == "nsfc":
-            acts = ck.coupling_forward_ref(y.double(), fp.ws, fp.bs, fp.masks, True)[2]
+            acts = ck.coupling_forward_ref(y.double(), fp.ws, fp.bs, fp.masks, True, bins)[2]
             for k, m in enumerate(fp.masks):
                 x = acts[0][k][:, torch.as_tensor(~m)]
-                p = (acts[3][k] @ fp.ws[k][3] + fp.bs[k][3]).reshape(n, x.shape[1], 23)
-                near |= ((x[..., None] - tr._rqs_setup(p, 8)[0]).abs() < window).any(-1).any(-1)
+                p = (acts[3][k] @ fp.ws[k][3] + fp.bs[k][3]).reshape(n, x.shape[1], n_params)
+                near |= ((x[..., None] - tr._rqs_setup(p, bins)[0]).abs()
+                         < window).any(-1).any(-1)
         else:
-            acts = fk.made_rqs_forward_ref(y.double(), fp.ws, fp.bs, save_inputs=True)[2]
+            acts = fk.made_rqs_forward_ref(y.double(), fp.ws, fp.bs, save_inputs=True,
+                                           bins=bins)[2]
             for k in range(acts[0].shape[0]):
-                p = (acts[3][k] @ fp.ws[3][k] + fp.bs[3][k]).reshape(n, d, 23)
-                near |= ((acts[0][k][..., None] - tr._rqs_setup(p, 8)[0]).abs()
+                p = (acts[3][k] @ fp.ws[3][k] + fp.bs[3][k]).reshape(n, d, n_params)
+                near |= ((acts[0][k][..., None] - tr._rqs_setup(p, bins)[0]).abs()
                          < window).any(-1).any(-1)
     return near & (g_l != 0)
 
@@ -122,16 +125,20 @@ def assert_grad_close(got, want, keep=None, tol=GRAD_TOL):
 
 # -- the flows' inverse gradients ------------------------------------------
 
-@pytest.mark.parametrize("arch,d", [("nsf3", 2), ("nsf3", 4), ("nsf6", 10), ("maf3", 4),
-                                    ("nsfc3", 4)])
-def test_inverse_gradient_matches_jax(arch, d):
+@pytest.mark.parametrize("arch,d,bins", [
+    *(pytest.param(arch, d, 8, id=f"{arch}-{d}")
+      for arch, d in [("nsf3", 2), ("nsf3", 4), ("nsf6", 10), ("maf3", 4), ("nsfc3", 4)]),
+    pytest.param("nsf3", 4, 16, id="nsf3-4-bins16"),
+    pytest.param("nsfc3", 4, 16, id="nsfc3-4-bins16")])
+def test_inverse_gradient_matches_jax(arch, d, bins):
     """g_z of a loss on the flow's inverse (x and the log-det, dL/dladj
     nonzero), pre-layer included: autograd of the port's plain inverse,
     and the kernels' twin on the stack (the pre-layer's linear VJP
-    around it), against jax.vjp of the JAX ``Flow.kernel_inv``. The twin
-    also matches autograd of the port's plain stack inverse."""
-    jf, params = random_params(d, arch, seed=d)
-    flow = load_flow_params(Flow(d, arch, device="cpu"), params)
+    around it), against jax.vjp of the JAX ``Flow.kernel_inv``, at the
+    spline's ``bins``. The twin also matches autograd of the port's plain
+    stack inverse."""
+    jf, params = random_params(d, arch, seed=d, bins=bins)
+    flow = load_flow_params(Flow(d, arch, bins=bins, device="cpu"), params)
     rng = np.random.default_rng(d)
     z, g_x = (rng.standard_normal((N, d)).astype(np.float32) for _ in range(2))
     g_l = rng.standard_normal(N).astype(np.float32)
@@ -146,11 +153,12 @@ def test_inverse_gradient_matches_jax(arch, d):
         y, _ = flow.stack_inverse(t(z), fp)
         g_y = t(g_x) @ fp.pre["w_inv"].T
         if flow.kind == "nsfc":
-            state = ck.coupling_inverse_ref(t(z), fp.ws, fp.bs, fp.masks, save_inputs=True)[2]
-            twin = ck.coupling_inverse_vjp_ref(state, fp.ws, fp.bs, fp.masks, g_y, t(g_l))
+            state = ck.coupling_inverse_ref(t(z), fp.ws, fp.bs, fp.masks, save_inputs=True,
+                                            bins=bins)[2]
+            twin = ck.coupling_inverse_vjp_ref(state, fp.ws, fp.bs, fp.masks, g_y, t(g_l), bins)
         else:
             twin = fk.ar_inverse_vjp_ref(y, fp.ws, fp.bs, fp.inv_orders, g_y, t(g_l),
-                                         flow.head)
+                                         flow.head, bins)
         keep = ~knot_rows(flow, y, t(g_l)).numpy()
     assert keep.sum() >= N - 2
     assert_grad_close(by_autograd, want, keep)
@@ -170,7 +178,7 @@ def test_inverse_element_vjp_matches_autograd(head):
     z, p = t(z), t(0.5 * rng.standard_normal((256, n_params)))
     g_x, g_l = t(rng.standard_normal(256)), t(rng.standard_normal(256))
     zz, pp = z.clone().requires_grad_(True), p.clone().requires_grad_(True)
-    x, ladj = fk._ELEMENT[head][2](zz, pp)
+    x, ladj = fk._element(head)[2](zz, pp)
     g_z, g_p = torch.autograd.grad((x, ladj), (zz, pp), (g_x, g_l))
     got_z, got_p = fk.inverse_element_vjp(x.detach(), p, g_x, g_l, head)
     assert_grad_close(got_z, g_z)

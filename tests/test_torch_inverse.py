@@ -233,6 +233,31 @@ def test_k1_backward_config_refuses_where_k1_does():
             config(1, 2731, 16384)
 
 
+@pytest.mark.parametrize("bins", [2, 5, 11, 16])
+@pytest.mark.parametrize("n", [1, 256, 4096])
+@pytest.mark.parametrize("d", [10, 50, 2730])
+def test_k1_configs_at_bins(d, n, bins):
+    """K1's and K1-bwd's plans with the spline of ``bins`` bins: the output
+    group OG is NP + 1 rounded up to 8 (csrc/heads.cuh; 8 at 2 bins, 48 at
+    16), the widest group max(24, OG); the block's shared memory with rows
+    of 3h + 3d + OG (K1) and 3h + 3 ceil(h/32) + 2d + OG (K1-bwd) floats
+    fits 227 KB, a stage holds at least 5 widest groups' worth (the C
+    entries' check) and 33 rows of one, up to h = 8192 (d = 2730); from h =
+    16384 both refuse, as at 8 bins."""
+    h = max(1 << (3 * d - 1).bit_length(), 32)
+    og = -(-(3 * bins) // 8) * 8
+    widest = max(24, og)
+    assert fk._out_group("rqs", bins) == og
+    for config, row in ((fk._launch_config, 3 * h + 3 * d + og),
+                        (fk._backward_config, 3 * h + 3 * -(-h // 32) + 2 * d + og)):
+        R, W, S, SL, blocks, smem = config(n, d, h, "rqs", bins)
+        assert smem == 16 * S + 4 * (S * SL + R * W * row) and smem <= 227 * 1024
+        assert SL >= 5 * widest and ((SL - widest) // widest) & ~3 >= 32
+        assert blocks == -(-n // (R * W))
+        with pytest.raises(ValueError, match="shared memory"):
+            config(1, 2731, 16384, "rqs", bins)
+
+
 def _round4(v):
     return (v + 3) // 4 * 4
 
@@ -340,14 +365,16 @@ def back_schedule(groups, size, SL, R):
 @pytest.mark.parametrize("R", [1, 2])
 @pytest.mark.parametrize("d,h,T,n_params,SL", [
     (2, 32, 2, 23, 4096), (4, 32, 2, 23, 4096), (10, 32, 3, 23, 4096), (10, 32, 2, 2, 4096),
-    (50, 256, 2, 23, 6168), (17, 64, 2, 23, 240), (10, 32, 2, 23, 120)])
+    (50, 256, 2, 23, 6168), (17, 64, 2, 23, 240), (10, 32, 2, 23, 120),
+    (10, 32, 2, 5, 4096), (10, 32, 2, 47, 4096), (17, 64, 2, 47, 240)])
 def test_k1_backward_stages_hold_the_groups_in_reverse(d, h, T, n_params, SL, R):
     """What K1-bwd's consumers read from its ring, in the plain mirror
     ``back_schedule``, is the pack's groups in walk_back order: each whole
     group's columns and biases, each chunk's rows of every column, every
     stage taken once. Stages of 4,096 floats hold several steps' groups at
     d <= 10; 240 and 120 floats cut the wide groups into chunks (120: 4
-    rows of a 24-column group)."""
+    rows of a 24-column group; 240: 4 rows of the 47-column output group
+    of a 16-bin spline)."""
     groups, size = pack_groups(d, h, T, n_params)
     reads, taken, filled = back_schedule(groups, size, SL, R)
     assert taken == filled

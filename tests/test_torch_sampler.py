@@ -113,17 +113,19 @@ def test_train_phase_fits_and_keeps_input_on_nonfinite_loss():
 
 
 @pytest.mark.parametrize("kwargs,match", [
-    (dict(bins=16), "bins != 8"),
+    (dict(bins=17), "bins > 16 on CUDA"),
     (dict(mesh="data"), "multi-GPU"),
     (dict(mesh=object()), "multi-GPU"),
 ])
 def test_unported_paths_raise(kwargs, match):
     """What the port still lacks raises NotImplementedError naming its
-    ROADMAP item: a mesh of any form, and spline bins other than 8 (which
-    only a restored JAX state sets; the flow refuses them)."""
+    ROADMAP item: a mesh of any form, and spline bins past 16 on CUDA (held
+    through the check that Flow(device="cuda") and the kernel wrappers
+    call, so that it runs without a card)."""
+    from pocomc_tpu_torch.ops.flow_kernels import check_bins
     with pytest.raises(NotImplementedError, match=match):
         if "bins" in kwargs:
-            Flow(3, "nsf3", device="cpu", **kwargs)
+            check_bins(kwargs["bins"], cuda=True)
         else:
             tpc.Sampler(prior(), gauss_like, **small(), **kwargs)
 
