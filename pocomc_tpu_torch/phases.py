@@ -20,6 +20,14 @@ The JAX package runs each phase as one compiled program and pipelines them
 behind a remote link; here the host syncs once per iteration instead, so
 the enqueue-ahead and its ``terminated`` no-op gating have no counterpart.
 The history buffers are updated in place (``push_history``).
+
+With a ``mesh`` (``parallel/mesh.py``) the history's u, x and logdetj hold
+this rank's rows of every slot, while logl, logp, beta and logz, and so
+all of phase A, stay replicated (trimming sorts the whole flat weight
+vector): the rows phase A selects and phase C resamples are gathered from
+their owners (``take_rows``), phase B trains on each batch's rows split
+over the ranks, and phase C sweeps this rank's block of the resampled
+population and gathers its logl and logp.
 """
 
 from __future__ import annotations
@@ -34,6 +42,7 @@ from .models.geometry import fit_geometry
 from .ops.resampling import multinomial_resample_torch, systematic_resample_torch
 from .ops.weights import (ess_torch, uss_torch, trim_weights_torch,
                           mis_denominator_torch, logw_from_denominator_torch)
+from .parallel.mesh import block, gather_rows, map_rows, take_rows
 
 # length of phase A's stats vector: [beta, logz, metric_at_beta, n_eff_next,
 # uss_active]
@@ -43,7 +52,8 @@ STATS_A_LEN = 5
 @dataclasses.dataclass
 class DeviceHistory:
     """Fixed-shape persistent-sampling history: T_max slots of n particles,
-    the first ``t`` of them filled."""
+    the first ``t`` of them filled (u, x and logdetj: this rank's rows on a
+    mesh)."""
     u: torch.Tensor        # (T_max, n, d)
     x: torch.Tensor        # (T_max, n, d)
     logdetj: torch.Tensor  # (T_max, n)
@@ -58,8 +68,9 @@ class DeviceHistory:
         return torch.arange(self.logl.shape[0], device=self.logl.device) < self.t
 
 
-def history_from_numpy(u, x, logdetj, logl, logp, beta, logz, t_max, device):
-    """Padded fp32 device buffers from stacked (t, n[, d]) host arrays."""
+def history_from_numpy(u, x, logdetj, logl, logp, beta, logz, t_max, device, mesh=None):
+    """Padded fp32 device buffers from stacked (t, n[, d]) host arrays; on a
+    mesh, u, x and logdetj keep this rank's rows (``shard_history``)."""
     t = logl.shape[0]
     if t > t_max:
         raise ValueError(f"{t} stored iterations exceed t_max={t_max}")
@@ -70,9 +81,11 @@ def history_from_numpy(u, x, logdetj, logl, logp, beta, logz, t_max, device):
         out[:t] = a
         return torch.from_numpy(out).to(device)
 
-    return DeviceHistory(u=pad(u), x=pad(x), logdetj=pad(logdetj), logl=pad(logl),
-                         logp=pad(logp), beta=pad(np.reshape(beta, t)),
-                         logz=pad(np.reshape(logz, t)), t=t)
+    rows = dict(u=pad(u), x=pad(x), logdetj=pad(logdetj))
+    if mesh is not None:
+        rows = mesh.shard_history(rows)
+    return DeviceHistory(**rows, logl=pad(logl), logp=pad(logp),
+                         beta=pad(np.reshape(beta, t)), logz=pad(np.reshape(logz, t)), t=t)
 
 
 def grow_history(hist: DeviceHistory, t_max: int) -> DeviceHistory:
@@ -111,7 +124,7 @@ def _metric(w, valid_flat, metric):
 
 def reweight(hist, n_effective, n_total, resid_prev, n_select, n_active,
              metric="ess", dynamic=True, dynamic_ratio=1.0, trim_ess=0.99,
-             trim_bins=1000, n_bisect=26, bias_budget=0.0):
+             trim_bins=1000, n_bisect=26, bias_budget=0.0, mesh=None):
     """Phase A. ``n_effective`` and ``resid_prev`` are 0-d device tensors
     chained from the previous iteration. Returns a dict with beta, logz,
     w_flat (S,), u_sel (K, d), w_sel (K,), stats (5,)."""
@@ -164,7 +177,7 @@ def reweight(hist, n_effective, n_total, resid_prev, n_select, n_active,
     w_t = trim_weights_torch(w, valid_flat, ess=trim_ess, bins=trim_bins)
     w_sel, idx = torch.topk(w_t, n_select)
     w_sel = w_sel / w_sel.sum()
-    u_sel = hist.u.reshape(T_max * n, -1)[idx]
+    u_sel = take_rows(mesh, hist.u, idx, n)
     stats = torch.stack([beta, logz, m_at, n_eff_next.to(beta), nu_active])
     return dict(beta=beta, logz=logz, w_flat=w_t, u_sel=u_sel, w_sel=w_sel,
                 stats=stats)
@@ -172,10 +185,12 @@ def reweight(hist, n_effective, n_total, resid_prev, n_select, n_active,
 
 def train(flow, u_sel, w_sel, generator, batch_size, validation_split=0.5,
           epochs=5000, patience=10, learning_rate=1e-3, weight_decay=0.0,
-          clip_grad_norm=1.0, laplace_scale=None, gaussian_scale=None):
+          clip_grad_norm=1.0, laplace_scale=None, gaussian_scale=None, mesh=None):
     """Phase B: fit ``flow`` in place on the weighted set, then refit the
     proposal geometry in its latent space. Returns (geom, stats) with
-    stats = [epochs run, best monitored loss]."""
+    stats = [epochs run, best monitored loss]. On a mesh the fit is data
+    parallel (``fit_stack``); the latent rows are mapped a block a rank and
+    gathered, and the geometry is fitted on them replicated."""
     n_select, n_dim = u_sel.shape
     use_val = validation_split > 0
     n_train = int(validation_split * n_select) if use_val else n_select
@@ -204,20 +219,20 @@ def train(flow, u_sel, w_sel, generator, batch_size, validation_split=0.5,
         flow, xt, wt, xv, wv, n_train, n_val, bs, generator, epochs=epochs,
         patience=patience, learning_rate=learning_rate, weight_decay=weight_decay,
         clip_grad_norm=clip_grad_norm, laplace_scale=laplace_scale,
-        gaussian_scale=gaussian_scale)
+        gaussian_scale=gaussian_scale, mesh=mesh)
     if not ok:
         # a fit that never reached a finite loss keeps the INPUT params and
         # the pre-layer they were trained against
         flow.set_pre(pre_prev)
 
     with torch.no_grad():
-        theta, _ = flow.forward(u_sel)
+        theta = map_rows(mesh, lambda a: flow.forward(a)[0], u_sel)
         geom = fit_geometry(theta, w_sel, generator)
     return geom, torch.tensor([float(ei), best_loss], device=dev)
 
 
 def mutate(hist, beta, logz, w_flat, u_sel, w_sel, sigma0, geom, fp, sweep, scp,
-           generator, n_active, resample="mult", metric="ess"):
+           generator, n_active, resample="mult", metric="ess", mesh=None):
     """Phase C: resample from the flat history weights, sweep, push the new
     stage and compute the termination metric. A sweep without the flow
     fits its u-space geometry here on phase A's set (u_sel, w_sel), every
@@ -225,20 +240,22 @@ def mutate(hist, beta, logz, w_flat, u_sel, w_sel, sigma0, geom, fp, sweep, scp,
     takes phase B's. Returns the stats vector [accept, steps, calls,
     proposal_scale, metric_at_beta1, mean_logl_logp, noop, corr, resid,
     hot, z_logl, z_dim, nu, misfit, resid_exit]."""
-    T_max, n, d = hist.u.shape
+    T_max, n = hist.logl.shape
     if not sweep.preconditioned:
         geom = fit_geometry(u_sel, w_sel, generator)
     resampler = (multinomial_resample_torch if resample == "mult"
                  else systematic_resample_torch)
     idx = resampler(n_active, w_flat, generator)
-    take = lambda a: a.reshape(T_max * n, *a.shape[2:])[idx]
+    # this rank's block of the resampled population, from every rank's rows
+    take = lambda a: block(mesh, take_rows(mesh, a, idx, n))
+    take_replicated = lambda a: block(mesh, a.reshape(T_max * n)[idx])
     t_prev = max(hist.t - 1, 0)
     dbeta = torch.clamp(beta - hist.beta[t_prev], min=0.0)
     res = sweep.run(take(hist.u), take(hist.x), take(hist.logdetj),
-                    take(hist.logl), take(hist.logp), beta, sigma0, geom, fp, scp,
-                    generator, dbeta=dbeta)
-    push_history(hist, res["u"], res["x"], res["logdetj"], res["logl"],
-                 res["logp"], beta, logz)
+                    take_replicated(hist.logl), take_replicated(hist.logp), beta, sigma0,
+                    geom, fp, scp, generator, dbeta=dbeta)
+    logl, logp = gather_rows(mesh, torch.stack([res["logl"], res["logp"]], 1)).unbind(1)
+    push_history(hist, res["u"], res["x"], res["logdetj"], logl, logp, beta, logz)
 
     valid = hist.valid
     valid_flat = valid.repeat_interleave(n)
@@ -247,7 +264,7 @@ def mutate(hist, beta, logz, w_flat, u_sel, w_sel, sigma0, geom, fp, sweep, scp,
     f = lambda v: torch.as_tensor(v, device=beta.device).to(beta.dtype).reshape(())
     return torch.stack([
         f(res["accept"]), f(res["steps"]), f(res["calls"]), f(res["proposal_scale"]),
-        _metric(w1, valid_flat, metric), (res["logl"] + res["logp"]).mean(),
+        _metric(w1, valid_flat, metric), (logl + logp).mean(),
         f(0.0), f(res["corr"]), f(res["resid"]), f(res["hot"]), f(res["z_logl"]),
         f(res["z_dim"]), torch.clamp(geom["t_nu"], max=1e6).to(beta.dtype),
         f(res["misfit"]), f(res["resid_exit"])])

@@ -121,7 +121,7 @@ def test_profile_dir_writes_trace(tmp_path):
 
 
 def test_reference_keywords():
-    """Every JAX keyword but mesh is accepted: compile_cache is ignored,
+    """Every JAX keyword is accepted: compile_cache is ignored,
     n_leapfrog is validated and kept (and reaches hmc's sweep),
     output_dir/output_label default to states/pmc."""
     s = tpc.Sampler(make_prior(), gauss_like, compile_cache=False, n_leapfrog=3,
@@ -140,7 +140,7 @@ def test_reference_keywords():
     # every class of both __all__s: __init__ and each public method take
     # JAX's parameters in JAX's positional order, up to ALLOWED
     classes = [k for k in jpc.__all__ if k in tpc.__all__ and inspect.isclass(getattr(jpc, k))]
-    assert len(classes) == 19
+    assert len(classes) == 20  # ParticleMesh among them
     for name in classes:
         jcls, tcls = getattr(jpc, name), getattr(tpc, name)
         for meth in [m for m in dir(jcls) if m == "__init__" or not m.startswith("_")]:
@@ -181,7 +181,7 @@ ALLOWED_EXTRA = {("Flow", "forward"): ("fp",), ("Flow", "inverse"): ("fp",),
 
 
 def test_public_names_match_jax():
-    assert set(tpc.__all__) == set(jpc.__all__) - {"ParticleMesh", "initialize_distributed"}
+    assert set(tpc.__all__) == set(jpc.__all__)
     assert all(hasattr(tpc, k) for k in tpc.__all__)
     assert tpc.__version__ == jpc.__version__ == tpc.version
 

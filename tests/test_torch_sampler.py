@@ -8,6 +8,7 @@ import pytest
 import torch
 from scipy.stats import norm
 
+import pocomc_tpu as jpc
 import pocomc_tpu_torch as tpc
 from pocomc_tpu_torch import phases
 from pocomc_tpu_torch.models.flow import Flow
@@ -114,20 +115,26 @@ def test_train_phase_fits_and_keeps_input_on_nonfinite_loss():
 
 @pytest.mark.parametrize("kwargs,match", [
     (dict(bins=17), "bins > 16 on CUDA"),
-    (dict(mesh="data"), "multi-GPU"),
-    (dict(mesh=object()), "multi-GPU"),
+    (dict(mesh="data"), "has no attribute"),
+    (dict(mesh=object()), "has no attribute"),
 ])
 def test_unported_paths_raise(kwargs, match):
     """What the port still lacks raises NotImplementedError naming its
-    ROADMAP item: a mesh of any form, and spline bins past 16 on CUDA (held
-    through the check that Flow(device="cuda") and the kernel wrappers
-    call, so that it runs without a card)."""
+    ROADMAP item: spline bins past 16 on CUDA (held through the check that
+    Flow(device="cuda") and the kernel wrappers call, so that it runs
+    without a card). A mesh that is not a ParticleMesh fails as in the JAX
+    package, with an AttributeError at construction (JAX reads its
+    ``multihost``, the port its ``device``)."""
     from pocomc_tpu_torch.ops.flow_kernels import check_bins
-    with pytest.raises(NotImplementedError, match=match):
-        if "bins" in kwargs:
+    if "bins" in kwargs:
+        with pytest.raises(NotImplementedError, match=match):
             check_bins(kwargs["bins"], cuda=True)
-        else:
-            tpc.Sampler(prior(), gauss_like, **small(), **kwargs)
+        return
+    with pytest.raises(AttributeError, match=match):
+        tpc.Sampler(prior(), gauss_like, **small(), **kwargs)
+    with pytest.raises(AttributeError, match=match):
+        jpc.Sampler(jpc.Prior([jpc.Normal(0.0, 5.0)] * D), gauss_like, vectorize=True,
+                    n_active=64, n_effective=128, **kwargs)
 
 
 def gauss_row(x):
@@ -164,15 +171,15 @@ def test_black_box_options_construct_and_route(kwargs, route, device_loop):
 
 
 def test_unported_run_options_raise():
-    """What the port still refuses is refused at construction, before a
-    run: the mesh and the gradient kernels; run()'s own options are
-    validated."""
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
-        tpc.Sampler(prior(), gauss_like, mesh=object(), **small())
-    s = tpc.Sampler(prior(), gauss_like, **small())
+    """run()'s own options are validated before a run, here on a mesh of
+    one rank without a process group (every collective the identity),
+    which then runs to the analytic gate."""
+    s = tpc.Sampler(prior(), gauss_like, mesh=tpc.ParticleMesh(), **small())
     with pytest.raises(ValueError, match="save_every"):
         s.run(n_total=256, save_every=0, progress=False)
     assert s.t == 0 and s.calls == 0
+    s.run(n_total=256, n_evidence=256, progress=False)
+    assert abs(s.logz - D * norm.logpdf(0.0, 0.0, math.sqrt(26.0))) < 0.5
 
 
 def test_checkpoint_run_options_construct_and_run(tmp_path):

@@ -86,13 +86,21 @@ def test_fit_epoch_chunk_is_checked_and_runs(chunk):
 
 def test_fit_rejects_what_jax_rejects_and_a_mesh():
     """A non-integer epoch_chunk raises ValueError in both packages before
-    training; a mesh raises NotImplementedError naming its ROADMAP item."""
+    training; a mesh whose device is not the flow's raises ValueError, and
+    a one-rank mesh (no process group) fits as the meshless fit does, bit
+    for bit."""
     x = _fit_rows()
     for flow in (jpc.Flow(2, "nsf3"), tpc.Flow(2, "nsf3", device="cpu")):
         with pytest.raises(ValueError):
             flow.fit(x, epochs=1, epoch_chunk="many")
-    with pytest.raises(NotImplementedError, match="queue 1 item 3"):
-        tpc.Flow(2, "nsf3", device="cpu").fit(x, epochs=1, mesh=object())
+    with pytest.raises(ValueError, match="mesh device"):
+        tpc.Flow(2, "nsf3", device="cpu").fit(x, epochs=1,
+                                              mesh=tpc.ParticleMesh(devices=["meta"]))
+    kw = dict(epochs=2, batch_size=32, patience=5, seed=0)
+    a, b = tpc.Flow(2, "nsf3", device="cpu"), tpc.Flow(2, "nsf3", device="cpu")
+    assert a.fit(x, **kw) == b.fit(x, mesh=tpc.ParticleMesh(), **kw)
+    for p, q in zip(a.parameters(), b.parameters()):
+        assert torch.equal(p, q)
 
 
 def test_sample_defaults_to_one_draw():
