@@ -132,7 +132,7 @@ printing one JSON line:
      spline-head kernel against its plain version (and float64 where
      phases 4 and 13 hold it so) at those phases' tolerances and exclusion
      windows: K2, its gradient end to end, K2-bwd, K1 and its round trip at
-     2, 5 and 16 bins at (d, n) = (10, 256), and at 16 bins also at
+     5 and 16 bins at (d, n) = (10, 256), and at 16 bins also at
      (10, 2048), (10, 4096) (K1's two- and four-row launches), (50, 1024)
      and nsf3 at (342, 64); K5's forward, inverse and backward at the same
      bins at (10, 256) and 16 bins at (50, 1024); K1-bwd and K5-inv-bwd at
@@ -157,9 +157,23 @@ printing one JSON line:
      logZ in the gate, launches of K1, K2 and K2-bwd on each rank, no sweep
      K1 launch past 128 rows and no black-box sweep call past n_active/2
      rows; the backend, the walls beside phase 6's and the all_reduce
-     calls a sweep step are printed.
+     calls a sweep step are printed;
+ 16. ``custom_flow``, ``Sampler(flow=<a protocol object>)`` and the live
+     sweep stats (``mcmc.set_live_sink``), each run with ``progress=True``
+     (the bar's text kept off the log): (a) phase 6's quickstart with
+     ``flow=`` a plain object that holds a stock ``Flow(10, "nsf6")`` and
+     forwards every protocol member to it, device surface included: the
+     device loop, phase 6's logZ and calls bit for bit, phase 6's K1, K2
+     and K2-bwd launch counts, and at least (sweep steps - 2 x sweeps)
+     live progress-bar updates; (b) the protocol-minimal ``AffineFlow`` of
+     tests/test_observability.py in torch on its problem (d=2,
+     n_effective 256, n_active 128, n_total 512, n_evidence 1024): the
+     host loop, logZ within max(4 logz_err, 0.3) of 2 * norm.logpdf(0, 0,
+     sqrt(26)), no stock flow kernel, and a pickle round trip that keeps
+     the object, its parameters and the evidence. Each run's wall, calls,
+     logZ, loop, live updates and phase seconds are printed.
 
-Every path (phases 6-15) runs with the launch counts set to 0 just before
+Every path (phases 6-16) runs with the launch counts set to 0 just before
 it and read just after, and fails unless every kernel of the path ran.
 Then the kernels line and, last, the contract
 line. Any failed check exits non-zero before those two lines. Without a
@@ -263,9 +277,11 @@ def element_vjp_ops(head, bins=8):
 
 
 # phase 14: the spline bins whose libraries phase 2 builds beside the
-# default 8 (2 the fewest, 5 not a power of two, 12 past the 10 whose
-# parameters fit a warp's lanes, 16 the most), and the bins timed
-SPLINE_BINS = (2, 5, 16)
+# default 8 (5 not a power of two, 16 the most, past the 10 whose
+# parameters fit a warp's lanes), and the bins timed. The fewest, 2, is
+# held by the CPU tests and the `gpu` tests' bins cases (2, 3, 5, 10, 11,
+# 16), not here: each bins costs six libraries of the build
+SPLINE_BINS = (5, 16)
 TIMED_BINS = 16
 
 
@@ -497,6 +513,207 @@ def reference_surface(pt, fk, log_like, main, states, device="cuda", mesh=None, 
     shutil.rmtree(states, ignore_errors=True)
     return dict(runs=rows, states_saved=saved, roundtrip_bit_for_bit=same,
                 generator=s._gen.device.type), launches
+
+
+class HostDelegatingFlow:
+    """A plain object of the preconditioner protocol
+    (``pocomc_tpu_torch.models.protocol``), not a ``Flow``: it holds a stock
+    ``Flow`` and forwards every member and the checkpoint pair to it, but
+    not the device loop's surface (so the host loop runs)."""
+
+    def __init__(self, flow):
+        self.inner = flow
+
+    def params(self):
+        return self.inner.params()
+
+    def kernel_fwd(self, u, fp=None):
+        return self.inner.kernel_fwd(u, fp)
+
+    def kernel_inv(self, theta, fp=None):
+        return self.inner.kernel_inv(theta, fp)
+
+    def forward(self, u, fp=None):
+        return self.inner.forward(u, fp)
+
+    def sample(self, size=1, generator=None, fp=None):
+        return self.inner.sample(size, generator, fp)
+
+    def sample_t(self, size, nu, generator=None, fp=None):
+        return self.inner.sample_t(size, nu, generator, fp)
+
+    def fit(self, x, weights=None, **kwargs):
+        return self.inner.fit(x, weights=weights, **kwargs)
+
+    def state_dict(self):
+        return self.inner.state_dict()
+
+    def load_state_dict(self, state):
+        return self.inner.load_state_dict(state)
+
+
+class DelegatingFlow(HostDelegatingFlow):
+    """Phase 16 (a)'s custom flow: ``HostDelegatingFlow`` with the device
+    loop's surface (``protocol.DEVICE_SURFACE``) forwarded too."""
+
+    def parameters(self):
+        return self.inner.parameters()
+
+    def _loss_fn(self, *args, **kwargs):
+        return self.inner._loss_fn(*args, **kwargs)
+
+    def get_pre(self):
+        return self.inner.get_pre()
+
+    def set_pre(self, pre):
+        self.inner.set_pre(pre)
+
+    @property
+    def whiten(self):
+        return self.inner.whiten
+
+    @property
+    def whiten_mode(self):
+        return self.inner.whiten_mode
+
+    def _latent_draws(self, size, generator=None, nu=None):
+        return self.inner._latent_draws(size, generator, nu)
+
+
+class AffineFlow:
+    """Phase 16 (b)'s protocol-minimal flow, the torch translation of
+    tests/test_observability.py's: u = theta * exp(log_sigma) + mu, its
+    parameters a ``params`` attribute, fitted in closed form (weighted mean
+    and variance), with no device surface (so the host loop runs). The
+    port's tests drive these custom flows on the CPU too."""
+
+    def __init__(self, n_dim, device="cuda"):
+        self.n_dim = n_dim
+        self.params = dict(mu=torch.zeros(n_dim, device=device),
+                           log_sigma=torch.zeros(n_dim, device=device))
+
+    def _fp(self, fp):
+        return self.params if fp is None else fp
+
+    def kernel_fwd(self, u, fp=None):
+        p = self._fp(fp)
+        return ((u - p["mu"]) * torch.exp(-p["log_sigma"]),
+                p["log_sigma"].sum().expand(u.shape[0]).clone())
+
+    def kernel_inv(self, theta, fp=None):
+        p = self._fp(fp)
+        return (theta * torch.exp(p["log_sigma"]) + p["mu"],
+                p["log_sigma"].sum().expand(theta.shape[0]).clone())
+
+    def forward(self, u, fp=None):
+        theta, ladj = self.kernel_fwd(u, fp)
+        return theta, -ladj
+
+    def sample(self, size=1, generator=None, fp=None):
+        p = self._fp(fp)
+        z = torch.randn(size, self.n_dim, generator=generator, device=p["mu"].device)
+        logq = (-0.5 * (z * z).sum(-1) - 0.5 * self.n_dim * math.log(2 * math.pi)
+                - p["log_sigma"].sum())
+        return z * torch.exp(p["log_sigma"]) + p["mu"], logq
+
+    def fit(self, x, weights=None, **kwargs):
+        x = np.asarray(x, dtype=np.float64)
+        w = np.ones(len(x)) if weights is None else np.asarray(weights, dtype=np.float64)
+        w = w / w.sum()
+        mu = (w[:, None] * x).sum(0)
+        var = (w[:, None] * (x - mu) ** 2).sum(0)
+        dev = self.params["mu"].device
+        self.params = dict(mu=torch.as_tensor(mu, dtype=torch.float32, device=dev),
+                           log_sigma=torch.as_tensor(0.5 * np.log(np.maximum(var, 1e-12)),
+                                                     dtype=torch.float32, device=dev))
+        return self
+
+
+def gauss2_like(x):
+    """Phase 16 (b)'s likelihood, the 2-D unit Gaussian (module level, so a
+    sampler holding it pickles)."""
+    return -0.5 * (x * x).sum(-1) - math.log(2 * math.pi)
+
+
+def custom_flow(pt, fk, log_like, main, main_launches):
+    """Phase 16 (see the module docstring): ``main`` holds phase 6's logz,
+    calls and iterations, ``main_launches`` its launches. Returns (the
+    numbers to report, (a)'s launches); exits through ``fail`` on a failed
+    check."""
+    import contextlib
+    import io
+    import pickle
+    from scipy.stats import norm
+    from pocomc_tpu_torch.utils.tools import ProgressBar
+
+    live = []
+    update = ProgressBar.update_stats
+
+    def spy(self, info):
+        if set(info) == {"steps", "acc", "calls"}:
+            live.append(info["steps"])
+        return update(self, info)
+
+    def drive(prior, like, flow, run_kw, **kw):
+        """One run with progress=True (the bar's text kept off the log):
+        the sampler and its row of numbers."""
+        s = pt.Sampler(prior, like, vectorize=True, random_state=0, flow=flow, device="cuda",
+                       **kw)
+        live.clear()
+        reset_launches(fk)
+        ProgressBar.update_stats = spy
+        t0 = time.perf_counter()
+        try:
+            with contextlib.redirect_stderr(io.StringIO()):
+                s.run(progress=True, **run_kw)
+            torch.cuda.synchronize()
+        finally:
+            ProgressBar.update_stats = update
+        steps = [st["steps"] for st in s._iter_stats]
+        return s, dict(logz=s.logz, dlogz=s.logz_err, calls=s.calls, iterations=s.t,
+                       wall_s=time.perf_counter() - t0, phase_s=dict(s.phase_seconds),
+                       device_loop=s._use_device_loop(), sweeps=len(steps),
+                       sweep_steps=sum(steps), live_updates=len(live),
+                       evidence_proposal_used=s.evidence_proposal_used,
+                       launches=read_launches(fk))
+
+    # (a) phase 6's quickstart through the delegating flow, progress on
+    prior = pt.Prior([pt.Normal(0.0, 3.0) for _ in range(10)])
+    s, a = drive(prior, log_like, DelegatingFlow(pt.Flow(10, "nsf6", device="cuda")),
+                 dict(n_total=4096, n_evidence=4096))
+    a["phase_6_launches"] = main_launches
+    if not a["device_loop"] or isinstance(s.flow, pt.Flow):
+        fail("custom_flow (a): the delegating flow did not take the device loop")
+    if (s.logz, s.calls) != (main["logz"], main["calls"]):
+        fail(f"custom_flow (a): logZ {s.logz} and {s.calls} calls differ from phase 6's "
+             f"{main['logz']} and {main['calls']}")
+    if a["launches"] != main_launches:
+        fail(f"custom_flow (a): launches {a['launches']} differ from phase 6's {main_launches}")
+    if a["live_updates"] < a["sweep_steps"] - 2 * a["sweeps"]:
+        fail(f"custom_flow (a): {a['live_updates']} live updates for {a['sweep_steps']} "
+             f"sweep steps in {a['sweeps']} sweeps")
+    # (b) the protocol-minimal flow: the host loop, the JAX test's gate, a
+    # pickle round trip
+    d = 2
+    truth = d * norm.logpdf(0.0, 0.0, math.sqrt(26.0))
+    s, b = drive(pt.Prior([pt.Normal(0.0, 5.0)] * d), gauss2_like, AffineFlow(d),
+                 dict(n_total=512, n_evidence=1024), n_effective=256, n_active=128)
+    b["true_logz"] = truth
+    if b["device_loop"]:
+        fail("custom_flow (b): the protocol-minimal flow took the device loop")
+    if not abs(s.logz - truth) < max(4 * s.logz_err, 0.3):
+        fail(f"custom_flow (b): logZ {s.logz} +- {s.logz_err} outside {truth} +- "
+             f"max(4 err, 0.3)")
+    if any(b["launches"].values()):
+        fail(f"custom_flow (b): a stock flow kernel ran: {b['launches']}")
+    back = pickle.loads(pickle.dumps(s))
+    b["pickle_round_trip"] = (isinstance(back.flow, AffineFlow)
+                              and all(torch.equal(back.flow.params[k], s.flow.params[k])
+                                      for k in ("mu", "log_sigma"))
+                              and back.evidence() == s.evidence())
+    if not b["pickle_round_trip"]:
+        fail("custom_flow (b): the sampler did not round-trip through pickle")
+    return dict(delegating=a, affine=b), a["launches"]
 
 
 def ptxas_summary(report):
@@ -2374,6 +2591,13 @@ def main():
     emit("mesh", card=card, one_rank=one, two_ranks=ranks,
          checksums=[ln.rsplit("checksum=", 1)[1] for ln in lines],
          wall_s=time.perf_counter() - t15)
+
+    # -- 16. custom flows and the live sweep stats ---------------------------
+    t16 = time.perf_counter()
+    runs16, by_path["custom_flow_delegating"] = custom_flow(
+        pt, fk, log_like, main, by_path["main_path"])
+    emit("custom_flow", card=card, phase6=dict(main, wall_s=main_wall), **runs16,
+         wall_s=time.perf_counter() - t16)
 
     paths = {"flow_menu_maf6": AFFINE, "flow_menu_nsfc6": COUPLING,
              "flow_menu_bench_sweep": COUPLING[:2],

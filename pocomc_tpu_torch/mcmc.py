@@ -35,6 +35,8 @@ counters ``i``/``i_snap`` are host integers (they depend on nothing but the
 step count), so the ``imh_every`` cadence is a host branch. ``run_stepped``
 is the same sweep with a host likelihood (the black-box path): the rule's
 flag rides in the transfer that brings each proposal to the host.
+``set_live_sink`` registers a function that every step of either reports
+its statistics to, in the host read that step already makes.
 
 The t-pCN correction is written ``-half * log1p(q / nu)``: the JAX form
 ``log(nu + q) - log(nu)`` cancels in f32 at the nu = 1e6 Gaussian-limit
@@ -50,7 +52,7 @@ import math
 import numpy as np
 import torch
 
-from .parallel.mesh import block, psum
+from .parallel.mesh import block, psum, tree_map
 
 # Drift-test window length (steps) and minimum calibration rows
 # (pocomc_tpu/mcmc.py CALIB_W / MIN_CALIB_N).
@@ -96,6 +98,27 @@ class SweepState:
                                  # the walker in the current drift window
     dbeta: torch.Tensor          # current rung size (constant per sweep)
     logl_var: torch.Tensor       # variance of the finite logl (bias-rate rule)
+
+
+# --- live per-step sweep statistics (pocomc_tpu/mcmc.py:105-125) ---------
+# A process-global sink that every sweep step reports to while it is set
+# (one sweep runs at a time per process). It is looked up at each step, so
+# with no sink a sweep runs and reads the device exactly as without the
+# tap; with one, the step's statistics ride in the host read the stopping
+# rule already makes.
+_LIVE_SINK = None
+
+
+def set_live_sink(fn):
+    """Register ``fn(step, plateau_cnt, sigma, accept, calls)`` to receive
+    every sweep step's statistics; ``None`` unregisters."""
+    global _LIVE_SINK
+    _LIVE_SINK = fn
+
+
+def _live_emit(i, cnt, sigma, accept, calls):
+    if _LIVE_SINK is not None:
+        _LIVE_SINK(int(i), int(cnt), float(sigma), float(accept), int(calls))
 
 
 def make_loglike(fn):
@@ -155,12 +178,9 @@ def _resid(D, cov01, v0v, v1v):
 
 
 def _detached(fp):
-    """A flow's FlowParams or CouplingParams with every weight and bias
-    detached (None stays None)."""
-    if fp is None:
-        return None
-    det = lambda a: [det(b) for b in a] if isinstance(a, (list, tuple)) else a.detach()
-    return fp._replace(ws=det(fp.ws), bs=det(fp.bs))
+    """A flow's parameters (FlowParams, CouplingParams or a custom flow's)
+    with every tensor detached (None stays None)."""
+    return tree_map(lambda a: a.detach() if torch.is_tensor(a) else a, fp)
 
 
 def _half_sq_diff(v_prime, cur):
@@ -624,12 +644,30 @@ class Sweep:
         return new_st, accept
 
     def keep_going(self, st) -> bool:
-        """The stopping rule (``cond`` of the JAX sweep); one scalar sync."""
+        """The stopping rule (``cond`` of the JAX sweep); one scalar sync.
+        While a live sink is set, the sync reads the step's statistics
+        with the flag and hands them to the sink (a step that reaches
+        ``n_max`` reads them alone)."""
         if st.i == 0:
             return True
+        if _LIVE_SINK is None:
+            if st.i >= self.n_max:
+                return False
+            return bool(self.keep_flag(st))
+        stats = self.live_stats(st)
         if st.i >= self.n_max:
+            _live_emit(st.i, *stats.tolist())
             return False
-        return bool(self.keep_flag(st))
+        keep, *vals = torch.cat([self.keep_flag(st).to(stats.dtype).reshape(1), stats]).tolist()
+        _live_emit(st.i, *vals)
+        return keep > 0.5
+
+    @staticmethod
+    def live_stats(st):
+        """(plateau count, sigma, accept, calls) of the state, packed in
+        float64 (exact for the float32 values and the int64 counts)."""
+        return torch.stack([t.to(torch.float64).reshape(()) for t in
+                            (st.cnt, st.sigma, st.accept, st.calls)])
 
     def keep_flag(self, st):
         """The device part of the stopping rule, a 0-d bool tensor (the
@@ -698,8 +736,8 @@ class Sweep:
         (m,) or None), and the device accepts. ``blobs`` (n,) numpy follow
         the accept mask. Each step makes one device->host transfer (the
         proposal, its finite mask, the stopping-rule flag of the state it
-        starts from and, with blobs, the previous step's accept mask, in
-        one tensor) and
+        starts from, with blobs the previous step's accept mask and with a
+        live sink that state's statistics, in one tensor) and
         one host->device transfer (the proposal's logl); the stopping rule
         is read before the likelihood runs, so a stop discards only the
         proposal. With a mesh, ``host_like`` sees this rank's rows. Returns
@@ -713,12 +751,21 @@ class Sweep:
         pending = None  # (accept mask, proposal blobs) of the last step
         while True:
             prop = None
-            parts = [] if pending is None else [pending[0].to(u.dtype)]
+            # with a live sink, the state's statistics lead the transfer, in
+            # float64 (float32 would round the call count)
+            live = _LIVE_SINK is not None and st.i > 0
+            dt = torch.float64 if live else u.dtype
+            parts = [self.live_stats(st)] if live else []
+            if pending is not None:
+                parts.append(pending[0].to(dt))
             if st.i < self.n_max:
                 prop = self.propose(st, geom, fp, scp, self.draw_noise(st, geom, generator))
-                parts += [prop["finite"].to(u.dtype), self.keep_flag(st).to(u.dtype).reshape(1),
-                          prop["x_safe"].reshape(-1)]
+                parts += [prop["finite"].to(dt), self.keep_flag(st).to(dt).reshape(1),
+                          prop["x_safe"].reshape(-1).to(dt)]
             host = torch.cat(parts).cpu().numpy() if parts else np.zeros(0)
+            if live:
+                _live_emit(st.i, *host[:4])
+                host = host[4:]
             if pending is not None:
                 take = host[:n] > 0.5
                 blobs[take] = pending[1][take]

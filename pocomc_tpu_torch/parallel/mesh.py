@@ -198,8 +198,8 @@ class ParticleMesh:
         """Slot-major (T_max, n[, d]) history buffers with the particle
         axis (axis 1) split into this rank's rows, and the per-slot
         scalars replicated, for dicts, lists and tuples of arrays."""
-        return _tree_map(lambda a: (self._split(a, 1) if np.ndim(a) >= 2
-                                    else self._tensor(a)), hist_tree)
+        return tree_map(lambda a: (self._split(a, 1) if np.ndim(a) >= 2
+                                   else self._tensor(a)), hist_tree)
 
     def shard_batches(self, arr):
         """This rank's rows of every batch of a (n_batches, batch, ...)
@@ -209,13 +209,14 @@ class ParticleMesh:
 
     def replicate(self, tree):
         """Every tensor (or numpy array) of a tree on this rank's device,
-        broadcast from rank 0, so every rank holds rank 0's bits."""
+        broadcast from rank 0, so every rank holds rank 0's bits (as
+        contiguous copies: NCCL sends no other)."""
         def bcast(a):
-            t = self._tensor(a).clone()
+            t = self._tensor(a).clone(memory_format=torch.contiguous_format)
             if self._group:
                 dist.broadcast(t, src=0)
             return t
-        return _tree_map(bcast, tree)
+        return tree_map(bcast, tree)
 
     def gather(self, garr):
         """Full host copy, on every rank, of an array split as
@@ -244,11 +245,15 @@ class ParticleMesh:
         return t
 
 
-def _tree_map(fn, tree):
+def tree_map(fn, tree):
+    """``fn`` on every tensor or numpy array of nested dicts, lists and
+    tuples (NamedTuples kept); other leaves as they are."""
     if isinstance(tree, dict):
-        return {k: _tree_map(fn, v) for k, v in tree.items()}
+        return {k: tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)._make(tree_map(fn, v) for v in tree)
     if isinstance(tree, (list, tuple)):
-        return type(tree)(_tree_map(fn, v) for v in tree)
+        return type(tree)(tree_map(fn, v) for v in tree)
     if torch.is_tensor(tree) or isinstance(tree, np.ndarray):
         return fn(tree)
     return tree

@@ -246,17 +246,22 @@ def quickstart(mesh, device, seed=0):
     s = Sampler(prior, rosenbrock, vectorize=True, random_state=seed, mesh=mesh,
                 device=device)
     inverse, k1_rows = s.flow.kernel_inv, [0]
-    sweeps = [0, 0]  # all_reduce calls and steps of every sweep
+    sweeps = [0, 0, False]  # all_reduce calls and steps of every sweep, inside one
 
     def counted_inverse(theta, fp=None):
-        k1_rows[0] = max(k1_rows[0], theta.shape[0])
+        if sweeps[2]:
+            k1_rows[0] = max(k1_rows[0], theta.shape[0])
         return inverse(theta, fp)
 
     s.flow.kernel_inv = counted_inverse
     run_sweep = s._sweep.run
 
     def counted_sweep(*args, **kw):
-        res = run_sweep(*args, **kw)
+        sweeps[2] = True
+        try:
+            res = run_sweep(*args, **kw)
+        finally:
+            sweeps[2] = False
         sweeps[0] += s._sweep.collectives
         sweeps[1] += int(res["steps"])
         return res

@@ -52,6 +52,18 @@ device; any other prior runs on the host, one transfer each way per call,
 on finite rows only. A host prior takes the host loop, as in the JAX
 package.
 
+``flow`` is a name of the menu or any object of the preconditioner
+protocol (``models/protocol.py``, the JAX package's ``docs/flows.md``
+"Custom flows"): the sampler reaches every flow through the protocol's
+members alone. A flow without the device loop's surface
+(``protocol.DEVICE_SURFACE``) runs the host loop, and ``device_loop=True``
+with it raises; a custom flow is checkpointed by its ``state_dict()`` or
+its ``params`` and pickled whole.
+
+With ``run(progress=True)`` and no mesh, every sweep step of either loop
+shows its step, acceptance and calls on the progress bar
+(``mcmc.set_live_sink``), in the host read the step already makes.
+
 Checkpoints (``state_dict``/``save_state``/``load_state``,
 ``run(save_every=, resume_state_path=)``) are plain Python and numpy, so
 ``pickle`` loads them without torch or a card; a path ending in
@@ -92,9 +104,11 @@ import numpy as np
 import torch
 
 from . import bridge, phases
-from .convert import load_flow_params, tensors_from_jax
-from .mcmc import Sweep, make_loglike
+from .convert import tensors_from_jax
+from .mcmc import Sweep, make_loglike, set_live_sink
 from .models.flow import Flow
+from .models.protocol import (DEVICE_SURFACE, T_LATENT, device_ready, flow_params, flow_state,
+                              load_flow_state, replicate_flow, to_device)
 from .models.geometry import fit_geometry
 from .ops.psis import psislw
 from .ops.resampling import multinomial_resample, systematic_resample
@@ -286,15 +300,14 @@ class Sampler:
         self.particles = Particles(self.n_active, self.n_dim)
         self.t = 0
 
+        # a name of the menu, or any object of the preconditioner protocol
+        # (models/protocol.py): an nn.Module is moved to the device, any
+        # other flow's tensors must be there already
         self.flow = (Flow(self.n_dim, flow, device=self.device) if isinstance(flow, str)
-                     else flow.to(self.device))
+                     else to_device(flow, self.device))
         if mesh is not None:
-            # every rank starts from rank 0's parameters and pre-layer
-            with torch.no_grad():
-                params = list(self.flow.parameters())
-                for p, q in zip(params, mesh.replicate(params)):
-                    p.copy_(q)
-            self.flow.set_pre(mesh.replicate(self.flow.get_pre()))
+            # every rank starts from rank 0's parameters (and pre-layer)
+            replicate_flow(self.flow, mesh)
         self.train_config = dict(validation_split=0.5, epochs=5000, batch_size=1024,
                                  patience=int(self.n_dim), learning_rate=1e-3,
                                  annealing=False, gaussian_scale=None,
@@ -411,6 +424,11 @@ class Sampler:
             raise ValueError(
                 "device_loop=True requires a likelihood and a prior that run on the "
                 "device (torch callables; no pool, no blobs).")
+        if self.device_loop is True and self.preconditioned and not device_ready(self.flow):
+            raise ValueError(
+                f"device_loop=True requires a flow with the device loop's surface "
+                f"({', '.join(DEVICE_SURFACE)}); this custom flow runs on the host loop "
+                f"(device_loop='auto' or False).")
         self._build_sweep()
 
         # the pool is made last, once nothing above can raise
@@ -560,10 +578,11 @@ class Sampler:
                 with self._timed("warmup"):
                     self._run_warmup(t0, save_every)
                 self.warmup = False
-            if self._use_device_loop():
-                self._run_device_loop(t0, save_every)
-            else:
-                self._run_host_loop(t0, save_every)
+            with self._live_tap(progress):
+                if self._use_device_loop():
+                    self._run_device_loop(t0, save_every)
+                else:
+                    self._run_host_loop(t0, save_every)
             flow_is = self.n_evidence > 0 and self.preconditioned
             if flow_is:
                 with self._timed("evidence"):
@@ -600,12 +619,34 @@ class Sampler:
         self._warn_evidence_quality(self.logz_err, self.evidence_khat,
                                     self.evidence_method)
 
+    @contextmanager
+    def _live_tap(self, progress):
+        """With ``progress`` and no mesh, every sweep step of the loop shows
+        its step, acceptance and calls (the run's so far plus the sweep's)
+        on the progress bar through ``mcmc.set_live_sink``
+        (pocomc_tpu/sampler.py:1112-1132, 1913-1945); the sink is
+        unregistered however the loop ends. Off on a mesh, as in the JAX
+        package."""
+        if not progress or self.mesh is not None:
+            yield
+            return
+        pbar = self.pbar
+        set_live_sink(lambda i, cnt, sigma, accept, calls: pbar.update_stats(
+            dict(steps=i, acc=round(accept, 3), calls=self.calls + calls)))
+        try:
+            yield
+        finally:
+            set_live_sink(None)
+
     def _use_device_loop(self):
         """The device loop runs when the likelihood and the prior run on the
-        device and no host-only feature is on (blobs, the host fit's
-        annealing or noise with the flow, ``device_loop=False``)."""
+        device, the flow has the device loop's surface (``DEVICE_SURFACE``;
+        every flow of the menu does) and no host-only feature is on (blobs,
+        the host fit's annealing or noise with the flow,
+        ``device_loop=False``)."""
         if (self.device_loop is False or not self.likelihood_traceable
-                or not self.prior_traceable or self.have_blobs):
+                or not self.prior_traceable or self.have_blobs
+                or (self.preconditioned and not device_ready(self.flow))):
             return False
         cfg = self.train_config
         return not (self.preconditioned and (cfg["annealing"] or cfg["noise"] is not None))
@@ -797,7 +838,7 @@ class Sampler:
                 statsC = phases.mutate(
                     hist, outA["beta"], outA["logz"], outA["w_flat"], outA["u_sel"],
                     outA["w_sel"], sigma, self._geom,
-                    self.flow.params() if self.preconditioned else None, self._sweep,
+                    flow_params(self.flow) if self.preconditioned else None, self._sweep,
                     self._scp, self._gen, self.n_active, resample=self.resample,
                     metric=self.metric, mesh=self.mesh)
             sigma, resid = statsC[3], statsC[8]
@@ -969,7 +1010,9 @@ class Sampler:
             theta = map_rows(self.mesh, lambda a: self.flow.forward(a)[0],
                              torch.as_tensor(u, **f32))
             self._geom = fit_geometry(theta, torch.as_tensor(w, **f32), self._gen)
-        return current_particles, len(history["loss"])
+        # the protocol asks nothing of fit's return: a history's epochs or None
+        epochs = len(history["loss"]) if isinstance(history, dict) and "loss" in history else None
+        return current_particles, epochs
 
     def _resample(self, current_particles):
         w = current_particles["weights"]
@@ -993,7 +1036,7 @@ class Sampler:
         dbeta = max(beta - float(self.particles.get("beta", index=-1)), 0.0)
         with torch.no_grad():
             args = (*arrays, beta, self.proposal_scale, self._geom,
-                    self.flow.params() if self.preconditioned else None, self._scp,
+                    flow_params(self.flow) if self.preconditioned else None, self._scp,
                     self._gen)
             if self.likelihood_traceable:
                 res = self._sweep.run(*args, dbeta=dbeta)
@@ -1025,28 +1068,57 @@ class Sampler:
 
     # -- evidence ----------------------------------------------------------
 
+    def _resolve_evidence_proposal(self):
+        """'auto' -> 't' when the flow has the Student-t latent draw
+        (``T_LATENT``; every flow of the menu), else 'flow'; an explicit
+        't' on a flow without it raises (pocomc_tpu/sampler.py:1984-1998)."""
+        if self.evidence_proposal == "flow":
+            return "flow"
+        if hasattr(self.flow, T_LATENT):
+            return "t"
+        if self.evidence_proposal == "t":
+            raise ValueError(
+                f"evidence_proposal='t' requires the flow to expose a {T_LATENT}(size, nu, "
+                f"generator=None, fp=None) t-latent sampler (all built-in flows do; see "
+                f"pocomc_tpu_torch.models.protocol for the custom-flow protocol). Use "
+                f"evidence_proposal='flow' or 'auto'.")
+        return "flow"
+
     def _evidence_logw(self, n):
         """Raw flow-IS log-ratios of n proposal draws (NaN where the prior
-        rejects the draw, -inf where the likelihood does). A host likelihood
-        sees the draws the prior accepts, in one transfer. On a mesh every
-        rank draws all n latents, inverts and evaluates its block, and the
-        log-ratios are gathered."""
-        proposal = "flow" if self.evidence_proposal == "flow" else "t"
+        rejects the draw, -inf where the likelihood does). A flow with the
+        latent draws (``_latent_draws``) draws n latents, N(0, I) or
+        Student-t, and ``kernel_inv`` pulls them back; any other flow draws
+        through its ``sample`` (a flow with ``T_LATENT`` but no latent draws
+        records ``evidence_proposal_used='flow'``, what ran). A host
+        likelihood sees the draws the prior accepts, in one transfer. On a
+        mesh every rank draws all n and evaluates its block (with the latent
+        draws it pulls back only its block), and the log-ratios are
+        gathered."""
+        proposal = self._resolve_evidence_proposal()
+        latent = hasattr(self.flow, "_latent_draws")
+        if not latent:
+            proposal = "flow"
         self.evidence_proposal_used = proposal
         with torch.no_grad():
-            fp = self.flow.params()
-            z, base = self.flow._latent_draws(
-                n, self._gen, self.evidence_nu if proposal == "t" else None)
-            logw = map_rows(self.mesh, lambda zb: self._logw_rows(zb[:, :-1], zb[:, -1], fp),
-                            torch.cat([z, base[:, None]], 1))
+            fp = flow_params(self.flow)
+            if latent:
+                z, base = self.flow._latent_draws(
+                    n, self._gen, self.evidence_nu if proposal == "t" else None)
+
+                def rows(zb):
+                    u_q, ladj = self.flow.kernel_inv(zb[:, :-1], fp)
+                    return self._logw_rows(u_q, zb[:, -1] - ladj)
+            else:
+                z, base = self.flow.sample(n, generator=self._gen)
+                rows = lambda ub: self._logw_rows(ub[:, :-1], ub[:, -1])
+            logw = map_rows(self.mesh, rows, torch.cat([z, base[:, None]], 1))
         return logw.double().cpu().numpy()
 
-    def _logw_rows(self, z, base, fp):
-        """The log-ratios of the latent draws z with base log density
-        ``base``: a float32 tensor on the device route, a float64 one from
+    def _logw_rows(self, u_q, logq):
+        """The log-ratios of the proposal draws u_q with log density
+        ``logq``: a float32 tensor on the device route, a float64 one from
         the host likelihood."""
-        u_q, ladj = self.flow.inverse(z, fp)
-        logq = base - ladj
         x_q, logdetj = self.scaler.inverse(u_q, params=self._scp)
         # the prior sees finite rows only (a host prior sees them in numpy)
         ok = torch.isfinite(x_q).all(1)
@@ -1133,11 +1205,17 @@ class Sampler:
         logz_err, rungs, calls, ess_min, accept_last, s_path), or None
         after a RuntimeWarning that names why the bridge gave up (on a mesh
         of more than one rank it does not run, as on the JAX package's
-        multi-process mesh)."""
+        multi-process mesh, nor with a flow that lacks ``kernel_inv``)."""
         if self.mesh is not None and self.mesh.multihost:
             warnings.warn("Bridge evidence does not run on a mesh of more than one rank; "
                           "logZ is the recorrected persistent-sampling ladder's, with no "
                           "error bar.", RuntimeWarning)
+            return None
+        if not hasattr(self.flow, "kernel_inv"):
+            # pocomc_tpu/sampler.py:2195: the bridge pulls back through it
+            warnings.warn("Bridge evidence needs the flow's kernel_inv; logZ is the "
+                          "recorrected persistent-sampling ladder's, with no error bar.",
+                          RuntimeWarning)
             return None
         n, d, steps = self.bridge_n, self.n_dim, self.bridge_steps
         if self.likelihood_traceable:
@@ -1148,7 +1226,7 @@ class Sampler:
             draws = bridge.host_draws(n, d, steps, self._rng, self.device)
         init, rung = bridge.make_bridge_programs(self.scaler, self._log_prior, log_like, d,
                                                  self.flow.kernel_inv, n_steps=steps)
-        res = bridge.run_bridge(init, rung, self.flow.params(), self._scp, draws)
+        res = bridge.run_bridge(init, rung, flow_params(self.flow), self._scp, draws)
         self.calls += res["calls"]
         self.pbar.update_stats(dict(calls=self.calls))
         if "failed" in res:
@@ -1227,15 +1305,12 @@ class Sampler:
         flow's parameters and pre-layer, the scaler's moments, the sweep's
         geometry, the numpy generator's state and the torch generator's
         with its device type."""
-        fl = self.flow
         state = {k: getattr(self, k) for k in self._STATE_SCALARS}
         state["particles_past"] = {k: list(v) for k, v in self.particles.past.items()}
         state["prior_samples"] = self.prior_samples
         state["current_particles"] = (None if self.current_particles is None
                                       else dict(self.current_particles))
-        state["flow_params"] = dict(
-            pre={k: v.detach().cpu().numpy() for k, v in fl.get_pre().items()},
-            stack=fl.stack_numpy())
+        state["flow_params"] = flow_state(self.flow)
         sc = self.scaler
         state["scaler"] = dict(mu=np.asarray(sc.mu), sigma=np.asarray(sc.sigma),
                                L=None if sc.L is None else np.asarray(sc.L),
@@ -1266,7 +1341,7 @@ class Sampler:
         self.particles.past = past
         self.particles.results_dict = None
         self.particles._mis_cache = None
-        load_flow_params(self.flow, state["flow_params"])
+        load_flow_state(self.flow, state["flow_params"], self.device)
         self.prior_samples = state["prior_samples"]
         cp = state["current_particles"]
         self.current_particles = None if cp is None else dict(cp)
@@ -1303,8 +1378,12 @@ class Sampler:
         for k in self._UNPICKLABLE:
             state.pop(k, None)
         fl = self.flow
-        state["_flow_config"] = (fl.n_dim, f"{fl.kind}{fl.n_transforms}", fl.bins,
-                                 fl.whiten_mode)
+        if isinstance(fl, Flow):
+            state["_flow_config"] = (fl.n_dim, f"{fl.kind}{fl.n_transforms}", fl.bins,
+                                     fl.whiten_mode)
+        else:
+            # a custom flow is pickled whole (pocomc_tpu/sampler.py:2402-2410)
+            state["_flow_config"], state["_flow_obj"] = None, fl
         sc = self.scaler
         state["_scaler_config"] = dict(
             n_dim=sc.n_dim, bounds=np.stack([sc.low, sc.high], axis=1),
@@ -1314,14 +1393,20 @@ class Sampler:
 
     def __setstate__(self, state):
         runtime = state.pop("_runtime_state")
-        n_dim, arch, bins, whiten = state.pop("_flow_config")
+        flow_config = state.pop("_flow_config")
+        flow_obj = state.pop("_flow_obj", None)
         scaler_cfg = state.pop("_scaler_config")
         self.__dict__.update(state)
         self.pool = self._own_pool = self.pbar = self.mesh = None
         self.distribute = map
         self._rng = np.random.default_rng(0)
         self._gen = torch.Generator(device=self.device)
-        self.flow = Flow(n_dim, arch, bins=bins, whiten=whiten or False, device=self.device)
+        if flow_config is None:
+            self.flow = to_device(flow_obj, self.device)
+        else:
+            n_dim, arch, bins, whiten = flow_config
+            self.flow = Flow(n_dim, arch, bins=bins, whiten=whiten or False,
+                             device=self.device)
         self.scaler = Reparameterize(**scaler_cfg)
         self._geom = None
         route = self.likelihood_route

@@ -82,6 +82,29 @@ def test_mesh_surface(k):
             assert o["n_active_100"] is None
 
 
+def test_replicate_broadcasts_contiguous_tensors(one_rank, monkeypatch):
+    """Every tensor ``replicate`` hands to ``broadcast`` is contiguous (NCCL
+    sends no other; gloo takes any), as for the stock flow's MADE masks,
+    which are transposed views: the flow's tensors come back unchanged."""
+    from pocomc_tpu_torch.models.flow import Flow
+    from pocomc_tpu_torch.models.protocol import replicate_flow
+    sent = []
+    broadcast = torch.distributed.broadcast
+
+    def checked(t, *a, **kw):
+        sent.append(t.is_contiguous())
+        return broadcast(t, *a, **kw)
+
+    monkeypatch.setattr(torch.distributed, "broadcast", checked)
+    flow = Flow(4, "nsf3", device="cpu")
+    before = {k: v.clone() for k, v in flow.state_dict().items()}
+    assert not all(v.is_contiguous() for v in before.values())
+    replicate_flow(flow, one_rank)
+    assert sent and all(sent)
+    for k, v in flow.state_dict().items():
+        assert torch.equal(v, before[k]), k
+
+
 def test_mesh_without_a_group_is_one_rank():
     """Without a process group a ParticleMesh is one rank on this process's
     device and every collective is the identity; initialize_distributed

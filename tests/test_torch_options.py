@@ -123,7 +123,8 @@ def test_profile_dir_writes_trace(tmp_path):
 def test_reference_keywords():
     """Every JAX keyword is accepted: compile_cache is ignored,
     n_leapfrog is validated and kept (and reaches hmc's sweep),
-    output_dir/output_label default to states/pmc."""
+    output_dir/output_label default to states/pmc; every public method
+    and mcmc.set_live_sink take JAX's parameters."""
     s = tpc.Sampler(make_prior(), gauss_like, compile_cache=False, n_leapfrog=3,
                     **small())
     assert s.n_leapfrog == 3 and s.pipeline == 1 and s.profile_dir is None
@@ -155,6 +156,10 @@ def test_reference_keywords():
             kw_only = [p.name for p in inspect.signature(getattr(tcls, meth)).parameters.values()
                        if p.kind is p.KEYWORD_ONLY]
             assert set(kw_only) <= {"device"}, (name, meth, kw_only)
+    # the module-level function of the live sweep statistics
+    from pocomc_tpu import mcmc as jmcmc
+    from pocomc_tpu_torch import mcmc as tmcmc
+    assert _positional(tmcmc.set_live_sink) == _positional(jmcmc.set_live_sink) == ["fn"]
 
 
 def _positional(fn):
@@ -169,7 +174,10 @@ def _positional(fn):
 # method takes the parameters as an optional trailing ``fp`` (the sweep
 # hands in one FlowParams for many calls), and whitening_params names the
 # device of the tensors it returns. ``device`` of Sampler and Flow is
-# keyword-only, so it never shifts a JAX positional argument.
+# keyword-only, so it never shifts a JAX positional argument. The
+# preconditioner protocol's kernel members take (u, fp=None) where the JAX
+# flow's take (params, u); they are instance closures there, not methods,
+# so this comparison does not reach them (models/protocol.py lists them).
 _DISTRIBUTIONS = ("Beta", "Cauchy", "Exponential", "Gamma", "HalfNormal", "Laplace",
                   "LogNormal", "LogUniform", "Normal", "StudentT", "TruncatedNormal", "Uniform")
 ALLOWED_RENAMES = {**{(k, "sample", "key"): "rng" for k in _DISTRIBUTIONS},

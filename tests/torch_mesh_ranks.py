@@ -208,3 +208,32 @@ def mesh_surface(mesh):
     except ValueError as e:
         out["n_active_100"] = str(e)
     return out
+
+
+def custom_flow_run(mesh):
+    """Custom flows of the preconditioner protocol on this mesh, on the 2-D
+    Gaussian: ``AffineFlow`` (host loop, parameters replicated from rank
+    0, which starts from other ones) and ``DelegatingFlow`` around nsf3
+    (device loop). For each: the loop taken, logz, logz_err, calls, the
+    posterior samples and the flow's parameters, flattened."""
+    from pocomc_tpu_torch import Normal, Prior, Sampler
+    from pocomc_tpu_torch.models.flow import Flow
+    from chip_smoke import AffineFlow, DelegatingFlow
+    out = {}
+    affine = AffineFlow(2, "cpu")
+    affine.params["mu"] += float(mesh.rank)
+    runs = dict(affine=(affine, dict(n_effective=256, n_active=128),
+                        dict(n_total=512, n_evidence=1024)),
+                delegating=(DelegatingFlow(Flow(2, "nsf3", seed=mesh.rank, device="cpu")),
+                            dict(n_effective=128, n_active=64,
+                                 train_config=dict(epochs=10, patience=3)),
+                            dict(n_total=256, n_evidence=256)))
+    for key, (flow, kw, run_kw) in runs.items():
+        s = Sampler(Prior([Normal(0.0, 5.0)] * 2), gauss_like, vectorize=True, random_state=0,
+                    flow=flow, mesh=mesh, device="cpu", **kw)
+        s.run(progress=False, **run_kw)
+        params = (s.flow.params.values() if key == "affine" else s.flow.parameters())
+        out[key] = dict(device_loop=s._use_device_loop(), logz=s.logz, logz_err=s.logz_err,
+                        calls=s.calls, x=s.posterior()[0],
+                        params=np.concatenate([p.detach().numpy().ravel() for p in params]))
+    return out
