@@ -8,10 +8,11 @@ printing one JSON line:
   2. build: compiles the six CUDA libraries from ``pocomc_tpu_torch/csrc``
      (K2's forward and backward, K1 and its backward K1-bwd, each with both
      heads, and K5's forward/inverse and backward, the latter with the
-     inverse's gradient, K5-inv-bwd) for the default 8 spline bins and for
-     each of phase 14's (``SPLINE_BINS``), one nvcc each, all started
-     together, with each library's seconds and ptxas's count of its
-     instances, their most registers and their spills;
+     inverse's gradient, K5-inv-bwd) for the default 8 spline bins, for 16
+     and for run-time bins (``LIBRARY_BINS``: the library of every bins
+     past 16), one nvcc each, all started together, with each library's
+     seconds and ptxas's count of its instances, their most registers and
+     their spills;
      ``k5_plans``, after phase 4, prints the tile each K5 launch of
      phases 3-4 took, from the wrapper's own plans (the lane grid, BM rows
      a block, the register tile, G, BK-row slabs in S stages, shared
@@ -131,20 +132,23 @@ printing one JSON line:
  14. ``spline_bins``, ``Flow(bins=)`` at other bins than 8: (b) every
      spline-head kernel against its plain version (and float64 where
      phases 4 and 13 hold it so) at those phases' tolerances and exclusion
-     windows: K2, its gradient end to end, K2-bwd, K1 and its round trip at
-     5 and 16 bins at (d, n) = (10, 256), and at 16 bins also at
-     (10, 2048), (10, 4096) (K1's two- and four-row launches), (50, 1024)
-     and nsf3 at (342, 64); K5's forward, inverse and backward at the same
-     bins at (10, 256) and 16 bins at (50, 1024); K1-bwd and K5-inv-bwd at
-     5 and 16 bins at (10, 256) and 16 at (50, 1024); (c) the 16-bin
-     kernels timed at the kernels line's shapes as phase 5 times the 8-bin
-     ones, beside their plain versions, bounds and products as
-     torch.matmul/bmm; (d) phase 6's quickstart with ``flow=Flow(10,
-     "nsf6", bins=16)`` (the same logZ gate, launches of the 16-bin K2,
-     K2-bwd and K1 and of no 8-bin kernel); (e) a 20-step mala sweep at d=10, n=256 on
-     random nsf6 and nsfc6 flows of 16 bins, as phase 13 (d); (f) the
-     quickstart's state through ``save_state``/``load_state`` into a
-     sampler of another seed, bit for bit;
+     windows, at 16 bins (the most of a compiled library) and at 17, 32,
+     64, 128, 512 and 1000 (``WIDE_BINS``: the library of run-time bins, up
+     to the most a spline holds): K2, its gradient end to end, K2-bwd, K1
+     and its round trip, K5's forward, inverse and backward, K1-bwd and
+     K5-inv-bwd at (d, n) = (10, 256), and at 16 and 32 bins also K1's two-
+     and four-row launches (10, 2048), (10, 4096), (50, 1024) and nsf3 at
+     (342, 64) (K2, K1), and (50, 1024) (K5 on nsfc12, K1-bwd, K5-inv-bwd);
+     past 16 bins every reference in float64 (``NARROW_TOL``'s comment);
+     (c) the 16- and 32-bin kernels timed at the kernels line's shapes as
+     phase 5 times the 8-bin ones, beside their plain versions, bounds and
+     products as torch.matmul/bmm; (d) phase 6's quickstart with
+     ``flow=Flow(10, "nsf6", bins=32)`` (the same logZ gate, launches of
+     the 32-bin K2, K2-bwd and K1 and of no other kernel); (e) a 20-step
+     mala sweep at d=10, n=256 on random nsf6 and nsfc6 flows of 16 and of
+     32 bins, as phase 13 (d); (f) the 32-bin quickstart's state through
+     ``save_state``/``load_state`` into a sampler of another seed, bit for
+     bit;
  15. ``mesh``, the particles split over ``torch.distributed`` ranks
      (``pocomc_tpu_torch.parallel``): (a) one rank over NCCL in this
      process, phase 6's quickstart with ``mesh=``, which must repeat phase
@@ -181,6 +185,7 @@ CUDA device it exits 1.
 """
 
 import copy
+import itertools
 import json
 import math
 import shutil
@@ -276,13 +281,43 @@ def element_vjp_ops(head, bins=8):
     return 112 + 56 * bins if head == "rqs" else 12
 
 
-# phase 14: the spline bins whose libraries phase 2 builds beside the
-# default 8 (5 not a power of two, 16 the most, past the 10 whose
-# parameters fit a warp's lanes), and the bins timed. The fewest, 2, is
-# held by the CPU tests and the `gpu` tests' bins cases (2, 3, 5, 10, 11,
-# 16), not here: each bins costs six libraries of the build
-SPLINE_BINS = (5, 16)
-TIMED_BINS = 16
+# phase 14: the spline bins past 8 that it holds against the plain
+# versions: 16, the most of a library compiled for its bins (SPLINE_BINS;
+# 2-11 are held by the CPU tests and the `gpu` tests' bins cases: each
+# compiled bins costs six libraries of the build), and past 16 the library
+# of run-time bins (0 in LIBRARY_BINS, one library a source for every bins)
+# at 17 (its fewest), 32, 64, 128 (where K5's output group of one
+# dimension passes an output pass), 512 (half the interval's width and
+# height left to the parameters' softmax) and 1000 (the most a spline
+# holds, 1 - MIN_BIN * bins = 0: every bin MIN_BIN of the interval whatever
+# the parameters, and the ceiling: no plan refuses less); the bins timed,
+# whose kernels are also held at the wider shapes, and those of (d)'s
+# quickstart
+SPLINE_BINS = (16,)
+WIDE_BINS = (17, 32, 64, 128, 512, 1000)
+# Past 16 bins one rule holds every spline kernel: the reference is the
+# plain version in float64 (the plain fp32 one's knots are torch.cumsum's
+# of up to 999 sizes: at nsfc12, d=50, 32 bins its end-to-end gradient lay
+# 4.3e-2 of the largest from float64, the kernels' 1.6e-4), values by
+# ``check_values`` and gradients by ``grads_off_jumps`` at TOL's
+# tolerances, and the weight gradients, sums over the rows, without the
+# rows within 1e-5 of a knot or ReLU kink (a row whose two sides fp32 and
+# float64 take differently moves every weight gradient and not always its
+# own input gradient: at nsfc12, d=50, 32 bins, 44 such rows carried the
+# weight gradients' 3.7e-2). Where the bins are narrow a spline's log-det
+# moves ~10 a unit of its input, so the fp32 rounding of the transforms'
+# inputs alone puts a d=10 row's log-det ~1e-4 from float64, whatever
+# route computes it: at 1000 bins the kernels' log-dets lie 1.2-1.4e-4
+# from float64 and the plain fp32 version's 2.0-2.5e-4, K2-bwd's and
+# K5-bwd's gradients 1.9e-4 and 2.7e-4 of the largest (nsf6 and nsfc6,
+# (10, 256); PERF.md §6). At 1000 bins the log-det and gradient
+# tolerances are therefore limits set from those readings (``narrow_tol``:
+# the larger of TOL's and these), about 2.2x the kernels' largest; at 512
+# bins the kernels hold TOL's (log-dets within 7.9e-5 of float64)
+NARROW_TOL = {1000: dict(ladj=3e-4, grad=6e-4)}
+LIBRARY_BINS = (8, 16, 0)
+TIMED_BINS = (16, 32)
+QUICK_BINS = 32
 
 
 def rosenbrock_row(x):
@@ -308,8 +343,9 @@ class TimedLikelihood:
 
 def with_bins(name, bins):
     """A kernel's name in the launch counts and the kernels line at the
-    spline's bins: ``made_rqs_forward_b16``; the 8-bin one keeps its name."""
-    return name if bins == 8 else f"{name}_b{bins}"
+    spline's bins: ``made_rqs_forward_b16``; the 8-bin one keeps its name,
+    and a library of run-time bins (bins 0) is ``<source>_bN``."""
+    return name if bins == 8 else (f"{name}_bN" if bins == 0 else f"{name}_b{bins}")
 
 
 def _counter(name):
@@ -334,7 +370,7 @@ def reset_launches(fk=None):
 
 
 def read_launches(fk=None, names=RQS):
-    return {name: getattr(*_counter(name)) for name in names}
+    return {name: getattr(*_counter(name), 0) for name in names}
 
 
 def watch_bridge(sampler, fk):
@@ -947,14 +983,18 @@ def kink_rows(flow, y, window=1e-5):
     return kink_distance(flow, y) < window
 
 
-def grads_off_jumps(label, grads, g_z, g_l, tol, near):
+def grads_off_jumps(label, grads, g_z, g_l, tol, near, weights_off=None):
     """``grad_rel_err`` of grads(g_z, g_l) -> (got, want), lists with the
     input gradient first, at `tol`, every row kept where it passes. Rows
     whose input gradient passes `tol` of its largest must each lie in
     `near` (on a knot or a ReLU kink, where the gradient jumps and the
     last bit of a sum picks the side); those rows alone are then left out
     (their upstream gradients set to 0) and every tensor is checked again
-    on the rest. Returns (max |diff| / max |grad|, the rows left out)."""
+    on the rest. With ``weights_off`` (rows on a jump, past 16 bins, where
+    the reference is float64) the tensors after the input gradient, sums
+    over the rows, are checked with those rows left out too. Returns (max
+    |diff| / max |grad|, the rows left out of every tensor, those left out
+    of the weight gradients alone)."""
     got, want = grads(g_z, g_l)
     lim = tol * float(want[0].abs().max())
     past = (got[0].double() - want[0].double()).abs().amax(1) > lim
@@ -966,7 +1006,13 @@ def grads_off_jumps(label, grads, g_z, g_l, tol, near):
             fail(f"{label}: input gradient {worst:.3e} past {lim:.3e} in rows {stray[:8]}, on "
                  f"no knot or ReLU kink")
         got, want = grads(g_z.masked_fill(past[:, None], 0.0), g_l.masked_fill(past, 0.0))
-    return grad_rel_err(label, got, want, tol), rows
+    if weights_off is None or not bool((weights_off & ~past).any()):
+        return grad_rel_err(label, got, want, tol), rows, []
+    e_in = grad_rel_err(f"{label} input", got[:1], want[:1], tol)
+    off = past | weights_off
+    got, want = grads(g_z.masked_fill(off[:, None], 0.0), g_l.masked_fill(off, 0.0))
+    e_w = grad_rel_err(f"{label} weights", got[1:], want[1:], tol)
+    return max(e_in, e_w), rows, (weights_off & ~past).nonzero().flatten().tolist()
 
 
 def jump_report(flow, y, rows, acts=None):
@@ -1080,10 +1126,11 @@ def coupling_bounds(n, flow):
                                        4 * (T * n * (d + 3 * h) + 2 * n * d + n) + 2 * weights)}
 
 
-def plain_stack(flow, y):
-    """The flow's transform stack at y by its plain version."""
+def plain_stack(flow, y, fp=None):
+    """The flow's transform stack at y by its plain version (with ``fp``,
+    those parameters: float64 ones for a float64 y)."""
     from pocomc_tpu_torch.ops import coupling_kernels as ck, flow_kernels as fk
-    fp = flow.params()
+    fp = flow.params() if fp is None else fp
     if flow.kind == "nsfc":
         return ck.coupling_forward_ref(y, fp.ws, fp.bs, fp.masks, bins=fp.bins)
     return fk.made_rqs_forward_ref(y, fp.ws, fp.bs, head=flow.head, bins=fp.bins)
@@ -1111,6 +1158,12 @@ def check_vs_float64(name, got, plain, exact, atol):
              f"version's {e_plain:.3e})")
     return dict(kernel_vs_f64=e_got, plain_vs_f64=e_plain, limit=limit,
                 kernel_vs_plain=max_err(got, plain))
+
+
+def narrow_tol(tol, bins):
+    """A tolerance dict at a spline's bins: each of TOL's limits, or the
+    NARROW_TOL reading's limit at those bins where that is larger."""
+    return {k: max(v, NARROW_TOL.get(bins, {}).get(k, v)) for k, v in tol.items()}
 
 
 def check_values(name, got, plain, exact, rtol, atol):
@@ -1159,23 +1212,34 @@ def check_spline_made(name, d, n, flow, rng):
     ReLU kink (``kink_rows``), and for the check on the saved inputs also
     of a knot in those saved inputs, which both routes read (at 16 bins,
     (50, 1024) K2-bwd's g_y lay 2.9e-2 of its largest from the plain
-    backward's on the same saved inputs with every row kept). TOL[10] up
-    to d=10, TOL[50] past it. Returns (the numbers to report, max |diff| by
+    backward's on the same saved inputs with every row kept). Past 16
+    bins every gradient reference is the plain version in float64 and the
+    weight gradients leave out the rows on a jump too (NARROW_TOL's
+    comment). TOL[10] up to d=10, TOL[50] past it (``narrow_tol`` at the
+    flow's bins). Returns (the numbers to report, max |diff| by
     kernel, under the kernels' names at the flow's bins)."""
     from pocomc_tpu_torch.ops import flow_kernels as fk
-    tol = TOL[min(max(d, 10), 50)]
     bins = flow.bins
+    tol = narrow_tol(TOL[min(max(d, 10), 50)], bins)
     k2, k2b, k1 = (with_bins(k, bins) for k in RQS)
     y = torch.from_numpy(rng.standard_normal((n, d)).astype(np.float32)).cuda()
     vs64 = {}
+    flow64 = copy.deepcopy(flow).double()
 
     def close(label, got, plain, exact, rtol, atol):
         e, vs64[label] = check_values(label, got, plain, exact, rtol, atol)
         return e
 
+    def reference(yy, gz, gl):
+        """the plain version's gradient route, in float64 past 16 bins"""
+        if bins > 16:
+            return grad_route(flow64, fk.made_rqs_forward_ref, yy.double(), gz.double(),
+                              gl.double())
+        return grad_route(flow, fk.made_rqs_forward_ref, yy, gz, gl)
+
     with torch.no_grad():
         fp = flow.params()
-        f64 = copy.deepcopy(flow).double().params()
+        f64 = flow64.params()
         z_k, l_k = fk.made_rqs_forward(y, fp.ws, fp.bs, bins=bins)
         z_r, l_r = fk.made_rqs_forward_ref(y, fp.ws, fp.bs, bins=bins)
         z_e, l_e = fk.made_rqs_forward_ref(y.double(), f64.ws, f64.bs, bins=bins)
@@ -1183,11 +1247,12 @@ def check_spline_made(name, d, n, flow, rng):
         e_z = close(f"{k2} z d={d} n={n}", z_k, z_r, z_e, tol["rtol"], tol["atol"])
         e_l = close(f"{k2} ladj d={d} n={n}", l_k, l_r, l_e, 0.0, tol["ladj"])
         lp_k = flow.log_prob(y, fp)
-        pre = fp.pre
-        z_p, l_p = fk.made_rqs_forward_ref((y - pre["mean"]) @ pre["w_fwd"], fp.ws, fp.bs,
-                                           bins=bins)
-        lp_r = flow._base_logpdf(z_p) + l_p + pre["ladj"]
-        e_lp = check_close(f"{k2} log_prob d={d} n={n}", lp_k, lp_r, 0.0, tol["ladj"])
+        lp_r, lp_e = (flow._base_logpdf(z) + l + p.pre["ladj"] for z, l, p in (
+            (*fk.made_rqs_forward_ref((y - fp.pre["mean"]) @ fp.pre["w_fwd"], fp.ws, fp.bs,
+                                      bins=bins), fp),
+            (*fk.made_rqs_forward_ref((y.double() - f64.pre["mean"]) @ f64.pre["w_fwd"],
+                                      f64.ws, f64.bs, bins=bins), f64)))
+        e_lp = close(f"{k2} log_prob d={d} n={n}", lp_k, lp_r, lp_e, 0.0, tol["ladj"])
     # K2 backward end to end: the kernel, through the autograd.Function
     # as training calls it, against plain autograd of the plain forward
     # on the same y. Rows on a knot in float64 with dL/dladj != 0 are
@@ -1204,11 +1269,11 @@ def check_spline_made(name, d, n, flow, rng):
     e_cpu = max(rel_errs(grad_route(copy.deepcopy(flow).cpu(), fk.made_rqs_forward_ref,
                                     yg.cpu(), g_ze.cpu(), g_le.cpu()), plain))
     e2e_tol = max(tol["grad"], 2 * e_cpu)
-    e_ge, e2e_out = grads_off_jumps(
+    e_ge, e2e_out, e2e_w = grads_off_jumps(
         f"{k2b} gradient end to end d={d} n={n}",
         lambda gz, gl: (grad_route(flow, fk.made_rqs_forward, yg, gz, gl),
-                        grad_route(flow, fk.made_rqs_forward_ref, yg, gz, gl)),
-        g_ze, g_le, e2e_tol, kinks)
+                        reference(yg, gz, gl)),
+        g_ze, g_le, e2e_tol, kinks, kinks if bins > 16 else None)
     # then, with every row, against the plain backward and per-transform
     # autograd on the layer inputs the forward kernel saved, which are
     # themselves held to the plain forward's
@@ -1222,22 +1287,29 @@ def check_spline_made(name, d, n, flow, rng):
                              10 * tol["atol"]) for l, (a, b) in enumerate(zip(acts, acts_r)))
     flat = lambda g: [g[0], *[w * m for w, m in zip(g[1], flow.masks)], *g[2]]
     on_saved = ((knot_distance(flow, acts) < 1e-5) & (g_l != 0)) | kinks
+    weights_off = on_saved if bins > 16 else None
+
+    # the references on the saved inputs, in float64 past 16 bins
+    ref_p, ref_acts = (f64, [a.double() for a in acts]) if bins > 16 else (fp, acts)
+    cast = (lambda t: t.double()) if bins > 16 else (lambda t: t)
 
     def by_plain(gz, gl):
         with torch.no_grad():
-            g_ref = fk.made_rqs_backward_ref(yg, fp.ws, fp.bs, gz, gl, acts, bins=bins)
+            g_ref = fk.made_rqs_backward_ref(cast(yg), ref_p.ws, ref_p.bs, cast(gz), cast(gl),
+                                             ref_acts, bins=bins)
         return grad_route(flow, fk.made_rqs_forward, yg, gz, gl), flat(g_ref)
 
     def by_autograd(gz, gl):
         return (grad_route(flow, fk.made_rqs_forward, yg, gz, gl),
-                flat(autograd_by_transform(acts[0], fp.ws, fp.bs, gz, gl, bins)))
+                flat(autograd_by_transform(ref_acts[0], ref_p.ws, ref_p.bs, cast(gz), cast(gl),
+                                           bins)))
 
-    e_gr, plain_out = grads_off_jumps(f"{k2b} vs plain d={d} n={n}", by_plain, g_z, g_l,
-                                      tol["grad"], on_saved)
-    e_ga, ag_out = grads_off_jumps(f"{k2b} vs autograd d={d} n={n}", by_autograd, g_z, g_l,
-                                   tol["grad"], on_saved)
+    e_gr, plain_out, plain_w = grads_off_jumps(f"{k2b} vs plain d={d} n={n}", by_plain, g_z,
+                                               g_l, tol["grad"], on_saved, weights_off)
+    e_ga, ag_out, ag_w = grads_off_jumps(f"{k2b} vs autograd d={d} n={n}", by_autograd, g_z,
+                                         g_l, tol["grad"], on_saved, weights_off)
     off = torch.zeros(n, dtype=torch.bool, device=yg.device)
-    off[plain_out] = True
+    off[plain_out + plain_w] = True
     got, g_ref = by_plain(g_z.masked_fill(off[:, None], 0.0), g_l.masked_fill(off, 0.0))
     with torch.no_grad():
         zi = torch.from_numpy(rng.standard_normal((n, d)).astype(np.float32)).cuda()
@@ -1260,7 +1332,9 @@ def check_spline_made(name, d, n, flow, rng):
                rows_left_out=dict(
                    end_to_end=jump_report(flow, yg, e2e_out),
                    vs_plain=jump_report(flow, yg, plain_out, acts),
-                   vs_autograd=jump_report(flow, yg, ag_out, acts)))
+                   vs_autograd=jump_report(flow, yg, ag_out, acts)),
+               rows_left_out_of_weights=dict(end_to_end=len(e2e_w), vs_plain=len(plain_w),
+                                             vs_autograd=len(ag_w)))
     errs = {k2: max(e_z, e_l), k2b: max(max_err(a, b) for a, b in zip(got, g_ref)),
             k1: max(e_x, e_li)}
     return out, errs
@@ -1281,18 +1355,24 @@ def check_menu(name, d, n, flow, rng, tol, grad_rows=None):
     1e-5 of a jump, and only such rows are left out, as in
     ``check_spline_made``: of a knot (``knot_rows``: in the float64
     forward, or, for the check on the saved inputs, in those inputs) or a
-    ReLU kink (``kink_rows``). ``grad_rows`` moves the MENU_GRAD_ROWS
-    limit. Returns (the numbers to report, max |diff| by kernel, under the
-    kernels' names at the flow's bins)."""
+    ReLU kink (``kink_rows``). Past 16 bins K5's gradient references are
+    the plain version in float64, the weight gradients without the rows on
+    a jump (NARROW_TOL's comment), at ``narrow_tol``'s tolerances.
+    ``grad_rows`` moves the MENU_GRAD_ROWS limit. Returns (the numbers to
+    report, max |diff| by kernel, under the kernels' names at the flow's
+    bins)."""
     from pocomc_tpu_torch.ops import coupling_kernels as ck, flow_kernels as fk
     coupling = flow.kind == "nsfc"
     bins = flow.bins
+    to64 = coupling and bins > 16  # gradient references in float64
+    flow64 = copy.deepcopy(flow).double()
+    cast = (lambda t: t.double()) if to64 else (lambda t: t)
     kf, ki, kb = ((COUPLING[0], COUPLING[1], COUPLING[2]) if coupling
                   else (AFFINE[0], AFFINE[2], AFFINE[1]))
     if coupling:
         kf, ki, kb = (with_bins(k, bins) for k in (kf, ki, kb))
     if coupling:
-        tol = dict(tol, atol=COUPLING_TOL[d][0], ladj=COUPLING_TOL[d][1])
+        tol = narrow_tol(dict(tol, atol=COUPLING_TOL[d][0], ladj=COUPLING_TOL[d][1]), bins)
     vtol = dict(rtol=tol["rtol"], atol=tol["atol"])
     out = dict(flow=name, d=d, n=n, tol=tol)
     errs = {}
@@ -1320,7 +1400,7 @@ def check_menu(name, d, n, flow, rng, tol, grad_rows=None):
         torch.cuda.synchronize()
         label = f"{name} d={d} n={n}"
         if coupling:
-            fp64 = copy.deepcopy(flow).double().params()
+            fp64 = flow64.params()
             exact_f = ck.coupling_forward_ref(y.double(), fp64.ws, fp64.bs, fp64.masks, bins=bins)
             exact_i = ck.coupling_inverse_ref(zi.double(), fp64.ws, fp64.bs, fp64.masks,
                                               bins=bins)
@@ -1340,11 +1420,12 @@ def check_menu(name, d, n, flow, rng, tol, grad_rows=None):
             errs[ki] = max(check_close(f"{ki} x {label}", got_i[0], want_i[0], **vtol),
                            check_close(f"{ki} ladj {label}", got_i[1], want_i[1], tol["rtol"],
                                        tol["ladj"]))
-        pre = fp.pre
+        pre, f64 = fp.pre, flow64.params()
         zp, lp_ = plain_stack(flow, (y - pre["mean"]) @ pre["w_fwd"])
-        out["log_prob"] = check_close(f"log_prob {label}", flow.log_prob(y, fp),
-                                      flow._base_logpdf(zp) + lp_ + pre["ladj"], tol["rtol"],
-                                      tol["ladj"])
+        zpe, lpe = plain_stack(flow, (y.double() - f64.pre["mean"]) @ f64.pre["w_fwd"], f64)
+        lp = (flow.log_prob(y, fp), flow._base_logpdf(zp) + lp_ + pre["ladj"],
+              flow._base_logpdf(zpe) + lpe + f64.pre["ladj"])
+        out["log_prob"] = check_values(f"log_prob {label}", *lp, tol["rtol"], tol["ladj"])[0]
         z_rt, l_rt = fwd(got_i[0])
         out["roundtrip_z"] = check_close(f"round trip {label}", z_rt, zi, vtol["rtol"],
                                          10 * vtol["atol"])
@@ -1357,16 +1438,18 @@ def check_menu(name, d, n, flow, rng, tol, grad_rows=None):
     g_l = torch.from_numpy(rng.standard_normal(n).astype(np.float32)).cuda()
     g_z[2::4], g_l[2::4] = 0.0, 0.0
     kinks = kink_rows(flow, y)
+    near = knot_rows(flow, y, g_l) | kinks
     plain = stack_grads(flow, plain_stack, y, g_z, g_l)
     e_cpu = max(rel_errs(stack_grads(copy.deepcopy(flow).cpu(), plain_stack, y.cpu(),
                                      g_z.cpu(), g_l.cpu()), plain))
     e2e_tol = max(tol["grad"], 2 * e_cpu)
     kernel = lambda f, v: f.stack_forward(v)
-    e_ge, e2e_out = grads_off_jumps(
+    e_ge, e2e_out, e2e_w = grads_off_jumps(
         f"{kb} end to end {label}",
         lambda gz, gl: (stack_grads(flow, kernel, y, gz, gl),
-                        stack_grads(flow, plain_stack, y, gz, gl)),
-        g_z, g_l, e2e_tol, knot_rows(flow, y, g_l) | kinks)
+                        stack_grads(flow64 if to64 else flow, plain_stack, cast(y), cast(gz),
+                                    cast(gl))),
+        g_z, g_l, e2e_tol, near, near if to64 else None)
     out.update(grad_rel_end_to_end=e_ge, grad_end_to_end_tol=e2e_tol,
                grad_rel_cpu_vs_card=e_cpu)
     with torch.no_grad():
@@ -1377,8 +1460,10 @@ def check_menu(name, d, n, flow, rng, tol, grad_rows=None):
                                              bins=bins)[2]
             back = lambda gz, gl: ck.coupling_backward(y, fp.ws, fp.bs, fp.masks, gz, gl, acts,
                                                        bins=bins)
-            back_r = lambda gz, gl: ck.coupling_backward_ref(y, fp.ws, fp.bs, fp.masks, gz, gl,
-                                                             acts, bins=bins)
+            rp = flow64.params() if to64 else fp
+            back_r = lambda gz, gl: ck.coupling_backward_ref(
+                cast(y), rp.ws, rp.bs, rp.masks, cast(gz), cast(gl), [cast(a) for a in acts],
+                bins=bins)
             flat = lambda g: [g[0], *[a for t in g[1] for a in t], *[a for t in g[2] for a in t]]
         else:
             _, _, acts = fk.made_rqs_forward(y, fp.ws, fp.bs, save_inputs=True, head="affine")
@@ -1394,13 +1479,15 @@ def check_menu(name, d, n, flow, rng, tol, grad_rows=None):
                         10 * vtol["atol"]) for l, (a, b) in enumerate(zip(acts, acts_r)))
         on_saved = ((knot_distance(flow, acts) < 1e-5) & (g_l != 0)) | kinks
         pair = lambda gz, gl: (flat(back(gz, gl)), flat(back_r(gz, gl)))
-        out["grad_rel_plain"], plain_out = grads_off_jumps(f"{kb} vs plain {label}", pair, g_z,
-                                                           g_l, tol["grad"], on_saved)
+        out["grad_rel_plain"], plain_out, plain_w = grads_off_jumps(
+            f"{kb} vs plain {label}", pair, g_z, g_l, tol["grad"], on_saved,
+            on_saved if to64 else None)
         off = torch.zeros(n, dtype=torch.bool, device=y.device)
-        off[plain_out] = True
+        off[plain_out + plain_w] = True
         g_k, g_r = pair(g_z.masked_fill(off[:, None], 0.0), g_l.masked_fill(off, 0.0))
     out["rows_left_out"] = dict(end_to_end=jump_report(flow, y, e2e_out),
                                 vs_plain=jump_report(flow, y, plain_out, acts))
+    out["rows_left_out_of_weights"] = dict(end_to_end=len(e2e_w), vs_plain=len(plain_w))
     errs[kb] = max(max_err(a, b) for a, b in zip(g_k, g_r))
     return out, errs
 
@@ -1605,9 +1692,9 @@ def check_gradient(name, d, n, flow, rng):
         xx, ll = inverse(zz, fp)
         return torch.autograd.grad((xx, ll), zz, (g_x, g_l))[0]
 
-    before = getattr(*_counter(kname))
+    before = getattr(*_counter(kname), 0)
     g_k = by_autograd(inv)
-    launched = getattr(*_counter(kname)) - before
+    launched = getattr(*_counter(kname), 0) - before
     g_p = by_autograd(ref)
     with torch.no_grad():
         state64 = point(z, x, fp64)
@@ -1693,7 +1780,8 @@ def main():
          tf32_cudnn=torch.backends.cudnn.allow_tf32)
 
     # -- 2. build ----------------------------------------------------------
-    # One nvcc per source and bins (the default 8 and phase 14's), started
+    # One nvcc per source and library (the default 8 bins, 16 and the
+    # run-time bins of every bins past 16: LIBRARY_BINS), started
     # together, so the script's build cost is the slowest kernel's, not the
     # sum; each library's seconds overlap the others', and wall_s is the
     # build's own.
@@ -1706,7 +1794,7 @@ def main():
             ptxas=[l.strip() for l in report.splitlines() if "registers" in l or "spill" in l],
             resources=ptxas_summary(report))
 
-    jobs = [(name, bins) for bins in (8, *SPLINE_BINS) for name in LIBRARIES]
+    jobs = [(name, bins) for bins in LIBRARY_BINS for name in LIBRARIES]
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(jobs)) as ex:
         build = dict(ex.map(build_one, jobs))
@@ -2346,14 +2434,15 @@ def main():
     emit("gradient_kernels", card=card, checks=grad_checks, times=grad_times, runs=grad_runs,
          head_sweeps=head_sweeps, wide_sweeps=wide_sweeps)
 
-    # -- 14. the spline of 2-16 bins ----------------------------------------
+    # -- 14. the spline of other bins than 8 -------------------------------
     # (b) every spline-head kernel at other bins than 8 against its plain
     # version (and float64 where phases 4 and 13 hold it so), at phase 3-4's
-    # and 13's tolerances and exclusion windows: K2, K2-bwd and K1 at every
-    # SPLINE_BINS at (10, 256), and at 16 bins also K1's two- and four-row
-    # launches, d=50 and d=342; K5 forward, inverse and backward the same
-    # bins at (10, 256) and 16 at (50, 1024); K1-bwd and K5-inv-bwd at 5
-    # and 16 bins at (10, 256) and 16 at (50, 1024)
+    # and 13's tolerances and exclusion windows: K2, K2-bwd and K1, K5's
+    # forward, inverse and backward, K1-bwd and K5-inv-bwd at 16 bins and at
+    # every WIDE_BINS at (10, 256), and at each TIMED_BINS (16, the compiled
+    # library's, and 32, the run-time library's) also K1's two- and
+    # four-row launches, d=50 and d=342 (K2, K1) and d=50 (K5, the gradient
+    # kernels)
     bflows = {}
 
     def bins_flow(name, d, bins):
@@ -2372,198 +2461,208 @@ def main():
 
     t14 = time.perf_counter()
     bins_checks, bins_menu, bins_grad = [], [], []
-    for name, d, n, b in ([("nsf6", 10, 256, b) for b in SPLINE_BINS]
-                          + [("nsf6", 10, 2048, 16), ("nsf6", 10, 4096, 16),
-                             ("nsf6", 50, 1024, 16), ("nsf3", 342, 64, 16)]):
+    checked = SPLINE_BINS + WIDE_BINS
+    for name, d, n, b in ([("nsf6", 10, 256, b) for b in checked]
+                          + [(f, d, n, b) for b in TIMED_BINS
+                             for f, d, n in (("nsf6", 10, 2048), ("nsf6", 10, 4096),
+                                             ("nsf6", 50, 1024), ("nsf3", 342, 64))]):
         out, e = check_spline_made(name, d, n, *bins_flow(name, d, b))
         bins_checks.append(out)
         keep_err(e)
-    for name, d, n, b in ([("nsfc6", 10, 256, b) for b in SPLINE_BINS]
-                          + [("nsfc12", 50, 1024, 16)]):
+    for name, d, n, b in ([("nsfc6", 10, 256, b) for b in checked]
+                          + [("nsfc12", 50, 1024, b) for b in TIMED_BINS]):
         out, e = check_menu(name, d, n, *bins_flow(name, d, b), TOL[d], grad_rows=1024)
         bins_menu.append(dict(out, bins=b))
         keep_err(e)
-    for name, d, n, b in ([(f, 10, 256, b) for f in ("nsf6", "nsfc6") for b in (5, 16)]
-                          + [("nsf6", 50, 1024, 16), ("nsfc12", 50, 1024, 16)]):
+    for name, d, n, b in ([(f, 10, 256, b) for f in ("nsf6", "nsfc6") for b in checked]
+                          + [(f, 50, 1024, b) for b in TIMED_BINS for f in ("nsf6", "nsfc12")]):
         out, e = check_gradient(name, d, n, *bins_flow(name, d, b))
         bins_grad.append(dict(out, bins=b))
         keep_err({out["kernel"]: e})
     check_s = time.perf_counter() - t14
-    # (c) the 16-bin kernels timed at the kernels line's shapes (phase 5's
-    # rule: device ms by graph replay, eager ms by events), beside their
-    # plain versions, bounds and products as torch.matmul/bmm
-    b16 = TIMED_BINS
-    f16, rng16 = bins_flow("nsf6", 10, b16)
-    c16, crng16 = bins_flow("nsfc6", 10, b16)
-    bins_times = {}
+    # (c) the kernels of each TIMED_BINS at the kernels line's shapes
+    # (phase 5's rule: device ms by graph replay, eager ms by events),
+    # beside their plain versions, bounds and products as torch.matmul/bmm
+    bins_times, bins_bounds = {}, {}
+    for tb in TIMED_BINS:
+        ft, rngt = bins_flow("nsf6", 10, tb)
+        ct, crngt = bins_flow("nsfc6", 10, tb)
+        bt = bins_times[tb] = {}
 
-    def timed(key, fn, reps):
-        bins_times[f"{key}_ms"] = graph_ms(fn, reps)
-        bins_times[f"{key}_call_ms"] = cuda_ms(fn, reps, warmup=1)
+        def timed(key, fn, reps):
+            bt[f"{key}_ms"] = graph_ms(fn, reps)
+            bt[f"{key}_call_ms"] = cuda_ms(fn, reps, warmup=1)
 
-    with torch.no_grad():
-        fp = f16.params()
-        orders_cpu = fp.inv_orders.cpu()
-        y1k, g_z1k, g_l1k = grad_problem(f16, 10, 1024, rng16)
-        y256 = torch.from_numpy(rng16.standard_normal((256, 10)).astype(np.float32)).cuda()
-        acts = fk.made_rqs_forward(y1k, fp.ws, fp.bs, save_inputs=True, bins=b16)[2]
-        deltas = [torch.randn(w.shape[0], 1024, w.shape[2], device="cuda") for w in fp.ws]
-        for key, fn, reps in (
-                ("made_rqs_forward", lambda: fk.made_rqs_forward(y1k, fp.ws, fp.bs, bins=b16), 20),
-                ("made_rqs_forward_plain",
-                 lambda: fk.made_rqs_forward_ref(y1k, fp.ws, fp.bs, bins=b16), 10),
-                ("made_rqs_forward_matmul", lambda: matmul_products(f16, y1k), 20),
-                ("made_rqs_backward", lambda: fk.made_rqs_backward(
-                    y1k, fp.ws, fp.bs, g_z1k, g_l1k, acts, bins=b16), 20),
-                ("made_rqs_backward_plain", lambda: fk.made_rqs_backward_ref(
-                    y1k, fp.ws, fp.bs, g_z1k, g_l1k, acts, bins=b16), 10),
-                ("made_rqs_backward_matmul", lambda: backward_matmul_products(
-                    f16, y1k, acts, deltas), 20),
-                ("ar_inverse", lambda: fk.ar_inverse(y256, fp.ws, fp.bs, fp.inv_orders,
-                                                     bins=b16), 20),
-                ("ar_inverse_plain", lambda: fk.ar_inverse_ref(y256, fp.ws, fp.bs, orders_cpu,
-                                                               bins=b16), 10)):
-            timed(key, fn, reps)
-        cp = c16.params()
-        a = (cp.ws, cp.bs, cp.masks)
-        yc1k = torch.from_numpy(crng16.standard_normal((1024, 10)).astype(np.float32)).cuda()
-        yc256 = yc1k[:256].contiguous()
-        g_zc = torch.from_numpy(crng16.standard_normal((1024, 10)).astype(np.float32)).cuda()
-        g_lc = torch.from_numpy(crng16.standard_normal(1024).astype(np.float32)).cuda()
-        cacts = ck.coupling_forward(yc1k, *a, save_inputs=True, bins=b16)[2]
-        cdeltas = [torch.randn(c16.n_transforms, 1024, k, device="cuda")
-                   for k in (c16.n_hidden,) * 3 + (5 * c16.n_params,)]
-        for key, fn, reps in (
-                ("coupling_forward", lambda: ck.coupling_forward(yc1k, *a, bins=b16), 20),
-                ("coupling_forward_plain", lambda: ck.coupling_forward_ref(yc1k, *a, bins=b16),
-                 10),
-                ("coupling_forward_matmul", lambda: matmul_products(c16, yc1k), 20),
-                ("coupling_inverse", lambda: ck.coupling_inverse(yc256, *a, bins=b16), 20),
-                ("coupling_inverse_plain", lambda: ck.coupling_inverse_ref(yc256, *a, bins=b16),
-                 10),
-                ("coupling_inverse_matmul", lambda: matmul_products(c16, yc256), 20),
-                ("coupling_backward", lambda: ck.coupling_backward(
-                    yc1k, *a, g_zc, g_lc, cacts, bins=b16), 20),
-                ("coupling_backward_plain", lambda: ck.coupling_backward_ref(
-                    yc1k, *a, g_zc, g_lc, cacts, bins=b16), 10),
-                ("coupling_backward_matmul", lambda: backward_matmul_products(
-                    c16, yc1k, cacts, cdeltas), 20)):
-            timed(key, fn, reps)
-        for flow, gname in ((f16, "ar_inverse_backward"), (c16, "coupling_inverse_backward")):
-            _, _, bwd, twin, saving, point = inverse_routes(flow)
-            gp = _detached(flow.params())
-            gp_host = gp if flow.kind == "nsfc" else gp._replace(inv_orders=gp.inv_orders.cpu())
-            z = y256 if flow.kind == "nsf" else yc256
-            g_x, g_l = g_zc[:256].contiguous(), g_lc[:256].contiguous()
-            x, _, data = saving(z, None, gp)
-            plain_at = point(z, x, gp)
-            timed(gname, lambda: bwd(data, gp, g_x, g_l), 20)
-            timed(f"{gname}_plain", lambda: twin(plain_at, gp_host, g_x, g_l), 10)
-            timed(f"{gname}_save", lambda: saving(z, None, gp), 20)
-            if flow.kind == "nsfc":
-                sdeltas = [torch.randn(c16.n_transforms, 256, k, device="cuda")
-                           for k in (c16.n_hidden,) * 3 + (5 * c16.n_params,)]
-                timed(f"{gname}_matmul", lambda: backward_matmul_products(
-                    c16, x, data[:4], sdeltas, weight_grads=False), 20)
-    bins_bounds = {**made_bounds(1024, f16), "ar_inverse": made_bounds(256, f16)["ar_inverse"],
-                   **coupling_bounds(1024, c16),
-                   "coupling_inverse": coupling_bounds(256, c16)["coupling_inverse"],
-                   "ar_inverse_backward": gradient_bounds(256, f16),
-                   "coupling_inverse_backward": gradient_bounds(256, c16)}
-    # (d) a 16-bin flow's main path at full width: phase 6's quickstart
-    # with flow=Flow(10, "nsf6", bins=16)
-    k16 = tuple(with_bins(k, b16) for k in RQS)
+        with torch.no_grad():
+            fp = ft.params()
+            orders_cpu = fp.inv_orders.cpu()
+            y1k, g_z1k, g_l1k = grad_problem(ft, 10, 1024, rngt)
+            y256 = torch.from_numpy(rngt.standard_normal((256, 10)).astype(np.float32)).cuda()
+            acts = fk.made_rqs_forward(y1k, fp.ws, fp.bs, save_inputs=True, bins=tb)[2]
+            deltas = [torch.randn(w.shape[0], 1024, w.shape[2], device="cuda") for w in fp.ws]
+            for key, fn, reps in (
+                    ("made_rqs_forward", lambda: fk.made_rqs_forward(y1k, fp.ws, fp.bs, bins=tb),
+                     20),
+                    ("made_rqs_forward_plain",
+                     lambda: fk.made_rqs_forward_ref(y1k, fp.ws, fp.bs, bins=tb), 10),
+                    ("made_rqs_forward_matmul", lambda: matmul_products(ft, y1k), 20),
+                    ("made_rqs_backward", lambda: fk.made_rqs_backward(
+                        y1k, fp.ws, fp.bs, g_z1k, g_l1k, acts, bins=tb), 20),
+                    ("made_rqs_backward_plain", lambda: fk.made_rqs_backward_ref(
+                        y1k, fp.ws, fp.bs, g_z1k, g_l1k, acts, bins=tb), 10),
+                    ("made_rqs_backward_matmul", lambda: backward_matmul_products(
+                        ft, y1k, acts, deltas), 20),
+                    ("ar_inverse", lambda: fk.ar_inverse(y256, fp.ws, fp.bs, fp.inv_orders,
+                                                         bins=tb), 20),
+                    ("ar_inverse_plain", lambda: fk.ar_inverse_ref(y256, fp.ws, fp.bs,
+                                                                   orders_cpu, bins=tb), 10)):
+                timed(key, fn, reps)
+            cp = ct.params()
+            a = (cp.ws, cp.bs, cp.masks)
+            yc1k = torch.from_numpy(crngt.standard_normal((1024, 10)).astype(np.float32)).cuda()
+            yc256 = yc1k[:256].contiguous()
+            g_zc = torch.from_numpy(crngt.standard_normal((1024, 10)).astype(np.float32)).cuda()
+            g_lc = torch.from_numpy(crngt.standard_normal(1024).astype(np.float32)).cuda()
+            cacts = ck.coupling_forward(yc1k, *a, save_inputs=True, bins=tb)[2]
+            cdeltas = [torch.randn(ct.n_transforms, 1024, k, device="cuda")
+                       for k in (ct.n_hidden,) * 3 + (5 * ct.n_params,)]
+            for key, fn, reps in (
+                    ("coupling_forward", lambda: ck.coupling_forward(yc1k, *a, bins=tb), 20),
+                    ("coupling_forward_plain",
+                     lambda: ck.coupling_forward_ref(yc1k, *a, bins=tb), 10),
+                    ("coupling_forward_matmul", lambda: matmul_products(ct, yc1k), 20),
+                    ("coupling_inverse", lambda: ck.coupling_inverse(yc256, *a, bins=tb), 20),
+                    ("coupling_inverse_plain",
+                     lambda: ck.coupling_inverse_ref(yc256, *a, bins=tb), 10),
+                    ("coupling_inverse_matmul", lambda: matmul_products(ct, yc256), 20),
+                    ("coupling_backward", lambda: ck.coupling_backward(
+                        yc1k, *a, g_zc, g_lc, cacts, bins=tb), 20),
+                    ("coupling_backward_plain", lambda: ck.coupling_backward_ref(
+                        yc1k, *a, g_zc, g_lc, cacts, bins=tb), 10),
+                    ("coupling_backward_matmul", lambda: backward_matmul_products(
+                        ct, yc1k, cacts, cdeltas), 20)):
+                timed(key, fn, reps)
+            for flow, gname in ((ft, "ar_inverse_backward"), (ct, "coupling_inverse_backward")):
+                _, _, bwd, twin, saving, point = inverse_routes(flow)
+                gp = _detached(flow.params())
+                gp_host = (gp if flow.kind == "nsfc"
+                           else gp._replace(inv_orders=gp.inv_orders.cpu()))
+                z = y256 if flow.kind == "nsf" else yc256
+                g_x, g_l = g_zc[:256].contiguous(), g_lc[:256].contiguous()
+                x, _, data = saving(z, None, gp)
+                plain_at = point(z, x, gp)
+                timed(gname, lambda: bwd(data, gp, g_x, g_l), 20)
+                timed(f"{gname}_plain", lambda: twin(plain_at, gp_host, g_x, g_l), 10)
+                timed(f"{gname}_save", lambda: saving(z, None, gp), 20)
+                if flow.kind == "nsfc":
+                    sdeltas = [torch.randn(ct.n_transforms, 256, k, device="cuda")
+                               for k in (ct.n_hidden,) * 3 + (5 * ct.n_params,)]
+                    timed(f"{gname}_matmul", lambda: backward_matmul_products(
+                        ct, x, data[:4], sdeltas, weight_grads=False), 20)
+        bins_bounds[tb] = {**made_bounds(1024, ft),
+                           "ar_inverse": made_bounds(256, ft)["ar_inverse"],
+                           **coupling_bounds(1024, ct),
+                           "coupling_inverse": coupling_bounds(256, ct)["coupling_inverse"],
+                           "ar_inverse_backward": gradient_bounds(256, ft),
+                           "coupling_inverse_backward": gradient_bounds(256, ct)}
+    # (d) a spline flow of run-time bins on the main path at full width:
+    # phase 6's quickstart with flow=Flow(10, "nsf6", bins=QUICK_BINS)
+    qb = QUICK_BINS
+    kq = tuple(with_bins(k, qb) for k in RQS)
 
     def bins_quickstart():
         s = pt.Sampler(prior, log_like, vectorize=True, random_state=0, device="cuda",
-                       flow=Flow(10, "nsf6", bins=b16, device="cuda"))
+                       flow=Flow(10, "nsf6", bins=qb, device="cuda"))
         reset_launches(fk)
         t0 = time.perf_counter()
         s.run(n_total=4096, n_evidence=4096, progress=False)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        counts = read_launches(fk, k16)
+        counts = read_launches(fk, kq)
         others = {k: v for k, v in read_launches(fk, KERNELS).items() if v}
         x, w, _, _ = s.posterior()
-        return s, dict(logz=s.logz, dlogz=s.logz_err, true_logz=TRUE_LOGZ, khat=s.evidence_khat,
-                       calls=s.calls, iterations=s.t, wall_s=wall, phase_s=dict(s.phase_seconds),
-                       launches=counts, posterior_finite=bool(np.isfinite(x).all()
-                                                             and np.isfinite(w).all()),
+        return s, dict(bins=qb, logz=s.logz, dlogz=s.logz_err, true_logz=TRUE_LOGZ,
+                       khat=s.evidence_khat, calls=s.calls, iterations=s.t, wall_s=wall,
+                       phase_s=dict(s.phase_seconds), launches=counts,
+                       posterior_finite=bool(np.isfinite(x).all() and np.isfinite(w).all()),
                        other_launches=others)
 
-    s16, quick16 = bins_quickstart()
-    by_path["spline_bins_quickstart"] = quick16["launches"]
-    if not all(quick16["launches"].values()) or quick16["other_launches"]:
-        fail(f"spline_bins quickstart: launches {quick16['launches']}, of other kernels "
-             f"{quick16['other_launches']}")
-    if not (np.isfinite(quick16["logz"]) and abs(quick16["logz"] - TRUE_LOGZ) < LOGZ_GATE):
-        fail(f"spline_bins quickstart: logZ {quick16['logz']} outside {TRUE_LOGZ} +- {LOGZ_GATE}")
-    if not quick16["posterior_finite"]:
+    sq, quick = bins_quickstart()
+    by_path["spline_bins_quickstart"] = quick["launches"]
+    if not all(quick["launches"].values()) or quick["other_launches"]:
+        fail(f"spline_bins quickstart: launches {quick['launches']}, of other kernels "
+             f"{quick['other_launches']}")
+    if not (np.isfinite(quick["logz"]) and abs(quick["logz"] - TRUE_LOGZ) < LOGZ_GATE):
+        fail(f"spline_bins quickstart: logZ {quick['logz']} outside {TRUE_LOGZ} +- {LOGZ_GATE}")
+    if not quick["posterior_finite"]:
         fail("spline_bins quickstart: posterior samples are not finite")
     # (e) a 20-step mala sweep at d=10, n=256 on random nsf6 and nsfc6 flows
-    # of 16 bins, as phase 13 (d)
+    # of each TIMED_BINS, as phase 13 (d)
     bins_sweeps = []
-    for name in ("nsf6", "nsfc6"):
-        flow = bins_flow(name, 10, b16)[0]
-        kname = gradient_kernel(flow)
-        sweep = Sweep(scaler10, prior10.logpdf, make_loglike(unit_gauss), flow, 10, 20, 20,
-                      kind="mala")
-        g = torch.Generator("cuda").manual_seed(SEED)
-        with torch.no_grad():
-            scp10 = scaler10.whitening_params("cuda")
-            fp = _detached(flow.params())
-            u = 0.5 * torch.randn(256, 10, device="cuda", generator=g)
-            x, ldj = scaler10.inverse(u, params=scp10)
-            theta, _ = flow.forward(u, fp)
-            geom = fit_geometry(theta, torch.full((256,), 1.0 / 256, device="cuda"), g)
-            reset_launches(fk)
-            st = sweep.init_state(u, x, ldj, unit_gauss(x), prior10.logpdf(x), 2.38 / 10 ** 0.5,
-                                  geom, fp, beta=1.0, scp=scp10)
-            accepts = []
-            for _ in range(20):
-                prop = sweep.propose(st, geom, fp, scp10, sweep.draw_noise(st, geom, g),
-                                     beta=1.0)
-                st, _ = sweep.accept_update(st, prop, prop["logl"], 1.0, geom)
-                accepts.append(float(st.accept))
-            torch.cuda.synchronize()
-        counts = read_launches(fk, (kname,))
-        by_path[f"spline_bins_head_{name}"] = counts
-        finite = all(bool(torch.isfinite(a).all()) for a in (st.u, st.x, st.logl, st.grad))
-        row = dict(flow=name, bins=b16, kernel=kname, steps=st.i,
-                   mean_accept=statistics.mean(accepts), sigma=float(st.sigma), finite=finite,
-                   launches=counts)
-        bins_sweeps.append(row)
-        if not finite:
-            fail(f"spline_bins_head_{name}: the sweep's state is not finite")
-        if not 0.2 < row["mean_accept"] < 0.98:
-            fail(f"spline_bins_head_{name}: mean acceptance {row['mean_accept']} outside "
-                 f"(0.2, 0.98)")
-        if not counts[kname]:
-            fail(f"spline_bins_head_{name}: {kname} was never launched")
+    for tb in TIMED_BINS:
+        for name in ("nsf6", "nsfc6"):
+            flow = bins_flow(name, 10, tb)[0]
+            kname = gradient_kernel(flow)
+            sweep = Sweep(scaler10, prior10.logpdf, make_loglike(unit_gauss), flow, 10, 20, 20,
+                          kind="mala")
+            g = torch.Generator("cuda").manual_seed(SEED)
+            with torch.no_grad():
+                scp10 = scaler10.whitening_params("cuda")
+                fp = _detached(flow.params())
+                u = 0.5 * torch.randn(256, 10, device="cuda", generator=g)
+                x, ldj = scaler10.inverse(u, params=scp10)
+                theta, _ = flow.forward(u, fp)
+                geom = fit_geometry(theta, torch.full((256,), 1.0 / 256, device="cuda"), g)
+                reset_launches(fk)
+                st = sweep.init_state(u, x, ldj, unit_gauss(x), prior10.logpdf(x),
+                                      2.38 / 10 ** 0.5, geom, fp, beta=1.0, scp=scp10)
+                accepts = []
+                for _ in range(20):
+                    prop = sweep.propose(st, geom, fp, scp10, sweep.draw_noise(st, geom, g),
+                                         beta=1.0)
+                    st, _ = sweep.accept_update(st, prop, prop["logl"], 1.0, geom)
+                    accepts.append(float(st.accept))
+                torch.cuda.synchronize()
+            counts = read_launches(fk, (kname,))
+            label = f"spline_bins_head_{name}_b{tb}"
+            by_path[label] = counts
+            finite = all(bool(torch.isfinite(a).all()) for a in (st.u, st.x, st.logl, st.grad))
+            row = dict(flow=name, bins=tb, kernel=kname, steps=st.i,
+                       mean_accept=statistics.mean(accepts), sigma=float(st.sigma),
+                       finite=finite, launches=counts)
+            bins_sweeps.append(row)
+            if not finite:
+                fail(f"{label}: the sweep's state is not finite")
+            if not 0.2 < row["mean_accept"] < 0.98:
+                fail(f"{label}: mean acceptance {row['mean_accept']} outside (0.2, 0.98)")
+            if not counts[kname]:
+                fail(f"{label}: {kname} was never launched")
     # (f) the quickstart's state through save_state and load_state into a
     # sampler of another seed with such a flow: bit for bit
     state_dir = Path("build/chip_smoke_states")
     state_path = state_dir / "spline_bins.state"
-    s16.save_state(state_path)
+    sq.save_state(state_path)
     back = pt.Sampler(prior, log_like, vectorize=True, random_state=5, device="cuda",
-                      flow=Flow(10, "nsf6", bins=b16, device="cuda"))
+                      flow=Flow(10, "nsf6", bins=qb, device="cuda"))
     back.load_state(state_path)
     shutil.rmtree(state_dir, ignore_errors=True)
     pts = torch.from_numpy(np.random.default_rng(SEED).normal(0.0, 2.0, (64, 10))
                            .astype(np.float32)).cuda()
     with torch.no_grad():
-        round_trip = (back.evidence() == s16.evidence() and back.flow.bins == b16
+        round_trip = (back.evidence() == sq.evidence() and back.flow.bins == qb
                       and all(np.array_equal(u, v) for u, v in zip(back.posterior(),
-                                                                   s16.posterior()))
+                                                                   sq.posterior()))
                       and all(torch.equal(u, v) for u, v in zip(back.flow.parameters(),
-                                                                s16.flow.parameters()))
-                      and torch.equal(back.flow.log_prob(pts), s16.flow.log_prob(pts)))
+                                                                sq.flow.parameters()))
+                      and torch.equal(back.flow.log_prob(pts), sq.flow.log_prob(pts)))
     if not round_trip:
         fail("spline_bins: the saved state did not load back bit for bit")
-    emit("spline_bins", card=card, bins=SPLINE_BINS, checks=bins_checks, menu_checks=bins_menu,
-         gradient_checks=bins_grad, check_s=check_s, times=dict(bins=b16, **bins_times),
-         bounds={k: dict(bound_ms=v[0], bound_by=v[1]) for k, v in bins_bounds.items()},
-         quickstart=quick16, head_sweeps=bins_sweeps,
+    emit("spline_bins", card=card, bins=checked, checks=bins_checks, menu_checks=bins_menu,
+         gradient_checks=bins_grad, check_s=check_s,
+         times={str(tb): dict(bins=tb, **bins_times[tb]) for tb in TIMED_BINS},
+         bounds={str(tb): {k: dict(bound_ms=v[0], bound_by=v[1]) for k, v in b.items()}
+                 for tb, b in bins_bounds.items()},
+         quickstart=quick, head_sweeps=bins_sweeps,
          state_round_trip=round_trip, wall_s=time.perf_counter() - t14)
 
     # -- 15. mesh: the particles over torch.distributed ranks ----------------
@@ -2606,9 +2705,10 @@ def main():
                                                                             "test_mala"))})
     paths.update({k: ("ar_inverse",) + GRADIENT[:1] for k in by_path
                   if k.startswith("gradient_sweep")})
-    paths.update({"spline_bins_quickstart": k16,
-                  "spline_bins_head_nsf6": (with_bins(GRADIENT[0], b16),),
-                  "spline_bins_head_nsfc6": (with_bins(GRADIENT[2], b16),)})
+    paths["spline_bins_quickstart"] = kq
+    for tb in TIMED_BINS:
+        paths.update({f"spline_bins_head_nsf6_b{tb}": (with_bins(GRADIENT[0], tb),),
+                      f"spline_bins_head_nsfc6_b{tb}": (with_bins(GRADIENT[2], tb),)})
     for name, counts in by_path.items():
         want = paths.get(name, RQS)
         if set(counts) != set(want) or not all(counts.values()):
@@ -2746,11 +2846,13 @@ def main():
             entry.update(k1_save_ms=row["k1_save_ms"], k1_ms=row["k1_ms"],
                          k1_state_bytes=row["k1_state_bytes"])
         line.append(entry)
-    # the spline kernels at 16 bins (phase 14), at the shapes above on its
-    # nsf6 and nsfc6 flows of d=10, each with ptxas's count of its
-    # library's instances, their most registers and their spills; and on
-    # every spline kernel's entry the largest |diff| at each bins checked
-    at16 = {"made_rqs_forward": ("made_rqs_forward", "nsf6", 1024),
+    # the spline kernels at each TIMED_BINS (phase 14: 16, the most of a
+    # compiled library, and 32, of the library of run-time bins), at the
+    # shapes above on its nsf6 and nsfc6 flows of d=10, each with ptxas's
+    # count of its library's instances, their most registers and their
+    # spills; and on every spline kernel's entry the largest |diff| at each
+    # bins checked
+    at_bins = {"made_rqs_forward": ("made_rqs_forward", "nsf6", 1024),
             "made_rqs_backward": ("made_rqs_backward", "nsf6", 1024),
             "ar_inverse": ("ar_inverse", "nsf6", 256),
             "coupling_forward": ("coupling_forward", "nsfc6", 1024),
@@ -2759,26 +2861,25 @@ def main():
             "ar_inverse_backward": ("ar_inverse_backward", "nsf6", 256),
             "coupling_inverse_backward": ("coupling_backward", "nsfc6", 256)}
     every_source = {**sources, **grad_sources}
-    for base, (lib, flow_name, n) in at16.items():
-        name = with_bins(base, b16)
+    for tb, (base, (lib, flow_name, n)) in itertools.product(TIMED_BINS, at_bins.items()):
+        name, bt, (bound_ms, bound_by) = with_bins(base, tb), bins_times[tb], bins_bounds[tb][base]
         total, path_counts = launches_of(name)
         entry = {"name": name, "route": "cuda", "source": every_source[base][0],
                  "replaces": every_source[base][1], "launches": total,
                  "launches_by_path": path_counts, "max_abs_err": bins_errs.get(name, 0.0),
-                 "ms": bins_times[f"{base}_ms"], "plain_ms": bins_times[f"{base}_plain_ms"],
-                 "call_ms": bins_times[f"{base}_call_ms"],
-                 "plain_call_ms": bins_times[f"{base}_plain_call_ms"],
-                 "bound_ms": bins_bounds[base][0], "bound_by": bins_bounds[base][1],
-                 "library_ms": None, "flow": flow_name, "d": 10, "n": n, "bins": b16,
-                 "ptxas": build[with_bins(lib, b16)]["resources"]}
+                 "ms": bt[f"{base}_ms"], "plain_ms": bt[f"{base}_plain_ms"],
+                 "call_ms": bt[f"{base}_call_ms"], "plain_call_ms": bt[f"{base}_plain_call_ms"],
+                 "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+                 "flow": flow_name, "d": 10, "n": n, "bins": tb,
+                 "ptxas": build[with_bins(lib, fk.lib_bins(tb))]["resources"]}
         for extra in ("matmul", "save"):
-            if f"{base}_{extra}_ms" in bins_times:
-                entry[f"{extra}_ms"] = bins_times[f"{base}_{extra}_ms"]
+            if f"{base}_{extra}_ms" in bt:
+                entry[f"{extra}_ms"] = bt[f"{base}_{extra}_ms"]
         line.append(entry)
     for entry in line:
-        if entry["name"] in at16:
+        if entry["name"] in at_bins:
             entry["bins_instances"] = {
-                str(b): bins_errs[with_bins(entry["name"], b)] for b in SPLINE_BINS
+                str(b): bins_errs[with_bins(entry["name"], b)] for b in SPLINE_BINS + WIDE_BINS
                 if with_bins(entry["name"], b) in bins_errs}
     print(json.dumps({"kernels": line}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -145,6 +145,7 @@ struct Producer {
 // runs the same inverse on them. The arithmetic of spline_setup but for
 // the order of the two sums where BINS is a power of two, and exactly
 // spline_setup's where it is not.
+#if !POCOMC_RUNTIME_BINS
 __device__ __forceinline__ float rqs_inverse_warp(float y, float p, int lane, float* ladj) {
   const float B = SPLINE_BOUND;
   const float m = segment_max(p, lane);
@@ -165,11 +166,13 @@ __device__ __forceinline__ float rqs_inverse_warp(float y, float p, int lane, fl
   }
   return rqs_inverse_knots(y, xk, yk, dv, ladj);
 }
+#endif
 
 // The consumers of one block: each warp runs every product of the walk on
 // its R rows. Row r's state starts at rows + r * RS: h0, h1, h2 (h each,
 // degree-sorted), z and x by dimension (d each, swapped between
-// transforms), x in visit order (d), the current head parameters (OG).
+// transforms), x in visit order (d), the current head parameters (OG, or
+// head_floats(np) for the spline of run-time bins).
 // With SAVE, rows row0.. (of n) also go to `save` as the walk leaves them.
 template <class Head, int R, bool SAVE>
 struct Consumer {
@@ -181,6 +184,7 @@ struct Consumer {
   float ladj;  // lane r < R: row r's log-det
   SavedState save;
   int row0, n;
+  int np;  // the head's raw parameters
 
   // one column group over all its fan-in pieces; out[r * RS + jj] =
   // base[r * RS + jj] (when a residual layer) + sum + bias
@@ -243,7 +247,10 @@ struct Consumer {
   __device__ __forceinline__ void group(int t, int k, int l, int g0, int ncg, int gw, int fan) {
     const int h = g.h;
     if (l == 3) {
-      product<Head::OG, true>(rows + 2 * h, fan, ncg, rows + 3 * h + 3 * g.d, nullptr);
+      if constexpr (Head::RUNTIME)
+        product<GROUP, true>(rows + 2 * h, fan, ncg, rows + 3 * h + 3 * g.d + g0, nullptr);
+      else
+        product<Head::OG, true>(rows + 2 * h, fan, ncg, rows + 3 * h + 3 * g.d, nullptr);
       return;
     }
     const int pos = g.count(k - 1) + g0;
@@ -263,10 +270,12 @@ struct Consumer {
 
   // the inverse of dimension inv_order[t, k]: the spline with one row by
   // the whole warp (rqs_inverse_warp, up to 10 bins); else lane r for row r
+  // (the spline of run-time bins streaming over the row's parameters)
   __device__ __forceinline__ void step_end(int t, int k) {
     const int d = g.d, h = g.h;
     const int dim = __ldg(inv_order + t * d + k);
     float* row = rows + 3 * h;  // z, x, x in visit order, head parameters
+#if !POCOMC_RUNTIME_BINS
     if constexpr (R == 1 && Head::NP == NPARAMS && WARP_SPLINE) {
       const float p = lane < NPARAMS ? row[3 * d + lane] : 0.0f;
       float l;
@@ -276,10 +285,16 @@ struct Consumer {
         row[2 * d + k] = x;
         ladj += l;
       }
-    } else if (lane < R) {
+    } else
+#endif
+    if (lane < R) {
       row += lane * RS;
       float l;
-      const float x = Head::inverse(row[zo + dim], row + 3 * d, &l);
+      float x;
+      if constexpr (Head::RUNTIME)
+        x = Head::inverse(row[zo + dim], ParamsAt<1>{row + 3 * d}, (np + 1) / 3, &l);
+      else
+        x = Head::inverse(row[zo + dim], row + 3 * d, &l);
       row[xo + dim] = x;
       row[2 * d + k] = x;
       ladj += l;
@@ -287,12 +302,13 @@ struct Consumer {
     __syncwarp();
     if constexpr (SAVE) {
       // value i < NP: the step's parameter i; value NP: its x
+      const int NP = Head::RUNTIME ? np : Head::NP;
       for (int r = 0; r < R; ++r) {
         const float* st = rows + r * RS + 3 * h;
         if (row0 + r < n)
-          for (int i = lane; i <= Head::NP; i += 32)
-            save.px[(((size_t)t * n + row0 + r) * d + k) * (Head::NP + 1) + i] =
-                i < Head::NP ? st[3 * d + i] : st[2 * d + k];
+          for (int i = lane; i <= NP; i += 32)
+            save.px[(((size_t)t * n + row0 + r) * d + k) * (NP + 1) + i] =
+                i < NP ? st[3 * d + i] : st[2 * d + k];
       }
     }
   }
@@ -324,8 +340,8 @@ template <class Head, int R, bool SAVE>
 __global__ void __launch_bounds__(32 * (MAX_WARPS + 1))
     ar_inverse_kernel(const float* __restrict__ z, float* __restrict__ x,
                       float* __restrict__ ladj, SavedState save, int n, int d, int h, int T,
-                      const float* __restrict__ pack, const int* __restrict__ inv_order, int W,
-                      int S, int SL) {
+                      const float* __restrict__ pack, const int* __restrict__ inv_order, int np,
+                      int W, int S, int SL) {
   extern __shared__ __align__(16) unsigned char smem[];
   uint64_t* full = reinterpret_cast<uint64_t*>(smem);
   uint64_t* empty = full + S;
@@ -344,22 +360,22 @@ __global__ void __launch_bounds__(32 * (MAX_WARPS + 1))
 
   if (warp == W) {
     Producer p{ring, pack, 0, 0, lane, R == 1};
-    walk<Head>(g, T, p);
+    walk<Head>(g, T, np, p);
     p.flush();
     return;
   }
 
-  const int RS = 3 * h + 3 * d + Head::OG;
+  const int RS = 3 * h + 3 * d + (Head::RUNTIME ? head_floats(np) : Head::OG);
   const int row0 = (blockIdx.x * W + warp) * R;
   Consumer<Head, R, SAVE> c{ring, g, inv_order, rows + warp * R * RS, RS, lane, 0, d, 0.0f,
-                            save, row0, n};
+                            save, row0, n, Head::RUNTIME ? np : Head::NP};
   for (int r = 0; r < R; ++r) {
     const int row = row0 + r;
     for (int i = lane; i < d; i += 32)
       c.rows[r * RS + 3 * h + i] = row < n ? z[(size_t)row * d + i] : 0.0f;
   }
   __syncwarp();
-  walk<Head>(g, T, c);
+  walk<Head>(g, T, np, c);
   for (int r = 0; r < R; ++r) {
     const int row = row0 + r;
     if (row < n)
@@ -374,7 +390,7 @@ __global__ void __launch_bounds__(32 * (MAX_WARPS + 1))
 // dimensions visited before step k, in visit order; the hidden layers' and
 // the output's the degree-sorted hidden units. The hidden layers' columns
 // are the degree-k units (k-1) + m*D; the output's the np of dimension
-// inv_order[t, k].
+// inv_order[t, k] (in groups of out_cols(np)).
 struct Layers {
   const float* w[4];
   const float* b[4];
@@ -396,7 +412,7 @@ __global__ void pack_kernel(Layers m, const int* __restrict__ inv_order, float* 
     const int N = l == 3 ? d * np : h;
     const float* W = m.w[l] + (size_t)t * K * N;
     const float* bias = m.b[l] + (size_t)t * N;
-    const int col0 = l == 3 ? inv_order[t * d + k] * np : (k - 1) + g0 * g.D;
+    const int col0 = l == 3 ? inv_order[t * d + k] * np + g0 : (k - 1) + g0 * g.D;
     const int cstep = l == 3 ? 1 : g.D;
     const int fanp = round4(fan), cols = ncg * fanp;
     const int total = cols + round4(ncg);
@@ -422,12 +438,13 @@ __global__ void pack_kernel(Layers m, const int* __restrict__ inv_order, float* 
     for (int l = 0; l < 3; ++l)
       for (int g0 = 0; g0 < nc; g0 += gw) write(l, g0, min(gw, nc - g0), l == 0 ? k : g.count(k));
   }
-  write(3, 0, np, g.count(k));
+  for (int c0 = 0; c0 < np; c0 += out_cols(np))
+    write(3, c0, min(out_cols(np), np - c0), g.count(k));
 }
 
 template <class Head, int R, bool SAVE>
 int launch(const float* z, float* x, float* ladj, SavedState save, int n, int d, int h, int T,
-           const float* pack, const int* inv_order, int W, int S, int SL, size_t smem,
+           const float* pack, const int* inv_order, int np, int W, int S, int SL, size_t smem,
            cudaStream_t stream) {
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
@@ -436,44 +453,45 @@ int launch(const float* z, float* x, float* ladj, SavedState save, int n, int d,
   }
   const int blocks = (n + R * W - 1) / (R * W);
   ar_inverse_kernel<Head, R, SAVE><<<blocks, 32 * (W + 1), smem, stream>>>(
-      z, x, ladj, save, n, d, h, T, pack, inv_order, W, S, SL);
+      z, x, ladj, save, n, d, h, T, pack, inv_order, np, W, S, SL);
   return (int)cudaGetLastError();
 }
 
 template <class Head, bool SAVE>
 int launch_rows(int rows, const float* z, float* x, float* ladj, SavedState save, int n, int d,
-                int h, int T, const float* pack, const int* inv_order, int W, int S, int SL,
-                size_t smem, cudaStream_t s) {
+                int h, int T, const float* pack, const int* inv_order, int np, int W, int S,
+                int SL, size_t smem, cudaStream_t s) {
   switch (rows) {
     case 1:
-      return launch<Head, 1, SAVE>(z, x, ladj, save, n, d, h, T, pack, inv_order, W, S, SL, smem,
-                                   s);
+      return launch<Head, 1, SAVE>(z, x, ladj, save, n, d, h, T, pack, inv_order, np, W, S, SL,
+                                   smem, s);
     case 2:
-      return launch<Head, 2, SAVE>(z, x, ladj, save, n, d, h, T, pack, inv_order, W, S, SL, smem,
-                                   s);
+      return launch<Head, 2, SAVE>(z, x, ladj, save, n, d, h, T, pack, inv_order, np, W, S, SL,
+                                   smem, s);
     case 4:
-      return launch<Head, 4, SAVE>(z, x, ladj, save, n, d, h, T, pack, inv_order, W, S, SL, smem,
-                                   s);
+      return launch<Head, 4, SAVE>(z, x, ladj, save, n, d, h, T, pack, inv_order, np, W, S, SL,
+                                   smem, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
 template <class Head>
 int launch_save(int rows, const float* z, float* x, float* ladj, SavedState save, int n, int d,
-                int h, int T, const float* pack, const int* inv_order, int W, int S, int SL,
-                size_t smem, cudaStream_t s) {
+                int h, int T, const float* pack, const int* inv_order, int np, int W, int S,
+                int SL, size_t smem, cudaStream_t s) {
   if (save.px != nullptr)
-    return launch_rows<Head, true>(rows, z, x, ladj, save, n, d, h, T, pack, inv_order, W, S,
-                                   SL, smem, s);
-  return launch_rows<Head, false>(rows, z, x, ladj, save, n, d, h, T, pack, inv_order, W, S, SL,
-                                  smem, s);
+    return launch_rows<Head, true>(rows, z, x, ladj, save, n, d, h, T, pack, inv_order, np, W,
+                                   S, SL, smem, s);
+  return launch_rows<Head, false>(rows, z, x, ladj, save, n, d, h, T, pack, inv_order, np, W, S,
+                                  SL, smem, s);
 }
 
 
 // K1's widest column group with the head of np parameters: a hidden
-// group (GROUP) or the output group (OG)
+// group (GROUP) or the output group (OG; GROUP with the spline of run-time
+// bins, whose output runs in groups of GROUP)
 int widest_group(int np) {
-  const int og = np == AffineHead::NP ? AffineHead::OG : RqsHead::OG;
+  const int og = RUNTIME_BINS ? GROUP : head_floats(np);
   return og > GROUP ? og : GROUP;
 }
 
@@ -523,8 +541,7 @@ extern "C" int ar_inverse_launch(const float* z, float* x, float* ladj, float* s
                                  void* stream) {
   if (!head_compiled(np) || (save_px == nullptr) != (save_signs == nullptr))
     return (int)cudaErrorInvalidValue;
-  const size_t row =
-      3 * (size_t)h + 3 * (size_t)d + (np == AffineHead::NP ? AffineHead::OG : RqsHead::OG);
+  const size_t row = 3 * (size_t)h + 3 * (size_t)d + head_floats(np);
   const size_t smem = 16 * (size_t)stages +
                       sizeof(float) * ((size_t)stages * stage_floats + (size_t)warps * rows * row);
   if (n < 1 || d < 1 || h < 1 || T < 1 || warps < 1 || warps > MAX_WARPS || stages < 2 ||
@@ -538,9 +555,9 @@ extern "C" int ar_inverse_launch(const float* z, float* x, float* ladj, float* s
   const SavedState save{save_px, save_signs};
 #if POCOMC_AFFINE
   if (np == AffineHead::NP)
-    return launch_save<AffineHead>(rows, z, x, ladj, save, n, d, h, T, pack, inv_order, W, S, SL,
-                                   smem, s);
+    return launch_save<AffineHead>(rows, z, x, ladj, save, n, d, h, T, pack, inv_order, np, W, S,
+                                   SL, smem, s);
 #endif
-  return launch_save<RqsHead>(rows, z, x, ladj, save, n, d, h, T, pack, inv_order, W, S, SL, smem,
-                              s);
+  return launch_save<RqsHead>(rows, z, x, ladj, save, n, d, h, T, pack, inv_order, np, W, S, SL,
+                              smem, s);
 }

@@ -136,6 +136,16 @@ struct BackProducer {
   }
 };
 
+// a head's Slice, none for the spline of run-time bins
+template <class Head, bool = Head::RUNTIME>
+struct SliceOf {
+  using type = typename Head::Slice;
+};
+template <class Head>
+struct SliceOf<Head, true> {
+  struct type {};
+};
+
 // The consumers of one block, each warp on its R rows. Row r's state
 // starts at rows + r * RS: the cotangents of relu(h0), relu(h1), relu(h2)
 // (h each, degree-sorted; a unit's turns into dL/dh of its layer when it
@@ -150,12 +160,15 @@ struct BackConsumer {
   SavedState sv;
   float* rows;
   int RS, HW, lane, row0, n;
+  int np;       // the head's raw parameters
   float gl[R];  // each row's dL/dladj
   // the element VJP warp-wide (one-row warps, where NP + 1 values fit a
   // warp) or 8 lanes a row (PERF.md)
   static constexpr bool WARP = R == 1 && Head::WARP;
-  float pre[R];               // WARP: lane j <= NP holds value j of each row's next step
-  typename Head::Slice nxt;  // else: the lane's share of its row's next step
+  float pre[R];  // WARP: lane j <= NP holds value j of each row's next step
+  // else (but with the spline of run-time bins, which streams the saved
+  // state from global memory): the lane's share of its row's next step
+  typename SliceOf<Head>::type nxt;
 
   __device__ __forceinline__ float* cot(int l) const { return rows + l * g.h; }
   __device__ __forceinline__ const unsigned* sgn(int l) const {
@@ -168,10 +181,12 @@ struct BackConsumer {
   // the saved parameters and x of step k of transform t: a lane a value,
   // or the lane's share of its row (lanes 8r..8r+7: row r)
   __device__ __forceinline__ const float* saved(int t, int k, int row) const {
-    return sv.px + (((size_t)t * n + row) * g.d + k) * (Head::NP + 1);
+    return sv.px + (((size_t)t * n + row) * g.d + k) * ((Head::RUNTIME ? np : Head::NP) + 1);
   }
   __device__ __forceinline__ void load(int t, int k) {
-    if constexpr (WARP) {
+    if constexpr (Head::RUNTIME) {
+      return;
+    } else if constexpr (WARP) {
 #pragma unroll
       for (int r = 0; r < R; ++r)
         pre[r] = row0 + r < n && lane <= Head::NP ? __ldg(saved(t, k, row0 + r) + lane) : 0.0f;
@@ -253,11 +268,25 @@ struct BackConsumer {
   }
 
   // dimension inv_order[t, k]'s element VJP of every row (warp-wide in
-  // turn, or row r on lanes 8r..8r+7): its g_z into gd, its parameters'
-  // cotangent into par
+  // turn, or row r on lanes 8r..8r+7, or, with the spline of run-time bins,
+  // on lane r, streaming the saved parameters from global memory): its g_z
+  // into gd, its parameters' cotangent into par
   __device__ __forceinline__ void element(int t, int k) {
     const int j = __ldg(inv_order + t * g.d + k);
-    if constexpr (WARP) {
+    if constexpr (Head::RUNTIME) {
+      if (lane < R) {
+        const int r = lane, row = row0 + r;
+        float* gp = par() + r * RS;
+        if (row < n) {
+          const float* p = saved(t, k, row);
+          gd()[r * RS + j] = Head::inverse_vjp(__ldg(p + np), ParamsLdg{p}, ParamsAt<1>{gp},
+                                               (np + 1) / 3, cv()[r * RS + k], gl[r]);
+        } else {
+          for (int i = 0; i < np; ++i) gp[i] = 0.0f;
+          gd()[r * RS + j] = 0.0f;
+        }
+      }
+    } else if constexpr (WARP) {
       float gz[R], gp[R];
 #pragma unroll
       for (int r = 0; r < R; ++r) {
@@ -288,8 +317,15 @@ struct BackConsumer {
 
   __device__ __forceinline__ void group(int t, int k, int l, int g0, int ncg, int gw, int fan) {
     if (l == 3) {
-      element(t, k);
-      push<Head::OG>(par(), Head::NP, fan, cot(2));
+      if constexpr (Head::RUNTIME) {
+        // the step's first output group in this walk is its last: the
+        // element VJP once, then each group of GROUP columns
+        if (g0 + ncg == np) element(t, k);
+        push<GROUP>(par() + g0, ncg, fan, cot(2));
+      } else {
+        element(t, k);
+        push<Head::OG>(par(), Head::NP, fan, cot(2));
+      }
       return;
     }
     // the group's units, degree k: their cotangent is final, so it turns
@@ -319,8 +355,8 @@ __global__ void __launch_bounds__(32 * (MAX_WARPS + 1))
     ar_inverse_backward_kernel(SavedState sv, const float* __restrict__ gx,
                                const float* __restrict__ gladj, float* __restrict__ gz, int n,
                                int d, int h, int T, const float* __restrict__ pack,
-                               long long pack_floats, const int* __restrict__ inv_order, int W,
-                               int S, int SL) {
+                               long long pack_floats, const int* __restrict__ inv_order, int np,
+                               int W, int S, int SL) {
   extern __shared__ __align__(16) unsigned char smem[];
   uint64_t* full = reinterpret_cast<uint64_t*>(smem);
   uint64_t* empty = full + S;
@@ -339,15 +375,16 @@ __global__ void __launch_bounds__(32 * (MAX_WARPS + 1))
 
   if (warp == W) {
     BackProducer p{ring, pack, pack_floats, lane, R == 1};
-    walk_back<Head>(g, T, p);
+    walk_back<Head>(g, T, np, p);
     p.flush();
     return;
   }
 
   const int HW = sign_words(h);
-  const int RS = 3 * h + 3 * HW + 2 * d + Head::OG;
+  const int RS = 3 * h + 3 * HW + 2 * d + (Head::RUNTIME ? head_floats(np) : Head::OG);
   const int row0 = (blockIdx.x * W + warp) * R;
-  BackConsumer<Head, R> c{ring, g, inv_order, sv, rows + warp * R * RS, RS, HW, lane, row0, n};
+  BackConsumer<Head, R> c{ring, g, inv_order, sv, rows + warp * R * RS, RS, HW, lane, row0, n,
+                          Head::RUNTIME ? np : Head::NP};
 #pragma unroll
   for (int r = 0; r < R; ++r) {
     const int row = row0 + r;
@@ -356,7 +393,7 @@ __global__ void __launch_bounds__(32 * (MAX_WARPS + 1))
     c.gl[r] = row < n ? gladj[row] : 0.0f;
   }
   __syncwarp();
-  walk_back<Head>(g, T, c);
+  walk_back<Head>(g, T, np, c);
   __syncwarp();
   for (int r = 0; r < R; ++r) {
     const int row = row0 + r;
@@ -367,8 +404,8 @@ __global__ void __launch_bounds__(32 * (MAX_WARPS + 1))
 
 template <class Head, int R>
 int launch(const SavedState& sv, const float* gx, const float* gladj, float* gz, int n, int d,
-           int h, int T, const float* pack, long long pack_floats, const int* inv_order, int W,
-           int S, int SL, size_t smem, cudaStream_t stream) {
+           int h, int T, const float* pack, long long pack_floats, const int* inv_order, int np,
+           int W, int S, int SL, size_t smem, cudaStream_t stream) {
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         ar_inverse_backward_kernel<Head, R>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -377,24 +414,25 @@ int launch(const SavedState& sv, const float* gx, const float* gladj, float* gz,
   }
   const int blocks = (n + R * W - 1) / (R * W);
   ar_inverse_backward_kernel<Head, R><<<blocks, 32 * (W + 1), smem, stream>>>(
-      sv, gx, gladj, gz, n, d, h, T, pack, pack_floats, inv_order, W, S, SL);
+      sv, gx, gladj, gz, n, d, h, T, pack, pack_floats, inv_order, np, W, S, SL);
   return (int)cudaGetLastError();
 }
 
 template <class Head>
 int launch_rows(int rows, const SavedState& sv, const float* gx, const float* gladj, float* gz,
                 int n, int d, int h, int T, const float* pack, long long pack_floats,
-                const int* inv_order, int W, int S, int SL, size_t smem, cudaStream_t s) {
+                const int* inv_order, int np, int W, int S, int SL, size_t smem,
+                cudaStream_t s) {
   switch (rows) {
     case 1:
-      return launch<Head, 1>(sv, gx, gladj, gz, n, d, h, T, pack, pack_floats, inv_order, W, S,
-                             SL, smem, s);
+      return launch<Head, 1>(sv, gx, gladj, gz, n, d, h, T, pack, pack_floats, inv_order, np, W,
+                             S, SL, smem, s);
     case 2:
-      return launch<Head, 2>(sv, gx, gladj, gz, n, d, h, T, pack, pack_floats, inv_order, W, S,
-                             SL, smem, s);
+      return launch<Head, 2>(sv, gx, gladj, gz, n, d, h, T, pack, pack_floats, inv_order, np, W,
+                             S, SL, smem, s);
     case 4:
-      return launch<Head, 4>(sv, gx, gladj, gz, n, d, h, T, pack, pack_floats, inv_order, W, S,
-                             SL, smem, s);
+      return launch<Head, 4>(sv, gx, gladj, gz, n, d, h, T, pack, pack_floats, inv_order, np, W,
+                             S, SL, smem, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -438,25 +476,44 @@ __global__ void element_vjp_kernel(const float* __restrict__ px, const float* __
   }
 }
 
+// the same with the spline of run-time bins (np raw parameters), one lane
+// a row, the kernel's own element VJP
+template <class Head>
+__global__ void element_vjp_run_kernel(const float* __restrict__ px, const float* __restrict__ gx,
+                                       const float* __restrict__ gl, float* __restrict__ gz,
+                                       float* __restrict__ gp, int n, int np) {
+  const int t = blockIdx.x * blockDim.x + threadIdx.x;
+  if (t >= n) return;
+  const float* p = px + (size_t)t * (np + 1);
+  gz[t] = Head::inverse_vjp(__ldg(p + np), ParamsLdg{p}, ParamsAt<1>{gp + (size_t)t * np},
+                            (np + 1) / 3, gx[t], gl[t]);
+}
+
 template <class Head>
 int launch_element(const float* px, const float* gx, const float* gl, float* gz, float* gp, int n,
-                   int lanes, cudaStream_t s) {
+                   int np, int lanes, cudaStream_t s) {
   const int blocks = ((long long)lanes * n + 127) / 128;
-  if (lanes == 32 && Head::WARP)
-    element_vjp_kernel<Head, 32><<<blocks, 128, 0, s>>>(px, gx, gl, gz, gp, n);
-  else if (lanes == 8)
-    element_vjp_kernel<Head, 8><<<blocks, 128, 0, s>>>(px, gx, gl, gz, gp, n);
-  else if (lanes == 1)
-    element_vjp_kernel<Head, 1><<<blocks, 128, 0, s>>>(px, gx, gl, gz, gp, n);
-  else
-    return (int)cudaErrorInvalidValue;
+  if constexpr (Head::RUNTIME) {
+    if (lanes != 1) return (int)cudaErrorInvalidValue;
+    element_vjp_run_kernel<Head><<<blocks, 128, 0, s>>>(px, gx, gl, gz, gp, n, np);
+  } else {
+    if (lanes == 32 && Head::WARP)
+      element_vjp_kernel<Head, 32><<<blocks, 128, 0, s>>>(px, gx, gl, gz, gp, n);
+    else if (lanes == 8)
+      element_vjp_kernel<Head, 8><<<blocks, 128, 0, s>>>(px, gx, gl, gz, gp, n);
+    else if (lanes == 1)
+      element_vjp_kernel<Head, 1><<<blocks, 128, 0, s>>>(px, gx, gl, gz, gp, n);
+    else
+      return (int)cudaErrorInvalidValue;
+  }
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // The element VJP of n rows (element_vjp_kernel) on `lanes` lanes a row (32,
-// 8 or 1): px (n, np + 1), gx, gl, gz (n,), gp (n, np). Launches on
+// 8 or 1; 1 only with the spline of run-time bins): px (n, np + 1), gx, gl,
+// gz (n,), gp (n, np). Launches on
 // `stream` and returns cudaGetLastError(), or cudaErrorInvalidValue for
 // arguments it does not take.
 extern "C" int ar_inverse_element_vjp_launch(const float* px, const float* gx, const float* gl,
@@ -467,9 +524,10 @@ extern "C" int ar_inverse_element_vjp_launch(const float* px, const float* gx, c
   if (err != cudaSuccess) return (int)err;
   const cudaStream_t s = (cudaStream_t)stream;
 #if POCOMC_AFFINE
-  if (np == AffineHead::NP) return launch_element<AffineHead>(px, gx, gl, gz, gp, n, lanes, s);
+  if (np == AffineHead::NP)
+    return launch_element<AffineHead>(px, gx, gl, gz, gp, n, np, lanes, s);
 #endif
-  return launch_element<RqsHead>(px, gx, gl, gz, gp, n, lanes, s);
+  return launch_element<RqsHead>(px, gx, gl, gz, gp, n, np, lanes, s);
 }
 
 // Plain C entry point, loaded with ctypes. px (T, n, d, np + 1) and signs
@@ -491,12 +549,12 @@ extern "C" int ar_inverse_backward_launch(const float* px, const unsigned* signs
                                           int stages, int stage_floats, int device,
                                           void* stream) {
   if (!head_compiled(np)) return (int)cudaErrorInvalidValue;
-  const int og = np == AffineHead::NP ? AffineHead::OG : RqsHead::OG;
+  const int og = head_floats(np), widest = RUNTIME_BINS || og < GROUP ? GROUP : og;
   const size_t row = 3 * (size_t)h + 3 * (size_t)sign_words(h) + 2 * (size_t)d + og;
   const size_t smem = 16 * (size_t)stages +
                       sizeof(float) * ((size_t)stages * stage_floats + (size_t)warps * rows * row);
   if (n < 1 || d < 1 || h < 1 || T < 1 || warps < 1 || warps > MAX_WARPS || stages < 2 ||
-      stages > MAX_STAGES || stage_floats % 4 != 0 || stage_floats < 5 * (og > GROUP ? og : GROUP) ||
+      stages > MAX_STAGES || stage_floats % 4 != 0 || stage_floats < 5 * widest ||
       smem > (size_t)MAX_SMEM_BYTES)
     return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
@@ -511,8 +569,8 @@ extern "C" int ar_inverse_backward_launch(const float* px, const unsigned* signs
 #if POCOMC_AFFINE
   if (np == AffineHead::NP)
     return launch_rows<AffineHead>(rows, sv, gx, gladj, gz, n, d, h, T, pack, pack_floats,
-                                   inv_order, W, S, SL, smem, s);
+                                   inv_order, np, W, S, SL, smem, s);
 #endif
   return launch_rows<RqsHead>(rows, sv, gx, gladj, gz, n, d, h, T, pack, pack_floats, inv_order,
-                              W, S, SL, smem, s);
+                              np, W, S, SL, smem, s);
 }

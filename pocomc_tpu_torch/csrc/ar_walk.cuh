@@ -9,6 +9,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "heads.cuh"
+
 namespace pocomc {
 namespace k1 {
 
@@ -97,6 +99,11 @@ __host__ __device__ __forceinline__ int group_width(int nc) {
 
 __host__ __device__ __forceinline__ int round4(int v) { return (v + 3) & ~3; }
 
+// columns of a step's output group with a head of np parameters: the whole
+// head (one group), but GROUP with the spline of run-time bins, whose NP
+// columns run as groups of GROUP as a hidden layer's do
+__host__ __device__ __forceinline__ int out_cols(int np) { return RUNTIME_BINS ? GROUP : np; }
+
 // A group of ncg columns with fan-in fan in the pack: column jj's fan-in
 // at jj * round4(fan), zero-padded, then the ncg biases padded to 4, so
 // that every group and every column starts on 16 bytes.
@@ -113,12 +120,13 @@ __device__ __forceinline__ int chunk_rows(int SL, int ncg) {
 // The order of the products, shared by the producer and the consumers:
 // transforms T-1..0, steps k = 0..d-1; at k >= 1 the degree-k column
 // groups of layers 0, 1, 2, then (every k) the output group of
-// dimension inv_order[t, k] (the head's NP columns in a group of OG),
-// then the step's end. v.group(t, k, layer, g0, ncg, gw, fan) gets the
-// group's first column among the step's columns of that layer, its
-// width, the group width and the fan-in.
+// dimension inv_order[t, k] (the head's NP columns in a group of OG; the
+// np columns of the spline of run-time bins in groups of GROUP), then the
+// step's end. v.group(t, k, layer, g0, ncg, gw, fan) gets the group's
+// first column among the step's columns of that layer, its width, the
+// group width and the fan-in.
 template <class Head, class Visitor>
-__device__ __forceinline__ void walk(const Degrees& g, int T, Visitor& v) {
+__device__ __forceinline__ void walk(const Degrees& g, int T, int np, Visitor& v) {
   for (int tt = 0; tt < T; ++tt) {
     const int t = T - 1 - tt;
     for (int k = 0; k < g.d; ++k) {
@@ -129,7 +137,12 @@ __device__ __forceinline__ void walk(const Degrees& g, int T, Visitor& v) {
           for (int g0 = 0; g0 < nc; g0 += gw)
             v.group(t, k, l, g0, min(gw, nc - g0), gw, l == 0 ? k : g.count(k));
       }
-      v.group(t, k, 3, 0, Head::NP, Head::OG, g.count(k));
+      if constexpr (Head::RUNTIME) {
+        for (int c0 = 0; c0 < np; c0 += GROUP)
+          v.group(t, k, 3, c0, min(GROUP, np - c0), GROUP, g.count(k));
+      } else {
+        v.group(t, k, 3, 0, Head::NP, Head::OG, g.count(k));
+      }
       v.step_end(t, k);
     }
     v.transform_end(t);
@@ -141,11 +154,16 @@ __device__ __forceinline__ void walk(const Degrees& g, int T, Visitor& v) {
 // first. K1-bwd's order: each group of the pack, in reverse, so consecutive
 // groups of this walk are one contiguous range of the pack.
 template <class Head, class Visitor>
-__device__ __forceinline__ void walk_back(const Degrees& g, int T, Visitor& v) {
+__device__ __forceinline__ void walk_back(const Degrees& g, int T, int np, Visitor& v) {
   for (int t = 0; t < T; ++t) {
     v.transform_begin(t);
     for (int k = g.d - 1; k >= 0; --k) {
-      v.group(t, k, 3, 0, Head::NP, Head::OG, g.count(k));
+      if constexpr (Head::RUNTIME) {
+        for (int c0 = (np - 1) / GROUP * GROUP; c0 >= 0; c0 -= GROUP)
+          v.group(t, k, 3, c0, min(GROUP, np - c0), GROUP, g.count(k));
+      } else {
+        v.group(t, k, 3, 0, Head::NP, Head::OG, g.count(k));
+      }
       if (k >= 1) {
         const int nc = g.count(k) - g.count(k - 1);
         const int gw = group_width(nc);
@@ -160,7 +178,9 @@ __device__ __forceinline__ void walk_back(const Degrees& g, int T, Visitor& v) {
 // floats of step k's groups in the pack (the groups walk() visits) with a
 // head of np parameters
 __host__ __device__ inline long long step_floats(const Degrees& g, int k, int np) {
-  long long s = group_floats(np, g.count(k));
+  long long s = 0;
+  for (int c0 = 0; c0 < np; c0 += out_cols(np))
+    s += group_floats(min(out_cols(np), np - c0), g.count(k));
   if (k >= 1) {
     const int nc = g.count(k) - g.count(k - 1);
     const int gw = group_width(nc);

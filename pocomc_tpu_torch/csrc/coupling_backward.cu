@@ -36,8 +36,8 @@
 
 // shared-memory floats of one block (stack_backward.cuh smem_floats)
 extern "C" int coupling_backward_smem_floats(int RL, int BM, int RNH, int RNO, int G, int BK,
-                                             int S, int d, int h) {
-  return pocomc::stack::smem_floats(RL, BM, RNH, RNO, G, BK, S, d, h, pocomc::RqsHead::NP);
+                                             int S, int d, int h, int np) {
+  return pocomc::stack::smem_floats(RL, BM, RNH, RNO, G, BK, S, d, h, np);
 }
 
 // Plain C entry point, loaded with ctypes. a0 (T, n, d) and a1..a3
@@ -52,29 +52,33 @@ extern "C" int coupling_backward_smem_floats(int RL, int BM, int RNH, int RNO, i
 // as for coupling_forward_launch; w3 and wt the weights packed as
 // coupling_tile.cuh Packed describes (w3 as for coupling_forward_launch, wt
 // each transform's W^T in passes of the hidden pass width; 16-byte
-// aligned). Launches on `stream` and returns cudaGetLastError().
+// aligned). np as for coupling_forward_launch. Launches on `stream` and
+// returns cudaGetLastError().
 extern "C" int coupling_backward_launch(const float* a0, const float* a1, const float* a2,
                                         const float* a3, const float* ap, const float* gz,
                                         const float* gladj, float* gy, int n, int d, int h,
                                         int T, const float* const* table, const float* w3,
                                         const float* wt, float* g0, float* g1, float* g2,
                                         float* g3, int RL, int BM, int RNH, int RNO, int G,
-                                        int BK, int S, int inverse, int device, void* stream) {
-  if (w3 == nullptr || wt == nullptr || (!inverse && ap != nullptr))
+                                        int BK, int S, int inverse, int np, int device,
+                                        void* stream) {
+  if (w3 == nullptr || wt == nullptr || (!inverse && ap != nullptr) ||
+      !pocomc::head_compiled(np) || np == pocomc::AffineHead::NP)
     return (int)cudaErrorInvalidValue;
   if (!inverse && (g0 == nullptr || g1 == nullptr || g2 == nullptr || g3 == nullptr))
     return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   const size_t smem =
-      sizeof(float) * (size_t)coupling_backward_smem_floats(RL, BM, RNH, RNO, G, BK, S, d, h);
-  const pocomc::k5::Coupling m{table, d, h, T};
+      sizeof(float) * (size_t)coupling_backward_smem_floats(RL, BM, RNH, RNO, G, BK, S, d, h, np);
+  pocomc::k5::Coupling m{table, d, h, T};
+  m.np = np;
   if (!pocomc::k5::k5_args_ok(RL, BM, RNH, RNO, G, BK, S, m, smem))
     return (int)cudaErrorInvalidValue;
   const pocomc::stack::Args a{
       pocomc::Saved{{const_cast<float*>(a0), const_cast<float*>(a1), const_cast<float*>(a2),
                      const_cast<float*>(a3)}},
-      ap, gz, gladj, gy, pocomc::stack::Deltas{{g0, g1, g2, g3}, m.half() * pocomc::RqsHead::NP},
+      ap, gz, gladj, gy, pocomc::stack::Deltas{{g0, g1, g2, g3}, m.half() * np},
       n, m, pocomc::k5::Packed{w3, wt, ((d + 1) / 2 + G - 1) / G}, G, BK, S, inverse != 0, smem,
       (cudaStream_t)stream};
   return pocomc::stack::by_tile<pocomc::RqsHead, true>(RL, BM, RNH, RNO, a);

@@ -7,7 +7,7 @@
 // coupling_inverse, the loop over transforms in models/flow.py). A coupling
 // transform conditions a residual MLP on one half of the dimensions and
 // maps the other half through rational-quadratic splines (BINS bins, one
-// library a bins: rqs.cuh) whose
+// library a bins up to 16, one of run-time bins past that: rqs.cuh) whose
 // parameters the MLP gives, so both directions are one pass a transform:
 // data -> latent runs transforms 0..T-1 with the spline forward, latent ->
 // data runs T-1..0 with the spline inverse.
@@ -110,11 +110,13 @@ __global__ void __launch_bounds__(k5::BLOCK, 1)
   float* X = smem;                       // [d][BMP]      the rows, transformed in place
   float* H = X + d * BMP;                // [h][BMP]      hidden state
   float* H2 = nh > 1 ? H + h * BMP : H;  // [h][BMP]      a residual layer's output (nh > 1)
-  float* P = H + (nh > 1 ? 2 : 1) * h * BMP;  // [G*NP][BMP]  one output group's head parameters
-  float* LG = P + G * NP * BMP;          // [half][BMP]   per-dimension log-dets
+  const int np = RqsHead::RUNTIME ? m.np : NP;  // raw parameters a transformed dimension
+  float* P = H + (nh > 1 ? 2 : 1) * h * BMP;  // [G*np][BMP]  one output group's head parameters
+  float* LG = P + G * np * BMP;          // [half][BMP]   per-dimension log-dets
   float* LS = LG + m.half() * BMP;       // [BM]          log-det accumulator
-  k5::Ring ring = k5::make_ring(k5::Plan{m, G, BK, Ln::cols(RNH), false, INVERSE, pk}, smem,
-                                (LS + BM) - smem, S, BK, Ln::cols(RNH), Ln::cols(RNO));
+  k5::Ring ring =
+      k5::make_ring(k5::Plan{m, G, BK, Ln::cols(RNH), false, INVERSE, pk, false, Ln::cols(RNO)},
+                    smem, (LS + BM) - smem, S, BK, Ln::cols(RNH), Ln::cols(RNO));
   if (threadIdx.x >= THREADS) {
     k5::produce(ring);
     return;
@@ -167,47 +169,61 @@ __global__ void __launch_bounds__(k5::BLOCK, 1)
       }
       k5::consumer_sync();
     }
-    // -- the output layer, a group of whole transformed dimensions a pass,
-    //    each group's splines right after it
+    // -- the output layer, a group of whole transformed dimensions a pass
+    //    (or, with the spline of run-time bins, a group of one dimension in
+    //    plan.subs() passes), each group's splines right after it
     const float* b3 = m.biases(t, 3);
+    const int subs = plan.subs();
     for (int g = 0; g < plan.groups(t); ++g) {
-      const k5::Pass q = plan.pass(t, 3 * nh + g, nh);
-      float acc[RM][RNO];
-      k5::zero(acc);
-      k5::run_pass<RM, RNO, false>(acc, ring, q, H, BMP, L);
+      int go = 0, gn = 0;  // the group's first column and its width
+      for (int j = 0; j < subs; ++j) {
+        const k5::Pass q = plan.pass(t, 3 * nh + g * subs + j, nh);
+        if (j == 0) go = q.o0;
+        gn = q.o0 + q.no - go;
+        float* Pq = P + (q.o0 - go) * BMP;
+        float acc[RM][RNO];
+        k5::zero(acc);
+        k5::run_pass<RM, RNO, false>(acc, ring, q, H, BMP, L);
 #pragma unroll
-      for (int ci = 0; ci < CO::N; ++ci)
+        for (int ci = 0; ci < CO::N; ++ci)
 #pragma unroll
-        for (int cj = 0; cj < CO::W; ++cj) {
-          const int col = col_of<RNO>(L, ci) + cj;
-          if (col >= q.no) continue;
-          const float b = __ldg(b3 + q.o0 + col);
+          for (int cj = 0; cj < CO::W; ++cj) {
+            const int col = col_of<RNO>(L, ci) + cj;
+            if (col >= q.no) continue;
+            const float b = __ldg(b3 + q.o0 + col);
 #pragma unroll
-          for (int ri = 0; ri < CR::N; ++ri) {
-            float o[CR::W];
+            for (int ri = 0; ri < CR::N; ++ri) {
+              float o[CR::W];
 #pragma unroll
-            for (int rj = 0; rj < CR::W; ++rj) {
-              float& a = acc[ri * CR::W + rj][ci * CO::W + cj];
-              a = a + b;
-              o[rj] = a;
+              for (int rj = 0; rj < CR::W; ++rj) {
+                float& a = acc[ri * CR::W + rj][ci * CO::W + cj];
+                a = a + b;
+                o[rj] = a;
+              }
+              k5::store_vec<CR::W>(Pq + col * BMP + row_of<RM>(L, ri), o);
             }
-            k5::store_vec<CR::W>(P + col * BMP + row_of<RM>(L, ri), o);
           }
+        if (ps != nullptr) {
+          const int lp = m.half() * np;
+          k5::store_rows<RM, RNO, false>(acc, ps + off * lp + q.o0, lp, q.no, row0, n, L);
         }
-      if (ps != nullptr) {
-        const int lp = m.half() * NP;
-        k5::store_rows<RM, RNO, false>(acc, ps + off * lp + q.o0, lp, q.no, row0, n, L);
       }
       k5::consumer_sync();
-      const int k0 = q.o0 / NP, gd = q.no / NP;
+      const int k0 = go / np, gd = gn / np;
       for (int idx = threadIdx.x; idx < BM * gd; idx += THREADS) {
         const int r = idx % BM, k = idx / BM;
+        float* x = X + (tr0 + k0 + k) * BMP + r;
+        float lg;
+#if POCOMC_RUNTIME_BINS
+        const ParamsAt<BMP> p{P + k * np * BMP + r};
+        const int bins = (np + 1) / 3;
+        *x = INVERSE ? RqsHead::inverse(*x, p, bins, &lg) : RqsHead::forward(*x, p, bins, &lg);
+#else
         float p[NP];
 #pragma unroll
         for (int j = 0; j < NP; ++j) p[j] = P[(k * NP + j) * BMP + r];
-        float* x = X + (tr0 + k0 + k) * BMP + r;
-        float lg;
         *x = INVERSE ? RqsHead::inverse(*x, p, &lg) : RqsHead::forward(*x, p, &lg);
+#endif
         LG[(k0 + k) * BMP + r] = lg;
       }
       k5::consumer_sync();  // the splines are done with P, X and LG
@@ -219,7 +235,7 @@ __global__ void __launch_bounds__(k5::BLOCK, 1)
       }
       // at odd d a transform of half - 1 dimensions leaves its last NP
       // parameter columns zero, as the plain layout has them
-      const int lp = m.half() * NP, pad = lp - ntr * NP;
+      const int lp = m.half() * np, pad = lp - ntr * np;
       for (int idx = threadIdx.x; idx < BM * pad; idx += THREADS) {
         const int r = idx / pad, c = lp - pad + idx % pad;
         if (row0 + r < n) ps[(off + row0 + r) * lp + c] = 0.0f;
@@ -312,15 +328,15 @@ int by_tile(int RL, int BM, int RNH, int RNO, const Args& a) {
 
 }  // namespace
 
-// shared-memory floats of one block: the rows, the hidden state (twice
-// where a hidden layer takes several passes), one output group's
-// parameters and the per-dimension log-dets, each [.][BMP], the log-det
-// accumulator and the S-stage ring
+// shared-memory floats of one block with np raw parameters a transformed
+// dimension: the rows, the hidden state (twice where a hidden layer takes
+// several passes), one output group's parameters and the per-dimension
+// log-dets, each [.][BMP], the log-det accumulator and the S-stage ring
 extern "C" int coupling_forward_smem_floats(int RL, int BM, int RNH, int RNO, int G, int BK,
-                                            int S, int d, int h) {
+                                            int S, int d, int h, int np) {
   const int bmp = RL == 4 ? BM + 4 : BM, cl = RL == 4 ? 32 : 256;
   const int hidden = h > cl * RNH ? 2 * h : h;
-  return bmp * (d + hidden + G * pocomc::RqsHead::NP + (d + 1) / 2) + BM +
+  return bmp * (d + hidden + G * np + (d + 1) / 2) + BM +
          pocomc::k5::ring_floats(S, BK, cl * RNH, cl * RNO);
 }
 
@@ -339,22 +355,26 @@ extern "C" int coupling_forward_smem_floats(int RL, int BM, int RNH, int RNO, in
 // (8, 16, 32, 64), passes of 32*RNH hidden and 32*RNO output columns, or RL
 // = 1 a Row of BM = 1, 2 or 4 rows, passes of 256*RNH and 256*RNO; an
 // output group of G whole transformed dimensions (G*NP columns, at most an
-// output pass), slabs of BK weight rows in an S-stage ring. w3 holds the
-// output layers packed as coupling_tile.cuh Packed describes ((T,
-// ceil(ceil(d/2)/G), h, output pass width), 16-byte aligned). Launches on
+// output pass; with the spline of run-time bins G = 1 and any NP), slabs of
+// BK weight rows in an S-stage ring. w3 holds the output layers packed as
+// coupling_tile.cuh Packed describes ((T, ceil(ceil(d/2)/G), h, output pass
+// width), 16-byte aligned). np is the spline's raw parameters a dimension,
+// 3 bins - 1 (the library's bins, or any with run-time bins). Launches on
 // `stream` and returns cudaGetLastError().
 extern "C" int coupling_forward_launch(const float* xin, float* xout, float* ladj, int n, int d,
                                        int h, int T, const float* const* table, const float* w3,
                                        float* a0, float* a1, float* a2, float* a3, float* ap,
                                        int inverse, int RL, int BM, int RNH, int RNO, int G,
-                                       int BK, int S, int device, void* stream) {
-  if (w3 == nullptr || (ap != nullptr) != (inverse && a0 != nullptr))
+                                       int BK, int S, int np, int device, void* stream) {
+  if (w3 == nullptr || (ap != nullptr) != (inverse && a0 != nullptr) ||
+      !pocomc::head_compiled(np) || np == pocomc::AffineHead::NP)
     return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   const size_t smem =
-      sizeof(float) * (size_t)coupling_forward_smem_floats(RL, BM, RNH, RNO, G, BK, S, d, h);
-  const pocomc::k5::Coupling m{table, d, h, T};
+      sizeof(float) * (size_t)coupling_forward_smem_floats(RL, BM, RNH, RNO, G, BK, S, d, h, np);
+  pocomc::k5::Coupling m{table, d, h, T};
+  m.np = np;
   if (!pocomc::k5::k5_args_ok(RL, BM, RNH, RNO, G, BK, S, m, smem))
     return (int)cudaErrorInvalidValue;
   const Args a{xin, xout, ladj, pocomc::Saved{{a0, a1, a2, a3}}, ap, n, m,

@@ -325,7 +325,9 @@ struct Pass {
 // 16-byte aligned block (the rows of an output layer are NP*n_trans floats,
 // which leaves most of them off a 16-byte boundary): w3 (forward), each
 // transform's output groups as (T, NG, h, ldo) blocks, a group's columns
-// zero-padded to ldo, the output pass width; wt (backward), each
+// zero-padded to ldo, the output pass width (with the spline of run-time
+// bins, a group wider than that as Plan::subs blocks of ldo columns,
+// (T, NG, subs, h, ldo)); wt (backward), each
 // transform's four weights transposed, W0^T (h rows, n_cond of its k),
 // W1^T, W2^T, then W3^T (one row per output column, np*wide), each cut
 // into passes of PW columns of k (k zero-padded to a whole pass: the
@@ -369,33 +371,47 @@ struct Plan {
   bool bwd, rev;
   Packed pk;
   bool psaved = false;
+  int OW = 0;  // columns of an output pass
 
   __device__ __forceinline__ int transform(int i) const { return rev ? m.T - 1 - i : i; }
   __device__ __forceinline__ int groups(int t) const { return (m.n_trans(t) + G - 1) / G; }
   __device__ __forceinline__ int nh() const { return (m.h + PW - 1) / PW; }
+  // passes of an output group's product: one, but for the spline of
+  // run-time bins, whose group, then one dimension (G = 1, so every group
+  // is as wide), may be wider than an output pass
+  __device__ __forceinline__ int subs() const {
+    if constexpr (RUNTIME_BINS) return (G * m.np + OW - 1) / OW;
+    return 1;
+  }
   // the backward's passes a group: its parameters' (unless psaved) and nh
   // through W3^T
-  __device__ __forceinline__ int per(int nh) const { return (psaved ? 0 : 1) + nh; }
+  __device__ __forceinline__ int per(int nh) const { return (psaved ? 0 : subs()) + nh; }
   __device__ __forceinline__ int passes(int t, int nh) const {
     return bwd ? groups(t) * per(nh) + 2 * nh + (m.n_cond(t) + PW - 1) / PW
-               : 3 * nh + groups(t);
+               : 3 * nh + groups(t) * subs();
+  }
+  // output pass j of the group of columns [c0, c0 + w)
+  __device__ __forceinline__ Pass out_pass(int t, int c0, int w, int j) const {
+    if (subs() == 1) return Pass{t, 3, false, 0, m.h, c0, w};
+    const int o0 = c0 + j * OW;
+    return Pass{t, 3, false, 0, m.h, o0, min(OW, c0 + w - o0)};
   }
   __device__ __forceinline__ Pass pass(int t, int p, int nh) const {
-    const int h = m.h, n3 = m.n_trans(t) * m.np, gw = G * m.np;
+    const int h = m.h, n3 = m.n_trans(t) * m.np, gw = G * m.np, s = subs();
     if (!bwd) {
       if (p < 3 * nh) {
         const int l = p / nh, o0 = (p - l * nh) * PW;
         return Pass{t, l, false, 0, l == 0 ? m.n_cond(t) : h, o0, min(PW, h - o0)};
       }
-      const int o0 = (p - 3 * nh) * gw;
-      return Pass{t, 3, false, 0, h, o0, min(gw, n3 - o0)};
+      const int g = (p - 3 * nh) / s, c0 = g * gw;
+      return out_pass(t, c0, min(gw, n3 - c0), p - 3 * nh - g * s);
     }
     const int per = this->per(nh);
     if (p < groups(t) * per) {
-      const int g = p / per, r = p - g * per + (psaved ? 1 : 0), c0 = g * gw,
+      const int g = p / per, r = p - g * per + (psaved ? s : 0), c0 = g * gw,
                 w = min(gw, n3 - c0);
-      if (r == 0) return Pass{t, 3, false, 0, h, c0, w};
-      const int o0 = (r - 1) * PW;
+      if (r < s) return out_pass(t, c0, w, r);
+      const int o0 = (r - s) * PW;
       return Pass{t, 3, true, c0, w, o0, min(PW, h - o0)};
     }
     p -= groups(t) * per;
@@ -407,6 +423,13 @@ struct Plan {
     return Pass{t, 0, true, 0, h, o0, min(PW, m.n_cond(t) - o0)};
   }
   __device__ __forceinline__ int slabs(const Pass& q) const { return (q.len + BK - 1) / BK; }
+  // the packed slab block of an output pass that starts at column o0:
+  // block (t, group, pass of the group) of Packed w3
+  __device__ __forceinline__ const float* w3_block(int t, int o0, int h, int ldo) const {
+    const int gw = G * m.np, g = o0 / gw;
+    if (subs() == 1) return pk.w3_group(t, g, h, ldo);
+    return pk.w3 + (((size_t)t * pk.NG + g) * subs() + (o0 - g * gw) / OW) * h * ldo;
+  }
 };
 
 // a place in the schedule: transform index i of the walk, pass p, slab s
@@ -522,8 +545,7 @@ __device__ __forceinline__ void produce(Ring ring) {
       const int N = pl.m.fan_out(t, q.l), ldn = ring.ld_of(q), ns = pl.slabs(q);
       const float* packed =
           q.trans ? pl.pk.wt_pass(t, q.l, q.o0 / pl.PW, pl.m.h, pl.m.wide(), pl.m.np, pl.PW)
-                  : (q.l == 3 ? pl.pk.w3_group(t, q.o0 / (pl.G * pl.m.np), q.len, ldn)
-                              : nullptr);
+                  : (q.l == 3 ? pl.w3_block(t, q.o0, q.len, ldn) : nullptr);
       for (c.s = 0; c.s < ns; ++c.s) {
         if (ring.wrapped) mbar_wait(ring.empty + ring.slot, ring.phase ^ 1u);
         float* dst = ring.base + ring.slot * ring.stage_floats;
@@ -606,15 +628,17 @@ __host__ __device__ constexpr bool multi_pass() {
 // a Tile (BM = 8, 16, 32 or 64) and 1 a Row (BM = 1, 2 or 4); h a multiple
 // of 4, so that a hidden layer's rows are whole bulk copies, and within one
 // pass on a Tile below RNH = 16; an output group of G whole dimensions of
-// m (at most m.wide()) within an output pass
+// m (at most m.wide()) within an output pass, or, with the spline of
+// run-time bins, of one dimension in several (Plan::subs)
 __host__ __forceinline__ bool k5_args_ok(int RL, int BM, int RNH, int RNO, int G, int BK, int S,
                                          const Coupling& m, size_t smem) {
   const bool tile = RL == 4 ? (BM == 8 || BM == 16 || BM == 32 || BM == 64)
                             : RL == 1 && (BM == 1 || BM == 2 || BM == 4);
+  const int OW = RL == 4 ? Tile::cols(RNO) : Row::cols(RNO);
   return smem <= (size_t)MAX_SMEM_BYTES && tile && m.d >= (m.made() ? 1 : 2) && m.h >= 4 &&
          m.h % 4 == 0 && (RL == 1 || RNH >= 16 || m.h <= Tile::cols(RNH)) && G >= 1 &&
-         G <= m.wide() && G * m.np <= (RL == 4 ? Tile::cols(RNO) : Row::cols(RNO)) &&
-         BK >= 4 && BK <= 128 && BK % 4 == 0 && S >= 2 && S <= MAX_STAGES;
+         G <= m.wide() && (G * m.np <= OW || (RUNTIME_BINS && G == 1)) && BK >= 4 &&
+         BK <= 128 && BK % 4 == 0 && S >= 2 && S <= MAX_STAGES;
 }
 
 }  // namespace k5

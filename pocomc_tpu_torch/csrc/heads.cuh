@@ -13,6 +13,13 @@
 // memory).
 // OG is the width of K1's output column group (ar_inverse.cu): NP + 1
 // rounded up to a multiple of 8 (24 at 8 bins, 48 at 16).
+// In the library of run-time bins (rqs.cuh POCOMC_RUNTIME_BINS) RqsHead is
+// the streaming spline of rqs.cuh's run-time section instead: RUNTIME set,
+// NP 0 (a launch's np, 3 bins - 1, is the dimension's raw parameters), and
+// each map takes a view of the parameters where the kernel keeps them and
+// the bins; the kernels branch on RUNTIME where they size or address the
+// parameters (K1 and K1-bwd then run the output layer in column groups of
+// k1::GROUP, K5 and K2's backward a group in passes of an output pass).
 #pragma once
 
 #include <math.h>
@@ -21,7 +28,37 @@
 
 namespace pocomc {
 
+#if POCOMC_RUNTIME_BINS
 struct RqsHead {
+  static constexpr bool RUNTIME = true;
+  static constexpr int NP = 0, OG = 0;  // a launch's np; head_floats(np)
+  static constexpr bool WARP = false;
+  template <class V>
+  __device__ __forceinline__ static float forward(float x, const V& p, int bins, float* ladj) {
+    return rqs_forward_run(x, p, bins, ladj);
+  }
+  template <class V>
+  __device__ __forceinline__ static float inverse(float y, const V& p, int bins, float* ladj) {
+    return rqs_inverse_run(y, p, bins, ladj);
+  }
+  // given gy = dL/dy and gl = dL/dladj, writes dL/dp into gp (which may be
+  // p) and returns dL/dx
+  template <class V, class G>
+  __device__ __forceinline__ static float forward_vjp(float x, const V& p, const G& gp, int bins,
+                                                      float gy, float gl) {
+    return rqs_vjp_run<false>(x, p, gp, bins, gy, gl);
+  }
+  // the inverse's VJP at its data value x, given gx = dL/dx and gl:
+  // returns dL/dz and writes dL/dp into gp (which may be p)
+  template <class V, class G>
+  __device__ __forceinline__ static float inverse_vjp(float x, const V& p, const G& gp, int bins,
+                                                      float gx, float gl) {
+    return rqs_vjp_run<true>(x, p, gp, bins, gx, gl);
+  }
+};
+#else
+struct RqsHead {
+  static constexpr bool RUNTIME = false;
   static constexpr int NP = NPARAMS;
   static constexpr int OG = (NP + 1 + 7) / 8 * 8;
   static constexpr bool WARP = WARP_SPLINE;
@@ -48,11 +85,13 @@ struct RqsHead {
     return rqs_inverse_vjp_group(q, gx, gl, m, gp);
   }
 };
+#endif
 
 constexpr float LOG_SCALE_BOUND = 5.0f;
 
 // p = [loc, raw]; s = B tanh(raw / B); z = (x - loc) e^-s, log|dz/dx| = -s
 struct AffineHead {
+  static constexpr bool RUNTIME = false;
   static constexpr int NP = 2;
   static constexpr int OG = 4;
   static constexpr bool WARP = true;
@@ -117,10 +156,22 @@ struct AffineHead {
   }
 };
 
-// whether np names a head this library has: the spline of its bins, or
-// (the default library only: POCOMC_AFFINE) the affine map
+// whether np names a head this library has: the spline of its bins (any
+// 3 bins - 1 with bins >= 2 in the library of run-time bins), or (the
+// default library only: POCOMC_AFFINE) the affine map
 __host__ __forceinline__ bool head_compiled(int np) {
+#if POCOMC_RUNTIME_BINS
+  return np >= 5 && (np + 1) % 3 == 0;
+#else
   return np == RqsHead::NP || (POCOMC_AFFINE && np == AffineHead::NP);
+#endif
+}
+
+// floats of a K1 (and K1-bwd) row's head parameters with a head of np
+// parameters: RqsHead::OG, AffineHead::OG, or the run-time spline's NP + 1
+// rounded up to a multiple of 8 by the same rule
+__host__ __device__ __forceinline__ int head_floats(int np) {
+  return np == AffineHead::NP ? AffineHead::OG : (np + 1 + 7) / 8 * 8;
 }
 
 }  // namespace pocomc

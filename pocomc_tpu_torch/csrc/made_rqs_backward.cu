@@ -42,8 +42,9 @@ namespace {
 using namespace pocomc;
 
 // The packed copies of one MADE stack's masked weights w[l] (T, K_l, N_l):
-// w3p (T, NG, h, ldo), each output group's G*np columns zero-padded to
-// ldo; wtp (T, rows, PW), each transform's W0^T (ceil(d/PW) passes of h
+// w3p (T, NG, subs, h, ldo), each output group's G*np columns in subs
+// blocks of ldo (one, but for the spline of run-time bins: coupling_tile.cuh
+// Plan::subs), zero-padded; wtp (T, rows, PW), each transform's W0^T (ceil(d/PW) passes of h
 // rows), W1^T, W2^T (ceil(h/PW) passes of h rows each) and W3^T (ceil(h/PW)
 // passes of d*np rows), a pass's PW columns zero-padded: coupling_tile.cuh
 // Packed with wide = d.
@@ -51,7 +52,8 @@ struct PackShape {
   int d, h, T, np, G, ldo, PW;
   __host__ __device__ size_t n3() const { return (size_t)d * np; }
   __host__ __device__ size_t ng() const { return (d + G - 1) / G; }
-  __host__ __device__ size_t w3_per_t() const { return ng() * h * ldo; }
+  __host__ __device__ size_t subs() const { return ((size_t)G * np + ldo - 1) / ldo; }
+  __host__ __device__ size_t w3_per_t() const { return ng() * subs() * h * ldo; }
   __host__ __device__ size_t p0() const { return (d + PW - 1) / PW; }
   __host__ __device__ size_t ph() const { return (h + PW - 1) / PW; }
   __host__ __device__ size_t wt_rows() const { return p0() * h + 2 * ph() * h + ph() * n3(); }
@@ -71,7 +73,8 @@ __global__ void __launch_bounds__(256)
     float v = 0.0f;
     if (i < w3_total) {
       const size_t t = i / s.w3_per_t(), r = i - t * s.w3_per_t();
-      const size_t g = r / (h * s.ldo), k = (r / s.ldo) % h, c = r % s.ldo;
+      const size_t b = r / (h * s.ldo), k = (r / s.ldo) % h;
+      const size_t g = b / s.subs(), c = (b - g * s.subs()) * s.ldo + r % s.ldo;
       const size_t col = g * s.G * s.np + c;
       if (c < (size_t)s.G * s.np && col < n3) v = w3[(t * h + k) * n3 + col];
     } else {

@@ -2,8 +2,9 @@
 // masked autoregressive transform stack, data -> latent, with the summed
 // log|det dz/dy|. The element transform is the head (heads.cuh), a
 // template parameter: the spline of the nsf* flows (3 BINS - 1 parameters
-// a dimension, 23 at the default 8 bins; one library a bins: rqs.cuh) or
-// the affine map of the maf* flows (2).
+// a dimension, 23 at the default 8 bins; one library a bins up to 16, one
+// of run-time bins past that: rqs.cuh) or the affine map of the maf* flows
+// (2).
 //
 // Replaces the Pallas kernel `_made_kernel` / `_pallas_made_call` /
 // `make_made_apply` of pocomc_tpu/ops/pallas_kernels.py (deleted in commit
@@ -88,11 +89,16 @@ __global__ void __launch_bounds__(THREADS)
         ws.release();
         if (l == 3 && c.group_end) {
           // the group's heads: dimensions k0 .. k0 + gd - 1 of every row
-          const int k0 = c.g0 / Head::NP, gd = (c.gend - c.g0) / Head::NP;
+          const int np = Head::RUNTIME ? m.np : Head::NP;
+          const int k0 = c.g0 / np, gd = (c.gend - c.g0) / np;
           for (int idx = threadIdx.x; idx < P * gd; idx += THREADS) {
             const int p = idx / gd, k = k0 + idx - p * gd;
+            float* pk = ps + p * gw + (k - k0) * np;
             float lg;
-            xs[p * d + k] = Head::forward(xs[p * d + k], ps + p * gw + (k - k0) * Head::NP, &lg);
+            if constexpr (Head::RUNTIME)
+              xs[p * d + k] = Head::forward(xs[p * d + k], ParamsAt<1>{pk}, (np + 1) / 3, &lg);
+            else
+              xs[p * d + k] = Head::forward(xs[p * d + k], pk, &lg);
             hn[p * d + k] = lg;
           }
         }

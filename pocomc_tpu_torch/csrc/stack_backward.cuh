@@ -85,7 +85,8 @@ __global__ void __launch_bounds__(k5::BLOCK, 1)
                     const float* __restrict__ gladj, float* __restrict__ gy, Deltas dl, int n,
                     k5::Coupling m, k5::Packed pk, int G, int BK, int S) {
   extern __shared__ __align__(16) float smem[];
-  constexpr int BM = Ln::rows(RM), BMP = Ln::stride(RM), NP = Head::NP;
+  constexpr int BM = Ln::rows(RM), BMP = Ln::stride(RM);
+  const int NP = Head::RUNTIME ? m.np : Head::NP;  // raw parameters a transformed dimension
   using CR = Vec<RM>;
   using CH = Vec<RNH>;
   using CO = Vec<RNO>;
@@ -100,6 +101,7 @@ __global__ void __launch_bounds__(k5::BLOCK, 1)
   float* GL = GX + d * BMP;                // [BM]         dL/dladj
   k5::Plan pl{m, G, BK, Ln::cols(RNH), true, !INV, pk};
   pl.psaved = INV && ps != nullptr;
+  pl.OW = Ln::cols(RNO);
   k5::Ring ring = k5::make_ring(pl, smem, (GL + BM) - smem, S, BK, Ln::cols(RNH),
                                 Ln::cols(RNO));
   if (threadIdx.x >= THREADS) {
@@ -108,7 +110,9 @@ __global__ void __launch_bounds__(k5::BLOCK, 1)
   }
   const k5::Plan& plan = ring.pl;
   const Ln L;
-  const int per = plan.per(nh), first_t = plan.psaved ? 0 : 1;
+  // an output group's product takes subs passes (one but with the spline
+  // of run-time bins), then its gradient nh passes through W3^T
+  const int per = plan.per(nh), subs = plan.subs(), first_t = plan.psaved ? 0 : subs;
 
   const int row0 = blockIdx.x * BM;
   load_k_major<BM, BMP>(GX, gz, d, d, row0, n);
@@ -141,48 +145,66 @@ __global__ void __launch_bounds__(k5::BLOCK, 1)
         if (g > 0) k5::consumer_sync();  // the group before is done with P
         load_k_major<BM, BMP>(P, ps + off * dl.ldo + go, gn, dl.ldo, row0, n);
       } else {
-        const k5::Pass q = plan.pass(t, g * per, nh);
-        float acc[RM][RNO];
-        k5::zero(acc);
-        k5::run_pass<RM, RNO, false>(acc, ring, q, AG, BMP, L);
-        if (g > 0) k5::consumer_sync();  // the group before is done with P
+        for (int j = 0; j < subs; ++j) {
+          const k5::Pass q = plan.pass(t, g * per + j, nh);
+          float acc[RM][RNO];
+          k5::zero(acc);
+          k5::run_pass<RM, RNO, false>(acc, ring, q, AG, BMP, L);
+          if (g > 0 && j == 0) k5::consumer_sync();  // the group before is done with P
+          float* Pq = P + (q.o0 - go) * BMP;
 #pragma unroll
-        for (int ci = 0; ci < CO::N; ++ci)
+          for (int ci = 0; ci < CO::N; ++ci)
 #pragma unroll
-          for (int cj = 0; cj < CO::W; ++cj) {
-            const int col = col_of<RNO>(L, ci) + cj;
-            if (col >= q.no) continue;
-            const float b = __ldg(b3 + q.o0 + col);
+            for (int cj = 0; cj < CO::W; ++cj) {
+              const int col = col_of<RNO>(L, ci) + cj;
+              if (col >= q.no) continue;
+              const float b = __ldg(b3 + q.o0 + col);
 #pragma unroll
-            for (int ri = 0; ri < CR::N; ++ri) {
-              float o[CR::W];
+              for (int ri = 0; ri < CR::N; ++ri) {
+                float o[CR::W];
 #pragma unroll
-              for (int rj = 0; rj < CR::W; ++rj)
-                o[rj] = acc[ri * CR::W + rj][ci * CO::W + cj] + b;
-              k5::store_vec<CR::W>(P + col * BMP + row_of<RM>(L, ri), o);
+                for (int rj = 0; rj < CR::W; ++rj)
+                  o[rj] = acc[ri * CR::W + rj][ci * CO::W + cj] + b;
+                k5::store_vec<CR::W>(Pq + col * BMP + row_of<RM>(L, ri), o);
+              }
             }
-          }
+        }
       }
       k5::consumer_sync();
       const int k0 = go / NP, gd = gn / NP;
       for (int idx = threadIdx.x; idx < BM * gd; idx += THREADS) {
         const int r = idx % BM, k = idx / BM, col = tr0 + k0 + k;
-        float p[NP];
-#pragma unroll
-        for (int j = 0; j < NP; ++j) p[j] = P[(k * NP + j) * BMP + r];
         float* gx = GX + col * BMP + r;
-        if constexpr (INV) {
-          *gx = Head::inverse_vjp(X[col * BMP + r], p, *gx, GL[r]);
-#pragma unroll
-          for (int j = 0; j < NP; ++j) P[(k * NP + j) * BMP + r] = p[j];
+        if constexpr (Head::RUNTIME) {
+          // the head's VJP in place over the group's parameters
+          const ParamsAt<BMP> p{P + k * NP * BMP + r};
+          const int bins = (NP + 1) / 3;
+          if constexpr (INV) {
+            *gx = Head::inverse_vjp(X[col * BMP + r], p, p, bins, *gx, GL[r]);
+          } else {
+            *gx = Head::forward_vjp(X[col * BMP + r], p, p, bins, *gx, GL[r]);
+            if (row0 + r < n) {
+              float* delta = dl.g[3] + (off + row0 + r) * dl.ldo + go + k * NP;
+              for (int j = 0; j < NP; ++j) delta[j] = p[j];
+            }
+          }
         } else {
-          *gx = Head::forward_vjp(X[col * BMP + r], p, *gx, GL[r]);
-          float* delta = dl.g[3] + (off + row0 + r) * dl.ldo + go + k * NP;
-          const bool real = row0 + r < n;
+          float p[Head::NP];
 #pragma unroll
-          for (int j = 0; j < NP; ++j) {
-            P[(k * NP + j) * BMP + r] = p[j];
-            if (real) delta[j] = p[j];
+          for (int j = 0; j < NP; ++j) p[j] = P[(k * NP + j) * BMP + r];
+          if constexpr (INV) {
+            *gx = Head::inverse_vjp(X[col * BMP + r], p, *gx, GL[r]);
+#pragma unroll
+            for (int j = 0; j < NP; ++j) P[(k * NP + j) * BMP + r] = p[j];
+          } else {
+            *gx = Head::forward_vjp(X[col * BMP + r], p, *gx, GL[r]);
+            float* delta = dl.g[3] + (off + row0 + r) * dl.ldo + go + k * NP;
+            const bool real = row0 + r < n;
+#pragma unroll
+            for (int j = 0; j < NP; ++j) {
+              P[(k * NP + j) * BMP + r] = p[j];
+              if (real) delta[j] = p[j];
+            }
           }
         }
       }

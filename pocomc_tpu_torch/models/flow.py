@@ -9,8 +9,9 @@ transform, the affine map for ``maf*`` and a rational-quadratic spline of
 ``bins`` bins (8 by default) for ``nsf*``. The coupling kind ``nsfc*``
 (``models/coupling.py``): T transforms over alternating halves, each a
 residual MLP of the same widths on one half feeding splines of ``bins``
-bins on the other. ``bins`` >= 2 runs on the CPU, 2-16 on CUDA (the
-kernels' libraries are built per bins, at the first use of one). All have a
+bins on the other. Any ``bins`` >= 2 runs on the CPU and on CUDA (the
+kernels' libraries are built per bins up to 16, one of run-time bins past
+that, at the first use of one). All have a
 standard-normal base and an affine whitening pre-layer refit in closed
 form at every training round.
 
@@ -170,9 +171,9 @@ class Flow(nn.Module):
     ``nsf3|6|12`` (masked spline) or ``nsfc3|6|12`` (coupling spline), with
     its parameters and buffers on ``device`` (the card by default;
     ``device="cpu"`` runs the plain versions of the kernels). The splines
-    have ``bins`` bins: any bins >= 2 on the CPU, 2-16 on CUDA (more raise
-    NotImplementedError here, at construction); a ``maf*`` flow keeps
-    ``bins`` and ignores it, as the JAX package's does."""
+    have ``bins`` bins, any bins >= 2 on either device (fewer raise
+    ValueError here, at construction); a ``maf*`` flow keeps ``bins`` and
+    ignores it, as the JAX package's does."""
 
     def __init__(self, n_dim: int, flow: str = "nsf6", bins: int = 8,
                  seed: int = 0, use_pallas="auto", use_pallas_inverse="auto",
@@ -189,7 +190,7 @@ class Flow(nn.Module):
             raise ValueError(f"Invalid flow {flow!r}. Choose from {sorted(_ARCHS)}.")
         kind, n_transforms = _ARCHS[flow]
         if kind != "maf":
-            check_bins(bins, device.type == "cuda")
+            check_bins(bins)
         if kind == "nsfc" and int(n_dim) < 2:
             raise ValueError("Coupling flows ('nsfc*') need n_dim >= 2 (the dimensions are "
                              "split into two halves); use 'maf*' or 'nsf*' for 1-D problems.")

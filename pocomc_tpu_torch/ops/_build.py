@@ -6,12 +6,14 @@ happens at first use, never at import, into ``build/pocomc_tpu_torch/``
 beside the package; the library's file name carries a hash of its sources
 and flags, so an edited source is rebuilt and an unchanged one is reused.
 
-The spline's bins are a compile-time constant of the sources
+The spline's bins are a compile-time constant of the sources up to 16
 (``csrc/rqs.cuh`` BINS): a library is built for one (source, bins) pair,
 the default 8 bins with the plain flags, any other with
 ``-DPOCOMC_BINS=<bins>`` and the bins in its file name, at the first use of
-that bins. The affine head of the maf* flows, which has no bins, is
-compiled into the default libraries only.
+that bins. ``bins=0`` builds a source's library of run-time bins
+(``-DPOCOMC_BINS=0``, ``_bN`` in its file name), which serves every bins
+past 16. The affine head of the maf* flows, which has no bins, is compiled
+into the default libraries only.
 """
 
 from __future__ import annotations
@@ -47,7 +49,7 @@ def _nvcc() -> str:
 
 
 def flags(bins: int = 8) -> list:
-    """nvcc's flags for a library of ``bins`` spline bins."""
+    """nvcc's flags for a library of ``bins`` spline bins (0: run-time)."""
     return NVCC_FLAGS if bins == 8 else [*NVCC_FLAGS, f"-DPOCOMC_BINS={int(bins)}"]
 
 
@@ -57,7 +59,7 @@ def library_path(name: str, bins: int = 8) -> Path:
     h = hashlib.sha256(" ".join(flags(bins)).encode())
     for f in (f"{name}.cu",) + _HEADERS:
         h.update((CSRC / f).read_bytes())
-    tag = name if bins == 8 else f"{name}_b{int(bins)}"
+    tag = name if bins == 8 else (f"{name}_bN" if bins == 0 else f"{name}_b{int(bins)}")
     return BUILD_DIR / f"lib{tag}-{h.hexdigest()[:16]}.so"
 
 
@@ -83,12 +85,13 @@ def build(name: str, bins: int = 8) -> tuple[Path, str]:
 
 @functools.lru_cache(maxsize=None)
 def load(name: str, bins: int = 8) -> ctypes.CDLL:
-    """The loaded library of ``csrc/<name>.cu`` at ``bins`` spline bins,
-    built first if needed; raises if it reports other bins."""
+    """The loaded library of ``csrc/<name>.cu`` at ``bins`` spline bins
+    (0: the library of run-time bins), built first if needed; raises if it
+    reports other bins (a library of run-time bins reports 0)."""
     path, _ = build(name, bins)
     lib = ctypes.CDLL(str(path))
     lib.pocomc_spline_bins.restype = ctypes.c_int
     if lib.pocomc_spline_bins() != bins:
-        raise RuntimeError(f"{path.name} holds the spline of {lib.pocomc_spline_bins()} bins, "
-                           f"not {bins}")
+        raise RuntimeError(f"{path.name} holds the spline of {lib.pocomc_spline_bins()} bins "
+                           f"(0: run-time bins), not {bins}")
     return lib

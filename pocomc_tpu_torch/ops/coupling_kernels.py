@@ -24,8 +24,9 @@ n_cond_t -> h -> h -> h -> n_trans_t*NP, and ``masks[t]`` its boolean
 conditioning mask (``models/coupling.py make_coupling_masks``; the kernels
 take the alternating halves that function lays out). NP = 3 bins - 1 raw
 parameters a transformed dimension: every function takes the spline's
-``bins`` (8 by default; the CUDA route 2-16, one library a source and
-bins, as ``flow_kernels``).
+``bins`` (8 by default; any bins >= 2 on both routes: on CUDA one library a
+source and bins up to 16, one of run-time bins past that, as
+``flow_kernels``).
 
 Dispatch is by device and nothing else: a CPU tensor goes to the plain
 version (``*_ref``), a CUDA tensor launches the kernel or raises. Each
@@ -47,7 +48,7 @@ from ..models.coupling import BINS, coupling_forward as _transform_forward, \
     coupling_inverse as _transform_inverse, halves, layer_inputs, make_coupling_masks
 from .flow_kernels import (_MAX_SMEM, N_PARAMS, _check_saved, _count, _entry, _made_vjp_input,
                            _raise_if, _refuse_weight_grad, _route, _stream, inverse_element_vjp,
-                           zero_counts)
+                           lib_bins, zero_counts)
 
 
 # ---------------------------------------------------------------------------
@@ -311,7 +312,9 @@ def _k5_config(n, d, h, backward, made=False, n_params=N_PARAMS, inverse=False):
     On a Tile, RNH is the least power of two with 32 * RNH >= h, up to 16
     (a hidden layer is one pass, the whole layer in registers, up to h =
     512; wider ones run in passes of 512 columns); RNO 4 at h <= 32, else 8
-    (an output group of up to 5 or 11 dimensions a pass). BM is the largest
+    (an output group of up to 5 or 11 dimensions a pass; past 16 bins, where
+    one dimension may pass an output pass, a group of one dimension in as
+    many passes as it takes: coupling_tile.cuh Plan::subs). BM is the largest
     of 64, 32, 16, 8 that still gives 128 blocks (one per SM of the H100; 8
     below n = 1024), within the accumulator bound of ``k5_instances``, and
     shrinks where the shared memory does not fit. Where even 8 rows do not
@@ -333,12 +336,12 @@ def _k5_config(n, d, h, backward, made=False, n_params=N_PARAMS, inverse=False):
     instances = k5_instances(backward)
     while BM > 8 and (4, BM // 8, rnh, rno) not in instances:
         BM //= 2
-    row_g = min(wide, 256 * K5_ROW[1] // n_params)
+    row_g = max(1, min(wide, 256 * K5_ROW[1] // n_params))
     plan = None
     if inverse and h >= K5_INV_ROW[0] and -(-n // 8) < K5_INV_ROW[1]:
         plan = _k5_fit(1, (4,), *K5_ROW, row_g, d, h, backward, n_params)
     plan = plan or _k5_fit(4, [b for b in (64, 32, 16, 8) if b <= BM], rnh, rno,
-                           min(wide, 32 * rno // n_params), d, h, backward, n_params)
+                           max(1, min(wide, 32 * rno // n_params)), d, h, backward, n_params)
     plan = plan or _k5_fit(1, (4, 2, 1), *K5_ROW, row_g, d, h, backward, n_params)
     if plan is None:
         raise ValueError(f"coupling kernels: d={d}, h={h} needs more shared memory than "
@@ -413,9 +416,10 @@ def _packed(layers, ws, cfg, d, h, transposed, n_params=N_PARAMS):
     """The weights repacked as csrc/coupling_tile.cuh ``Packed`` lays them
     out, for whole-slab bulk copies (an output layer's rows, n_params *
     n_trans floats, sit off 16-byte boundaries, and W^T gathers columns): the
-    output layers by group, (T, NG, h,
-    ldo), or (``transposed``) every layer's W^T in passes of PW columns,
-    (T, rows, PW); zero padding. Kept on ``ws[0][0]``, the first
+    output layers by group, (T, NG * subs, h, ldo) (a group's subs = ceil(G *
+    n_params / ldo) blocks of ldo columns: one but past 16 bins), or
+    (``transposed``) every layer's W^T in passes of PW columns, (T, rows,
+    PW); zero padding. Kept on ``ws[0][0]``, the first
     transform's first weight, so it lives as long as the flow's tensors:
     rebuilt when any of them is replaced or changed in place (its version
     moves, as an optimizer step moves it), so a sweep packs once per
@@ -429,9 +433,11 @@ def _packed(layers, ws, cfg, d, h, transposed, n_params=N_PARAMS):
     with torch.no_grad():
         if not transposed:
             ng, gw = -(-half // cfg.G), cfg.G * n_params
+            subs = -(-gw // cfg.ldo)
             w3 = torch.stack([F.pad(w[3], (0, ng * gw - w[3].shape[1])) for w in ws])
-            w3 = F.pad(w3.view(T, h, ng, gw), (0, cfg.ldo - gw))
-            pack = w3.permute(0, 2, 1, 3).contiguous()
+            w3 = F.pad(w3.view(T, h, ng, gw), (0, subs * cfg.ldo - gw))
+            pack = w3.view(T, h, ng, subs, cfg.ldo).permute(0, 2, 3, 1, 4).contiguous()
+            pack = pack.view(T, ng * subs, h, cfg.ldo)
         else:
             rows = [torch.stack([F.pad(w[0], (0, 0, 0, half - w[0].shape[0])) for w in ws]),
                     torch.stack([w[1] for w in ws]), torch.stack([w[2] for w in ws]),
@@ -459,15 +465,15 @@ def _launch_stack(x, ws, bs, masks, inverse, save_inputs, name, bins=BINS):
     acts = ([torch.empty(T, n, k, dtype=x.dtype, device=x.device) for k in widths]
             if save_inputs else None)
     if n > 0:
-        fn = _entry("coupling_forward", "coupling_forward_launch", "PPPIIIIPPPPPPPIIIIIIIIIP",
-                    bins)
+        fn = _entry("coupling_forward", "coupling_forward_launch", "PPPIIIIPPPPPPPIIIIIIIIIIP",
+                    lib_bins(bins))
         saved = [a.data_ptr() for a in acts] if save_inputs else []
         saved += [None] * (5 - len(saved))
         table = _table(x.device.index, ptrs)
         w3 = _packed(layers, ws, cfg, d, h, False, n_params).data_ptr()
         err = fn(x.data_ptr(), out.data_ptr(), ladj.data_ptr(), n, d, h, T, table.data_ptr(),
                  w3, *saved, int(inverse), cfg.RL, cfg.BM, cfg.RNH, cfg.RNO, cfg.G, cfg.BK,
-                 cfg.S, x.device.index, _stream(x))
+                 cfg.S, n_params, x.device.index, _stream(x))
         _raise_if(err, name)
         _count(coupling_inverse if inverse else coupling_forward, "rqs", bins)
     return (out, ladj, acts) if save_inputs else (out, ladj)
@@ -507,13 +513,14 @@ def _launch_backward(acts, ws, bs, masks, g_z, g_ladj, inverse=False, bins=BINS)
                                  for k in (h, h, h, half * n_params)]
     if n > 0:
         fn = _entry("coupling_backward", "coupling_backward_launch",
-                    "PPPPPPPPIIIIPPPPPPPIIIIIIIIIP", bins)
+                    "PPPPPPPPIIIIPPPPPPPIIIIIIIIIIP", lib_bins(bins))
         packs = [_packed(layers, ws, cfg, d, h, t, n_params).data_ptr() for t in (False, True)]
         err = fn(*[a.data_ptr() for a in acts[:4]],
                  acts[4].data_ptr() if inverse else None, g_z.data_ptr(), g_ladj.data_ptr(),
                  g_x.data_ptr(), n, d, h, T, _table(dev.index, ptrs).data_ptr(), *packs,
                  *([g.data_ptr() for g in deltas] if deltas else [None] * 4), cfg.RL, cfg.BM,
-                 cfg.RNH, cfg.RNO, cfg.G, cfg.BK, cfg.S, int(inverse), dev.index, _stream(g_z))
+                 cfg.RNH, cfg.RNO, cfg.G, cfg.BK, cfg.S, int(inverse), n_params, dev.index,
+                 _stream(g_z))
         _raise_if(err, name)
         _count(coupling_inverse_backward if inverse else coupling_backward, "rqs", bins)
     if inverse:

@@ -33,16 +33,20 @@ transforms: ``ws[l]`` of shape (T, fan_in, fan_out) and ``bs[l]`` of shape
 ``"rqs"``, the spline of the nsf* flows with ``bins`` bins (NP = 3 bins -
 1: 23 at the default 8), or ``"affine"``, the affine map of the maf* flows
 (NP = 2; it ignores ``bins``). The kernels take the head as a template
-parameter (``csrc/heads.cuh``) and the spline's bins as a compile-time
-constant (``csrc/rqs.cuh``): one library a source and bins holds both
-heads, built at the first use of its bins (``_build``); the CUDA route
-takes 2-16 bins (``check_bins``), the plain versions any bins >= 2.
+parameter (``csrc/heads.cuh``); the spline's bins are a compile-time
+constant up to ``FIXED_BINS`` (16; one library a source and bins, the
+default one with the affine head too) and a run-time value past it (one
+library a source for every bins > 16, whose spline streams over a
+dimension's parameters where the kernel keeps them: ``csrc/rqs.cuh``),
+each built at its first use (``_build``). Both routes take any bins >= 2
+(``check_bins``).
 
 Dispatch is by device and nothing else: a CPU tensor goes to the plain
 version (``*_ref``), a CUDA tensor launches the kernel or raises. Each
 wrapper counts its launches in plain integer attributes: ``launches``
 with the 8-bin spline head, ``launches_b<bins>`` with the spline of other
-bins (``launches_b16``), ``launches_affine`` with the affine one.
+bins (``launches_b16``, ``launches_b32``; ``zero_counts`` resets every
+one a wrapper has), ``launches_affine`` with the affine one.
 """
 
 from __future__ import annotations
@@ -56,9 +60,10 @@ from ..models import transforms as tr
 from ..models.made import apply_made_dim
 from . import _build
 
-# the spline's default bins, and the most the CUDA kernels are built for
+# the spline's default bins, and the most a library of compile-time bins
+# takes (past it, the library of run-time bins)
 BINS = 8
-MAX_BINS = 16
+FIXED_BINS = 16
 N_PARAMS = tr.rqs_n_params(BINS)
 # raw parameters a dimension of each head at the default bins
 HEADS = {"rqs": N_PARAMS, "affine": tr.AFFINE_N_PARAMS}
@@ -66,18 +71,14 @@ HEADS = {"rqs": N_PARAMS, "affine": tr.AFFINE_N_PARAMS}
 _MAX_SMEM = 227 * 1024
 
 
-def check_bins(bins, cuda=False):
-    """Refuse spline bins a route does not take: fewer than 2 on every
-    device (ValueError; the plain spline has no interior knot to move),
-    more than ``MAX_BINS`` on CUDA (NotImplementedError: the kernels keep a
-    spline's knots in registers and lay its parameters over a warp's lanes
-    for 2-16 bins; ROADMAP.md, port queue 1: bins > 16 on CUDA)."""
+def check_bins(bins):
+    """Refuse spline bins fewer than 2 (ValueError; the plain spline has
+    no interior knot to move). Every route takes every other bins: the
+    CUDA kernels those of the plain version (2-16 compiled, more at run
+    time: ``lib_bins``), and past 1000, where 1 - MIN_BIN * bins < 0, both
+    do what the JAX package does."""
     if int(bins) != bins or bins < 2:
         raise ValueError(f"a spline needs an integer bins >= 2, got {bins!r}")
-    if cuda and bins > MAX_BINS:
-        raise NotImplementedError(
-            f"the CUDA flow kernels take 2-{MAX_BINS} spline bins, not {bins} (ROADMAP.md, "
-            f"port queue 1: bins > 16 on CUDA); device='cpu' runs any bins")
     return int(bins)
 
 
@@ -98,10 +99,16 @@ def _head(head, bins=BINS):
     return tr.rqs_n_params(bins) if head == "rqs" else HEADS[head]
 
 
+def lib_bins(bins):
+    """The library of a spline of ``bins`` bins: its bins up to
+    ``FIXED_BINS``, else 0, the library of run-time bins."""
+    return bins if bins <= FIXED_BINS else 0
+
+
 def _lib_bins(head, bins):
     """The bins of the library a head's launch loads: the affine head's
     instances are the same in every library, so it takes the default one."""
-    return bins if head == "rqs" else BINS
+    return lib_bins(bins) if head == "rqs" else BINS
 
 
 # ---------------------------------------------------------------------------
@@ -298,10 +305,20 @@ def _sign_words(h):
 
 
 def _out_group(head, bins=BINS):
-    """K1's output column group (csrc/heads.cuh OG): the spline's NP + 1
-    rounded up to a multiple of 8 (24 at 8 bins, 48 at 16), 4 for the
-    affine head."""
+    """Floats of a K1 (and K1-bwd) row's head parameters (csrc/heads.cuh
+    OG, head_floats): the spline's NP + 1 rounded up to a multiple of 8 (24
+    at 8 bins, 48 at 16, 96 at 32), 4 for the affine head."""
     return -(-(_head(head, bins) + 1) // 8) * 8 if head == "rqs" else 4
+
+
+def _widest_group(head, bins=BINS):
+    """K1's widest column group: a hidden group (``_K1_GROUP``) or the
+    output group of a compiled head (its ``_out_group``); the spline of
+    run-time bins runs its NP output columns in groups of ``_K1_GROUP``
+    (csrc/ar_walk.cuh out_cols)."""
+    if head == "rqs" and lib_bins(bins) == 0:
+        return _K1_GROUP
+    return max(_K1_GROUP, _out_group(head, bins))
 
 
 def _launch_config(n, d, h, head="rqs", bins=BINS):
@@ -318,9 +335,11 @@ def _launch_config(n, d, h, head="rqs", bins=BINS):
     fan-in rows (padded to 4), and at least 4,096 floats, so that at small
     d a stage holds the groups of several steps. W, then R, halve until a
     stage holds at least 33 rows of such a group; raises where one row
-    alone leaves less: from h = 16384 (d > 2730), as K2's launch does."""
-    og = _out_group(head, bins)
-    return _plan(n, d, h, 3 * h + 3 * d + og, "ar_inverse", max(_K1_GROUP, og))
+    alone leaves less: from h = 16384 (d > 2730), as K2's launch does.
+    Past 16 bins the output layer runs in groups of 24 columns, so the
+    widest group is 24 at every bins and only the row's NP + 1 grows."""
+    return _plan(n, d, h, 3 * h + 3 * d + _out_group(head, bins), "ar_inverse",
+                 _widest_group(head, bins))
 
 
 def _plan(n, d, h, row, name, widest=_K1_GROUP):
@@ -390,7 +409,8 @@ def _k2_backward_plan(n, d, h, T, n_params=N_PARAMS):
     cfg = _k5_config(n, d, h, True, made=True, n_params=n_params)
     PW, n3 = cfg.PW, d * n_params
     p0, ph = -(-d // PW), -(-h // PW)
-    pack = T * (-(-d // cfg.G) * h * cfg.ldo + (p0 * h + 2 * ph * h + ph * n3) * PW)
+    subs = -(-cfg.G * n_params // cfg.ldo)
+    pack = T * (-(-d // cfg.G) * subs * h * cfg.ldo + (p0 * h + 2 * ph * h + ph * n3) * PW)
     return cfg, pack
 
 
@@ -420,7 +440,8 @@ def _stream(x):
 
 def _count(wrapper, head, bins=BINS):
     """One launch of ``wrapper``'s kernel with ``head`` (and ``bins``)."""
-    setattr(wrapper, launch_attr(head, bins), getattr(wrapper, launch_attr(head, bins)) + 1)
+    attr = launch_attr(head, bins)
+    setattr(wrapper, attr, getattr(wrapper, attr, 0) + 1)
 
 
 def launch_attr(head="rqs", bins=BINS):
@@ -566,9 +587,8 @@ def _backward_config(n, d, h, head="rqs", bins=BINS):
     ceil(h/32) <= d, as at every flow's (d, h), so there its own plan holds
     wherever K1's does."""
     _launch_config(n, d, h, head, bins)
-    og = _out_group(head, bins)
-    return _plan(n, d, h, 3 * h + 3 * _sign_words(h) + 2 * d + og, "ar_inverse_backward",
-                 max(_K1_GROUP, og))
+    return _plan(n, d, h, 3 * h + 3 * _sign_words(h) + 2 * d + _out_group(head, bins),
+                 "ar_inverse_backward", _widest_group(head, bins))
 
 
 def _check_state(state, T, n, d, h, head, device, bins=BINS):
@@ -615,7 +635,8 @@ def _element_vjp(x, p, g_x, g_l, head="rqs", lanes=32, bins=BINS):
     """K1-bwd's element VJP on the card, for the tests: (g_z (n,), g_p (n,
     NP)) of ``inverse_element_vjp`` at x (n,), p (n, NP), g_x, g_l (n,), on
     ``lanes`` lanes a row: the kernel's versions (32: a warp, up to 10
-    bins; 8: a group of 8 lanes) or the one-lane one (1)."""
+    bins; 8: a group of 8 lanes, up to 16 bins) or the one-lane one (1;
+    past 16 bins, the kernel's own)."""
     n = x.shape[0]
     px = torch.cat([p, x[:, None]], 1).contiguous()
     g_z, g_p = torch.empty_like(x), torch.empty_like(p)
@@ -694,7 +715,7 @@ def _route(x, name, bins, head="rqs"):
     checked (the affine head ignores them)."""
     device = _device_type(x, name)
     if head == "rqs":
-        check_bins(bins, device == "cuda")
+        check_bins(bins)
     return device
 
 
@@ -770,9 +791,12 @@ def ar_inverse_backward(x, ws, bs, inv_dim_orders, g_x, g_ladj, head="rqs", bins
 
 
 def zero_counts(wrappers):
-    """Every launch count of ``wrappers`` (each head, each bins) set to 0."""
+    """Every launch count of ``wrappers`` set to 0: each head at 2-16 bins,
+    and every other bins a wrapper has counted."""
     for wrapper in wrappers:
-        for attr in {launch_attr(h, b) for h in HEADS for b in range(2, MAX_BINS + 1)}:
+        attrs = {launch_attr(h, b) for h in HEADS for b in range(2, FIXED_BINS + 1)}
+        attrs |= {a for a in vars(wrapper) if a.startswith("launches")}
+        for attr in attrs:
             setattr(wrapper, attr, 0)
 
 

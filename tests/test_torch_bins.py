@@ -1,15 +1,16 @@
 """``Flow(bins=)`` on the port, on the CPU: a maf flow keeps bins and
 ignores them, a sampler's state with a 16-bin spline flow round-trips
 through ``save_state``/``load_state`` and ``pickle``, and a JAX run whose
-flow has 16 bins carries into the port (``convert.state_from_jax``). The
-flows' values and gradients at 2-16 bins against the JAX package are in
-``tests/test_torch_flow_menu.py`` and ``tests/test_torch_gradient.py``;
-the kernels at 2-16 bins in ``tests/test_torch_gpu.py`` (marked ``gpu``).
+flow has 16 or 32 bins carries into the port (``convert.state_from_jax``).
+The flows' values and gradients at 2-64 bins against the JAX package are
+in ``tests/test_torch_flow_menu.py`` and ``tests/test_torch_gradient.py``;
+the launch plans past 16 bins in ``tests/test_torch_bins_wide.py``; the
+kernels at 2-1000 bins in ``tests/test_torch_gpu.py`` (marked ``gpu``).
 
-Run as a script, ``python tests/test_torch_bins.py 16`` runs the JAX
-package's quickstart with ``flow=Flow(10, "nsf6", bins=16)`` on the CPU
-(``JAX_PLATFORMS=cpu``, seed 0) and prints its logZ, calls and wall: the
-reference for the port's quickstart with such a flow.
+Run as a script, ``python tests/test_torch_bins.py 16`` (or 32) runs the
+JAX package's quickstart with ``flow=Flow(10, "nsf6", bins=16)`` on the
+CPU (``JAX_PLATFORMS=cpu``, seed 0) and prints its logZ, calls and wall:
+the reference for the port's quickstart with such a flow.
 """
 
 import math
@@ -93,17 +94,17 @@ def test_state_round_trip_with_16_bins(tmp_path):
             assert torch.equal(other.flow.log_prob(pts), lp)
 
 
-@pytest.mark.parametrize("arch", ["nsf3", "nsfc3"])
-def test_state_from_jax_with_16_bins(arch):
-    """A JAX run whose flow has 16 bins carried into the port's sampler
-    with such a flow: the same posterior, the flow's log_prob on fixed
-    points (1e-5), and the port extends the run."""
+def _state_from_jax(arch, bins):
+    """A JAX run whose flow has ``bins`` bins carried into the port's
+    sampler with such a flow: the same posterior, the flow's log_prob on
+    fixed points (1e-5), and the port extends the run."""
     sj = jpc.Sampler(jpc.Prior([jpc.Normal(0, 3), jpc.Normal(0, 3)]),
                      lambda x: -0.5 * jnp.sum(x ** 2, axis=-1), vectorize=True,
                      random_state=0, n_effective=128, n_active=64,
-                     flow=JFlow(2, arch, bins=16), train_config={"epochs": 20, "patience": 3})
+                     flow=JFlow(2, arch, bins=bins), train_config={"epochs": 20, "patience": 3})
     sj.run(n_total=256, n_evidence=256, progress=False)
-    s = small_sampler(Flow(2, arch, bins=16, device="cpu"), seed=1)
+    s = small_sampler(Flow(2, arch, bins=bins, device="cpu"), seed=1)
+    assert s.flow.weights[3].shape[-1] % (3 * bins - 1) == 0
     s.load_state_dict(state_from_jax(sj.state_dict()))
     assert (s.t, s.calls, s.logz) == (sj.t, sj.calls, sj.logz)
     for a, b in zip(s.posterior(), sj.posterior()):
@@ -115,6 +116,20 @@ def test_state_from_jax_with_16_bins(arch):
                                rtol=1e-5, atol=1e-5)
     s.run(n_total=512, n_evidence=256, progress=False)
     assert s.t > sj.t and np.isfinite(s.logz)
+
+
+@pytest.mark.parametrize("arch", ["nsf3", "nsfc3"])
+def test_state_from_jax_with_16_bins(arch):
+    """``_state_from_jax`` with 16 bins, the most of a compiled library."""
+    _state_from_jax(arch, 16)
+
+
+def test_state_from_jax_with_32_bins():
+    """``_state_from_jax`` with 32 bins, which the card runs on the library
+    of run-time bins (nsf3; the trained nsfc3's log_prob lies 2.03e-5 from
+    JAX's at one of the 64 points, past the 1e-5 + 1e-5 |x| rule: the two
+    packages' coupling stacks round in other orders)."""
+    _state_from_jax("nsf3", 32)
 
 
 def jax_quickstart(bins):

@@ -47,15 +47,18 @@ def test_k5_config_fits_a_hopper_block(n, backward):
             assert -(-n // cfg.BM) >= 128
 
 
-@pytest.mark.parametrize("bins", [2, 5, 12, 16])
+@pytest.mark.parametrize("bins", [2, 5, 12, 16, 17, 32, 64, 128, 1000])
 @pytest.mark.parametrize("backward", [False, True], ids=["forward", "backward"])
 def test_k5_and_k2_plans_at_bins(backward, bins):
     """With the spline of ``bins`` bins (NP = 3 bins - 1 raw parameters a
     dimension): K5's tile at every d in 2..128 and at d = 171, 342 fits
     227 KB with the NP-wide output groups the kernels' shared-memory
-    formula counts, and a group's NP*G columns fit the output tile; K2's
-    backward plan (K5's tile on the MADE network, every dimension an
-    output) and K2's forward plan fit too, at n = 1, 256 and 4096."""
+    formula counts, and a group's NP*G columns fit the output tile (past
+    16 bins, a group of one dimension may take several output passes:
+    coupling_tile.cuh Plan::subs); K2's backward plan (K5's tile on the
+    MADE network, every dimension an output) and K2's forward plan fit
+    too, at n = 1, 256 and 4096. 1000 bins is the most a spline holds
+    (1 - MIN_BIN * bins = 0), and no plan refuses a bins below it."""
     from pocomc_tpu_torch.ops import flow_kernels as fk
     np_ = 3 * bins - 1
     for d in [*range(2, 129), 171, 342]:
@@ -65,11 +68,12 @@ def test_k5_and_k2_plans_at_bins(backward, bins):
             assert cfg.smem <= HOPPER_SMEM
             assert cfg.smem == 4 * ck._k5_smem_floats(cfg.RL, cfg.BM, cfg.RNH, cfg.RNO, cfg.G,
                                                       cfg.BK, cfg.S, d, h, backward, np_)
-            assert 1 <= cfg.G <= (d + 1) // 2 and cfg.G * np_ <= cfg.ldo
+            assert 1 <= cfg.G <= (d + 1) // 2
+            assert cfg.G * np_ <= cfg.ldo or (bins > fk.FIXED_BINS and cfg.G == 1)
             if backward:
                 plan, _ = fk._k2_backward_plan(n, d, h, 2, np_)
                 assert plan.smem <= HOPPER_SMEM and 1 <= plan.G <= d
-                assert plan.G * np_ <= plan.ldo
+                assert plan.G * np_ <= plan.ldo or (bins > fk.FIXED_BINS and plan.G == 1)
             else:
                 P, G, SL = fk._k2_config(n, d, h, np_)
                 assert 4 * (P * (d + 2 * h + G * np_ + 1) + 4 + 2 * SL) <= 227 * 1024

@@ -78,9 +78,13 @@ MENU = [(arch, d) for arch in ("maf3", "maf6", "nsfc3", "nsfc6") for d in (2, 3,
 MENU += [("maf12", 3), ("nsfc12", 3)]
 # the spline kinds at other bins: 2 (the fewest), 3, 5 (neither a power of
 # two), 12 and 16 (past the 10 whose parameters fit a warp's lanes in the
-# kernels); the menu's cases keep their ids at 8 bins
+# kernels), 17 and 32 (the kernels' library of run-time bins), and 64 at
+# d=3 (at d=10 the two packages' log-dets differ by up to 3.4e-4, past
+# LADJ: 3 transforms of 10 bins of width ~0.16, each knot a running sum of
+# 64 sizes, summed in another order by each); the menu's cases keep their
+# ids at 8 bins
 BINS_MENU = [(arch, d, b) for arch in ("nsf3", "nsfc3") for d in (3, 10)
-             for b in (2, 3, 5, 12, 16)]
+             for b in (2, 3, 5, 12, 16, 17, 32, *((64,) if d == 3 else ()))]
 MENU_BINS = ([pytest.param(arch, d, 8, id=f"{arch}-{d}") for arch, d in MENU]
              + [pytest.param(*case, id="{}-{}-bins{}".format(*case)) for case in BINS_MENU])
 
@@ -132,10 +136,11 @@ def test_identity_at_init_round_trip_and_antisymmetry(arch, d):
 GRAD_MENU = [("maf3", 3, 1), ("maf6", 4, 2), ("nsfc3", 3, 3), ("nsfc6", 4, 4)]
 # the loss gradient at the bins where the kernels' layouts change (3 and 5,
 # neither a power of two; 16, past the 10 whose parameters fit a warp's
-# lanes), at d=3: JAX compiles each case anew (~2.5 s each on the CPU)
+# lanes; 17 and 32, the library of run-time bins), at d=3: JAX compiles
+# each case anew (~2.5 s each on the CPU)
 GRAD_BINS = ([pytest.param(*case, 8, id="{}-{}-{}".format(*case)) for case in GRAD_MENU]
              + [pytest.param(arch, 3, 8, b, id=f"{arch}-3-bins{b}")
-                for arch in ("nsf3", "nsfc3") for b in (3, 5, 16)])
+                for arch in ("nsf3", "nsfc3") for b in (3, 5, 16, 17, 32)])
 
 
 def on_kink_or_knot(flow, x, window=1e-5):

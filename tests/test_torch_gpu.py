@@ -712,6 +712,43 @@ def _kink_rows(flow, x, window=1e-5):
     return near
 
 
+# past 16 bins, the log-det and gradient tolerances at 1000 bins, whose
+# narrow bins put a log-det ~1e-4 from float64 by the fp32 rounding of its
+# input alone, whatever route computes it: chip_smoke.py's NARROW_TOL
+NARROW_TOL = {1000: dict(ladj=3e-4, grad=6e-4)}
+
+
+def _narrow(tol, bins, key):
+    """A tolerance at a spline's bins: ``tol``, or NARROW_TOL's where larger."""
+    return max(tol, NARROW_TOL.get(bins, {}).get(key, tol))
+
+
+def _close_or_float64(got, plain, exact, rtol, atol):
+    """chip_smoke.py ``check_values``' rule, past 16 bins: every element of
+    got within atol + rtol |plain| of the plain fp32 version or, where not,
+    within atol + rtol |exact| of the plain version in float64 (the knots
+    are running sums of up to 999 sizes that two fp32 routes order
+    differently, so each may lie up to the tolerance from float64, on
+    opposite sides)."""
+    g, p = got.double(), plain.double()
+    off_plain = (g - p).abs() > atol + rtol * p.abs()
+    off_exact = (g - exact).abs() > atol + rtol * exact.abs()
+    assert not bool((off_plain & off_exact).any()), (
+        float((g - p).abs().max()), float((g - exact).abs().max()),
+        float((p - exact).abs().max()))
+
+
+def _grads_vs_float64(got, exact, bins):
+    """Past 16 bins, chip_smoke phase 14's gradient rule: each tensor
+    within 1e-4 of its largest value (``_narrow``'s at 1000 bins)
+    of the plain version in float64, rows on a jump left out by the
+    caller."""
+    tol = _narrow(1e-4, bins, "grad")
+    for j, (a, e) in enumerate(zip(got, exact)):
+        err = float((a.double() - e).abs().max())
+        assert err <= tol * (float(e.abs().max()) + 1e-30), (j, err, float(e.abs().max()))
+
+
 def _check_vs_float64(got, plain, exact, tol):
     """K5's rule (``check_vs_float64`` of chip_smoke.py): |got - exact|
     within max(tol * max|exact|, 4x the plain fp32 version's own distance
@@ -748,7 +785,7 @@ def _k1_backward_case(arch, d, n, bins=8):
         edge = _made_edge_rows(f, x, g_l) | _kink_rows(f, x)
         g_x, g_l = g_x.masked_fill(edge[:, None], 0.0), g_l.masked_fill(edge, 0.0)
         counter = fk.launch_attr(f.head, b)
-        before = getattr(fk.ar_inverse_backward, counter)
+        before = getattr(fk.ar_inverse_backward, counter, 0)
         got = fk.ar_inverse_backward(state, fp.ws, fp.bs, fp.inv_orders, g_x, g_l, f.head, b)
         again = fk.ar_inverse_backward(state, fp.ws, fp.bs, fp.inv_orders, g_x, g_l, f.head, b)
         assert getattr(fk.ar_inverse_backward, counter) == before + 2
@@ -1210,28 +1247,35 @@ def test_k5_inverse_backward_through_the_save_instance(cuda, d, n):
     assert torch.equal(by_autograd, direct)
 
 
-# -- the spline of 2-16 bins: one library a source and bins ----------------
+# -- the spline of any bins: one library a source and bins up to 16, one
+# -- library a source of run-time bins past that ---------------------------
 
 # the bins where the kernels' layouts change: 2 (the fewest), 3 and 5 (not
 # powers of two: the warp-wide spline gathers its segments), 10 (the last
 # whose NP + 1 = 30 values fit a warp a value a lane), 11 (the first that
 # does not: K1's one-row warps run the serial spline, K1-bwd's take 8 lanes
-# a row, two bins a lane) and 16 (the most)
-BINS = (2, 3, 5, 10, 11, 16)
+# a row, two bins a lane) and 16 (the most of a compiled library); past 16
+# the library of run-time bins: 17 (its fewest), 32, 64, 128 (K5's output
+# group of one dimension passes an output pass from 86 bins), 512 (half
+# the interval's width and height left to the parameters' softmax) and
+# 1000 (the most a spline holds: 1 - MIN_BIN * bins = 0)
+BINS = (2, 3, 5, 10, 11, 16, 17, 32, 64, 128, 512, 1000)
 
 
 @pytest.fixture(scope="module")
 def bins_libraries():
     """Every (source, bins) library these tests load, built at once, one
-    nvcc each, all started together."""
+    nvcc each, all started together (the run-time library once for every
+    bins past 16)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     from concurrent.futures import ThreadPoolExecutor
     from pocomc_tpu_torch.ops import _build
     names = ("made_rqs_forward", "made_rqs_backward", "ar_inverse", "ar_inverse_backward",
              "coupling_forward", "coupling_backward")
-    with ThreadPoolExecutor(len(names) * len(BINS)) as pool:
-        list(pool.map(lambda job: _build.build(*job), [(a, b) for a in names for b in BINS]))
+    jobs = sorted({(a, fk.lib_bins(b)) for a in names for b in BINS})
+    with ThreadPoolExecutor(len(jobs)) as pool:
+        list(pool.map(lambda job: _build.build(*job), jobs))
 
 
 @pytest.mark.parametrize("bins", BINS)
@@ -1243,14 +1287,16 @@ def test_k2_and_k1_match_plain_at_bins(bins_libraries, bins, n):
     1e-4, the gradient through K2 and K2-bwd by autograd against plain
     autograd of the plain forward, and K2-bwd on the saved inputs against
     ``made_rqs_backward_ref``, to 1e-4 of the largest gradient, rows on a
-    float64 knot left out; each wrapper counts its launches under
-    ``launch_attr("rqs", bins)``."""
+    float64 knot left out; past 16 bins every reference also in float64
+    (``_close_or_float64``, ``_grads_vs_float64``: chip_smoke phase 14's
+    rule), rows on a ReLU kink left out too; each wrapper counts its
+    launches under ``launch_attr("rqs", bins)``."""
     flow = _random_card_flow(10, "nsf6", seed=bins, bins=bins)
     attr = fk.launch_attr("rqs", bins)
     g = torch.Generator("cuda").manual_seed(n)
     y = torch.randn(n, 10, device="cuda", generator=g)
-    counts = lambda: [getattr(w, attr) for w in (fk.made_rqs_forward, fk.made_rqs_backward,
-                                                  fk.ar_inverse)]
+    counts = lambda: [getattr(w, attr, 0) for w in (fk.made_rqs_forward, fk.made_rqs_backward,
+                                                     fk.ar_inverse)]
     before = counts()
     with torch.no_grad():
         fp = flow.params()
@@ -1259,14 +1305,30 @@ def test_k2_and_k1_match_plain_at_bins(bins_libraries, bins, n):
         z_r, l_r = fk.made_rqs_forward_ref(y, fp.ws, fp.bs, bins=bins)
         x_r, li_r = fk.ar_inverse_ref(y, fp.ws, fp.bs, fp.inv_orders, bins=bins)
         back, _ = fk.made_rqs_forward(x, fp.ws, fp.bs, bins=bins)
-    torch.testing.assert_close(z, z_r, **TOL)
-    torch.testing.assert_close(l, l_r, rtol=0, atol=LADJ)
-    torch.testing.assert_close(x, x_r, **TOL)
-    torch.testing.assert_close(li, li_r, rtol=0, atol=LADJ)
+    if bins <= fk.FIXED_BINS:
+        torch.testing.assert_close(z, z_r, **TOL)
+        torch.testing.assert_close(l, l_r, rtol=0, atol=LADJ)
+        torch.testing.assert_close(x, x_r, **TOL)
+        torch.testing.assert_close(li, li_r, rtol=0, atol=LADJ)
+    else:
+        import copy
+        with torch.no_grad():
+            fp64 = copy.deepcopy(flow).double().params()
+            z_e, l_e = fk.made_rqs_forward_ref(y.double(), fp64.ws, fp64.bs, bins=bins)
+            x_e, li_e = fk.ar_inverse_ref(y.double(), fp64.ws, fp64.bs, fp64.inv_orders,
+                                          bins=bins)
+        ladj = _narrow(LADJ, bins, "ladj")
+        for got, plain, exact, rtol, atol in ((z, z_r, z_e, TOL["rtol"], TOL["atol"]),
+                                              (l, l_r, l_e, 0, ladj),
+                                              (x, x_r, x_e, TOL["rtol"], TOL["atol"]),
+                                              (li, li_r, li_e, 0, ladj)):
+            _close_or_float64(got, plain, exact, rtol, atol)
     torch.testing.assert_close(back, y, rtol=0, atol=1e-4)
     g_z = torch.randn(n, 10, device="cuda", generator=g)
     g_l = torch.randn(n, device="cuda", generator=g)
     edge = _made_edge_rows(flow, y, g_l)
+    if bins > fk.FIXED_BINS:  # against float64: the rows on a ReLU kink too
+        edge |= _kink_rows(flow, y)
     g_z, g_l = g_z.masked_fill(edge[:, None], 0.0), g_l.masked_fill(edge, 0.0)
     grads = []
     for f in (fk.made_rqs_forward, fk.made_rqs_forward_ref):
@@ -1276,15 +1338,33 @@ def test_k2_and_k1_match_plain_at_bins(bins_libraries, bins, n):
         out = f(yy, fp.ws, fp.bs, bins=bins)
         torch.autograd.backward(out, (g_z, g_l))
         grads.append([yy.grad] + [p.grad.clone() for p in flow.parameters()])
-    for a, b in zip(*grads):
-        assert float((a - b).abs().max()) <= 1e-4 * (float(b.abs().max()) + 1e-30)
+    if bins <= fk.FIXED_BINS:
+        for a, b in zip(*grads):
+            assert float((a - b).abs().max()) <= 1e-4 * (float(b.abs().max()) + 1e-30)
+    else:
+        # past 16 bins against float64 autograd of the plain forward
+        flow64 = copy.deepcopy(flow).double()
+        flow64.zero_grad(set_to_none=True)
+        yy = y.double().requires_grad_(True)
+        fp = flow64.params()
+        torch.autograd.backward(fk.made_rqs_forward_ref(yy, fp.ws, fp.bs, bins=bins),
+                                (g_z.double(), g_l.double()))
+        _grads_vs_float64(grads[0], [yy.grad] + [p.grad for p in flow64.parameters()], bins)
     with torch.no_grad():
         fp = flow.params()
         _, _, acts = fk.made_rqs_forward(y, fp.ws, fp.bs, save_inputs=True, bins=bins)
         got = fk.made_rqs_backward(y, fp.ws, fp.bs, g_z, g_l, acts, bins=bins)
         want = fk.made_rqs_backward_ref(y, fp.ws, fp.bs, g_z, g_l, acts, bins=bins)
-    for a, b in zip([got[0], *got[1], *got[2]], [want[0], *want[1], *want[2]]):
-        assert float((a - b).abs().max()) <= 1e-4 * (float(b.abs().max()) + 1e-30)
+        if bins > fk.FIXED_BINS:  # on the same saved inputs, against float64
+            want = fk.made_rqs_backward_ref(y.double(), fp64.ws, fp64.bs, g_z.double(),
+                                            g_l.double(), [a.double() for a in acts],
+                                            bins=bins)
+    flat = lambda g: [g[0], *g[1], *g[2]]
+    if bins <= fk.FIXED_BINS:
+        for a, b in zip(flat(got), flat(want)):
+            assert float((a - b).abs().max()) <= 1e-4 * (float(b.abs().max()) + 1e-30)
+    else:
+        _grads_vs_float64(flat(got), flat(want), bins)
     assert counts() == [before[0] + 4, before[1] + 2, before[2] + 1]
 
 
@@ -1296,33 +1376,51 @@ def test_k5_matches_plain_at_bins(bins_libraries, bins, n):
     chip_smoke.COUPLING_TOL[10]), the conditioning columns of a transform
     bit for bit, and K5's backward on the saved inputs against
     ``coupling_backward_ref``, to 1e-4 of the largest gradient, rows on a
-    float64 knot left out."""
+    float64 knot left out; past 16 bins as
+    ``test_k2_and_k1_match_plain_at_bins``."""
     flow = _random_card_flow(10, "nsfc6", seed=bins, bins=bins)
     attr = fk.launch_attr("rqs", bins)
     g = torch.Generator("cuda").manual_seed(n)
     y = torch.randn(n, 10, device="cuda", generator=g)
-    before = [getattr(w, attr) for w in (ck.coupling_forward, ck.coupling_inverse,
-                                         ck.coupling_backward)]
+    before = [getattr(w, attr, 0) for w in (ck.coupling_forward, ck.coupling_inverse,
+                                            ck.coupling_backward)]
     with torch.no_grad():
         fp = flow.params()
+        if bins > fk.FIXED_BINS:
+            import copy
+            fp64 = copy.deepcopy(flow).double().params()
         for fn, ref in ((ck.coupling_forward, ck.coupling_forward_ref),
                         (ck.coupling_inverse, ck.coupling_inverse_ref)):
             (a, la), (b, lb) = fn(y, fp.ws, fp.bs, fp.masks, bins=bins), \
                 ref(y, fp.ws, fp.bs, fp.masks, bins=bins)
-            torch.testing.assert_close(a, b, rtol=1e-5, atol=5e-5)
-            torch.testing.assert_close(la, lb, rtol=1e-5, atol=5e-4)
+            if bins <= fk.FIXED_BINS:
+                torch.testing.assert_close(a, b, rtol=1e-5, atol=5e-5)
+                torch.testing.assert_close(la, lb, rtol=1e-5, atol=5e-4)
+            else:
+                e, le = ref(y.double(), fp64.ws, fp64.bs, fp64.masks, bins=bins)
+                _close_or_float64(a, b, e, 1e-5, 5e-5)
+                _close_or_float64(la, lb, le, 1e-5, _narrow(5e-4, bins, "ladj"))
         one, _ = ck.coupling_inverse(y, fp.ws[:1], fp.bs[:1], fp.masks[:1], bins=bins)
         assert torch.equal(one[:, fp.masks[0]], y[:, fp.masks[0]])
         g_z = torch.randn(n, 10, device="cuda", generator=g)
         g_l = torch.randn(n, device="cuda", generator=g)
         edge = _coupling_edge_rows(flow, y, g_l)
+        if bins > fk.FIXED_BINS:  # against float64: the rows on a ReLU kink too
+            edge |= _kink_rows(flow, y)
         g_z, g_l = g_z.masked_fill(edge[:, None], 0.0), g_l.masked_fill(edge, 0.0)
         _, _, acts = ck.coupling_forward(y, fp.ws, fp.bs, fp.masks, save_inputs=True, bins=bins)
         got = ck.coupling_backward(y, fp.ws, fp.bs, fp.masks, g_z, g_l, acts, bins=bins)
         want = ck.coupling_backward_ref(y, fp.ws, fp.bs, fp.masks, g_z, g_l, acts, bins=bins)
+        if bins > fk.FIXED_BINS:  # on the same saved inputs, against float64
+            want = ck.coupling_backward_ref(y.double(), fp64.ws, fp64.bs, fp64.masks,
+                                            g_z.double(), g_l.double(),
+                                            [a.double() for a in acts], bins=bins)
     flat = lambda g: [g[0], *[a for t in g[1] for a in t], *[a for t in g[2] for a in t]]
-    for a, b in zip(flat(got), flat(want)):
-        assert float((a - b).abs().max()) <= 1e-4 * (float(b.abs().max()) + 1e-30)
+    if bins <= fk.FIXED_BINS:
+        for a, b in zip(flat(got), flat(want)):
+            assert float((a - b).abs().max()) <= 1e-4 * (float(b.abs().max()) + 1e-30)
+    else:
+        _grads_vs_float64(flat(got), flat(want), bins)
     after = [getattr(w, attr) for w in (ck.coupling_forward, ck.coupling_inverse,
                                         ck.coupling_backward)]
     assert after == [before[0] + 2, before[1] + 2, before[2] + 1]
@@ -1358,7 +1456,7 @@ def test_gradient_kernels_match_plain_at_bins(bins_libraries, bins, n):
         edge = _coupling_edge_rows(flow, x_p, g_l) | _kink_rows(flow, x_p)
         g_x, g_l = g_x.masked_fill(edge[:, None], 0.0), g_l.masked_fill(edge, 0.0)
         attr = fk.launch_attr("rqs", bins)
-        before = getattr(ck.coupling_inverse_backward, attr)
+        before = getattr(ck.coupling_inverse_backward, attr, 0)
         got = ck.coupling_inverse_backward(state, fp.ws, fp.bs, fp.masks, g_x, g_l, bins=bins)
         assert getattr(ck.coupling_inverse_backward, attr) == before + 1
         plain = ck.coupling_inverse_vjp_ref(plain_state, fp.ws, fp.bs, fp.masks, g_x, g_l, bins)
@@ -1371,8 +1469,11 @@ def test_gradient_kernels_match_plain_at_bins(bins_libraries, bins, n):
 @pytest.mark.parametrize("lanes", [32, 8])
 def test_kernel_element_vjp_at_bins(bins_libraries, bins, lanes):
     """K1-bwd's element VJP with the spline of ``bins`` bins, warp-wide
-    (up to 10 bins; past that the entry refuses it) or on 8 lanes a row,
-    against the plain ``inverse_element_vjp`` in float64 by K5's rule
+    (up to 10 bins; past that the entry refuses it) or on 8 lanes a row
+    (up to 16; past that the entry refuses it, and the kernel's own is the
+    one-lane streaming one, held to float64 with the plain fp32 version as
+    the second reading), against the plain ``inverse_element_vjp`` in
+    float64 by K5's rule
     (``_check_vs_float64``): within 1e-4 of each tensor's largest value, or
     4x the one-lane version's own distance where that is larger, rows
     within 1e-5 of a knot in float64 left out. The one-lane version sums in
@@ -1389,12 +1490,17 @@ def test_kernel_element_vjp_at_bins(bins_libraries, bins, lanes):
     x = torch.from_numpy(x).cuda()
     g_x, g_l = (torch.from_numpy(rng.standard_normal(n).astype(np.float32)).cuda()
                 for _ in range(2))
-    if lanes == 32 and bins > 10:
+    if (lanes == 32 and bins > 10) or bins > fk.FIXED_BINS:
         with pytest.raises(RuntimeError, match="cudaError"):
             fk._element_vjp(x, p, g_x, g_l, "rqs", lanes, bins)
-        return
-    kernel = fk._element_vjp(x, p, g_x, g_l, "rqs", lanes, bins)
-    lane = fk._element_vjp(x, p, g_x, g_l, "rqs", 1, bins)
+        if bins <= fk.FIXED_BINS:
+            return
+    if bins > fk.FIXED_BINS:
+        kernel = fk._element_vjp(x, p, g_x, g_l, "rqs", 1, bins)
+        lane = fk.inverse_element_vjp(x, p, g_x, g_l, "rqs", bins)
+    else:
+        kernel = fk._element_vjp(x, p, g_x, g_l, "rqs", lanes, bins)
+        lane = fk._element_vjp(x, p, g_x, g_l, "rqs", 1, bins)
     exact = fk.inverse_element_vjp(x.double(), p.double(), g_x.double(), g_l.double(), "rqs",
                                    bins)
     knots = tr._rqs_setup(p.double(), bins)[0]
@@ -1403,12 +1509,13 @@ def test_kernel_element_vjp_at_bins(bins_libraries, bins, lanes):
         _check_vs_float64(a[keep], b[keep], e[keep], 1e-4)
 
 
-@pytest.mark.parametrize("bins", [11, 16])
+@pytest.mark.parametrize("bins", [11, 16, 32])
 def test_k1_and_k1_backward_chunk_a_wide_output_group(bins_libraries, bins):
     """nsf3 at d=342 (h=2048) with the spline of ``bins`` bins, whose
-    output group (3 bins - 1 columns, 32 or more) is too large for a ring
-    stage at this width and goes in fan-in chunks, a column a lane and
-    more columns than lanes: K1 against the plain inverse (d=50's
+    output group (3 bins - 1 columns, 32 or more; past 16 bins groups of 24
+    of them) is too large for a ring stage at this width and goes in
+    fan-in chunks, a column a lane and more columns than lanes: K1 against
+    the plain inverse (d=50's
     tolerances, chip_smoke's TOL[50]) and K1-bwd on its saved state against
     the plain VJP in float64 by K5's rule (1e-3 of the largest g_z, or 4x
     the plain fp32 version's distance), rows on a knot or a kink left
@@ -1427,10 +1534,16 @@ def test_k1_and_k1_backward_chunk_a_wide_output_group(bins_libraries, bins):
 
 
 def test_bins_past_16_raise_at_construction_on_card(cuda):
-    """Flow(device="cuda") refuses a spline of 17 bins when it is built,
-    naming its ROADMAP item; a maf flow keeps any bins."""
-    with pytest.raises(NotImplementedError, match="bins > 16 on CUDA"):
-        Flow(4, "nsf6", bins=17, device="cuda")
-    with pytest.raises(NotImplementedError, match="bins > 16 on CUDA"):
-        Flow(4, "nsfc6", bins=17, device="cuda")
+    """Flow(device="cuda") takes a spline of 17 bins and of 1000, the most
+    a spline holds (no ceiling stands below it: every planner holds 1000
+    bins wherever it holds 16, tests/test_torch_bins_wide.py), and its
+    log_prob runs the kernels of the run-time library, counted under
+    launches_b<bins>; a maf flow keeps any bins."""
+    for arch, wrapper in (("nsf6", fk.made_rqs_forward), ("nsfc6", ck.coupling_forward)):
+        for bins in (17, 1000):
+            f = Flow(4, arch, bins=bins, device="cuda")
+            before = getattr(wrapper, fk.launch_attr("rqs", bins), 0)
+            with torch.no_grad():
+                assert torch.isfinite(f.log_prob(torch.randn(8, 4, device="cuda"))).all()
+            assert getattr(wrapper, fk.launch_attr("rqs", bins)) == before + 1
     assert Flow(4, "maf6", bins=17, device="cuda").bins == 17

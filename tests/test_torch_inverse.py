@@ -233,20 +233,22 @@ def test_k1_backward_config_refuses_where_k1_does():
             config(1, 2731, 16384)
 
 
-@pytest.mark.parametrize("bins", [2, 5, 11, 16])
+@pytest.mark.parametrize("bins", [2, 5, 11, 16, 17, 32, 128, 1000])
 @pytest.mark.parametrize("n", [1, 256, 4096])
 @pytest.mark.parametrize("d", [10, 50, 2730])
 def test_k1_configs_at_bins(d, n, bins):
-    """K1's and K1-bwd's plans with the spline of ``bins`` bins: the output
-    group OG is NP + 1 rounded up to 8 (csrc/heads.cuh; 8 at 2 bins, 48 at
-    16), the widest group max(24, OG); the block's shared memory with rows
-    of 3h + 3d + OG (K1) and 3h + 3 ceil(h/32) + 2d + OG (K1-bwd) floats
-    fits 227 KB, a stage holds at least 5 widest groups' worth (the C
-    entries' check) and 33 rows of one, up to h = 8192 (d = 2730); from h =
-    16384 both refuse, as at 8 bins."""
+    """K1's and K1-bwd's plans with the spline of ``bins`` bins: a row's
+    head parameters OG are NP + 1 rounded up to 8 (csrc/heads.cuh
+    head_floats; 8 at 2 bins, 48 at 16, 3,000 at 1000), the widest group
+    max(24, OG) up to 16 bins and 24 past them (the output layer of the
+    spline of run-time bins runs in groups of 24 columns); the block's
+    shared memory with rows of 3h + 3d + OG (K1) and 3h + 3 ceil(h/32) +
+    2d + OG (K1-bwd) floats fits 227 KB, a stage holds at least 5 widest
+    groups' worth (the C entries' check) and 33 rows of one, up to h =
+    8192 (d = 2730); from h = 16384 both refuse, as at 8 bins."""
     h = max(1 << (3 * d - 1).bit_length(), 32)
     og = -(-(3 * bins) // 8) * 8
-    widest = max(24, og)
+    widest = max(24, og) if bins <= fk.FIXED_BINS else 24
     assert fk._out_group("rqs", bins) == og
     for config, row in ((fk._launch_config, 3 * h + 3 * d + og),
                         (fk._backward_config, 3 * h + 3 * -(-h // 32) + 2 * d + og)):
@@ -266,7 +268,9 @@ def pack_groups(d, h, T, n_params):
     """The groups of K1's pack in the order of its walk (``walk`` in
     csrc/ar_walk.cuh): (ncg, fan, offset, floats) each, laid out as
     ``group_floats`` says (ncg columns of round4(fan) floats, the biases
-    padded to 4); returns them and the pack's size."""
+    padded to 4); a step's output layer one group of n_params columns, or,
+    past 16 bins (n_params > 47: the spline of run-time bins, ``out_cols``),
+    groups of 24; returns them and the pack's size."""
     _, count = sorted_units(d, h)
     groups, off = [], 0
 
@@ -284,7 +288,9 @@ def pack_groups(d, h, T, n_params):
                 for l in range(3):
                     for g0 in range(0, nc, gw):
                         add(min(gw, nc - g0), k if l == 0 else count[k])
-            add(n_params, count[k])
+            out = 24 if n_params > 47 else n_params
+            for c0 in range(0, n_params, out):
+                add(min(out, n_params - c0), count[k])
     return groups, off
 
 
@@ -366,7 +372,8 @@ def back_schedule(groups, size, SL, R):
 @pytest.mark.parametrize("d,h,T,n_params,SL", [
     (2, 32, 2, 23, 4096), (4, 32, 2, 23, 4096), (10, 32, 3, 23, 4096), (10, 32, 2, 2, 4096),
     (50, 256, 2, 23, 6168), (17, 64, 2, 23, 240), (10, 32, 2, 23, 120),
-    (10, 32, 2, 5, 4096), (10, 32, 2, 47, 4096), (17, 64, 2, 47, 240)])
+    (10, 32, 2, 5, 4096), (10, 32, 2, 47, 4096), (17, 64, 2, 47, 240),
+    (10, 32, 2, 95, 4096), (17, 64, 2, 95, 120), (10, 32, 2, 2999, 4096)])
 def test_k1_backward_stages_hold_the_groups_in_reverse(d, h, T, n_params, SL, R):
     """What K1-bwd's consumers read from its ring, in the plain mirror
     ``back_schedule``, is the pack's groups in walk_back order: each whole
@@ -374,7 +381,8 @@ def test_k1_backward_stages_hold_the_groups_in_reverse(d, h, T, n_params, SL, R)
     stage taken once. Stages of 4,096 floats hold several steps' groups at
     d <= 10; 240 and 120 floats cut the wide groups into chunks (120: 4
     rows of a 24-column group; 240: 4 rows of the 47-column output group
-    of a 16-bin spline)."""
+    of a 16-bin spline); 95 and 2,999 parameters (32 and 1000 bins) are
+    output layers in groups of 24 columns, the last one narrower."""
     groups, size = pack_groups(d, h, T, n_params)
     reads, taken, filled = back_schedule(groups, size, SL, R)
     assert taken == filled

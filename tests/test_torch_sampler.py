@@ -119,16 +119,17 @@ def test_train_phase_fits_and_keeps_input_on_nonfinite_loss():
     (dict(mesh=object()), "has no attribute"),
 ])
 def test_unported_paths_raise(kwargs, match):
-    """What the port still lacks raises NotImplementedError naming its
-    ROADMAP item: spline bins past 16 on CUDA (held through the check that
-    Flow(device="cuda") and the kernel wrappers call, so that it runs
-    without a card). A mesh that is not a ParticleMesh fails as in the JAX
-    package, with an AttributeError at construction (JAX reads its
-    ``multihost``, the port its ``device``)."""
+    """The port lacks nothing of the JAX package's paths: spline bins past
+    16 on CUDA (the case labelled "bins > 16 on CUDA", which raised until
+    the library of run-time bins) pass the check that Flow(device="cuda")
+    and the kernel wrappers call, held without a card, from 17 to 1000. A
+    mesh that is not a ParticleMesh fails as in the JAX package, with an
+    AttributeError at construction (JAX reads its ``multihost``, the port
+    its ``device``)."""
     from pocomc_tpu_torch.ops.flow_kernels import check_bins
     if "bins" in kwargs:
-        with pytest.raises(NotImplementedError, match=match):
-            check_bins(kwargs["bins"], cuda=True)
+        for bins in (kwargs["bins"], 32, 128, 1000):
+            assert check_bins(bins) == bins
         return
     with pytest.raises(AttributeError, match=match):
         tpc.Sampler(prior(), gauss_like, **small(), **kwargs)
