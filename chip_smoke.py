@@ -65,7 +65,9 @@ printing one JSON line:
   6. the main path: ``Sampler`` on the 10-D Rosenbrock quickstart with an
      N(0, 3) prior and default settings, ``run(n_total=4096,
      n_evidence=4096)``, checked against the exact logZ -21.4021 (+-0.35)
-     and for launches of all three kernels;
+     and for launches of all three kernels; it prints each flow-IS
+     evidence round's k-hat (with the n_total, iterations and calls it was
+     drawn at) and the refinement rounds that ran;
   7. the black-box path: the same problem with a numpy likelihood called
      once per float64 row (``vectorize=False``) that returns a blob,
      ``blobs_dtype=np.float64`` and every other setting at its default:
@@ -144,7 +146,8 @@ printing one JSON line:
      phase 5 times the 8-bin ones, beside their plain versions, bounds and
      products as torch.matmul/bmm; (d) phase 6's quickstart with
      ``flow=Flow(10, "nsf6", bins=32)`` (the same logZ gate, launches of
-     the 32-bin K2, K2-bwd and K1 and of no other kernel); (e) a 20-step
+     the 32-bin K2, K2-bwd and K1 and of no other kernel; each evidence
+     round's k-hat and the refinement rounds, as phase 6); (e) a 20-step
      mala sweep at d=10, n=256 on random nsf6 and nsfc6 flows of 16 and of
      32 bins, as phase 13 (d); (f) the 32-bin quickstart's state through
      ``save_state``/``load_state`` into a sampler of another seed, bit for
@@ -175,9 +178,15 @@ printing one JSON line:
      host loop, logZ within max(4 logz_err, 0.3) of 2 * norm.logpdf(0, 0,
      sqrt(26)), no stock flow kernel, and a pickle round trip that keeps
      the object, its parameters and the evidence. Each run's wall, calls,
-     logZ, loop, live updates and phase seconds are printed.
+     logZ, loop, live updates and phase seconds are printed;
+ 17. ``statistical``, tests/test_statistical.py's preconditioned known
+     answers at its settings, seed and gates (``statistical``; nsf3, so
+     K2, K2-bwd and K1): the bimodal mixture (logZ within max(4 err,
+     0.15), the mass of the mode at +4 within 0.1) and Neal's funnel with
+     fixed data (E[v] within 0.35, SD[v] within 35 %, logZ within max(4
+     err, 0.35) of the quadrature), each run's launches printed.
 
-Every path (phases 6-16) runs with the launch counts set to 0 just before
+Every path (phases 6-17) runs with the launch counts set to 0 just before
 it and read just after, and fails unless every kernel of the path ran.
 Then the kernels line and, last, the contract
 line. Any failed check exits non-zero before those two lines. Without a
@@ -296,9 +305,10 @@ def element_vjp_ops(head, bins=8):
 SPLINE_BINS = (16,)
 WIDE_BINS = (17, 32, 64, 128, 512, 1000)
 # Past 16 bins one rule holds every spline kernel: the reference is the
-# plain version in float64 (the plain fp32 one's knots are torch.cumsum's
-# of up to 999 sizes: at nsfc12, d=50, 32 bins its end-to-end gradient lay
-# 4.3e-2 of the largest from float64, the kernels' 1.6e-4), values by
+# plain version in float64 (an fp32 route's knots are running sums of up
+# to 999 sizes: taken by a plain torch.cumsum at nsfc12, d=50, 32 bins, the
+# end-to-end gradient lay 4.3e-2 of the largest from float64, with the
+# kernels' compensated sums 1.6e-4), values by
 # ``check_values`` and gradients by ``grads_off_jumps`` at TOL's
 # tolerances, and the weight gradients, sums over the rows, without the
 # rows within 1e-5 of a knot or ReLU kink (a row whose two sides fp32 and
@@ -308,7 +318,7 @@ WIDE_BINS = (17, 32, 64, 128, 512, 1000)
 # moves ~10 a unit of its input, so the fp32 rounding of the transforms'
 # inputs alone puts a d=10 row's log-det ~1e-4 from float64, whatever
 # route computes it: at 1000 bins the kernels' log-dets lie 1.2-1.4e-4
-# from float64 and the plain fp32 version's 2.0-2.5e-4, K2-bwd's and
+# from float64 and a plain fp32 cumsum's 2.0-2.5e-4, K2-bwd's and
 # K5-bwd's gradients 1.9e-4 and 2.7e-4 of the largest (nsf6 and nsfc6,
 # (10, 256); PERF.md §6). At 1000 bins the log-det and gradient
 # tolerances are therefore limits set from those readings (``narrow_tol``:
@@ -390,6 +400,23 @@ def watch_bridge(sampler, fk):
     return seen
 
 
+def watch_evidence(sampler):
+    """Wrap the sampler's flow-IS evidence so that it records each round:
+    its k-hat and the n_total, iterations and calls it was drawn at (a
+    round past the first is a refinement, run at doubled n_total after a
+    k-hat over 0.7)."""
+    real, rounds = sampler._compute_evidence, []
+
+    def logged(*a, **k):
+        out = real(*a, **k)
+        rounds.append(dict(khat=float(sampler.evidence_khat), n_total=int(sampler.n_total),
+                           iterations=int(sampler.t), calls=int(sampler.calls)))
+        return out
+
+    sampler._compute_evidence = logged
+    return rounds
+
+
 def check_bridge(name, sampler, seen, bias_floor):
     """Phase 8/9 gates: logZ, the bridge's diagnostics and calls, the
     ladder-grade knobs (corr_threshold 0.15 and the given bias_floor: 0.15
@@ -452,6 +479,91 @@ def mixture(d=2, sep=4.0, sig=0.5, w1=0.6):
     var = sig ** 2 + 100.0
     z = np.exp(-0.5 * d * sep ** 2 / var) / (2 * np.pi * var) ** (d / 2)
     return log_like, np.log(z), w1
+
+
+def funnel(sv=2.0, sn=0.5, data=(1.2, -0.8), half=30.0):
+    """tests/test_statistical.py:78-140: Neal's funnel with observed data,
+    v ~ N(0, sv^2), y_i | v ~ N(0, e^v) inside the likelihood, d_i ~ N(y_i,
+    sn^2), y_i ~ U(-half, half) in the prior. A torch likelihood; the
+    prior's (loc, scale) of v and half; and, by that test's quadrature over
+    v (y marginalised analytically), logZ and the posterior mean and SD of
+    v."""
+    from scipy.stats import norm
+    data = np.asarray(data)
+    c = data.size * math.log(math.sqrt(2 * math.pi) * sn)
+
+    def log_like(x):
+        v, y = x[..., 0], x[..., 1:]
+        lp_y = (-0.5 * (y * y).sum(-1) / torch.exp(v)
+                - (y.shape[-1] / 2) * (v + math.log(2 * math.pi)))
+        dt = torch.as_tensor(data, dtype=x.dtype, device=x.device)
+        return lp_y - 0.5 * ((y - dt) ** 2).sum(-1) / sn ** 2 - c
+
+    vs = np.linspace(-12, 12, 20001)
+    log_joint = norm.logpdf(vs, 0, sv) + np.sum(
+        norm.logpdf(data[None, :], 0, np.sqrt(np.exp(vs)[:, None] + sn ** 2)), axis=1)
+    m = log_joint.max()
+    joint = np.exp(log_joint - m)
+    logz = m + np.log(np.sum(joint) * (vs[1] - vs[0])) - data.size * np.log(2 * half)
+    v_mean = np.sum(vs * joint) / np.sum(joint)
+    v_sd = np.sqrt(np.sum((vs - v_mean) ** 2 * joint) / np.sum(joint))
+    return log_like, (0.0, sv), half, logz, v_mean, v_sd
+
+
+def statistical(pt, device, fk=None):
+    """Phase 17: tests/test_statistical.py's two preconditioned known
+    answers at its settings, seeds and gates, on ``device``: the bimodal
+    mixture (nsf3, t-pCN, n_total 1024, n_evidence 2048: logZ within
+    max(4 err, 0.15), the mass of the mode at +4 within 0.1) and the funnel
+    with fixed data (nsf3, n_total 2048, n_evidence 2048: E[v] within 0.35,
+    SD[v] within 35 %, logZ within max(4 err, 0.35)). Returns a row a run
+    and the failed gates (empty when all hold); given ``fk``, each row also
+    has the launches of the nsf* kernels in its run."""
+    rows, failed = [], []
+
+    def drive(label, prior, like, run_kw, **kw):
+        s = pt.Sampler(prior, like, vectorize=True, random_state=0, n_effective=512,
+                       n_active=256, precondition=True, flow="nsf3", device=device, **kw)
+        if fk is not None:
+            reset_launches(fk)
+        t0 = time.perf_counter()
+        s.run(progress=False, **run_kw)
+        if device == "cuda":
+            torch.cuda.synchronize()
+        logz, err = s.evidence()
+        x, w, _, _ = s.posterior()
+        row = dict(run=label, logz=logz, dlogz=err, calls=s.calls, iterations=s.t,
+                   khat=s.evidence_khat, wall_s=time.perf_counter() - t0)
+        if fk is not None:
+            row["launches"] = read_launches(fk)
+        rows.append(row)
+        return row, x, w / w.sum()
+
+    def gate(label, name, got, want, tol):
+        if not (np.isfinite(got) and abs(got - want) <= tol):
+            failed.append(f"{label}: {name} {got} outside {want} +- {tol}")
+
+    mx_like, mx_logz, mx_mass = mixture()
+    row, x, w = drive("mixture", pt.Prior([pt.Normal(0.0, 10.0) for _ in range(2)]), mx_like,
+                      dict(n_total=1024, n_evidence=2048),
+                      train_config=dict(epochs=60, patience=8))
+    row.update(true_logz=mx_logz, mode_mass=float(w[x[:, 0] > 0].sum()), true_mode_mass=mx_mass)
+    gate("mixture", "logZ", row["logz"], mx_logz, max(4 * (row["dlogz"] or 0.1), 0.15))
+    gate("mixture", "mode mass", row["mode_mass"], mx_mass, 0.1)
+
+    fn_like, (v_loc, v_scale), half, fn_logz, v_mean, v_sd = funnel()
+    prior = pt.Prior([pt.Normal(v_loc, v_scale), pt.Uniform(-half, half),
+                      pt.Uniform(-half, half)])
+    row, x, w = drive("funnel", prior, fn_like, dict(n_total=2048, n_evidence=2048),
+                      train_config=dict(epochs=120, patience=8))
+    got_mean = float((w * x[:, 0]).sum())
+    got_sd = float(np.sqrt((w * (x[:, 0] - got_mean) ** 2).sum()))
+    row.update(true_logz=fn_logz, v_mean=got_mean, true_v_mean=v_mean, v_sd=got_sd,
+               true_v_sd=v_sd)
+    gate("funnel", "E[v]", got_mean, v_mean, 0.35)
+    gate("funnel", "SD[v]", got_sd, v_sd, 0.35 * v_sd)
+    gate("funnel", "logZ", row["logz"], fn_logz, max(4 * (row["dlogz"] or 0.1), 0.35))
+    return rows, failed
 
 
 class NumpyNormalPrior:
@@ -1981,6 +2093,7 @@ def main():
 
     prior = pt.Prior([pt.Normal(0.0, 3.0) for _ in range(10)])
     sampler = pt.Sampler(prior, log_like, vectorize=True, random_state=0, device="cuda")
+    rounds = watch_evidence(sampler)
     torch.cuda.reset_peak_memory_stats()
     reset_launches(fk)
     t0 = time.perf_counter()
@@ -1995,7 +2108,8 @@ def main():
     steps = [s["steps"] for s in sampler._iter_stats]
     epochs = [s["train_epochs"] for s in sampler._iter_stats if s["train_epochs"]]
     emit("main_path", card=card, logz=logz, dlogz=dlogz, true_logz=TRUE_LOGZ,
-         khat=sampler.evidence_khat, calls=sampler.calls, iterations=sampler.t,
+         khat=sampler.evidence_khat, evidence_rounds=rounds, refinements=len(rounds) - 1,
+         n_total=sampler.n_total, calls=sampler.calls, iterations=sampler.t,
          sweep_steps=sum(steps), train_epochs=sum(epochs), wall_s=wall,
          phase_s=sampler.phase_seconds,
          max_memory_allocated=torch.cuda.max_memory_allocated(), launches=launches,
@@ -2573,6 +2687,7 @@ def main():
     def bins_quickstart():
         s = pt.Sampler(prior, log_like, vectorize=True, random_state=0, device="cuda",
                        flow=Flow(10, "nsf6", bins=qb, device="cuda"))
+        rounds = watch_evidence(s)
         reset_launches(fk)
         t0 = time.perf_counter()
         s.run(n_total=4096, n_evidence=4096, progress=False)
@@ -2582,8 +2697,10 @@ def main():
         others = {k: v for k, v in read_launches(fk, KERNELS).items() if v}
         x, w, _, _ = s.posterior()
         return s, dict(bins=qb, logz=s.logz, dlogz=s.logz_err, true_logz=TRUE_LOGZ,
-                       khat=s.evidence_khat, calls=s.calls, iterations=s.t, wall_s=wall,
-                       phase_s=dict(s.phase_seconds), launches=counts,
+                       khat=s.evidence_khat, evidence_rounds=rounds,
+                       refinements=len(rounds) - 1, n_total=s.n_total, calls=s.calls,
+                       iterations=s.t, wall_s=wall, phase_s=dict(s.phase_seconds),
+                       launches=counts,
                        posterior_finite=bool(np.isfinite(x).all() and np.isfinite(w).all()),
                        other_launches=others)
 
@@ -2697,6 +2814,15 @@ def main():
         pt, fk, log_like, main, by_path["main_path"])
     emit("custom_flow", card=card, phase6=dict(main, wall_s=main_wall), **runs16,
          wall_s=time.perf_counter() - t16)
+
+    # -- 17. the JAX package's statistical gates -----------------------------
+    t17 = time.perf_counter()
+    rows17, failed17 = statistical(pt, "cuda", fk)
+    for row in rows17:
+        by_path[f"statistical_{row['run']}"] = row["launches"]
+    emit("statistical", card=card, runs=rows17, wall_s=time.perf_counter() - t17)
+    if failed17:
+        fail("statistical: " + "; ".join(failed17))
 
     paths = {"flow_menu_maf6": AFFINE, "flow_menu_nsfc6": COUPLING,
              "flow_menu_bench_sweep": COUPLING[:2],

@@ -11,6 +11,7 @@ from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
 LOG_SCALE_BOUND = 5.0
@@ -61,23 +62,93 @@ def rqs_n_params(bins: int) -> int:
     return 3 * bins - 1
 
 
-def _knots(raw):
-    """Softmax bin sizes -> knot positions on [-B, B], last knot exactly B."""
-    B = SPLINE_BOUND
+# past this many bins (``flow_kernels.FIXED_BINS``, where the CUDA kernels
+# take their library of run-time bins) the knots are compensated running
+# sums, the method of that library (``csrc/rqs.cuh`` ``find_bin``): each
+# bin's width and height the size the sum added, each knot with what its
+# fp32 sum left over. A plain fp32 sum's rounding grows with the bins, and
+# a width taken as a difference of two rounded knots put a 64-bin d=10
+# log-det 1.2e-4 from float64, past the parity tests' 1e-4
+# (``tools/spline_parity.py``)
+COMPENSATED_PAST = 16
+
+
+def _sizes(raw):
+    """Softmax bin sizes on [-B, B]: (..., bins), summing to 2B."""
     bins = raw.shape[-1]
-    sizes = (MIN_BIN + (1 - MIN_BIN * bins) * torch.softmax(raw, dim=-1)) * (2 * B)
+    return (MIN_BIN + (1 - MIN_BIN * bins) * torch.softmax(raw, dim=-1)) * (2 * SPLINE_BOUND)
+
+
+def _running_sums(sizes):
+    """The running sums of the bin sizes, k ascending, as ``csrc/rqs.cuh``
+    ``find_bin`` takes them: the knots k (..., bins+1), the first -B and
+    the last exactly B, each interior one its running sum s less B; and
+    what each sum left over, c (the sum is s - c; 0 at either end). In
+    float32, s and c are the kernels' Kahan sums in their order, so that
+    the plain version and the kernels agree on the method (a sum taken more
+    exactly here would hold the kernels to a reference more exact than
+    their method); the gradient is the running sum's, which the
+    compensation does not change. In float64 (the references) a plain
+    running sum, c = 0."""
+    B = SPLINE_BOUND
+    inner = sizes[..., :-1]
+    s = torch.cumsum(inner, -1)
+    c = torch.zeros_like(s)
+    if sizes.dtype != torch.float64:
+        # the sequential loop runs in numpy on the host, bins first: a loop
+        # of small device ops is bound by their launches (at 1000 bins it
+        # made the card's plain autoregressive inverse ~5x slower). Inside
+        # a CUDA graph capture, which cannot copy to the host, it runs on
+        # the device. The same IEEE operations either way, so the same bits.
+        host = not (inner.is_cuda and torch.cuda.is_current_stream_capturing())
+        v = inner.detach().movedim(-1, 0)
+        xp, sub = (np, np.subtract) if host else (torch, torch.sub)
+        v = np.ascontiguousarray(v.cpu().numpy()) if host else v.contiguous()
+        kahan, c = xp.empty_like(v), xp.empty_like(v)
+        acc, comp, y = xp.zeros_like(v[0]), xp.zeros_like(v[0]), xp.empty_like(v[0])
+        for j in range(v.shape[0]):
+            sub(v[j], comp, out=y)
+            xp.add(acc, y, out=kahan[j])
+            sub(kahan[j], acc, out=comp)
+            sub(comp, y, out=comp)
+            acc = kahan[j]
+            c[j] = comp
+        if host:
+            kahan, c = (torch.from_numpy(np.moveaxis(a, 0, -1)).to(inner.device)
+                        for a in (kahan, c))
+        else:
+            kahan, c = kahan.movedim(0, -1), c.movedim(0, -1)
+        # s + (kahan - s) is the Kahan sum exactly (two close positive
+        # numbers differ exactly) with the running sum's gradient
+        s = s + (kahan - s).detach()
+    ends = torch.full_like(sizes[..., :1], B)
+    zero = torch.zeros_like(ends)
+    return torch.cat([-ends, s - B, ends], -1), torch.cat([zero, c, zero], -1)
+
+
+def _knots(raw):
+    """Softmax bin sizes -> knot positions on [-B, B], last knot exactly B
+    (past ``COMPENSATED_PAST`` bins the compensated sums, each rounded once)."""
+    B = SPLINE_BOUND
+    sizes = _sizes(raw)
+    if raw.shape[-1] > COMPENSATED_PAST:
+        k, c = _running_sums(sizes)
+        return k - c
     k = torch.cat([torch.full_like(sizes[..., :1], -B),
                    torch.cumsum(sizes, dim=-1) - B], dim=-1)
     return torch.cat([k[..., :-1], torch.full_like(k[..., :1], B)], dim=-1)
 
 
-def _rqs_setup(params, bins: int):
-    """Raw params (..., 3*bins-1) -> knot positions and derivatives."""
-    xk = _knots(params[..., :bins])
-    yk = _knots(params[..., bins:2 * bins])
+def _derivs(params, bins):
+    """The bins + 1 knot derivatives, 1 at either end."""
     inner = MIN_DERIV + softplus(params[..., 2 * bins:] + _SOFTPLUS_INV_1)
     ones = torch.ones_like(inner[..., :1])
-    return xk, yk, torch.cat([ones, inner, ones], dim=-1)
+    return torch.cat([ones, inner, ones], dim=-1)
+
+
+def _rqs_setup(params, bins: int):
+    """Raw params (..., 3*bins-1) -> knot positions and derivatives."""
+    return _knots(params[..., :bins]), _knots(params[..., bins:2 * bins]), _derivs(params, bins)
 
 
 def _bin_index(pos, knots, bins):
@@ -95,23 +166,46 @@ def _gather_at(i0, *arrays):
     return out
 
 
-def _gather_bin(pos, knots, bins, *arrays):
-    """Values at the bin index (and index+1) containing pos, for each array."""
-    return _gather_at(_bin_index(pos, knots, bins), *arrays)
+def _bin(pos, params, bins, by_y):
+    """The bin that holds pos among the x-knots (by_y False: the forward) or
+    the y-knots (the inverse): (i0 (..., 1), its lower knots x0 and y0, pos
+    less the lower knot it was found by, its width w and height h, the
+    derivatives d0 and d1). Up to ``COMPENSATED_PAST`` bins w and h are
+    differences of knots; past it, as ``csrc/rqs.cuh`` ``find_bin``, the
+    knots are compensated running sums, w and h the sizes the sums added
+    (the last bin's the rest up to B), and the lower knots and pos less the
+    knot carry each sum's leftover."""
+    deriv = _derivs(params, bins)
+    if bins <= COMPENSATED_PAST:
+        xk, yk = _knots(params[..., :bins]), _knots(params[..., bins:2 * bins])
+        i0 = _bin_index(pos, yk if by_y else xk, bins)
+        x0, x1, y0, y1, d0, d1 = _gather_at(i0, xk, yk, deriv)
+        return i0, x0, y0, pos - (y0 if by_y else x0), x1 - x0, y1 - y0, d0, d1
+    B = SPLINE_BOUND
+    # both softmaxes' sizes and running sums at once
+    sizes = _sizes(torch.stack([params[..., :bins], params[..., bins:2 * bins]]))
+    (xk, yk), (cx, cy) = _running_sums(sizes)
+    sx, sy = sizes
+    i0 = _bin_index(pos, yk if by_y else xk, bins)
+    at = lambda a: torch.gather(a, -1, i0)[..., 0]
+    x0, y0, cx0, cy0 = at(xk), at(yk), at(cx), at(cy)
+    last = i0[..., 0] == bins - 1
+    w = torch.where(last, (B - x0) + cx0, at(sx))
+    h = torch.where(last, (B - y0) + cy0, at(sy))
+    dpos = (pos - y0) + cy0 if by_y else (pos - x0) + cx0
+    d0, d1 = _gather_at(i0, deriv)
+    return i0, x0 - cx0, y0 - cy0, dpos, w, h, d0, d1
 
 
 def rqs_forward(x, params, bins: int):
     """x -> y with ladj = log|dy/dx| elementwise; identity outside [-B, B]."""
     B = SPLINE_BOUND
-    xk, yk, deriv = _rqs_setup(params, bins)
     inside = (x > -B) & (x < B)
     xc = torch.clamp(x, -B + 1e-6, B - 1e-6)
-    x0, x1, y0, y1, d0, d1 = _gather_bin(xc, xk, bins, xk, yk, deriv)
+    _, _, y0, dx, w, h, d0, d1 = _bin(xc, params, bins, False)
 
-    w = x1 - x0
-    h = y1 - y0
     s = h / w
-    xi = (xc - x0) / w
+    xi = dx / w
     xi1m = 1 - xi
     denom = s + (d1 + d0 - 2 * s) * xi * xi1m
     y = y0 + h * (s * xi * xi + d0 * xi * xi1m) / denom
@@ -136,17 +230,13 @@ def rqs_forward_vjp(x, params, g_y, g_l, bins: int):
     B = SPLINE_BOUND
     raw_x, raw_y, raw_d = params[..., :bins], params[..., bins:2 * bins], params[..., 2 * bins:]
     sm_x, sm_y = torch.softmax(raw_x, dim=-1), torch.softmax(raw_y, dim=-1)
-    xk, yk, deriv = _rqs_setup(params, bins)
     inside = (x > -B) & (x < B)
     lo, hi = -B + 1e-6, B - 1e-6
     xc = torch.clamp(x, lo, hi)
-    i0 = _bin_index(xc, xk, bins)
-    x0, x1, y0, y1, d0, d1 = _gather_at(i0, xk, yk, deriv)
+    i0, _, _, dx, w, h, d0, d1 = _bin(xc, params, bins, False)
 
-    w = x1 - x0
-    h = y1 - y0
     s = h / w
-    xi = (xc - x0) / w
+    xi = dx / w
     xi1m = 1 - xi
     c = d1 + d0 - 2 * s
     q = xi * xi1m
@@ -196,7 +286,7 @@ def rqs_forward_vjp(x, params, g_y, g_l, bins: int):
         g_sm = g_size * ((1 - MIN_BIN * bins) * 2 * B)
         return sm * (g_sm - (sm * g_sm).sum(-1, keepdim=True))
 
-    g_dv = torch.zeros_like(deriv)
+    g_dv = torch.zeros(raw_d.shape[:-1] + (bins + 1,), dtype=raw_d.dtype, device=raw_d.device)
     g_dv = g_dv.scatter_add(-1, i0, g_d0[..., None]).scatter_add(-1, i0 + 1, g_d1[..., None])
     g_raw_d = g_dv[..., 1:bins] * torch.sigmoid(raw_d + _SOFTPLUS_INV_1)
     g_params = torch.cat([knots_vjp(g_x0, g_x1, sm_x), knots_vjp(g_y0, g_y1, sm_y),
@@ -211,15 +301,11 @@ def rqs_inverse(y, params, bins: int):
     """y -> x with ladj = log|dx/dy| elementwise; identity outside [-B, B].
     The bin-local quadratic uses the stable root 2c / (-b - sqrt(disc))."""
     B = SPLINE_BOUND
-    xk, yk, deriv = _rqs_setup(params, bins)
     inside = (y > -B) & (y < B)
     yc = torch.clamp(y, -B + 1e-6, B - 1e-6)
-    x0, x1, y0, y1, d0, d1 = _gather_bin(yc, yk, bins, xk, yk, deriv)
+    _, x0, _, dy, w, h, d0, d1 = _bin(yc, params, bins, True)
 
-    w = x1 - x0
-    h = y1 - y0
     s = h / w
-    dy = yc - y0
     t = d1 + d0 - 2 * s
     a = h * (s - d0) + dy * t
     b = h * d0 - dy * t

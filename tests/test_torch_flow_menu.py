@@ -11,10 +11,16 @@ differently, and one ulp of a steep bin's knot moves its output by up to
 3.1e-5 on this grid), rtol 1e-5 and atol 1e-4 on log-dets and
 log-densities (fp32 sums in another order; 5e-4 through 12 spline
 transforms, as tests/test_torch_flow.py holds nsf stacks), and 1e-4 of the largest
-gradient of each tensor on gradients.
+gradient of each tensor on gradients. Past 16 bins the values and
+log-dets are held to the port's plain route in float64 at the same
+tolerances (``FLOAT64_PAST``), which the JAX package's float64 route
+repeats to 1e-12.
 The CUDA kernels are held to these plain versions on a card in
 ``tests/test_torch_gpu.py`` (marked ``gpu``).
 """
+
+import sys
+from pathlib import Path
 
 import numpy as np
 import jax
@@ -28,6 +34,9 @@ from pocomc_tpu_torch.convert import load_flow_params
 from pocomc_tpu_torch.models import coupling as tcoup, transforms as ttr
 from pocomc_tpu_torch.models.flow import CouplingParams, Flow, FlowParams
 from pocomc_tpu_torch.ops import coupling_kernels as ck, flow_kernels as fk
+
+sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "tools"))
+import spline_parity  # noqa: E402  (the float64 routes of both packages)
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 STACK_TOL = dict(rtol=1e-5, atol=5e-5)
@@ -78,13 +87,19 @@ MENU = [(arch, d) for arch in ("maf3", "maf6", "nsfc3", "nsfc6") for d in (2, 3,
 MENU += [("maf12", 3), ("nsfc12", 3)]
 # the spline kinds at other bins: 2 (the fewest), 3, 5 (neither a power of
 # two), 12 and 16 (past the 10 whose parameters fit a warp's lanes in the
-# kernels), 17 and 32 (the kernels' library of run-time bins), and 64 at
-# d=3 (at d=10 the two packages' log-dets differ by up to 3.4e-4, past
-# LADJ: 3 transforms of 10 bins of width ~0.16, each knot a running sum of
-# 64 sizes, summed in another order by each); the menu's cases keep their
-# ids at 8 bins
+# kernels), 17, 32 and 64 (the kernels' library of run-time bins); the
+# menu's cases keep their ids at 8 bins
 BINS_MENU = [(arch, d, b) for arch in ("nsf3", "nsfc3") for d in (3, 10)
-             for b in (2, 3, 5, 12, 16, 17, 32, *((64,) if d == 3 else ()))]
+             for b in (2, 3, 5, 12, 16, 17, 32, 64)]
+# past ``COMPENSATED_PAST`` bins the port's plain route takes the kernels'
+# compensated knots, and a case is held to float64 (the port's plain route
+# in float64, which the JAX package's float64 route repeats to 1e-12,
+# ``test_float64_routes_agree``) in place of the JAX package's fp32 route:
+# that one's log-dets lie up to 2.2e-4 from float64 at 64 bins and d=10,
+# past LADJ (its knots are triangular products of the sizes, each width a
+# difference of two of them), and 0.97 LADJ at nsfc3, 32 bins, where the
+# port's lie within 0.47 LADJ (``tools/spline_parity.py``)
+FLOAT64_PAST = ttr.COMPENSATED_PAST
 MENU_BINS = ([pytest.param(arch, d, 8, id=f"{arch}-{d}") for arch, d in MENU]
              + [pytest.param(*case, id="{}-{}-bins{}".format(*case)) for case in BINS_MENU])
 
@@ -103,13 +118,32 @@ def test_forward_inverse_log_prob_match_jax(arch, d, bins):
         z, l = tf.forward(torch.from_numpy(x))
         xi, li = tf.inverse(torch.from_numpy(x))
         lp = tf.log_prob(torch.from_numpy(x))
-    zj, lj = jf.forward(x)
-    xj, lij = jf.inverse(x)
+    if bins > FLOAT64_PAST:
+        zj, lj, xj, lij, lpj, _ = spline_parity.torch_outputs(arch, d, bins, params, x, True)
+    else:
+        (zj, lj), (xj, lij), lpj = jf.forward(x), jf.inverse(x), jf.log_prob(x)
     close(z, zj, **STACK_TOL)
     close(l, lj, rtol=1e-5, atol=ladj_tol)
     close(xi, xj, **STACK_TOL)
     close(li, lij, rtol=1e-5, atol=ladj_tol)
-    close(lp, jf.log_prob(x), rtol=1e-5, atol=ladj_tol)
+    close(lp, lpj, rtol=1e-5, atol=ladj_tol)
+
+
+@pytest.mark.parametrize("arch", ["nsf3", "nsfc3"])
+def test_float64_routes_agree(arch):
+    """The float64 reference of the cases past ``FLOAT64_PAST`` bins is the
+    function of both packages: the JAX ``Flow`` with ``jax_enable_x64`` (in
+    a subprocess) and the port's plain route in float64 agree to 1e-12 on
+    the forward, the log-dets and log_prob, and the JAX float64 forward
+    undoes the port's float64 inverse to 1e-12."""
+    todo = []
+    for a, d, bins in BINS_MENU:
+        if a == arch and bins > FLOAT64_PAST:
+            x = (1.5 * np.random.default_rng(d + 7).standard_normal((64, d))).astype(np.float32)
+            todo.append((f"{a}-{d}-{bins}", a, d, bins, random_params(d, a, d, bins=bins)[1], x))
+    refs = [spline_parity.torch_outputs(*case[1:], True) for case in todo]
+    for name, diffs in spline_parity.jax_float64(todo, refs).items():
+        assert max(diffs.values()) < 1e-12, (name, diffs)
 
 
 @pytest.mark.parametrize("arch,d", [("maf3", 3), ("maf6", 5), ("nsfc3", 3), ("nsfc6", 6)])
