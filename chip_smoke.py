@@ -8,11 +8,12 @@ printing one JSON line:
   2. build: compiles the six CUDA libraries from ``pocomc_tpu_torch/csrc``
      (K2's forward and backward, K1 and its backward K1-bwd, each with both
      heads, and K5's forward/inverse and backward, the latter with the
-     inverse's gradient, K5-inv-bwd) for the default 8 spline bins, for 16
-     and for run-time bins (``LIBRARY_BINS``: the library of every bins
-     past 16), one nvcc each, all started together, with each library's
-     seconds and ptxas's count of its instances, their most registers and
-     their spills;
+     inverse's gradient, K5-inv-bwd) for the default 8 spline bins, one
+     nvcc each, all started together, and once phase 9 ends, in the
+     background at the lowest priority, for 16 and for run-time bins
+     (``LIBRARY_BINS``: the library of every bins past 16), which phase 14
+     (a) waits for; with each library's seconds and ptxas's count of its
+     instances, their most registers and their spills;
      ``k5_plans``, after phase 4, prints the tile each K5 launch of
      phases 3-4 took, from the wrapper's own plans (the lane grid, BM rows
      a block, the register tile, G, BK-row slabs in S stages, shared
@@ -131,7 +132,8 @@ printing one JSON line:
      gradient reads the inverse's saved state); (e) the same 20-step mala sweep on random nsf flows
      at d=50, nsf6, n=4096 (ms a step, acceptance) and at d=342, nsf3,
      n=256 (it must run: finite states and gradients);
- 14. ``spline_bins``, ``Flow(bins=)`` at other bins than 8: (b) every
+ 14. ``spline_bins``, ``Flow(bins=)`` at other bins than 8: (a) the wait
+     for phase 2's background build of their libraries; (b) every
      spline-head kernel against its plain version (and float64 where
      phases 4 and 13 hold it so) at those phases' tolerances and exclusion
      windows, at 16 bins (the most of a compiled library) and at 17, 32,
@@ -144,7 +146,10 @@ printing one JSON line:
      past 16 bins every reference in float64 (``NARROW_TOL``'s comment);
      (c) the 16- and 32-bin kernels timed at the kernels line's shapes as
      phase 5 times the 8-bin ones, beside their plain versions, bounds and
-     products as torch.matmul/bmm; (d) phase 6's quickstart with
+     products as torch.matmul/bmm, and the plain spline's compensated sums
+     inside a CUDA graph (their device route) against their host route, bit
+     for bit (the plain forward at 32 and 1000 bins, the inverse at 32); (d)
+     phase 6's quickstart with
      ``flow=Flow(10, "nsf6", bins=32)`` (the same logZ gate, launches of
      the 32-bin K2, K2-bwd and K1 and of no other kernel; each evidence
      round's k-hat and the refinement rounds, as phase 6); (e) a 20-step
@@ -157,7 +162,8 @@ printing one JSON line:
      process, phase 6's quickstart with ``mesh=``, which must repeat phase
      6's logZ and calls bit for bit (run and checked in phase 11 (a),
      reported here); (b) ``parallel.smoke.launch`` of two
-     ranks sharing the card over gloo with the JAX harness's cases (the
+     ranks sharing the card over gloo, run beside phase 14 (b)'s checks
+     (processes of their own), with the JAX harness's cases (the
      sharded reduction and gather, the black-box fan-out, the sweep on each
      rank's rows, the device and host loops, a checkpoint resumed) and the
      quickstart on each rank's half of the particles: equal checksums,
@@ -186,9 +192,24 @@ printing one JSON line:
      fixed data (E[v] within 0.35, SD[v] within 35 %, logZ within max(4
      err, 0.35) of the quadrature), each run's launches printed.
 
+The script is bound by the host (the card is idle most of the time), so
+phases run in two lanes. What is timed runs alone: first phases 1-9, 12
+(b), 13 (b) and 13 (e). Then two processes share the host and the card:
+this one runs phases 11, 13 (a)'s checks, 13 (c)-(d) and 14 (a)-(b), with
+phase 15 (b)'s two ranks beside 14 (b), and a second process of this
+script (``--side``, ``side_lane``) runs phases 10, 12 (a), 16, 17 and 14
+(d)-(f), each with its own gates and launch counts; their walls include
+the other processes' load. 13 (a)'s times and 14 (c) run once the second
+process has ended; its lines print then, its parts on the
+``second_process`` line.
+
 Every path (phases 6-17) runs with the launch counts set to 0 just before
 it and read just after, and fails unless every kernel of the path ran.
-Then the kernels line and, last, the contract
+Each phase line carries ``parts_s``, the seconds of each lettered part of
+the phase ("14 (b) b1000 check_gradient"; every second of the script lies
+in one part), and ``elapsed_s``; the ``parts`` line before the kernels line
+has them all, their sum and the host's cores. Then the kernels line and,
+last, the contract
 line. Any failed check exits non-zero before those two lines. Without a
 CUDA device it exits 1.
 """
@@ -197,10 +218,12 @@ import copy
 import itertools
 import json
 import math
+import os
 import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 
@@ -328,6 +351,52 @@ NARROW_TOL = {1000: dict(ladj=3e-4, grad=6e-4)}
 LIBRARY_BINS = (8, 16, 0)
 TIMED_BINS = (16, 32)
 QUICK_BINS = 32
+# The kernel checks of phases 3-4, 13 (a) and 14 (b), each (phase, family,
+# flow, d, n, bins): the phase runs ``family`` (``check_spline_made``,
+# ``check_menu`` or ``check_gradient``) at n rows on a random flow of that
+# kind, width and spline bins, against its plain version or float64.
+# Phases 3-4 hold SHAPES and MENU_SHAPES, 13 (a) GRAD_SHAPES, and 14 (b)
+# every spline kernel at 16 bins and every WIDE_BINS at (10, 256), and at
+# each TIMED_BINS also K1's two- and four-row launches, d=50 and nsf3 at
+# d=342 (K2, K1) and d=50 (K5, the gradient kernels). The phases iterate
+# over it; tests/test_torch_smoke_plan.py holds that no check is dropped.
+CHECKED_BINS = SPLINE_BINS + WIDE_BINS
+CHECK_PLAN = tuple(
+    [("3-4", "check_spline_made", f, d, n, 8) for f, d, n in SHAPES]
+    + [("3-4", "check_menu", f, d, n, 8) for f, d, n in MENU_SHAPES]
+    + [("13 (a)", "check_gradient", f, d, n, 8) for f, d, n in GRAD_SHAPES]
+    + [("14 (b)", "check_spline_made", "nsf6", 10, 256, b) for b in CHECKED_BINS]
+    + [("14 (b)", "check_spline_made", f, d, n, b) for b in TIMED_BINS
+       for f, d, n in (("nsf6", 10, 2048), ("nsf6", 10, 4096), ("nsf6", 50, 1024),
+                       ("nsf3", 342, 64))]
+    + [("14 (b)", "check_menu", "nsfc6", 10, 256, b) for b in CHECKED_BINS]
+    + [("14 (b)", "check_menu", "nsfc12", 50, 1024, b) for b in TIMED_BINS]
+    + [("14 (b)", "check_gradient", f, 10, 256, b) for f in ("nsf6", "nsfc6")
+       for b in CHECKED_BINS]
+    + [("14 (b)", "check_gradient", f, 50, 1024, b) for b in TIMED_BINS
+       for f in ("nsf6", "nsfc12")])
+
+
+def planned(phase, family):
+    """(flow, d, n, bins) of CHECK_PLAN's checks of a phase and family, in
+    the plan's order."""
+    return [c[2:] for c in CHECK_PLAN if c[:2] == (phase, family)]
+
+
+def quickstart_like(x):
+    """The quickstart's likelihood, the 10-D Rosenbrock, on (n, 10) torch
+    rows."""
+    return -(10.0 * (x[:, ::2] ** 2 - x[:, 1::2]) ** 2 + (x[:, ::2] - 1.0) ** 2).sum(-1)
+
+
+def quickstart_prior(pt):
+    """The quickstart's prior, N(0, 3) in each of the 10 dimensions."""
+    return pt.Prior([pt.Normal(0.0, 3.0) for _ in range(10)])
+
+
+def unit_gauss(x):
+    """Phases 13 (d)-(e) and 14 (e)'s likelihood, a unit Gaussian."""
+    return -0.5 * (x * x).sum(-1)
 
 
 def rosenbrock_row(x):
@@ -537,6 +606,7 @@ def statistical(pt, device, fk=None):
         if fk is not None:
             row["launches"] = read_launches(fk)
         rows.append(row)
+        lap(f"17 {label}")
         return row, x, w / w.sum()
 
     def gate(label, name, got, want, tol):
@@ -598,7 +668,7 @@ def reference_surface(pt, fk, log_like, main, states, device="cuda", mesh=None, 
     report, launches by path); exits through ``fail`` on a failed check."""
     from scipy import stats
 
-    def drive(label, prior, run_kw, **skw):
+    def drive(letter, label, prior, run_kw, **skw):
         s = pt.Sampler(prior, log_like, vectorize=True, device=device, **{**kw, **skw})
         reset_launches(fk)
         t0 = time.perf_counter()
@@ -612,6 +682,7 @@ def reference_surface(pt, fk, log_like, main, states, device="cuda", mesh=None, 
                            device_loop=s._use_device_loop(), phase_s=dict(s.phase_seconds),
                            launches=launches[label],
                            mesh_backend=s.mesh and torch.distributed.get_backend())
+        lap(f"11 {letter} {label}")
         return s
 
     launches, rows = {}, {}
@@ -621,7 +692,7 @@ def reference_surface(pt, fk, log_like, main, states, device="cuda", mesh=None, 
     # ``mesh``: phase 6's run bit for bit, writing its states (one run
     # holds the three checks)
     shutil.rmtree(states, ignore_errors=True)
-    s = drive("scipy_prior_save_every", pt.Prior([stats.norm(0, 3)] * d),
+    s = drive("(a)", "scipy_prior_save_every", pt.Prior([stats.norm(0, 3)] * d),
               dict(run_kw, save_every=10), random_state=0, output_dir=states, mesh=mesh)
     if not (s.prior_route == "device" and s._use_device_loop()):
         fail("reference_surface (a): the scipy prior did not take the device loop")
@@ -632,7 +703,7 @@ def reference_surface(pt, fk, log_like, main, states, device="cuda", mesh=None, 
     done = s
     # (b) a prior in numpy alone: the host route and the host loop
     host_prior = NumpyNormalPrior(d, 3.0)
-    s = drive("host_prior", host_prior, run_kw, random_state=0)
+    s = drive("(b)", "host_prior", host_prior, run_kw, random_state=0)
     rows["host_prior"].update(prior_rows=host_prior.rows, prior_s=host_prior.seconds)
     if s.prior_route != "host" or s._use_device_loop():
         fail("reference_surface (b): the numpy prior did not take the host route and loop")
@@ -641,7 +712,7 @@ def reference_surface(pt, fk, log_like, main, states, device="cuda", mesh=None, 
     # (c) (a)'s states: a resume by a sampler of another seed, a round trip
     s = done
     saved = sorted(p.name for p in states.glob("pmc_*.state"))
-    r = drive("resume", pt.Prior([pt.Normal(0.0, 3.0)] * d),
+    r = drive("(c)", "resume", pt.Prior([pt.Normal(0.0, 3.0)] * d),
               dict(run_kw, resume_state_path=states / "pmc_20.state"), random_state=1)
     rows["resume"]["t_done"] = s.t
     if not (np.isfinite(r.logz) and abs(r.logz - TRUE_LOGZ) < LOGZ_GATE and r.t >= s.t - 2):
@@ -659,6 +730,7 @@ def reference_surface(pt, fk, log_like, main, states, device="cuda", mesh=None, 
         fail("reference_surface (c): a finished run did not round-trip through "
              "save_state/load_state bit for bit")
     shutil.rmtree(states, ignore_errors=True)
+    lap("11 (c) round trip")
     return dict(runs=rows, states_saved=saved, roundtrip_bit_for_bit=same,
                 generator=s._gen.device.type), launches
 
@@ -840,6 +912,7 @@ def custom_flow(pt, fk, log_like, main, main_launches):
     if a["live_updates"] < a["sweep_steps"] - 2 * a["sweeps"]:
         fail(f"custom_flow (a): {a['live_updates']} live updates for {a['sweep_steps']} "
              f"sweep steps in {a['sweeps']} sweeps")
+    lap("16 (a)")
     # (b) the protocol-minimal flow: the host loop, the JAX test's gate, a
     # pickle round trip
     d = 2
@@ -861,6 +934,7 @@ def custom_flow(pt, fk, log_like, main, main_launches):
                               and back.evidence() == s.evidence())
     if not b["pickle_round_trip"]:
         fail("custom_flow (b): the sampler did not round-trip through pickle")
+    lap("16 (b)")
     return dict(delegating=a, affine=b), a["launches"]
 
 
@@ -879,16 +953,47 @@ def ptxas_summary(report):
 
 
 T0 = time.perf_counter()
+# seconds of each lettered part of a phase ("14 (b) b1000 check_gradient"),
+# in the order the parts ran; each phase line carries the parts timed since
+# the line before it, and the "parts" line before the kernels line all
+PARTS = {}
+_EMITTED = set()
+_LAP = [T0]
+
+
+def lap(key):
+    """Ends a part: adds the host seconds since the last lap, after a device
+    sync so that the work the part queued is counted in it, to PARTS[key].
+    Every second of the script lies in one part."""
+    if torch.cuda.is_available() and torch.cuda.is_initialized():
+        torch.cuda.synchronize()
+    now = time.perf_counter()
+    PARTS[key] = PARTS.get(key, 0.0) + now - _LAP[0]
+    _LAP[0] = now
 
 
 def emit(phase, **kw):
-    """One phase's JSON line, with the seconds since the script started."""
-    print(json.dumps({"phase": phase, **kw,
+    """One phase's JSON line, with the seconds of the parts timed since the
+    last line and the seconds since the script started."""
+    new = {k: round(v, 3) for k, v in PARTS.items() if k not in _EMITTED}
+    _EMITTED.update(new)
+    print(json.dumps({"phase": phase, **kw, "parts_s": new,
                       "elapsed_s": round(time.perf_counter() - T0, 1)}), flush=True)
+
+
+CHILDREN = []  # the processes the script starts and must stop
+
+
+def stop_children():
+    for proc in CHILDREN:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
 
 
 def fail(msg):
     print(f"chip_smoke: FAILED: {msg}", file=sys.stderr, flush=True)
+    stop_children()
     sys.exit(1)
 
 
@@ -910,6 +1015,22 @@ def random_flow(name, d, scale=0.02, bins=8):
     flow.set_pre(dict(mean=0.1 * rng.standard_normal(d), w_fwd=a,
                       w_inv=np.linalg.inv(a), ladj=np.log(abs(np.linalg.det(a)))))
     return flow, rng
+
+
+_BINS_FLOWS = {}
+
+
+def bins_flow(name, d, bins):
+    """Phase 14's random flow of a kind, width and spline bins
+    (``random_flow``), made once a process: its output layers at the
+    menu's scale with the fan-in past d=50 and for a coupling flow past
+    d=10, else at 0.02. The rng it returns goes on from the draws made."""
+    if (name, d, bins) not in _BINS_FLOWS:
+        h = max(2 ** (3 * d - 1).bit_length(), 32)  # Flow.n_hidden
+        scaled = d > 50 or (name.startswith("nsfc") and d > 10)
+        _BINS_FLOWS[name, d, bins] = random_flow(
+            name, d, MENU_SCALE * math.sqrt(32 / h) if scaled else 0.02, bins)
+    return _BINS_FLOWS[name, d, bins]
 
 
 def max_err(a, b):
@@ -940,20 +1061,41 @@ def cuda_ms(fn, reps, warmup=3):
     return statistics.median(times)
 
 
-def graph_ms(fn, reps, warmup=2):
-    """Median milliseconds of the device work of one fn() call: the call is
-    captured once in a CUDA graph and the graph replayed between CUDA
-    events, so the host's enqueue time is left out."""
+def timed_ms(fn, reps, eager_reps=None):
+    """(device ms, eager call ms) of fn(), medians: ``eager_reps`` (default
+    reps) eager calls between CUDA events after one untimed call, on a
+    side stream, which also warm fn up for its capture; then the call
+    captured once in a CUDA graph and the graph replayed ``reps`` times
+    between CUDA events, so the host's enqueue time is left out of the
+    device time."""
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
-        for _ in range(warmup):
-            fn()
+        call = cuda_ms(fn, eager_reps or reps, warmup=1)
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
         fn()
-    return cuda_ms(graph.replay, reps, warmup=1)
+    return cuda_ms(graph.replay, reps, warmup=1), call
+
+
+def graph_route_equal(fn):
+    """True if fn()'s tensors, computed eagerly, equal bit for bit those of
+    fn() captured in a CUDA graph and replayed (inside a capture the plain
+    spline's compensated sums run on the device, eagerly on the host)."""
+    with torch.no_grad():
+        eager = fn()
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            fn()
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            replayed = fn()
+        graph.replay()
+        torch.cuda.synchronize()
+    return all(torch.equal(a, b) for a, b in zip(eager, replayed))
 
 
 def grad_problem(flow, d, n, rng):
@@ -1171,12 +1313,20 @@ def rel_errs(got, want):
             for a, b in zip(got, want)]
 
 
-def grad_rel_err(name, got, want, tol):
-    """max over tensors of max |diff| / max |want|; fails above tol."""
+def grad_verdict(got, want, tol):
+    """The gradient rule: each tensor's max |diff| / max |want| within tol.
+    Returns (the verdict, those ratios)."""
     errs = rel_errs(got, want)
-    for i, e in enumerate(errs):
-        if not e <= tol:
-            fail(f"{name} (tensor {i}): max |diff| / max |grad| = {e:.3e} > {tol}")
+    return all(e <= tol for e in errs), errs
+
+
+def grad_rel_err(name, got, want, tol):
+    """max over tensors of max |diff| / max |want|; fails above tol
+    (``grad_verdict``)."""
+    ok, errs = grad_verdict(got, want, tol)
+    if not ok:
+        i, e = next((i, e) for i, e in enumerate(errs) if not e <= tol)
+        fail(f"{name} (tensor {i}): max |diff| / max |grad| = {e:.3e} > {tol}")
     return max(errs)
 
 
@@ -1258,18 +1408,25 @@ def stack_grads(flow, forward, y, g_z, g_l):
     return [yy.grad, *[p.grad for p in flow.parameters()]]
 
 
-def check_vs_float64(name, got, plain, exact, atol):
-    """K5's accuracy: max |got - exact| (exact: the plain version in
+def float64_verdict(got, plain, exact, atol):
+    """K5's accuracy rule: max |got - exact| (exact: the plain version in
     float64) within max(atol, 4 * max |plain - exact|), plain being the
-    plain fp32 version on the same inputs. Returns the numbers."""
+    plain fp32 version on the same inputs. Returns (the verdict, the
+    numbers)."""
     e_plain = max_err(plain.double(), exact)
     e_got = max_err(got.double(), exact)
     limit = max(atol, 4.0 * e_plain)
-    if not e_got <= limit:
-        fail(f"{name}: max |diff| to float64 {e_got:.3e} over {limit:.3e} (the plain fp32 "
-             f"version's {e_plain:.3e})")
-    return dict(kernel_vs_f64=e_got, plain_vs_f64=e_plain, limit=limit,
-                kernel_vs_plain=max_err(got, plain))
+    return e_got <= limit, dict(kernel_vs_f64=e_got, plain_vs_f64=e_plain, limit=limit,
+                                kernel_vs_plain=max_err(got, plain))
+
+
+def check_vs_float64(name, got, plain, exact, atol):
+    """``float64_verdict``, failing the run; returns the numbers."""
+    ok, out = float64_verdict(got, plain, exact, atol)
+    if not ok:
+        fail(f"{name}: max |diff| to float64 {out['kernel_vs_f64']:.3e} over "
+             f"{out['limit']:.3e} (the plain fp32 version's {out['plain_vs_f64']:.3e})")
+    return out
 
 
 def narrow_tol(tol, bins):
@@ -1278,19 +1435,21 @@ def narrow_tol(tol, bins):
     return {k: max(v, NARROW_TOL.get(bins, {}).get(k, v)) for k, v in tol.items()}
 
 
-def check_values(name, got, plain, exact, rtol, atol):
-    """Every element of got within atol + rtol |plain| of the plain fp32
-    version (``torch.allclose``'s rule) or, where not, within atol + rtol
-    |exact| of the plain version in float64: two fp32 routes that sum in
-    other orders may each lie up to the tolerance from float64 on opposite
-    sides (at 16 bins, nsf6 (10, 4096) K2's z and the plain fp32 z lie
-    1.02e-5 and 9.05e-6 from float64, 1.48e-5 from each other). Fails
-    naming the worst element; returns (max |got - plain|, the numbers)."""
+def values_verdict(got, plain, exact, rtol, atol):
+    """The values rule: every element of got within atol + rtol |plain| of
+    the plain fp32 version (``torch.allclose``'s rule) or, where not,
+    within atol + rtol |exact| of the plain version in float64: two fp32
+    routes that sum in other orders may each lie up to the tolerance from
+    float64 on opposite sides (at 16 bins, nsf6 (10, 4096) K2's z and the
+    plain fp32 z lie 1.02e-5 and 9.05e-6 from float64, 1.48e-5 from each
+    other). Returns (the verdict, the numbers: ``past_both`` counts the
+    elements past both)."""
     g, p = got.double(), plain.double()
     off_plain = (g - p).abs() > atol + rtol * p.abs()
     off_exact = (g - exact).abs() > atol + rtol * exact.abs()
     out = dict(kernel_vs_plain=max_err(g, p), kernel_vs_f64=max_err(g, exact),
-               plain_vs_f64=max_err(p, exact), held_by_float64=int(off_plain.sum()))
+               plain_vs_f64=max_err(p, exact), held_by_float64=int(off_plain.sum()),
+               past_both=int((off_plain & off_exact).sum()))
     if bool(off_plain.any()):
         at = int((g - p).abs().flatten().argmax())
         out["worst"] = dict(index=at, row=at // (g.shape[1] if g.dim() > 1 else 1),
@@ -1298,10 +1457,17 @@ def check_values(name, got, plain, exact, rtol, atol):
                             vs_f64=float((g - exact).flatten()[at]),
                             plain_vs_f64=float((p - exact).flatten()[at]),
                             f64=float(exact.flatten()[at]))
-    if bool((off_plain & off_exact).any()):
-        fail(f"{name}: {int((off_plain & off_exact).sum())} elements past atol {atol} + rtol "
-             f"{rtol} of both the plain version and float64 (max |diff| to float64 "
-             f"{out['kernel_vs_f64']:.3e}, the plain fp32 version's {out['plain_vs_f64']:.3e})")
+    return out["past_both"] == 0, out
+
+
+def check_values(name, got, plain, exact, rtol, atol):
+    """``values_verdict``, failing the run naming the elements past both
+    references; returns (max |got - plain|, the numbers)."""
+    ok, out = values_verdict(got, plain, exact, rtol, atol)
+    if not ok:
+        fail(f"{name}: {out['past_both']} elements past atol {atol} + rtol {rtol} of both the "
+             f"plain version and float64 (max |diff| to float64 {out['kernel_vs_f64']:.3e}, "
+             f"the plain fp32 version's {out['plain_vs_f64']:.3e})")
     return out["kernel_vs_plain"], out
 
 
@@ -1867,6 +2033,268 @@ def gradient_bounds(n, flow):
     return bound(ops, 4 * (3 * n * d + n) + weights)
 
 
+def side_lane(pt, fk, main, main_launches):
+    """Phases 10, 12 (a), 16, 17 and 14 (d)-(f) (see the module docstring):
+    sampler runs whose walls are only reported, which ``main`` runs in a
+    second process of this script (``--side``) beside phases 11, 13 (a)'s
+    checks, 13 (c)-(d) and 14 (a)-(b). ``main`` holds phase 6's logz, calls and
+    iterations, ``main_launches`` its launches. Returns each phase's numbers,
+    the launches by path and the parts' seconds; exits through ``fail`` on
+    a failed check."""
+    from pathlib import Path
+    from pocomc_tpu_torch.mcmc import Sweep, _detached, make_loglike
+    from pocomc_tpu_torch.models.flow import Flow
+    from pocomc_tpu_torch.models.geometry import fit_geometry
+    log_like, prior = quickstart_like, quickstart_prior(pt)
+    prior10 = pt.Prior([pt.Normal(0.0, 3.0) for _ in range(10)])
+    scaler10 = pt.Reparameterize(10, bounds=prior10.bounds)
+    by_path = {}
+    lap("side start")
+
+    # -- 10. without the flow, and the rwm/imh kernels ---------------------
+    runs = []
+
+    def drive(label, prior_, like_, run_kw, **kw):
+        s = pt.Sampler(prior_, like_, vectorize=True, random_state=0, device="cuda", **kw)
+        reset_launches(fk)
+        t0 = time.perf_counter()
+        s.run(progress=False, **run_kw)
+        torch.cuda.synchronize()
+        row = dict(run=label, logz=s.logz, dlogz=s.logz_err, calls=s.calls,
+                   iterations=s.t, device_loop=s._use_device_loop(),
+                   wall_s=time.perf_counter() - t0, launches=read_launches(fk))
+        runs.append(row)
+        lap(f"10 {label}")
+        return s, row
+
+    cg_like, cg_d, cg_truth = correlated_gaussian()
+    cg_prior = pt.Prior([pt.Normal(0.0, 25.0) for _ in range(cg_d)])
+    for sample in ("tpcn", "rwm"):
+        for loop in ("auto", False):
+            label = f"precondition_false_{sample}_{'device' if loop == 'auto' else 'host'}_loop"
+            s, row = drive(label, cg_prior, cg_like, dict(n_total=1024, n_evidence=0),
+                           n_effective=512, n_active=256, precondition=False,
+                           sample=sample, device_loop=loop)
+            row["true_logz"] = cg_truth
+            if s._use_device_loop() != (loop == "auto"):
+                fail(f"{label}: took the wrong loop")
+            if not (np.isfinite(s.logz) and abs(s.logz - cg_truth) < 0.35):
+                fail(f"{label}: logZ {s.logz} outside {cg_truth} +- 0.35")
+            if any(row["launches"].values()):
+                fail(f"{label}: a flow kernel ran without the flow: {row['launches']}")
+    mx_like, mx_truth, mx_mass = mixture()
+    s, row = drive("imh_mixture", pt.Prior([pt.Normal(0.0, 10.0) for _ in range(2)]), mx_like,
+                   dict(n_total=1024, n_evidence=2048), n_effective=512, n_active=256,
+                   sample="imh", flow="nsf3", train_config=dict(epochs=60, patience=8))
+    xs, ws, _, _ = s.posterior()
+    row.update(true_logz=mx_truth, mode_mass=float(ws[xs[:, 0] > 0].sum() / ws.sum()),
+               true_mode_mass=mx_mass)
+    by_path["imh_mixture"] = row["launches"]
+    if not (np.isfinite(s.logz) and abs(s.logz - mx_truth) < 0.3):
+        fail(f"imh_mixture: logZ {s.logz} outside {mx_truth} +- 0.3")
+    if not abs(row["mode_mass"] - mx_mass) < 0.1:
+        fail(f"imh_mixture: mode mass {row['mode_mass']} outside {mx_mass} +- 0.1")
+    g_truth = 4 * (-0.5 * np.log(2 * np.pi * 26.0))
+    g_prior = pt.Prior([pt.Normal(0.0, 5.0) for _ in range(4)])
+
+    def g_like(x):
+        return -0.5 * (x * x).sum(-1) - 2.0 * math.log(2 * math.pi)
+
+    refresh_calls = {}
+    for ie in (0, 2):
+        s, row = drive(f"imh_every_{ie}", g_prior, g_like, dict(n_total=512, n_evidence=512),
+                       n_effective=256, n_active=128, imh_every=ie, corr_threshold=0.1,
+                       flow="nsf3", train_config=dict(epochs=40, patience=5))
+        row["true_logz"] = g_truth
+        refresh_calls[ie] = s.calls
+        by_path[f"imh_every_{ie}"] = row["launches"]
+        if not (np.isfinite(s.logz) and abs(s.logz - g_truth) < 0.4):
+            fail(f"imh_every={ie}: logZ {s.logz} outside {g_truth} +- 0.4")
+    if not refresh_calls[2] < 1.5 * refresh_calls[0]:
+        fail(f"imh_every=2 spent {refresh_calls[2]} calls, over 1.5x {refresh_calls[0]}")
+
+
+    # -- 12. the rest of the flow menu ---------------------------------------
+    # (a) phase 6's quickstart with maf6 (K2 and K1 with the affine head)
+    # and with nsfc6 (K5), each with the launches of its kernels
+    menu_runs = []
+    for flow_name, names in (("maf6", AFFINE), ("nsfc6", COUPLING)):
+        s = pt.Sampler(prior, log_like, vectorize=True, random_state=0, device="cuda",
+                       flow=flow_name)
+        reset_launches(fk)
+        t0 = time.perf_counter()
+        s.run(n_total=4096, n_evidence=4096, progress=False)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = read_launches(fk, names)
+        others = {k: v for k, v in read_launches(fk, KERNELS).items() if k not in names}
+        by_path[f"flow_menu_{flow_name}"] = counts
+        x, w, _, _ = s.posterior()
+        menu_runs.append(dict(flow=flow_name, logz=s.logz, dlogz=s.logz_err, true_logz=TRUE_LOGZ,
+                              khat=s.evidence_khat, calls=s.calls, iterations=s.t,
+                              wall_s=wall, phase_s=dict(s.phase_seconds), launches=counts))
+        if any(others.values()):
+            fail(f"flow_menu {flow_name}: kernels of another flow kind ran: {others}")
+        if not (np.isfinite(s.logz) and abs(s.logz - TRUE_LOGZ) < LOGZ_GATE):
+            fail(f"flow_menu {flow_name}: logZ {s.logz} outside {TRUE_LOGZ} +- {LOGZ_GATE}")
+        if x.shape[1] != 10 or not np.isfinite(x).all() or not np.isfinite(w).all():
+            fail(f"flow_menu {flow_name}: posterior samples are not finite (n, 10) arrays")
+        lap(f"12 (a) {flow_name}")
+    # -- 16. custom flows and the live sweep stats ---------------------------
+    t16 = time.perf_counter()
+    runs16, by_path["custom_flow_delegating"] = custom_flow(pt, fk, log_like, main,
+                                                            main_launches)
+    wall16 = time.perf_counter() - t16
+    # -- 17. the JAX package's statistical gates -----------------------------
+    t17 = time.perf_counter()
+    rows17, failed17 = statistical(pt, "cuda", fk)
+    for row in rows17:
+        by_path[f"statistical_{row['run']}"] = row["launches"]
+    if failed17:
+        fail("statistical: " + "; ".join(failed17))
+    # -- 14. (d)-(f) ---------------------------------------------------------
+    # (d) a spline flow of run-time bins on the main path at full width:
+    # phase 6's quickstart with flow=Flow(10, "nsf6", bins=QUICK_BINS)
+    qb = QUICK_BINS
+    kq = tuple(with_bins(k, qb) for k in RQS)
+
+    def bins_quickstart():
+        s = pt.Sampler(prior, log_like, vectorize=True, random_state=0, device="cuda",
+                       flow=Flow(10, "nsf6", bins=qb, device="cuda"))
+        rounds = watch_evidence(s)
+        reset_launches(fk)
+        t0 = time.perf_counter()
+        s.run(n_total=4096, n_evidence=4096, progress=False)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = read_launches(fk, kq)
+        others = {k: v for k, v in read_launches(fk, KERNELS).items() if v}
+        x, w, _, _ = s.posterior()
+        return s, dict(bins=qb, logz=s.logz, dlogz=s.logz_err, true_logz=TRUE_LOGZ,
+                       khat=s.evidence_khat, evidence_rounds=rounds,
+                       refinements=len(rounds) - 1, n_total=s.n_total, calls=s.calls,
+                       iterations=s.t, wall_s=wall, phase_s=dict(s.phase_seconds),
+                       launches=counts,
+                       posterior_finite=bool(np.isfinite(x).all() and np.isfinite(w).all()),
+                       other_launches=others)
+
+    sq, quick = bins_quickstart()
+    by_path["spline_bins_quickstart"] = quick["launches"]
+    if not all(quick["launches"].values()) or quick["other_launches"]:
+        fail(f"spline_bins quickstart: launches {quick['launches']}, of other kernels "
+             f"{quick['other_launches']}")
+    if not (np.isfinite(quick["logz"]) and abs(quick["logz"] - TRUE_LOGZ) < LOGZ_GATE):
+        fail(f"spline_bins quickstart: logZ {quick['logz']} outside {TRUE_LOGZ} +- {LOGZ_GATE}")
+    if not quick["posterior_finite"]:
+        fail("spline_bins quickstart: posterior samples are not finite")
+    lap("14 (d)")
+    # (e) a 20-step mala sweep at d=10, n=256 on random nsf6 and nsfc6 flows
+    # of each TIMED_BINS, as phase 13 (d)
+    bins_sweeps = []
+    for tb in TIMED_BINS:
+        for name in ("nsf6", "nsfc6"):
+            flow = bins_flow(name, 10, tb)[0]
+            kname = gradient_kernel(flow)
+            sweep = Sweep(scaler10, prior10.logpdf, make_loglike(unit_gauss), flow, 10, 20, 20,
+                          kind="mala")
+            g = torch.Generator("cuda").manual_seed(SEED)
+            with torch.no_grad():
+                scp10 = scaler10.whitening_params("cuda")
+                fp = _detached(flow.params())
+                u = 0.5 * torch.randn(256, 10, device="cuda", generator=g)
+                x, ldj = scaler10.inverse(u, params=scp10)
+                theta, _ = flow.forward(u, fp)
+                geom = fit_geometry(theta, torch.full((256,), 1.0 / 256, device="cuda"), g)
+                reset_launches(fk)
+                st = sweep.init_state(u, x, ldj, unit_gauss(x), prior10.logpdf(x),
+                                      2.38 / 10 ** 0.5, geom, fp, beta=1.0, scp=scp10)
+                accepts = []
+                for _ in range(20):
+                    prop = sweep.propose(st, geom, fp, scp10, sweep.draw_noise(st, geom, g),
+                                         beta=1.0)
+                    st, _ = sweep.accept_update(st, prop, prop["logl"], 1.0, geom)
+                    accepts.append(float(st.accept))
+                torch.cuda.synchronize()
+            counts = read_launches(fk, (kname,))
+            label = f"spline_bins_head_{name}_b{tb}"
+            by_path[label] = counts
+            finite = all(bool(torch.isfinite(a).all()) for a in (st.u, st.x, st.logl, st.grad))
+            row = dict(flow=name, bins=tb, kernel=kname, steps=st.i,
+                       mean_accept=statistics.mean(accepts), sigma=float(st.sigma),
+                       finite=finite, launches=counts)
+            bins_sweeps.append(row)
+            if not finite:
+                fail(f"{label}: the sweep's state is not finite")
+            if not 0.2 < row["mean_accept"] < 0.98:
+                fail(f"{label}: mean acceptance {row['mean_accept']} outside (0.2, 0.98)")
+            if not counts[kname]:
+                fail(f"{label}: {kname} was never launched")
+            lap("14 (e)")
+    # (f) the quickstart's state through save_state and load_state into a
+    # sampler of another seed with such a flow: bit for bit
+    state_dir = Path("build/chip_smoke_bins_state")  # phase 11 owns chip_smoke_states
+    state_path = state_dir / "spline_bins.state"
+    sq.save_state(state_path)
+    back = pt.Sampler(prior, log_like, vectorize=True, random_state=5, device="cuda",
+                      flow=Flow(10, "nsf6", bins=qb, device="cuda"))
+    back.load_state(state_path)
+    shutil.rmtree(state_dir, ignore_errors=True)
+    pts = torch.from_numpy(np.random.default_rng(SEED).normal(0.0, 2.0, (64, 10))
+                           .astype(np.float32)).cuda()
+    with torch.no_grad():
+        round_trip = (back.evidence() == sq.evidence() and back.flow.bins == qb
+                      and all(np.array_equal(u, v) for u, v in zip(back.posterior(),
+                                                                   sq.posterior()))
+                      and all(torch.equal(u, v) for u, v in zip(back.flow.parameters(),
+                                                                sq.flow.parameters()))
+                      and torch.equal(back.flow.log_prob(pts), sq.flow.log_prob(pts)))
+    if not round_trip:
+        fail("spline_bins: the saved state did not load back bit for bit")
+    lap("14 (f)")
+    return dict(by_path=by_path, flow_free=runs, menu_runs=menu_runs,
+                spline_bins=dict(quickstart=quick, head_sweeps=bins_sweeps,
+                                 state_round_trip=round_trip),
+                custom_flow=dict(runs16, wall_s=wall16), statistical=rows17,
+                statistical_wall_s=time.perf_counter() - t17, parts=PARTS)
+
+
+def side_main(args):
+    """The second process (``python3 chip_smoke.py --side <json>``):
+    ``side_lane`` on the arguments ``main`` passed; its numbers are the
+    last line of the output."""
+    import pocomc_tpu_torch as pt
+    from pocomc_tpu_torch.ops import flow_kernels as fk
+    out = side_lane(pt, fk, args["main"], args["launches"])
+    print(json.dumps({"side": out}), flush=True)
+
+
+def start_side(main, launches):
+    """Starts ``side_lane`` in a second process of this script, its output
+    and errors into temporary files; returns (the process, the files)."""
+    out, err = tempfile.TemporaryFile("w+"), tempfile.TemporaryFile("w+")
+    proc = subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--side",
+         json.dumps(dict(main=main, launches=launches))], stdout=out, stderr=err, text=True)
+    CHILDREN.append(proc)
+    return proc, out, err
+
+
+def finish_side(side):
+    """Waits for ``start_side``'s process and passes its errors and warnings
+    on; returns ``side_lane``'s numbers, or fails."""
+    proc, out, err = side
+    rc = proc.wait()
+    with out, err:
+        out.seek(0)
+        err.seek(0)
+        sys.stderr.write(err.read())
+        lines = [ln for ln in out.read().splitlines() if ln.startswith('{"side": ')]
+    if rc != 0 or not lines:
+        fail(f"the second process (phases 10, 12 (a), 14 (d)-(f), 16 and 17) ended with "
+             f"exit code {rc}")
+    return json.loads(lines[-1])["side"]
+
+
 def main():
     # -- 1. environment ----------------------------------------------------
     if not torch.cuda.is_available():
@@ -1886,6 +2314,7 @@ def main():
         fail("TF32 is on after importing pocomc_tpu_torch")
     if "jax" in sys.modules:
         fail("jax was imported")
+    lap("1 environment")
     emit("environment", card=card, device=torch.cuda.get_device_name(0),
          torch=torch.__version__, cuda=torch.version.cuda,
          tf32_matmul=torch.backends.cuda.matmul.allow_tf32,
@@ -1893,40 +2322,49 @@ def main():
 
     # -- 2. build ----------------------------------------------------------
     # One nvcc per source and library (the default 8 bins, 16 and the
-    # run-time bins of every bins past 16: LIBRARY_BINS), started
-    # together, so the script's build cost is the slowest kernel's, not the
-    # sum; each library's seconds overlap the others', and wall_s is the
-    # build's own.
-    def build_one(job):
+    # run-time bins of every bins past 16: LIBRARY_BINS). The build is bound
+    # by the host's cores: the 18 libraries take ~700 s of a core, so
+    # starting them together or longest first ends at the same time. The
+    # six 8-bin libraries, which every phase but 14 takes, build first, all
+    # together; the twelve of phase 14 build meanwhile in background
+    # threads, their nvcc at the lowest priority (``nice``), and phase 14
+    # waits for them. Each library's seconds overlap the others', and
+    # wall_s is the build's own.
+    def build_one(job, nice=0):
         name, bins = job
         t0 = time.perf_counter()
-        path, report = _build.build(name, bins)
+        path, report = _build.build(name, bins, nice=nice)
         return with_bins(name, bins), dict(
-            seconds=round(time.perf_counter() - t0, 3), library=path.name,
+            seconds=round(time.perf_counter() - t0, 3),
+            ended_s=round(time.perf_counter() - t_build, 3), library=path.name,
             ptxas=[l.strip() for l in report.splitlines() if "registers" in l or "spill" in l],
             resources=ptxas_summary(report))
 
-    jobs = [(name, bins) for bins in LIBRARY_BINS for name in LIBRARIES]
-    t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(jobs)) as ex:
-        build = dict(ex.map(build_one, jobs))
-    emit("build", wall_s=round(time.perf_counter() - t0, 3),
-         **{k: v if k in LIBRARIES else {key: v[key] for key in ("seconds", "library",
-                                                                 "resources")}
-            for k, v in build.items()})
+    def summary(builds):
+        return {k: v if k in LIBRARIES else {key: v[key] for key in (
+            "seconds", "ended_s", "library", "resources")} for k, v in builds.items()}
+
+    later = [(name, bins) for bins in LIBRARY_BINS if bins != 8 for name in LIBRARIES]
+    t_build = time.perf_counter()
+    with ThreadPoolExecutor(len(LIBRARIES)) as ex:
+        build = dict(ex.map(build_one, [(name, 8) for name in LIBRARIES]))
+    lap("2 build")
+    emit("build", cpu_count=os.cpu_count(), wall_s=round(time.perf_counter() - t_build, 3),
+         **summary(build))
     # -- 3./4. kernels against their plain versions ------------------------
     errs = dict.fromkeys(KERNELS, 0.0)
     checks = []
     flows = {(f, d): random_flow(f, d) for f, d in sorted({(f, d) for f, d, _ in SHAPES})}
-    for name, d, n in SHAPES:
+    for name, d, n, _ in planned("3-4", "check_spline_made"):
         flow, rng = flows[name, d]
         out, e = check_spline_made(name, d, n, flow, rng)
         checks.append(out)
         for k, v in e.items():
             errs[k] = max(errs[k], v)
+        lap("3-4 checks")
     # the rest of the menu: maf* (the affine head) and nsfc* (K5)
     menu_checks = []
-    for name, d, n in MENU_SHAPES:
+    for name, d, n, _ in planned("3-4", "check_menu"):
         if (name, d) not in flows:
             h = max(2 ** (3 * d - 1).bit_length(), 32)  # Flow.n_hidden
             flows[name, d] = random_flow(name, d, MENU_SCALE * math.sqrt(32 / h))
@@ -1935,6 +2373,7 @@ def main():
         menu_checks.append(out)
         for k, v in e.items():
             errs[k] = max(errs[k], v)
+        lap("3-4 menu checks")
     emit("kernels_vs_plain", checks=checks, menu_checks=menu_checks)
     # the tile each K5 launch of phases 3-4 took, as the wrapper planned and
     # kept it: the lane grid (RL 4 a Tile, 1 a Row), BM rows a block, RM x
@@ -1972,8 +2411,8 @@ def main():
                              reps_plain)}
             row = dict(d=d, n=n)
             for key, (fn, reps) in calls.items():
-                row[f"{key}_ms"] = graph_ms(fn, reps)
-                row[f"{key}_call_ms"] = cuda_ms(fn, reps, warmup=1)
+                row[f"{key}_ms"], row[f"{key}_call_ms"] = timed_ms(
+                    fn, reps, min(reps, 3) if key.endswith("_plain") else reps)
         times.append(row)
     # K1's chain: one call at n=1, where nothing but the T*d dependent
     # steps is left; and the weight pack it builds once per FlowParams
@@ -1983,8 +2422,8 @@ def main():
         with torch.no_grad():
             z1 = torch.zeros(1, d, device="cuda")
             key = f"d{d}"
-            chain[f"k1_chain_ms_{key}"] = graph_ms(
-                lambda: fk.ar_inverse(z1, fp.ws, fp.bs, fp.inv_orders), 20)
+            chain[f"k1_chain_ms_{key}"] = timed_ms(
+                lambda: fk.ar_inverse(z1, fp.ws, fp.bs, fp.inv_orders), 20)[0]
 
             def repack():
                 fp.ws[0]._k1_pack = None
@@ -2077,21 +2516,18 @@ def main():
                 bounds = {f"{k}_affine": v for k, v in made_bounds(n, flow).items()}
             row = dict(flow=name, d=d, n=n)
             for key, (fn, reps) in calls.items():
-                row[f"{key}_ms"] = graph_ms(fn, reps)
-                row[f"{key}_call_ms"] = cuda_ms(fn, reps, warmup=1)
+                row[f"{key}_ms"], row[f"{key}_call_ms"] = timed_ms(
+                    fn, reps, min(reps, 3) if key.endswith("_plain") else reps)
             for key, (b_ms, b_by) in bounds.items():
                 if f"{key}_ms" in row:
                     row[f"{key}_bound_ms"], row[f"{key}_bound_by"] = b_ms, b_by
         menu_times.append(row)
+    lap("5 times")
     emit("times", card=card, shapes=times, menu_shapes=menu_times, fit_step_ms=step_ms,
          scalar_sync_us=statistics.median(syncs), **chain)
 
     # -- 6. main path --------------------------------------------------------
-    def log_like(x):
-        return -(10.0 * (x[:, ::2] ** 2 - x[:, 1::2]) ** 2
-                 + (x[:, ::2] - 1.0) ** 2).sum(-1)
-
-    prior = pt.Prior([pt.Normal(0.0, 3.0) for _ in range(10)])
+    log_like, prior = quickstart_like, quickstart_prior(pt)
     sampler = pt.Sampler(prior, log_like, vectorize=True, random_state=0, device="cuda")
     rounds = watch_evidence(sampler)
     torch.cuda.reset_peak_memory_stats()
@@ -2107,6 +2543,7 @@ def main():
     x, w, _, _ = sampler.posterior()
     steps = [s["steps"] for s in sampler._iter_stats]
     epochs = [s["train_epochs"] for s in sampler._iter_stats if s["train_epochs"]]
+    lap("6")
     emit("main_path", card=card, logz=logz, dlogz=dlogz, true_logz=TRUE_LOGZ,
          khat=sampler.evidence_khat, evidence_rounds=rounds, refinements=len(rounds) - 1,
          n_total=sampler.n_total, calls=sampler.calls, iterations=sampler.t,
@@ -2134,6 +2571,7 @@ def main():
     x, w, _, _, blobs = sampler.posterior(return_blobs=True)
     steps = [s["steps"] for s in sampler._iter_stats]
     epochs = [s["train_epochs"] for s in sampler._iter_stats if s["train_epochs"]]
+    lap("7")
     emit("black_box", card=card, logz=logz, dlogz=dlogz, true_logz=TRUE_LOGZ,
          khat=sampler.evidence_khat, route=sampler.likelihood_route,
          traceable=sampler.likelihood_traceable, calls=sampler.calls,
@@ -2165,6 +2603,7 @@ def main():
     by_path["evidence_ladder_bridge"] = read_launches(fk)
     out = check_bridge("evidence_ladder_bridge", sampler, seen, bias_floor=0.15)
     k1_in_bridge["evidence_ladder_bridge"] = out["k1_launches_in_bridge"]
+    lap("8")
     emit("evidence_ladder_bridge", card=card, **out, calls=sampler.calls,
          iterations=sampler.t, wall_s=wall, phase_s=sampler.phase_seconds,
          launches=by_path["evidence_ladder_bridge"])
@@ -2183,120 +2622,22 @@ def main():
         fail("evidence_bridge_black_box: the per-row numpy likelihood was routed to the device")
     out = check_bridge("evidence_bridge_black_box", sampler, seen, bias_floor=0.0)
     k1_in_bridge["evidence_bridge_black_box"] = out["k1_launches_in_bridge"]
+    lap("9")
     emit("evidence_bridge_black_box", card=card, **out, route=sampler.likelihood_route,
          calls=sampler.calls, likelihood_rows=like.rows, likelihood_s=like.seconds,
          iterations=sampler.t, wall_s=wall, phase_s=sampler.phase_seconds,
          launches=by_path["evidence_bridge_black_box"])
 
-    # -- 10. without the flow, and the rwm/imh kernels ---------------------
-    runs = []
-
-    def drive(label, prior_, like_, run_kw, **kw):
-        s = pt.Sampler(prior_, like_, vectorize=True, random_state=0, device="cuda", **kw)
-        reset_launches(fk)
-        t0 = time.perf_counter()
-        s.run(progress=False, **run_kw)
-        torch.cuda.synchronize()
-        row = dict(run=label, logz=s.logz, dlogz=s.logz_err, calls=s.calls,
-                   iterations=s.t, device_loop=s._use_device_loop(),
-                   wall_s=time.perf_counter() - t0, launches=read_launches(fk))
-        runs.append(row)
-        return s, row
-
-    cg_like, cg_d, cg_truth = correlated_gaussian()
-    cg_prior = pt.Prior([pt.Normal(0.0, 25.0) for _ in range(cg_d)])
-    for sample in ("tpcn", "rwm"):
-        for loop in ("auto", False):
-            label = f"precondition_false_{sample}_{'device' if loop == 'auto' else 'host'}_loop"
-            s, row = drive(label, cg_prior, cg_like, dict(n_total=1024, n_evidence=0),
-                           n_effective=512, n_active=256, precondition=False,
-                           sample=sample, device_loop=loop)
-            row["true_logz"] = cg_truth
-            if s._use_device_loop() != (loop == "auto"):
-                fail(f"{label}: took the wrong loop")
-            if not (np.isfinite(s.logz) and abs(s.logz - cg_truth) < 0.35):
-                fail(f"{label}: logZ {s.logz} outside {cg_truth} +- 0.35")
-            if any(row["launches"].values()):
-                fail(f"{label}: a flow kernel ran without the flow: {row['launches']}")
-    mx_like, mx_truth, mx_mass = mixture()
-    s, row = drive("imh_mixture", pt.Prior([pt.Normal(0.0, 10.0) for _ in range(2)]), mx_like,
-                   dict(n_total=1024, n_evidence=2048), n_effective=512, n_active=256,
-                   sample="imh", flow="nsf3", train_config=dict(epochs=60, patience=8))
-    xs, ws, _, _ = s.posterior()
-    row.update(true_logz=mx_truth, mode_mass=float(ws[xs[:, 0] > 0].sum() / ws.sum()),
-               true_mode_mass=mx_mass)
-    by_path["imh_mixture"] = row["launches"]
-    if not (np.isfinite(s.logz) and abs(s.logz - mx_truth) < 0.3):
-        fail(f"imh_mixture: logZ {s.logz} outside {mx_truth} +- 0.3")
-    if not abs(row["mode_mass"] - mx_mass) < 0.1:
-        fail(f"imh_mixture: mode mass {row['mode_mass']} outside {mx_mass} +- 0.1")
-    g_truth = 4 * (-0.5 * np.log(2 * np.pi * 26.0))
-    g_prior = pt.Prior([pt.Normal(0.0, 5.0) for _ in range(4)])
-
-    def g_like(x):
-        return -0.5 * (x * x).sum(-1) - 2.0 * math.log(2 * math.pi)
-
-    refresh_calls = {}
-    for ie in (0, 2):
-        s, row = drive(f"imh_every_{ie}", g_prior, g_like, dict(n_total=512, n_evidence=512),
-                       n_effective=256, n_active=128, imh_every=ie, corr_threshold=0.1,
-                       flow="nsf3", train_config=dict(epochs=40, patience=5))
-        row["true_logz"] = g_truth
-        refresh_calls[ie] = s.calls
-        by_path[f"imh_every_{ie}"] = row["launches"]
-        if not (np.isfinite(s.logz) and abs(s.logz - g_truth) < 0.4):
-            fail(f"imh_every={ie}: logZ {s.logz} outside {g_truth} +- 0.4")
-    if not refresh_calls[2] < 1.5 * refresh_calls[0]:
-        fail(f"imh_every=2 spent {refresh_calls[2]} calls, over 1.5x {refresh_calls[0]}")
-    emit("flow_free_and_kernels", card=card, runs=runs)
-
-    # -- 11. the reference surface: scipy and numpy priors, checkpoints -----
-    # (a) runs on a one-rank NCCL mesh in this process: phase 15 (a)
-    from pathlib import Path
-    from pocomc_tpu_torch.parallel import smoke
-    pt.initialize_distributed(f"localhost:{smoke._free_port()}", 1, 0)
-    try:
-        surface, paths = reference_surface(pt, fk, log_like, main,
-                                           Path("build/chip_smoke_states"),
-                                           mesh=pt.ParticleMesh())
-    finally:
-        torch.distributed.destroy_process_group()
-    by_path.update({f"reference_{k}": v for k, v in paths.items()})
-    emit("reference_surface", card=card, phase6=main, **surface)
-
     # -- 12. the rest of the flow menu ---------------------------------------
-    # (a) phase 6's quickstart with maf6 (K2 and K1 with the affine head)
-    # and with nsfc6 (K5), each with the launches of its kernels
-    menu_runs = []
-    for flow_name, names in (("maf6", AFFINE), ("nsfc6", COUPLING)):
-        s = pt.Sampler(prior, log_like, vectorize=True, random_state=0, device="cuda",
-                       flow=flow_name)
-        reset_launches(fk)
-        t0 = time.perf_counter()
-        s.run(n_total=4096, n_evidence=4096, progress=False)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        counts = read_launches(fk, names)
-        others = {k: v for k, v in read_launches(fk, KERNELS).items() if k not in names}
-        by_path[f"flow_menu_{flow_name}"] = counts
-        x, w, _, _ = s.posterior()
-        menu_runs.append(dict(flow=flow_name, logz=s.logz, dlogz=s.logz_err, true_logz=TRUE_LOGZ,
-                              khat=s.evidence_khat, calls=s.calls, iterations=s.t,
-                              wall_s=wall, phase_s=dict(s.phase_seconds), launches=counts))
-        if any(others.values()):
-            fail(f"flow_menu {flow_name}: kernels of another flow kind ran: {others}")
-        if not (np.isfinite(s.logz) and abs(s.logz - TRUE_LOGZ) < LOGZ_GATE):
-            fail(f"flow_menu {flow_name}: logZ {s.logz} outside {TRUE_LOGZ} +- {LOGZ_GATE}")
-        if x.shape[1] != 10 or not np.isfinite(x).all() or not np.isfinite(w).all():
-            fail(f"flow_menu {flow_name}: posterior samples are not finite (n, 10) arrays")
+    # ((a), the quickstart with maf6 and nsfc6, runs in the second process)
+    from pocomc_tpu_torch.mcmc import Sweep, _detached, make_loglike
+    from pocomc_tpu_torch.models.flow import Flow
+    from pocomc_tpu_torch.models.geometry import fit_geometry
     # (b) the JAX package's compute-bound bench line (bench.py:180-250,
     # 276-286): d=50 Rosenbrock under N(0, 3) priors, nsfc12 at its init
     # (seed 0), 65,536 particles, the preconditioned t-pCN sweep with its
     # stopping rule held off (tools/measure_paths.py), 4 steps a sweep, two
     # sweeps chained from u ~ N(0, 1), the geometry fitted on u
-    from pocomc_tpu_torch.mcmc import Sweep, make_loglike
-    from pocomc_tpu_torch.models.flow import Flow
-    from pocomc_tpu_torch.models.geometry import fit_geometry
     d50, n50, steps50, chains50 = 50, 65536, 4, 2
 
     def rosenbrock50(x):
@@ -2340,69 +2681,16 @@ def main():
         fail(f"flow_menu bench sweep ran {steps} steps, not {steps50} x {chains50}")
     if not bench["u_finite"] or tuple(u_out.shape) != (n50, d50):
         fail("flow_menu bench sweep: the particles are not a finite (65536, 50) array")
-    emit("flow_menu", card=card, quickstart=menu_runs, bench_sweep=bench)
+    lap("12 (b)")
 
     # -- 13. the gradient kernels: mala and hmc -------------------------------
-    # (a) K1-bwd (both heads) and K5-inv-bwd against the plain versions on
-    # the card, then their times beside the plain versions and their bounds
-    grad_checks = []
-    for name, d, n in GRAD_SHAPES:
-        if (name, d) not in flows:
-            h = max(2 ** (3 * d - 1).bit_length(), 32)  # Flow.n_hidden
-            flows[name, d] = random_flow(name, d, MENU_SCALE * math.sqrt(32 / h))
-        flow, rng = flows[name, d]
-        out, e = check_gradient(name, d, n, flow, rng)
-        grad_checks.append(out)
-        errs[out["kernel"]] = max(errs.get(out["kernel"], 0.0), e)
-    from pocomc_tpu_torch.mcmc import _detached
-    grad_times = []
-    for name, d, n in GRAD_SHAPES:
-        if n == 37:
-            continue
-        flow, rng = flows[name, d]
-        inv, _, bwd, twin, saving, point = inverse_routes(flow)
-        fp = _detached(flow.params())
-        kname = gradient_kernel(flow)
-        x, g_x = (torch.from_numpy(rng.standard_normal((n, d)).astype(np.float32)).cuda()
-                  for _ in range(2))
-        g_l = torch.from_numpy(rng.standard_normal(n).astype(np.float32)).cuda()
-        reps_plain = 3 if d >= 50 else 10
-        # the plain twin reads the visit orders on the host, as phase 5's K1
-        fp_host = fp if flow.kind == "nsfc" else fp._replace(inv_orders=fp.inv_orders.cpu())
-        with torch.no_grad():
-            # the kernel on the state the inverse's save instance writes at
-            # z, x its output; the inverse without the save beside it
-            z = x
-            x, _, data = saving(z, None, fp)
-            key = "k5_inv" if flow.kind == "nsfc" else "k1"
-            forward = {f"{key}_save": (lambda: saving(z, None, fp), 20),
-                       key: (lambda: inv(z, fp), 20)}
-            plain_at = point(z, x, fp)
-            calls = {kname: (lambda: bwd(data, fp, g_x, g_l), 20),
-                     f"{kname}_plain": (lambda: twin(plain_at, fp_host, g_x, g_l), reps_plain),
-                     **forward}
-            if flow.kind == "nsfc":
-                T, h = flow.n_transforms, flow.n_hidden
-                deltas = [torch.randn(T, n, k, device="cuda")
-                          for k in (h, h, h, (d + 1) // 2 * flow.n_params)]
-                calls[f"{kname}_matmul"] = (lambda: backward_matmul_products(
-                    flow, x, data[:4], deltas, weight_grads=False), 20)
-            row = dict(kernel=kname, flow=name, d=d, n=n)
-            for key, (fn, reps) in calls.items():
-                row[f"{key}_ms"] = graph_ms(fn, reps)
-                # one eager call of a plain twin past d=10 (~2 s at d=50):
-                # the script's time, with phase 14
-                eager = 1 if key.endswith("_plain") and d >= 50 else reps
-                row[f"{key}_call_ms"] = cuda_ms(fn, eager, warmup=1)
-            row[f"{kname}_bound_ms"], row[f"{kname}_bound_by"] = gradient_bounds(n, flow)
-            if flow.kind != "nsfc":
-                row["k1_state_bytes"] = sum(a.numel() * a.element_size() for a in data)
-        grad_times.append(row)
-    # (b) the slice's path at full width: phase 6's quickstart with
-    # sample="mala"
+    # ((a), K1-bwd (both heads) and K5-inv-bwd against the plain versions on
+    # the card, runs in the lanes, its times once they end)
+    # the runs of (b) and (c): a quickstart-like run with the gradient
+    # kernels on its path, its gates and its ms a sweep step
     grad_runs = []
 
-    def drive_gradient(label, prior_, like_, names, truth, run_kw, **kw):
+    def drive_gradient(letter, label, prior_, like_, names, truth, run_kw, **kw):
         s = pt.Sampler(prior_, like_, vectorize=True, random_state=0, device="cuda", **kw)
         reset_launches(fk)
         t0 = time.perf_counter()
@@ -2425,80 +2713,13 @@ def main():
             fail(f"{label}: logZ {logz} outside {truth} +- {LOGZ_GATE}")
         if not (np.isfinite(x).all() and np.isfinite(w).all()):
             fail(f"{label}: posterior samples are not finite")
+        lap(f"13 {letter} {label}")
 
-    # (hmc runs end to end in (c): its full-width run was cut for time)
-    drive_gradient("gradient_quickstart_mala", prior, log_like, RQS + GRADIENT[:1],
+    # (b) the slice's path at full width: phase 6's quickstart with
+    # sample="mala" (hmc runs end to end in (c): its full-width run was cut
+    # for time)
+    drive_gradient("(b)", "gradient_quickstart_mala", prior, log_like, RQS + GRADIENT[:1],
                    TRUE_LOGZ, dict(n_total=4096, n_evidence=4096), sample="mala")
-    # (c) tests/test_mala.py:97-144 on the card: d=4, nsf3, n_active 128
-    from scipy.stats import multivariate_normal
-    d4 = 4
-    rng4 = np.random.default_rng(0)
-    q4, _ = np.linalg.qr(rng4.normal(size=(d4, d4)))
-    cov4 = (q4 * np.logspace(0, 1.5, d4)) @ q4.T
-    ci4 = torch.tensor(np.linalg.inv(cov4), dtype=torch.float32, device="cuda")
-    nc4 = -0.5 * (d4 * np.log(2 * np.pi) + np.linalg.slogdet(cov4)[1])
-    truth4 = multivariate_normal.logpdf(np.zeros(d4), np.zeros(d4), cov4 + 100.0 * np.eye(d4))
-
-    def like4(x):
-        return nc4 - 0.5 * torch.einsum("ni,ij,nj->n", x, ci4, x)
-
-    for sample, leap in (("mala", 5), ("hmc", 3)):
-        drive_gradient(f"test_mala_{sample}", pt.Prior([pt.Normal(0.0, 10.0)] * d4), like4,
-                       RQS + GRADIENT[:1], truth4, dict(n_total=1024, n_evidence=1024),
-                       sample=sample, n_leapfrog=leap, n_effective=256, n_active=128,
-                       flow="nsf3", train_config=dict(epochs=60, patience=8))
-    # (d) the other heads on a path: one preconditioned mala sweep of 20
-    # steps (the stopping rule held off) at d=10, n=256, on phase 12's
-    # random maf6 and nsfc6 flows: a unit Gaussian likelihood under N(0, 3)
-    # priors from u ~ N(0, 0.5^2), beta 1
-    head_sweeps = []
-    prior10 = pt.Prior([pt.Normal(0.0, 3.0) for _ in range(10)])
-    scaler10 = pt.Reparameterize(10, bounds=prior10.bounds)
-
-    def unit_gauss(x):
-        return -0.5 * (x * x).sum(-1)
-
-    for name in ("maf6", "nsfc6"):
-        flow = flows[name, 10][0]
-        kname = gradient_kernel(flow)
-        sweep = Sweep(scaler10, prior10.logpdf, make_loglike(unit_gauss), flow, 10, 20, 20,
-                      kind="mala")
-        g = torch.Generator("cuda").manual_seed(SEED)
-        with torch.no_grad():
-            scp10 = scaler10.whitening_params("cuda")
-            fp = _detached(flow.params())
-            u = 0.5 * torch.randn(256, 10, device="cuda", generator=g)
-            x, ldj = scaler10.inverse(u, params=scp10)
-            theta, _ = flow.forward(u, fp)
-            geom = fit_geometry(theta, torch.full((256,), 1.0 / 256, device="cuda"), g)
-            reset_launches(fk)
-            st = sweep.init_state(u, x, ldj, unit_gauss(x), prior10.logpdf(x), 2.38 / 10 ** 0.5,
-                                  geom, fp, beta=1.0, scp=scp10)
-            accepts = []
-            forwards = ck.coupling_forward.launches
-            for _ in range(20):
-                prop = sweep.propose(st, geom, fp, scp10, sweep.draw_noise(st, geom, g),
-                                     beta=1.0)
-                st, _ = sweep.accept_update(st, prop, prop["logl"], 1.0, geom)
-                accepts.append(float(st.accept))
-            forwards = ck.coupling_forward.launches - forwards
-            torch.cuda.synchronize()
-        counts = read_launches(fk, (kname,))
-        by_path[f"gradient_head_{name}"] = counts
-        finite = all(bool(torch.isfinite(a).all()) for a in (st.u, st.x, st.logl, st.grad))
-        row = dict(flow=name, kernel=kname, steps=st.i, mean_accept=statistics.mean(accepts),
-                   sigma=float(st.sigma), finite=finite, launches=counts,
-                   coupling_forward_launches_in_steps=forwards)
-        head_sweeps.append(row)
-        if not finite:
-            fail(f"gradient_head_{name}: the sweep's state is not finite")
-        if not 0.2 < row["mean_accept"] < 0.98:
-            fail(f"gradient_head_{name}: mean acceptance {row['mean_accept']} outside "
-                 f"(0.2, 0.98)")
-        if not counts[kname]:
-            fail(f"gradient_head_{name}: {kname} was never launched")
-        if forwards:
-            fail(f"gradient_head_{name}: {forwards} K5 forward launches in the mala steps")
     # (e) the same sweep on random nsf flows past d=10: d=50, nsf6 at n=4096
     # (ms a step and acceptance) and d=342, nsf3 at n=256 (h=2048: K1-bwd's
     # groups in fan-in chunks; it must run, with finite states and
@@ -2545,10 +2766,126 @@ def main():
             fail(f"{label}: the sweep's state or gradient is not finite")
         if not all(counts.values()):
             fail(f"{label}: a kernel of the path was never launched: {counts}")
-    emit("gradient_kernels", card=card, checks=grad_checks, times=grad_times, runs=grad_runs,
-         head_sweeps=head_sweeps, wide_sweeps=wide_sweeps)
+        lap("13 (e)")
+    # -- the lanes ---------------------------------------------------------
+    # From here two processes share the host and the card: this one runs
+    # phases 11, 13 (a)'s checks, 13 (c)-(d) and 14 (a)-(b) (with phase 15
+    # (b)'s two ranks beside 14 (b)), a second one phases 10, 12 (a), 16, 17
+    # and 14 (d)-(f) (``side_lane``), and the libraries of phase 14 build
+    # behind both at the lowest priority; what is timed (5-9, 12 (b), 13 (b)
+    # and 13 (e) above, 13 (a)'s times and 14 (c) after) runs alone
+    side = start_side(main, launches)
+    t_later = time.perf_counter() - t_build
+    background = ThreadPoolExecutor(len(later))
+    later_builds = [background.submit(build_one, job, 19) for job in later]
+    lap("lanes start")
 
+    # -- 11. the reference surface: scipy and numpy priors, checkpoints -----
+    # (a) runs on a one-rank NCCL mesh in this process: phase 15 (a)
+    from pathlib import Path
+    from pocomc_tpu_torch.parallel import smoke
+    pt.initialize_distributed(f"localhost:{smoke._free_port()}", 1, 0)
+    lap("11 mesh setup")
+    try:
+        surface, paths = reference_surface(pt, fk, log_like, main,
+                                           Path("build/chip_smoke_states"),
+                                           mesh=pt.ParticleMesh())
+    finally:
+        torch.distributed.destroy_process_group()
+    lap("11 mesh setup")
+    by_path.update({f"reference_{k}": v for k, v in paths.items()})
+    emit("reference_surface", card=card, phase6=main, **surface)
+
+    # (a) K1-bwd (both heads) and K5-inv-bwd against the plain versions on
+    # the card (their times once the lanes end)
+    grad_checks = []
+    for name, d, n, _ in planned("13 (a)", "check_gradient"):
+        if (name, d) not in flows:
+            h = max(2 ** (3 * d - 1).bit_length(), 32)  # Flow.n_hidden
+            flows[name, d] = random_flow(name, d, MENU_SCALE * math.sqrt(32 / h))
+        flow, rng = flows[name, d]
+        out, e = check_gradient(name, d, n, flow, rng)
+        grad_checks.append(out)
+        errs[out["kernel"]] = max(errs.get(out["kernel"], 0.0), e)
+        lap("13 (a) checks")
+    # (c) tests/test_mala.py:97-144 on the card: d=4, nsf3, n_active 128
+    from scipy.stats import multivariate_normal
+    d4 = 4
+    rng4 = np.random.default_rng(0)
+    q4, _ = np.linalg.qr(rng4.normal(size=(d4, d4)))
+    cov4 = (q4 * np.logspace(0, 1.5, d4)) @ q4.T
+    ci4 = torch.tensor(np.linalg.inv(cov4), dtype=torch.float32, device="cuda")
+    nc4 = -0.5 * (d4 * np.log(2 * np.pi) + np.linalg.slogdet(cov4)[1])
+    truth4 = multivariate_normal.logpdf(np.zeros(d4), np.zeros(d4), cov4 + 100.0 * np.eye(d4))
+
+    def like4(x):
+        return nc4 - 0.5 * torch.einsum("ni,ij,nj->n", x, ci4, x)
+
+    for sample, leap in (("mala", 5), ("hmc", 3)):
+        drive_gradient("(c)", f"test_mala_{sample}", pt.Prior([pt.Normal(0.0, 10.0)] * d4), like4,
+                       RQS + GRADIENT[:1], truth4, dict(n_total=1024, n_evidence=1024),
+                       sample=sample, n_leapfrog=leap, n_effective=256, n_active=128,
+                       flow="nsf3", train_config=dict(epochs=60, patience=8))
+    # (d) the other heads on a path: one preconditioned mala sweep of 20
+    # steps (the stopping rule held off) at d=10, n=256, on phase 12's
+    # random maf6 and nsfc6 flows: a unit Gaussian likelihood under N(0, 3)
+    # priors from u ~ N(0, 0.5^2), beta 1
+    head_sweeps = []
+    prior10 = pt.Prior([pt.Normal(0.0, 3.0) for _ in range(10)])
+    scaler10 = pt.Reparameterize(10, bounds=prior10.bounds)
+    for name in ("maf6", "nsfc6"):
+        flow = flows[name, 10][0]
+        kname = gradient_kernel(flow)
+        sweep = Sweep(scaler10, prior10.logpdf, make_loglike(unit_gauss), flow, 10, 20, 20,
+                      kind="mala")
+        g = torch.Generator("cuda").manual_seed(SEED)
+        with torch.no_grad():
+            scp10 = scaler10.whitening_params("cuda")
+            fp = _detached(flow.params())
+            u = 0.5 * torch.randn(256, 10, device="cuda", generator=g)
+            x, ldj = scaler10.inverse(u, params=scp10)
+            theta, _ = flow.forward(u, fp)
+            geom = fit_geometry(theta, torch.full((256,), 1.0 / 256, device="cuda"), g)
+            reset_launches(fk)
+            st = sweep.init_state(u, x, ldj, unit_gauss(x), prior10.logpdf(x), 2.38 / 10 ** 0.5,
+                                  geom, fp, beta=1.0, scp=scp10)
+            accepts = []
+            forwards = ck.coupling_forward.launches
+            for _ in range(20):
+                prop = sweep.propose(st, geom, fp, scp10, sweep.draw_noise(st, geom, g),
+                                     beta=1.0)
+                st, _ = sweep.accept_update(st, prop, prop["logl"], 1.0, geom)
+                accepts.append(float(st.accept))
+            forwards = ck.coupling_forward.launches - forwards
+            torch.cuda.synchronize()
+        counts = read_launches(fk, (kname,))
+        by_path[f"gradient_head_{name}"] = counts
+        finite = all(bool(torch.isfinite(a).all()) for a in (st.u, st.x, st.logl, st.grad))
+        row = dict(flow=name, kernel=kname, steps=st.i, mean_accept=statistics.mean(accepts),
+                   sigma=float(st.sigma), finite=finite, launches=counts,
+                   coupling_forward_launches_in_steps=forwards)
+        head_sweeps.append(row)
+        if not finite:
+            fail(f"gradient_head_{name}: the sweep's state is not finite")
+        if not 0.2 < row["mean_accept"] < 0.98:
+            fail(f"gradient_head_{name}: mean acceptance {row['mean_accept']} outside "
+                 f"(0.2, 0.98)")
+        if not counts[kname]:
+            fail(f"gradient_head_{name}: {kname} was never launched")
+        if forwards:
+            fail(f"gradient_head_{name}: {forwards} K5 forward launches in the mala steps")
+        lap("13 (d)")
     # -- 14. the spline of other bins than 8 -------------------------------
+    # (a) the libraries of 16 and run-time bins, built in the background
+    # since phase 9 ended
+    t_wait = time.perf_counter()
+    later_build = dict(f.result() for f in later_builds)
+    background.shutdown()
+    build.update(later_build)
+    lap("14 (a)")
+    emit("build_background", wait_s=round(time.perf_counter() - t_wait, 3),
+         wall_s=round(max(v["ended_s"] for v in later_build.values()) - t_later, 3),
+         **summary(later_build))
     # (b) every spline-head kernel at other bins than 8 against its plain
     # version (and float64 where phases 4 and 13 hold it so), at phase 3-4's
     # and 13's tolerances and exclusion windows: K2, K2-bwd and K1, K5's
@@ -2557,43 +2894,98 @@ def main():
     # library's, and 32, the run-time library's) also K1's two- and
     # four-row launches, d=50 and d=342 (K2, K1) and d=50 (K5, the gradient
     # kernels)
-    bflows = {}
-
-    def bins_flow(name, d, bins):
-        if (name, d, bins) not in bflows:
-            h = max(2 ** (3 * d - 1).bit_length(), 32)  # Flow.n_hidden
-            scaled = d > 50 or (name.startswith("nsfc") and d > 10)
-            bflows[name, d, bins] = random_flow(
-                name, d, MENU_SCALE * math.sqrt(32 / h) if scaled else 0.02, bins)
-        return bflows[name, d, bins]
-
     bins_errs = {}
 
     def keep_err(e):
         for k, v in e.items():
             bins_errs[k] = max(bins_errs.get(k, 0.0), v)
 
+    # phase 15 (b)'s two ranks, processes of their own sharing the card,
+    # run beside these checks, which leave most of the host's cores and of
+    # the card idle; phase 15 reads their lines
+    mesh_pool = ThreadPoolExecutor(1)
+    t15 = time.perf_counter()
+    mesh_run = mesh_pool.submit(smoke.launch, 2, 1, timeout=600.0,
+                                cases="core,dev,host,resume,quickstart", device="cuda")
     t14 = time.perf_counter()
     bins_checks, bins_menu, bins_grad = [], [], []
-    checked = SPLINE_BINS + WIDE_BINS
-    for name, d, n, b in ([("nsf6", 10, 256, b) for b in checked]
-                          + [(f, d, n, b) for b in TIMED_BINS
-                             for f, d, n in (("nsf6", 10, 2048), ("nsf6", 10, 4096),
-                                             ("nsf6", 50, 1024), ("nsf3", 342, 64))]):
+    for name, d, n, b in planned("14 (b)", "check_spline_made"):
         out, e = check_spline_made(name, d, n, *bins_flow(name, d, b))
         bins_checks.append(out)
         keep_err(e)
-    for name, d, n, b in ([("nsfc6", 10, 256, b) for b in checked]
-                          + [("nsfc12", 50, 1024, b) for b in TIMED_BINS]):
+        lap(f"14 (b) b{b} check_spline_made")
+    for name, d, n, b in planned("14 (b)", "check_menu"):
         out, e = check_menu(name, d, n, *bins_flow(name, d, b), TOL[d], grad_rows=1024)
         bins_menu.append(dict(out, bins=b))
         keep_err(e)
-    for name, d, n, b in ([(f, 10, 256, b) for f in ("nsf6", "nsfc6") for b in checked]
-                          + [(f, 50, 1024, b) for b in TIMED_BINS for f in ("nsf6", "nsfc12")]):
+        lap(f"14 (b) b{b} check_menu")
+    for name, d, n, b in planned("14 (b)", "check_gradient"):
         out, e = check_gradient(name, d, n, *bins_flow(name, d, b))
         bins_grad.append(dict(out, bins=b))
         keep_err({out["kernel"]: e})
+        lap(f"14 (b) b{b} check_gradient")
     check_s = time.perf_counter() - t14
+    # the two ranks end before anything is timed
+    lines = mesh_run.result()
+    mesh_pool.shutdown()
+    mesh_s = time.perf_counter() - t15
+    lap("15 (b) beside 14 (b)")
+    # the second process's phases end before anything more is timed
+    side = finish_side(side)
+    by_path.update(side["by_path"])
+    lap("lanes: the second process")
+    emit("flow_free_and_kernels", card=card, runs=side["flow_free"])
+
+    emit("flow_menu", card=card, quickstart=side["menu_runs"], bench_sweep=bench)
+
+    # -- 13. (a)'s times ---------------------------------------------------
+    grad_times = []
+    for name, d, n in GRAD_SHAPES:
+        if n == 37:
+            continue
+        flow, rng = flows[name, d]
+        inv, _, bwd, twin, saving, point = inverse_routes(flow)
+        fp = _detached(flow.params())
+        kname = gradient_kernel(flow)
+        x, g_x = (torch.from_numpy(rng.standard_normal((n, d)).astype(np.float32)).cuda()
+                  for _ in range(2))
+        g_l = torch.from_numpy(rng.standard_normal(n).astype(np.float32)).cuda()
+        reps_plain = 3 if d >= 50 else 10
+        # the plain twin reads the visit orders on the host, as phase 5's K1
+        fp_host = fp if flow.kind == "nsfc" else fp._replace(inv_orders=fp.inv_orders.cpu())
+        with torch.no_grad():
+            # the kernel on the state the inverse's save instance writes at
+            # z, x its output; the inverse without the save beside it
+            z = x
+            x, _, data = saving(z, None, fp)
+            key = "k5_inv" if flow.kind == "nsfc" else "k1"
+            forward = {f"{key}_save": (lambda: saving(z, None, fp), 20),
+                       key: (lambda: inv(z, fp), 20)}
+            plain_at = point(z, x, fp)
+            calls = {kname: (lambda: bwd(data, fp, g_x, g_l), 20),
+                     f"{kname}_plain": (lambda: twin(plain_at, fp_host, g_x, g_l), reps_plain),
+                     **forward}
+            if flow.kind == "nsfc":
+                T, h = flow.n_transforms, flow.n_hidden
+                deltas = [torch.randn(T, n, k, device="cuda")
+                          for k in (h, h, h, (d + 1) // 2 * flow.n_params)]
+                calls[f"{kname}_matmul"] = (lambda: backward_matmul_products(
+                    flow, x, data[:4], deltas, weight_grads=False), 20)
+            row = dict(kernel=kname, flow=name, d=d, n=n)
+            for key, (fn, reps) in calls.items():
+                # a plain twin's eager calls take 0.4 s at d=10 and 1.7-4.9 s
+                # past it: three of them, one past d=10 (the script's time)
+                eager = (1 if d >= 50 else 3) if key.endswith("_plain") else reps
+                row[f"{key}_ms"], row[f"{key}_call_ms"] = timed_ms(fn, reps, eager)
+            row[f"{kname}_bound_ms"], row[f"{kname}_bound_by"] = gradient_bounds(n, flow)
+            if flow.kind != "nsfc":
+                row["k1_state_bytes"] = sum(a.numel() * a.element_size() for a in data)
+        grad_times.append(row)
+        lap("13 (a) times")
+    emit("gradient_kernels", card=card, checks=grad_checks, times=grad_times, runs=grad_runs,
+         head_sweeps=head_sweeps, wide_sweeps=wide_sweeps)
+
+    # -- 14. (c) -------------------------------------------------------------
     # (c) the kernels of each TIMED_BINS at the kernels line's shapes
     # (phase 5's rule: device ms by graph replay, eager ms by events),
     # beside their plain versions, bounds and products as torch.matmul/bmm
@@ -2604,8 +2996,9 @@ def main():
         bt = bins_times[tb] = {}
 
         def timed(key, fn, reps):
-            bt[f"{key}_ms"] = graph_ms(fn, reps)
-            bt[f"{key}_call_ms"] = cuda_ms(fn, reps, warmup=1)
+            # three eager calls of a plain version (the twins take 0.3-0.5 s)
+            eager = 3 if key.endswith("_plain") else reps
+            bt[f"{key}_ms"], bt[f"{key}_call_ms"] = timed_ms(fn, reps, eager)
 
         with torch.no_grad():
             fp = ft.params()
@@ -2679,111 +3072,34 @@ def main():
                            "coupling_inverse": coupling_bounds(256, ct)["coupling_inverse"],
                            "ar_inverse_backward": gradient_bounds(256, ft),
                            "coupling_inverse_backward": gradient_bounds(256, ct)}
-    # (d) a spline flow of run-time bins on the main path at full width:
-    # phase 6's quickstart with flow=Flow(10, "nsf6", bins=QUICK_BINS)
-    qb = QUICK_BINS
-    kq = tuple(with_bins(k, qb) for k in RQS)
-
-    def bins_quickstart():
-        s = pt.Sampler(prior, log_like, vectorize=True, random_state=0, device="cuda",
-                       flow=Flow(10, "nsf6", bins=qb, device="cuda"))
-        rounds = watch_evidence(s)
-        reset_launches(fk)
-        t0 = time.perf_counter()
-        s.run(n_total=4096, n_evidence=4096, progress=False)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        counts = read_launches(fk, kq)
-        others = {k: v for k, v in read_launches(fk, KERNELS).items() if v}
-        x, w, _, _ = s.posterior()
-        return s, dict(bins=qb, logz=s.logz, dlogz=s.logz_err, true_logz=TRUE_LOGZ,
-                       khat=s.evidence_khat, evidence_rounds=rounds,
-                       refinements=len(rounds) - 1, n_total=s.n_total, calls=s.calls,
-                       iterations=s.t, wall_s=wall, phase_s=dict(s.phase_seconds),
-                       launches=counts,
-                       posterior_finite=bool(np.isfinite(x).all() and np.isfinite(w).all()),
-                       other_launches=others)
-
-    sq, quick = bins_quickstart()
-    by_path["spline_bins_quickstart"] = quick["launches"]
-    if not all(quick["launches"].values()) or quick["other_launches"]:
-        fail(f"spline_bins quickstart: launches {quick['launches']}, of other kernels "
-             f"{quick['other_launches']}")
-    if not (np.isfinite(quick["logz"]) and abs(quick["logz"] - TRUE_LOGZ) < LOGZ_GATE):
-        fail(f"spline_bins quickstart: logZ {quick['logz']} outside {TRUE_LOGZ} +- {LOGZ_GATE}")
-    if not quick["posterior_finite"]:
-        fail("spline_bins quickstart: posterior samples are not finite")
-    # (e) a 20-step mala sweep at d=10, n=256 on random nsf6 and nsfc6 flows
-    # of each TIMED_BINS, as phase 13 (d)
-    bins_sweeps = []
-    for tb in TIMED_BINS:
-        for name in ("nsf6", "nsfc6"):
-            flow = bins_flow(name, 10, tb)[0]
-            kname = gradient_kernel(flow)
-            sweep = Sweep(scaler10, prior10.logpdf, make_loglike(unit_gauss), flow, 10, 20, 20,
-                          kind="mala")
-            g = torch.Generator("cuda").manual_seed(SEED)
-            with torch.no_grad():
-                scp10 = scaler10.whitening_params("cuda")
-                fp = _detached(flow.params())
-                u = 0.5 * torch.randn(256, 10, device="cuda", generator=g)
-                x, ldj = scaler10.inverse(u, params=scp10)
-                theta, _ = flow.forward(u, fp)
-                geom = fit_geometry(theta, torch.full((256,), 1.0 / 256, device="cuda"), g)
-                reset_launches(fk)
-                st = sweep.init_state(u, x, ldj, unit_gauss(x), prior10.logpdf(x),
-                                      2.38 / 10 ** 0.5, geom, fp, beta=1.0, scp=scp10)
-                accepts = []
-                for _ in range(20):
-                    prop = sweep.propose(st, geom, fp, scp10, sweep.draw_noise(st, geom, g),
-                                         beta=1.0)
-                    st, _ = sweep.accept_update(st, prop, prop["logl"], 1.0, geom)
-                    accepts.append(float(st.accept))
-                torch.cuda.synchronize()
-            counts = read_launches(fk, (kname,))
-            label = f"spline_bins_head_{name}_b{tb}"
-            by_path[label] = counts
-            finite = all(bool(torch.isfinite(a).all()) for a in (st.u, st.x, st.logl, st.grad))
-            row = dict(flow=name, bins=tb, kernel=kname, steps=st.i,
-                       mean_accept=statistics.mean(accepts), sigma=float(st.sigma),
-                       finite=finite, launches=counts)
-            bins_sweeps.append(row)
-            if not finite:
-                fail(f"{label}: the sweep's state is not finite")
-            if not 0.2 < row["mean_accept"] < 0.98:
-                fail(f"{label}: mean acceptance {row['mean_accept']} outside (0.2, 0.98)")
-            if not counts[kname]:
-                fail(f"{label}: {kname} was never launched")
-    # (f) the quickstart's state through save_state and load_state into a
-    # sampler of another seed with such a flow: bit for bit
-    state_dir = Path("build/chip_smoke_states")
-    state_path = state_dir / "spline_bins.state"
-    sq.save_state(state_path)
-    back = pt.Sampler(prior, log_like, vectorize=True, random_state=5, device="cuda",
-                      flow=Flow(10, "nsf6", bins=qb, device="cuda"))
-    back.load_state(state_path)
-    shutil.rmtree(state_dir, ignore_errors=True)
-    pts = torch.from_numpy(np.random.default_rng(SEED).normal(0.0, 2.0, (64, 10))
-                           .astype(np.float32)).cuda()
-    with torch.no_grad():
-        round_trip = (back.evidence() == sq.evidence() and back.flow.bins == qb
-                      and all(np.array_equal(u, v) for u, v in zip(back.posterior(),
-                                                                   sq.posterior()))
-                      and all(torch.equal(u, v) for u, v in zip(back.flow.parameters(),
-                                                                sq.flow.parameters()))
-                      and torch.equal(back.flow.log_prob(pts), sq.flow.log_prob(pts)))
-    if not round_trip:
-        fail("spline_bins: the saved state did not load back bit for bit")
-    emit("spline_bins", card=card, bins=checked, checks=bins_checks, menu_checks=bins_menu,
+    # the plain version's compensated sums inside a CUDA graph (the device
+    # route of transforms._running_sums, which (c)'s device times of the
+    # plain versions past 16 bins take) against the host route, bit for bit
+    # (the inverse's at 32 bins: at 1000 its graph holds ~300k kernels)
+    graph_bits = {}
+    for tb in (32, 1000):
+        ft, rngt = bins_flow("nsf6", 10, tb)
+        fp = ft.params()
+        y256 = torch.from_numpy(rngt.standard_normal((256, 10)).astype(np.float32)).cuda()
+        graph_bits[f"made_rqs_forward_plain_b{tb}"] = graph_route_equal(
+            lambda: fk.made_rqs_forward_ref(y256, fp.ws, fp.bs, bins=tb))
+        if tb == 32:  # the visit orders on the host, as (c)'s times take them
+            orders_cpu = fp.inv_orders.cpu()
+            graph_bits[f"ar_inverse_plain_b{tb}"] = graph_route_equal(
+                lambda: fk.ar_inverse_ref(y256, fp.ws, fp.bs, orders_cpu, bins=tb))
+    if not all(graph_bits.values()):
+        fail(f"spline_bins: the plain version in a CUDA graph differs from its host route: "
+             f"{graph_bits}")
+    lap("14 (c)")
+    emit("spline_bins", card=card, bins=CHECKED_BINS, checks=bins_checks, menu_checks=bins_menu,
          gradient_checks=bins_grad, check_s=check_s,
          times={str(tb): dict(bins=tb, **bins_times[tb]) for tb in TIMED_BINS},
          bounds={str(tb): {k: dict(bound_ms=v[0], bound_by=v[1]) for k, v in b.items()}
                  for tb, b in bins_bounds.items()},
-         quickstart=quick, head_sweeps=bins_sweeps,
-         state_round_trip=round_trip, wall_s=time.perf_counter() - t14)
+         graph_route_bit_for_bit=graph_bits, **side["spline_bins"],
+         wall_s=time.perf_counter() - t14)
 
     # -- 15. mesh: the particles over torch.distributed ranks ----------------
-    t15 = time.perf_counter()
     # (a) one rank over NCCL: phase 11 (a) ran phase 6's quickstart on that
     # mesh (with a scipy prior and save_every, which keep phase 6's bits)
     # and held it to phase 6's logZ and calls
@@ -2791,9 +3107,8 @@ def main():
     if one["mesh_backend"] != "nccl":
         fail(f"mesh (a): the one-rank mesh ran over {one['mesh_backend']}, not NCCL")
     # (b) two ranks sharing the card (gloo): the JAX harness's cases, then
-    # the quickstart with each rank's half of the particles
-    lines = smoke.launch(2, 1, timeout=600.0, cases="core,dev,host,resume,quickstart",
-                         device="cuda")
+    # the quickstart with each rank's half of the particles (run beside
+    # phase 14 (b))
     ranks = [smoke.line_stats(ln) for ln in lines]
     for r, st in enumerate(ranks):
         q = st["quickstart"]
@@ -2804,25 +3119,19 @@ def main():
             fail(f"mesh (b) rank {r}: a sweep saw more than its rows (K1 "
                  f"{q['sweep_k1_rows_max']} of 256, the black-box likelihood "
                  f"{st['host_sweep_rows_max']} of 32)")
+    lap("15 (b)")
     emit("mesh", card=card, one_rank=one, two_ranks=ranks,
-         checksums=[ln.rsplit("checksum=", 1)[1] for ln in lines],
-         wall_s=time.perf_counter() - t15)
+         checksums=[ln.rsplit("checksum=", 1)[1] for ln in lines], wall_s=mesh_s,
+         beside="14 (b)")
 
-    # -- 16. custom flows and the live sweep stats ---------------------------
-    t16 = time.perf_counter()
-    runs16, by_path["custom_flow_delegating"] = custom_flow(
-        pt, fk, log_like, main, by_path["main_path"])
-    emit("custom_flow", card=card, phase6=dict(main, wall_s=main_wall), **runs16,
-         wall_s=time.perf_counter() - t16)
+    # -- 16. custom flows and the live sweep stats (the second process) ----
+    emit("custom_flow", card=card, phase6=dict(main, wall_s=main_wall), **side["custom_flow"])
 
-    # -- 17. the JAX package's statistical gates -----------------------------
-    t17 = time.perf_counter()
-    rows17, failed17 = statistical(pt, "cuda", fk)
-    for row in rows17:
-        by_path[f"statistical_{row['run']}"] = row["launches"]
-    emit("statistical", card=card, runs=rows17, wall_s=time.perf_counter() - t17)
-    if failed17:
-        fail("statistical: " + "; ".join(failed17))
+    # -- 17. the JAX package's statistical gates (the second process) ------
+    emit("statistical", card=card, runs=side["statistical"], wall_s=side["statistical_wall_s"])
+    emit("second_process", card=card,
+         side_parts_s={k: round(v, 3) for k, v in side["parts"].items()},
+         sum_s=round(sum(side["parts"].values()), 3))
 
     paths = {"flow_menu_maf6": AFFINE, "flow_menu_nsfc6": COUPLING,
              "flow_menu_bench_sweep": COUPLING[:2],
@@ -2831,7 +3140,7 @@ def main():
                                                                             "test_mala"))})
     paths.update({k: ("ar_inverse",) + GRADIENT[:1] for k in by_path
                   if k.startswith("gradient_sweep")})
-    paths["spline_bins_quickstart"] = kq
+    paths["spline_bins_quickstart"] = tuple(with_bins(k, QUICK_BINS) for k in RQS)
     for tb in TIMED_BINS:
         paths.update({f"spline_bins_head_nsf6_b{tb}": (with_bins(GRADIENT[0], tb),),
                       f"spline_bins_head_nsfc6_b{tb}": (with_bins(GRADIENT[2], tb),)})
@@ -3005,8 +3314,11 @@ def main():
     for entry in line:
         if entry["name"] in at_bins:
             entry["bins_instances"] = {
-                str(b): bins_errs[with_bins(entry["name"], b)] for b in SPLINE_BINS + WIDE_BINS
+                str(b): bins_errs[with_bins(entry["name"], b)] for b in CHECKED_BINS
                 if with_bins(entry["name"], b) in bins_errs}
+    lap("kernels line")
+    emit("parts", cpu_count=os.cpu_count(), all_parts_s={k: round(v, 3) for k, v in PARTS.items()},
+         sum_s=round(sum(PARTS.values()), 3))
     print(json.dumps({"kernels": line}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
@@ -3015,4 +3327,10 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    try:
+        if sys.argv[1:2] == ["--side"]:
+            side_main(json.loads(sys.argv[2]))
+        else:
+            main()
+    finally:
+        stop_children()

@@ -100,10 +100,13 @@ def _running_sums(sizes):
         # made the card's plain autoregressive inverse ~5x slower). Inside
         # a CUDA graph capture, which cannot copy to the host, it runs on
         # the device. The same IEEE operations either way, so the same bits.
+        # The sizes are transposed where they lie, so that only contiguous
+        # blocks cross to the host and back (a transposing copy on the host
+        # took longer than the loop itself at 1000 bins).
         host = not (inner.is_cuda and torch.cuda.is_current_stream_capturing())
-        v = inner.detach().movedim(-1, 0)
+        v = inner.detach().movedim(-1, 0).contiguous()
         xp, sub = (np, np.subtract) if host else (torch, torch.sub)
-        v = np.ascontiguousarray(v.cpu().numpy()) if host else v.contiguous()
+        v = v.cpu().numpy() if host else v
         kahan, c = xp.empty_like(v), xp.empty_like(v)
         acc, comp, y = xp.zeros_like(v[0]), xp.zeros_like(v[0]), xp.empty_like(v[0])
         for j in range(v.shape[0]):
@@ -114,10 +117,8 @@ def _running_sums(sizes):
             acc = kahan[j]
             c[j] = comp
         if host:
-            kahan, c = (torch.from_numpy(np.moveaxis(a, 0, -1)).to(inner.device)
-                        for a in (kahan, c))
-        else:
-            kahan, c = kahan.movedim(0, -1), c.movedim(0, -1)
+            kahan, c = (torch.from_numpy(a).to(inner.device) for a in (kahan, c))
+        kahan, c = kahan.movedim(0, -1), c.movedim(0, -1)
         # s + (kahan - s) is the Kahan sum exactly (two close positive
         # numbers differ exactly) with the running sum's gradient
         s = s + (kahan - s).detach()

@@ -63,10 +63,11 @@ def library_path(name: str, bins: int = 8) -> Path:
     return BUILD_DIR / f"lib{tag}-{h.hexdigest()[:16]}.so"
 
 
-def build(name: str, bins: int = 8) -> tuple[Path, str]:
+def build(name: str, bins: int = 8, nice: int = 0) -> tuple[Path, str]:
     """Compile ``csrc/<name>.cu`` for ``bins`` spline bins unless an
-    up-to-date library exists. Returns (library path, nvcc's report; empty
-    when nothing was built)."""
+    up-to-date library exists; with ``nice``, nvcc and the compilers it
+    starts run at that niceness (``nice -n``), below the caller's work.
+    Returns (library path, nvcc's report; empty when nothing was built)."""
     out = library_path(name, bins)
     if out.exists():
         return out, ""
@@ -74,6 +75,8 @@ def build(name: str, bins: int = 8) -> tuple[Path, str]:
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
     cmd = [_nvcc(), *flags(bins), "-o", tmp, str(CSRC / f"{name}.cu")]
+    if nice and shutil.which("nice"):
+        cmd = ["nice", "-n", str(int(nice)), *cmd]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
         os.unlink(tmp)

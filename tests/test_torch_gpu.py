@@ -2,8 +2,9 @@
 
 Marked ``gpu``: without a CUDA device every test here skips. On a machine
 with one, run ``python3 -m pytest tests/test_torch_gpu.py -q -m gpu --noconftest``.
-Tolerances as in chip_smoke.py at d <= 10: 1e-5 on values, 1e-4 on
-log-dets (the kernel sums in another order than torch)."""
+The tolerances and the checking rules are chip_smoke.py's, imported from
+it (at d <= 10: 1e-5 on values, 1e-4 on log-dets; the kernel sums in
+another order than torch)."""
 
 import numpy as np
 import pytest
@@ -13,8 +14,16 @@ import pocomc_tpu_torch  # noqa: F401
 from pocomc_tpu_torch.mcmc import _detached
 from pocomc_tpu_torch.models.flow import Flow
 from pocomc_tpu_torch.ops import coupling_kernels as ck, flow_kernels as fk
+import chip_smoke as smoke
 
 pytestmark = pytest.mark.gpu
+# chip_smoke's tolerances (TOL) up to d=10 and past it; at d <= 10 the
+# values' (rtol, atol) and the log-dets'; a coupling stack's (values,
+# log-dets) atol (COUPLING_TOL)
+T10, T50 = smoke.TOL[10], smoke.TOL[50]
+TOL = {k: T10[k] for k in ("rtol", "atol")}
+LADJ = T10["ladj"]
+T50_VALUES = {k: T50[k] for k in ("rtol", "atol")}
 
 
 @pytest.fixture
@@ -42,10 +51,10 @@ def test_kernels_match_plain(flow, n):
             (launches[0] + 1, launches[1] + 1)
         z_r, l_r = fk.made_rqs_forward_ref(y, fp.ws, fp.bs)
         x_r, li_r = fk.ar_inverse_ref(y, fp.ws, fp.bs, fp.inv_orders)
-    torch.testing.assert_close(z, z_r, rtol=1e-5, atol=1e-5)
-    torch.testing.assert_close(l, l_r, rtol=0, atol=1e-4)
-    torch.testing.assert_close(x, x_r, rtol=1e-5, atol=1e-5)
-    torch.testing.assert_close(li, li_r, rtol=0, atol=1e-4)
+    torch.testing.assert_close(z, z_r, **TOL)
+    torch.testing.assert_close(l, l_r, rtol=0, atol=LADJ)
+    torch.testing.assert_close(x, x_r, **TOL)
+    torch.testing.assert_close(li, li_r, rtol=0, atol=LADJ)
 
 
 def test_forward_gradients_match_plain_autograd(flow):
@@ -90,13 +99,12 @@ def test_backward_kernel_matches_plain(flow, n):
         fp = flow.params()
         _, _, acts = fk.made_rqs_forward(y, fp.ws, fp.bs, save_inputs=True)
         for a, b in zip(acts, fk.made_rqs_forward_ref(y, fp.ws, fp.bs, save_inputs=True)[2]):
-            torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
+            torch.testing.assert_close(a, b, rtol=10 * TOL["rtol"], atol=10 * TOL["atol"])
         before = fk.made_rqs_backward.launches
         got = fk.made_rqs_backward(y, fp.ws, fp.bs, g_z, g_l, acts)
         assert fk.made_rqs_backward.launches == before + 1
         want = fk.made_rqs_backward_ref(y, fp.ws, fp.bs, g_z, g_l, acts)
-    for a, b in zip([got[0], *got[1], *got[2]], [want[0], *want[1], *want[2]]):
-        assert float((a - b).abs().max()) <= 1e-4 * (float(b.abs().max()) + 1e-30)
+    _assert_grads([got[0], *got[1], *got[2]], [want[0], *want[1], *want[2]], T10["grad"])
     with pytest.raises(ValueError, match="acts"):
         fk.made_rqs_backward(y, fp.ws, fp.bs, g_z, g_l)
 
@@ -123,14 +131,13 @@ def test_k2_kernels_match_plain_at_h_4096():
     with torch.no_grad():
         z, l, acts = fk.made_rqs_forward(y, ws, bs, save_inputs=True)
         z_r, l_r, acts_r = fk.made_rqs_forward_ref(y, ws, bs, save_inputs=True)
-        torch.testing.assert_close(z, z_r, rtol=1e-4, atol=1e-4)
-        torch.testing.assert_close(l, l_r, rtol=0, atol=2e-3)
+        torch.testing.assert_close(z, z_r, **T50_VALUES)
+        torch.testing.assert_close(l, l_r, rtol=0, atol=T50["ladj"])
         for a, b in zip(acts, acts_r):
-            torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
+            torch.testing.assert_close(a, b, **T50_VALUES)
         got = fk.made_rqs_backward(y, ws, bs, g_z, g_l, acts)
         want = fk.made_rqs_backward_ref(y, ws, bs, g_z, g_l, acts)
-    for a, b in zip([got[0], *got[1], *got[2]], [want[0], *want[1], *want[2]]):
-        assert float((a - b).abs().max()) <= 1e-3 * (float(b.abs().max()) + 1e-30)
+    _assert_grads([got[0], *got[1], *got[2]], [want[0], *want[1], *want[2]], T50["grad"])
 
 
 def test_cuda_inputs_are_checked(flow):
@@ -164,8 +171,7 @@ def test_flow_fit_launches_k2_and_matches_plain(flow, monkeypatch):
         out.append((float(loss.detach()), [p.grad.clone() for p in flow.parameters()]))
     monkeypatch.undo()
     assert out[0][0] == pytest.approx(out[1][0], rel=1e-5)
-    for gk, gr in zip(out[0][1], out[1][1]):
-        assert float((gk - gr).abs().max()) <= 1e-4 * (float(gr.abs().max()) + 1e-30)
+    _assert_grads(out[0][1], out[1][1], T10["grad"])
     before = (fk.made_rqs_forward.launches, fk.made_rqs_backward.launches)
     hist = flow.fit(u, weights=w, validation_split=0.5, epochs=3, batch_size=128,
                     patience=2, annealing=True, noise=0.05, seed=0)
@@ -241,9 +247,8 @@ def _random_flow(d, seed):
     return f, rng
 
 
-@pytest.mark.parametrize("d,n,tol", [(2, 37, (1e-5, 1e-5, 1e-4)), (3, 37, (1e-5, 1e-5, 1e-4)),
-                                     (10, 2048, (1e-5, 1e-5, 1e-4)),
-                                     (50, 256, (1e-4, 1e-4, 2e-3))])
+@pytest.mark.parametrize("d,n,tol", [(2, 37, T10), (3, 37, T10), (10, 2048, T10),
+                                     (50, 256, T50)])
 def test_k1_matches_plain(d, n, tol):
     """K1 on the degree schedule against ``ar_inverse_ref`` where the
     hidden units of a degree are many (d=2: all 32 of degree 1, two column
@@ -263,8 +268,8 @@ def test_k1_matches_plain(d, n, tol):
         assert fk.ar_inverse.launches == before + 2
         x_r, l_r = fk.ar_inverse_ref(z, fp.ws, fp.bs, fp.inv_orders)
     assert torch.equal(x, x2) and torch.equal(l, l2)
-    torch.testing.assert_close(x, x_r, rtol=tol[0], atol=tol[1])
-    torch.testing.assert_close(l, l_r, rtol=0, atol=tol[2])
+    torch.testing.assert_close(x, x_r, rtol=tol["rtol"], atol=tol["atol"])
+    torch.testing.assert_close(l, l_r, rtol=0, atol=tol["ladj"])
 
 
 def test_k1_pack_follows_the_weights():
@@ -285,8 +290,8 @@ def test_k1_pack_follows_the_weights():
         x, l = fk.ar_inverse(z, fp.ws, fp.bs, fp.inv_orders)
         assert fp.ws[0]._k1_pack[1] is not pack
         x_r, l_r = fk.ar_inverse_ref(z, fp.ws, fp.bs, fp.inv_orders)
-    torch.testing.assert_close(x, x_r, rtol=1e-5, atol=1e-5)
-    torch.testing.assert_close(l, l_r, rtol=0, atol=1e-4)
+    torch.testing.assert_close(x, x_r, **TOL)
+    torch.testing.assert_close(l, l_r, rtol=0, atol=LADJ)
 
 
 def test_k1_matches_plain_at_h_4096():
@@ -314,8 +319,8 @@ def test_k1_matches_plain_at_h_4096():
     with torch.no_grad():
         x, l = fk.ar_inverse(z, ws, bs, inv)
         x_r, l_r = fk.ar_inverse_ref(z, ws, bs, inv)
-    torch.testing.assert_close(x, x_r, rtol=1e-4, atol=1e-4)
-    torch.testing.assert_close(l, l_r, rtol=0, atol=2e-3)
+    torch.testing.assert_close(x, x_r, **T50_VALUES)
+    torch.testing.assert_close(l, l_r, rtol=0, atol=T50["ladj"])
 
 
 def test_bridge_rung_launches_k1_with_grad_off(flow):
@@ -403,10 +408,6 @@ def cuda():
     return torch.device("cuda")
 
 
-TOL = dict(rtol=1e-5, atol=1e-5)
-LADJ = 1e-4
-
-
 def _random_card_flow(d, arch, seed=0, bins=8):
     """A flow of the menu on the card with N(0, 0.02^2) output weights and
     biases (every transform's), from a numpy seed."""
@@ -451,10 +452,11 @@ def test_kernels_match_plain_on_card(cuda, arch, d, n):
             assert torch.equal(one[:, fp.masks[0]], y[:, fp.masks[0]])
     assert after == (before[0] + 1, before[1] + 1)
     maf = arch.startswith("maf")
-    tol = TOL if maf else dict(rtol=1e-5, atol=5e-5)
+    tol = TOL if maf else dict(rtol=TOL["rtol"], atol=smoke.COUPLING_TOL[10][0])
     for (a, la), (b, lb) in zip(got, want):
         torch.testing.assert_close(a, b, **tol)
-        torch.testing.assert_close(la, lb, rtol=1e-5, atol=LADJ if maf else 5e-4)
+        torch.testing.assert_close(la, lb, rtol=TOL["rtol"],
+                                   atol=LADJ if maf else smoke.COUPLING_TOL[10][1])
 
 
 @pytest.mark.parametrize("arch,d", [("maf6", 3), ("maf6", 10), ("nsfc6", 3), ("nsfc6", 10)])
@@ -481,8 +483,7 @@ def test_kernel_gradients_match_plain_autograd_on_card(cuda, arch, d):
             loss = flow._loss_fn(xb, wb)
         loss.backward()
         grads.append([p.grad.clone() for p in flow.parameters()])
-    for a, b in zip(*grads):
-        assert float((a - b).abs().max()) <= 1e-4 * (float(b.abs().max()) + 1e-30)
+    _assert_grads(*grads, T10["grad"])
 
 
 def test_coupling_inverse_refuses_a_gradient_on_card(cuda):
@@ -568,9 +569,9 @@ def _check_coupling_kernels(d, n, arch="nsfc6"):
             got = fn(y, fp.ws, fp.bs, fp.masks)
             plain = ref(y, fp.ws, fp.bs, fp.masks)
             exact = ref(y.double(), fp64.ws, fp64.bs, fp64.masks)
-            for a, b, e, atol in zip(got, plain, exact, (5e-4, 1e-2)):
-                limit = max(atol, 4 * float((b.double() - e).abs().max()))
-                assert float((a.double() - e).abs().max()) <= limit
+            for a, b, e, atol in zip(got, plain, exact, smoke.COUPLING_TOL[50]):
+                ok, out = smoke.float64_verdict(a, b, e, atol)
+                assert ok, out
         one, _ = ck.coupling_forward(y, fp.ws[:1], fp.bs[:1], fp.masks[:1])
         assert torch.equal(one[:, fp.masks[0]], y[:, fp.masks[0]])
         g_z = torch.randn(n, d, device="cuda", generator=g)
@@ -581,8 +582,7 @@ def _check_coupling_kernels(d, n, arch="nsfc6"):
         got = ck.coupling_backward(y, fp.ws, fp.bs, fp.masks, g_z, g_l, acts)
         want = ck.coupling_backward_ref(y, fp.ws, fp.bs, fp.masks, g_z, g_l, acts)
     flat = lambda g: [g[0], *[a for t in g[1] for a in t], *[a for t in g[2] for a in t]]
-    for a, b in zip(flat(got), flat(want)):
-        assert float((a - b).abs().max()) <= 1e-3 * (float(b.abs().max()) + 1e-30)
+    _assert_grads(flat(got), flat(want), T50["grad"])
 
 
 @pytest.mark.parametrize("d", [20, 30, 51, 171, 200])
@@ -634,8 +634,7 @@ def test_coupling_kernels_follow_adamw_steps(cuda):
         z, ladj = ck.coupling_forward_ref(y, fp.ws, fp.bs, fp.masks)
         loss = (-(flow._base_logpdf(z) + ladj) * w * 1000.0).sum() / w.sum()
         want = torch.autograd.grad(loss, params)
-        for a, b in zip(got, want):
-            assert float((a - b).abs().max()) <= 1e-3 * (float(b.abs().max()) + 1e-30)
+        _assert_grads(got, want, T50["grad"])
         before = z.detach()
         torch.nn.utils.clip_grad_norm_(params, 1.0)
         opt.step()
@@ -647,9 +646,9 @@ def test_coupling_kernels_follow_adamw_steps(cuda):
                 got = fn(y, fp.ws, fp.bs, fp.masks)
                 plain = ref(y, fp.ws, fp.bs, fp.masks)
                 exact = ref(y.double(), fp64.ws, fp64.bs, fp64.masks)
-                for a, b, e, atol in zip(got, plain, exact, (5e-4, 1e-2)):
-                    limit = max(atol, 4 * float((b.double() - e).abs().max()))
-                    assert float((a.double() - e).abs().max()) <= limit
+                for a, b, e, atol in zip(got, plain, exact, smoke.COUPLING_TOL[50]):
+                    ok, out = smoke.float64_verdict(a, b, e, atol)
+                    assert ok, out
                 if fn is ck.coupling_forward:
                     moved = float((plain[0] - before).abs().max())
                     assert moved > 100 * float((got[0] - plain[0]).abs().max())
@@ -712,50 +711,27 @@ def _kink_rows(flow, x, window=1e-5):
     return near
 
 
-# past 16 bins, the log-det and gradient tolerances at 1000 bins, whose
-# narrow bins put a log-det ~1e-4 from float64 by the fp32 rounding of its
-# input alone, whatever route computes it: chip_smoke.py's NARROW_TOL
-NARROW_TOL = {1000: dict(ladj=3e-4, grad=6e-4)}
-
-
-def _narrow(tol, bins, key):
-    """A tolerance at a spline's bins: ``tol``, or NARROW_TOL's where larger."""
-    return max(tol, NARROW_TOL.get(bins, {}).get(key, tol))
-
-
-def _close_or_float64(got, plain, exact, rtol, atol):
-    """chip_smoke.py ``check_values``' rule, past 16 bins: every element of
-    got within atol + rtol |plain| of the plain fp32 version or, where not,
-    within atol + rtol |exact| of the plain version in float64 (the knots
-    are running sums of up to 999 sizes that two fp32 routes order
-    differently, so each may lie up to the tolerance from float64, on
-    opposite sides)."""
-    g, p = got.double(), plain.double()
-    off_plain = (g - p).abs() > atol + rtol * p.abs()
-    off_exact = (g - exact).abs() > atol + rtol * exact.abs()
-    assert not bool((off_plain & off_exact).any()), (
-        float((g - p).abs().max()), float((g - exact).abs().max()),
-        float((p - exact).abs().max()))
+def _assert_grads(got, want, tol):
+    """chip_smoke's gradient rule (``grad_verdict``): each tensor of got
+    within tol of its largest value of want's."""
+    ok, errs = smoke.grad_verdict(list(got), list(want), tol)
+    assert ok, errs
 
 
 def _grads_vs_float64(got, exact, bins):
-    """Past 16 bins, chip_smoke phase 14's gradient rule: each tensor
-    within 1e-4 of its largest value (``_narrow``'s at 1000 bins)
-    of the plain version in float64, rows on a jump left out by the
-    caller."""
-    tol = _narrow(1e-4, bins, "grad")
-    for j, (a, e) in enumerate(zip(got, exact)):
-        err = float((a.double() - e).abs().max())
-        assert err <= tol * (float(e.abs().max()) + 1e-30), (j, err, float(e.abs().max()))
+    """Past 16 bins, chip_smoke phase 14's gradient rule (``grad_verdict``
+    at ``narrow_tol``'s gradient tolerance of TOL[10] at the bins): each
+    tensor within 1e-4 of its largest value (6e-4 at 1000 bins) of the plain
+    version in float64, rows on a jump left out by the caller."""
+    _assert_grads(got, exact, smoke.narrow_tol(T10, bins)["grad"])
 
 
-def _check_vs_float64(got, plain, exact, tol):
-    """K5's rule (``check_vs_float64`` of chip_smoke.py): |got - exact|
-    within max(tol * max|exact|, 4x the plain fp32 version's own distance
-    to exact)."""
-    e_plain = float((plain.double() - exact).abs().max())
-    limit = max(tol * float(exact.abs().max()), 4 * e_plain)
-    assert float((got.double() - exact).abs().max()) <= limit
+def _assert_float64(got, plain, exact, tol):
+    """K5's rule, chip_smoke's ``float64_verdict`` with its atol tol * max
+    |exact|: |got - exact| within max(tol * max|exact|, 4x the plain fp32
+    version's own distance to exact)."""
+    ok, out = smoke.float64_verdict(got, plain, exact, tol * float(exact.abs().max()))
+    assert ok, out
 
 
 def _grad_card_flow(d, arch, seed, bins=8):
@@ -817,7 +793,7 @@ def test_k1_backward_matches_plain(cuda, arch, d, n):
     there). The same inputs give the same bits twice."""
     got, again, plain, exact = _k1_backward_case(arch, d, n)
     assert torch.equal(got, again)
-    _check_vs_float64(got, plain, exact, 1e-3 if d >= 50 else 1e-4)
+    _assert_float64(got, plain, exact, T50["grad"] if d >= 50 else T10["grad"])
 
 
 @pytest.mark.parametrize("arch", ["nsf6", "maf6"])
@@ -831,7 +807,7 @@ def test_k1_backward_batched_stages_at_their_edges(cuda, arch, d, n):
     ``test_k1_backward_matches_plain`` holds it."""
     got, again, plain, exact = _k1_backward_case(arch, d, n)
     assert torch.equal(got, again)
-    _check_vs_float64(got, plain, exact, 1e-4)
+    _assert_float64(got, plain, exact, T10["grad"])
 
 
 @pytest.mark.parametrize("n,rows", [(256, 1), (1100, 2), (2200, 4)])
@@ -843,7 +819,7 @@ def test_k1_backward_launches_one_two_and_four_rows_a_warp(cuda, n, rows):
     assert fk._backward_config(n, 10, 32)[0] == rows
     got, again, plain, exact = _k1_backward_case("nsf6", 10, n)
     assert torch.equal(got, again)
-    _check_vs_float64(got, plain, exact, 1e-4)
+    _assert_float64(got, plain, exact, T10["grad"])
 
 
 @pytest.mark.parametrize("head", ["rqs", "affine"])
@@ -1106,7 +1082,7 @@ def test_k5_inverse_backward_matches_plain_at_tile_edges(cuda, d, arch, n):
         plain = ck.coupling_inverse_vjp_ref(plain_state, fp.ws, fp.bs, fp.masks, g_x, g_l)
         exact = ck.coupling_inverse_vjp_ref(state64, fp64.ws, fp64.bs, fp64.masks,
                                             g_x.double(), g_l.double())
-    _check_vs_float64(got, plain, exact, 1e-3)
+    _assert_float64(got, plain, exact, T50["grad"])
 
 
 @pytest.mark.parametrize("arch", ["nsf3", "maf3", "nsfc3"])
@@ -1195,10 +1171,10 @@ def test_k2_backward_at_tile_edges(cuda, head, d, n):
         got = fk.made_rqs_backward(y, fp.ws, fp.bs, g_z, g_l, acts, head=head)
         assert getattr(fk.made_rqs_backward, attr) == before + 1
         want = fk.made_rqs_backward_ref(y, fp.ws, fp.bs, g_z, g_l, acts, head=head)
-    tol = 1e-4 if d <= 10 else 1e-3
+    tol = T10["grad"] if d <= 10 else T50["grad"]
     for a, b in zip([got[0], *got[1], *got[2]], [want[0], *want[1], *want[2]]):
         assert a.shape == b.shape
-        assert float((a - b).abs().max()) <= tol * (float(b.abs().max()) + 1e-30)
+    _assert_grads([got[0], *got[1], *got[2]], [want[0], *want[1], *want[2]], tol)
     # the wrapper's pack size is the source's
     import ctypes
     h, T, np_ = flow.n_hidden, flow.n_transforms, fk.HEADS[head]
@@ -1232,7 +1208,7 @@ def test_k5_inverse_backward_through_the_save_instance(cuda, d, n):
                                          "coupling_inverse")
         assert torch.equal(x0, x1) and torch.equal(l0, l1)
         want = ck.coupling_inverse_ref(z, fp.ws, fp.bs, fp.masks, save_inputs=True)[2]
-        atol = 5e-5 if d == 10 else 5e-4
+        atol = smoke.COUPLING_TOL[d][0]
         for a, b in zip(state, want):
             assert a.shape == b.shape
             assert float((a - b).abs().max()) <= atol * max(float(b.abs().max()), 1.0)
@@ -1288,7 +1264,7 @@ def test_k2_and_k1_match_plain_at_bins(bins_libraries, bins, n):
     autograd of the plain forward, and K2-bwd on the saved inputs against
     ``made_rqs_backward_ref``, to 1e-4 of the largest gradient, rows on a
     float64 knot left out; past 16 bins every reference also in float64
-    (``_close_or_float64``, ``_grads_vs_float64``: chip_smoke phase 14's
+    (chip_smoke's ``values_verdict``, ``_grads_vs_float64``: phase 14's
     rule), rows on a ReLU kink left out too; each wrapper counts its
     launches under ``launch_attr("rqs", bins)``."""
     flow = _random_card_flow(10, "nsf6", seed=bins, bins=bins)
@@ -1317,13 +1293,14 @@ def test_k2_and_k1_match_plain_at_bins(bins_libraries, bins, n):
             z_e, l_e = fk.made_rqs_forward_ref(y.double(), fp64.ws, fp64.bs, bins=bins)
             x_e, li_e = fk.ar_inverse_ref(y.double(), fp64.ws, fp64.bs, fp64.inv_orders,
                                           bins=bins)
-        ladj = _narrow(LADJ, bins, "ladj")
+        ladj = smoke.narrow_tol(dict(ladj=LADJ), bins)["ladj"]
         for got, plain, exact, rtol, atol in ((z, z_r, z_e, TOL["rtol"], TOL["atol"]),
                                               (l, l_r, l_e, 0, ladj),
                                               (x, x_r, x_e, TOL["rtol"], TOL["atol"]),
                                               (li, li_r, li_e, 0, ladj)):
-            _close_or_float64(got, plain, exact, rtol, atol)
-    torch.testing.assert_close(back, y, rtol=0, atol=1e-4)
+            ok, out = smoke.values_verdict(got, plain, exact, rtol, atol)
+            assert ok, out
+    torch.testing.assert_close(back, y, rtol=0, atol=10 * TOL["atol"])
     g_z = torch.randn(n, 10, device="cuda", generator=g)
     g_l = torch.randn(n, device="cuda", generator=g)
     edge = _made_edge_rows(flow, y, g_l)
@@ -1339,8 +1316,7 @@ def test_k2_and_k1_match_plain_at_bins(bins_libraries, bins, n):
         torch.autograd.backward(out, (g_z, g_l))
         grads.append([yy.grad] + [p.grad.clone() for p in flow.parameters()])
     if bins <= fk.FIXED_BINS:
-        for a, b in zip(*grads):
-            assert float((a - b).abs().max()) <= 1e-4 * (float(b.abs().max()) + 1e-30)
+        _assert_grads(*grads, T10["grad"])
     else:
         # past 16 bins against float64 autograd of the plain forward
         flow64 = copy.deepcopy(flow).double()
@@ -1361,8 +1337,7 @@ def test_k2_and_k1_match_plain_at_bins(bins_libraries, bins, n):
                                             bins=bins)
     flat = lambda g: [g[0], *g[1], *g[2]]
     if bins <= fk.FIXED_BINS:
-        for a, b in zip(flat(got), flat(want)):
-            assert float((a - b).abs().max()) <= 1e-4 * (float(b.abs().max()) + 1e-30)
+        _assert_grads(flat(got), flat(want), T10["grad"])
     else:
         _grads_vs_float64(flat(got), flat(want), bins)
     assert counts() == [before[0] + 4, before[1] + 2, before[2] + 1]
@@ -1380,6 +1355,7 @@ def test_k5_matches_plain_at_bins(bins_libraries, bins, n):
     ``test_k2_and_k1_match_plain_at_bins``."""
     flow = _random_card_flow(10, "nsfc6", seed=bins, bins=bins)
     attr = fk.launch_attr("rqs", bins)
+    c_val, c_ladj = smoke.COUPLING_TOL[10]
     g = torch.Generator("cuda").manual_seed(n)
     y = torch.randn(n, 10, device="cuda", generator=g)
     before = [getattr(w, attr, 0) for w in (ck.coupling_forward, ck.coupling_inverse,
@@ -1394,12 +1370,14 @@ def test_k5_matches_plain_at_bins(bins_libraries, bins, n):
             (a, la), (b, lb) = fn(y, fp.ws, fp.bs, fp.masks, bins=bins), \
                 ref(y, fp.ws, fp.bs, fp.masks, bins=bins)
             if bins <= fk.FIXED_BINS:
-                torch.testing.assert_close(a, b, rtol=1e-5, atol=5e-5)
-                torch.testing.assert_close(la, lb, rtol=1e-5, atol=5e-4)
+                torch.testing.assert_close(a, b, rtol=TOL["rtol"], atol=c_val)
+                torch.testing.assert_close(la, lb, rtol=TOL["rtol"], atol=c_ladj)
             else:
                 e, le = ref(y.double(), fp64.ws, fp64.bs, fp64.masks, bins=bins)
-                _close_or_float64(a, b, e, 1e-5, 5e-5)
-                _close_or_float64(la, lb, le, 1e-5, _narrow(5e-4, bins, "ladj"))
+                ladj = smoke.narrow_tol(dict(ladj=c_ladj), bins)["ladj"]
+                for v in (smoke.values_verdict(a, b, e, TOL["rtol"], c_val),
+                          smoke.values_verdict(la, lb, le, TOL["rtol"], ladj)):
+                    assert v[0], v[1]
         one, _ = ck.coupling_inverse(y, fp.ws[:1], fp.bs[:1], fp.masks[:1], bins=bins)
         assert torch.equal(one[:, fp.masks[0]], y[:, fp.masks[0]])
         g_z = torch.randn(n, 10, device="cuda", generator=g)
@@ -1417,8 +1395,7 @@ def test_k5_matches_plain_at_bins(bins_libraries, bins, n):
                                             [a.double() for a in acts], bins=bins)
     flat = lambda g: [g[0], *[a for t in g[1] for a in t], *[a for t in g[2] for a in t]]
     if bins <= fk.FIXED_BINS:
-        for a, b in zip(flat(got), flat(want)):
-            assert float((a - b).abs().max()) <= 1e-4 * (float(b.abs().max()) + 1e-30)
+        _assert_grads(flat(got), flat(want), T10["grad"])
     else:
         _grads_vs_float64(flat(got), flat(want), bins)
     after = [getattr(w, attr) for w in (ck.coupling_forward, ck.coupling_inverse,
@@ -1434,12 +1411,12 @@ def test_gradient_kernels_match_plain_at_bins(bins_libraries, bins, n):
     ``bins`` bins, against ``ar_inverse_vjp_ref`` and
     ``coupling_inverse_vjp_ref`` in float64: within 1e-4 of the largest
     g_z, or 4x the plain fp32 version's distance where that is larger
-    (``_check_vs_float64``), rows on a knot or a ReLU kink left out; K1-bwd
+    (``_assert_float64``), rows on a knot or a ReLU kink left out; K1-bwd
     gives the same bits twice."""
     import copy
     got, again, plain, exact = _k1_backward_case("nsf6", 10, n, bins)
     assert torch.equal(got, again)
-    _check_vs_float64(got, plain, exact, 1e-4)
+    _assert_float64(got, plain, exact, T10["grad"])
     flow = _random_card_flow(10, "nsfc6", seed=bins, bins=bins)
     g = torch.Generator("cuda").manual_seed(n)
     z = torch.randn(n, 10, device="cuda", generator=g)
@@ -1462,7 +1439,7 @@ def test_gradient_kernels_match_plain_at_bins(bins_libraries, bins, n):
         plain = ck.coupling_inverse_vjp_ref(plain_state, fp.ws, fp.bs, fp.masks, g_x, g_l, bins)
         exact = ck.coupling_inverse_vjp_ref(state64, fp64.ws, fp64.bs, fp64.masks,
                                             g_x.double(), g_l.double(), bins)
-    _check_vs_float64(got, plain, exact, 1e-4)
+    _assert_float64(got, plain, exact, T10["grad"])
 
 
 @pytest.mark.parametrize("bins", BINS)
@@ -1474,7 +1451,7 @@ def test_kernel_element_vjp_at_bins(bins_libraries, bins, lanes):
     one-lane streaming one, held to float64 with the plain fp32 version as
     the second reading), against the plain ``inverse_element_vjp`` in
     float64 by K5's rule
-    (``_check_vs_float64``): within 1e-4 of each tensor's largest value, or
+    (``_assert_float64``): within 1e-4 of each tensor's largest value, or
     4x the one-lane version's own distance where that is larger, rows
     within 1e-5 of a knot in float64 left out. The one-lane version sums in
     the serial order and the kernel's in another (a lane's bins, then the
@@ -1506,7 +1483,7 @@ def test_kernel_element_vjp_at_bins(bins_libraries, bins, lanes):
     knots = tr._rqs_setup(p.double(), bins)[0]
     keep = ~((x.double()[:, None] - knots).abs() < 1e-5).any(-1)
     for a, b, e in zip(kernel, lane, exact):
-        _check_vs_float64(a[keep], b[keep], e[keep], 1e-4)
+        _assert_float64(a[keep], b[keep], e[keep], T10["grad"])
 
 
 @pytest.mark.parametrize("bins", [11, 16, 32])
@@ -1526,11 +1503,11 @@ def test_k1_and_k1_backward_chunk_a_wide_output_group(bins_libraries, bins):
         fp = f.params()
         x, l = fk.ar_inverse(z, fp.ws, fp.bs, fp.inv_orders, bins=bins)
         x_r, l_r = fk.ar_inverse_ref(z, fp.ws, fp.bs, fp.inv_orders, bins=bins)
-    torch.testing.assert_close(x, x_r, rtol=1e-4, atol=1e-4)
-    torch.testing.assert_close(l, l_r, rtol=0, atol=2e-3)
+    torch.testing.assert_close(x, x_r, **T50_VALUES)
+    torch.testing.assert_close(l, l_r, rtol=0, atol=T50["ladj"])
     got, again, plain, exact = _k1_backward_case("nsf3", 342, 8, bins)
     assert torch.equal(got, again)
-    _check_vs_float64(got, plain, exact, 1e-3)
+    _assert_float64(got, plain, exact, T50["grad"])
 
 
 def test_bins_past_16_raise_at_construction_on_card(cuda):
