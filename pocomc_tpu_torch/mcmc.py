@@ -38,6 +38,10 @@ flag rides in the transfer that brings each proposal to the host.
 ``set_live_sink`` registers a function that every step of either reports
 its statistics to, in the host read that step already makes.
 
+Spans (``utils/trace.py``): a sweep, each step with its proposal (noise
+included), likelihood, accept step and the read of the stopping rule
+that ends it.
+
 The t-pCN correction is written ``-half * log1p(q / nu)``: the JAX form
 ``log(nu + q) - log(nu)`` cancels in f32 at the nu = 1e6 Gaussian-limit
 sentinel (up to 0.49 nat). nu >= 1 is clamped by the geometry fit, so the
@@ -53,6 +57,7 @@ import numpy as np
 import torch
 
 from .parallel.mesh import block, psum, tree_map
+from .utils import trace
 
 # Drift-test window length (steps) and minimum calibration rows
 # (pocomc_tpu/mcmc.py CALIB_W / MIN_CALIB_N).
@@ -376,8 +381,11 @@ class Sweep:
         dev = st.u.device
         noise = {}
         if self.kind == "hmc":
-            noise["n_leap"] = int(torch.randint(1, self.n_leapfrog + 1, (), generator=generator,
-                                                device=dev))
+            n_leap = torch.randint(1, self.n_leapfrog + 1, (), generator=generator, device=dev)
+            sp = trace.begin("read")
+            noise["n_leap"] = int(n_leap)
+            if sp is not None:
+                trace.end(sp)
         if self.kind == "tpcn":
             alpha = (0.5 * (d + geom["t_nu"])).expand(n).contiguous()
             noise["g"] = torch._standard_gamma(alpha, generator=generator)
@@ -653,12 +661,25 @@ class Sweep:
         if _LIVE_SINK is None:
             if st.i >= self.n_max:
                 return False
-            return bool(self.keep_flag(st))
+            flag = self.keep_flag(st)
+            sp = trace.begin("read")
+            keep = bool(flag)
+            if sp is not None:
+                trace.end(sp)
+            return keep
         stats = self.live_stats(st)
         if st.i >= self.n_max:
-            _live_emit(st.i, *stats.tolist())
+            sp = trace.begin("read")
+            vals = stats.tolist()
+            if sp is not None:
+                trace.end(sp)
+            _live_emit(st.i, *vals)
             return False
-        keep, *vals = torch.cat([self.keep_flag(st).to(stats.dtype).reshape(1), stats]).tolist()
+        packed = torch.cat([self.keep_flag(st).to(stats.dtype).reshape(1), stats])
+        sp = trace.begin("read")
+        keep, *vals = packed.tolist()
+        if sp is not None:
+            trace.end(sp)
         _live_emit(st.i, *vals)
         return keep > 0.5
 
@@ -720,13 +741,34 @@ class Sweep:
         if gradient:
             fp = _detached(fp)
         self.collectives = 0
+        sp_sweep = trace.begin("sweep")
         st = self.init_state(u, x, logdetj, logl, logp, sigma0, geom, fp, dbeta, beta, scp)
-        while self.keep_going(st):
+        # a step: the proposal, its likelihood, the accept step, then the
+        # stopping rule's read of the state it leaves
+        keep = self.keep_going(st)
+        while keep:
+            sp_step = trace.begin("sweep_step")
+            sp = trace.begin("propose")
             prop = self.propose(st, geom, fp, scp, self.draw_noise(st, geom, generator), beta)
-            logl_p = (prop["logl"] if gradient
-                      else self.log_like(prop["x_safe"], prop["finite"]))
+            if sp is not None:
+                trace.end(sp)
+            if gradient:
+                logl_p = prop["logl"]
+            else:
+                sp = trace.begin("likelihood")
+                logl_p = self.log_like(prop["x_safe"], prop["finite"])
+                if sp is not None:
+                    trace.end(sp)
+            sp = trace.begin("accept")
             st, _ = self.accept_update(st, prop, logl_p, beta, geom)
-        return self._results(st)
+            if sp is not None:
+                trace.end(sp)
+            keep = self.keep_going(st)
+            if sp_step is not None:
+                trace.end(sp_step)
+        out = self._results(st)
+        trace.end(sp_sweep)
+        return out
 
     def run_stepped(self, u, x, logdetj, logl, logp, beta, sigma0, geom, fp, scp,
                     generator, host_like, blobs=None, dbeta=0.0):
@@ -742,14 +784,17 @@ class Sweep:
         is read before the likelihood runs, so a stop discards only the
         proposal. With a mesh, ``host_like`` sees this rank's rows. Returns
         (results, blobs); ``results["calls"]`` counts the rows handed to
-        ``host_like`` on every rank."""
+        ``host_like`` on every rank. Each pass of the loop is a step span,
+        the last one too: it proposes, and its read stops the sweep."""
         self.collectives = 0
+        sp_sweep = trace.begin("sweep")
         st = self.init_state(u, x, logdetj, logl, logp, sigma0, geom, fp, dbeta)
         n, d = u.shape
         if blobs is not None:
             blobs = blobs.copy()
         pending = None  # (accept mask, proposal blobs) of the last step
         while True:
+            sp_step = trace.begin("sweep_step")
             prop = None
             # with a live sink, the state's statistics lead the transfer, in
             # float64 (float32 would round the call count)
@@ -759,10 +804,16 @@ class Sweep:
             if pending is not None:
                 parts.append(pending[0].to(dt))
             if st.i < self.n_max:
+                sp = trace.begin("propose")
                 prop = self.propose(st, geom, fp, scp, self.draw_noise(st, geom, generator))
+                if sp is not None:
+                    trace.end(sp)
                 parts += [prop["finite"].to(dt), self.keep_flag(st).to(dt).reshape(1),
                           prop["x_safe"].reshape(-1).to(dt)]
+            sp = trace.begin("read")
             host = torch.cat(parts).cpu().numpy() if parts else np.zeros(0)
+            if sp is not None:
+                trace.end(sp)
             if live:
                 _live_emit(st.i, *host[:4])
                 host = host[4:]
@@ -771,13 +822,18 @@ class Sweep:
                 blobs[take] = pending[1][take]
                 host = host[n:]
             if prop is None or (st.i > 0 and host[n] < 0.5):
+                if sp_step is not None:
+                    trace.end(sp_step)
                 break
             finite = host[:n] > 0.5
             x_safe = host[n + 1:].reshape(n, d).astype(np.float64)
             logl_p = np.full(n, -np.inf)
             blobs_p = None
             if finite.any():
+                sp = trace.begin("likelihood")
                 ll, bl = host_like(x_safe[finite])
+                if sp is not None:
+                    trace.end(sp)
                 logl_p[finite] = ll
                 if bl is not None:
                     if blobs is None:
@@ -785,10 +841,17 @@ class Sweep:
                         blobs[:] = bl[0]
                     blobs_p = blobs.copy()
                     blobs_p[finite] = bl
+            sp = trace.begin("accept")
             st, acc = self.accept_update(
                 st, prop, torch.as_tensor(logl_p, dtype=u.dtype).to(u.device), beta, geom)
+            if sp is not None:
+                trace.end(sp)
             pending = None if blobs_p is None else (acc, blobs_p)
-        return self._results(st), blobs
+            if sp_step is not None:
+                trace.end(sp_step)
+        out = self._results(st)
+        trace.end(sp_sweep)
+        return out, blobs
 
     def _results(self, st):
         return dict(u=st.u, x=st.x, logdetj=st.logdetj, logl=st.logl,

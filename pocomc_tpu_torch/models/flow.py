@@ -52,6 +52,7 @@ from . import transforms as tr
 from ..ops.coupling_kernels import coupling_forward, coupling_inverse
 from ..ops.flow_kernels import ar_inverse, check_bins, made_rqs_forward
 from ..parallel.mesh import all_reduce_grads, block, broadcast_seed, psum, same_device
+from ..utils import trace
 
 _ARCHS = {
     "maf3": ("maf", 3), "maf6": ("maf", 6), "maf12": ("maf", 12),
@@ -536,6 +537,10 @@ def fit_stack(flow, xt, wt, xv, wv, n_train, n_val, batch_size, generator,
     finite loss restores the input parameters. One host read per epoch.
     Returns (history, best loss, epochs run, finite).
 
+    Spans (``utils/trace.py``): the fit, each epoch, each optimizer step
+    with its loss, backward, clip and optimizer parts, the epoch's
+    validation, best-parameter snapshot and read.
+
     With a ``mesh`` every rank holds the same rows and draws the same
     permutations; each batch (and the validation set) is split over the
     ranks (``shard_batches``), each rank's loss divides by the whole
@@ -543,6 +548,7 @@ def fit_stack(flow, xt, wt, xv, wv, n_train, n_val, batch_size, generator,
     one flat ``all_reduce`` before the clip, so AdamW keeps the parameters
     replicated bit for bit. A batch the mesh does not divide runs whole on
     every rank (a counted replication fallback) with no gradient sum."""
+    sp_fit = trace.begin("fit")
     n_rows, n_dim = xt.shape
     n_batches = n_rows // batch_size
     stop_after = int(1.5 * patience)
@@ -560,6 +566,7 @@ def fit_stack(flow, xt, wt, xv, wv, n_train, n_val, batch_size, generator,
         split_v = xv.shape[0] < n_v or mesh.size == 1
     wsum_v = psum(mesh, wv.sum()) if split_v else None
     while ei < epochs and ei - 1 - best_idx < stop_after:
+        sp_epoch = trace.begin("epoch")
         order = (torch.randperm(n_rows, generator=generator, device=dev) if shuffle
                  else torch.arange(n_rows, device=dev))
         xb = xt[order].reshape(n_batches, batch_size, n_dim)
@@ -573,23 +580,41 @@ def fit_stack(flow, xt, wt, xv, wv, n_train, n_val, batch_size, generator,
             wsums = psum(mesh, torch.stack([wb[b].sum() for b in range(n_batches)]))
         total = torch.zeros((), device=dev)
         for b in range(n_batches):
+            sp_step = trace.begin("step")
             xi = xb[b]
             if noise_scale > 0.0:
                 xi = xi + noise_scale * block(mesh if split else None, torch.randn(
                     (batch_size, n_dim), generator=generator, device=dev))
             opt.zero_grad(set_to_none=True)
+            sp = trace.begin("loss")
             loss = flow._loss_fn(xi, wb[b], **reg, wsum=wsums[b] if split else None,
                                  penalty=not split or mesh.rank == 0)
+            if sp is not None:
+                trace.end(sp)
+            sp = trace.begin("backward")
             loss.backward()
             if split:
                 all_reduce_grads(mesh, params)
+            if sp is not None:
+                trace.end(sp)
+            sp = trace.begin("clip")
             torch.nn.utils.clip_grad_norm_(params, clip_grad_norm)
+            if sp is not None:
+                trace.end(sp)
+            sp = trace.begin("optimizer")
             opt.step()
+            if sp is not None:
+                trace.end(sp)
             total = total + loss.detach()
+            if sp_step is not None:
+                trace.end(sp_step)
         if xv is not None:
+            sp = trace.begin("validate")
             with torch.no_grad():
                 current = flow._loss_fn(xv, wv, **reg, wsum=wsum_v,
                                         penalty=not split_v or mesh.rank == 0) / n_val
+            if sp is not None:
+                trace.end(sp)
         # the epoch's losses summed over the ranks, in one all_reduce
         if split and split_v:
             total, current = psum(mesh, total, current)
@@ -600,21 +625,30 @@ def fit_stack(flow, xt, wt, xv, wv, n_train, n_val, batch_size, generator,
         train = total / n_train
         if xv is None:
             current = train
+        sp = trace.begin("read")
         tl, cl = torch.stack([train, current]).tolist()  # the epoch's one sync
+        if sp is not None:
+            trace.end(sp)
         history["loss"].append(tl)
         history["val_loss"].append(cl)
         if cl < best_loss:
+            sp = trace.begin("snapshot")
             best = [p.detach().clone() for p in params]
             best_loss, best_idx = cl, ei
+            if sp is not None:
+                trace.end(sp)
         ei += 1
         if plateau is not None:
             lr = plateau.step(cl)
             for group in opt.param_groups:
                 group["lr"] = lr
+        if sp_epoch is not None:
+            trace.end(sp_epoch)
     ok = math.isfinite(best_loss)
     with torch.no_grad():
         for p, src in zip(params, best if ok else params_in):
             p.copy_(src)
+    trace.end(sp_fit)
     return history, best_loss, ei, ok
 
 

@@ -6,7 +6,9 @@ delta_i); nu from the EM fixed-point equation, solved by a fixed-count
 bisection in log(nu) with the cancellation-free form of the equation;
 nu -> +inf (Gaussian limit) when the equation has no root, in which case
 mu/Sigma keep their current values. The EM loop runs on the host, one
-scalar sync per iteration; the bisection stays on the device.
+scalar sync per iteration; the bisection stays on the device. Each
+scalar the host hands the card is a copy that waits for it, as the sync
+does: both are ``read`` spans (``utils/trace.py``).
 """
 
 from __future__ import annotations
@@ -14,6 +16,8 @@ from __future__ import annotations
 import math
 
 import torch
+
+from ..utils import trace
 
 _NU_LOG_LO = -6.9   # log(1e-3)
 _NU_LOG_HI = 10.3   # log(~3e4); above this f32 cannot resolve the equation
@@ -40,8 +44,11 @@ def _nu_equation(log_nu, d, delta, n):
 
 def _solve_nu(d, delta, n):
     """Fixed-count bisection for nu in log space; +inf if no root."""
+    sp = trace.begin("read")
     lo = torch.tensor(_NU_LOG_LO, dtype=delta.dtype, device=delta.device)
     hi = torch.tensor(_NU_LOG_HI, dtype=delta.dtype, device=delta.device)
+    if sp is not None:
+        trace.end(sp)
     f_hi = _nu_equation(hi, d, delta, n)
     for _ in range(_BISECT_ITERS):
         mid = 0.5 * (lo + hi)
@@ -73,11 +80,19 @@ def fit_mvstud(data, tolerance=1e-6, max_iter=100):
     mu = _median(data)
     diffs0 = data - data.mean(0)
     sigma = diffs0.T @ diffs0 / n + torch.diag(data.var(0, unbiased=False)) / n
+    sp = trace.begin("read")
     nu = torch.tensor(20.0, dtype=data.dtype, device=data.device)
+    if sp is not None:
+        trace.end(sp)
     last_nu = torch.zeros_like(nu)
     done = torch.zeros((), dtype=torch.bool, device=data.device)
     for _ in range(max_iter):
-        if not bool((~done) & ((last_nu - nu).abs() > tolerance)):
+        go = (~done) & ((last_nu - nu).abs() > tolerance)
+        sp = trace.begin("read")
+        go = bool(go)
+        if sp is not None:
+            trace.end(sp)
+        if not go:
             break
         delta = _mahalanobis(data, mu, sigma)
         nu_new = _solve_nu(float(d), delta, float(n))

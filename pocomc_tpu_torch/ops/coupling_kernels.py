@@ -32,6 +32,9 @@ Dispatch is by device and nothing else: a CPU tensor goes to the plain
 version (``*_ref``), a CUDA tensor launches the kernel or raises. Each
 wrapper counts its launches in plain integer attributes, ``launches`` at
 8 bins and ``launches_b<bins>`` at other bins (``flow_kernels.launch_attr``).
+Each call is also a span (``utils/trace.py``): ``k5`` and
+``k5inv`` at the public wrappers (both routes), ``k5invbwd`` at the
+inverse's backward launch.
 """
 
 from __future__ import annotations
@@ -49,6 +52,7 @@ from ..models.coupling import BINS, coupling_forward as _transform_forward, \
 from .flow_kernels import (_MAX_SMEM, N_PARAMS, _check_saved, _count, _entry, _made_vjp_input,
                            _raise_if, _refuse_weight_grad, _route, _stream, inverse_element_vjp,
                            lib_bins, zero_counts)
+from ..utils import trace
 
 
 # ---------------------------------------------------------------------------
@@ -494,6 +498,7 @@ def _launch_backward(acts, ws, bs, masks, g_z, g_ladj, inverse=False, bins=BINS)
     want = 5 if inverse else 4
     if len(acts) != want:
         raise ValueError(f"{name}: takes {want} saved tensors, got {len(acts)}")
+    sp = trace.begin("k5invbwd") if inverse else None
     layers = _layers(ws, bs)
     n_params = tr.rqs_n_params(bins)
 
@@ -524,6 +529,8 @@ def _launch_backward(acts, ws, bs, masks, g_z, g_ladj, inverse=False, bins=BINS)
         _raise_if(err, name)
         _count(coupling_inverse_backward if inverse else coupling_backward, "rqs", bins)
     if inverse:
+        if sp is not None:
+            trace.end(sp)
         return g_x
     full_w = [torch.bmm(a.transpose(1, 2), g) for a, g in zip(acts, deltas)]
     full_b = [g.sum(1) for g in deltas]
@@ -608,14 +615,19 @@ def coupling_forward(x, ws, bs, masks, save_inputs=False, bins=BINS):
     also returns the input of every layer's product in every transform,
     which ``coupling_backward`` takes (no gradient then)."""
     ws, bs = [list(w) for w in ws], [list(b) for b in bs]
+    sp = trace.begin("k5")
     if _route(x, "coupling_forward", bins) == "cpu":
         _check(x, ws, bs, masks, "coupling_forward", bins)
-        return coupling_forward_ref(x, ws, bs, masks, save_inputs, bins)
-    if (not save_inputs and torch.is_grad_enabled()
+        out = coupling_forward_ref(x, ws, bs, masks, save_inputs, bins)
+    elif (not save_inputs and torch.is_grad_enabled()
             and any(a.requires_grad for a in [x, *_flat(ws, bs)])):
-        return _CouplingForward.apply(list(masks), bins, x, *_flat(ws, bs))
-    with torch.no_grad():
-        return _launch_stack(x, ws, bs, masks, False, save_inputs, "coupling_forward", bins)
+        out = _CouplingForward.apply(list(masks), bins, x, *_flat(ws, bs))
+    else:
+        with torch.no_grad():
+            out = _launch_stack(x, ws, bs, masks, False, save_inputs, "coupling_forward", bins)
+    if sp is not None:
+        trace.end(sp)
+    return out
 
 
 def coupling_inverse(z, ws, bs, masks, bins=BINS):
@@ -625,13 +637,19 @@ def coupling_inverse(z, ws, bs, masks, bins=BINS):
     through the inverse's save instance (the same x and ladj bits) and
     K5-inv-bwd; weights that require a gradient raise there."""
     ws, bs = [list(w) for w in ws], [list(b) for b in bs]
+    sp = trace.begin("k5inv")
     if _route(z, "coupling_inverse", bins) == "cpu":
         _check(z, ws, bs, masks, "coupling_inverse", bins)
-        return coupling_inverse_ref(z, ws, bs, masks, bins=bins)
-    _refuse_weight_grad("coupling_inverse", _flat(ws, bs))
-    if torch.is_grad_enabled() and z.requires_grad:
-        return _CouplingInverse.apply(list(masks), bins, z, *_flat(ws, bs))
-    return _launch_stack(z, ws, bs, masks, True, False, "coupling_inverse", bins)
+        out = coupling_inverse_ref(z, ws, bs, masks, bins=bins)
+    else:
+        _refuse_weight_grad("coupling_inverse", _flat(ws, bs))
+        if torch.is_grad_enabled() and z.requires_grad:
+            out = _CouplingInverse.apply(list(masks), bins, z, *_flat(ws, bs))
+        else:
+            out = _launch_stack(z, ws, bs, masks, True, False, "coupling_inverse", bins)
+    if sp is not None:
+        trace.end(sp)
+    return out
 
 
 def coupling_inverse_backward(state, ws, bs, masks, g_x, g_ladj, bins=BINS):

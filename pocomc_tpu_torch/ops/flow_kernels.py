@@ -46,7 +46,10 @@ version (``*_ref``), a CUDA tensor launches the kernel or raises. Each
 wrapper counts its launches in plain integer attributes: ``launches``
 with the 8-bin spline head, ``launches_b<bins>`` with the spline of other
 bins (``launches_b16``, ``launches_b32``; ``zero_counts`` resets every
-one a wrapper has), ``launches_affine`` with the affine one.
+one a wrapper has), ``launches_affine`` with the affine one. Each call is
+also a span (``utils/trace.py``): ``k2`` and ``k1`` at the public
+wrappers (both routes), ``k2bwd`` and ``k1bwd`` at the backward launches
+(which the autograd Functions call directly).
 """
 
 from __future__ import annotations
@@ -58,6 +61,7 @@ import torch
 
 from ..models import transforms as tr
 from ..models.made import apply_made_dim
+from ..utils import trace
 from . import _build
 
 # the spline's default bins, and the most a library of compile-time bins
@@ -498,6 +502,7 @@ def _launch_backward(acts, ws, bs, g_z, g_ladj, head="rqs", bins=BINS):
     if len(acts) != 4:
         raise ValueError(f"made_rqs_backward: expects the four saved layer inputs, "
                          f"got {len(acts)}")
+    sp = trace.begin("k2bwd")
     _, _, h, _ = _check(acts[0][0], ws, bs, "made_rqs_backward", head, bins)
     d = acts[0].shape[2]
     T, n = _check_saved("made_rqs_backward", acts, g_z, g_ladj, (d, h, h, h))
@@ -519,6 +524,8 @@ def _launch_backward(acts, ws, bs, g_z, g_ladj, head="rqs", bins=BINS):
         _count(made_rqs_backward, head, bins)
     g_ws = [torch.bmm(a.transpose(1, 2), g) for a, g in zip(acts, deltas)]
     g_bs = [g.sum(1) for g in deltas]
+    if sp is not None:
+        trace.end(sp)
     return g_y, g_ws, g_bs
 
 
@@ -619,6 +626,7 @@ def _launch_inverse_backward(state, ws, bs, inv_dim_orders, g_x, g_ladj, head="r
     g_z = torch.empty_like(g_x)
     if n == 0:
         return g_z
+    sp = trace.begin("k1bwd")
     R, W, S, SL, _, _ = _backward_config(n, d, h, head, bins)
     pack = _inverse_pack(ws, bs, inv_dim_orders, d, h, T, head, bins)
     fn = _entry("ar_inverse_backward", "ar_inverse_backward_launch", "PPPPPIIIIPPIIIIIIP",
@@ -628,6 +636,8 @@ def _launch_inverse_backward(state, ws, bs, inv_dim_orders, g_x, g_ladj, head="r
              _head(head, bins), R, W, S, SL, g_x.device.index, _stream(g_x))
     _raise_if(err, "ar_inverse_backward")
     _count(ar_inverse_backward, head, bins)
+    if sp is not None:
+        trace.end(sp)
     return g_z
 
 
@@ -727,14 +737,19 @@ def made_rqs_forward(y, ws, bs, save_inputs=False, head="rqs", bins=BINS):
     ``made_rqs_backward`` takes (no gradient then). ``head``: "rqs" (with
     ``bins`` spline bins) or "affine"."""
     ws, bs = list(ws), list(bs)
+    sp = trace.begin("k2")
     if _route(y, "made_rqs_forward", bins, head) == "cpu":
         _check(y, ws, bs, "made_rqs_forward", head, bins)
-        return made_rqs_forward_ref(y, ws, bs, save_inputs, head, bins)
-    if (not save_inputs and torch.is_grad_enabled()
+        out = made_rqs_forward_ref(y, ws, bs, save_inputs, head, bins)
+    elif (not save_inputs and torch.is_grad_enabled()
             and any(a.requires_grad for a in [y, *ws, *bs])):
-        return _MadeRqsForward.apply(head, bins, y, *ws, *bs)
-    with torch.no_grad():
-        return _launch_forward(y, ws, bs, save_inputs, head, bins)
+        out = _MadeRqsForward.apply(head, bins, y, *ws, *bs)
+    else:
+        with torch.no_grad():
+            out = _launch_forward(y, ws, bs, save_inputs, head, bins)
+    if sp is not None:
+        trace.end(sp)
+    return out
 
 
 def made_rqs_backward(y, ws, bs, g_z, g_ladj, acts=None, head="rqs", bins=BINS):
@@ -764,13 +779,19 @@ def ar_inverse(z, ws, bs, inv_dim_orders, head="rqs", bins=BINS):
     in z on CUDA through K1-bwd; weights that require a gradient raise
     there."""
     ws, bs = list(ws), list(bs)
+    sp = trace.begin("k1")
     if _route(z, "ar_inverse", bins, head) == "cpu":
         _check(z, ws, bs, "ar_inverse", head, bins)
-        return ar_inverse_ref(z, ws, bs, inv_dim_orders, head, bins)
-    _refuse_weight_grad("ar_inverse", [*ws, *bs])
-    if torch.is_grad_enabled() and z.requires_grad:
-        return _ArInverse.apply(head, bins, z, inv_dim_orders, *ws, *bs)
-    return _launch_inverse(z, ws, bs, inv_dim_orders, head, bins=bins)
+        out = ar_inverse_ref(z, ws, bs, inv_dim_orders, head, bins)
+    else:
+        _refuse_weight_grad("ar_inverse", [*ws, *bs])
+        if torch.is_grad_enabled() and z.requires_grad:
+            out = _ArInverse.apply(head, bins, z, inv_dim_orders, *ws, *bs)
+        else:
+            out = _launch_inverse(z, ws, bs, inv_dim_orders, head, bins=bins)
+    if sp is not None:
+        trace.end(sp)
+    return out
 
 
 def ar_inverse_backward(x, ws, bs, inv_dim_orders, g_x, g_ladj, head="rqs", bins=BINS):

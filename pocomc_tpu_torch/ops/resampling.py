@@ -35,7 +35,7 @@ def multinomial_resample(size: int, weights: np.ndarray, rng: np.random.Generato
 def _search(weights, positions):
     w = weights / weights.sum()
     csum = torch.cumsum(w, 0)
-    csum[-1] = 1.0
+    csum[-1:].fill_(1.0)  # a scalar assigned by index is a copy that waits for the card
     idx = torch.searchsorted(csum, positions.to(csum.dtype), right=True)
     return torch.clamp(idx, 0, weights.shape[0] - 1)
 

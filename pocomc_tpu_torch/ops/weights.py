@@ -342,7 +342,9 @@ def trim_weights_torch(w: torch.Tensor, valid: torch.Tensor,
     # largest valid threshold (the reference scans from the top percentile)
     grid = torch.arange(bins, device=w.device)
     idx = torch.where(ok, grid, torch.full_like(grid, -1)).max()
-    thr = torch.where(idx >= 0, thresholds[torch.clamp(idx, min=0)], thresholds[0])
+    # a 0-d index tensor is read on the host: index_select keeps it on the card
+    pick = thresholds.index_select(0, torch.clamp(idx, min=0).reshape(1))[0]
+    thr = torch.where(idx >= 0, pick, thresholds[0])
     w_out = torch.where((w >= thr) & valid, w, torch.zeros_like(w))
     return w_out / w_out.sum()
 

@@ -43,6 +43,7 @@ from .ops.resampling import multinomial_resample_torch, systematic_resample_torc
 from .ops.weights import (ess_torch, uss_torch, trim_weights_torch,
                           mis_denominator_torch, logw_from_denominator_torch)
 from .parallel.mesh import block, gather_rows, map_rows, take_rows
+from .utils import trace
 
 # length of phase A's stats vector: [beta, logz, metric_at_beta, n_eff_next,
 # uss_active]
@@ -225,10 +226,16 @@ def train(flow, u_sel, w_sel, generator, batch_size, validation_split=0.5,
         # the pre-layer they were trained against
         flow.set_pre(pre_prev)
 
+    sp = trace.begin("geometry")
     with torch.no_grad():
         theta = map_rows(mesh, lambda a: flow.forward(a)[0], u_sel)
         geom = fit_geometry(theta, w_sel, generator)
-    return geom, torch.tensor([float(ei), best_loss], device=dev)
+    trace.end(sp)
+    # a host list copied to the card waits for it, as a read does
+    sp = trace.begin("read")
+    stats = torch.tensor([float(ei), best_loss], device=dev)
+    trace.end(sp)
+    return geom, stats
 
 
 def mutate(hist, beta, logz, w_flat, u_sel, w_sel, sigma0, geom, fp, sweep, scp,
@@ -245,7 +252,9 @@ def mutate(hist, beta, logz, w_flat, u_sel, w_sel, sigma0, geom, fp, sweep, scp,
         geom = fit_geometry(u_sel, w_sel, generator)
     resampler = (multinomial_resample_torch if resample == "mult"
                  else systematic_resample_torch)
+    sp = trace.begin("resample")
     idx = resampler(n_active, w_flat, generator)
+    trace.end(sp)
     # this rank's block of the resampled population, from every rank's rows
     take = lambda a: block(mesh, take_rows(mesh, a, idx, n))
     take_replicated = lambda a: block(mesh, a.reshape(T_max * n)[idx])
@@ -254,17 +263,24 @@ def mutate(hist, beta, logz, w_flat, u_sel, w_sel, sigma0, geom, fp, sweep, scp,
     res = sweep.run(take(hist.u), take(hist.x), take(hist.logdetj),
                     take_replicated(hist.logl), take_replicated(hist.logp), beta, sigma0,
                     geom, fp, scp, generator, dbeta=dbeta)
+    sp = trace.begin("push")
     logl, logp = gather_rows(mesh, torch.stack([res["logl"], res["logp"]], 1)).unbind(1)
     push_history(hist, res["u"], res["x"], res["logdetj"], logl, logp, beta, logz)
+    trace.end(sp)
 
     valid = hist.valid
     valid_flat = valid.repeat_interleave(n)
     B = mis_denominator_torch(hist.logl, hist.beta, hist.logz, valid)
     w1, _ = _flat_weights(hist, B, valid, valid_flat, torch.ones_like(beta))
     f = lambda v: torch.as_tensor(v, device=beta.device).to(beta.dtype).reshape(())
+    # the host's step count and the 0 copied to the card wait for it, as a
+    # read does
+    sp = trace.begin("read")
+    steps, noop = f(res["steps"]), f(0.0)
+    trace.end(sp)
     return torch.stack([
-        f(res["accept"]), f(res["steps"]), f(res["calls"]), f(res["proposal_scale"]),
+        f(res["accept"]), steps, f(res["calls"]), f(res["proposal_scale"]),
         _metric(w1, valid_flat, metric), (logl + logp).mean(),
-        f(0.0), f(res["corr"]), f(res["resid"]), f(res["hot"]), f(res["z_logl"]),
+        noop, f(res["corr"]), f(res["resid"]), f(res["hot"]), f(res["z_logl"]),
         f(res["z_dim"]), torch.clamp(geom["t_nu"], max=1e6).to(beta.dtype),
         f(res["misfit"]), f(res["resid_exit"])])

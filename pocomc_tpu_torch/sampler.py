@@ -97,7 +97,7 @@ import os
 import pickle
 import time
 import warnings
-from contextlib import contextmanager, nullcontext
+from contextlib import contextmanager
 from pathlib import Path
 
 import numpy as np
@@ -120,6 +120,7 @@ from .particles import Particles
 from .prior import seeded_rvs
 from .scaler import Reparameterize
 from .utils.checkpoint import is_dir_path, load_dir, save_dir
+from .utils import trace
 from .utils.threading import configure_threads
 from .utils.tools import FunctionWrapper, ProgressBar
 from .utils.validation import assert_array_2d, assert_array_float
@@ -128,6 +129,7 @@ _BIAS_RATE_DEFAULT = 0.4
 _BIAS_FLOOR_DEFAULT = 0.10
 
 
+@trace.spanned("route")
 def _is_traceable(fn, example_shape, expect_shape):
     """True if ``fn`` maps a float32 ``meta`` tensor of ``example_shape`` to a
     tensor of ``expect_shape`` (the counterpart of ``jax.eval_shape``): a
@@ -172,8 +174,10 @@ class Sampler:
     ``run(save_every=...)``; ``profile_dir`` writes a ``torch.profiler``
     trace of every ``run()`` there. ``device`` defaults to "cuda" and
     raises if CUDA is absent; with a ``mesh`` it must be this rank's mesh
-    device."""
+    device. Construction is the span ``setup``, each ``run()`` the span
+    ``run`` (``utils/trace.py``)."""
 
+    @trace.spanned("setup")
     def __init__(self, prior, likelihood, n_dim: int = None,
                  n_effective: int = 512, n_active: int = 256,
                  likelihood_args: list = None, likelihood_kwargs: dict = None,
@@ -220,7 +224,6 @@ class Sampler:
             raise ValueError(f"Invalid pipeline {pipeline!r}: must be an int >= 0.")
         self.pipeline = int(pipeline)
         self.profile_dir = None if profile_dir is None else str(profile_dir)
-        self._profiling = False
         self.output_dir = Path("states") if output_dir is None else Path(output_dir)
         self.output_label = "pmc" if output_label is None else output_label
         self.preconditioned = bool(precondition)
@@ -523,18 +526,20 @@ class Sampler:
 
     @contextmanager
     def _timed(self, phase):
-        """Add the phase's host seconds to ``phase_seconds``; while
-        ``profile_dir`` traces a run, label the phase in the trace."""
+        """Add the phase's host seconds to ``phase_seconds``; the phase is
+        also the span ``phase`` (``utils/trace.py``: while any profiler
+        runs, a ``pocomc/<phase>`` range of its trace)."""
         t0 = time.perf_counter()
+        sp = trace.begin(phase)
         try:
-            with (torch.profiler.record_function(f"pocomc/{phase}") if self._profiling
-                  else nullcontext()):
-                yield
+            yield
         finally:
+            trace.end(sp)
             self.phase_seconds[phase] += time.perf_counter() - t0
 
     # -- run ---------------------------------------------------------------
 
+    @trace.spanned("run")
     def run(self, n_total: int = 4096, n_evidence: int = 4096, progress: bool = True,
             resume_state_path=None, save_every=None):
         """Run Preconditioned Monte Carlo to ``n_total`` effective samples,
@@ -572,7 +577,6 @@ class Sampler:
                 activities=acts,
                 on_trace_ready=torch.profiler.tensorboard_trace_handler(self.profile_dir))
             prof.start()
-            self._profiling = True
         try:
             if self.warmup:
                 with self._timed("warmup"):
@@ -600,7 +604,6 @@ class Sampler:
                         self.bridge_diagnostics = res
         finally:
             if prof is not None:
-                self._profiling = False
                 prof.stop()
         if save_every is not None:
             self.save_state(self.output_dir / f"{self.output_label}_final.state")
@@ -732,7 +735,9 @@ class Sampler:
             dev = [u, logdetj]
             if self.likelihood_traceable:
                 dev.append(self._like_rows(xs))
+            rd = trace.begin("read")
             pre = [a.double().cpu().numpy() for a in dev]
+            trace.end(rd)
         pre.insert(2, self._logprior_host(self.prior_samples))
         start = self.particles.t
         for i in range(start, self.n_prior // self.n_active):
@@ -800,71 +805,82 @@ class Sampler:
         sigma = torch.tensor(self.proposal_scale, **f32)
         n_eff = torch.tensor(float(self.n_effective), **f32)
         cfg = self.train_config
-        stats = []
-        while 1.0 - beta_h >= 1e-4 or ess1_h < self.n_total:
-            if self._save_due(t0, save_every):
-                self._sync_history(hist, n_synced, stats)
-                n_synced = hist.t
-                self._save_iteration()
-            if hist.t >= t_max:
-                t_max *= 2
-                hist = phases.grow_history(hist, t_max)
-            n_select = self._select_bucket(t_max)
-            self.t += 1
-            self.pbar.update_iter()
-            train_now = self.preconditioned and (
-                self.t % self.train_frequency == 0 or beta_h >= 1.0 or self.flow_untrained)
-            with torch.no_grad(), self._timed("reweight"):
-                outA = phases.reweight(
-                    hist, n_eff, self.n_total, resid, n_select, self.n_active,
-                    metric=self.metric, dynamic=self.dynamic,
-                    dynamic_ratio=self.dynamic_ratio, bias_budget=self.bias_budget,
-                    mesh=self.mesh)
-            n_eff = outA["stats"][3]
-            tstats = None
-            if train_now:
-                with self._timed("train"):
-                    self._geom, tstats = phases.train(
-                        self.flow, outA["u_sel"], outA["w_sel"], self._gen,
-                        batch_size=int(min(n_select // 2, cfg["batch_size"])),
-                        validation_split=cfg["validation_split"],
-                        epochs=cfg["epochs"], patience=cfg["patience"],
-                        learning_rate=cfg["learning_rate"],
-                        clip_grad_norm=cfg["clip_grad_norm"],
-                        laplace_scale=cfg["laplace_scale"],
-                        gaussian_scale=cfg["gaussian_scale"], mesh=self.mesh)
-                self.flow_untrained = False
-            with torch.no_grad(), self._timed("mutate"):
-                statsC = phases.mutate(
-                    hist, outA["beta"], outA["logz"], outA["w_flat"], outA["u_sel"],
-                    outA["w_sel"], sigma, self._geom,
-                    flow_params(self.flow) if self.preconditioned else None, self._sweep,
-                    self._scp, self._gen, self.n_active, resample=self.resample,
-                    metric=self.metric, mesh=self.mesh)
-            sigma, resid = statsC[3], statsC[8]
-            # the iteration's one host sync
-            packed = torch.cat([outA["stats"], statsC]
-                               + ([tstats] if tstats is not None else [])).tolist()
-            sA, sC = packed[:phases.STATS_A_LEN], packed[phases.STATS_A_LEN:]
-            beta_h, logz_h, ess_h = sA[0], sA[1], sA[2]
-            if self.dynamic:
-                self.n_effective = int(sA[3])
-            self.calls += int(sC[2])
-            self.proposal_scale = sC[3]
-            ess1_h = sC[4]
-            eff = self.proposal_scale / (2.38 / math.sqrt(d))
-            stats.append(dict(
-                iter=self.t, calls=self.calls, steps=int(sC[1]), efficiency=eff,
-                ess=ess_h, accept=sC[0], beta=beta_h, logz=logz_h, corr=sC[7],
-                resid=sC[8], hot=sC[9], z_logl=sC[10], z_dim=sC[11], nu=sC[12],
-                misfit=sC[13], resid_exit=sC[14],
-                train_epochs=None if tstats is None else int(sC[15]),
-                train_loss=None if tstats is None else sC[16],
-                sigma=self.proposal_scale))
-            self.pbar.update_stats(dict(beta=beta_h, calls=self.calls, ESS=int(ess_h),
-                                        logZ=logz_h, logP=sC[5], acc=sC[0],
-                                        steps=int(sC[1]), eff=eff))
-        self._iter_stats.extend(stats)
+        # every iteration's stats, appended as it completes (a run stopped
+        # by an exception keeps those of its completed iterations)
+        stats = self._iter_stats
+        it = None  # the open iteration span
+        try:
+            while 1.0 - beta_h >= 1e-4 or ess1_h < self.n_total:
+                if self._save_due(t0, save_every):
+                    self._sync_history(hist, n_synced, stats)
+                    n_synced = hist.t
+                    self._save_iteration()
+                if hist.t >= t_max:
+                    t_max *= 2
+                    hist = phases.grow_history(hist, t_max)
+                n_select = self._select_bucket(t_max)
+                self.t += 1
+                trace.set_iteration(self.t)
+                it = trace.begin("iteration")
+                self.pbar.update_iter()
+                train_now = self.preconditioned and (
+                    self.t % self.train_frequency == 0 or beta_h >= 1.0 or self.flow_untrained)
+                with torch.no_grad(), self._timed("reweight"):
+                    outA = phases.reweight(
+                        hist, n_eff, self.n_total, resid, n_select, self.n_active,
+                        metric=self.metric, dynamic=self.dynamic,
+                        dynamic_ratio=self.dynamic_ratio, bias_budget=self.bias_budget,
+                        mesh=self.mesh)
+                n_eff = outA["stats"][3]
+                tstats = None
+                if train_now:
+                    with self._timed("train"):
+                        self._geom, tstats = phases.train(
+                            self.flow, outA["u_sel"], outA["w_sel"], self._gen,
+                            batch_size=int(min(n_select // 2, cfg["batch_size"])),
+                            validation_split=cfg["validation_split"],
+                            epochs=cfg["epochs"], patience=cfg["patience"],
+                            learning_rate=cfg["learning_rate"],
+                            clip_grad_norm=cfg["clip_grad_norm"],
+                            laplace_scale=cfg["laplace_scale"],
+                            gaussian_scale=cfg["gaussian_scale"], mesh=self.mesh)
+                    self.flow_untrained = False
+                with torch.no_grad(), self._timed("mutate"):
+                    statsC = phases.mutate(
+                        hist, outA["beta"], outA["logz"], outA["w_flat"], outA["u_sel"],
+                        outA["w_sel"], sigma, self._geom,
+                        flow_params(self.flow) if self.preconditioned else None, self._sweep,
+                        self._scp, self._gen, self.n_active, resample=self.resample,
+                        metric=self.metric, mesh=self.mesh)
+                sigma, resid = statsC[3], statsC[8]
+                # the iteration's one host sync
+                rd = trace.begin("read")
+                packed = torch.cat([outA["stats"], statsC]
+                                   + ([tstats] if tstats is not None else [])).tolist()
+                trace.end(rd)
+                sA, sC = packed[:phases.STATS_A_LEN], packed[phases.STATS_A_LEN:]
+                beta_h, logz_h, ess_h = sA[0], sA[1], sA[2]
+                if self.dynamic:
+                    self.n_effective = int(sA[3])
+                self.calls += int(sC[2])
+                self.proposal_scale = sC[3]
+                ess1_h = sC[4]
+                eff = self.proposal_scale / (2.38 / math.sqrt(d))
+                stats.append(dict(
+                    iter=self.t, calls=self.calls, steps=int(sC[1]), efficiency=eff,
+                    ess=ess_h, accept=sC[0], beta=beta_h, logz=logz_h, corr=sC[7],
+                    resid=sC[8], hot=sC[9], z_logl=sC[10], z_dim=sC[11], nu=sC[12],
+                    misfit=sC[13], resid_exit=sC[14],
+                    train_epochs=None if tstats is None else int(sC[15]),
+                    train_loss=None if tstats is None else sC[16],
+                    sigma=self.proposal_scale))
+                self.pbar.update_stats(dict(beta=beta_h, calls=self.calls, ESS=int(ess_h),
+                                            logZ=logz_h, logP=sC[5], acc=sC[0],
+                                            steps=int(sC[1]), eff=eff))
+                trace.end(it)
+        finally:
+            trace.end(it)
+            trace.set_iteration(-1)
         self._sync_history(hist, n_synced, stats)
 
     def _sync_history(self, hist, k0, stats):
@@ -875,8 +891,10 @@ class Sampler:
             return
         rows = lambda a: gather_rows(self.mesh, a[k0:k1].transpose(0, 1)).transpose(0, 1)
         u, x, logdetj = (rows(a) for a in (hist.u, hist.x, hist.logdetj))
+        rd = trace.begin("read")
         u, x, logdetj, logl, logp = (a.double().cpu().numpy() for a in
                                      (u, x, logdetj, hist.logl[k0:k1], hist.logp[k0:k1]))
+        trace.end(rd)
         last = None
         for i, st in enumerate(stats[-(k1 - k0):]):
             last = dict(u=u[i], x=x[i], logdetj=logdetj[i], logl=logl[i],
@@ -892,23 +910,32 @@ class Sampler:
         iteration at a time, until beta = 1 and the history ESS reaches
         n_total. Everything an iteration carries is in the saved state, so
         a run resumed here repeats the uninterrupted one bit for bit."""
-        while self._not_termination(self.current_particles):
-            if self._save_due(t0, save_every):
-                self._save_iteration()
-            cp = self.current_particles
-            with self._timed("reweight"):
-                cp = self._reweight(cp)
-            with self._timed("train"):
-                cp, epochs = self._train(cp)
-            with self._timed("mutate"):
-                cp = self._mutate(self._resample(cp))
-            self.particles.update(cp)
-            self.current_particles = cp
-            self._iter_stats.append(dict(
-                {k: cp[k] for k in ("iter", "calls", "steps", "efficiency", "ess",
-                                    "accept", "beta", "logz", "corr", "resid", "hot",
-                                    "resid_exit")},
-                train_epochs=epochs, sigma=self.proposal_scale))
+        it = None  # the open iteration span
+        try:
+            while self._not_termination(self.current_particles):
+                if self._save_due(t0, save_every):
+                    self._save_iteration()
+                cp = self.current_particles
+                # the iteration's index is t + 1 (``_reweight`` steps t)
+                trace.set_iteration(self.t + 1)
+                it = trace.begin("iteration")
+                with self._timed("reweight"):
+                    cp = self._reweight(cp)
+                with self._timed("train"):
+                    cp, epochs = self._train(cp)
+                with self._timed("mutate"):
+                    cp = self._mutate(self._resample(cp))
+                self.particles.update(cp)
+                self.current_particles = cp
+                self._iter_stats.append(dict(
+                    {k: cp[k] for k in ("iter", "calls", "steps", "efficiency", "ess",
+                                        "accept", "beta", "logz", "corr", "resid", "hot",
+                                        "resid_exit")},
+                    train_epochs=epochs, sigma=self.proposal_scale))
+                trace.end(it)
+        finally:
+            trace.end(it)
+            trace.set_iteration(-1)
 
     def _not_termination(self, current_particles):
         logw, _ = self.particles.compute_logw_and_logz(1.0)
@@ -1014,6 +1041,7 @@ class Sampler:
         epochs = len(history["loss"]) if isinstance(history, dict) and "loss" in history else None
         return current_particles, epochs
 
+    @trace.spanned("resample")
     def _resample(self, current_particles):
         w = current_particles["weights"]
         pick = multinomial_resample if self.resample == "mult" else systematic_resample
@@ -1049,7 +1077,10 @@ class Sampler:
                     current_particles["blobs"] = gather_objects(self.mesh, blobs)
         d = self.n_dim
         out = gather_rows(self.mesh, torch.cat([res["u"], res["x"], torch.stack(
-            [res[k] for k in keys[2:]], 1)], 1)).double().cpu().numpy()
+            [res[k] for k in keys[2:]], 1)], 1))
+        rd = trace.begin("read")
+        out = out.double().cpu().numpy()
+        trace.end(rd)
         for key, part in zip(keys, (out[:, :d], out[:, d:2 * d], *out[:, 2 * d:].T)):
             current_particles[key] = part
         self.proposal_scale = float(res["proposal_scale"])
@@ -1113,7 +1144,10 @@ class Sampler:
                 z, base = self.flow.sample(n, generator=self._gen)
                 rows = lambda ub: self._logw_rows(ub[:, :-1], ub[:, -1])
             logw = map_rows(self.mesh, rows, torch.cat([z, base[:, None]], 1))
-        return logw.double().cpu().numpy()
+        rd = trace.begin("read")
+        logw = logw.double().cpu().numpy()
+        trace.end(rd)
+        return logw
 
     def _logw_rows(self, u_q, logq):
         """The log-ratios of the proposal draws u_q with log density

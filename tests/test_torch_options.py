@@ -117,7 +117,7 @@ def test_profile_dir_writes_trace(tmp_path):
     assert trace_files, "profiler produced no trace files"
     text = open(os.path.join(tmp_path / "trace", trace_files[0])).read()
     assert "pocomc/warmup" in text and "pocomc/mutate" in text
-    assert not s._profiling
+    assert not torch.autograd.profiler._is_profiler_enabled
 
 
 def test_reference_keywords():
